@@ -1,0 +1,118 @@
+"""Quantization configuration and runtime quantizer state (port of
+`dgq_tpu/models/qconfig.py`; the calibration taps are left out).
+
+  * QConfig: the static policy, with the JAX package's field names so one
+    dict builds both. Fields this slice cannot serve raise
+    NotImplementedError at construction.
+  * QState: a plain dict {'a': {layer_name: QParams | GroupQParams},
+    'sm': {attn_name: delta}}; time-aware states carry a leading [T] slot
+    axis on every leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from dgq_tpu_torch.quant.affine import QParams, fake_quant
+from dgq_tpu_torch.quant.log2 import log2_fake_quant, log2_real_time_quant
+
+QState = Dict[str, Any]
+
+# field -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    "group_conv_layers": "queue 1 item 10 (group path, slice 2) and queue 2 K5",
+    "use_int8_matmul": "queue 2 K6 (int8_matmul.py)",
+    "use_int8_conv": "queue 2 K6 (the s8 conv path)",
+    "packed_attention": "'Code the port leaves out' (packed head-slot layout)",
+    "fold_act_dequant": "'Benchmark cells left open' (fold_act_dequant A/B)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QConfig:
+    """Static quantization policy (see the JAX QConfig for each field)."""
+
+    w_bits: int = 4
+    a_bits: int = 8
+    softmax_bits: int = 8
+    use_wq: bool = False
+    use_aq: bool = False
+    t2i_log_quant: bool = False
+    t2i_real_time: bool = False
+    t2i_start_peak: bool = False
+    log_max_1: bool = False
+    disable_out_quant: bool = True
+    group_conv_layers: tuple = ()
+    group_conv_impl: str = "taps"
+    # True: attention runs fused_attention (the CUDA kernels on the GPU);
+    # False: the materialized-softmax path
+    use_pallas_attention: bool = False
+    use_int8_matmul: bool = False
+    use_int8_conv: bool = False
+    int8_impl: str = "pallas"
+    fold_act_dequant: bool = False
+    packed_attention: bool = False
+
+    def __post_init__(self):
+        for name, item in _NOT_PORTED.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"QConfig.{name} is not ported to dgq_tpu_torch yet: ROADMAP {item}")
+
+    def replace(self, **kw) -> "QConfig":
+        return dataclasses.replace(self, **kw)
+
+
+class GroupQParams:
+    """Group-quant params in canonical two-axis form (data only in this
+    slice): delta = delta_mid * delta_last, zp = zp_mid + zp_last."""
+
+    def __init__(self, delta_mid, zp_mid, delta_last, zp_last):
+        self.delta_mid = delta_mid
+        self.zp_mid = zp_mid
+        self.delta_last = delta_last
+        self.zp_last = zp_last
+
+
+def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
+             x: torch.Tensor) -> torch.Tensor:
+    """Apply the activation quantizer registered for `name`, if any."""
+    if not cfg.use_aq or qstate is None:
+        return x
+    qp = qstate.get("a", {}).get(name)
+    if qp is None:
+        return x
+    if isinstance(qp, GroupQParams):
+        raise NotImplementedError(
+            f"group activation quantization ({name}) is not ported: ROADMAP queue 1 item 10")
+    # broadcast trailing-shaped params against higher-rank activations
+    delta, zp = qp.delta, qp.zero_point
+    if 0 < delta.dim() < x.dim():
+        shape = (1,) * (x.dim() - delta.dim()) + tuple(delta.shape)
+        delta = delta.reshape(shape)
+        zp = zp.reshape(shape)
+    return fake_quant(x, QParams(delta, zp), cfg.a_bits)
+
+
+def softmax_q_apply(qstate: Optional[QState], cfg: QConfig, name: str,
+                    attn_weights: torch.Tensor) -> torch.Tensor:
+    """Quantize post-softmax attention weights (aqtizer_w): log2 when
+    t2i_log_quant (per-call max under t2i_real_time, else a calibrated or
+    pinned delta), otherwise a uniform always-zero affine quantizer."""
+    if not cfg.use_aq or qstate is None:
+        return attn_weights
+    if cfg.t2i_log_quant:
+        if cfg.t2i_real_time:
+            return log2_real_time_quant(attn_weights, cfg.softmax_bits)
+        if cfg.log_max_1:
+            return log2_fake_quant(attn_weights, torch.ones(()), cfg.softmax_bits)
+        delta = qstate.get("sm", {}).get(name)
+        if delta is None:
+            return attn_weights
+        return log2_fake_quant(attn_weights, delta, cfg.softmax_bits)
+    qp = qstate.get("a", {}).get(name)
+    if qp is None:
+        return attn_weights
+    return fake_quant(attn_weights, qp, cfg.softmax_bits, always_zero=True)

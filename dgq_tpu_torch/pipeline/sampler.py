@@ -1,0 +1,81 @@
+"""SD v1.4 DDIM sampling with classifier-free guidance (port of the DDIM
+branch of `dgq_tpu/pipeline/sampler.py`).
+
+The JAX package compiles the loop into one `lax.scan`; here it is a Python
+loop. Time-aware activation qparams carry a leading [T_slots] axis; each step
+picks its slot by a host-side index (the schedule is known on the host), so
+no step waits on the device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dgq_tpu_torch.models.qconfig import GroupQParams, QConfig, QState
+from dgq_tpu_torch.models.unet_sd import unet_sd_apply
+from dgq_tpu_torch.pipeline import schedulers as sch
+from dgq_tpu_torch.quant.affine import QParams
+
+
+def timestep_slot(t, num_inference_steps: int):
+    """act_{(1000 - t) // (1000 // steps)} (the reference's slot map)."""
+    return (1000 - t) // (1000 // num_inference_steps)
+
+
+def check_time_aware_steps(num_inference_steps: int, time_aware: bool, qstate) -> None:
+    """The reference's slot formula assumes 1000 % steps == 0; any other step
+    count would index slots that were never calibrated, so reject loudly."""
+    if time_aware and qstate is not None and 1000 % num_inference_steps:
+        raise ValueError(
+            f"time-aware qstates require num_inference_steps dividing 1000 "
+            f"(got {num_inference_steps}): the reference slot map "
+            f"(calibration.py:300-304) is undefined otherwise")
+
+
+def select_time_qstate(qstate: Optional[QState], t: int, steps: int) -> Optional[QState]:
+    """The slice of stacked [T_slots, ...] activation qparams for timestep t."""
+    if qstate is None:
+        return None
+    slot = int(timestep_slot(int(t), steps))
+
+    def pick(leaf):
+        if isinstance(leaf, QParams):
+            return QParams(leaf.delta[slot], leaf.zero_point[slot])
+        if isinstance(leaf, GroupQParams):
+            return GroupQParams(leaf.delta_mid[slot], leaf.zp_mid[slot],
+                                leaf.delta_last[slot], leaf.zp_last[slot])
+        return leaf[slot]
+
+    out = dict(qstate)
+    for key in ("a", "sm"):
+        if key in qstate:
+            out[key] = {name: pick(leaf) for name, leaf in qstate[key].items()}
+    return out
+
+
+@torch.no_grad()
+def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
+              ehs_uncond: torch.Tensor, num_inference_steps: int = 50,
+              scheduler: str = "ddim", guidance_scale: float = 7.5,
+              qstate: Optional[QState] = None, cfg: QConfig = QConfig(),
+              time_aware: bool = False) -> torch.Tensor:
+    """SD v1.4 latent sampling from NHWC noise latents (B, 64, 64, 4).
+    The CFG batch is [uncond, text]."""
+    if scheduler != "ddim":
+        raise NotImplementedError(
+            f"scheduler {scheduler!r} is not ported: ROADMAP queue 1 item 7 (PNDM-PLMS)")
+    check_time_aware_steps(num_inference_steps, time_aware, qstate)
+    ehs = torch.cat([ehs_uncond, ehs_text], dim=0)
+    consts = sch.make_ddim(num_inference_steps)
+    x = latents
+    for i in range(num_inference_steps):
+        t = int(consts.timesteps[i])
+        qs = select_time_qstate(qstate, t, num_inference_steps) if time_aware else qstate
+        lmi = torch.cat([x, x], dim=0)
+        tt = torch.full((lmi.shape[0],), t, dtype=torch.int32, device=lmi.device)
+        eps = unet_sd_apply(params, lmi, tt, ehs, qstate=qs, cfg=cfg)
+        eps_u, eps_t = eps.chunk(2, dim=0)
+        eps = eps_u + guidance_scale * (eps_t - eps_u)
+        x = sch.ddim_step(x, eps, consts.alpha_t[i], consts.alpha_prev[i])
+    return x

@@ -1,0 +1,143 @@
+"""The ported slice as a whole, against the JAX package: DDIM constants and
+steps, the time-aware slot map, and a tiny sd_sample (2 DDIM steps, CFG,
+time-aware qstate with 2 slots) followed by a tiny vae_decode.
+
+Tolerances:
+  * DDIM constants: exact (the same numpy math); ddim_step: atol 1e-6 (f32
+    elementwise in the same order).
+  * fp sample + decode: atol 1e-3 (the UNet's summation-order differences,
+    carried through two steps and the decoder).
+  * quantized sample + decode: the chaos bound of
+    tests/test_packed_in_model.py, err <= max(5 * chaos, 1e-4), with chaos
+    measured on the JAX side under a 1e-6 perturbation of the latents (the
+    largest of eight draws: a single draw is heavy-tailed, measured from
+    5e-6 to 0.34 on the same tiny sampler).
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from dgq_tpu.models.qconfig import QConfig as JQ  # noqa: E402
+from dgq_tpu.models.unet_sd import sd_unet_spec  # noqa: E402
+from dgq_tpu.pipeline import sampler as JS, schedulers as JSch, vae as JV  # noqa: E402
+from dgq_tpu.utils.synthetic import synthetic_pertensor_qstate as j_syn  # noqa: E402
+from dgq_tpu_torch.calib.weight_calib import quantize_model_weights as t_qmw  # noqa: E402
+from dgq_tpu_torch.io.convert import params_to_numpy  # noqa: E402
+from dgq_tpu_torch.models import unet_sd as TU  # noqa: E402
+from dgq_tpu_torch.models.qconfig import QConfig as TQ  # noqa: E402
+from dgq_tpu_torch.pipeline import sampler as TS, schedulers as TSch, vae as TV  # noqa: E402
+from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate as t_syn  # noqa: E402
+
+STEPS = 2
+
+
+@pytest.mark.parametrize("steps", [1, 2, 10, 50])
+def test_ddim_consts_and_step(steps):
+    j, t = JSch.make_ddim(steps), TSch.make_ddim(steps)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    rng = np.random.RandomState(steps)
+    x, e = (rng.randn(2, 8, 8, 4).astype(np.float32) for _ in range(2))
+    i = steps - 1
+    np.testing.assert_allclose(
+        TSch.ddim_step(torch.from_numpy(x), torch.from_numpy(e), t.alpha_t[i],
+                       t.alpha_prev[i]).numpy(),
+        np.asarray(JSch.ddim_step(jnp.asarray(x), jnp.asarray(e), j.alpha_t[i],
+                                  j.alpha_prev[i])), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(TSch.sd_alphas_cumprod(), JSch.sd_alphas_cumprod())
+
+
+def test_ddim_step_keeps_bf16_carry():
+    x = torch.randn(1, 4, 4, 4, generator=torch.Generator().manual_seed(0)).bfloat16()
+    c = TSch.make_ddim(10)
+    assert TSch.ddim_step(x, x.float(), c.alpha_t[0], c.alpha_prev[0]).dtype == torch.bfloat16
+
+
+def test_time_slots_and_rejection():
+    for steps in (2, 10, 50):
+        for t in np.asarray(JSch.make_ddim(steps).timesteps):
+            assert TS.timestep_slot(int(t), steps) == int(JS.timestep_slot(jnp.asarray(t), steps))
+    with pytest.raises(ValueError, match="dividing 1000"):
+        TS.check_time_aware_steps(30, True, {"a": {}})
+    TS.check_time_aware_steps(30, False, {"a": {}})
+    with pytest.raises(ValueError, match="dividing 1000"):
+        TS.sd_sample({}, torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 64),
+                     torch.zeros(1, 77, 64), num_inference_steps=30, qstate={"a": {}},
+                     time_aware=True)
+    with pytest.raises(NotImplementedError, match="PNDM"):
+        TS.sd_sample({}, torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 64),
+                     torch.zeros(1, 77, 64), scheduler="pndm")
+    qs = t_syn(sd_unet_spec(base=32, cross=64), 3, True, torch.float32)
+    name = next(iter(qs["a"]))
+    qs["a"][name] = qs["a"][name]._replace(delta=torch.tensor([1.0, 2.0, 3.0]))
+    assert float(TS.select_time_qstate(qs, 501, 2)["a"][name].delta) == 1.0
+    assert float(TS.select_time_qstate(qs, 1, 2)["a"][name].delta) == 2.0
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    """Tiny UNet and VAE weights drawn by the port and handed to JAX through
+    the weight bridge (the JAX package's per-layer init and folding cost a
+    minute of dispatch on the CPU; folding is bit-identical, see
+    test_torch_quant.py)."""
+    spec = sd_unet_spec(base=32, cross=64)
+    tp = TU.init_unet_sd(torch.Generator().manual_seed(0), spec=spec)
+    tv = TV.init_vae_decoder(torch.Generator().manual_seed(4), base=32)
+    jv = jax.tree.map(jnp.asarray, params_to_numpy(tv, JV.vae_decoder_spec(base=32)))
+    rng = np.random.RandomState(1)
+    lat = rng.randn(1, 8, 8, 4).astype(np.float32)
+    ehs_t = rng.randn(1, 77, 64).astype(np.float32)
+    ehs_u = rng.randn(1, 77, 64).astype(np.float32)
+    noise = [(1e-6 * rng.randn(*lat.shape)).astype(np.float32) for _ in range(8)]
+    return spec, tp, tv, jv, lat, ehs_t, ehs_u, noise
+
+
+def _jax_run(tp, spec, jv, ehs_t, ehs_u, qstate, cfg):
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp, spec))
+
+    @jax.jit
+    def run(lat):
+        x = JS.sd_sample(jp, lat, jnp.asarray(ehs_t), jnp.asarray(ehs_u),
+                         num_inference_steps=STEPS, guidance_scale=7.5, qstate=qstate,
+                         cfg=cfg, time_aware=qstate is not None)
+        return JV.vae_decode(jv, x)
+    return lambda lat: np.asarray(run(jnp.asarray(lat)))
+
+
+def _torch_run(tp, tv, lat, ehs_t, ehs_u, qstate, cfg):
+    x = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
+                     torch.from_numpy(ehs_u), num_inference_steps=STEPS, guidance_scale=7.5,
+                     qstate=qstate, cfg=cfg, time_aware=qstate is not None)
+    return TV.vae_decode(tv, x).numpy()
+
+
+def test_tiny_slice_fp(slice_setup):
+    spec, tp, tv, jv, lat, ehs_t, ehs_u, _ = slice_setup
+    j = _jax_run(tp, spec, jv, ehs_t, ehs_u, None, JQ(use_pallas_attention=True))(lat)
+    out = _torch_run(tp, tv, lat, ehs_t, ehs_u, None, TQ(use_pallas_attention=True))
+    assert out.shape == (1, 64, 64, 3)
+    np.testing.assert_allclose(out, j, rtol=0, atol=1e-3)
+
+
+def test_tiny_slice_w8a8_time_aware_within_chaos(slice_setup):
+    spec, tp, tv, jv, lat, ehs_t, ehs_u, noise = slice_setup
+    kw = dict(w_bits=8, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+              use_pallas_attention=True)
+    tq, _ = t_qmw(tp, spec, TQ(**kw))
+    # two distinct slots, so a wrong slot pick shows up
+    jqs = j_syn(spec, STEPS, True, jnp.float32)
+    jqs["a"] = {n: qp._replace(delta=qp.delta * jnp.asarray([1.0, 1.5]))
+                for n, qp in jqs["a"].items()}
+    run = _jax_run(tq, spec, jv, ehs_t, ehs_u, jqs, JQ(**kw))
+    j = run(lat)
+    chaos = max(np.abs(run(lat + n) - j).max() for n in noise)
+    tqs = t_syn(spec, STEPS, True, torch.float32)
+    tqs["a"] = {n: qp._replace(delta=qp.delta * torch.tensor([1.0, 1.5]))
+                for n, qp in tqs["a"].items()}
+    out = _torch_run(tq, tv, lat, ehs_t, ehs_u, tqs, TQ(**kw))
+    err = np.abs(out - j).max()
+    assert np.isfinite(out).all()
+    assert err <= max(5 * chaos, 1e-4), (err, chaos)
