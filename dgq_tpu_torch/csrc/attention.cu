@@ -1,21 +1,40 @@
 // Attention kernels for the SD v1.4 deploy path on Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of dgq_tpu/ops/pallas/attention.py:
-//   * K1 `_static_uniform_kernel`: softmax attention with the reference's
-//     uniform post-softmax quantizer (zero point 0, static delta):
+// Replaces the Pallas TPU kernels of dgq_tpu/ops/pallas/attention.py:
+//   * K1 `_static_uniform_kernel` (mode kUniform): softmax attention with the
+//     reference's uniform post-softmax quantizer (zero point 0, static delta):
 //         P = softmax(Q K^T * scale);  code = min(round(P / delta), 2^b - 1);
 //         out = delta * (code @ V)
 //     Every UNet self- and cross-attention of the g=1 policy runs it.
-//   * K2 `_flash_kernel`: unquantized online-softmax flash attention (the VAE
-//     mid-block attention, head_dim 512, and the fp UNet path).
+//   * K2 `_flash_kernel` (kFlash): unquantized online-softmax flash attention
+//     (the VAE mid-block attention, head_dim 512, and the fp UNet path).
+//   * K3 `_rt_fused_kernel`, as its two-launch form K3b (`_stats_kernel`,
+//     `_stats_kernel_nonpeak`, `_accum_kernel`): the log2 quantizer whose
+//     delta is reduced over the whole call. The TPU runs its grid in order, so
+//     one call can finish every row's statistics before it quantizes; blocks
+//     here run in no order, so it is two launches. `rt_stats` (kStats) finds
+//     each row's max m and normalizer l, writes z = m + ln(l), and folds
+//     min(l), or under start_peak max(exp(m2 - m) / l) with m2 the row max
+//     outside key 0, into one scalar by an atomic on its bit pattern (both
+//     are positive floats, so integer order is float order). `quant_accum`
+//     (kAccum) reads delta from that scalar, recomputes Q K^T and forms
+//         q = clamp(round(log2(delta) + (z - s) / ln 2), 0, ub),
+//         ub = min(2^b - 1, exponent_field(delta) - 1),
+//         p_q = bitcast(bits(delta) - (q << 23)) = 2^-q * delta
+//     without exp or log; ub keeps the exponent subtraction from wrapping.
+//     Under start_peak key column 0 keeps its exact exp(s - z).
+//   * K4 `_static_quant_kernel` (kStatic): the same statistics and quantizer
+//     in one launch with a static delta (`log2`), or uniform codes
+//     round(p / delta) with start_peak.
 //
 // What bounds it on the H100. At the main path's shapes (T = S = 4096,
 // head_dim 40..512) attention is compute-bound: QK^T and PV are
-// 4*T*S*D flops against (T + 2S)*D elements read. The TPU kernel caches the
-// (rows, S) f32 exp blocks of pass 1 in VMEM (up to 8 MB) so pass 2 needs no
-// second QK^T; that cache does not fit in the 227 KB of shared memory a block
-// may use here, so K1 recomputes Q K^T in pass 2 (as the TPU's `_accum_kernel`
-// does) and pays 1.5x the flops of K2.
+// 4*T*S*D flops against (T + 2S)*D elements read. The TPU kernels cache the
+// (rows, S) f32 exp or score blocks of pass 1 in VMEM (up to 8 MB) so pass 2
+// needs no second QK^T; that cache does not fit in the 227 KB of shared memory
+// a block may use here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's
+// `_accum_kernel` does) and pay 1.5x the flops of K2; K3b pays the same over
+// its two launches.
 //
 // Design (first version: right and simple, not yet fast). One block of 256
 // threads per (batch*head, 16*RM query rows). Q stays in shared memory; K and
@@ -27,28 +46,15 @@
 // tensor cores (wgmma) and TMA are later work. Head dims that are not a
 // multiple of 16 (SD's 40) are zero-padded in shared memory, not in the
 // weights; the ragged key axis (cross-attention S = 77) is masked per column.
-// delta is read from device memory, so the per-step time-aware slot costs no
-// host synchronisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Every delta is read from device memory, so neither the per-step time-aware
+// slot nor the real-time reduction costs a host synchronisation.
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 thread grid: ty picks rows, tx keys/cols
 constexpr int kBK = 64;        // keys per tile
 constexpr float kNegInf = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
@@ -141,13 +147,27 @@ __device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, int ty
   }
 }
 
-// QUANT = false: K2 (flash). QUANT = true: K1 (uniform softmax quantization).
-template <typename T, int DP, int RM, bool QUANT>
+enum Mode : int { kFlash = 0, kUniform = 1, kStats = 2, kAccum = 3, kStatic = 4 };
+
+// What the quantizing modes need beyond q, k, v, o.
+struct Extra {
+  const float* delta;  // kUniform, kStatic: the static delta (one f32 on the device)
+  float max_code;      // 2^bits - 1
+  float* z;            // (bh, t) row constants m + ln(l): kStats writes, kAccum reads
+  int* red;            // the call's reduction scalar (f32 bits): kStats folds, kAccum reads
+  int start_peak;      // key column 0 stays unquantized; kStats reduces the non-peak max
+  int uniform;         // kStatic: uniform codes instead of log2
+};
+
+constexpr float kInvLn2 = 1.4426950408889634f;
+
+template <typename T, int DP, int RM, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int t_len, int s_len, int d, float scale,
-                 const float* __restrict__ delta_ptr, float max_code) {
+                 T* __restrict__ o, int t_len, int s_len, int d, float scale, Extra ex) {
   constexpr int BQ = 16 * RM, LD = DP + 4, LDP = kBK + 4, NC = DP / 16;
+  constexpr bool PASS1 = MODE == kUniform || MODE == kStats || MODE == kStatic;
+  constexpr bool LOGQ = MODE == kAccum || MODE == kStatic;  // quantizers on z = m + ln(l)
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [BQ][LD]
   float* KVs = Qs + BQ * LD;    // [kBK][LD], K then V of the current tile
@@ -157,23 +177,21 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const T* qb = q + (size_t)bh * t_len * d;
   const T* kb = k + (size_t)bh * s_len * d;
-  const T* vb = v + (size_t)bh * s_len * d;
-  T* ob = o + (size_t)bh * t_len * d;
 
   load_tile<T, DP>(Qs, qb, q0, BQ, t_len, d);
 
-  float m[RM], l[RM], acc[RM][NC], s[RM][4];
+  float m[RM], l[RM], m2[RM], s[RM][4];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m[i] = kNegInf;
+    m2[i] = kNegInf;
     l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
   const int n_tiles = (s_len + kBK - 1) / kBK;
 
-  if (QUANT) {
-    // pass 1: exact row max m and normalizer l (online over key tiles)
+  if (PASS1) {
+    // pass 1: exact row max m and normalizer l (online over key tiles);
+    // kStats under start_peak also m2, the row max outside key column 0
     for (int kt = 0; kt < n_tiles; ++kt) {
       __syncthreads();
       load_tile<T, DP>(KVs, kb, kt * kBK, kBK, s_len, d);
@@ -188,11 +206,68 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
         l[i] = l[i] * expf(m[i] - m_new) + group_sum(sum);
         m[i] = m_new;
+        if (MODE == kStats && ex.start_peak) {
+          float mx2 = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (kt * kBK + tx + 16 * j != 0) mx2 = fmaxf(mx2, s[i][j]);
+          m2[i] = fmaxf(m2[i], group_max(mx2));
+        }
       }
     }
   }
 
-  const float delta = QUANT ? *delta_ptr : 1.f;
+  if (MODE == kStats) {
+    // every lane of a row group holds the row's m, l, m2. Rows past t_len
+    // (zero queries, l = s_len) must not reach the reduction.
+    float red = ex.start_peak ? 0.f : __int_as_float(0x7f800000);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty * RM + i;
+      if (row < t_len) {
+        if (tx == 0) ex.z[(size_t)bh * t_len + row] = m[i] + logf(l[i]);
+        red = ex.start_peak ? fmaxf(red, expf(m2[i] - m[i]) / l[i]) : fminf(red, l[i]);
+      }
+    }
+    const float other = __shfl_xor_sync(0xffffffffu, red, 16);  // the warp's other row group
+    red = ex.start_peak ? fmaxf(red, other) : fminf(red, other);
+    if ((threadIdx.x & 31) == 0) {
+      if (ex.start_peak) atomicMax(ex.red, __float_as_int(red));
+      else atomicMin(ex.red, __float_as_int(red));
+    }
+    return;
+  }
+
+  const T* vb = v + (size_t)bh * s_len * d;
+  T* ob = o + (size_t)bh * t_len * d;
+  float acc[RM][NC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+
+  float delta = 1.f;
+  if (MODE == kUniform || MODE == kStatic) delta = *ex.delta;
+  if (MODE == kAccum) {
+    const float r = __int_as_float(*ex.red);
+    delta = ex.start_peak ? r : 1.f / r;
+  }
+  // log2 codes straight from the score: -log2(p / delta) is linear in s,
+  // log2(delta) + (z - s) / ln 2, so q = round(a_row - s / ln 2)
+  float zr[RM], a_row[RM];
+  const int d_bits = __float_as_int(delta);
+  const float ub = fminf(static_cast<float>((d_bits >> 23) - 1), ex.max_code);
+  if (LOGQ) {
+    const float log2d = log2f(delta);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty * RM + i;
+      if (MODE == kStatic) zr[i] = m[i] + logf(l[i]);
+      else zr[i] = row < t_len ? ex.z[(size_t)bh * t_len + row] : 0.f;
+      a_row[i] = log2d + zr[i] * kInvLn2;
+    }
+  }
+
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
     load_tile<T, DP>(KVs, kb, kt * kBK, kBK, s_len, d);
@@ -201,13 +276,28 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       float* prow = Ps + (ty * RM + i) * LDP;
-      if (QUANT) {
+      if (MODE == kUniform) {
         // the final probability, quantized exactly as the plain version does
         // it: clip(round_half_even(p / delta), 0, 2^b - 1); masked keys give 0
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float p = expf(s[i][j] - m[i]) / l[i];
-          prow[tx + 16 * j] = fminf(rintf(p / delta), max_code);
+          prow[tx + 16 * j] = fminf(rintf(p / delta), ex.max_code);
+        }
+      } else if (LOGQ) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = kt * kBK + tx + 16 * j;
+          float pq;
+          if (MODE == kStatic && ex.uniform) {
+            const float p = expf(s[i][j] - m[i]) / l[i];
+            pq = fminf(rintf(p / delta), ex.max_code) * delta;
+          } else {
+            const float y = fminf(fmaxf(a_row[i] - s[i][j] * kInvLn2, 0.f), ub);
+            pq = __int_as_float(d_bits - (__float2int_rn(y) << 23));
+          }
+          if (ex.start_peak && col == 0) pq = expf(s[i][j] - zr[i]);
+          prow[tx + 16 * j] = col < s_len ? pq : 0.f;
         }
       } else {
         float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -236,7 +326,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < RM; ++i) {
     const int row = q0 + ty * RM + i;
     if (row >= t_len) continue;
-    const float f = QUANT ? delta : 1.f / l[i];
+    const float f = MODE == kUniform ? delta : (MODE == kFlash ? 1.f / l[i] : 1.f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
@@ -245,56 +335,106 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int DP, int RM, bool QUANT>
+template <typename T, int DP, int RM, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
-                   int s_len, int d, float scale, const float* delta, float max_code,
-                   cudaStream_t stream) {
+                   int s_len, int d, float scale, const Extra& ex, cudaStream_t stream) {
   constexpr int BQ = 16 * RM;
   const size_t smem = sizeof(float) * (BQ * (DP + 4) + kBK * (DP + 4) + BQ * (kBK + 4));
-  auto kernel = attention_kernel<T, DP, RM, QUANT>;
+  auto kernel = attention_kernel<T, DP, RM, MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + BQ - 1) / BQ, bh);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                            static_cast<const T*>(v), static_cast<T*>(o), t_len,
-                                           s_len, d, scale, delta, max_code);
+                                           s_len, d, scale, ex);
   return cudaGetLastError();
 }
 
 // Head-dim tiers: SD's 40 -> 48, 80, 160; the VAE's 512 (RM = 2 keeps the
-// (32, 512) accumulator in registers and the tiles within 227 KB).
-template <typename T, bool QUANT>
+// (32, 512) accumulator in registers and the tiles within 227 KB). Only K1
+// and K2 are built for the 512 tier: the log2 / start_peak modes run in the
+// UNet alone.
+template <typename T, int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
-             int s_len, int d, float scale, const float* delta, float max_code,
-             cudaStream_t stream) {
+             int s_len, int d, float scale, const Extra& ex, cudaStream_t stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1) return cudaErrorInvalidValue;
-  if (d <= 48) return launch<T, 48, 4, QUANT>(q, k, v, o, bh, t_len, s_len, d, scale, delta, max_code, stream);
-  if (d <= 80) return launch<T, 80, 4, QUANT>(q, k, v, o, bh, t_len, s_len, d, scale, delta, max_code, stream);
-  if (d <= 160) return launch<T, 160, 4, QUANT>(q, k, v, o, bh, t_len, s_len, d, scale, delta, max_code, stream);
-  if (d <= 512) return launch<T, 512, 2, QUANT>(q, k, v, o, bh, t_len, s_len, d, scale, delta, max_code, stream);
+  if (d <= 48) return launch<T, 48, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  if (d <= 80) return launch<T, 80, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  if (d <= 160) return launch<T, 160, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  if constexpr (MODE == kFlash || MODE == kUniform) {
+    if (d <= 512) return launch<T, 512, 2, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  }
   return cudaErrorInvalidValue;
 }
+
+template <int MODE>
+int dispatch_dtype(int is_bf16, const void* q, const void* k, const void* v, void* o, int bh,
+                   int t_len, int s_len, int d, float scale, const Extra& ex, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, st)
+                 : dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, st);
+}
+
+float max_code_of(int sm_bits) { return static_cast<float>((1 << sm_bits) - 1); }
 
 }  // namespace
 
 // C interface (loaded with ctypes). q: (bh, t, d), k/v: (bh, s, d), o: (bh, t, d),
-// all contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). Returns a cudaError_t.
+// all contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). Each returns a cudaError_t.
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
                                    void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, false>(q, k, v, o, bh, t_len, s_len, d, scale, nullptr, 0.f, st)
-                 : dispatch<float, false>(q, k, v, o, bh, t_len, s_len, d, scale, nullptr, 0.f, st);
+  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, Extra{}, stream);
 }
 
 // delta: device pointer to one f32; codes are clipped to 2^sm_bits - 1.
 extern "C" int dgq_uniform_attention(const void* q, const void* k, const void* v, void* o,
                                      int bh, int t_len, int s_len, int d, float scale,
                                      const void* delta, int sm_bits, int is_bf16, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const float max_code = static_cast<float>((1 << sm_bits) - 1);
-  const float* dp = static_cast<const float*>(delta);
-  return is_bf16 ? dispatch<__nv_bfloat16, true>(q, k, v, o, bh, t_len, s_len, d, scale, dp, max_code, st)
-                 : dispatch<float, true>(q, k, v, o, bh, t_len, s_len, d, scale, dp, max_code, st);
+  Extra ex{};
+  ex.delta = static_cast<const float*>(delta);
+  ex.max_code = max_code_of(sm_bits);
+  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+}
+
+// z: (bh, t) f32 out. red: one f32 on the device, set by the caller to +inf
+// (start_peak = 0: ends as min l) or 0 (start_peak = 1: ends as the largest
+// non-peak probability).
+extern "C" int dgq_rt_stats(const void* q, const void* k, void* z, void* red, int bh, int t_len,
+                            int s_len, int d, float scale, int start_peak, int is_bf16,
+                            void* stream) {
+  Extra ex{};
+  ex.z = static_cast<float*>(z);
+  ex.red = static_cast<int*>(red);
+  ex.start_peak = start_peak;
+  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, bh, t_len, s_len, d, scale, ex,
+                                stream);
+}
+
+// z, red: as dgq_rt_stats left them (same stream, so the order holds).
+extern "C" int dgq_quant_accum(const void* q, const void* k, const void* v, void* o,
+                               const void* z, const void* red, int bh, int t_len, int s_len,
+                               int d, float scale, int sm_bits, int start_peak, int is_bf16,
+                               void* stream) {
+  Extra ex{};
+  ex.z = const_cast<float*>(static_cast<const float*>(z));
+  ex.red = const_cast<int*>(static_cast<const int*>(red));
+  ex.max_code = max_code_of(sm_bits);
+  ex.start_peak = start_peak;
+  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+}
+
+// delta: device pointer to one f32. uniform = 0: log2 codes; 1: uniform codes
+// (meant for start_peak = 1; without it dgq_uniform_attention is the kernel).
+extern "C" int dgq_static_quant_attention(const void* q, const void* k, const void* v, void* o,
+                                          int bh, int t_len, int s_len, int d, float scale,
+                                          const void* delta, int sm_bits, int uniform,
+                                          int start_peak, int is_bf16, void* stream) {
+  Extra ex{};
+  ex.delta = static_cast<const float*>(delta);
+  ex.max_code = max_code_of(sm_bits);
+  ex.uniform = uniform;
+  ex.start_peak = start_peak;
+  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
 }

@@ -28,7 +28,7 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def params_from_numpy(params_np: dict, spec, device="cpu",
+def params_from_numpy(params_np: dict, spec, device="cuda",
                       dtype: torch.dtype = torch.float32) -> dict:
     """JAX-layout numpy params (by the layer spec) -> torch params:
     conv {'w': OIHW, 'b'}, linear {'w': (O, I), 'b'}, norms unchanged."""
@@ -62,7 +62,7 @@ def params_to_numpy(params: dict, spec) -> dict:
     return out
 
 
-def qstate_from_numpy(qstate_np: dict, device="cpu") -> dict:
+def qstate_from_numpy(qstate_np: dict, device="cuda") -> dict:
     """Activation quantizer state with numpy leaves (QParams-like objects,
     GroupQParams-like objects or bare deltas, each with an optional leading
     [T] slot axis) -> the port's QState. Dtypes are kept."""

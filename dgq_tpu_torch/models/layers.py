@@ -8,6 +8,12 @@ fake-quantized (folded at load); activation quantizers apply through
 `aq_apply`. Attention runs the fused kernels (`ops.attention`) when
 `cfg.use_pallas_attention`, and the materialized softmax otherwise.
 
+Group-mode convs (`cfg.group_conv_layers`) quantize the unfolded input, where
+each (channel, tap) of the c-major mid axis k = c*kh*kw + i*kw + j has its
+own scale. The JAX package reads its HWIO weights as (taps, C, O) by a plain
+reshape; here `_w_hwio` makes that view of the OIHW weights with a permute,
+and each group path reshapes it to (taps, C, O) or (taps*C, O).
+
 Params are dicts: conv {'w': OIHW, 'b': (O,)}, linear {'w': (O, I), 'b'},
 norms {'scale', 'bias'}.
 """
@@ -19,8 +25,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from dgq_tpu_torch.models.qconfig import QConfig, QState, aq_apply, softmax_q_apply
+from dgq_tpu_torch.models.qconfig import (
+    GroupQParams,
+    QConfig,
+    QState,
+    aq_apply,
+    softmax_q_apply,
+)
 from dgq_tpu_torch.ops.attention import fused_attention
+from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmul_f32acc
+from dgq_tpu_torch.quant.affine import QParams, fake_quant, quant_bounds, ste_round
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -39,11 +53,175 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tenso
     return y
 
 
+def _out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
+    return (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+
+
+def _tap_slices(x: torch.Tensor, kh: int, kw: int, stride: int, padding: int):
+    """The kh*kw strided slices (B, H', W', C) of the zero-padded input, in
+    (i, j) order."""
+    _, h, w, _ = x.shape
+    ho, wo = _out_hw(h, w, kh, kw, stride, padding)
+    xp = F.pad(x, (0, 0, padding, padding, padding, padding))
+    return [xp[:, i:i + (ho - 1) * stride + 1:stride, j:j + (wo - 1) * stride + 1:stride, :]
+            for i in range(kh) for j in range(kw)]
+
+
+def _w_hwio(p) -> torch.Tensor:
+    """The (kh, kw, C, O) view of an OIHW conv weight."""
+    return p["w"].permute(2, 3, 1, 0)
+
+
+def unfold_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """NHWC im2col -> (B, C*kh*kw, L) with the mid axis c-major (c, i, j),
+    as `F.unfold` gives on NCHW."""
+    b, c = x.shape[0], x.shape[3]
+    pt = torch.stack(_tap_slices(x, kh, kw, stride, padding), dim=0)  # (taps, B, H', W', C)
+    return pt.permute(1, 4, 0, 2, 3).reshape(b, c * kh * kw, -1)
+
+
+def conv2d_unfolded(p, x_unf: torch.Tensor, out_hw) -> torch.Tensor:
+    """Conv as a matmul over the unfolded input (B, CKK, L) -> NHWC."""
+    o = p["w"].shape[0]
+    w_unf = p["w"].reshape(o, -1).t()  # OIHW flattens c-major, as unfold_nhwc
+    y = torch.matmul(x_unf.transpose(1, 2), w_unf.to(x_unf.dtype))
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.reshape(x_unf.shape[0], out_hw[0], out_hw[1], o)
+
+
+def _group_tap_scales(gqp, c, kh, kw, ho, wo):
+    """Group scales -> per-tap broadcastable forms: (dm2, zm2) of shape
+    (C or 1, kh*kw or 1) over the c-major mid axis, and (dl4, zl4) of shape
+    (1, H', W', 1) or (1, 1, 1, 1) over output locations."""
+    if isinstance(gqp, GroupQParams):
+        dm, zm = gqp.delta_mid.reshape(-1), gqp.zp_mid.reshape(-1)
+        dl, zl = gqp.delta_last.reshape(-1), gqp.zp_last.reshape(-1)
+    else:  # plain QParams: uniform over taps
+        dm, zm = gqp.delta.reshape(-1), gqp.zero_point.reshape(-1)
+        zm = zm.expand(dm.shape) if zm.numel() != dm.numel() else zm
+        dl, zl = torch.ones(1, device=dm.device), torch.zeros(1, device=dm.device)
+    if dm.numel() == c * kh * kw:
+        dm2, zm2 = dm.reshape(c, kh * kw), zm.reshape(c, kh * kw)
+    elif dm.numel() == c:
+        dm2, zm2 = dm.reshape(c, 1), zm.reshape(c, 1)
+    elif dm.numel() == 1:
+        dm2, zm2 = dm.reshape(1, 1), zm.reshape(1, 1)
+    else:
+        raise ValueError(f"group conv delta size {dm.numel()} is none of C*kh*kw="
+                         f"{c * kh * kw}, C={c}, or 1")
+    if dl.numel() == ho * wo:
+        dl4, zl4 = dl.reshape(1, ho, wo, 1), zl.reshape(1, ho, wo, 1)
+    elif dl.numel() == 1:
+        dl4, zl4 = dl.reshape(1, 1, 1, 1), zl.reshape(1, 1, 1, 1)
+    else:
+        raise ValueError(f"group conv delta_last size {dl.numel()} is neither H'*W'="
+                         f"{ho * wo} nor 1")
+    return dm2, zm2, dl4, zl4
+
+
+def group_quant_conv2d_im2col(p, x: torch.Tensor, gqp, cfg: QConfig, stride: int = 1,
+                              padding: int = 0) -> torch.Tensor:
+    """Group-quantized conv as one tap-major quantized im2col and one matmul:
+    the kh*kw fake-quantized tap slices are concatenated along the channel
+    axis in (i, j, c) order and contracted against the (kh*kw*C, O) weight."""
+    o, c, kh, kw = p["w"].shape
+    b, h, w, _ = x.shape
+    ho, wo = _out_hw(h, w, kh, kw, stride, padding)
+    dm2, zm2, dl4, zl4 = _group_tap_scales(gqp, c, kh, kw, ho, wo)
+    cols = []
+    for ij, xs in enumerate(_tap_slices(x, kh, kw, stride, padding)):
+        d_ij = dm2[:, ij % dm2.shape[1]].reshape(1, 1, 1, -1) * dl4
+        z_ij = zm2[:, ij % zm2.shape[1]].reshape(1, 1, 1, -1) + zl4
+        cols.append(fake_quant(xs, QParams(d_ij, z_ij), cfg.a_bits))
+    big = torch.cat(cols, dim=-1)  # (B, H', W', kh*kw*C)
+    w2 = _w_hwio(p).reshape(kh * kw * c, o).to(big.dtype)
+    y = matmul_f32acc(big.reshape(-1, kh * kw * c), w2).reshape(b, ho, wo, o)
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.to(x.dtype)
+
+
+def group_quant_conv2d_taps(p, x: torch.Tensor, gqp, cfg: QConfig, stride: int = 1,
+                            padding: int = 0) -> torch.Tensor:
+    """Group-quantized conv without the im2col tensor: per tap (i, j), the
+    strided slice is quantized to codes with that tap's scales and contracted
+    against w[i, j] as a 1x1 matmul; the f32 sum over taps equals the unfold
+    result. The dequantize half of fake-quant is folded away:
+
+        fq(x) . w = dl[l] * (q' @ (dm . w)),
+        q' = clip(round(x / (dm . dl)), -(zm + zl), 2^b - 1 - (zm + zl))
+
+    The (fractional) zero point stays in the clip bounds, so q' is an integer
+    except at the clip boundaries and no output correction is needed; adding
+    it to the codes instead would leave a per-channel bias under a bf16
+    matmul. The codes are cast to the input dtype before the matmul (integers
+    below 2^b are exact in bf16)."""
+    o, c, kh, kw = p["w"].shape
+    b, h, w, _ = x.shape
+    ho, wo = _out_hw(h, w, kh, kw, stride, padding)
+    dm2, zm2, dl4, zl4 = _group_tap_scales(gqp, c, kh, kw, ho, wo)
+    nb, pb = quant_bounds(cfg.a_bits, False, False)
+    ncols, taps = dm2.shape[1], kh * kw
+    # (taps, C or 1, 1) per-tap channel scales, folded into the weight
+    dm_t = dm2.expand(-1, taps).t()[:, :, None]
+    ws = (_w_hwio(p).reshape(taps, c, o).float() * dm_t).to(x.dtype)
+    rdm2 = 1.0 / dm2.float()
+    rdl4 = 1.0 / dl4.float()
+    acc = torch.zeros(b * ho * wo, o, dtype=torch.float32, device=x.device)
+    for ij, xs in enumerate(_tap_slices(x, kh, kw, stride, padding)):
+        rd_ij = rdm2[:, ij % ncols].reshape(1, 1, 1, -1) * rdl4
+        z_ij = zm2[:, ij % ncols].reshape(1, 1, 1, -1) + zl4
+        q = torch.clamp(ste_round(xs.float() * rd_ij), nb - z_ij, pb - z_ij).to(x.dtype)
+        acc = acc + matmul_f32acc(q.reshape(-1, c), ws[ij])
+    acc = dl4 * acc.reshape(b, ho, wo, o)
+    if p.get("b") is not None:
+        acc = acc + p["b"]
+    return acc.to(x.dtype)
+
+
+def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
+    """The group branch of quant_conv2d, by cfg.group_conv_impl. 'fused'
+    launches the kernel where `fused_eligible` holds and takes the taps path
+    elsewhere (the stride-2 downsamplers), as the JAX package does."""
+    o, c, kh, kw = p["w"].shape
+    gqp = (qstate or {}).get("a", {}).get(name)
+    impl = cfg.group_conv_impl
+    if gqp is not None and impl == "fused" and fused_eligible(
+            x.shape, o, kh, kw, stride, padding, gqp):
+        # the mid axis is c-major (c, i, j); the kernel wants (tap, channel)
+        dm = gqp.delta_mid.reshape(c, kh * kw).t()
+        zm = gqp.zp_mid.reshape(c, kh * kw).t()
+        return group_quant_conv(x.contiguous(), _w_hwio(p), dm, zm, gqp.delta_last,
+                                gqp.zp_last, p.get("b"), kh=kh, kw=kw, padding=padding,
+                                a_bits=cfg.a_bits)
+    if gqp is not None and impl in ("fused", "taps"):
+        return group_quant_conv2d_taps(p, x, gqp, cfg, stride, padding)
+    if gqp is not None and impl == "im2col":
+        return group_quant_conv2d_im2col(p, x, gqp, cfg, stride, padding)
+    x_unf = unfold_nhwc(x, kh, kw, stride, padding)
+    if isinstance(gqp, QParams) and gqp.delta.numel() == c and c != 1:
+        # per-channel (C,) plain QParams on a group-listed layer: delta[c]
+        # applies to every tap of channel c, so expand it to the c-major mid
+        # axis (a bare (C,) would broadcast against the location axis L)
+        d = gqp.delta.reshape(-1).repeat_interleave(kh * kw)
+        z = gqp.zero_point.reshape(-1).expand(c).repeat_interleave(kh * kw)
+        x_unf = fake_quant(x_unf, QParams(d.reshape(1, -1, 1), z.reshape(1, -1, 1)), cfg.a_bits)
+    else:
+        x_unf = aq_apply(qstate, cfg, name, x_unf)
+    return conv2d_unfolded(p, x_unf.to(x.dtype), _out_hw(x.shape[1], x.shape[2], kh, kw,
+                                                         stride, padding))
+
+
 def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: QConfig,
                  stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """QuantLayer-conv forward: activation fake-quant, then the conv. The
-    conv keeps the activation's own dtype (the quantizer's f32 delta would
-    otherwise upcast a bf16 run)."""
+    """QuantLayer-conv forward. Group-mode layers (cfg.group_conv_layers)
+    quantize the unfolded input; otherwise the activation fake-quant applies
+    elementwise and the conv keeps the activation's own dtype (the
+    quantizer's f32 delta would otherwise upcast a bf16 run)."""
+    if name in cfg.group_conv_layers and cfg.use_aq:
+        return _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding)
     return conv2d(p, aq_apply(qstate, cfg, name, x).to(x.dtype), stride, padding)
 
 

@@ -1,5 +1,6 @@
 """Quantization configuration and runtime quantizer state (port of
-`dgq_tpu/models/qconfig.py`; the calibration taps are left out).
+`dgq_tpu/models/qconfig.py`; the calibration taps `_tap` / `collect_act_taps`
+are left out until calibration is ported).
 
   * QConfig: the static policy, with the JAX package's field names so one
     dict builds both. Fields this slice cannot serve raise
@@ -22,12 +23,14 @@ QState = Dict[str, Any]
 
 # field -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "group_conv_layers": "queue 1 item 10 (group path, slice 2) and queue 2 K5",
     "use_int8_matmul": "queue 2 K6 (int8_matmul.py)",
     "use_int8_conv": "queue 2 K6 (the s8 conv path)",
     "packed_attention": "'Code the port leaves out' (packed head-slot layout)",
     "fold_act_dequant": "'Benchmark cells left open' (fold_act_dequant A/B)",
 }
+
+
+GROUP_CONV_IMPLS = ("taps", "fused", "im2col", "unfold")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +47,11 @@ class QConfig:
     t2i_start_peak: bool = False
     log_max_1: bool = False
     disable_out_quant: bool = True
+    # names of the k x k convs whose activation is group-quantized on the
+    # unfolded (C*kh*kw, L) layout, and how they execute: 'taps' (per-tap
+    # codes + kh*kw accumulated matmuls), 'fused' (the CUDA kernel
+    # ops.group_conv where eligible, else taps), 'im2col' (one quantized
+    # concat + one matmul), 'unfold' (the reference's materialized form)
     group_conv_layers: tuple = ()
     group_conv_impl: str = "taps"
     # True: attention runs fused_attention (the CUDA kernels on the GPU);
@@ -60,14 +68,20 @@ class QConfig:
             if getattr(self, name):
                 raise NotImplementedError(
                     f"QConfig.{name} is not ported to dgq_tpu_torch yet: ROADMAP {item}")
+        # Stricter on input than the JAX package, identical on every legal
+        # value: there an unknown string silently takes the unfold branch.
+        if self.group_conv_impl not in GROUP_CONV_IMPLS:
+            raise ValueError(f"group_conv_impl {self.group_conv_impl!r} is none of "
+                             f"{', '.join(map(repr, GROUP_CONV_IMPLS))}")
 
     def replace(self, **kw) -> "QConfig":
         return dataclasses.replace(self, **kw)
 
 
 class GroupQParams:
-    """Group-quant params in canonical two-axis form (data only in this
-    slice): delta = delta_mid * delta_last, zp = zp_mid + zp_last."""
+    """Group-quant params in canonical two-axis form over an unfolded
+    (..., mid, last) activation: delta = delta_mid * delta_last,
+    zp = zp_mid + zp_last, the unused axis's vector being ones/zeros."""
 
     def __init__(self, delta_mid, zp_mid, delta_last, zp_last):
         self.delta_mid = delta_mid
@@ -85,8 +99,11 @@ def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
     if qp is None:
         return x
     if isinstance(qp, GroupQParams):
-        raise NotImplementedError(
-            f"group activation quantization ({name}) is not ported: ROADMAP queue 1 item 10")
+        mid = (1,) * (x.dim() - 2) + (-1, 1)
+        last = (1,) * (x.dim() - 1) + (-1,)
+        delta = qp.delta_mid.reshape(mid) * qp.delta_last.reshape(last)
+        zp = qp.zp_mid.reshape(mid) + qp.zp_last.reshape(last)
+        return fake_quant(x, QParams(delta, zp), cfg.a_bits)
     # broadcast trailing-shaped params against higher-rank activations
     delta, zp = qp.delta, qp.zero_point
     if 0 < delta.dim() < x.dim():

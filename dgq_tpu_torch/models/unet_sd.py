@@ -224,7 +224,7 @@ def quantizable_layers(spec=None):
 
 
 @torch.no_grad()
-def init_unet_sd(generator: torch.Generator, device="cpu", dtype=torch.float32,
+def init_unet_sd(generator: torch.Generator, device="cuda", dtype=torch.float32,
                  spec=None) -> dict:
     """Random params of reference shapes (OIHW convs, (O, I) linears),
     N(0, 1/fan_in) weights, zero biases, unit norms. Drawn on `device` from

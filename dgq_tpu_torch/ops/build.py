@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of `dgq_tpu_torch/csrc/`.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), which `ctypes`
-loads. The library is built at first use into `build/dgq_tpu_torch/` at the
-repository root, under a name keyed on a hash of the sources and flags; it is
-written under a temporary name and renamed into place, so concurrent
-processes never load a half-written file. A missing `nvcc` or a failed build
-raises: there is no fallback.
+`nvcc` compiles each `csrc/*.cu` into a shared library of its own with a
+plain C interface (no PyTorch headers, so a build takes seconds), one
+compiler process per source, all started together; `ctypes` loads them. The
+libraries are built at first use into `build/dgq_tpu_torch/` at the
+repository root, under names keyed on a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags; each is written under a temporary name
+and renamed into place, so concurrent processes never load a half-written
+file. A missing `nvcc` or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -28,14 +29,29 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# source stem -> {C function: argument types}
 _SIGNATURES = {
-    # q, k, v, o, bh, t, s, d, scale, is_bf16, stream
-    "dgq_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, is_bf16, stream
-    "dgq_uniform_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _P),
+    "attention": {
+        # q, k, v, o, bh, t, s, d, scale, is_bf16, stream
+        "dgq_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, is_bf16, stream
+        "dgq_uniform_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _P),
+        # q, k, z, red, bh, t, s, d, scale, start_peak, is_bf16, stream
+        "dgq_rt_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+        # q, k, v, o, z, red, bh, t, s, d, scale, sm_bits, start_peak, is_bf16, stream
+        "dgq_quant_accum": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, uniform, start_peak, is_bf16, stream
+        "dgq_static_quant_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _I,
+                                       _P),
+    },
+    "group_conv": {
+        # x, w_t, rd, z, bias, out, b, h, w, c, o, kh, kw, pad, a_bits, is_bf16, stream
+        "dgq_group_quant_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P),
+    },
 }
 
-_lib = None
+_kernels = None
 
 
 def _nvcc() -> str:
@@ -50,46 +66,68 @@ def _nvcc() -> str:
                        "the dgq_tpu_torch CUDA kernels")
 
 
-def library_path() -> Path:
-    """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        h.update(src.name.encode())
+def library_paths() -> dict:
+    """{source stem: path of its shared library} for the current sources,
+    headers and flags."""
+    shared = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        shared.update(hdr.name.encode())
+        shared.update(hdr.read_bytes())
+    paths = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        h = shared.copy()
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libdgq_kernels_{h.hexdigest()[:16]}.so"
+        paths[src.stem] = BUILD_DIR / f"libdgq_{src.stem}_{h.hexdigest()[:16]}.so"
+    return paths
 
 
-def build_kernels() -> Path:
-    """Compile the kernels if this version is not built yet; return the
-    library path. The compiler's resource report (`-Xptxas -v`) is kept
-    beside it as `<library>.log`."""
-    out = library_path()
-    if out.exists():
-        return out
+def build_kernels() -> dict:
+    """Compile the libraries that are not built yet, in parallel; return
+    `library_paths()`. Each compiler's resource report (`-Xptxas -v`) is kept
+    beside its library as `<library>.log`."""
+    paths = library_paths()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    running = []
+    for stem, out in paths.items():
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{stem}.cu")]
+        running.append((stem, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for stem, out, tmp, proc in running:
+        try:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{stem}.cu: nvcc failed ({proc.returncode}):\n{stderr}")
+                continue
+            out.with_suffix(".log").write_text(stdout + stderr)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use, with argument types declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+class _Kernels:
+    """The C functions of every library, by name."""
+
+
+def load_kernels() -> _Kernels:
+    """The kernels, built on first use, with argument types declared."""
+    global _kernels
+    if _kernels is None:
+        kernels = _Kernels()
+        for stem, path in build_kernels().items():
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(kernels, name, fn)
+        _kernels = kernels
+    return _kernels

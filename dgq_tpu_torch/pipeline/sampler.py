@@ -1,5 +1,5 @@
-"""SD v1.4 DDIM sampling with classifier-free guidance (port of the DDIM
-branch of `dgq_tpu/pipeline/sampler.py`).
+"""SD v1.4 sampling (DDIM or PNDM-PLMS) with classifier-free guidance
+(port of `dgq_tpu/pipeline/sampler.py:sd_sample`).
 
 The JAX package compiles the loop into one `lax.scan`; here it is a Python
 loop. Time-aware activation qparams carry a leading [T_slots] axis; each step
@@ -62,14 +62,15 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
               time_aware: bool = False) -> torch.Tensor:
     """SD v1.4 latent sampling from NHWC noise latents (B, 64, 64, 4).
     The CFG batch is [uncond, text]."""
-    if scheduler != "ddim":
-        raise NotImplementedError(
-            f"scheduler {scheduler!r} is not ported: ROADMAP queue 1 item 7 (PNDM-PLMS)")
+    if scheduler not in ("ddim", "pndm"):
+        raise ValueError(f"unknown scheduler {scheduler}")
     check_time_aware_steps(num_inference_steps, time_aware, qstate)
     ehs = torch.cat([ehs_uncond, ehs_text], dim=0)
-    consts = sch.make_ddim(num_inference_steps)
+    ddim = scheduler == "ddim"
+    consts = sch.make_ddim(num_inference_steps) if ddim else sch.make_pndm(num_inference_steps)
     x = latents
-    for i in range(num_inference_steps):
+    state = None if ddim else sch.pndm_init_state(latents)
+    for i in range(len(consts.timesteps)):  # PNDM makes one more UNet call than steps
         t = int(consts.timesteps[i])
         qs = select_time_qstate(qstate, t, num_inference_steps) if time_aware else qstate
         lmi = torch.cat([x, x], dim=0)
@@ -77,5 +78,9 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
         eps = unet_sd_apply(params, lmi, tt, ehs, qstate=qs, cfg=cfg)
         eps_u, eps_t = eps.chunk(2, dim=0)
         eps = eps_u + guidance_scale * (eps_t - eps_u)
-        x = sch.ddim_step(x, eps, consts.alpha_t[i], consts.alpha_prev[i])
+        if ddim:
+            x = sch.ddim_step(x, eps, consts.alpha_t[i], consts.alpha_prev[i])
+        else:
+            state, x = sch.pndm_plms_step(state, i, x, eps, consts.alpha_t[i],
+                                          consts.alpha_prev[i])
     return x

@@ -105,6 +105,6 @@ def vae_decoder_spec(base: int = 128):
     return spec
 
 
-def init_vae_decoder(generator: torch.Generator, device="cpu", base: int = 128,
+def init_vae_decoder(generator: torch.Generator, device="cuda", base: int = 128,
                      dtype=torch.float32) -> dict:
     return init_unet_sd(generator, device, dtype, spec=vae_decoder_spec(base))

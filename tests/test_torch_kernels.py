@@ -1,5 +1,5 @@
-"""The hand-written CUDA attention kernels (dgq_tpu_torch/csrc/attention.cu)
-against their plain PyTorch version on the card. Marked `cuda`: they skip
+"""The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4;
+group_conv.cu: K5) against their plain PyTorch versions on the card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
 
@@ -18,11 +18,22 @@ Tolerances, with reasons:
     |err| <= 2 delta max|V| elementwise with a bounded mean. exp and the
     summation order differ, so a probability within float error of a bin
     boundary may round to the neighbouring code.
+  * K3/K3b (log2 real_time) and K4 (static log2, uniform with start_peak): a
+    log2 code flips at a half-integer exponent and changes that probability
+    by a factor of 2, and under real_time delta comes from a sum in another
+    order, so the size of an error is not bounded but the share of outputs
+    with one is: under 5e-4 of the outputs may be off by more than 2e-3 (f32)
+    or 2e-3 + 2^-7 |ref| (bf16), the form of tests/test_pallas_kernels.py.
+  * K5 (group conv): the codes and the folded weights are the same numbers on
+    both sides, so only the f32 summation order differs: atol 2e-3 as
+    tests/test_group_conv_kernel.py, plus 2^-7 |ref| in bf16 for the one
+    rounding of each side's result.
 """
 import pytest
 import torch
 
 from dgq_tpu_torch.ops import attention as TA
+from dgq_tpu_torch.ops import group_conv as TG
 
 pytestmark = pytest.mark.cuda
 
@@ -92,15 +103,102 @@ def test_static_uniform_kernel_matches_plain(s, d, delta, dtype):
                  .abs().max()) > 1e-2
 
 
-@pytest.mark.parametrize("mode,sp", [("log2_real_time", False), ("log2_real_time", True),
-                                     ("log2", False), ("uniform", True)])
-def test_unported_mode_on_cuda_raises(mode, sp):
-    q, k, v = _qkv(2, 64, 77, 40, torch.bfloat16, seed=0)
-    counts = dict(TA.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        TA.fused_attention(q, k, v, 40 ** -0.5, sm_mode=mode,
-                           sm_delta=torch.tensor(0.5, device="cuda"), start_peak=sp)
-    assert TA.LAUNCHES == counts
+def _mismatch_share(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    bound = 2e-3 + (2.0 ** -7 * ref.abs() if dtype == torch.bfloat16 else 0.0)
+    return float(((out - ref).abs() > bound).float().mean())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("t,s,d", [(200, 77, 40), (200, 256, 40), (256, 256, 80),
+                                   (70, 77, 160), (1024, 1024, 80)])
+def test_log2_real_time_kernels_match_plain(t, s, d, sp, dtype):
+    q, k, v = _qkv(4, t, s, d, dtype, seed=d + s + sp)
+    before = dict(TA.LAUNCHES)
+    out = TA.fused_attention(q, k, v, d ** -0.5, sm_mode="log2_real_time", start_peak=sp)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["rt_stats"] == before["rt_stats"] + 1
+    assert TA.LAUNCHES["quant_accum"] == before["quant_accum"] + 1
+    ref = TA.attention_reference(q, k, v, d ** -0.5, "log2_real_time", 8, start_peak=sp)
+    assert _mismatch_share(out, ref, dtype) < 5e-4
+    assert float((out.float() - TA.attention_reference(q, k, v, d ** -0.5).float())
+                 .abs().max()) > 1e-3
+
+
+def test_real_time_dominant_column0_and_padded_rows():
+    """Key 0 dominates: delta is the largest non-peak probability, small
+    enough that the exponent cap ub bites; T = 40 leaves 24 padded query rows
+    in the block, whose 1/77 must stay out of the reduction."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = 0.5 + 0.1 * torch.randn(2, 40, 40, generator=g, device="cuda").abs()
+    k = 0.05 * torch.randn(2, 77, 40, generator=g, device="cuda")
+    k[0, 0, :] = 5.2 / (40 ** -0.5 * 0.55 * 40)
+    k[1, 0, :] = 30.0
+    v = torch.randn(2, 77, 40, generator=g, device="cuda")
+    out = TA.fused_attention(q, k, v, 40 ** -0.5, sm_mode="log2_real_time", start_peak=True)
+    ref = TA.attention_reference(q, k, v, 40 ** -0.5, "log2_real_time", 8, start_peak=True)
+    assert _mismatch_share(out, ref, torch.float32) < 5e-4
+    assert float((out - ref).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("delta", [1.0, 0.3])
+@pytest.mark.parametrize("mode,sp", [("log2", False), ("log2", True), ("uniform", True)])
+@pytest.mark.parametrize("t,s,d", [(200, 77, 40), (256, 256, 80), (70, 77, 160)])
+def test_static_quant_kernel_matches_plain(t, s, d, mode, sp, delta, dtype):
+    q, k, v = _qkv(4, t, s, d, dtype, seed=2 * d + s + sp)
+    sm_delta = torch.tensor(delta, device="cuda", dtype=dtype)
+    before = TA.LAUNCHES["static_quant_attention"]
+    out = TA.fused_attention(q, k, v, d ** -0.5, sm_mode=mode, sm_bits=8, sm_delta=sm_delta,
+                             start_peak=sp)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["static_quant_attention"] == before + 1
+    ref = TA.attention_reference(q, k, v, d ** -0.5, mode, 8, sm_delta, start_peak=sp)
+    assert _mismatch_share(out, ref, dtype) < 5e-4
+
+
+def _conv_case(b, h, c, o, dtype, seed, zp=(100.0, 156.0), dl=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2.0 * torch.randn(b, h, h, c, generator=g, device="cuda")).to(dtype)
+    w = (torch.randn(3, 3, c, o, generator=g, device="cuda") / (9 * c) ** 0.5).to(dtype)
+    dm = 0.02 + 0.06 * torch.rand(9, c, generator=g, device="cuda")
+    zm = zp[0] + (zp[1] - zp[0]) * torch.rand(9, c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(o, generator=g, device="cuda")
+    return x, w, dm, zm, torch.tensor([dl], device="cuda"), torch.zeros(1, device="cuda"), bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,c,o,zp,dl,a_bits", [
+    (2, 16, 32, 64, (100.0, 156.0), 1.0, 8),
+    (1, 9, 40, 24, (100.0, 156.0), 1.0, 8),      # ragged pixels, channels and outputs
+    (2, 8, 96, 130, (-40.0, 300.0), 1.0, 8),     # zero points outside [0, 255]
+    (2, 8, 64, 64, (100.0, 156.0), 1.37, 8),     # delta_last folded into the weights
+    (2, 8, 64, 64, (20.0, 40.0), 1.0, 6),        # A6
+    (4, 8, 2560, 1280, (100.0, 156.0), 1.0, 8),  # the widest conv of the main path
+])
+def test_group_conv_kernel_matches_plain(b, h, c, o, zp, dl, a_bits, dtype):
+    args = _conv_case(b, h, c, o, dtype, seed=c + o, zp=zp, dl=dl)
+    before = TG.LAUNCHES["group_quant_conv"]
+    out = TG.group_quant_conv(*args, kh=3, kw=3, padding=1, a_bits=a_bits)
+    torch.cuda.synchronize()
+    assert TG.LAUNCHES["group_quant_conv"] == before + 1
+    ref = TG.group_quant_conv_reference(*args, kh=3, kw=3, padding=1, a_bits=a_bits)
+    assert out.shape == ref.shape == (b, h, h, o) and out.dtype == dtype
+    err = (out.float() - ref.float()).abs()
+    bound = 2e-3 + (2.0 ** -7 * ref.float().abs() if dtype == torch.bfloat16 else 0.0)
+    assert bool((err <= bound).all()), float((err - bound).max())
+    assert float(ref.float().abs().max()) > 0.5
+
+
+def test_group_conv_no_padding_and_no_bias():
+    x, w, dm, zm, dl, zl, _ = _conv_case(2, 10, 32, 32, torch.float32, seed=3)
+    out = TG.group_quant_conv(x, w, dm, zm, dl, zl, None, kh=3, kw=3, padding=0)
+    ref = TG.group_quant_conv_reference(x, w, dm, zm, dl, zl, None, kh=3, kw=3, padding=0)
+    assert out.shape == (2, 8, 8, 32)
+    assert float((out - ref).abs().max()) <= 2e-3
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -112,3 +210,9 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="512"):
         big = torch.zeros(1, 8, 520, device="cuda")
         TA.flash_attention(big, big, big, 0.1)
+    with pytest.raises(ValueError, match="head_dim <= 160"):
+        wide = torch.zeros(1, 8, 512, device="cuda")
+        TA.log2_real_time_attention(wide, wide, wide, 0.1)
+    x, w, dm, zm, dl, zl, bias = _conv_case(1, 8, 32, 32, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TG.group_quant_conv(x.transpose(1, 2), w, dm, zm, dl, zl, bias)

@@ -37,7 +37,7 @@ def _params(spec, seed=0):
             if p.get(leaf) is not None:
                 p[leaf] = jnp.asarray(rng.randn(*p[leaf].shape).astype(np.float32) * 0.3
                                       + (1.0 if leaf == "scale" else 0.0))
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), spec)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), spec, device="cpu")
 
 
 def _close(j, t, atol):
@@ -80,7 +80,7 @@ def test_conv2d_and_quant_conv2d(k, stride, pad):
     qs = {"a": {"c": JQP(np.float32(0.05), np.float32(128.0))}}
     _close(JL.quant_conv2d(jp["c"], jnp.asarray(x), "c", jax.tree.map(jnp.asarray, qs),
                            JQ(use_aq=True), stride, pad),
-           TL.quant_conv2d(tp["c"], torch.from_numpy(x), "c", qstate_from_numpy(qs),
+           TL.quant_conv2d(tp["c"], torch.from_numpy(x), "c", qstate_from_numpy(qs, device="cpu"),
                            TQ(use_aq=True), stride, pad), 1e-5)
 
 
@@ -92,7 +92,7 @@ def test_linear_geglu_silu_upsample():
     _close(JL.linear(jp["l"], jnp.asarray(x)), TL.linear(tp["l"], torch.from_numpy(x)), 1e-5)
     qs = {"a": {"ff.net.0.proj": JQP(np.float32(0.04), np.float32(100.0))}}
     _close(JL.geglu_ff(jp, "ff", jnp.asarray(x), jax.tree.map(jnp.asarray, qs), JQ(use_aq=True)),
-           TL.geglu_ff(tp, "ff", torch.from_numpy(x), qstate_from_numpy(qs), TQ(use_aq=True)),
+           TL.geglu_ff(tp, "ff", torch.from_numpy(x), qstate_from_numpy(qs, device="cpu"), TQ(use_aq=True)),
            1e-5)
     y = _rand(2, 3, 4, 5, seed=9, scale=4.0)
     _close(JL.silu(jnp.asarray(y)), TL.silu(torch.from_numpy(y)), 1e-6)
@@ -136,7 +136,7 @@ def test_basic_transformer_block(fused, quant):
                                    None if qs is None else jax.tree.map(jnp.asarray, qs),
                                    JQ(**kw))
     t = TL.basic_transformer_block(tp, "tb", torch.from_numpy(x), torch.from_numpy(ehs), 8,
-                                   None if qs is None else qstate_from_numpy(qs), TQ(**kw))
+                                   None if qs is None else qstate_from_numpy(qs, device="cpu"), TQ(**kw))
     _close(j, t, 2e-4)
 
 
@@ -155,4 +155,4 @@ def test_attention_log2_start_peak_plain_path(mode):
     _close(JL.attention(jp, "tb.attn2", jnp.asarray(x), jnp.asarray(ehs), 8,
                         jax.tree.map(jnp.asarray, qs), JQ(**kw), start_peak=True),
            TL.attention(tp, "tb.attn2", torch.from_numpy(x), torch.from_numpy(ehs), 8,
-                        qstate_from_numpy(qs), TQ(**kw), start_peak=True), 2e-4)
+                        qstate_from_numpy(qs, device="cpu"), TQ(**kw), start_peak=True), 2e-4)

@@ -1,12 +1,17 @@
-"""The ported slice as a whole, against the JAX package: DDIM constants and
-steps, the time-aware slot map, and a tiny sd_sample (2 DDIM steps, CFG,
-time-aware qstate with 2 slots) followed by a tiny vae_decode.
+"""The ported slices as a whole, against the JAX package: DDIM and PNDM
+constants and steps, the time-aware slot map, and a tiny sd_sample (2 DDIM
+steps, CFG, time-aware qstate with 2 slots; g=1 and the g=8 flagship
+configuration) followed by a tiny vae_decode.
 
 Tolerances:
   * DDIM constants: exact (the same numpy math); ddim_step: atol 1e-6 (f32
     elementwise in the same order).
   * fp sample + decode: atol 1e-3 (the UNet's summation-order differences,
     carried through two steps and the decoder).
+  * PNDM: constants exact; a 4-step fp PNDM sd_sample (5 UNet calls, no
+    decoder): 1e-5 of the latents' largest magnitude (the fp UNet's
+    summation-order differences, about 1e-6 relative a call, amplified by
+    CFG 7.5 and carried through the linear multistep update).
   * quantized sample + decode: the chaos bound of
     tests/test_packed_in_model.py, err <= max(5 * chaos, 1e-4), with chaos
     measured on the JAX side under a 1e-6 perturbation of the latents (the
@@ -23,12 +28,14 @@ import torch  # noqa: E402
 from dgq_tpu.models.qconfig import QConfig as JQ  # noqa: E402
 from dgq_tpu.models.unet_sd import sd_unet_spec  # noqa: E402
 from dgq_tpu.pipeline import sampler as JS, schedulers as JSch, vae as JV  # noqa: E402
+from dgq_tpu.utils.synthetic import synthetic_group_qstate as j_gsyn  # noqa: E402
 from dgq_tpu.utils.synthetic import synthetic_pertensor_qstate as j_syn  # noqa: E402
 from dgq_tpu_torch.calib.weight_calib import quantize_model_weights as t_qmw  # noqa: E402
-from dgq_tpu_torch.io.convert import params_to_numpy  # noqa: E402
+from dgq_tpu_torch.io.convert import params_to_numpy, qstate_from_numpy  # noqa: E402
 from dgq_tpu_torch.models import unet_sd as TU  # noqa: E402
-from dgq_tpu_torch.models.qconfig import QConfig as TQ  # noqa: E402
+from dgq_tpu_torch.models.qconfig import GroupQParams as TG, QConfig as TQ  # noqa: E402
 from dgq_tpu_torch.pipeline import sampler as TS, schedulers as TSch, vae as TV  # noqa: E402
+from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate as t_gsyn  # noqa: E402
 from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate as t_syn  # noqa: E402
 
 STEPS = 2
@@ -67,10 +74,10 @@ def test_time_slots_and_rejection():
         TS.sd_sample({}, torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 64),
                      torch.zeros(1, 77, 64), num_inference_steps=30, qstate={"a": {}},
                      time_aware=True)
-    with pytest.raises(NotImplementedError, match="PNDM"):
+    with pytest.raises(ValueError, match="unknown scheduler"):
         TS.sd_sample({}, torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 64),
-                     torch.zeros(1, 77, 64), scheduler="pndm")
-    qs = t_syn(sd_unet_spec(base=32, cross=64), 3, True, torch.float32)
+                     torch.zeros(1, 77, 64), scheduler="plms")
+    qs = t_syn(sd_unet_spec(base=32, cross=64), 3, True, torch.float32, device="cpu")
     name = next(iter(qs["a"]))
     qs["a"][name] = qs["a"][name]._replace(delta=torch.tensor([1.0, 2.0, 3.0]))
     assert float(TS.select_time_qstate(qs, 501, 2)["a"][name].delta) == 1.0
@@ -84,8 +91,8 @@ def slice_setup():
     minute of dispatch on the CPU; folding is bit-identical, see
     test_torch_quant.py)."""
     spec = sd_unet_spec(base=32, cross=64)
-    tp = TU.init_unet_sd(torch.Generator().manual_seed(0), spec=spec)
-    tv = TV.init_vae_decoder(torch.Generator().manual_seed(4), base=32)
+    tp = TU.init_unet_sd(torch.Generator().manual_seed(0), "cpu", spec=spec)
+    tv = TV.init_vae_decoder(torch.Generator().manual_seed(4), "cpu", base=32)
     jv = jax.tree.map(jnp.asarray, params_to_numpy(tv, JV.vae_decoder_spec(base=32)))
     rng = np.random.RandomState(1)
     lat = rng.randn(1, 8, 8, 4).astype(np.float32)
@@ -95,22 +102,22 @@ def slice_setup():
     return spec, tp, tv, jv, lat, ehs_t, ehs_u, noise
 
 
-def _jax_run(tp, spec, jv, ehs_t, ehs_u, qstate, cfg):
+def _jax_run(tp, spec, jv, ehs_t, ehs_u, qstate, cfg, steps=STEPS, scheduler="ddim"):
     jp = jax.tree.map(jnp.asarray, params_to_numpy(tp, spec))
 
     @jax.jit
     def run(lat):
         x = JS.sd_sample(jp, lat, jnp.asarray(ehs_t), jnp.asarray(ehs_u),
-                         num_inference_steps=STEPS, guidance_scale=7.5, qstate=qstate,
-                         cfg=cfg, time_aware=qstate is not None)
+                         num_inference_steps=steps, scheduler=scheduler, guidance_scale=7.5,
+                         qstate=qstate, cfg=cfg, time_aware=qstate is not None)
         return JV.vae_decode(jv, x)
     return lambda lat: np.asarray(run(jnp.asarray(lat)))
 
 
-def _torch_run(tp, tv, lat, ehs_t, ehs_u, qstate, cfg):
+def _torch_run(tp, tv, lat, ehs_t, ehs_u, qstate, cfg, steps=STEPS, scheduler="ddim"):
     x = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
-                     torch.from_numpy(ehs_u), num_inference_steps=STEPS, guidance_scale=7.5,
-                     qstate=qstate, cfg=cfg, time_aware=qstate is not None)
+                     torch.from_numpy(ehs_u), num_inference_steps=steps, scheduler=scheduler,
+                     guidance_scale=7.5, qstate=qstate, cfg=cfg, time_aware=qstate is not None)
     return TV.vae_decode(tv, x).numpy()
 
 
@@ -134,10 +141,104 @@ def test_tiny_slice_w8a8_time_aware_within_chaos(slice_setup):
     run = _jax_run(tq, spec, jv, ehs_t, ehs_u, jqs, JQ(**kw))
     j = run(lat)
     chaos = max(np.abs(run(lat + n) - j).max() for n in noise)
-    tqs = t_syn(spec, STEPS, True, torch.float32)
+    tqs = t_syn(spec, STEPS, True, torch.float32, device="cpu")
     tqs["a"] = {n: qp._replace(delta=qp.delta * torch.tensor([1.0, 1.5]))
                 for n, qp in tqs["a"].items()}
     out = _torch_run(tq, tv, lat, ehs_t, ehs_u, tqs, TQ(**kw))
     err = np.abs(out - j).max()
     assert np.isfinite(out).all()
     assert err <= max(5 * chaos, 1e-4), (err, chaos)
+
+
+def test_select_time_qstate_indexes_group_params():
+    spec = sd_unet_spec(base=32, cross=64)
+    qs, group_layers = t_gsyn(spec, 2, True, torch.float32, device="cpu")
+    name = group_layers[0]
+    g = qs["a"][name]
+    qs["a"][name] = TG(g.delta_mid * torch.tensor([[1.0], [3.0]]), g.zp_mid, g.delta_last,
+                       g.zp_last * 0 + torch.tensor([[0.0], [7.0]]))
+    first, second = (TS.select_time_qstate(qs, t, 2)["a"][name] for t in (501, 1))
+    assert isinstance(first, TG) and tuple(first.delta_mid.shape) == tuple(g.delta_mid.shape[1:])
+    assert float(first.delta_mid[0]) == pytest.approx(0.05)
+    assert float(second.delta_mid[0]) == pytest.approx(0.15)
+    assert float(first.zp_last) == 0.0 and float(second.zp_last) == 7.0
+    assert tuple(second.delta_last.shape) == (1,)
+
+
+def test_tiny_slice_g8_flagship_time_aware_within_chaos(slice_setup):
+    """A 2-step sd_sample of the g=8 configuration (group convs by taps, log2
+    real_time softmax with start_peak) and the decoder; the synthetic group
+    qstate is made by the JAX package, given two distinct slots, and carried
+    across by qstate_from_numpy."""
+    spec, tp, tv, jv, lat, ehs_t, ehs_u, noise = slice_setup
+    jqs, group_layers = j_gsyn(spec, STEPS, True, jnp.float32)
+    scale = jnp.asarray([1.0, 1.5])
+
+    def two_slots(leaf):
+        if hasattr(leaf, "delta_mid"):
+            return type(leaf)(leaf.delta_mid * scale[:, None], leaf.zp_mid, leaf.delta_last,
+                              leaf.zp_last)
+        return leaf._replace(delta=leaf.delta * scale)
+    jqs["a"] = {n: two_slots(leaf) for n, leaf in jqs["a"].items()}
+    kw = dict(w_bits=8, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True, t2i_log_quant=True,
+              t2i_real_time=True, t2i_start_peak=True, use_pallas_attention=True,
+              group_conv_layers=group_layers, group_conv_impl="taps")
+    tq, _ = t_qmw(tp, spec, TQ(w_bits=8, use_wq=True))
+    run = _jax_run(tq, spec, jv, ehs_t, ehs_u, jqs, JQ(**kw))
+    j = run(lat)
+    chaos = max(np.abs(run(lat + n) - j).max() for n in noise)
+    tqs = qstate_from_numpy(jax.tree.map(np.asarray, jqs), device="cpu")
+    out = _torch_run(tq, tv, lat, ehs_t, ehs_u, tqs, TQ(**kw))
+    err = np.abs(out - j).max()
+    assert np.isfinite(out).all() and out.shape == (1, 64, 64, 3)
+    assert err <= max(5 * chaos, 1e-4), (err, chaos)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 4, 25, 50])
+def test_pndm_consts_exact(steps):
+    j, t = JSch.make_pndm(steps), TSch.make_pndm(steps)
+    assert len(t.timesteps) == (steps + 1 if steps > 1 else 1)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert str(b.dtype).endswith(str(np.asarray(a).dtype))
+
+
+def test_pndm_plms_steps_match_jax():
+    """Six chained PLMS updates on random eps: every branch of the history
+    (first, repeated second, 2-, 3- and 4-term Adams-Bashforth). atol 1e-6:
+    f32 elementwise in the same order."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 8, 8, 4).astype(np.float32)
+    j, t = JSch.make_pndm(5), TSch.make_pndm(5)
+    js, ts = JSch.pndm_init_state(jnp.asarray(x)), TSch.pndm_init_state(torch.from_numpy(x))
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for i in range(6):
+        e = rng.randn(*x.shape).astype(np.float32)
+        js, jx = JSch.pndm_plms_step(js, jnp.asarray(i, jnp.int32), jx, jnp.asarray(e),
+                                     j.alpha_t[i], j.alpha_prev[i])
+        ts, tx = TSch.pndm_plms_step(ts, i, tx, torch.from_numpy(e), t.alpha_t[i],
+                                     t.alpha_prev[i])
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0, atol=1e-6)
+        assert ts.num_ets == int(js.num_ets)
+    bf = TSch.pndm_plms_step(TSch.pndm_init_state(tx.bfloat16()), 0, tx.bfloat16(), tx,
+                             t.alpha_t[0], t.alpha_prev[0])[1]
+    assert bf.dtype == torch.bfloat16
+
+
+def test_tiny_pndm_sample_fp(slice_setup):
+    spec, tp, _, _, lat, ehs_t, ehs_u, _ = slice_setup
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp, spec))
+    j = jax.jit(lambda x: JS.sd_sample(
+        jp, x, jnp.asarray(ehs_t), jnp.asarray(ehs_u), num_inference_steps=4,
+        scheduler="pndm", guidance_scale=7.5, cfg=JQ(use_pallas_attention=True)))(
+            jnp.asarray(lat))
+    out = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
+                       torch.from_numpy(ehs_u), num_inference_steps=4, scheduler="pndm",
+                       guidance_scale=7.5, cfg=TQ(use_pallas_attention=True))
+    # random weights and CFG 7.5 grow the latents to size ~10 over 5 calls
+    scale = max(1.0, float(np.abs(np.asarray(j)).max()))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j), rtol=0, atol=1e-5 * scale)
+    ddim = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
+                        torch.from_numpy(ehs_u), num_inference_steps=4, guidance_scale=7.5,
+                        cfg=TQ(use_pallas_attention=True))
+    assert float((out - ddim).abs().max()) > 1e-3  # another scheduler, another trajectory

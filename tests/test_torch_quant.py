@@ -24,6 +24,7 @@ from dgq_tpu.utils.synthetic import synthetic_pertensor_qstate as j_syn  # noqa:
 from dgq_tpu_torch.calib import act_calib as t_act, weight_calib as t_wc  # noqa: E402
 from dgq_tpu_torch.io.convert import params_from_numpy, qstate_from_numpy  # noqa: E402
 from dgq_tpu_torch.models import qconfig as t_qc  # noqa: E402
+from dgq_tpu_torch.models.unet_sd import init_unet_sd as TU_init  # noqa: E402
 from dgq_tpu_torch.models.unet_sd import sd_unet_spec as t_spec  # noqa: E402
 from dgq_tpu_torch.quant import affine as t_aff, log2 as t_log2, scalers as t_sc  # noqa: E402
 from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate as t_syn  # noqa: E402
@@ -108,7 +109,7 @@ def test_aq_apply_and_softmax_q_apply_bit_identical():
                    "w": j_aff.QParams(np.float32(1 / 255.0), np.float32(0.0))},
              "sm": {"w": np.float32(0.4)}}
     jq = jax.tree.map(jnp.asarray, qs_np)
-    tq = qstate_from_numpy(qs_np)
+    tq = qstate_from_numpy(qs_np, device="cpu")
     for kw in ({}, {"t2i_log_quant": True}, {"t2i_log_quant": True, "t2i_real_time": True},
                {"t2i_log_quant": True, "log_max_1": True}):
         jc = j_qc.QConfig(use_aq=True, **kw)
@@ -124,7 +125,7 @@ def test_aq_apply_and_softmax_q_apply_bit_identical():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("group_conv_layers", ("a",)), ("use_int8_matmul", True), ("use_int8_conv", True),
+    ("use_int8_matmul", True), ("use_int8_conv", True),
     ("packed_attention", True), ("fold_act_dequant", True),
 ])
 def test_qconfig_unported_fields_raise(field, value):
@@ -133,6 +134,21 @@ def test_qconfig_unported_fields_raise(field, value):
         t_qc.QConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_qc.QConfig().replace(**{field: value})
+
+
+@pytest.mark.parametrize("impl", ["taps", "fused", "im2col", "unfold"])
+def test_qconfig_takes_group_layers_and_every_legal_impl(impl):
+    cfg = t_qc.QConfig(group_conv_layers=("a",), group_conv_impl=impl)
+    assert cfg.group_conv_layers == ("a",) and cfg.group_conv_impl == impl
+
+
+def test_qconfig_rejects_unknown_group_conv_impl():
+    """Stricter than the JAX package, which silently takes the unfold branch."""
+    j_qc.QConfig(group_conv_impl="tap")
+    with pytest.raises(ValueError, match="'taps', 'fused', 'im2col', 'unfold'"):
+        t_qc.QConfig(group_conv_impl="tap")
+    with pytest.raises(ValueError, match="group_conv_impl"):
+        t_qc.QConfig().replace(group_conv_impl="")
 
 
 def test_qconfig_fields_match_jax():
@@ -151,11 +167,11 @@ def test_weight_fold_and_bridge_bit_identical():
     spec = spec[:5] + [e for e in spec if e[0].startswith((
         "down_blocks.0.resnets.0.", "down_blocks.0.attentions.0.", "down_blocks.0.downsamplers"))]
     jp = j_init(jax.random.PRNGKey(0), spec=spec)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), spec)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), spec, device="cpu")
     cfg = dict(w_bits=4, use_wq=True)
     jq, jw = j_wc.quantize_model_weights(jp, spec, j_qc.QConfig(**cfg))
     tq, tw = t_wc.quantize_model_weights(tp, spec, t_qc.QConfig(**cfg))
-    expect = params_from_numpy(jax.tree.map(np.asarray, jq), spec)
+    expect = params_from_numpy(jax.tree.map(np.asarray, jq), spec, device="cpu")
     for name, kind, _ in spec:
         for leaf, val in expect[name].items():
             if val is None:
@@ -175,7 +191,7 @@ def test_qpoint_names_and_synthetic_qstate_match():
     assert t_act.act_qpoint_names(spec) == j_act.act_qpoint_names(spec)
     assert t_act.softmax_qpoint_names(spec) == j_act.softmax_qpoint_names(spec)
     jq = j_syn(spec, 5, True, jnp.float32)
-    tq = t_syn(spec, 5, True, torch.float32)
+    tq = t_syn(spec, 5, True, torch.float32, device="cpu")
     assert set(jq["a"]) == set(tq["a"])
     for name, qp in jq["a"].items():
         _same(qp.delta, tq["a"][name].delta)
@@ -186,10 +202,55 @@ def test_port_imports_no_jax():
     code = ("import sys, dgq_tpu_torch, dgq_tpu_torch.pipeline.sampler, "
             "dgq_tpu_torch.pipeline.vae, dgq_tpu_torch.io.convert, "
             "dgq_tpu_torch.calib.weight_calib, dgq_tpu_torch.utils.synthetic, "
-            "dgq_tpu_torch.ops.build\n"
+            "dgq_tpu_torch.ops.build, dgq_tpu_torch.ops.group_conv, chip_smoke, chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers')]\n"
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
+
+
+def test_every_port_module_is_covered_by_the_no_jax_import():
+    """The import in test_port_imports_no_jax reaches every module of the
+    package: none is left to import jax unseen."""
+    root = Path(__file__).resolve().parents[1]
+    modules = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                     for p in (root / "dgq_tpu_torch").rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys, dgq_tpu_torch.pipeline.sampler, dgq_tpu_torch.pipeline.vae, "
+            "dgq_tpu_torch.io.convert, dgq_tpu_torch.calib.weight_calib, "
+            "dgq_tpu_torch.utils.synthetic, dgq_tpu_torch.ops.build, "
+            "dgq_tpu_torch.ops.group_conv\n"
+            f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
+            "assert not missing, missing")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_public_function_defaults_to_the_cpu():
+    """The port's entry points run on the card unless the caller asks for the
+    CPU: no public function of the package has a parameter whose default is
+    "cpu" (or a CPU torch.device)."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import dgq_tpu_torch
+
+    checked, offenders = 0, []
+    for info in pkgutil.walk_packages(dgq_tpu_torch.__path__, "dgq_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            if name.startswith("_") or fn.__module__ != mod.__name__:
+                continue
+            for pname, prm in inspect.signature(fn).parameters.items():
+                checked += pname == "device"
+                d = prm.default
+                if (isinstance(d, str) and d.startswith("cpu")) or (
+                        isinstance(d, torch.device) and d.type == "cpu"):
+                    offenders.append(f"{mod.__name__}.{name}({pname}={d!r})")
+    assert not offenders, offenders
+    assert checked >= 6  # two inits, two bridges, two synthetic qstates
+    for fn in (TU_init, t_syn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -24,11 +24,13 @@ import torch  # noqa: E402
 
 from dgq_tpu.models import unet_sd as JU  # noqa: E402
 from dgq_tpu.models.qconfig import QConfig as JQ  # noqa: E402
+from dgq_tpu.utils.synthetic import synthetic_group_qstate as j_gsyn  # noqa: E402
 from dgq_tpu.utils.synthetic import synthetic_pertensor_qstate as j_syn  # noqa: E402
 from dgq_tpu_torch.calib.weight_calib import quantize_model_weights as t_qmw  # noqa: E402
-from dgq_tpu_torch.io.convert import params_to_numpy  # noqa: E402
+from dgq_tpu_torch.io.convert import params_to_numpy, qstate_from_numpy  # noqa: E402
 from dgq_tpu_torch.models import unet_sd as TU  # noqa: E402
-from dgq_tpu_torch.models.qconfig import QConfig as TQ  # noqa: E402
+from dgq_tpu_torch.models.qconfig import GroupQParams as TG, QConfig as TQ  # noqa: E402
+from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate as t_gsyn  # noqa: E402
 from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate as t_syn  # noqa: E402
 
 
@@ -43,8 +45,8 @@ def test_full_width_spec_counts():
 
 def test_init_is_seeded_and_shaped():
     spec = TU.sd_unet_spec(base=32, cross=64)
-    a = TU.init_unet_sd(torch.Generator().manual_seed(3), spec=spec)
-    b = TU.init_unet_sd(torch.Generator().manual_seed(3), spec=spec)
+    a = TU.init_unet_sd(torch.Generator().manual_seed(3), "cpu", spec=spec)
+    b = TU.init_unet_sd(torch.Generator().manual_seed(3), "cpu", spec=spec)
     assert all(torch.equal(a[n]["w"], b[n]["w"]) for n, k, _ in spec if k != "groupnorm"
                and k != "layernorm")
     assert tuple(a["down_blocks.0.resnets.0.conv1"]["w"].shape) == (32, 32, 3, 3)
@@ -60,7 +62,7 @@ def tiny():
     cost a minute of dispatch on the CPU; folding is bit-identical, see
     test_torch_quant.py)."""
     spec = TU.sd_unet_spec(base=32, cross=64)
-    tp = TU.init_unet_sd(torch.Generator().manual_seed(0), spec=spec)
+    tp = TU.init_unet_sd(torch.Generator().manual_seed(0), "cpu", spec=spec)
     rng = np.random.RandomState(0)
     x = rng.randn(2, 16, 16, 4).astype(np.float32)
     ehs = rng.randn(2, 77, 64).astype(np.float32)
@@ -99,7 +101,75 @@ def test_tiny_unet_w8a8_uniform_softmax_within_chaos(tiny):
     run = _jax(tq, spec, j_syn(spec, 0, False, jnp.float32), JQ(**kw))
     j = run(x, t, ehs)
     chaos = max(np.abs(run(x + n, t, ehs) - j).max() for n in noise)
-    out = _torch(tq, x, t, ehs, t_syn(spec, 0, False, torch.float32), TQ(**kw))
+    out = _torch(tq, x, t, ehs, t_syn(spec, 0, False, torch.float32, device="cpu"), TQ(**kw))
     err = np.abs(out - j).max()
     assert err <= max(5 * chaos, 1e-4), (err, chaos)
     assert np.abs(out).max() > 0.01
+
+
+def _g8_kwargs(group_layers, impl, **extra):
+    """The flagship policy (the JAX bench's --group 8 configuration), W8."""
+    return dict(w_bits=8, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+                t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
+                use_pallas_attention=True, group_conv_layers=group_layers,
+                group_conv_impl=impl, **extra)
+
+
+def test_synthetic_group_qstate_matches_jax():
+    spec = TU.sd_unet_spec(base=32, cross=64)
+    jq, jl = j_gsyn(spec, 3, True, jnp.float32)
+    tq, tl = t_gsyn(spec, 3, True, torch.float32, device="cpu")
+    assert tl == jl and len(tl) > 0 and tq["sm"] == {} and set(tq["a"]) == set(jq["a"])
+    for n, leaf in jq["a"].items():
+        fields = (("delta_mid", "zp_mid", "delta_last", "zp_last") if n in jl
+                  else ("delta", "zero_point"))
+        assert isinstance(tq["a"][n], TG) == (n in jl)
+        for f in fields:
+            np.testing.assert_array_equal(getattr(tq["a"][n], f).numpy(),
+                                          np.asarray(getattr(leaf, f)))
+    # every k x k conv but conv_in / conv_out is a group layer
+    assert set(tl) == {n for n, k, m in spec if k == "conv" and m[2] > 1
+                       and n not in ("conv_in", "conv_out")}
+
+
+@pytest.mark.parametrize("impl", ["taps", "fused"])
+def test_tiny_unet_g8_flagship_within_chaos(tiny, impl):
+    """The g=8 configuration: group-quantized k x k convs, log2 real_time
+    softmax, start_peak on the cross attention. The JAX side runs its Pallas
+    kernels (attention K3, and under 'fused' the group conv K5) in interpret
+    mode; its synthetic group qstate crosses over by qstate_from_numpy."""
+    spec, tp, x, ehs, t, noise = tiny
+    jqs, group_layers = j_gsyn(spec, 0, False, jnp.float32)
+    tq, _ = t_qmw(tp, spec, TQ(w_bits=8, use_wq=True))
+    run = _jax(tq, spec, jqs, JQ(**_g8_kwargs(group_layers, impl)))
+    j = run(x, t, ehs)
+    chaos = max(np.abs(run(x + n, t, ehs) - j).max() for n in noise)
+    tqs = qstate_from_numpy(jax.tree.map(np.asarray, jqs), device="cpu")
+    assert all(isinstance(tqs["a"][n], TG) for n in group_layers)
+    out = _torch(tq, x, t, ehs, tqs, TQ(**_g8_kwargs(group_layers, impl)))
+    err = np.abs(out - j).max()
+    assert np.isfinite(out).all()
+    assert err <= max(5 * chaos, 1e-4), (err, chaos)
+    # the group quantizer is live: the g=1-style per-tensor run differs
+    assert np.abs(out).max() > 0.01
+
+
+def test_tiny_unet_static_log2_within_chaos(tiny):
+    """The short configuration that reaches K4: static log2 with delta
+    pinned to 1 (log_max_1), start_peak on the cross attention."""
+    spec, tp, x, ehs, t, noise = tiny
+    jqs, group_layers = j_gsyn(spec, 0, False, jnp.float32)
+    kw = _g8_kwargs(group_layers, "taps", log_max_1=True)
+    kw["t2i_real_time"] = False
+    tq, _ = t_qmw(tp, spec, TQ(w_bits=8, use_wq=True))
+    run = _jax(tq, spec, jqs, JQ(**kw))
+    j = run(x, t, ehs)
+    chaos = max(np.abs(run(x + n, t, ehs) - j).max() for n in noise)
+    out = _torch(tq, x, t, ehs, qstate_from_numpy(jax.tree.map(np.asarray, jqs), device="cpu"),
+                 TQ(**kw))
+    assert np.abs(out - j).max() <= max(5 * chaos, 1e-4), (np.abs(out - j).max(), chaos)
+    # use_pallas_attention=False takes the materialized softmax_q_apply branch
+    # and computes the same function
+    mat = _torch(tq, x, t, ehs, qstate_from_numpy(jax.tree.map(np.asarray, jqs), device="cpu"),
+                 TQ(**{**kw, "use_pallas_attention": False}))
+    assert np.abs(mat - out).max() <= max(5 * chaos, 1e-4)
