@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one sampling step's time goes on the card, for the port's full-width
-configurations (SD v1.4, 2 images, 512px, CFG batch 4, bf16).
+configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
+1024px, batch 2).
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
 
-For each of the g=1 path, the g=8 path with the fused group conv and the g=8
-path with the taps group conv, it runs one 1-step `sd_sample` (one UNet
+For each of the SD g=1 path (int8 deploy path off and on), the g=8 path with
+the fused group conv, the g=8 path with the taps group conv and the SDXL-turbo
+path (int8 deploy path on and off), it runs one 1-step sampler call (one UNet
 forward) three times unprofiled (host wall after a synchronise) and once under
 `torch.profiler`, and prints: host wall, the number of device kernels, device
 busy time (the union of the kernels' intervals), the idle share
@@ -23,6 +25,7 @@ import time
 BUCKETS = (
     ("attention kernels (K1-K4)", ("attention_kernel",)),
     ("group conv kernel (K5)", ("group_conv_kernel",)),
+    ("int8 matmul kernel (K6)", ("int8_matmul_kernel",)),
     ("library convs", ("fprop", "implicit_gemm", "cudnn", "conv2d", "convolve")),
     ("library matmuls", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),
     ("reductions", ("reduce",)),
@@ -37,17 +40,33 @@ def _bucket(name):
     return "elementwise and copies"
 
 
-def profile_step(model, label, qstate, cfg, tag):
+def sd_step(model, qstate, cfg):
+    """One 1-step `sd_sample`: one SD v1.4 forward at CFG batch 4."""
+    from dgq_tpu_torch.pipeline.sampler import sd_sample
+
+    return lambda: sd_sample(model["params"], model["latents"], model["ehs_t"], model["ehs_u"],
+                             num_inference_steps=1, guidance_scale=7.5, qstate=qstate, cfg=cfg,
+                             time_aware=True)
+
+
+def sdxl_step(model, qstate, cfg):
+    """One 1-step `sdxl_turbo_sample`: one SDXL forward at batch 2."""
+    from dgq_tpu_torch.models.unet_sdxl import unet_sdxl_apply
+    from dgq_tpu_torch.pipeline.sampler import sdxl_turbo_sample
+
+    return lambda: sdxl_turbo_sample(model["params"], model["latents"], model["ehs"],
+                                     model["text_embeds"], model["time_ids"], unet_sdxl_apply,
+                                     num_inference_steps=1, qstate=qstate, cfg=cfg)
+
+
+def profile_step(sample, label, batch, tag):
+    """`sample` drives one sampling step; it is timed and profiled here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dgq_tpu_torch.pipeline.sampler import sd_sample
-
     def step():
-        sd_sample(model["params"], model["latents"], model["ehs_t"], model["ehs_u"],
-                  num_inference_steps=1, guidance_scale=7.5, qstate=qstate, cfg=cfg,
-                  time_aware=True)
+        sample()
         torch.cuda.synchronize()
 
     step()  # warm-up
@@ -82,7 +101,7 @@ def profile_step(model, label, qstate, cfg, tag):
            "device_kernels": len(kernels), "device_busy_ms": busy,
            "idle_share": 1.0 - busy / statistics.median(walls),
            "device_ms_by_bucket": dict(sorted(by_bucket.items(), key=lambda kv: -kv[1]))}
-    print(f"{label}: one step (one UNet forward at batch 4): host wall "
+    print(f"{label}: one step (one UNet forward at batch {batch}): host wall "
           f"{rec['wall_ms_unprofiled_median']:.2f} ms unprofiled (median of {walls}), "
           f"{wall_prof:.2f} ms profiled; {len(kernels)} device kernels, device busy "
           f"{busy:.2f} ms, idle share {rec['idle_share']:.3f}; device ms by bucket "
@@ -114,9 +133,24 @@ def main():
                  use_pallas_attention=True)
     g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
     records = [
-        profile_step(model, "g=1", qs_g1, g1, tag),
-        profile_step(model, "g=8 fused group conv", qs_g8, g8, tag),
-        profile_step(model, "g=8 taps group conv", qs_g8, g8.replace(group_conv_impl="taps"), tag),
+        profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
+        profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
+                     "g=1 int8 deploy path", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
+                     "g=8 taps group conv", 4, tag),
+    ]
+    del model, qs_g1, qs_g8
+    torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
+    model = chip_smoke.build_sdxl_model(tag)
+    qs = synthetic_pertensor_qstate(model["spec"], 0, False, bf)
+    xl = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+                 t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
+                 use_pallas_attention=True, use_int8_matmul=True)
+    records += [
+        profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag),
+        profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
+                     "SDXL-turbo int8 path off", 2, tag),
     ]
     print(json.dumps({"card": card, "steps": records}))
 

@@ -1,11 +1,13 @@
 """Weight quantization for deployment: per-out-channel scale init and
 load-time folding (port of the deploy half of `dgq_tpu/calib/weight_calib.py`;
-AdaRound and the int8 packing wait for later slices).
+AdaRound and the attention head packing wait for later slices).
 
 Weights are input-independent, so they are fake-quantized once at load and
 inference runs on the folded float weights. Torch layouts put the out
 channel first (OIHW / (O, I)), so the (O,1,1,1) / (O,1) qparams broadcast
 directly. conv_in / conv_out keep float weights but still get qparams.
+`attach_int8_packed` adds the packed int8 codes of the int8 deploy path
+(`ops.int8_matmul`) beside the folded weights.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict
 import torch
 
 from dgq_tpu_torch.models.qconfig import QConfig
+from dgq_tpu_torch.ops.int8_matmul import pack_weight_int8
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.scalers import Scaler, init_scale_channelwise
 
@@ -52,6 +55,40 @@ def fold_weight_quant(params: dict, wqp: Dict[str, QParams], spec, cfg: QConfig)
 @torch.no_grad()
 def quantize_model_weights(params: dict, spec, cfg: QConfig,
                            scaler: Scaler = Scaler.MINMAX) -> tuple[dict, Dict[str, QParams]]:
-    """One-call weight-only PTQ: init scales, then fold."""
+    """One-call weight-only PTQ: init scales, then fold (and pack the int8
+    codes when the policy runs the int8 deploy path)."""
     wqp = init_weight_qparams(params, spec, cfg.w_bits, scaler)
-    return fold_weight_quant(params, wqp, spec, cfg), wqp
+    params_q = fold_weight_quant(params, wqp, spec, cfg)
+    if cfg.use_int8_matmul:
+        params_q = attach_int8_packed(params_q, wqp, spec, cfg)
+    return params_q, wqp
+
+
+@torch.no_grad()
+def attach_int8_packed(params_q: dict, wqp: Dict[str, QParams], spec, cfg: QConfig) -> dict:
+    """Attach packed int8 weight codes for the int8-matmul deploy path.
+
+    Works on FOLDED params: folded weights sit exactly on the quantization
+    grid, so round(w_folded/delta)+zp recovers the integer codes. Linear
+    layers and 1x1 convs (which route through the matmul kernel) get 'w_q8'
+    ((N, K) int8 recentered codes, K contiguous), 'w_d', 'w_z' (recentered)
+    and 'w_ksum' (the codes' per-out-channel sums, f32), all made on the
+    weights' device. Group conv layers and conv_in / conv_out get none: they
+    never reach the kernel. (The k x k 'w_q8c' codes of the JAX package feed
+    its s8 conv, which the port does not have.)"""
+    out = dict(params_q)
+    for name, kind, meta in spec:
+        if name not in wqp or (cfg.disable_out_quant and name in EXCLUDED_LAYERS):
+            continue
+        if kind not in ("conv", "linear") or name in cfg.group_conv_layers:
+            continue
+        if not cfg.use_int8_matmul or (kind == "conv" and meta[2] != 1):
+            continue
+        p = dict(params_q[name])
+        w2 = p["w"].float().reshape(p["w"].shape[0], -1)
+        qp = wqp[name]
+        codes, d, zr = pack_weight_int8(w2, qp.delta.float(), qp.zero_point.float(), cfg.w_bits)
+        p["w_q8"], p["w_d"], p["w_z"] = codes.contiguous(), d, zr
+        p["w_ksum"] = codes.sum(dim=1, dtype=torch.int32).float()
+        out[name] = p
+    return out

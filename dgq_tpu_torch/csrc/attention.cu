@@ -1,4 +1,4 @@
-// Attention kernels for the SD v1.4 deploy path on Hopper (sm_90a).
+// Attention kernels for the SD v1.4 and SDXL deploy paths on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of dgq_tpu/ops/pallas/attention.py:
 //   * K1 `_static_uniform_kernel` (mode kUniform): softmax attention with the
@@ -351,7 +351,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   return cudaGetLastError();
 }
 
-// Head-dim tiers: SD's 40 -> 48, 80, 160; the VAE's 512 (RM = 2 keeps the
+// Head-dim tiers: SD's 40 -> 48, 80, 160; SDXL's 64; the VAE's 512 (RM = 2 keeps the
 // (32, 512) accumulator in registers and the tiles within 227 KB). Only K1
 // and K2 are built for the 512 tier: the log2 / start_peak modes run in the
 // UNet alone.
@@ -360,6 +360,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t
              int s_len, int d, float scale, const Extra& ex, cudaStream_t stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1) return cudaErrorInvalidValue;
   if (d <= 48) return launch<T, 48, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  if (d <= 64) return launch<T, 64, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
   if (d <= 80) return launch<T, 80, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
   if (d <= 160) return launch<T, 160, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
   if constexpr (MODE == kFlash || MODE == kUniform) {

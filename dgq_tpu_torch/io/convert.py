@@ -4,6 +4,11 @@ The JAX package keeps conv weights HWIO and linear weights (I, O); the port
 keeps PyTorch's OIHW and (O, I) (`F.conv2d` / `F.linear`). Callers turn a
 JAX pytree into numpy first (`jax.tree.map(np.asarray, tree)`), so this
 module needs no JAX.
+
+The packed int8 entries of the int8 deploy path cross over too: 'w_q8' is
+(K, N) int8 in the JAX package and (N, K) here, 'w_q8c' is HWIO there and
+OIHW here, and 'w_d', 'w_z', 'w_ksum' are per-out-channel vectors in both.
+They keep their own dtypes (int8 codes, f32 scales) whatever `dtype` says.
 """
 from __future__ import annotations
 
@@ -12,6 +17,9 @@ import torch
 
 from dgq_tpu_torch.models.qconfig import GroupQParams
 from dgq_tpu_torch.quant.affine import QParams
+
+
+PACKED_VECTORS = ("w_d", "w_z", "w_ksum")
 
 
 def conv_w_to_torch(w) -> np.ndarray:
@@ -41,6 +49,15 @@ def params_from_numpy(params_np: dict, spec, device="cuda",
             b = p.get("b")
             params[name] = {"w": _tensor(w, device, dtype),
                             "b": None if b is None else _tensor(b, device, dtype)}
+            if "w_q8" in p:
+                params[name]["w_q8"] = _tensor(np.ascontiguousarray(np.asarray(p["w_q8"]).T),
+                                               device)
+            if "w_q8c" in p:
+                params[name]["w_q8c"] = _tensor(
+                    np.ascontiguousarray(conv_w_to_torch(p["w_q8c"])), device)
+            for leaf in PACKED_VECTORS:
+                if leaf in p:
+                    params[name][leaf] = _tensor(p[leaf], device)
         else:
             params[name] = {"scale": _tensor(p["scale"], device, dtype),
                             "bias": _tensor(p["bias"], device, dtype)}
@@ -50,14 +67,23 @@ def params_from_numpy(params_np: dict, spec, device="cuda",
 def params_to_numpy(params: dict, spec) -> dict:
     """Inverse of params_from_numpy: torch params -> JAX-layout f32 numpy
     (HWIO convs, (I, O) linears), e.g. to run the same weights in JAX."""
+    def leaf_np(key, v):
+        if v is None:
+            return None
+        v = v.detach().cpu()
+        return v.numpy() if key in ("w_q8", "w_q8c") else v.float().numpy()
+
     out = {}
     for name, kind, _ in spec:
-        p = {k: None if v is None else v.detach().float().cpu().numpy()
-             for k, v in params[name].items()}
+        p = {k: leaf_np(k, v) for k, v in params[name].items()}
         if kind == "conv":
             p["w"] = np.transpose(p["w"], (2, 3, 1, 0))
         elif kind == "linear":
             p["w"] = p["w"].T
+        if "w_q8" in p:
+            p["w_q8"] = np.ascontiguousarray(p["w_q8"].T)
+        if "w_q8c" in p:
+            p["w_q8c"] = np.transpose(p["w_q8c"], (2, 3, 1, 0))
         out[name] = p
     return out
 

@@ -8,6 +8,12 @@ fake-quantized (folded at load); activation quantizers apply through
 `aq_apply`. Attention runs the fused kernels (`ops.attention`) when
 `cfg.use_pallas_attention`, and the materialized softmax otherwise.
 
+Linears and 1x1 convs dispatch in the JAX package's order: the int8 deploy
+path (`cfg.use_int8_matmul`, packed weights and a per-tensor activation
+scale: the K6 kernel `ops.int8_matmul`, or the library route
+`int8_impl="xla"`), then the codes fold (`cfg.fold_act_dequant`), then
+fake-quant.
+
 Group-mode convs (`cfg.group_conv_layers`) quantize the unfolded input, where
 each (channel, tap) of the c-major mid axis k = c*kh*kw + i*kw + j has its
 own scale. The JAX package reads its HWIO weights as (taps, C, O) by a plain
@@ -34,6 +40,7 @@ from dgq_tpu_torch.models.qconfig import (
 )
 from dgq_tpu_torch.ops.attention import fused_attention
 from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmul_f32acc
+from dgq_tpu_torch.ops.int8_matmul import quantized_matmul
 from dgq_tpu_torch.quant.affine import QParams, fake_quant, quant_bounds, ste_round
 
 
@@ -217,18 +224,173 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
 def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: QConfig,
                  stride: int = 1, padding: int = 0) -> torch.Tensor:
     """QuantLayer-conv forward. Group-mode layers (cfg.group_conv_layers)
-    quantize the unfolded input; otherwise the activation fake-quant applies
-    elementwise and the conv keeps the activation's own dtype (the
-    quantizer's f32 delta would otherwise upcast a bf16 run)."""
+    quantize the unfolded input. Otherwise, in order: a stride-1 1x1 conv with
+    packed weights and a per-tensor scale runs as an int8 matmul; a per-tensor
+    scale under cfg.fold_act_dequant takes the codes fold; else the activation
+    fake-quant applies elementwise and the conv keeps the activation's own
+    dtype (the quantizer's f32 delta would otherwise upcast a bf16 run)."""
     if name in cfg.group_conv_layers and cfg.use_aq:
         return _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding)
+    qp = _int8_qp(p, qstate, cfg, name)
+    if (qp is not None and tuple(p["w"].shape[2:]) == (1, 1) and stride == 1 and padding == 0
+            and "w_q8" in p and cfg.use_int8_matmul):
+        b, h, w, c = x.shape
+        y = _int8_dispatch(p, x.reshape(b * h * w, c), qp, cfg)
+        if y is not None:
+            return y.reshape(b, h, w, y.shape[-1])
+    qpf = _fold_qp(qstate, cfg, name)
+    if qpf is not None:
+        return _codes_conv2d(p, x, qpf, cfg, stride, padding)
     return conv2d(p, aq_apply(qstate, cfg, name, x).to(x.dtype), stride, padding)
+
+
+def _fold_qp(qstate, cfg: QConfig, name: str):
+    """Per-tensor activation QParams eligible for the codes-fold deploy path
+    (per-channel and group scales stay on the fake-quant path)."""
+    if qstate is None or not cfg.use_aq or not cfg.fold_act_dequant:
+        return None
+    qp = qstate.get("a", {}).get(name)
+    if not isinstance(qp, QParams) or qp.delta.dim() != 0 or qp.zero_point.dim() != 0:
+        return None
+    return qp
+
+
+def _fold_codes(x: torch.Tensor, qp: QParams, bits: int):
+    """Shifted integer codes q' = clip(round(x/delta), -zp, PB-zp) in the
+    input dtype, and delta as f32. delta * q' == fake_quant(x) exactly: the
+    zero point lives in the clip bounds, the dequantize multiply moves to the
+    consumer's epilogue, and zero padding of q' dequantizes to 0.0. The codes
+    are integers in [-PB, PB], exact in bf16 for bits <= 8."""
+    nb, pb = quant_bounds(bits, False, False)
+    d = qp.delta.float()
+    z = qp.zero_point.float()
+    q = torch.clamp(ste_round(x.float() * (1.0 / d)), nb - z, pb - z)
+    return q.to(x.dtype), d
+
+
+def _codes_linear(p, x: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Tensor:
+    """Codes fold for a linear: the f32 accumulator is scaled by delta before
+    the bias and the cast, as in the JAX package."""
+    q, d = _fold_codes(x, qp, cfg.a_bits)
+    y = matmul_f32acc(q.reshape(-1, q.shape[-1]), p["w"].to(q.dtype).t()) * d
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.reshape(x.shape[:-1] + (y.shape[-1],)).to(x.dtype)
+
+
+def _codes_conv2d(p, x: torch.Tensor, qp: QParams, cfg: QConfig, stride: int,
+                  padding: int) -> torch.Tensor:
+    """Codes fold for a conv. The JAX package asks its conv for an f32
+    accumulator; `F.conv2d` has no such argument and a bf16 conv would round
+    its output to bf16 before the delta multiply. So the conv runs on f32
+    copies of the codes and the weights: both are exact there (and in TF32:
+    8-bit codes, bf16 weights), the sum is f32, and delta, the bias and the one
+    cast follow as in the JAX package. No extra rounding."""
+    q, d = _fold_codes(x, qp, cfg.a_bits)
+    y = F.conv2d(q.float().permute(0, 3, 1, 2), p["w"].to(q.dtype).float(), stride=stride,
+                 padding=padding).permute(0, 2, 3, 1) * d
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.to(x.dtype)
+
+
+def _int8_qp(p, qstate, cfg: QConfig, name: str):
+    """Per-tensor activation QParams for the int8 path, if eligible (group
+    and per-channel scales stay on the fake-quant path)."""
+    if not (cfg.use_int8_matmul and cfg.use_aq and qstate is not None):
+        return None
+    if "w_q8" not in p:
+        return None
+    qp = (qstate.get("a") or {}).get(name)
+    if not isinstance(qp, QParams) or qp.delta.dim() != 0:
+        return None
+    return qp
+
+
+def _int8_matmul(p, x2: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Tensor:
+    """The K6 route. The zero point is rounded before the codes are built:
+    the kernel casts rounded-and-clipped codes to int8, so a fractional zero
+    point would bias every stored code by its fraction while the epilogue
+    still corrected with the exact value."""
+    off = 2 ** (cfg.a_bits - 1)
+    zp = torch.round(qp.zero_point.float())
+    return quantized_matmul(x2.contiguous(), p["w_q8"], p["w_d"], p["w_z"], qp.delta.float(),
+                            zp - off, p.get("b"), p.get("w_ksum"), a_bits=cfg.a_bits)
+
+
+# Shape gate of the library route, kept with the JAX package's constants so
+# that both packages send the same layers the same way. They were chosen from
+# measurements on another chip (a TPU) and say nothing about this card: they
+# are here for routing parity only.
+_INT8_XLA_MIN_M = 16384
+_INT8_XLA_MAX_K = 512
+
+
+def _int8_xla_eligible(m: int, k: int) -> bool:
+    return m >= _INT8_XLA_MIN_M and k <= _INT8_XLA_MAX_K
+
+
+def _int_mm_takes(x2: torch.Tensor, n: int) -> bool:
+    """`torch._int_mm` on the card wants more than 16 rows and K, N multiples
+    of 8; other shapes fall through to the next path, as shapes outside the
+    gate do."""
+    m, k = x2.shape
+    return not x2.is_cuda or (m > 16 and k % 8 == 0 and n % 8 == 0)
+
+
+def _int8_matmul_xla(p, x2: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Tensor:
+    """The library route (`int8_impl="xla"`): quantize to recentered int8
+    codes with torch ops, one library s8 x s8 -> s32 matmul (`torch._int_mm`
+    on the card; an exact float64 product on the CPU), and the analytic
+    removal of the affine cross terms in f32:
+
+        fq(x).fq(w) = dx*dw[n] * (u@w8 - zx*wksum[n] - wz[n]*rowsum[m] + K*zx*wz[n])
+
+    with u / w8 the recentered codes and zx / wz the recentered zero points."""
+    off = 2 ** (cfg.a_bits - 1)
+    dx = qp.delta.float()
+    zp = torch.round(qp.zero_point.float())
+    zx = zp - off
+    u = (torch.clamp(torch.round(x2.float() / dx) + zp, 0, 2 ** cfg.a_bits - 1) - off).to(
+        torch.int8)
+    if x2.is_cuda:
+        acc = torch._int_mm(u, p["w_q8"].t()).float()
+        rowsum = u.sum(dim=1, keepdim=True, dtype=torch.int32).float()
+    else:
+        acc = (u.double() @ p["w_q8"].double().t()).float()
+        rowsum = u.double().sum(dim=1, keepdim=True).float()
+    k = x2.shape[-1]
+    y = dx * p["w_d"] * (acc - zx * p["w_ksum"] - p["w_z"] * rowsum + float(k) * zx * p["w_z"])
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.to(x2.dtype)
+
+
+def _int8_dispatch(p, x2: torch.Tensor, qp: QParams, cfg: QConfig):
+    """The int8 matmul by cfg.int8_impl, or None where the library route's
+    gate sends the layer on to the next path."""
+    if cfg.int8_impl == "xla":
+        if _int8_xla_eligible(x2.shape[0], x2.shape[1]) and _int_mm_takes(
+                x2, p["w_q8"].shape[0]):
+            return _int8_matmul_xla(p, x2, qp, cfg)
+        return None
+    return _int8_matmul(p, x2, qp, cfg)
 
 
 def quant_linear(p, x: torch.Tensor, name: str, qstate: Optional[QState],
                  cfg: QConfig) -> torch.Tensor:
-    """QuantLayer-linear forward: activation fake-quant, then the matmul in
-    the activation's own dtype."""
+    """QuantLayer-linear forward: with packed int8 weights and a per-tensor
+    activation scale, one int8 matmul that quantizes in the kernel; else the
+    codes fold; else activation fake-quant, then the matmul in the
+    activation's own dtype."""
+    qp = _int8_qp(p, qstate, cfg, name)
+    if qp is not None:
+        y = _int8_dispatch(p, x.reshape(-1, x.shape[-1]), qp, cfg)
+        if y is not None:
+            return y.reshape(x.shape[:-1] + (y.shape[-1],))
+    qpf = _fold_qp(qstate, cfg, name)
+    if qpf is not None:
+        return _codes_linear(p, x, qpf, cfg)
     return linear(p, aq_apply(qstate, cfg, name, x).to(x.dtype))
 
 
@@ -293,12 +455,12 @@ def geglu_ff(p, prefix: str, x: torch.Tensor, qstate, cfg) -> torch.Tensor:
     return quant_linear(p[f"{prefix}.net.2"], h, f"{prefix}.net.2", qstate, cfg)
 
 
-def _sm_select(qstate, cfg: QConfig, prefix: str):
+def _sm_select(qstate, cfg: QConfig, prefix: str, device):
     """Softmax-quant mode + static delta for the fused attention."""
     if cfg.use_aq and cfg.t2i_log_quant:
         sm_mode = "log2_real_time" if cfg.t2i_real_time else "log2"
         sm_delta = (
-            torch.ones(()) if cfg.log_max_1
+            torch.ones((), device=device) if cfg.log_max_1
             else (qstate or {}).get("sm", {}).get(f"{prefix}.aqtizer_w")
         )
         if sm_mode == "log2" and sm_delta is None:
@@ -340,7 +502,7 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
     v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
 
     if cfg.use_pallas_attention:
-        sm_mode, sm_delta = _sm_select(qstate, cfg, prefix)
+        sm_mode, sm_delta = _sm_select(qstate, cfg, prefix, q.device)
         out = fused_attention(
             q.reshape(b * num_heads, t, head_dim),
             k.reshape(b * num_heads, s, head_dim),

@@ -3,8 +3,9 @@
 are left out until calibration is ported).
 
   * QConfig: the static policy, with the JAX package's field names so one
-    dict builds both. Fields this slice cannot serve raise
-    NotImplementedError at construction.
+    dict builds both. The two fields the port does not serve yet
+    (`use_int8_conv`, `packed_attention`) raise NotImplementedError at
+    construction.
   * QState: a plain dict {'a': {layer_name: QParams | GroupQParams},
     'sm': {attn_name: delta}}; time-aware states carry a leading [T] slot
     axis on every leaf.
@@ -23,14 +24,13 @@ QState = Dict[str, Any]
 
 # field -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "use_int8_matmul": "queue 2 K6 (int8_matmul.py)",
-    "use_int8_conv": "queue 2 K6 (the s8 conv path)",
-    "packed_attention": "'Code the port leaves out' (packed head-slot layout)",
-    "fold_act_dequant": "'Benchmark cells left open' (fold_act_dequant A/B)",
+    "use_int8_conv": "queue 1 (the int8 implicit-GEMM conv on K6's tile code)",
+    "packed_attention": "queue 2 (the packed head-slot attention kernels)",
 }
 
 
 GROUP_CONV_IMPLS = ("taps", "fused", "im2col", "unfold")
+INT8_IMPLS = ("pallas", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +57,16 @@ class QConfig:
     # True: attention runs fused_attention (the CUDA kernels on the GPU);
     # False: the materialized-softmax path
     use_pallas_attention: bool = False
+    # linears and 1x1 convs with packed weights and a per-tensor activation
+    # scale run in real int8. int8_impl keeps the JAX package's two values:
+    # 'pallas' is the hand-written kernel (ops.int8_matmul; the CUDA kernel
+    # on the GPU), 'xla' the library route (torch._int_mm) behind the shape
+    # gate of models.layers._int8_xla_eligible
     use_int8_matmul: bool = False
     use_int8_conv: bool = False
     int8_impl: str = "pallas"
+    # per-tensor activation quantizers emit shifted integer codes and the
+    # dequantize multiply moves to the consumer's f32 epilogue
     fold_act_dequant: bool = False
     packed_attention: bool = False
 
@@ -73,6 +80,9 @@ class QConfig:
         if self.group_conv_impl not in GROUP_CONV_IMPLS:
             raise ValueError(f"group_conv_impl {self.group_conv_impl!r} is none of "
                              f"{', '.join(map(repr, GROUP_CONV_IMPLS))}")
+        if self.int8_impl not in INT8_IMPLS:
+            raise ValueError(f"int8_impl {self.int8_impl!r} is none of "
+                             f"{', '.join(map(repr, INT8_IMPLS))}")
 
     def replace(self, **kw) -> "QConfig":
         return dataclasses.replace(self, **kw)
@@ -124,7 +134,8 @@ def softmax_q_apply(qstate: Optional[QState], cfg: QConfig, name: str,
         if cfg.t2i_real_time:
             return log2_real_time_quant(attn_weights, cfg.softmax_bits)
         if cfg.log_max_1:
-            return log2_fake_quant(attn_weights, torch.ones(()), cfg.softmax_bits)
+            return log2_fake_quant(attn_weights, torch.ones((), device=attn_weights.device),
+                                   cfg.softmax_bits)
         delta = qstate.get("sm", {}).get(name)
         if delta is None:
             return attn_weights

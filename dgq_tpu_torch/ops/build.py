@@ -49,6 +49,11 @@ _SIGNATURES = {
         "dgq_group_quant_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P),
     },
+    "int8_matmul": {
+        # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, m, n, k, a_bits,
+        # is_bf16, stream
+        "dgq_int8_matmul": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _kernels = None

@@ -1,5 +1,6 @@
-"""SD v1.4 sampling (DDIM or PNDM-PLMS) with classifier-free guidance
-(port of `dgq_tpu/pipeline/sampler.py:sd_sample`).
+"""SD v1.4 sampling (DDIM or PNDM-PLMS) with classifier-free guidance and
+SDXL-turbo sampling (Euler, guidance 0) (port of
+`dgq_tpu/pipeline/sampler.py`).
 
 The JAX package compiles the loop into one `lax.scan`; here it is a Python
 loop. Time-aware activation qparams carry a leading [T_slots] axis; each step
@@ -83,4 +84,29 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
         else:
             state, x = sch.pndm_plms_step(state, i, x, eps, consts.alpha_t[i],
                                           consts.alpha_prev[i])
+    return x
+
+
+@torch.no_grad()
+def sdxl_turbo_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
+                      added_text_embeds: torch.Tensor, added_time_ids: torch.Tensor,
+                      unet_apply, num_inference_steps: int = 4,
+                      qstate: Optional[QState] = None, cfg: QConfig = QConfig(),
+                      time_aware: bool = False) -> torch.Tensor:
+    """SDXL-turbo sampling: Euler trailing, guidance 0 (no CFG doubling).
+    latents: (B, 128, 128, 4) NHWC noise ~N(0,1), scaled by sigma_max here.
+    `unet_apply` is `models.unet_sdxl.unet_sdxl_apply`."""
+    check_time_aware_steps(num_inference_steps, time_aware, qstate)
+    consts = sch.make_euler(num_inference_steps)
+    # the carry (and so every UNet activation) stays in the latents' dtype:
+    # sigmas are f32 and a bare multiply would promote a bf16 run to f32
+    x = (latents.float() * consts.sigmas[0]).to(latents.dtype)
+    for i in range(num_inference_steps):
+        t, sigma, sigma_next = consts.timesteps[i], consts.sigmas[i], consts.sigmas[i + 1]
+        qs = select_time_qstate(qstate, int(t), num_inference_steps) if time_aware else qstate
+        x_in = sch.euler_scale_model_input(x, sigma)
+        tt = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+        eps = unet_apply(params, x_in, tt, ehs_text, text_embeds=added_text_embeds,
+                         time_ids=added_time_ids, qstate=qs, cfg=cfg)
+        x = sch.euler_step(x, eps, sigma, sigma_next)
     return x

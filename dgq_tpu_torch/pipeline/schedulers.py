@@ -1,5 +1,5 @@
-"""DDIM and PNDM-PLMS for SD v1.4 (port of `dgq_tpu/pipeline/schedulers.py`;
-Euler waits for the SDXL slice).
+"""DDIM and PNDM-PLMS for SD v1.4 and Euler-discrete for SDXL-turbo (port of
+`dgq_tpu/pipeline/schedulers.py`).
 
 SD v1.4 betas: scaled_linear 0.00085 -> 0.012, 1000 train steps,
 steps_offset=1, set_alpha_to_one=False.
@@ -142,3 +142,45 @@ def pndm_plms_step(state: PNDMState, call_idx: int, latents: torch.Tensor, eps: 
                              alpha_prev).to(latents.dtype)
     cur = latents if call_idx == 0 else state.cur_sample
     return PNDMState(ets, num_ets, cur), prev
+
+
+# -------------------------------------------------------- Euler discrete ----
+class EulerConsts(NamedTuple):
+    timesteps: torch.Tensor   # [T] f32 (UNet conditioning values)
+    sigmas: torch.Tensor      # [T+1] f32 (sigma_T ... sigma_0 = 0)
+
+
+def make_euler(num_inference_steps: int, num_train_timesteps: int = 1000,
+               timestep_spacing: str = "trailing") -> EulerConsts:
+    """EulerDiscrete for SDXL-turbo (trailing spacing, 1-4 steps, no noise).
+    Constants on the host, as make_ddim."""
+    ac = sd_alphas_cumprod(num_train_timesteps)
+    all_sigmas = np.sqrt((1.0 - ac) / ac)
+    if timestep_spacing == "trailing":
+        ts = np.arange(num_train_timesteps, 0, -num_train_timesteps / num_inference_steps)
+        ts = (ts - 1).round().astype(np.float32)
+    else:  # leading
+        step = num_train_timesteps // num_inference_steps
+        ts = (np.arange(0, num_inference_steps) * step).round()[::-1].astype(np.float32)
+    sigmas = np.interp(ts, np.arange(0, num_train_timesteps), all_sigmas)
+    sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float32)
+    return EulerConsts(timesteps=torch.tensor(ts.copy()), sigmas=torch.tensor(sigmas))
+
+
+def euler_scale_model_input(latents: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Math in f32, result in the latents' dtype (see ddim_step)."""
+    x = latents.float() / torch.sqrt(sigma.float() ** 2 + 1.0)
+    return x.to(latents.dtype)
+
+
+def euler_step(latents: torch.Tensor, eps: torch.Tensor, sigma: torch.Tensor,
+               sigma_next: torch.Tensor) -> torch.Tensor:
+    """Euler update, epsilon prediction: x0 = x - sigma*eps; dx = (x - x0)/sigma."""
+    x = latents.float()
+    pred_original = x - sigma * eps.float()
+    derivative = (x - pred_original) / sigma
+    return (x + derivative * (sigma_next - sigma)).to(latents.dtype)
+
+
+def euler_init_sigma(num_inference_steps: int, **kw) -> torch.Tensor:
+    return make_euler(num_inference_steps, **kw).sigmas[0]

@@ -4,7 +4,8 @@
 post_quant_conv (1x1, 4->4), conv_in 4->512, mid (resnet / single-head
 spatial attention / resnet), 4 up stages of 3 resnets (512, 512, 256, 128)
 with nearest-2x upsampling between, GroupNorm+SiLU+conv_out -> RGB. Latents
-are scaled by 1/0.18215 first.
+are scaled by 1/0.18215 first (SD v1.4), or 1/0.13025 (SDXL, whose decoder
+has the same architecture; pass `scale=SDXL_VAE_SCALE`).
 
 The mid-block attention always goes through `fused_attention`: on the GPU
 that is the K2 flash kernel, which streams K/V through shared memory, so the
@@ -20,6 +21,7 @@ from dgq_tpu_torch.models.unet_sd import init_unet_sd
 from dgq_tpu_torch.ops.attention import fused_attention
 
 SD_VAE_SCALE = 0.18215
+SDXL_VAE_SCALE = 0.13025
 
 
 def _resnet(p, prefix, x):

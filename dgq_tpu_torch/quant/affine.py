@@ -49,3 +49,30 @@ def fake_quant(x: torch.Tensor, qp: QParams, bits: int, symmetric: bool = False,
     nb, pb = quant_bounds(bits, symmetric, always_zero)
     x_q = torch.clamp(ste_round(x / delta), nb - zp, pb - zp)
     return delta * x_q
+
+
+def int_code_offset(bits: int, symmetric: bool = False, always_zero: bool = False) -> int:
+    """Signed-representation bias for integer codes: asymmetric codes live in
+    [0, 2^bits - 1] and are recentered by 2^(bits-1) into the int8 range;
+    symmetric codes are already signed."""
+    nb, _ = quant_bounds(bits, symmetric, always_zero)
+    return 2 ** (bits - 1) if nb == 0 else 0
+
+
+def quantize_int(x: torch.Tensor, qp: QParams, bits: int, symmetric: bool = False,
+                 always_zero: bool = False, dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Real integer quantization: clamp(round(x/delta)+zp, NB, PB) - offset as
+    signed integers (see int_code_offset). Dequantization is
+    delta*(code + offset - zp)."""
+    nb, pb = quant_bounds(bits, symmetric, always_zero)
+    off = int_code_offset(bits, symmetric, always_zero)
+    codes = torch.clamp(torch.round(x / qp.delta) + qp.zero_point, nb, pb) - off
+    return codes.to(dtype)
+
+
+def dequantize_int(codes: torch.Tensor, qp: QParams, bits: int, symmetric: bool = False,
+                   always_zero: bool = False,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of quantize_int."""
+    off = int_code_offset(bits, symmetric, always_zero)
+    return (qp.delta * (codes.to(out_dtype) + off - qp.zero_point)).to(out_dtype)

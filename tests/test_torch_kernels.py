@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4;
-group_conv.cu: K5) against their plain PyTorch versions on the card. Marked `cuda`: they skip
+group_conv.cu: K5; int8_matmul.cu: K6) against their plain PyTorch versions on the card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
 
@@ -7,8 +7,8 @@ Run them on a GPU machine with
 
 (`--noconftest`: the suite's conftest imports JAX, which a GPU machine need
 not have). The cases mirror tests/test_pallas_kernels.py: ragged S = 77,
-head dims of the main path (40/80/160 UNet, 512 VAE), two deltas, bf16 and
-f32.
+head dims of the main path (40/80/160 SD UNet, 64 SDXL UNet, 512 VAE), two
+deltas, bf16 and f32.
 
 Tolerances, with reasons:
   * K2 (flash): f32 atol 1e-4 (f32 reassociation of online vs materialized
@@ -28,12 +28,19 @@ Tolerances, with reasons:
     both sides, so only the f32 summation order differs: atol 2e-3 as
     tests/test_group_conv_kernel.py, plus 2^-7 |ref| in bf16 for the one
     rounding of each side's result.
+  * K6 (int8 matmul): the integer product is exact and the f32 epilogue is
+    written in the plain version's order without fused multiply-adds, so f32
+    outputs agree within 1e-5 of the output's largest magnitude (expected: to
+    the bit) and bf16 outputs within one bf16 ulp, 2^-7 |ref|; the codes the
+    kernel builds equal `quantize_int` bit for bit.
 """
 import pytest
 import torch
 
 from dgq_tpu_torch.ops import attention as TA
 from dgq_tpu_torch.ops import group_conv as TG
+from dgq_tpu_torch.ops import int8_matmul as TM
+from dgq_tpu_torch.quant.affine import QParams, quantize_int
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +79,7 @@ def _check(out, ref, v, dtype, delta=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [40, 80, 160, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 @pytest.mark.parametrize("s", [77, 256])
 def test_flash_kernel_matches_plain(s, d, dtype):
     q, k, v = _qkv(4, 200, s, d, dtype, seed=d + s)
@@ -85,7 +92,7 @@ def test_flash_kernel_matches_plain(s, d, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("delta", [1.0 / 255.0, 1.0 / 64.0])
-@pytest.mark.parametrize("d", [40, 80, 160, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 @pytest.mark.parametrize("s", [77, 256])
 def test_static_uniform_kernel_matches_plain(s, d, delta, dtype):
     q, k, v = _qkv(4, 200, s, d, dtype, seed=3 * d + s)
@@ -114,7 +121,8 @@ def _mismatch_share(out, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sp", [False, True])
 @pytest.mark.parametrize("t,s,d", [(200, 77, 40), (200, 256, 40), (256, 256, 80),
-                                   (70, 77, 160), (1024, 1024, 80)])
+                                   (70, 77, 160), (1024, 1024, 80), (200, 77, 64),
+                                   (1024, 1024, 64)])
 def test_log2_real_time_kernels_match_plain(t, s, d, sp, dtype):
     q, k, v = _qkv(4, t, s, d, dtype, seed=d + s + sp)
     before = dict(TA.LAUNCHES)
@@ -147,7 +155,8 @@ def test_real_time_dominant_column0_and_padded_rows():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("delta", [1.0, 0.3])
 @pytest.mark.parametrize("mode,sp", [("log2", False), ("log2", True), ("uniform", True)])
-@pytest.mark.parametrize("t,s,d", [(200, 77, 40), (256, 256, 80), (70, 77, 160)])
+@pytest.mark.parametrize("t,s,d", [(200, 77, 40), (256, 256, 80), (70, 77, 160), (200, 77, 64),
+                                   (256, 256, 64)])
 def test_static_quant_kernel_matches_plain(t, s, d, mode, sp, delta, dtype):
     q, k, v = _qkv(4, t, s, d, dtype, seed=2 * d + s + sp)
     sm_delta = torch.tensor(delta, device="cuda", dtype=dtype)
@@ -158,6 +167,16 @@ def test_static_quant_kernel_matches_plain(t, s, d, mode, sp, delta, dtype):
     assert TA.LAUNCHES["static_quant_attention"] == before + 1
     ref = TA.attention_reference(q, k, v, d ** -0.5, mode, 8, sm_delta, start_peak=sp)
     assert _mismatch_share(out, ref, dtype) < 5e-4
+
+
+def test_flash_kernel_at_the_1024px_vae_shape():
+    """K2 at T = S = 16384, D = 512, one head: the SDXL decode's mid-block
+    attention (512 blocks of 32 query rows, 207 KB of shared memory)."""
+    q, k, v = _qkv(1, 16384, 16384, 512, torch.bfloat16, seed=5)
+    q, k = q * 0.25, k * 0.25  # keep the softmax from collapsing onto one key
+    out = TA.fused_attention(q, k, v, 512 ** -0.5, sm_mode="none")
+    torch.cuda.synchronize()
+    _check(out, TA.attention_reference(q, k, v, 512 ** -0.5), v, torch.bfloat16)
 
 
 def _conv_case(b, h, c, o, dtype, seed, zp=(100.0, 156.0), dl=1.0):
@@ -201,6 +220,95 @@ def test_group_conv_no_padding_and_no_bias():
     assert float((out - ref).abs().max()) <= 2e-3
 
 
+def _int8_case(m, k, n, dtype, w_bits, a_bits, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.5 * torch.randn(m, k, generator=g, device="cuda")).to(dtype)
+    lo = 2 ** (w_bits - 1)
+    wq = torch.randint(-lo, lo, (n, k), generator=g, device="cuda", dtype=torch.int32).to(torch.int8)
+    dw = 0.005 + 0.01 * torch.rand(n, generator=g, device="cuda")
+    zw = torch.round(2.0 * torch.randn(n, generator=g, device="cuda"))
+    bias = torch.randn(n, generator=g, device="cuda").to(dtype)
+    # an activation range that clips on both sides; the zero point off centre
+    dx = torch.tensor(6.0 / 2 ** a_bits, device="cuda")
+    zp = torch.tensor(float(2 ** (a_bits - 1) + 5), device="cuda")
+    return x, wq, dw, zw, dx, zp, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_bits,a_bits", [(4, 8), (8, 8), (4, 6)])
+@pytest.mark.parametrize("m,k,n", [
+    (256, 320, 384),     # whole tiles
+    (308, 768, 320),     # cross to_k: ragged M
+    (4, 320, 1280),      # time embedding: one partial row tile
+    (2, 2816, 1280),     # SDXL add_embedding.linear_1: K = 44 tiles
+    (77, 36, 50),        # K a multiple of 4 only: the scalar loads
+    (130, 100, 130),     # ragged M, N and K
+    (256, 5120, 1280),   # SD 8px FF-out: the widest K
+])
+def test_int8_matmul_kernel_matches_plain(m, k, n, w_bits, a_bits, dtype):
+    x, wq, dw, zw, dx, zp, bias = _int8_case(m, k, n, dtype, w_bits, a_bits, seed=m + k + a_bits)
+    zx = zp - 2 ** (a_bits - 1)
+    ksum = wq.sum(dim=1, dtype=torch.int32).float()
+    before = TM.LAUNCHES["int8_matmul"]
+    out, codes, xsum = TM.quantized_matmul(x, wq, dw, zw, dx, zx, bias, ksum, a_bits=a_bits,
+                                           return_codes=True)
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES["int8_matmul"] == before + 1
+    ref = TM.quantized_matmul_reference(x, wq, dw, zw, dx, zx, bias, ksum, a_bits=a_bits)
+    assert out.shape == ref.shape == (m, n) and out.dtype == dtype
+    # the in-kernel quantizer is quantize_int, bit for bit
+    want = quantize_int(x.float(), QParams(dx, zp), a_bits)
+    assert torch.equal(codes, want)
+    assert torch.equal(xsum, want.float().sum(dim=1))
+    assert int(codes.min()) == -(2 ** (a_bits - 1)) and int(codes.max()) == 2 ** (a_bits - 1) - 1
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert bool((err <= 2.0 ** -7 * ref.float().abs()).all()), float(err.max())
+    assert float(ref.float().abs().max()) > 0.5
+    # without the pack-time sums and without a bias
+    out2 = TM.quantized_matmul(x, wq, dw, zw, dx, zx, None, None, a_bits=a_bits)
+    ref2 = TM.quantized_matmul_reference(x, wq, dw, zw, dx, zx, None, None, a_bits=a_bits)
+    assert float((out2.float() - ref2.float()).abs().max()) <= 2.0 ** -7 * float(ref2.abs().max())
+
+
+def test_int8_matmul_reads_scale_and_zero_point_from_the_device():
+    """A time-aware slot is a view into a stacked tensor: the kernel reads the
+    scalar through a pointer, whatever its dtype."""
+    x, wq, dw, zw, _, _, bias = _int8_case(64, 128, 64, torch.bfloat16, 4, 8, seed=4)
+    deltas = torch.tensor([0.02, 0.05], device="cuda", dtype=torch.bfloat16)
+    zps = torch.tensor([3.0, -4.0], device="cuda", dtype=torch.bfloat16)
+    for slot in (0, 1):
+        out = TM.quantized_matmul(x, wq, dw, zw, deltas[slot], zps[slot], bias)
+        ref = TM.quantized_matmul_reference(x, wq, dw, zw, deltas[slot], zps[slot], bias)
+        assert bool(((out.float() - ref.float()).abs() <= 2.0 ** -7 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("dxv", [0.05, 0.1, 1.0 / 3.0, 0.0234375, 1e-3, 0.7])
+@pytest.mark.parametrize("zxv", [0.0, -7.0, 5.0, 0.37])
+def test_int8_matmul_quantizer_at_rounding_ties(dxv, zxv):
+    """The kernel quantizes by the reciprocal of dx and takes the true division
+    next to a rounding tie (and for a fractional zero point): on values at the
+    half-integer multiples of dx and up to 2 ulps either side of them, the
+    codes are those of clip(round(x / dx) + zx, nb, pb) bit for bit."""
+    dx = torch.tensor(dxv, device="cuda")
+    zx = torch.tensor(zxv, device="cuda")
+    j = torch.arange(-160, 160, device="cuda", dtype=torch.float32)
+    ties = (j + 0.5) * dx
+    up1 = torch.nextafter(ties, ties + 1.0)
+    dn1 = torch.nextafter(ties, ties - 1.0)
+    x = torch.stack([ties, up1, dn1, torch.nextafter(up1, ties + 1.0),
+                     torch.nextafter(dn1, ties - 1.0), j * dx]).contiguous()
+    wq = torch.ones(8, x.shape[1], dtype=torch.int8, device="cuda")
+    ones = torch.ones(8, device="cuda")
+    _, codes, xsum = TM.quantized_matmul(x, wq, ones, 0 * ones, dx, zx, return_codes=True)
+    torch.cuda.synchronize()
+    want = torch.clamp(torch.round(x / dx) + zx, -128.0, 127.0).to(torch.int8)
+    assert torch.equal(codes, want)
+    assert torch.equal(xsum, want.float().sum(dim=1))
+
+
 def test_wrapper_rejects_bad_inputs():
     q, k, v = _qkv(2, 64, 77, 40, torch.bfloat16, seed=1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -216,3 +324,10 @@ def test_wrapper_rejects_bad_inputs():
     x, w, dm, zm, dl, zl, bias = _conv_case(1, 8, 32, 32, torch.float32, seed=2)
     with pytest.raises(ValueError, match="contiguous"):
         TG.group_quant_conv(x.transpose(1, 2), w, dm, zm, dl, zl, bias)
+    x, wq, dw, zw, dx, zp, bias = _int8_case(32, 64, 32, torch.float32, 4, 8, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        TM.quantized_matmul(x.t().contiguous().t(), wq, dw, zw, dx, zp - 128)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        TM.quantized_matmul(x.half(), wq, dw, zw, dx, zp - 128)
+    with pytest.raises(ValueError, match="one device"):
+        TM.quantized_matmul(x, wq.cpu(), dw, zw, dx, zp - 128)

@@ -129,7 +129,13 @@ def test_aq_apply_and_softmax_q_apply_bit_identical():
     ("packed_attention", True), ("fold_act_dequant", True),
 ])
 def test_qconfig_unported_fields_raise(field, value):
+    """The int8 matmul path and the codes fold are ported and construct; the
+    s8 conv and the packed attention layout still raise."""
     j_qc.QConfig(**{field: value})  # the JAX package takes the same dict
+    if field in ("use_int8_matmul", "fold_act_dequant"):
+        assert getattr(t_qc.QConfig(**{field: value}), field) is value
+        assert getattr(t_qc.QConfig().replace(**{field: value}), field) is value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_qc.QConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -202,7 +208,9 @@ def test_port_imports_no_jax():
     code = ("import sys, dgq_tpu_torch, dgq_tpu_torch.pipeline.sampler, "
             "dgq_tpu_torch.pipeline.vae, dgq_tpu_torch.io.convert, "
             "dgq_tpu_torch.calib.weight_calib, dgq_tpu_torch.utils.synthetic, "
-            "dgq_tpu_torch.ops.build, dgq_tpu_torch.ops.group_conv, chip_smoke, chip_profile\n"
+            "dgq_tpu_torch.ops.build, dgq_tpu_torch.ops.group_conv, "
+            "dgq_tpu_torch.ops.int8_matmul, dgq_tpu_torch.models.unet_sdxl, chip_smoke, "
+            "chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers')]\n"
             "assert not bad, bad")
@@ -220,7 +228,8 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
     code = ("import sys, dgq_tpu_torch.pipeline.sampler, dgq_tpu_torch.pipeline.vae, "
             "dgq_tpu_torch.io.convert, dgq_tpu_torch.calib.weight_calib, "
             "dgq_tpu_torch.utils.synthetic, dgq_tpu_torch.ops.build, "
-            "dgq_tpu_torch.ops.group_conv\n"
+            "dgq_tpu_torch.ops.group_conv, dgq_tpu_torch.ops.int8_matmul, "
+            "dgq_tpu_torch.models.unet_sdxl\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
