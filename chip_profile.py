@@ -5,15 +5,21 @@ configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
 
-For each of the SD g=1 path (int8 deploy path off and on), the g=8 path with
-the fused group conv, the g=8 path with the taps group conv and the SDXL-turbo
-path (int8 deploy path on and off), it runs one 1-step sampler call (one UNet
-forward) three times unprofiled (host wall after a synchronise) and once under
-`torch.profiler`, and prints: host wall, the number of device kernels, device
-busy time (the union of the kernels' intervals), the idle share
+For each of the SD g=1 path (unpacked, with packed attention, and with the
+int8 deploy path), the g=8 path with the fused group conv (unpacked and
+packed), the g=8 path with the taps group conv and the SDXL-turbo path (int8
+deploy path on; off; off with packed attention), it runs one 1-step sampler
+call (one UNet forward) three times unprofiled (host wall after a
+synchronise) and once under `torch.profiler`, and prints: host wall, the
+number of device kernels and how many of them are copies (a permute made
+contiguous, a concatenation, a dtype cast: every kernel with "copy" in its
+name), device busy time (the union of the kernels' intervals), the idle share
 1 - busy / unprofiled wall (the profiler slows the host, not the kernels, so
 the profiled wall would overstate it), and device time by bucket (kernels
-bucketed by name). The last line repeats the figures as one JSON object. It
+bucketed by name). Host walls of two calls spread by tens of percent on a
+shared host, so each packed step is also timed against its unpacked step in
+turns (unpacked, packed, packed, unpacked, five rounds) and the two medians are
+printed side by side. The last line repeats the figures as one JSON object. It
 shares the model set-up with chip_smoke.py and, like it, refuses to run
 without a card.
 """
@@ -23,7 +29,7 @@ import subprocess
 import time
 
 BUCKETS = (
-    ("attention kernels (K1-K4)", ("attention_kernel",)),
+    ("attention kernels (K1-K4, K1p-K4p)", ("attention_kernel",)),
     ("group conv kernel (K5)", ("group_conv_kernel",)),
     ("int8 matmul kernel (K6)", ("int8_matmul_kernel",)),
     ("library convs", ("fprop", "implicit_gemm", "cudnn", "conv2d", "convolve")),
@@ -41,10 +47,12 @@ def _bucket(name):
 
 
 def sd_step(model, qstate, cfg):
-    """One 1-step `sd_sample`: one SD v1.4 forward at CFG batch 4."""
+    """One 1-step `sd_sample`: one SD v1.4 forward at CFG batch 4, on the
+    packed parameters when the policy says packed_attention."""
     from dgq_tpu_torch.pipeline.sampler import sd_sample
 
-    return lambda: sd_sample(model["params"], model["latents"], model["ehs_t"], model["ehs_u"],
+    params = model["params_packed" if cfg.packed_attention else "params"]
+    return lambda: sd_sample(params, model["latents"], model["ehs_t"], model["ehs_u"],
                              num_inference_steps=1, guidance_scale=7.5, qstate=qstate, cfg=cfg,
                              time_aware=True)
 
@@ -96,16 +104,52 @@ def profile_step(sample, label, batch, tag):
     for e in kernels:
         b = _bucket(e.name)
         by_bucket[b] = by_bucket.get(b, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    copies = [e for e in kernels if "copy" in e.name.lower()]
     rec = {"config": label, "wall_ms_unprofiled_median": statistics.median(walls),
            "wall_ms_unprofiled": walls, "wall_ms_profiled": wall_prof,
-           "device_kernels": len(kernels), "device_busy_ms": busy,
+           "device_kernels": len(kernels), "copy_kernels": len(copies),
+           "copy_kernels_ms": sum(e.time_range.end - e.time_range.start for e in copies) / 1e3,
+           "device_busy_ms": busy,
            "idle_share": 1.0 - busy / statistics.median(walls),
            "device_ms_by_bucket": dict(sorted(by_bucket.items(), key=lambda kv: -kv[1]))}
     print(f"{label}: one step (one UNet forward at batch {batch}): host wall "
           f"{rec['wall_ms_unprofiled_median']:.2f} ms unprofiled (median of {walls}), "
-          f"{wall_prof:.2f} ms profiled; {len(kernels)} device kernels, device busy "
+          f"{wall_prof:.2f} ms profiled; {len(kernels)} device kernels of which {len(copies)} "
+          f"copies ({rec['copy_kernels_ms']:.2f} ms), device busy "
           f"{busy:.2f} ms, idle share {rec['idle_share']:.3f}; device ms by bucket "
           f"{rec['device_ms_by_bucket']} | {tag}", flush=True)
+    return rec
+
+
+def in_turns(unpacked, packed, label, tag, rounds=5):
+    """Host wall of one step (ended by a synchronise) of two versions of a
+    path, taken in turns so that both see the same host: unpacked, packed,
+    packed, unpacked per round. Returns the medians."""
+    import torch
+
+    def wall(sample):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    wall(unpacked), wall(packed)  # warm-up
+    u, p = [], []
+    for _ in range(rounds):
+        u.append(wall(unpacked))
+        p.append(wall(packed))
+        p.append(wall(packed))
+        u.append(wall(unpacked))
+    rec = {"config": label, "unpacked_wall_ms_median": statistics.median(u),
+           "packed_wall_ms_median": statistics.median(p), "unpacked_wall_ms": u,
+           "packed_wall_ms": p}
+    print(f"{label}, one step in turns ({rounds} rounds of unpacked, packed, packed, unpacked): "
+          f"host wall median unpacked {rec['unpacked_wall_ms_median']:.2f} ms (min {min(u):.2f}, "
+          f"max {max(u):.2f}), packed attention {rec['packed_wall_ms_median']:.2f} ms (min "
+          f"{min(p):.2f}, max {max(p):.2f}), ratio "
+          f"{rec['packed_wall_ms_median'] / rec['unpacked_wall_ms_median']:.3f} | {tag}",
+          flush=True)
     return rec
 
 
@@ -132,13 +176,22 @@ def main():
     g1 = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                  use_pallas_attention=True)
     g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
+    g1p, g8p = g1.replace(packed_attention=True), g8.replace(packed_attention=True)
     records = [
         profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
+        profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
         profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
                      "g=1 int8 deploy path", 4, tag),
         profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention", 4,
+                     tag),
         profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
                      "g=8 taps group conv", 4, tag),
+    ]
+    turns = [
+        in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
+        in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p), "g=8 fused group conv",
+                 tag),
     ]
     del model, qs_g1, qs_g8
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
@@ -151,8 +204,15 @@ def main():
         profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag),
         profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
                      "SDXL-turbo int8 path off", 2, tag),
+        profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False,
+                                                     packed_attention=True)),
+                     "SDXL-turbo int8 path off, packed attention", 2, tag),
     ]
-    print(json.dumps({"card": card, "steps": records}))
+    off = xl.replace(use_int8_matmul=False)
+    turns.append(in_turns(sdxl_step(model, qs, off),
+                          sdxl_step(model, qs, off.replace(packed_attention=True)),
+                          "SDXL-turbo int8 path off", tag))
+    print(json.dumps({"card": card, "steps": records, "in_turns": turns}))
 
 
 if __name__ == "__main__":

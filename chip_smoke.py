@@ -9,23 +9,30 @@ Phases (any failure raises, so the exit code is non-zero):
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, with the tolerance stated in `_check` / `_check_share` /
      `_check_conv` / `compare_int8`, and time both (and the one library call
-     that computes the same function, where there is one);
+     that computes the same function, where there is one). The packed
+     head-slot attention entries are also held bit for bit against their
+     unpacked kernels, over output memory that holds NaN;
   3. a small-input check: the tiny UNets on the card against the same models
      on the CPU (plain versions): SD fp, W8A8 g=1, g=1 with the int8 path,
      the g=8 configuration and the static-log2 configuration; SDXL fp and
-     the SDXL-turbo policy with the int8 path;
+     the SDXL-turbo policy with the int8 path; and with packed attention
+     (`pack_attention_heads` + `QConfig(packed_attention=True)`) SD fp at slot
+     64 and 128, g=1, g=8 and static log2, SDXL fp and real-time log2;
   4. the main paths at full width (random weights from a seed, W4 minmax
-     fold, 2 images, bf16, VAE decode). SD v1.4 at 512px, DDIM with CFG 7.5:
+     fold, 2 images, bf16, VAE decode). SD v1.4 at 512px, DDIM with CFG 7.5,
+     each of 4a to 4c first unpacked, then with packed attention:
      4a the g=1 path (time-aware per-tensor A8 + uniform A8 softmax);
      4b the g=8 flagship path (time-aware group-quantized k x k convs through
-        the fused kernel, log2 real_time softmax with start_peak), then one
-        step with group_conv_impl="taps" for the record;
-     4c one step of the static-log2 (`log_max_1`) configuration;
+        the fused kernel, log2 real_time softmax with start_peak), and one
+        unpacked step with group_conv_impl="taps" for the record;
+     4c one step of the static-log2 (`log_max_1`) configuration, and one
+        unquantized (fp) step;
      4d the g=1 path with the int8 deploy path on (`use_int8_matmul`): every
         linear and 1x1 conv through the int8 matmul kernel.
-     SDXL-turbo at 1024px, 4 Euler steps, guidance 0:
-     4e W4A8 with log2 real_time softmax, start_peak and the int8 deploy path,
-        decoded at 1024px; then one step with the int8 path off for the record.
+     SDXL-turbo at 1024px, 4 Euler steps, guidance 0, decoded at 1024px:
+     4e W4A8 with log2 real_time softmax, start_peak and the int8 deploy path;
+     4f the same with the int8 path off, unpacked and then with packed
+        attention (the JAX bench's `--model sdxl` default).
      The kernels' launch counts over each run are checked.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
@@ -39,7 +46,7 @@ import subprocess
 import time
 
 STEPS_G1 = 10
-STEPS_G8 = 10
+STEPS_G8 = 4
 STEPS_INT8 = 4
 STEPS_SDXL = 4
 IMAGES = 2
@@ -55,7 +62,15 @@ KERNELS = {
     "static_quant_attention": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:215"),
     "group_quant_conv": (CONV_SRC, "dgq_tpu/ops/pallas/group_conv.py:74"),
     "int8_matmul": (INT8_SRC, "dgq_tpu/ops/pallas/int8_matmul.py:36"),
+    # the packed head-slot entries: the pallas_calls of _fused_attention_packed
+    "static_uniform_attention_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:899"),
+    "flash_attention_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:877"),
+    "rt_stats_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:945"),
+    "quant_accum_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:945"),
+    "static_quant_attention_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:916"),
 }
+CLASSIC_ATTENTION = ("static_uniform_attention", "rt_stats", "quant_accum",
+                     "static_quant_attention")
 # the card's published peaks (NVIDIA H100 SXM data sheet): bf16 and int8
 # tensor-core rates and device-memory rate, for the least time a kernel's work
 # could take
@@ -114,17 +129,33 @@ def _check(out, ref, v, delta=None):
     return float(err.max()), float(err.mean())
 
 
-def _check_share(out, ref):
+def _check_f32(out, ref, v, delta=None):
+    """`_check` for f32 tensors: 1e-4 (f32 reassociation of the online against
+    the materialized softmax) in place of the bf16 rounding term."""
+    if out.shape != ref.shape or not bool(out.isfinite().all()):
+        raise AssertionError(f"bad kernel output: shape {tuple(out.shape)}")
+    err = (out - ref).abs()
+    vmax = float(v.abs().max())
+    bound = 1e-4 + (2.0 * delta * vmax if delta is not None else 0.0)
+    if delta is not None and float(err.mean()) > 2.0 ** -8 * float(ref.abs().mean()) + 0.01 * delta * vmax:
+        raise AssertionError(f"mean error {float(err.mean())} too large")
+    if float(err.max()) > bound:
+        raise AssertionError(f"error {float(err.max())} exceeds the bound {bound}")
+    return float(err.max()), float(err.mean())
+
+
+def _check_share(out, ref, bf16=True):
     """The log2 quantizers (K3b, K4): a code flips at a half-integer exponent
     and changes that probability by a factor of 2, so an error's size is not
     bounded but the share of outputs with one is: under 5e-4 may be off by
     more than 2e-3 + 2^-7 |ref| (2e-3 as the JAX package's kernel tests; the
-    second term is each side's one rounding to bf16)."""
+    second term is each side's one rounding to bf16 and is left out for f32
+    tensors)."""
     out, ref = out.float(), ref.float()
     if out.shape != ref.shape or not bool(out.isfinite().all()):
         raise AssertionError(f"bad kernel output: shape {tuple(out.shape)}")
     err = (out - ref).abs()
-    share = float((err > 2e-3 + 2.0 ** -7 * ref.abs()).float().mean())
+    share = float((err > 2e-3 + (2.0 ** -7 * ref.abs() if bf16 else 0.0)).float().mean())
     if share >= 5e-4:
         raise AssertionError(f"mismatch share {share} >= 5e-4 (max err {float(err.max())})")
     return float(err.max()), share
@@ -289,6 +320,175 @@ def compare_attention(tag, summary):
         print(f"{name} {label} {shape}: max_abs_err {mx:.6g} {note}; median ms kernel {ms:.4f} "
               f"plain {plain_ms:.4f} bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
         del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+
+def compare_attention_packed(tag, summary):
+    """Phase 2, the packed head-slot entries (K1p to K4p) at the main paths'
+    shapes: SD 512px (CFG batch 2 x IMAGES, 8 heads; head dim 40 in a slot of
+    64 at 64px, 80 in 128 at 32px, 160 in 256 at 16px) and SDXL 1024px (batch
+    IMAGES, 10 or 20 heads of 64, slot 64), self and cross (S = 77, with
+    start_peak where the mode has it), f32 and bf16. Each output is written
+    over memory that holds NaN and must equal the unpacked kernel's bit for
+    bit, with zeros in the padding lanes, and agree with the plain version
+    within the unpacked kernel's tolerance. Timed in bf16: the packed entry,
+    its plain version, the unpacked route as `models.layers.attention` walks
+    it (three permute copies in, the kernel, one permute copy out), and for
+    K2p `scaled_dot_product_attention` on the same strided views. Work per
+    call: as the unpacked kernel's on the true head dim; bytes are the true
+    lanes of q, k, v once and the whole slots of the output once."""
+    import torch
+    import torch.nn.functional as F
+    from dgq_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    sd_b, sd_h = 2 * IMAGES, 8
+    sd = [(64, 4096, 40, 64), (32, 1024, 80, 128), (16, 256, 160, 256)]
+    xl = [(64, 4096, 10), (32, 1024, 20)]
+    cases = []  # name, label, b, h, t, s, d, dp, mode, start_peak
+    for px, t, d, dp in sd:
+        for kind, s in (("self", t), ("cross", 77)):
+            cases.append(("static_uniform_attention_packed", f"{px}px {kind}", sd_b, sd_h, t, s,
+                          d, dp, "uniform", False))
+    for px, t, d, dp in sd:
+        cases.append(("flash_attention_packed", f"{px}px self (fp UNet)", sd_b, sd_h, t, t, d, dp,
+                      "none", False))
+    cases.append(("flash_attention_packed", "64px cross (fp UNet)", sd_b, sd_h, 4096, 77, 40, 64,
+                  "none", False))
+    for px, t, d, dp in sd:
+        cases.append(("rt", f"{px}px self", sd_b, sd_h, t, t, d, dp, "log2_real_time", False))
+        cases.append(("rt", f"{px}px cross start_peak", sd_b, sd_h, t, 77, d, dp,
+                      "log2_real_time", True))
+    for kind, s in (("self", 4096), ("cross", 77)):
+        for mode, sp in (("log2", False), ("log2", True), ("uniform", True)):
+            cases.append(("static_quant_attention_packed",
+                          f"64px {kind} {mode}" + (" start_peak" if sp else ""), sd_b, sd_h, 4096,
+                          s, 40, 64, mode, sp))
+    for px, t, heads in xl:
+        cases.append(("rt", f"SDXL {px}px self", IMAGES, heads, t, t, 64, 64, "log2_real_time",
+                      False))
+        cases.append(("rt", f"SDXL {px}px cross start_peak", IMAGES, heads, t, 77, 64, 64,
+                      "log2_real_time", True))
+        cases.append(("flash_attention_packed", f"SDXL {px}px self", IMAGES, heads, t, t, 64, 64,
+                      "none", False))
+        cases.append(("static_quant_attention_packed", f"SDXL {px}px cross log2 start_peak",
+                      IMAGES, heads, t, 77, 64, 64, "log2", True))
+        cases.append(("static_uniform_attention_packed", f"SDXL {px}px self", IMAGES, heads, t, t,
+                      64, 64, "uniform", False))
+
+    for name, label, b, h, t, s, d, dp, mode, sp in cases:
+        scale = d ** -0.5
+        shape = f"(B={b}, H={h}, T={t}, S={s}, d={d} in slots of {dp})"
+        worst = {}
+        for dtype in (torch.float32, bf):
+            q = (2.0 * torch.randn(b * h, t, d, generator=g, device="cuda")).to(dtype)
+            k = (2.0 * torch.randn(b * h, s, d, generator=g, device="cuda")).to(dtype)
+            v = torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype)
+            qp, kp, vp = (A.repack_heads(x, h, dp) for x in (q, k, v))
+            dl = {"uniform": torch.tensor(1.0 / 255.0, device="cuda", dtype=dtype),
+                  "log2": torch.ones((), device="cuda", dtype=dtype)}.get(mode)
+            kw = dict(sm_mode=mode, sm_bits=8, sm_delta=dl, start_peak=sp)
+            before = dict(A.LAUNCHES)
+            buf = torch.full((b, t, h * dp), float("nan"), device="cuda", dtype=dtype)
+            out = A.fused_attention(qp, kp, vp, scale, num_heads=h, head_dim=d, out=buf, **kw)
+            unpacked = A.fused_attention(q, k, v, scale, **kw)
+            ref = A.packed_attention_reference(qp, kp, vp, scale, h, d, mode, 8, dl, sp)
+            torch.cuda.synchronize()
+            mine = ("rt_stats_packed", "quant_accum_packed") if name == "rt" else (name,)
+            if any(A.LAUNCHES[n] != before[n] + 1 for n in mine):
+                raise AssertionError(f"{label} did not launch {mine}")
+            if not bool((out.reshape(b, t, h, dp)[..., d:] == 0).all()):
+                raise AssertionError(f"{name} {label} {dtype}: padding lanes are not zeros")
+            vs_unpacked = float((A.unpack_heads(out, h, d).float() - unpacked.float()).abs().max())
+            if vs_unpacked != 0.0 or not torch.equal(A.unpack_heads(out, h, d), unpacked):
+                raise AssertionError(f"{name} {label} {dtype}: differs from the unpacked kernel "
+                                     f"by {vs_unpacked}")
+            if mode == "none" or (mode == "uniform" and not sp):
+                tol = _check if dtype == bf else _check_f32
+                mx, _ = tol(out, ref, v, float(dl) if mode == "uniform" else None)
+                share = None
+            else:
+                mx, share = _check_share(out, ref, bf16=dtype == bf)
+            worst[dtype] = (mx, share)
+            if name == "rt":  # the first launch on its own: same z and scalar as unpacked
+                z, red = A.rt_stats_packed(qp, kp, scale, h, d, sp)
+                z0, red0 = A.rt_stats(q, k, scale, sp)
+                z_ref, red_ref = A.rt_stats_reference(q, k, scale, sp)
+                z_err = float((z - z_ref).abs().max())
+                if not (torch.equal(z, z0) and torch.equal(red, red0) and z_err <= 1e-4
+                        and float(((red - red_ref) / red_ref).abs()) <= 1e-4):
+                    raise AssertionError(f"rt_stats_packed {label} {dtype}: z err {z_err}")
+                worst[dtype] += (z_err,)
+        # timing, bf16 (the last dtype of the loop)
+        qk_flops = 2.0 * b * h * t * s * d
+        valid = 2.0 * (q.numel() + k.numel() + v.numel())
+        note = (f"max_abs_err vs unpacked kernel 0 (f32, bf16), padding lanes zero over NaN; vs "
+                f"plain f32 {worst[torch.float32][0]:.3g} bf16 {worst[bf][0]:.6g}")
+        if worst[bf][1] is not None:
+            note += f" mismatch share {max(worst[torch.float32][1], worst[bf][1]):.3g}"
+        if name == "rt":
+            ms = _median_ms(lambda: A.rt_stats_packed(qp, kp, scale, h, d, sp))
+            plain_ms = _median_ms(lambda: A.rt_stats_reference(q, k, scale, sp))
+            unp_ms = _median_ms(lambda: A.rt_stats(q, k, scale, sp))
+            bound = _bound(qk_flops, 2.0 * (q.numel() + k.numel()) + 4.0 * b * h * t)
+            summary.add("rt_stats_packed", label, max(worst[torch.float32][2], worst[bf][2]), ms,
+                        plain_ms, bound)
+            print(f"rt_stats_packed {label} {shape}: z and scalar equal the unpacked kernel's; "
+                  f"median ms kernel {ms:.4f} unpacked kernel {unp_ms:.4f} plain {plain_ms:.4f} "
+                  f"bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
+            z, red = A.rt_stats_packed(qp, kp, scale, h, d, sp)
+            delta = A.rt_delta(red, sp)
+            ms = _median_ms(lambda: A.quant_accum_packed(qp, kp, vp, z, red, scale, h, d, 8, sp))
+            plain_ms = _median_ms(lambda: A.packed_attention_reference(
+                qp, kp, vp, scale, h, d, "log2", 8, delta, sp))
+            z0, red0 = A.rt_stats(q, k, scale, sp)
+            unp_ms = _median_ms(lambda: A.quant_accum(q, k, v, z0, red0, scale, 8, sp))
+            bound = _bound(2 * qk_flops, valid + 2.0 * b * t * h * dp + 4.0 * b * h * t)
+            summary.add("quant_accum_packed", label, worst[bf][0], ms, plain_ms, bound,
+                        share=max(worst[torch.float32][1], worst[bf][1]))
+            print(f"quant_accum_packed {label} {shape}: {note}; median ms kernel {ms:.4f} "
+                  f"unpacked kernel {unp_ms:.4f} plain {plain_ms:.4f} bound {bound[0]:.4f} "
+                  f"({bound[1]}) | {tag}", flush=True)
+            pname = "log2_real_time_attention_packed (both launches)"
+        else:
+            pname = name
+
+        def packed_route():
+            return A.fused_attention(qp, kp, vp, scale, num_heads=h, head_dim=d, **kw)
+
+        # the unpacked route of models.layers.attention from the same projections'
+        # outputs: q, k, v (B, T, H*d) -> three permute copies, the kernel, one back
+        q3, k3, v3 = (A.unpack_heads(x, h, d).reshape(b, h, -1, d).permute(0, 2, 1, 3)
+                      .reshape(b, -1, h * d) for x in (qp, kp, vp))
+
+        def unpacked_route():
+            qq, kk, vv = (x.reshape(b, -1, h, d).permute(0, 2, 1, 3).reshape(b * h, -1, d)
+                          for x in (q3, k3, v3))
+            o = A.fused_attention(qq, kk, vv, scale, **kw)
+            return o.reshape(b, h, t, d).permute(0, 2, 1, 3).reshape(b, t, h * d)
+
+        ms, route_ms = _median_ms(packed_route), _median_ms(unpacked_route)
+        line = (f"{pname} {label} {shape}: {note}; median ms packed entry {ms:.4f}, unpacked "
+                f"route with its four permute copies {route_ms:.4f}")
+        if name != "rt":
+            plain_ms = _median_ms(lambda: A.packed_attention_reference(
+                qp, kp, vp, scale, h, d, mode, 8, dl, sp))
+            library_ms = None
+            if name == "flash_attention_packed":
+                # the one PyTorch call for K2p's function, on the same strided head views
+                q4, k4, v4 = (x.reshape(b, -1, h, dp)[..., :d].transpose(1, 2)
+                              for x in (qp, kp, vp))
+                library_ms = _median_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+                line += f", library (scaled_dot_product_attention) {library_ms:.4f}"
+            bound = _bound(2 * qk_flops, valid + 2.0 * b * t * h * dp)
+            summary.add(name, label, worst[bf][0], ms, plain_ms, bound, library_ms,
+                        None if worst[bf][1] is None
+                        else max(worst[torch.float32][1], worst[bf][1]))
+            line += f", plain {plain_ms:.4f}, bound {bound[0]:.4f} ({bound[1]})"
+        print(f"{line} | {tag}", flush=True)
+        del q, k, v, qp, kp, vp, q3, k3, v3, out, ref, unpacked, buf
     torch.cuda.empty_cache()
 
 
@@ -476,9 +676,14 @@ def small_input_check(tag):
     with one of about half its output's size (one flipped maximum rescales a
     whole attention), and the card is a perturbation of the CPU of the fp
     check's size, not of 1e-6: its sixteen draws are of size 1e-5, and the
-    card must be within 2 * chaos in the largest and in the mean error."""
+    card must be within 2 * chaos in the largest and in the mean error.
+    The packed configurations run the same nets with `pack_attention_heads`
+    weights (the tiny SD heads are 4 to 16 wide in slots of 64 or 128, the
+    tiny SDXL heads 32 wide in slots of 64) and `packed_attention=True` on
+    both sides; on the card every attention must go through a packed entry
+    and none through an unpacked kernel."""
     import torch
-    from dgq_tpu_torch.calib.weight_calib import quantize_model_weights
+    from dgq_tpu_torch.calib.weight_calib import pack_attention_heads, quantize_model_weights
     from dgq_tpu_torch.models.qconfig import QConfig
     from dgq_tpu_torch.models.unet_sd import init_unet_sd, sd_unet_spec, unet_sd_apply
     from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec, unet_sdxl_apply
@@ -521,7 +726,8 @@ def small_input_check(tag):
 
     # label, forward, params, qstate, cfg, kernels that must launch, perturbation size
     configs = [
-        ("SD fp", sd, params, None, QConfig(use_pallas_attention=True), (), None),
+        ("SD fp", sd, params, None, QConfig(use_pallas_attention=True), ("flash_attention",),
+         None),
         ("SD W8A8 g=1", sd, params_q, qs_g1, QConfig(**kw), ("static_uniform_attention",), 1e-6),
         ("SD W8A8 g=1 int8", sd, params_q, qs_g1, int8,
          ("static_uniform_attention", "int8_matmul"), 1e-6),
@@ -529,9 +735,33 @@ def small_input_check(tag):
          ("rt_stats", "quant_accum", "group_quant_conv"), 1e-6),
         ("SD W8A8 g=8 static log2", sd, params_q, qs_g8,
          g8.replace(t2i_real_time=False, log_max_1=True), ("static_quant_attention",), 1e-6),
-        ("SDXL fp", sdxl, xparams, None, QConfig(use_pallas_attention=True), (), None),
+        ("SDXL fp", sdxl, xparams, None, QConfig(use_pallas_attention=True),
+         ("flash_attention",), None),
         ("SDXL W8A8 log2 real_time int8", sdxl, xparams_q, xqs, xint8,
          ("rt_stats", "quant_accum", "int8_matmul"), 1e-5),
+    ]
+    # the same nets with packed attention
+    fp_p = QConfig(use_pallas_attention=True, packed_attention=True)
+    pk64 = pack_attention_heads(params, spec, 8, slot=64)
+    pk128 = pack_attention_heads(params, spec, 8, slot=128)
+    pkq = pack_attention_heads(params_q, spec, 8)
+    g8p = g8.replace(packed_attention=True)
+    xheads = lambda o: o // 32  # noqa: E731  (the tiny SDXL net's heads are 32 wide)
+    xrt = xint8.replace(use_int8_matmul=False, packed_attention=True)
+    configs += [
+        ("SD fp packed slot 64", sd, pk64, None, fp_p, ("flash_attention_packed",), None),
+        ("SD fp packed slot 128", sd, pk128, None, fp_p, ("flash_attention_packed",), None),
+        ("SD W8A8 g=1 packed", sd, pkq, qs_g1, QConfig(**kw, packed_attention=True),
+         ("static_uniform_attention_packed",), 1e-6),
+        ("SD W8A8 g=8 fused packed", sd, pkq, qs_g8, g8p,
+         ("rt_stats_packed", "quant_accum_packed", "group_quant_conv"), 1e-6),
+        ("SD W8A8 g=8 static log2 packed", sd, pkq, qs_g8,
+         g8p.replace(t2i_real_time=False, log_max_1=True),
+         ("static_quant_attention_packed",), 1e-6),
+        ("SDXL fp packed", sdxl, pack_attention_heads(xparams, xspec, xheads), None, fp_p,
+         ("flash_attention_packed",), None),
+        ("SDXL W8A8 log2 real_time packed", sdxl, pack_attention_heads(xparams_q, xspec, xheads),
+         xqs, xrt, ("rt_stats_packed", "quant_accum_packed"), 1e-5),
     ]
     with torch.no_grad():
         for label, fwd, p, qs, cfg, must_launch, amp in configs:
@@ -563,20 +793,33 @@ def small_input_check(tag):
             if not launched or any(n not in launched for n in must_launch):
                 raise AssertionError(f"tiny UNet {label} launched {launched}, "
                                      f"expected {must_launch}")
+            if cfg.packed_attention and any(n in launched for n in CLASSIC_ATTENTION
+                                            + ("flash_attention",)):
+                raise AssertionError(f"tiny UNet {label}: an attention left the packed path: "
+                                     f"{launched}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
 
 
-def _fold_w4_bf16(params, spec):
-    """W4 minmax fold with the int8 codes packed beside it, then the float
-    weights in bf16; the packed entries keep their int8 codes and f32 scales."""
+def _fold_w4_bf16(params, spec, num_heads):
+    """W4 minmax fold with the int8 codes beside it, then the attention heads
+    packed into slots (the order of the JAX bench: fold, pack, cast), then the
+    float weights in bf16; the int8 entries keep their codes and f32 scales.
+    Returns the unpacked and the packed parameters, which share every layer
+    that packing does not touch."""
     import torch
-    from dgq_tpu_torch.calib.weight_calib import quantize_model_weights
+    from dgq_tpu_torch.calib.weight_calib import pack_attention_heads, quantize_model_weights
     from dgq_tpu_torch.models.qconfig import QConfig
+
+    def bf16(p):
+        return {k: v.to(torch.bfloat16) if v is not None and k in ("w", "b", "scale", "bias")
+                else v for k, v in p.items()}
 
     params_q, _ = quantize_model_weights(params, spec, QConfig(w_bits=4, use_wq=True,
                                                                use_int8_matmul=True))
-    return {n: {k: v.to(torch.bfloat16) if v is not None and k in ("w", "b", "scale", "bias")
-                else v for k, v in p.items()} for n, p in params_q.items()}
+    packed_q = pack_attention_heads(params_q, spec, num_heads)
+    cast = {n: bf16(p) for n, p in params_q.items()}
+    packed = {n: cast[n] if p is params_q[n] else bf16(p) for n, p in packed_q.items()}
+    return cast, packed
 
 
 def _n_int8_layers(params, qstate, time_aware):
@@ -607,31 +850,38 @@ def build_model(tag):
     if n_params != 859_520_964 or n_quant != 282 or n_attn != 32:
         raise AssertionError(f"SD v1.4 has {n_params} params / {n_quant} quant layers / "
                              f"{n_attn} attentions")
-    params_q = _fold_w4_bf16(params, spec)
+    params_q, packed = _fold_w4_bf16(params, spec, 8)
     del params
+    n_repacked = sum(packed[n] is not params_q[n] for n in packed)
+    if n_repacked != 4 * n_attn:
+        raise AssertionError(f"{n_repacked} repacked projections, expected {4 * n_attn}")
     model = {
-        "spec": spec, "params": params_q, "vae": init_vae_decoder(g, "cuda", dtype=bf),
+        "spec": spec, "params": params_q, "params_packed": packed,
+        "vae": init_vae_decoder(g, "cuda", dtype=bf),
         "latents": torch.randn(IMAGES, 64, 64, 4, generator=g, device="cuda").to(bf),
         "ehs_t": torch.randn(IMAGES, 77, 768, generator=g, device="cuda").to(bf),
         "ehs_u": torch.randn(IMAGES, 77, 768, generator=g, device="cuda").to(bf),
     }
     torch.cuda.synchronize()
     print(f"SD v1.4: {n_params / 1e6:.2f}M params, {n_quant} quant layers, {n_attn} "
-          f"attentions; init + W4 fold {time.perf_counter() - t0:.2f} s | {tag}", flush=True)
+          f"attentions; init + W4 fold + head packing ({n_repacked} projections into slots of "
+          f"64, 128 and 256) {time.perf_counter() - t0:.2f} s | {tag}", flush=True)
     return model
 
 
 def sample_and_decode(model, qstate, cfg, steps):
-    """One run of the path: sd_sample then vae_decode. Returns the latents,
+    """One run of the path: sd_sample then vae_decode, on the packed
+    parameters when the policy says packed_attention. Returns the latents,
     the images and the host times (start, after sampling, end), each taken
     after a synchronise."""
     import torch
     from dgq_tpu_torch.pipeline.sampler import sd_sample
     from dgq_tpu_torch.pipeline.vae import vae_decode
 
+    params = model["params_packed" if cfg.packed_attention else "params"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lat = sd_sample(model["params"], model["latents"], model["ehs_t"], model["ehs_u"],
+    lat = sd_sample(params, model["latents"], model["ehs_t"], model["ehs_u"],
                     num_inference_steps=steps, guidance_scale=7.5, qstate=qstate, cfg=cfg,
                     time_aware=True)
     torch.cuda.synchronize()
@@ -644,15 +894,16 @@ def sample_and_decode(model, qstate, cfg, steps):
 def drive_path(model, label, qstate, cfg, steps, expect, tag):
     """Warm up, set every launch count to 0, drive the path once, read the
     counts, and check them (`expect`: name -> exact count, or None for at
-    least one) and the images."""
+    least one; a kernel it does not name must not have run) and the images.
+    Returns the counts, with the seconds per step and per image under "s"."""
     import torch
 
     sample_and_decode(model, qstate, cfg, 1)  # warm-up (allocator, library handles)
     _reset_launch_counts()
     lat, images, (t0, t1, t2) = sample_and_decode(model, qstate, cfg, steps)
     launches = _launch_counts()
-    for name, want in expect.items():
-        got = launches[name]
+    for name, got in launches.items():
+        want = expect.get(name, 0)
         if (want is None and got < 1) or (want is not None and got != want):
             raise AssertionError(f"{label}: {name} ran {got} times, expected "
                                  f"{'at least once' if want is None else want}")
@@ -665,13 +916,22 @@ def drive_path(model, label, qstate, cfg, steps, expect, tag):
           f"{t1 - t0:.4f} s ({(t1 - t0) / steps:.4f} s per step = one UNet forward at batch "
           f"{2 * IMAGES}), VAE decode {t2 - t1:.4f} s, {(t2 - t0) / IMAGES:.4f} s per image; "
           f"launches {shown} | {tag}", flush=True)
+    launches["s"] = ((t1 - t0) / steps, (t2 - t0) / IMAGES)
     return launches
 
 
+def _beside(label, steps, packed, unpacked, tag):
+    """The packed path's times beside the unpacked path's of the same run."""
+    print(f"{label}, {steps} steps: packed attention {packed['s'][0]:.4f} s per step, "
+          f"{packed['s'][1]:.4f} s per image; unpacked {unpacked['s'][0]:.4f} s per step, "
+          f"{unpacked['s'][1]:.4f} s per image | {tag}", flush=True)
+
+
 def main_paths(tag):
-    """Phase 4: the g=1 path, the g=8 flagship path and the short static-log2
-    configuration, at full width on one model. Returns each kernel's launch
-    count from the main-path run that drives it."""
+    """Phase 4a to 4d: the SD v1.4 paths at full width on one model, each of
+    g=1, g=8, static log2 and fp first unpacked and then with packed
+    attention. Returns each kernel's launch count from the main-path run that
+    drives it. The VAE's one attention is K2 (unpacked: one head of 512)."""
     import torch
     from dgq_tpu_torch.calib.act_calib import softmax_qpoint_names
     from dgq_tpu_torch.models.qconfig import QConfig
@@ -689,9 +949,12 @@ def main_paths(tag):
     if not all(n in qstate["a"] for n in softmax_qpoint_names(spec)):
         raise AssertionError("every attention needs a uniform A8 aqtizer_w")
     g1 = drive_path(model, "g=1 path", qstate, cfg, STEPS_G1,
-                    {"static_uniform_attention": n_attn * STEPS_G1, "flash_attention": None,
-                     "rt_stats": 0, "quant_accum": 0, "static_quant_attention": 0,
-                     "group_quant_conv": 0, "int8_matmul": 0}, tag)
+                    {"static_uniform_attention": n_attn * STEPS_G1, "flash_attention": 1}, tag)
+    g1p = drive_path(model, "g=1 path, packed attention", qstate,
+                     cfg.replace(packed_attention=True), STEPS_G1,
+                     {"static_uniform_attention_packed": n_attn * STEPS_G1, "flash_attention": 1},
+                     tag)
+    _beside("g=1 path", STEPS_G1, g1p, g1, tag)
 
     # 4b: g=8 flagship, the fused group conv
     qstate, group_layers = synthetic_group_qstate(spec, STEPS_G8, True, bf)
@@ -704,19 +967,34 @@ def main_paths(tag):
     cfg = QConfig(w_bits=4, a_bits=8, **_g8_kwargs(group_layers, "fused"))
     g8 = drive_path(model, "g=8 path (fused group conv)", qstate, cfg, STEPS_G8,
                     {"rt_stats": n_attn * STEPS_G8, "quant_accum": n_attn * STEPS_G8,
-                     "group_quant_conv": n_fused * STEPS_G8, "static_uniform_attention": 0,
-                     "static_quant_attention": 0, "flash_attention": None, "int8_matmul": 0},
-                    tag)
+                     "group_quant_conv": n_fused * STEPS_G8, "flash_attention": 1}, tag)
+    g8p = drive_path(model, "g=8 path (fused group conv), packed attention", qstate,
+                     cfg.replace(packed_attention=True), STEPS_G8,
+                     {"rt_stats_packed": n_attn * STEPS_G8, "quant_accum_packed": n_attn * STEPS_G8,
+                      "group_quant_conv": n_fused * STEPS_G8, "flash_attention": 1}, tag)
+    _beside("g=8 path (fused group conv)", STEPS_G8, g8p, g8, tag)
     # for the record: the same step through the taps path (library matmuls)
     drive_path(model, "g=8 path (taps, for the record)", qstate,
                cfg.replace(group_conv_impl="taps"), 1,
-               {"rt_stats": n_attn, "quant_accum": n_attn, "group_quant_conv": 0}, tag)
+               {"rt_stats": n_attn, "quant_accum": n_attn, "flash_attention": 1}, tag)
 
-    # 4c: the static log2 configuration (delta pinned to 1, no calibrated state)
-    k4 = drive_path(model, "static log2 path (log_max_1)", qstate,
-                    cfg.replace(t2i_real_time=False, log_max_1=True), 1,
-                    {"static_quant_attention": n_attn, "rt_stats": 0, "quant_accum": 0,
-                     "static_uniform_attention": 0, "group_quant_conv": n_fused}, tag)
+    # 4c: the static log2 configuration (delta pinned to 1, no calibrated
+    # state), and the unquantized model
+    log2 = cfg.replace(t2i_real_time=False, log_max_1=True)
+    k4 = drive_path(model, "static log2 path (log_max_1)", qstate, log2, 1,
+                    {"static_quant_attention": n_attn, "group_quant_conv": n_fused,
+                     "flash_attention": 1}, tag)
+    k4p = drive_path(model, "static log2 path (log_max_1), packed attention", qstate,
+                     log2.replace(packed_attention=True), 1,
+                     {"static_quant_attention_packed": n_attn, "group_quant_conv": n_fused,
+                      "flash_attention": 1}, tag)
+    _beside("static log2 path", 1, k4p, k4, tag)
+    fp = QConfig(use_pallas_attention=True)
+    k2 = drive_path(model, "fp path (W4 weights, no activation quantizer)", None, fp, 1,
+                    {"flash_attention": n_attn + 1}, tag)
+    k2p = drive_path(model, "fp path, packed attention", None, fp.replace(packed_attention=True),
+                     1, {"flash_attention_packed": n_attn, "flash_attention": 1}, tag)
+    _beside("fp path", 1, k2p, k2, tag)
 
     # 4d: the g=1 path with the int8 deploy path on
     qstate = synthetic_pertensor_qstate(spec, STEPS_INT8, True, bf)
@@ -730,13 +1008,16 @@ def main_paths(tag):
                   use_pallas_attention=True, use_int8_matmul=True, int8_impl="pallas")
     drive_path(model, "g=1 int8 path (use_int8_matmul)", qstate, cfg, STEPS_INT8,
                {"int8_matmul": n_int8 * STEPS_INT8,
-                "static_uniform_attention": n_attn * STEPS_INT8, "flash_attention": None,
-                "rt_stats": 0, "quant_accum": 0, "static_quant_attention": 0,
-                "group_quant_conv": 0}, tag)
+                "static_uniform_attention": n_attn * STEPS_INT8, "flash_attention": 1}, tag)
     return {"static_uniform_attention": g1["static_uniform_attention"],
-            "flash_attention": g8["flash_attention"], "rt_stats": g8["rt_stats"],
+            "flash_attention": k2["flash_attention"], "rt_stats": g8["rt_stats"],
             "quant_accum": g8["quant_accum"], "group_quant_conv": g8["group_quant_conv"],
-            "static_quant_attention": k4["static_quant_attention"]}
+            "static_quant_attention": k4["static_quant_attention"],
+            "static_uniform_attention_packed": g1p["static_uniform_attention_packed"],
+            "flash_attention_packed": k2p["flash_attention_packed"],
+            "rt_stats_packed": g8p["rt_stats_packed"],
+            "quant_accum_packed": g8p["quant_accum_packed"],
+            "static_quant_attention_packed": k4p["static_quant_attention_packed"]}
 
 
 def build_sdxl_model(tag):
@@ -761,9 +1042,11 @@ def build_sdxl_model(tag):
     if n_params != 2_567_463_684 or n_quant != 794 or n_attn != 140:
         raise AssertionError(f"SDXL-turbo has {n_params} params / {n_quant} quant layers / "
                              f"{n_attn} attentions")
-    params_q = _fold_w4_bf16(params, spec)
+    params_q, packed = _fold_w4_bf16(params, spec, lambda o: o // 64)
     del params
     torch.cuda.empty_cache()
+    if any(packed[n] is not params_q[n] for n in packed):
+        raise AssertionError("SDXL's heads are 64 wide: packing must leave every layer alone")
     model = {
         "spec": spec, "params": params_q, "n_attn": n_attn,
         "vae": init_vae_decoder(g, "cuda", dtype=bf),
@@ -801,11 +1084,43 @@ def sdxl_sample_and_decode(model, qstate, cfg, steps, decode=True):
     return lat, images, (t0, t1, time.perf_counter())
 
 
+def drive_sdxl(model, label, qstate, cfg, expect, tag):
+    """Warm up, set every launch count to 0, run STEPS_SDXL Euler steps and
+    the 1024px decode, read the counts and check them (a kernel `expect` does
+    not name must not have run) and the images. Returns the counts, with the
+    seconds per step and per image under "s"."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    sdxl_sample_and_decode(model, qstate, cfg, 1)  # warm-up
+    _reset_launch_counts()
+    lat, images, (t0, t1, t2) = sdxl_sample_and_decode(model, qstate, cfg, STEPS_SDXL)
+    launches = _launch_counts()
+    for name, got in launches.items():
+        if got != expect.get(name, 0):
+            raise AssertionError(f"{label}: {name} ran {got} times, expected "
+                                 f"{expect.get(name, 0)}")
+    if tuple(images.shape) != (IMAGES, 1024, 1024, 3) or not bool(images.isfinite().all()):
+        raise AssertionError(f"{label}: bad images {tuple(images.shape)}")
+    if not bool(lat.isfinite().all()) or float(images.float().std()) == 0.0:
+        raise AssertionError(f"{label}: degenerate output")
+    print(f"{label}: {IMAGES} images 1024px, {STEPS_SDXL} Euler steps guidance 0 bf16 W4A8, "
+          f"{model['n_attn']} attentions per forward: sampling {t1 - t0:.4f} s "
+          f"({(t1 - t0) / STEPS_SDXL:.4f} s per step = one UNet forward at batch {IMAGES}), VAE "
+          f"decode at 1024px {t2 - t1:.4f} s, {(t2 - t0) / IMAGES:.4f} s per image; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{ {n: c for n, c in launches.items() if c} } | {tag}", flush=True)
+    launches["s"] = ((t1 - t0) / STEPS_SDXL, (t2 - t0) / IMAGES)
+    return launches
+
+
 def sdxl_path(tag):
-    """Phase 4e: SDXL-turbo W4A8 at 1024px, the JAX bench's SDXL policy (log2
-    real_time softmax with start_peak, fused attention) with the int8 deploy
-    path on and a non-time-aware per-tensor qstate; then one step with the
-    int8 path off. Returns the launch counts of the int8 run."""
+    """Phase 4e and 4f: SDXL-turbo W4A8 at 1024px, the JAX bench's SDXL policy
+    (log2 real_time softmax with start_peak, fused attention) with a
+    non-time-aware per-tensor qstate: with the int8 deploy path on; with it
+    off; and with it off and packed attention, the bench's default. SDXL's
+    heads are 64 wide, so the packed run uses the same weights. Returns the
+    launch counts of the int8 run."""
     import torch
     from dgq_tpu_torch.models.qconfig import QConfig
     from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate
@@ -820,48 +1135,24 @@ def sdxl_path(tag):
     cfg = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                   t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
                   use_pallas_attention=True, use_int8_matmul=True, int8_impl="pallas")
-    torch.cuda.reset_peak_memory_stats()
-    sdxl_sample_and_decode(model, qstate, cfg, 1)  # warm-up
-    _reset_launch_counts()
-    lat, images, (t0, t1, t2) = sdxl_sample_and_decode(model, qstate, cfg, STEPS_SDXL)
-    launches = _launch_counts()
-    expect = {"int8_matmul": n_int8 * STEPS_SDXL, "rt_stats": n_attn * STEPS_SDXL,
-              "quant_accum": n_attn * STEPS_SDXL, "flash_attention": 1,
-              "static_uniform_attention": 0, "static_quant_attention": 0, "group_quant_conv": 0}
-    for name, want in expect.items():
-        if launches[name] != want:
-            raise AssertionError(f"SDXL-turbo path: {name} ran {launches[name]} times, "
-                                 f"expected {want}")
-    if tuple(images.shape) != (IMAGES, 1024, 1024, 3) or not bool(images.isfinite().all()):
-        raise AssertionError(f"SDXL-turbo path: bad images {tuple(images.shape)}")
-    if not bool(lat.isfinite().all()) or float(images.float().std()) == 0.0:
-        raise AssertionError("SDXL-turbo path: degenerate output")
-    print(f"SDXL-turbo int8 path: {IMAGES} images 1024px, {STEPS_SDXL} Euler steps guidance 0 "
-          f"bf16 W4A8, {n_int8} int8 layers and {n_attn} attentions per forward: sampling "
-          f"{t1 - t0:.4f} s ({(t1 - t0) / STEPS_SDXL:.4f} s per step = one UNet forward at batch "
-          f"{IMAGES}), VAE decode at 1024px {t2 - t1:.4f} s, {(t2 - t0) / IMAGES:.4f} s per image; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-          f"{ {n: c for n, c in launches.items() if c} } | {tag}", flush=True)
-
-    # for the record: one step with the int8 path off (fake-quant and library matmuls)
+    rt = {"rt_stats": n_attn * STEPS_SDXL, "quant_accum": n_attn * STEPS_SDXL,
+          "flash_attention": 1}
+    int8 = drive_sdxl(model, f"SDXL-turbo int8 path ({n_int8} int8 layers per forward)", qstate,
+                      cfg, {**rt, "int8_matmul": n_int8 * STEPS_SDXL}, tag)
     off = cfg.replace(use_int8_matmul=False)
-    sdxl_sample_and_decode(model, qstate, off, 1, decode=False)
-    _reset_launch_counts()
-    lat, _, (t0, t1, _) = sdxl_sample_and_decode(model, qstate, off, 1, decode=False)
-    counts = _launch_counts()
-    if counts["int8_matmul"] != 0 or counts["rt_stats"] != n_attn:
-        raise AssertionError(f"SDXL-turbo path with int8 off launched {counts}")
-    if not bool(lat.isfinite().all()):
-        raise AssertionError("SDXL-turbo path with int8 off: latents not finite")
-    print(f"SDXL-turbo, int8 path off (for the record): one Euler step {t1 - t0:.4f} s; "
-          f"launches { {n: c for n, c in counts.items() if c} } | {tag}", flush=True)
-    return launches
+    unpacked = drive_sdxl(model, "SDXL-turbo, int8 path off", qstate, off, rt, tag)
+    packed = drive_sdxl(model, "SDXL-turbo, int8 path off, packed attention", qstate,
+                        off.replace(packed_attention=True),
+                        {"rt_stats_packed": n_attn * STEPS_SDXL,
+                         "quant_accum_packed": n_attn * STEPS_SDXL, "flash_attention": 1}, tag)
+    _beside("SDXL-turbo, int8 path off", STEPS_SDXL, packed, unpacked, tag)
+    return int8
 
 
 def print_build_report(paths, tag):
     """Registers and spills of every kernel instance, from `-Xptxas -v`."""
-    modes = {"0": "K2 flash", "1": "K1 uniform", "2": "K3b rt_stats", "3": "K3b quant_accum",
-             "4": "K4 static_quant"}
+    modes = {"0": "K2/K2p flash", "1": "K1/K1p uniform", "2": "K3b/K3p rt_stats",
+             "3": "K3b/K3p quant_accum", "4": "K4/K4p static_quant"}
     for path in paths.values():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
         for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n.*?\n\s*(\d+) bytes stack "
@@ -898,6 +1189,7 @@ def main():
 
     summary = _Summary()
     compare_attention(tag, summary)
+    compare_attention_packed(tag, summary)
     compare_group_conv(tag, summary)
     compare_int8(tag, summary)
     small_input_check(tag)

@@ -1,6 +1,6 @@
 """Weight quantization for deployment: per-out-channel scale init and
-load-time folding (port of the deploy half of `dgq_tpu/calib/weight_calib.py`;
-AdaRound and the attention head packing wait for later slices).
+load-time folding, and the attention head packing (port of the deploy half
+of `dgq_tpu/calib/weight_calib.py`; AdaRound waits for a later slice).
 
 Weights are input-independent, so they are fake-quantized once at load and
 inference runs on the folded float weights. Torch layouts put the out
@@ -8,12 +8,15 @@ channel first (OIHW / (O, I)), so the (O,1,1,1) / (O,1) qparams broadcast
 directly. conv_in / conv_out keep float weights but still get qparams.
 `attach_int8_packed` adds the packed int8 codes of the int8 deploy path
 (`ops.int8_matmul`) beside the folded weights.
+`pack_attention_heads` repacks the attention projections into the head-slot
+layout of the packed attention path.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from dgq_tpu_torch.models.qconfig import QConfig
 from dgq_tpu_torch.ops.int8_matmul import pack_weight_int8
@@ -92,3 +95,59 @@ def attach_int8_packed(params_q: dict, wqp: Dict[str, QParams], spec, cfg: QConf
         p["w_ksum"] = codes.sum(dim=1, dtype=torch.int32).float()
         out[name] = p
     return out
+
+
+def _head_slot_width(d: int, h: int, slot: int) -> int:
+    """Per-head packed slot width. slot=64 takes 64 whenever the head fits
+    and the head count is even (the JAX package's pair layout); otherwise,
+    and always at slot=128, heads pad to a multiple of 128."""
+    if slot == 64 and d <= 64 and h % 2 == 0:
+        return 64
+    return -(-d // 128) * 128
+
+
+@torch.no_grad()
+def pack_attention_heads(params: dict, spec, num_heads=8, slot: int = 64) -> dict:
+    """Repack attention projection weights into the head-slot layout.
+
+    Deploy-time transform, run after `quantize_model_weights`: every
+    `to_q/to_k/to_v` weight (O, I) is viewed as (H, head_dim, I) and gets zero
+    rows up to (H, dp, I), dp = `_head_slot_width` (its bias zeros likewise),
+    so each head occupies a dp-wide slot of the projection's output and the
+    attention kernels read it there by stride, with no transposed copy. The
+    matching `to_out.0` weight (O, H*head_dim) gets zero columns so that it
+    consumes the padded layout. Zero rows give exact-zero activations, which
+    the per-tensor quantizers map to zero, so the packed forward computes the
+    unpacked one's sums.
+
+    slot=64: SD's 40-wide heads pad to 64 (80 to 128, 160 to 256); SDXL's
+    64-wide heads need no padding. slot=128: every head pads to a multiple of
+    128. num_heads: an int (SD v1.4: 8 everywhere) or a callable of the
+    projection width (SDXL: `lambda o: o // 64`). Returns a new flat dict that
+    shares every leaf it does not touch. Only 'w' and 'b' are packed: the
+    int8 codes of `attach_int8_packed` are not, and the two paths are not
+    run together."""
+    heads_of = num_heads if callable(num_heads) else (lambda o: num_heads)
+    new = dict(params)
+    for name, kind, meta in spec:
+        if kind != "linear":
+            continue
+        is_qkv = name.endswith((".to_q", ".to_k", ".to_v"))
+        if not is_qkv and not name.endswith(".to_out.0"):
+            continue
+        width = meta[1] if is_qkv else meta[0]  # the axis that holds the heads
+        h = heads_of(width)
+        d = width // h
+        pad = _head_slot_width(d, h, slot) - d
+        if pad == 0:
+            continue
+        p = dict(params[name])
+        w = p["w"]
+        if is_qkv:
+            p["w"] = F.pad(w.reshape(h, d, w.shape[1]), (0, 0, 0, pad)).reshape(-1, w.shape[1])
+            if p.get("b") is not None:
+                p["b"] = F.pad(p["b"].reshape(h, d), (0, pad)).reshape(-1)
+        else:
+            p["w"] = F.pad(w.reshape(w.shape[0], h, d), (0, pad)).reshape(w.shape[0], -1)
+        new[name] = p
+    return new

@@ -48,6 +48,21 @@
 // weights; the ragged key axis (cross-attention S = 77) is masked per column.
 // Every delta is read from device memory, so neither the per-step time-aware
 // slot nor the real-time reduction costs a host synchronisation.
+//
+// The packed head-slot entries (K1p to K4p: `_fused_attention_packed`, which
+// runs the same four TPU bodies with `sub_heads` over (B, T, H*dp) arrays) are
+// the same kernels under another `Layout`. What the TPU cuts with a BlockSpec
+// lane index (cell j -> batch j / H, slot j % H) is address arithmetic here:
+// block (tile, b*H + h) finds row r of head h at
+// base + b*batch_stride + r*row_stride + h*slot, so q, k and v are read where
+// the projections wrote them and the output is written where `to_out.0` reads
+// it, with no transposed copy on either side. Only the d true lanes of a slot
+// are loaded and contracted (the folded weights leave the other lanes exact
+// zeros, so the sums are the unpacked kernel's bit for bit); the kernel writes
+// zeros into lanes d..slot of its output, because `to_out.0` multiplies them
+// by zero weights and the buffer comes uninitialised. The TPU's pair mode (two
+// 64-wide heads per 128-lane block) is a lane matter with no counterpart: a
+// block takes one head whatever its slot.
 #include "common.cuh"
 
 namespace {
@@ -72,17 +87,18 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// rows [row0, row0 + nrows) of a (rows_valid, d) row-major matrix -> dst[nrows][DP + 4]
-// as f32; rows past rows_valid and columns past d are zero.
+// rows [row0, row0 + nrows) of a (rows_valid, d) matrix whose rows lie `stride`
+// elements apart -> dst[nrows][DP + 4] as f32; rows past rows_valid and columns
+// past d are zero.
 template <typename T, int DP>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int row0, int nrows,
-                          int rows_valid, int d) {
+__device__ void load_tile(float* dst, const T* __restrict__ src, long long stride, int row0,
+                          int nrows, int rows_valid, int d) {
   constexpr int LD = DP + 4;
   for (int idx = threadIdx.x; idx < nrows * DP; idx += kThreads) {
     const int r = idx / DP, c = idx - (idx / DP) * DP;
     const int gr = row0 + r;
     float val = 0.f;
-    if (gr < rows_valid && c < d) val = to_f32<T>(src[(size_t)gr * d + c]);
+    if (gr < rows_valid && c < d) val = to_f32<T>(src[gr * stride + c]);
     dst[r * LD + c] = val;
   }
 }
@@ -159,12 +175,33 @@ struct Extra {
   int uniform;         // kStatic: uniform codes instead of log2
 };
 
+// Where block y = b * heads + h finds its head: tensor x's rows start at
+// x + b * x_batch + h * slot and lie x_row elements apart. The classic layout
+// (BH, T, D) is heads = 1 with rows d apart; the packed one (B, T, H * slot) has
+// rows H * slot apart. The output's lanes d..o_cols are written as zeros.
+struct Layout {
+  int heads, slot, o_cols;
+  long long q_batch, q_row, k_batch, k_row, v_batch, v_row, o_batch, o_row;
+};
+
+Layout classic_layout(int t_len, int s_len, int d) {
+  const long long td = (long long)t_len * d, sd = (long long)s_len * d;
+  return Layout{1, 0, d, td, d, sd, d, sd, d, td, d};
+}
+
+// strides: the eight batch and row strides in Layout's order, in elements
+Layout packed_layout(int heads, int slot, const long long* strides) {
+  return Layout{heads, slot, slot, strides[0], strides[1], strides[2], strides[3],
+                strides[4], strides[5], strides[6], strides[7]};
+}
+
 constexpr float kInvLn2 = 1.4426950408889634f;
 
 template <typename T, int DP, int RM, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int t_len, int s_len, int d, float scale, Extra ex) {
+                 T* __restrict__ o, int t_len, int s_len, int d, float scale, Extra ex,
+                 Layout lay) {
   constexpr int BQ = 16 * RM, LD = DP + 4, LDP = kBK + 4, NC = DP / 16;
   constexpr bool PASS1 = MODE == kUniform || MODE == kStats || MODE == kStatic;
   constexpr bool LOGQ = MODE == kAccum || MODE == kStatic;  // quantizers on z = m + ln(l)
@@ -174,11 +211,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Ps = KVs + kBK * LD;   // [BQ][LDP]
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int batch = bh / lay.heads, head_off = (bh - batch * lay.heads) * lay.slot;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qb = q + (size_t)bh * t_len * d;
-  const T* kb = k + (size_t)bh * s_len * d;
+  const T* qb = q + batch * lay.q_batch + head_off;
+  const T* kb = k + batch * lay.k_batch + head_off;
 
-  load_tile<T, DP>(Qs, qb, q0, BQ, t_len, d);
+  load_tile<T, DP>(Qs, qb, lay.q_row, q0, BQ, t_len, d);
 
   float m[RM], l[RM], m2[RM], s[RM][4];
 #pragma unroll
@@ -194,7 +232,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     // kStats under start_peak also m2, the row max outside key column 0
     for (int kt = 0; kt < n_tiles; ++kt) {
       __syncthreads();
-      load_tile<T, DP>(KVs, kb, kt * kBK, kBK, s_len, d);
+      load_tile<T, DP>(KVs, kb, lay.k_row, kt * kBK, kBK, s_len, d);
       __syncthreads();
       tile_scores<DP, RM>(Qs, KVs, ty, tx, kt * kBK, s_len, scale, s);
 #pragma unroll
@@ -238,8 +276,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     return;
   }
 
-  const T* vb = v + (size_t)bh * s_len * d;
-  T* ob = o + (size_t)bh * t_len * d;
+  const T* vb = v + batch * lay.v_batch + head_off;
+  T* ob = o + batch * lay.o_batch + head_off;
   float acc[RM][NC];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -270,7 +308,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
-    load_tile<T, DP>(KVs, kb, kt * kBK, kBK, s_len, d);
+    load_tile<T, DP>(KVs, kb, lay.k_row, kt * kBK, kBK, s_len, d);
     __syncthreads();
     tile_scores<DP, RM>(Qs, KVs, ty, tx, kt * kBK, s_len, scale, s);
 #pragma unroll
@@ -317,7 +355,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();  // every thread is done with K before V overwrites it
-    load_tile<T, DP>(KVs, vb, kt * kBK, kBK, s_len, d);
+    load_tile<T, DP>(KVs, vb, lay.v_row, kt * kBK, kBK, s_len, d);
     __syncthreads();
     tile_pv<DP, RM>(Ps, KVs, ty, tx, acc);
   }
@@ -330,14 +368,17 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) ob[(size_t)row * d + col] = from_f32<T>(acc[i][c] * f);
+      if (col < d) ob[row * lay.o_row + col] = from_f32<T>(acc[i][c] * f);
     }
+    // a packed slot's padding lanes
+    for (int col = d + tx; col < lay.o_cols; col += 16) ob[row * lay.o_row + col] = from_f32<T>(0.f);
   }
 }
 
 template <typename T, int DP, int RM, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
-                   int s_len, int d, float scale, const Extra& ex, cudaStream_t stream) {
+                   int s_len, int d, float scale, const Extra& ex, const Layout& lay,
+                   cudaStream_t stream) {
   constexpr int BQ = 16 * RM;
   const size_t smem = sizeof(float) * (BQ * (DP + 4) + kBK * (DP + 4) + BQ * (kBK + 4));
   auto kernel = attention_kernel<T, DP, RM, MODE>;
@@ -347,7 +388,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((t_len + BQ - 1) / BQ, bh);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                            static_cast<const T*>(v), static_cast<T*>(o), t_len,
-                                           s_len, d, scale, ex);
+                                           s_len, d, scale, ex, lay);
   return cudaGetLastError();
 }
 
@@ -357,46 +398,80 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 // UNet alone.
 template <typename T, int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
-             int s_len, int d, float scale, const Extra& ex, cudaStream_t stream) {
+             int s_len, int d, float scale, const Extra& ex, const Layout& lay,
+             cudaStream_t stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1) return cudaErrorInvalidValue;
-  if (d <= 48) return launch<T, 48, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
-  if (d <= 64) return launch<T, 64, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
-  if (d <= 80) return launch<T, 80, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
-  if (d <= 160) return launch<T, 160, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
+  if (d <= 48) return launch<T, 48, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
+  if (d <= 64) return launch<T, 64, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
+  if (d <= 80) return launch<T, 80, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
+  if (d <= 160) return launch<T, 160, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
   if constexpr (MODE == kFlash || MODE == kUniform) {
-    if (d <= 512) return launch<T, 512, 2, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+    if (d <= 512) return launch<T, 512, 2, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int MODE>
 int dispatch_dtype(int is_bf16, const void* q, const void* k, const void* v, void* o, int bh,
-                   int t_len, int s_len, int d, float scale, const Extra& ex, void* stream) {
+                   int t_len, int s_len, int d, float scale, const Extra& ex, const Layout& lay,
+                   void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, st)
-                 : dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, st);
+  return is_bf16
+             ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st)
+             : dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
 }
 
 float max_code_of(int sm_bits) { return static_cast<float>((1 << sm_bits) - 1); }
 
+Extra uniform_extra(const void* delta, int sm_bits) {
+  Extra ex{};
+  ex.delta = static_cast<const float*>(delta);
+  ex.max_code = max_code_of(sm_bits);
+  return ex;
+}
+
+Extra stats_extra(void* z, void* red, int start_peak) {
+  Extra ex{};
+  ex.z = static_cast<float*>(z);
+  ex.red = static_cast<int*>(red);
+  ex.start_peak = start_peak;
+  return ex;
+}
+
+Extra accum_extra(const void* z, const void* red, int sm_bits, int start_peak) {
+  Extra ex = stats_extra(const_cast<void*>(z), const_cast<void*>(red), start_peak);
+  ex.max_code = max_code_of(sm_bits);
+  return ex;
+}
+
+Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) {
+  Extra ex = uniform_extra(delta, sm_bits);
+  ex.uniform = uniform;
+  ex.start_peak = start_peak;
+  return ex;
+}
+
 }  // namespace
 
-// C interface (loaded with ctypes). q: (bh, t, d), k/v: (bh, s, d), o: (bh, t, d),
-// all contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). Each returns a cudaError_t.
+// C interface (loaded with ctypes). Each function returns a cudaError_t. Tensors
+// are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
+//
+// Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
                                    void* stream) {
-  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, Extra{}, stream);
+  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, Extra{},
+                                classic_layout(t_len, s_len, d), stream);
 }
 
 // delta: device pointer to one f32; codes are clipped to 2^sm_bits - 1.
 extern "C" int dgq_uniform_attention(const void* q, const void* k, const void* v, void* o,
                                      int bh, int t_len, int s_len, int d, float scale,
                                      const void* delta, int sm_bits, int is_bf16, void* stream) {
-  Extra ex{};
-  ex.delta = static_cast<const float*>(delta);
-  ex.max_code = max_code_of(sm_bits);
-  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                                  uniform_extra(delta, sm_bits), classic_layout(t_len, s_len, d),
+                                  stream);
 }
 
 // z: (bh, t) f32 out. red: one f32 on the device, set by the caller to +inf
@@ -405,11 +480,8 @@ extern "C" int dgq_uniform_attention(const void* q, const void* k, const void* v
 extern "C" int dgq_rt_stats(const void* q, const void* k, void* z, void* red, int bh, int t_len,
                             int s_len, int d, float scale, int start_peak, int is_bf16,
                             void* stream) {
-  Extra ex{};
-  ex.z = static_cast<float*>(z);
-  ex.red = static_cast<int*>(red);
-  ex.start_peak = start_peak;
-  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, bh, t_len, s_len, d, scale, ex,
+  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, bh, t_len, s_len, d, scale,
+                                stats_extra(z, red, start_peak), classic_layout(t_len, s_len, d),
                                 stream);
 }
 
@@ -418,12 +490,9 @@ extern "C" int dgq_quant_accum(const void* q, const void* k, const void* v, void
                                const void* z, const void* red, int bh, int t_len, int s_len,
                                int d, float scale, int sm_bits, int start_peak, int is_bf16,
                                void* stream) {
-  Extra ex{};
-  ex.z = const_cast<float*>(static_cast<const float*>(z));
-  ex.red = const_cast<int*>(static_cast<const int*>(red));
-  ex.max_code = max_code_of(sm_bits);
-  ex.start_peak = start_peak;
-  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                                accum_extra(z, red, sm_bits, start_peak),
+                                classic_layout(t_len, s_len, d), stream);
 }
 
 // delta: device pointer to one f32. uniform = 0: log2 codes; 1: uniform codes
@@ -432,10 +501,62 @@ extern "C" int dgq_static_quant_attention(const void* q, const void* k, const vo
                                           int bh, int t_len, int s_len, int d, float scale,
                                           const void* delta, int sm_bits, int uniform,
                                           int start_peak, int is_bf16, void* stream) {
-  Extra ex{};
-  ex.delta = static_cast<const float*>(delta);
-  ex.max_code = max_code_of(sm_bits);
-  ex.uniform = uniform;
-  ex.start_peak = start_peak;
-  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, ex, stream);
+  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                                 static_extra(delta, sm_bits, uniform, start_peak),
+                                 classic_layout(t_len, s_len, d), stream);
+}
+
+// Packed head-slot layout: q and o (b, t, heads * slot), k/v (b, s, heads * slot),
+// the last axis contiguous. Head h of a row is its lanes [h * slot, h * slot + d);
+// lanes d..slot of o are written as zeros. strides: host pointer to the batch and
+// row strides of q, k, v, o in elements (q_batch, q_row, k_batch, ...; rt_stats
+// reads the first four). z stays (b * heads, t). The other arguments are those of
+// the classic entry above.
+extern "C" int dgq_flash_attention_packed(const void* q, const void* k, const void* v, void* o,
+                                          int b, int heads, int t_len, int s_len, int d,
+                                          int slot, const long long* strides, float scale,
+                                          int is_bf16, void* stream) {
+  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale, Extra{},
+                                packed_layout(heads, slot, strides), stream);
+}
+
+extern "C" int dgq_uniform_attention_packed(const void* q, const void* k, const void* v, void* o,
+                                            int b, int heads, int t_len, int s_len, int d,
+                                            int slot, const long long* strides, float scale,
+                                            const void* delta, int sm_bits, int is_bf16,
+                                            void* stream) {
+  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                                  uniform_extra(delta, sm_bits),
+                                  packed_layout(heads, slot, strides), stream);
+}
+
+extern "C" int dgq_rt_stats_packed(const void* q, const void* k, void* z, void* red, int b,
+                                   int heads, int t_len, int s_len, int d, int slot,
+                                   const long long* strides, float scale, int start_peak,
+                                   int is_bf16, void* stream) {
+  const long long qk[8] = {strides[0], strides[1], strides[2], strides[3], 0, 0, 0, 0};
+  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, b * heads, t_len, s_len, d,
+                                scale, stats_extra(z, red, start_peak),
+                                packed_layout(heads, slot, qk), stream);
+}
+
+extern "C" int dgq_quant_accum_packed(const void* q, const void* k, const void* v, void* o,
+                                      const void* z, const void* red, int b, int heads,
+                                      int t_len, int s_len, int d, int slot,
+                                      const long long* strides, float scale, int sm_bits,
+                                      int start_peak, int is_bf16, void* stream) {
+  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                                accum_extra(z, red, sm_bits, start_peak),
+                                packed_layout(heads, slot, strides), stream);
+}
+
+extern "C" int dgq_static_quant_attention_packed(const void* q, const void* k, const void* v,
+                                                 void* o, int b, int heads, int t_len,
+                                                 int s_len, int d, int slot,
+                                                 const long long* strides, float scale,
+                                                 const void* delta, int sm_bits, int uniform,
+                                                 int start_peak, int is_bf16, void* stream) {
+  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                                 static_extra(delta, sm_bits, uniform, start_peak),
+                                 packed_layout(heads, slot, strides), stream);
 }

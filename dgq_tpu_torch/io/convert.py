@@ -9,6 +9,12 @@ The packed int8 entries of the int8 deploy path cross over too: 'w_q8' is
 (K, N) int8 in the JAX package and (N, K) here, 'w_q8c' is HWIO there and
 OIHW here, and 'w_d', 'w_z', 'w_ksum' are per-out-channel vectors in both.
 They keep their own dtypes (int8 codes, f32 scales) whatever `dtype` says.
+
+Head-slot packed attention projections (`pack_attention_heads` on either
+side) cross as they are: the bridge goes by the spec's names and kinds, not
+by its widths, and the JAX package's zero columns of an (I, H*dp) weight are
+the port's zero rows of (H*dp, I), so packing commutes with the bridge bit
+for bit.
 """
 from __future__ import annotations
 

@@ -473,6 +473,53 @@ def _sm_select(qstate, cfg: QConfig, prefix: str, device):
     return "none", None
 
 
+def _unpack_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """(B, T, H*dp) packed head-slot tensor -> (B, T, H*head_dim), the
+    reference layout (the zero padding lanes dropped)."""
+    b, t, cp = x.shape
+    x4 = x.reshape(b, t, num_heads, cp // num_heads)[..., :head_dim]
+    return x4.reshape(b, t, num_heads * head_dim)
+
+
+def _repack_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
+    """(B, T, H*head_dim) -> (B, T, H*dp) zero-padded head slots (for the
+    packed to_out.0 weight when a non-packed attention path produced x)."""
+    b, t, c = x.shape
+    d = c // num_heads
+    return F.pad(x.reshape(b, t, num_heads, d), (0, dp - d)).reshape(b, t, num_heads * dp)
+
+
+def _attn_out(p, prefix, out, qstate, cfg, num_heads):
+    """Final projection; re-pads head slots when to_out.0 carries packed
+    columns but `out` is in the reference layout."""
+    w_cols = p[f"{prefix}.to_out.0"]["w"].shape[1]
+    if w_cols != out.shape[-1]:
+        out = _repack_heads(out, num_heads, w_cols // num_heads)
+    return quant_linear(p[f"{prefix}.to_out.0"], out, f"{prefix}.to_out.0", qstate, cfg)
+
+
+def _attention_packed(p, prefix, q, k, v, num_heads, head_dim, scale, qstate, cfg, start_peak,
+                      dtype):
+    """Packed head-slot attention: q/k/v stay (B, T/S, H*dp) from the
+    projections to to_out.0; the kernels address each head's slot by stride,
+    so no transposed copy is made. Per-tensor quantizers act the same in this
+    layout (0 -> 0 on the padding lanes)."""
+    q = aq_apply(qstate, cfg, f"{prefix}.aqtizer_q", q)
+    if start_peak:
+        # key position 0 (sequence row 0) is spared, as in the reference
+        k = torch.cat([k[:, 0:1, :],
+                       aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k[:, 1:, :])], dim=1)
+    else:
+        k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k)
+    v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
+    sm_mode, sm_delta = _sm_select(qstate, cfg, prefix, q.device)
+    out = fused_attention(
+        q, k, v, scale, sm_mode=sm_mode, sm_bits=cfg.softmax_bits, sm_delta=sm_delta,
+        start_peak=start_peak and cfg.use_aq, num_heads=num_heads, head_dim=head_dim,
+    ).to(dtype)
+    return quant_linear(p[f"{prefix}.to_out.0"], out, f"{prefix}.to_out.0", qstate, cfg)
+
+
 def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
               num_heads: int, qstate: Optional[QState], cfg: QConfig,
               start_peak: bool = False) -> torch.Tensor:
@@ -489,6 +536,22 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
     v = quant_linear(p[f"{prefix}.to_v"], kv_in, f"{prefix}.to_v", qstate, cfg)
     s = kv_in.shape[1]
 
+    if cfg.packed_attention:
+        dp = q.shape[-1] // num_heads
+        # dp % 128 == 0: one head per slot. dp == 64 with an even head count:
+        # slot-64 packed weights, and models whose heads are 64 wide already
+        # (SDXL) with no weight packing at all.
+        if (cfg.use_pallas_attention and dp * num_heads == q.shape[-1]
+                and (dp % 128 == 0 or (dp == 64 and num_heads % 2 == 0))):
+            return _attention_packed(p, prefix, q, k, v, num_heads, head_dim, scale, qstate,
+                                     cfg, start_peak, x.dtype)
+        if q.shape[-1] != c:
+            # packed weights but a path that needs the reference layout (the
+            # materialized softmax): slice the padding lanes back out; the
+            # output is re-padded for the packed to_out.0
+            q = _unpack_heads(q, num_heads, head_dim)
+            k = _unpack_heads(k, num_heads, head_dim)
+            v = _unpack_heads(v, num_heads, head_dim)
     q = q.reshape(b, t, num_heads, head_dim).permute(0, 2, 1, 3)
     k = k.reshape(b, s, num_heads, head_dim).permute(0, 2, 1, 3)
     v = v.reshape(b, s, num_heads, head_dim).permute(0, 2, 1, 3)
@@ -522,7 +585,7 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
             attn = softmax_q_apply(qstate, cfg, f"{prefix}.aqtizer_w", attn)
         out = torch.matmul(attn.to(v.dtype), v)
     out = out.permute(0, 2, 1, 3).reshape(b, t, c).to(x.dtype)
-    return quant_linear(p[f"{prefix}.to_out.0"], out, f"{prefix}.to_out.0", qstate, cfg)
+    return _attn_out(p, prefix, out, qstate, cfg, num_heads)
 
 
 def basic_transformer_block(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],

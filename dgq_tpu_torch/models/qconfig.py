@@ -3,9 +3,8 @@
 are left out until calibration is ported).
 
   * QConfig: the static policy, with the JAX package's field names so one
-    dict builds both. The two fields the port does not serve yet
-    (`use_int8_conv`, `packed_attention`) raise NotImplementedError at
-    construction.
+    dict builds both. The one field the port does not serve yet
+    (`use_int8_conv`) raises NotImplementedError at construction.
   * QState: a plain dict {'a': {layer_name: QParams | GroupQParams},
     'sm': {attn_name: delta}}; time-aware states carry a leading [T] slot
     axis on every leaf.
@@ -25,7 +24,6 @@ QState = Dict[str, Any]
 # field -> the ROADMAP item that ports it
 _NOT_PORTED = {
     "use_int8_conv": "queue 1 (the int8 implicit-GEMM conv on K6's tile code)",
-    "packed_attention": "queue 2 (the packed head-slot attention kernels)",
 }
 
 
@@ -68,6 +66,10 @@ class QConfig:
     # per-tensor activation quantizers emit shifted integer codes and the
     # dequantize multiply moves to the consumer's f32 epilogue
     fold_act_dequant: bool = False
+    # attention projections emit the packed head-slot layout (B, T, H*dp)
+    # (weights from calib.weight_calib.pack_attention_heads, or heads that are
+    # 64 wide already) and the attention kernels read each head by stride:
+    # no transposed copy of q, k, v or the output
     packed_attention: bool = False
 
     def __post_init__(self):

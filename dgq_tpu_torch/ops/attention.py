@@ -15,12 +15,23 @@ ported in `csrc/attention.cu`:
   * K4 `_static_quant_kernel` (`sm_mode="log2"`, or `"uniform"` with
     start_peak): statistics and quantized accumulation in one launch.
 
-`fused_attention` takes the plain PyTorch version (`attention_reference`)
-only for tensors on the CPU. A CUDA tensor launches a kernel or raises.
+The packed head-slot path (`_fused_attention_packed` there: the same four
+bodies, K1p to K4p, over (B, T, H*dp) arrays) is `fused_attention(...,
+num_heads=H)` here: the `*_packed` wrappers launch the same CUDA kernels with
+the heads addressed by stride, so q, k and v are read where the projections
+wrote them and no transposed copy is made on either side of the call.
 
-Layout: q (BH, T, D), k/v (BH, S, D), contiguous, as in the JAX package.
+`fused_attention` takes the plain PyTorch version (`attention_reference`,
+per head slot `packed_attention_reference`) only for tensors on the CPU. A
+CUDA tensor launches a kernel or raises.
+
+Layout: q (BH, T, D), k/v (BH, S, D), contiguous, as in the JAX package; with
+`num_heads=H`, q (B, T, H*dp), k/v (B, S, H*dp), head h in lanes
+[h*dp, (h+1)*dp) of which the first `head_dim` carry data and the rest zeros.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,7 +40,9 @@ from dgq_tpu_torch.ops.build import load_kernels
 # Launches of each kernel since the last reset (a run can show that the main
 # path went through the kernels). Only the kernel wrappers add to them.
 LAUNCHES = {"static_uniform_attention": 0, "flash_attention": 0, "rt_stats": 0,
-            "quant_accum": 0, "static_quant_attention": 0}
+            "quant_accum": 0, "static_quant_attention": 0,
+            "static_uniform_attention_packed": 0, "flash_attention_packed": 0,
+            "rt_stats_packed": 0, "quant_accum_packed": 0, "static_quant_attention_packed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,7 +77,7 @@ def attention_reference(q, k, v, scale, sm_mode="none", sm_bits=8,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _check_inputs(q, k, v):
+def _check_device_dtype(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"attention kernels need CUDA tensors, got {q.device}, "
                          f"{k.device}, {v.device}")
@@ -73,6 +86,10 @@ def _check_inputs(q, k, v):
     if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"attention kernels take f32 or bf16 q/k/v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_inputs(q, k, v):
+    _check_device_dtype(q, k, v)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"expected q (BH,T,D), k/v (BH,S,D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -243,11 +260,249 @@ def static_quant_attention(q, k, v, scale: float, sm_mode: str, sm_delta, sm_bit
     return out
 
 
+def packed_slot_width(width: int, num_heads: int) -> int:
+    """The slot width dp of a (.., H*dp) packed tensor, held to the JAX
+    package's layout rules: 64 with an even head count (its pair mode), else
+    a multiple of 128."""
+    if num_heads < 1 or width % num_heads:
+        raise ValueError(f"packed width {width} is no multiple of num_heads {num_heads}")
+    dp = width // num_heads
+    if dp == 64:
+        if num_heads % 2:
+            raise ValueError("pair-packed layout needs an even head count")
+    elif dp % 128:
+        raise ValueError(f"packed head slot width {dp} must be 64 or a multiple of 128")
+    return dp
+
+
+def unpack_heads(x, num_heads: int, head_dim: int):
+    """(B, T, H*dp) head slots -> (B*H, T, head_dim), the classic layout."""
+    b, t, c = x.shape
+    x4 = x.reshape(b, t, num_heads, c // num_heads)[..., :head_dim]
+    return x4.permute(0, 2, 1, 3).reshape(b * num_heads, t, head_dim)
+
+
+def repack_heads(x, num_heads: int, dp: int):
+    """(B*H, T, d) -> (B, T, H*dp), lanes d..dp of every slot zero."""
+    bh, t, d = x.shape
+    b = bh // num_heads
+    out = x.new_zeros(b, t, num_heads, dp)
+    out[..., :d] = x.reshape(b, num_heads, t, d).permute(0, 2, 1, 3)
+    return out.reshape(b, t, num_heads * dp)
+
+
+def packed_attention_reference(q, k, v, scale, num_heads: int, head_dim=None, sm_mode="none",
+                               sm_bits=8, sm_delta=None, start_peak=False):
+    """Plain version of the packed entries: unpack the head slots, run
+    `attention_reference` (one real_time delta over every batch and head),
+    repack with zeros in the padding lanes."""
+    dp = q.shape[-1] // num_heads
+    d = dp if head_dim is None else head_dim
+    out = attention_reference(unpack_heads(q, num_heads, d), unpack_heads(k, num_heads, d),
+                              unpack_heads(v, num_heads, d), scale, sm_mode, sm_bits, sm_delta,
+                              start_peak)
+    return repack_heads(out, num_heads, dp)
+
+
+class _Packed:
+    """The checked arguments of one packed launch: shapes, the strides array
+    and the output buffer."""
+
+    def __init__(self, q, k, v, num_heads, head_dim, max_head_dim, out, need_out=True):
+        _check_device_dtype(q, k, v)
+        if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+            raise ValueError(f"expected q (B,T,H*dp), k/v (B,S,H*dp); got {tuple(q.shape)}, "
+                             f"{tuple(k.shape)}, {tuple(v.shape)}")
+        self.b, self.t, c = q.shape
+        if k.shape[0] != self.b or k.shape[2] != c:
+            raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+        self.s = k.shape[1]
+        self.heads = num_heads
+        self.slot = packed_slot_width(c, num_heads)
+        self.d = self.slot if head_dim is None else head_dim
+        if not 1 <= self.d <= self.slot:
+            raise ValueError(f"head_dim {self.d} does not fit the slot width {self.slot}")
+        if self.d > max_head_dim:
+            raise ValueError(f"this kernel is built for head_dim <= {max_head_dim}, got {self.d} "
+                             f"(slot width {self.slot}: pass the true head_dim)")
+        if self.b * num_heads > 65535:
+            raise ValueError(f"batch*heads {self.b * num_heads} > 65535 is not supported")
+        if need_out and out is None:
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        elif need_out and (out.shape != q.shape or out.dtype != q.dtype
+                           or out.device != q.device):
+            raise ValueError(f"out must be a {q.dtype} {tuple(q.shape)} tensor on {q.device}")
+        self.out = out
+        # any view whose lanes are contiguous and whose rows do not overlap:
+        # the kernel reads element by element from data_ptr(), so a storage
+        # offset needs no alignment
+        strides = ()
+        for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+            sb, sr, sl = (0, c, 1) if x is None else x.stride()
+            if sl != 1 or sr < c or sb < 0:
+                raise ValueError(f"packed attention kernels need {name} with a contiguous last "
+                                 f"axis and rows at least {c} apart, got strides {x.stride()}")
+            strides += (sb, sr)
+        self.strides = (ctypes.c_longlong * 8)(*strides)
+        self.bf16 = int(q.dtype == torch.bfloat16)
+        self.device = q.device
+
+    def dims(self):
+        return self.b, self.heads, self.t, self.s, self.d, self.slot, self.strides
+
+
+def flash_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None, out=None):
+    """K2p: `flash_attention` over head slots (`_flash_kernel(sub_heads)`)."""
+    a = _Packed(q, k, v, num_heads, head_dim, 512, out)
+    lib = load_kernels()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.dgq_flash_attention_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            a.out.data_ptr(), *a.dims(), float(scale), a.bf16,
+                                            stream)
+    _raise_on_error(rc, "flash_attention_packed")
+    LAUNCHES["flash_attention_packed"] += 1
+    return a.out
+
+
+def static_uniform_attention_packed(q, k, v, scale: float, sm_delta, num_heads: int,
+                                    head_dim=None, sm_bits: int = 8, out=None):
+    """K1p: `static_uniform_attention` over head slots
+    (`_static_uniform_kernel(sub_heads)`)."""
+    a = _Packed(q, k, v, num_heads, head_dim, 512, out)
+    if not 1 <= sm_bits <= 16:
+        raise ValueError(f"sm_bits {sm_bits} out of range")
+    delta = _scalar_delta(sm_delta, a.device)
+    lib = load_kernels()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.dgq_uniform_attention_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              a.out.data_ptr(), *a.dims(), float(scale),
+                                              delta.data_ptr(), sm_bits, a.bf16, stream)
+    _raise_on_error(rc, "static_uniform_attention_packed")
+    LAUNCHES["static_uniform_attention_packed"] += 1
+    return a.out
+
+
+def rt_stats_packed(q, k, scale: float, num_heads: int, head_dim=None,
+                    start_peak: bool = False):
+    """K3p, first launch: `rt_stats` over head slots. z is (B*H, T), row
+    b*H + h for head h of batch b; red folds every batch and head of the
+    call, as `_rt_fused_kernel`'s one scalar does."""
+    a = _Packed(q, k, k, num_heads, head_dim, 160, None, need_out=False)
+    lib = load_kernels()
+    z = torch.empty(a.b * num_heads, a.t, dtype=torch.float32, device=a.device)
+    red = torch.full((1,), 0.0 if start_peak else float("inf"), dtype=torch.float32,
+                     device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.dgq_rt_stats_packed(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(),
+                                     *a.dims(), float(scale), int(start_peak), a.bf16, stream)
+    _raise_on_error(rc, "rt_stats_packed")
+    LAUNCHES["rt_stats_packed"] += 1
+    return z, red
+
+
+def quant_accum_packed(q, k, v, z, red, scale: float, num_heads: int, head_dim=None,
+                       sm_bits: int = 8, start_peak: bool = False, out=None):
+    """K3p, second launch: `quant_accum` over head slots."""
+    a = _Packed(q, k, v, num_heads, head_dim, 160, out)
+    if not 1 <= sm_bits <= 16:
+        raise ValueError(f"sm_bits {sm_bits} out of range")
+    for name, buf, shape in (("z", z, (a.b * num_heads, a.t)), ("red", red, (1,))):
+        if (buf.device != a.device or buf.dtype != torch.float32 or tuple(buf.shape) != shape
+                or not buf.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 {shape} tensor on {a.device}")
+    lib = load_kernels()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.dgq_quant_accum_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        a.out.data_ptr(), z.data_ptr(), red.data_ptr(),
+                                        *a.dims(), float(scale), sm_bits, int(start_peak),
+                                        a.bf16, stream)
+    _raise_on_error(rc, "quant_accum_packed")
+    LAUNCHES["quant_accum_packed"] += 1
+    return a.out
+
+
+def log2_real_time_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None,
+                                    sm_bits: int = 8, start_peak: bool = False, out=None):
+    """K3p (`_rt_fused_kernel(sub_heads)`) as its two launches."""
+    z, red = rt_stats_packed(q, k, scale, num_heads, head_dim, start_peak)
+    return quant_accum_packed(q, k, v, z, red, scale, num_heads, head_dim, sm_bits, start_peak,
+                              out)
+
+
+def static_quant_attention_packed(q, k, v, scale: float, sm_mode: str, sm_delta,
+                                  num_heads: int, head_dim=None, sm_bits: int = 8,
+                                  start_peak: bool = False, out=None):
+    """K4p: `static_quant_attention` over head slots
+    (`_static_quant_kernel(sub_heads)`)."""
+    a = _Packed(q, k, v, num_heads, head_dim, 160, out)
+    if not 1 <= sm_bits <= 16:
+        raise ValueError(f"sm_bits {sm_bits} out of range")
+    if sm_mode not in ("log2", "uniform"):
+        raise ValueError(f"static_quant_attention takes 'log2' or 'uniform', got {sm_mode!r}")
+    delta = _scalar_delta(sm_delta, a.device)
+    lib = load_kernels()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.dgq_static_quant_attention_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), a.out.data_ptr(), *a.dims(), float(scale),
+            delta.data_ptr(), sm_bits, int(sm_mode == "uniform"), int(start_peak), a.bf16, stream)
+    _raise_on_error(rc, "static_quant_attention_packed")
+    LAUNCHES["static_quant_attention_packed"] += 1
+    return a.out
+
+
+def _fused_attention_packed(q, k, v, scale, num_heads, head_dim, sm_mode, sm_bits, sm_delta,
+                            start_peak, out):
+    """Packed head-slot dispatch (JAX `_fused_attention_packed`): the slot
+    checks hold on every device; then the plain version on the CPU, a packed
+    kernel anywhere else."""
+    dp = packed_slot_width(q.shape[-1], num_heads)
+    if head_dim is not None and not 1 <= head_dim <= dp:
+        raise ValueError(f"head_dim {head_dim} does not fit the slot width {dp}")
+    if q.device.type == "cpu":
+        ref = packed_attention_reference(q, k, v, scale, num_heads, head_dim, sm_mode, sm_bits,
+                                         sm_delta, start_peak)
+        return ref if out is None else out.copy_(ref)
+    if sm_mode == "none":
+        return flash_attention_packed(q, k, v, scale, num_heads, head_dim, out)
+    if sm_mode == "log2_real_time":
+        return log2_real_time_attention_packed(q, k, v, scale, num_heads, head_dim, sm_bits,
+                                               start_peak, out)
+    if sm_mode not in ("uniform", "log2"):
+        raise ValueError(f"unknown sm_mode {sm_mode!r}")
+    if sm_delta is None:
+        raise ValueError(f"{sm_mode} softmax quantization needs sm_delta")
+    if sm_mode == "uniform" and not start_peak:
+        return static_uniform_attention_packed(q, k, v, scale, sm_delta, num_heads, head_dim,
+                                               sm_bits, out)
+    return static_quant_attention_packed(q, k, v, scale, sm_mode, sm_delta, num_heads, head_dim,
+                                         sm_bits, start_peak, out)
+
+
 def fused_attention(q, k, v, scale: float, sm_mode: str = "none", sm_bits: int = 8,
-                    sm_delta=None, start_peak: bool = False):
+                    sm_delta=None, start_peak: bool = False, num_heads=None, head_dim=None,
+                    out=None):
     """Attention with an optional post-softmax quantizer (JAX
-    `fused_attention`, unpacked layout). CPU tensors take the plain version;
-    anything else launches a kernel or raises."""
+    `fused_attention`). CPU tensors take the plain version; anything else
+    launches a kernel or raises.
+
+    num_heads=None: the classic (BH, T, D) layout. num_heads=H: the packed
+    head-slot layout, q (B, T, H*dp) and k, v (B, S, H*dp) as the packed
+    projections (`calib.weight_calib.pack_attention_heads`) write them, dp 64
+    (even H) or a multiple of 128; returns (B, T, H*dp) with zeros in the
+    padding lanes. head_dim is the number of leading lanes of a slot that
+    carry data (default: all dp); the kernels contract over those alone,
+    which changes no bit, the others being zeros. `out` (packed layout only)
+    is a buffer to write into."""
+    if num_heads is not None:
+        return _fused_attention_packed(q, k, v, scale, num_heads, head_dim, sm_mode, sm_bits,
+                                       sm_delta, start_peak, out)
+    if head_dim is not None or out is not None:
+        raise ValueError("head_dim and out belong to the packed layout (num_heads=H)")
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, sm_mode, sm_bits, sm_delta, start_peak)
     if sm_mode == "none":

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 # source stem -> {C function: argument types}
 _SIGNATURES = {
     "attention": {
@@ -43,6 +44,15 @@ _SIGNATURES = {
         # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, uniform, start_peak, is_bf16, stream
         "dgq_static_quant_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _I,
                                        _P),
+        # the packed head-slot forms: (bh, t, s, d) becomes (b, heads, t, s, d, slot, strides)
+        "dgq_flash_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _P),
+        "dgq_uniform_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P, _I,
+                                         _I, _P),
+        "dgq_rt_stats_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I, _P),
+        "dgq_quant_accum_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
+                                   _I, _P),
+        "dgq_static_quant_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P,
+                                              _I, _I, _I, _I, _P),
     },
     "group_conv": {
         # x, w_t, rd, z, bias, out, b, h, w, c, o, kh, kw, pad, a_bits, is_bf16, stream

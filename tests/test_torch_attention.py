@@ -163,8 +163,9 @@ def test_cpu_takes_plain_version_and_counts_no_launch():
     out = TA.fused_attention(q, k, v, 0.1, sm_mode="uniform", sm_delta=torch.tensor(0.01))
     ref = TA.attention_reference(q, k, v, 0.1, "uniform", 8, torch.tensor(0.01))
     assert torch.equal(out, ref)
-    assert set(TA.LAUNCHES) == {"static_uniform_attention", "flash_attention", "rt_stats",
-                                "quant_accum", "static_quant_attention"}
+    classic = {"static_uniform_attention", "flash_attention", "rt_stats", "quant_accum",
+               "static_quant_attention"}
+    assert set(TA.LAUNCHES) == classic | {f"{n}_packed" for n in classic}
     assert all(n == 0 for n in TA.LAUNCHES.values())
 
 

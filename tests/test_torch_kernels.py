@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4;
-group_conv.cu: K5; int8_matmul.cu: K6) against their plain PyTorch versions on the card. Marked `cuda`: they skip
+"""The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4
+and their packed head-slot entries K1p to K4p; group_conv.cu: K5;
+int8_matmul.cu: K6) against their plain PyTorch versions on the card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
 
@@ -24,6 +25,13 @@ Tolerances, with reasons:
     order, so the size of an error is not bounded but the share of outputs
     with one is: under 5e-4 of the outputs may be off by more than 2e-3 (f32)
     or 2e-3 + 2^-7 |ref| (bf16), the form of tests/test_pallas_kernels.py.
+  * K1p to K4p (the packed head-slot entries): the same kernel body on the
+    same numbers in the same order, so the output with its padding lanes
+    sliced off equals the unpacked kernel's bit for bit, f32 and bf16, K3p
+    included (its delta is folded by an atomic min/max on the bit pattern,
+    which no order changes); the padding lanes are exact zeros even over an
+    output buffer full of NaN. Against the plain version: the tolerance of
+    the unpacked kernel of the same mode.
   * K5 (group conv): the codes and the folded weights are the same numbers on
     both sides, so only the f32 summation order differs: atol 2e-3 as
     tests/test_group_conv_kernel.py, plus 2^-7 |ref| in bf16 for the one
@@ -177,6 +185,125 @@ def test_flash_kernel_at_the_1024px_vae_shape():
     out = TA.fused_attention(q, k, v, 512 ** -0.5, sm_mode="none")
     torch.cuda.synchronize()
     _check(out, TA.attention_reference(q, k, v, 512 ** -0.5), v, torch.bfloat16)
+
+
+PACKED_MODES = [("none", False), ("uniform", False), ("log2", False), ("log2", True),
+                ("uniform", True), ("log2_real_time", False), ("log2_real_time", True)]
+PACKED_COUNTERS = {"none": ("flash_attention_packed",),
+                   "uniform": ("static_uniform_attention_packed",),
+                   "log2": ("static_quant_attention_packed",),
+                   "uniform+sp": ("static_quant_attention_packed",),
+                   "log2_real_time": ("rt_stats_packed", "quant_accum_packed")}
+
+
+def _packed_case(b, h, t, s, d, dp, dtype, seed):
+    """Classic (B*H, T, d) q, k, v and their packed (B, T, H*dp) forms."""
+    q, k, v = _qkv(b * h, t, s, d, dtype, seed)
+    return (q, k, v), tuple(TA.repack_heads(x, h, dp) for x in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,sp", PACKED_MODES)
+@pytest.mark.parametrize("t,s", [(200, 77), (256, 256)])
+@pytest.mark.parametrize("h,d,dp", [(8, 40, 64), (8, 80, 128), (8, 160, 256), (10, 64, 64),
+                                    (3, 40, 128)])
+def test_packed_kernel_equals_unpacked_kernel_and_plain(h, d, dp, t, s, mode, sp, dtype):
+    b = 2
+    classic, packed = _packed_case(b, h, t, s, d, dp, dtype, seed=d + s + h)
+    sm_delta = {"uniform": torch.tensor(1.0 / 64.0, device="cuda", dtype=dtype),
+                "log2": torch.tensor(0.7, device="cuda", dtype=dtype)}.get(mode)
+    kw = dict(sm_mode=mode, sm_bits=8, sm_delta=sm_delta, start_peak=sp)
+    want = TA.fused_attention(*classic, d ** -0.5, **kw)
+    before = dict(TA.LAUNCHES)
+    # the output's memory holds NaN before the launch
+    buf = torch.full((b, t, h * dp), float("nan"), device="cuda", dtype=dtype)
+    out = TA.fused_attention(*packed, d ** -0.5, num_heads=h, head_dim=d, out=buf, **kw)
+    torch.cuda.synchronize()
+    counters = PACKED_COUNTERS["uniform+sp" if (mode == "uniform" and sp) else mode]
+    for name in TA.LAUNCHES:
+        assert TA.LAUNCHES[name] == before[name] + (name in counters), name
+    assert out is buf and out.shape == (b, t, h * dp)
+    assert bool((out.reshape(b, t, h, dp)[..., d:] == 0).all())   # zeros, not NaN * 0
+    assert torch.equal(TA.unpack_heads(out, h, d), want)          # bit for bit
+    ref = TA.packed_attention_reference(*packed, d ** -0.5, h, d, mode, 8, sm_delta, sp)
+    if mode == "none":
+        _check(out, ref, packed[2], dtype)
+    elif mode == "uniform" and not sp:
+        _check(out, ref, packed[2], dtype, float(sm_delta))
+    else:
+        assert _mismatch_share(out, ref, dtype) < 5e-4
+
+
+@pytest.mark.parametrize("mode,sp", PACKED_MODES)
+def test_packed_kernel_contracts_the_whole_slot_without_head_dim(mode, sp):
+    """head_dim left out: the kernel contracts over all dp lanes of the slot,
+    zeros included, and gives the same bits."""
+    (_, _, _), packed = _packed_case(2, 4, 130, 77, 40, 64, torch.bfloat16, seed=7)
+    sm_delta = torch.tensor(0.5, device="cuda") if mode in ("uniform", "log2") else None
+    kw = dict(sm_mode=mode, sm_delta=sm_delta, start_peak=sp, num_heads=4)
+    assert torch.equal(TA.fused_attention(*packed, 40 ** -0.5, **kw),
+                       TA.fused_attention(*packed, 40 ** -0.5, head_dim=40, **kw))
+
+
+@pytest.mark.parametrize("mode,sp", [("none", False), ("uniform", False),
+                                     ("log2_real_time", True), ("log2", True)])
+def test_packed_kernel_reads_offset_views(mode, sp):
+    """q, k and v as views: column blocks of one fused (B, T, 3*H*dp)
+    projection output (rows three times as far apart, a storage offset), a
+    batch slice, and a buffer that starts one element off any 16-byte
+    boundary; the output as a view too."""
+    b, h, t, d, dp = 3, 8, 96, 40, 64
+    c = h * dp
+    _, (q, k, v) = _packed_case(b, h, t, t, d, dp, torch.bfloat16, seed=11)
+    sm_delta = torch.tensor(0.5, device="cuda") if mode in ("uniform", "log2") else None
+    kw = dict(sm_mode=mode, sm_delta=sm_delta, start_peak=sp, num_heads=h, head_dim=d)
+    want = TA.fused_attention(q, k, v, d ** -0.5, **kw)
+    fused = torch.cat([q, k, v], dim=-1)
+    qv, kv, vv = fused[..., :c], fused[..., c:2 * c], fused[..., 2 * c:]
+    assert not qv.is_contiguous() and kv.storage_offset() == c
+    assert torch.equal(TA.fused_attention(qv, kv, vv, d ** -0.5, **kw), want)
+    assert torch.equal(TA.fused_attention(qv[1:], kv[1:], vv[1:], d ** -0.5, **kw)[0],
+                       TA.fused_attention(q[1:], k[1:], v[1:], d ** -0.5, **kw)[0])
+    flat = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)
+    odd = flat[1:].view_as(q).copy_(q)
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(TA.fused_attention(odd, k, v, d ** -0.5, **kw), want)
+    wide = torch.full((b, t, 2 * c), float("nan"), device="cuda", dtype=q.dtype)
+    got = TA.fused_attention(q, k, v, d ** -0.5, out=wide[..., c:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(wide[..., :c].isnan().all())
+
+
+def test_packed_real_time_delta_spans_batches_and_heads_on_the_card():
+    """K3p's one delta: rt_stats_packed's scalar equals the classic call's
+    over all B*H heads, and z lies in (B*H, T) order."""
+    classic, packed = _packed_case(2, 8, 200, 77, 40, 64, torch.float32, seed=3)
+    for sp in (False, True):
+        z, red = TA.rt_stats(classic[0], classic[1], 40 ** -0.5, sp)
+        zp, redp = TA.rt_stats_packed(packed[0], packed[1], 40 ** -0.5, 8, 40, sp)
+        torch.cuda.synchronize()
+        assert torch.equal(z, zp) and torch.equal(red, redp)
+
+
+def test_packed_wrapper_rejects_bad_inputs():
+    _, (q, k, v) = _packed_case(2, 8, 64, 77, 160, 256, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        TA.flash_attention_packed(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 0.1, 8)
+    with pytest.raises(ValueError, match="pass the true head_dim"):
+        TA.log2_real_time_attention_packed(q, k, v, 0.1, 8)  # a 256-wide slot, quantized
+    with pytest.raises(ValueError, match="out must be"):
+        TA.flash_attention_packed(q, k, v, 0.1, 8, 160, out=torch.empty_like(k))
+    with pytest.raises(ValueError, match="even head count"):
+        x = torch.zeros(1, 8, 3 * 64, device="cuda")
+        TA.flash_attention_packed(x, x, x, 0.1, 3)
+    with pytest.raises(ValueError, match="dtype"):
+        TA.flash_attention_packed(q.half(), k.half(), v.half(), 0.1, 8, 160)
+    with pytest.raises(ValueError, match="65535"):
+        x = torch.zeros(8192, 1, 8 * 64, device="cuda")
+        TA.flash_attention_packed(x, x, x, 0.1, 8)
+    # the 256-wide slot is fine unquantized, and quantized with its true width
+    assert TA.flash_attention_packed(q, k, v, 0.1, 8).shape == q.shape
+    assert TA.log2_real_time_attention_packed(q, k, v, 0.1, 8, 160).shape == q.shape
 
 
 def _conv_case(b, h, c, o, dtype, seed, zp=(100.0, 156.0), dl=1.0):

@@ -129,10 +129,10 @@ def test_aq_apply_and_softmax_q_apply_bit_identical():
     ("packed_attention", True), ("fold_act_dequant", True),
 ])
 def test_qconfig_unported_fields_raise(field, value):
-    """The int8 matmul path and the codes fold are ported and construct; the
-    s8 conv and the packed attention layout still raise."""
+    """The int8 matmul path, the codes fold and the packed attention layout
+    are ported and construct; the s8 conv still raises."""
     j_qc.QConfig(**{field: value})  # the JAX package takes the same dict
-    if field in ("use_int8_matmul", "fold_act_dequant"):
+    if field in ("use_int8_matmul", "fold_act_dequant", "packed_attention"):
         assert getattr(t_qc.QConfig(**{field: value}), field) is value
         assert getattr(t_qc.QConfig().replace(**{field: value}), field) is value
         return
