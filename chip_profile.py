@@ -4,6 +4,7 @@ configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
 1024px, batch 2).
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
+    python3 chip_profile.py --changed   # only the g=8 fused, fp and decode rows
 
 For each of the SD g=1 path (unpacked, with packed attention, and with the
 int8 deploy path), the g=8 path with the fused group conv (unpacked and
@@ -19,7 +20,13 @@ the profiled wall would overstate it), and device time by bucket (kernels
 bucketed by name). Host walls of two calls spread by tens of percent on a
 shared host, so each packed step is also timed against its unpacked step in
 turns (unpacked, packed, packed, unpacked, five rounds) and the two medians are
-printed side by side. The last line repeats the figures as one JSON object. It
+printed side by side. The unquantized (fp) SD step, whose 32 attentions are
+the flash kernel, is profiled the same way, and one VAE decode of 2 images is
+timed at 512px and at 1024px (host wall after a synchronise, median of five;
+its one attention is the flash kernel at head dim 512). `--changed` keeps only
+the rows that the flash kernel and the group conv kernel carry: g=8 fused
+(unpacked and packed), fp, and the two decodes. The last line repeats the
+figures as one JSON object. It
 shares the model set-up with chip_smoke.py and, like it, refuses to run
 without a card.
 """
@@ -29,8 +36,9 @@ import subprocess
 import time
 
 BUCKETS = (
-    ("attention kernels (K1-K4, K1p-K4p)", ("attention_kernel",)),
-    ("group conv kernel (K5)", ("group_conv_kernel",)),
+    ("attention kernels (K1-K4, K1p-K4p)", ("attention_kernel", "flash_tc_kernel")),
+    ("group conv kernels (K5: fold, conv, split-K finish)",
+     ("group_conv", "fold_kernel", "fold_oihw_kernel", "finish_kernel")),
     ("int8 matmul kernel (K6)", ("int8_matmul_kernel",)),
     ("library convs", ("fprop", "implicit_gemm", "cudnn", "conv2d", "convolve")),
     ("library matmuls", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),
@@ -153,12 +161,34 @@ def in_turns(unpacked, packed, label, tag, rounds=5):
     return rec
 
 
+def time_decode(vae, latents, scale, label, tag, reps=5):
+    """Host wall of one `vae_decode` of `latents`, ended by a synchronise."""
+    import torch
+    from dgq_tpu_torch.pipeline.vae import vae_decode
+
+    walls = []
+    for i in range(reps + 1):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vae_decode(vae, latents, scale=scale)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    rec = {"config": label, "wall_ms_median": statistics.median(walls), "wall_ms": walls}
+    print(f"{label}: VAE decode of {latents.shape[0]} images, host wall median "
+          f"{rec['wall_ms_median']:.2f} ms of {walls} | {tag}", flush=True)
+    return rec
+
+
 def main():
+    import sys
+
     import torch
 
     import chip_smoke
     from dgq_tpu_torch.models.qconfig import QConfig
     from dgq_tpu_torch.ops import build
+    from dgq_tpu_torch.pipeline.vae import SD_VAE_SCALE, SDXL_VAE_SCALE
     from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate, synthetic_pertensor_qstate
 
     if not torch.cuda.is_available():
@@ -177,22 +207,37 @@ def main():
                  use_pallas_attention=True)
     g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
     g1p, g8p = g1.replace(packed_attention=True), g8.replace(packed_attention=True)
-    records = [
+    fp = QConfig(use_pallas_attention=True)
+    changed_only = "--changed" in sys.argv[1:]
+    records = [] if changed_only else [
         profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
         profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
         profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
                      "g=1 int8 deploy path", 4, tag),
+    ]
+    records += [
         profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
         profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention", 4,
                      tag),
-        profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
-                     "g=8 taps group conv", 4, tag),
+        profile_step(sd_step(model, None, fp), "fp (no activation quantizer)", 4, tag),
+        profile_step(sd_step(model, None, fp.replace(packed_attention=True)),
+                     "fp, packed attention", 4, tag),
     ]
-    turns = [
-        in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
-        in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p), "g=8 fused group conv",
-                 tag),
-    ]
+    if not changed_only:
+        records.append(profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
+                                    "g=8 taps group conv", 4, tag))
+    turns = [] if changed_only else [
+        in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag)]
+    turns.append(in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
+                          "g=8 fused group conv", tag))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    decodes = [time_decode(model["vae"], model["latents"], SD_VAE_SCALE, "SD decode at 512px", tag),
+               time_decode(model["vae"],
+                           torch.randn(2, 128, 128, 4, generator=g, device="cuda").to(bf),
+                           SDXL_VAE_SCALE, "SDXL decode at 1024px", tag)]
+    if changed_only:
+        print(json.dumps({"card": card, "steps": records, "in_turns": turns, "decodes": decodes}))
+        return
     del model, qs_g1, qs_g8
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     model = chip_smoke.build_sdxl_model(tag)
@@ -212,7 +257,7 @@ def main():
     turns.append(in_turns(sdxl_step(model, qs, off),
                           sdxl_step(model, qs, off.replace(packed_attention=True)),
                           "SDXL-turbo int8 path off", tag))
-    print(json.dumps({"card": card, "steps": records, "in_turns": turns}))
+    print(json.dumps({"card": card, "steps": records, "in_turns": turns, "decodes": decodes}))
 
 
 if __name__ == "__main__":

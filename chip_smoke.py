@@ -7,9 +7,12 @@ Phases (any failure raises, so the exit code is non-zero):
   1. build the hand-written CUDA kernels from dgq_tpu_torch/csrc/ (nvcc, sm_90a,
      one compiler process per source);
   2. hold each kernel against its plain PyTorch version at the main paths'
-     shapes, with the tolerance stated in `_check` / `_check_share` /
-     `_check_conv` / `compare_int8`, and time both (and the one library call
-     that computes the same function, where there is one). The packed
+     shapes, with the tolerance stated in `_check` / `_check_flash` /
+     `_check_share` / `_check_conv` / `compare_int8`, and time both (and the
+     one library call that computes the same function, where there is one),
+     the host time of the flash and group-conv wrappers, and for the flash
+     and group-conv kernels, whose calls can be as short as their wrapper's
+     host time, the device-only time as well (`_device_ms`). The packed
      head-slot attention entries are also held bit for bit against their
      unpacked kernels, over output memory that holds NaN;
   3. a small-input check: the tiny UNets on the card against the same models
@@ -37,12 +40,14 @@ Phases (any failure raises, so the exit code is non-zero):
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
-in this run on that card, and its line says so (`| card: ...`).
+in this run on that card, and its line says so (`| card: ...`). Each phase
+prints the seconds it took.
 """
 import json
 import re
 import statistics
 import subprocess
+import threading
 import time
 
 STEPS_G1 = 10
@@ -80,21 +85,74 @@ PEAK_BYTES = 3.35e12
 
 
 def _median_ms(fn, reps=10, warmup=2):
+    """Median milliseconds of one call between two CUDA events. A call that
+    takes under 2 ms is queued several times back to back between the events,
+    so that a wrapper's host time hides under the device time of the call
+    before it: the reading is the larger of one call's device time and its
+    host time, not their sum."""
     import torch
+
+    def timed(batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / batch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    single = timed(1)
+    batch = 1 if single >= 2.0 else max(2, min(16, int(4.0 / max(single, 0.05))))
+    return statistics.median(timed(batch) for _ in range(reps))
+
+
+def _device_ms(fn, calls=16, reps=5):
+    """Median milliseconds the card works on one call, the host's share left
+    out: a spin kernel holds the stream while the host queues `calls` calls
+    behind it, so the events around them see the kernels run back to back. A
+    reading whose queueing outlasted the spin is taken again with a longer one."""
+    import torch
+
+    fn()
+    spin, readings = 40_000_000, []  # cycles: 20 to 30 ms at the card's clocks
+    while len(readings) < reps:
+        s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        s0.record()
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if queued_ms < 0.8 * s0.elapsed_time(a):
+            readings.append(a.elapsed_time(b) / calls)
+        elif spin > 2_000_000_000:
+            raise AssertionError(f"the host took {queued_ms:.1f} ms to queue {calls} calls")
+        else:
+            spin *= 2
+    return statistics.median(readings)
+
+
+def _host_us(fn, reps=50):
+    """Host microseconds one call takes to return (the device is not waited
+    for until all `reps` calls are queued)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
 
 
 def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -124,6 +182,33 @@ def _check(out, ref, v, delta=None):
         mean_bound = 2.0 ** -8 * float(ref.abs().mean()) + 0.01 * delta * vmax
         if float(err.mean()) > mean_bound:
             raise AssertionError(f"mean error {float(err.mean())} > {mean_bound}")
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"error exceeds the bound by {float((err - bound).max())}")
+    return float(err.max()), float(err.mean())
+
+
+def _flash_f32(q, k, v, scale):
+    """The plain flash result in f32, unrounded, and P |V| (P the plain softmax),
+    which scales the absolute part of `_check_flash`'s bound."""
+    import torch
+
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    return torch.matmul(p, v.float()), torch.matmul(p, v.float().abs())
+
+
+def _check_flash(out, ref32, pav):
+    """The bf16 flash kernel (K2, K2p) against the f32 plain result. Q K^T of
+    bf16 inputs is exact per product on the tensor cores, but P is rounded to
+    bf16 before P V (as the library's kernel does), so each product p v carries
+    a relative error of at most 2^-9 and the sum an absolute error that does not
+    shrink where the output cancels; the output is rounded to bf16 once more:
+    |err| <= 2^-7 |ref| + 2^-8 (P |V|). The mean lies far below it."""
+    out = out.float()
+    if out.shape != ref32.shape or not bool(out.isfinite().all()):
+        raise AssertionError(f"bad kernel output: shape {tuple(out.shape)}, finite "
+                             f"{bool(out.isfinite().all())}")
+    err = (out - ref32).abs()
+    bound = 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav
     if not bool((err <= bound).all()):
         raise AssertionError(f"error exceeds the bound by {float((err - bound).max())}")
     return float(err.max()), float(err.mean())
@@ -177,16 +262,19 @@ def _check_conv(out, ref):
 
 class _Summary(dict):
     """Per kernel: the largest max_abs_err (and mismatch share) over its
-    cases, and the timings of its first case, its largest main-path shape."""
+    cases, and the timings of its first case, its largest main-path shape.
+    `device_ms` (`_device_ms`) is taken for the kernels whose `ms` at some
+    shape is as short as their wrapper's host time (K2, K2p, K5), else None."""
 
-    def add(self, name, label, mx, ms, plain_ms, bound, library_ms=None, share=None):
+    def add(self, name, label, mx, ms, plain_ms, bound, library_ms=None, share=None,
+            device_ms=None):
         rec = self.setdefault(name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], mx)
         if share is not None:
             rec["mismatch_share"] = max(rec.get("mismatch_share", 0.0), share)
         if "ms" not in rec:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                       library_ms=library_ms, at=label)
+                       library_ms=library_ms, device_ms=device_ms, at=label)
 
 
 def compare_attention(tag, summary):
@@ -307,16 +395,45 @@ def compare_attention(tag, summary):
         if name == "static_quant_attention":
             mx, share = _check_share(out, ref)
             note = f"mismatch share {share:.3g}"
+        elif name == "flash_attention":
+            # the kernel and the one PyTorch call that computes K2's function
+            # (timed here, used nowhere), each against the f32 plain result
+            ref32, pav = _flash_f32(q, k, v, scale)
+            mx, mean = _check_flash(out, ref32, pav)
+            lib = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            lib_err = (lib.float() - ref32).abs()
+            note = (f"mean_abs_err {mean:.3g} (vs the f32 plain result, bound 2^-7|ref| + "
+                    f"2^-8 P|V|; scaled_dot_product_attention vs the same: max "
+                    f"{float(lib_err.max()):.6g} mean {float(lib_err.mean()):.3g})")
+            # a contiguous view that starts one element off a 16-byte boundary
+            # takes the element-load form of the kernel: same bits
+            odd = torch.empty(q.numel() + 1, device="cuda", dtype=bf)[1:].view_as(q).copy_(q)
+            forms = (A.flash_form(bf, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()), (d,)),
+                     A.flash_form(bf, d, (odd.data_ptr(), k.data_ptr(), v.data_ptr()), (d,)))
+            if forms != ("wgmma_async", "wgmma_plain"):
+                raise AssertionError(f"{label}: kernel forms {forms}")
+            if not torch.equal(A.fused_attention(odd, k, v, scale), out):
+                raise AssertionError(f"{label}: the element-load form differs from the "
+                                     f"asynchronous-copy form")
+            if A.LAUNCHES[name] != before[name] + 2:
+                raise AssertionError(f"{label}: the misaligned view did not launch {name}")
+            odd_ms = _median_ms(lambda: A.fused_attention(odd, k, v, scale))
+            note += f"; misaligned q (element loads) equal bit for bit, ms {odd_ms:.4f}"
+            del ref32, pav, lib, lib_err, odd
         else:
             mx, mean = _check(out, ref, v, float(delta_u) if mode == "uniform" else None)
             note = f"mean_abs_err {mean:.3g}"
         ms, plain_ms = _median_ms(kernel), _median_ms(plain)
-        if name == "flash_attention":
-            # the one PyTorch call that computes K2's function; timed here, used nowhere
-            library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-            note += f"; library (scaled_dot_product_attention) ms {library_ms:.4f}"
         bound = _bound(2 * qk_flops, io_bytes)
-        summary.add(name, label, mx, ms, plain_ms, bound, library_ms, share)
+        device_ms = None
+        if name == "flash_attention":
+            library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            device_ms = _device_ms(kernel)
+            lib_dev = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            note += (f"; library (scaled_dot_product_attention) ms {library_ms:.4f}; device-only "
+                     f"ms kernel {device_ms:.4f} ({device_ms / bound[0]:.2f}x its bound) library "
+                     f"{lib_dev:.4f}")
+        summary.add(name, label, mx, ms, plain_ms, bound, library_ms, share, device_ms)
         print(f"{name} {label} {shape}: max_abs_err {mx:.6g} {note}; median ms kernel {ms:.4f} "
               f"plain {plain_ms:.4f} bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
         del q, k, v, out, ref
@@ -404,7 +521,21 @@ def compare_attention_packed(tag, summary):
             if vs_unpacked != 0.0 or not torch.equal(A.unpack_heads(out, h, d), unpacked):
                 raise AssertionError(f"{name} {label} {dtype}: differs from the unpacked kernel "
                                      f"by {vs_unpacked}")
-            if mode == "none" or (mode == "uniform" and not sp):
+            if mode == "none" and dtype == bf:
+                ref32, pav = _flash_f32(q, k, v, scale)
+                mx, _ = _check_flash(A.unpack_heads(out, h, d), ref32, pav)
+                share = None
+                # a view one element off any 16-byte boundary: the element-load
+                # form of the kernel, counted under the same name, same bits
+                odd = torch.empty(qp.numel() + 1, device="cuda", dtype=bf)[1:].view_as(qp)
+                odd.copy_(qp)
+                if A.flash_form(bf, d, (odd.data_ptr(),), (h * dp,), dp) != "wgmma_plain":
+                    raise AssertionError(f"{label}: a misaligned view chose the 16-byte copies")
+                got = A.fused_attention(odd, kp, vp, scale, num_heads=h, head_dim=d, **kw)
+                if not torch.equal(got, out) or A.LAUNCHES[name] != before[name] + 2:
+                    raise AssertionError(f"{name} {label}: the element-load form differs")
+                del ref32, pav, odd, got
+            elif mode == "none" or (mode == "uniform" and not sp):
                 tol = _check if dtype == bf else _check_f32
                 mx, _ = tol(out, ref, v, float(dl) if mode == "uniform" else None)
                 share = None
@@ -474,44 +605,71 @@ def compare_attention_packed(tag, summary):
         if name != "rt":
             plain_ms = _median_ms(lambda: A.packed_attention_reference(
                 qp, kp, vp, scale, h, d, mode, 8, dl, sp))
-            library_ms = None
+            library_ms = device_ms = None
             if name == "flash_attention_packed":
                 # the one PyTorch call for K2p's function, on the same strided head views
                 q4, k4, v4 = (x.reshape(b, -1, h, dp)[..., :d].transpose(1, 2)
                               for x in (qp, kp, vp))
                 library_ms = _median_ms(
                     lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
-                line += f", library (scaled_dot_product_attention) {library_ms:.4f}"
+                device_ms = _device_ms(packed_route)
+                lib_dev = _device_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+                line += (f", library (scaled_dot_product_attention) {library_ms:.4f}, "
+                         f"device-only packed entry {device_ms:.4f} library {lib_dev:.4f}")
             bound = _bound(2 * qk_flops, valid + 2.0 * b * t * h * dp)
             summary.add(name, label, worst[bf][0], ms, plain_ms, bound, library_ms,
                         None if worst[bf][1] is None
-                        else max(worst[torch.float32][1], worst[bf][1]))
+                        else max(worst[torch.float32][1], worst[bf][1]), device_ms)
             line += f", plain {plain_ms:.4f}, bound {bound[0]:.4f} ({bound[1]})"
+            if device_ms is not None:
+                line += f", device-only {device_ms / bound[0]:.2f}x its bound"
         print(f"{line} | {tag}", flush=True)
         del q, k, v, qp, kp, vp, q3, k3, v3, out, ref, unpacked, buf
     torch.cuda.empty_cache()
 
 
+# K5's shapes: the four resolutions of the g=8 path, conv_in (4 channels: the
+# CUDA-core body) and the widest up-block input. label, H = W, C, O
+CONV_SHAPES = [
+    ("64px 320->320", 64, 320, 320),
+    ("32px 640->640", 32, 640, 640),
+    ("16px 1280->1280", 16, 1280, 1280),
+    ("8px 2560->1280", 8, 2560, 1280),
+    ("64px 4->320 (conv_in)", 64, 4, 320),
+    ("16px 2560->1280", 16, 2560, 1280),
+]
+
+
 def compare_group_conv(tag, summary):
-    """Phase 2, K5 at the four resolutions of the g=8 path (3x3, stride 1, CFG
-    batch 2 x IMAGES, bf16; synthetic scales spread around the qstate's 0.05 /
-    128 so that every (tap, channel) differs). Work per call: 2*M*9*C*O flops;
-    bytes are x, w, dm, zm, bias and the output once each. The wrapper's time
-    includes the per-call weight pre-scale w * dm * dl, timed on its own too."""
+    """Phase 2, K5 at `CONV_SHAPES` (3x3, stride 1, CFG batch 2 x IMAGES, bf16;
+    the weights OIHW seen as HWIO, as the model passes them; synthetic scales
+    spread around the qstate's 0.05 / 128 so that every (tap, channel)
+    differs). The fold kernel's w_t, rd and z must equal `_fold`'s bit for
+    bit. Work per call: 2*M*9*C*O flops; bytes are x, w, dm, zm, bias and the
+    output once each. The wrapper's time is the fold launch, the conv and,
+    where K is split, the pass that adds the partial sums; the fold is timed
+    on its own too. Split K adds its f32 partial tiles in split order, so the
+    result does not vary from run to run."""
     import torch
     from dgq_tpu_torch.ops import group_conv as G
 
     g = torch.Generator(device="cuda").manual_seed(1)
     bf = torch.bfloat16
     b = 2 * IMAGES
-    for h, c, o in [(64, 320, 320), (32, 640, 640), (16, 1280, 1280), (8, 2560, 1280)]:
+    for label, h, c, o in CONV_SHAPES:
         x = (2.0 * torch.randn(b, h, h, c, generator=g, device="cuda")).to(bf)
-        w = (torch.randn(3, 3, c, o, generator=g, device="cuda") / (9 * c) ** 0.5).to(bf)
+        w = (torch.randn(o, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5).to(bf)
+        w = w.permute(2, 3, 1, 0)
         dm = 0.03 + 0.04 * torch.rand(9, c, generator=g, device="cuda")
         zm = 100.0 + 56.0 * torch.rand(9, c, generator=g, device="cuda")
         dl, zl = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
         bias = 0.1 * torch.randn(o, generator=g, device="cuda")
         args = (x, w, dm, zm, dl, zl, bias)
+        folded = G.fold_weights(bf, w, dm, zm, dl, zl, 3, 3)
+        if not all(torch.equal(mine, ref) for mine, ref in
+                   zip(folded, G._fold(x, w, dm, zm, dl, zl, 3, 3))):
+            raise AssertionError(f"group conv fold {label}: w_t, rd or z differ from _fold's")
         before = G.LAUNCHES["group_quant_conv"]
         out = G.group_quant_conv(*args)
         ref = G.group_quant_conv_reference(*args)
@@ -519,17 +677,29 @@ def compare_group_conv(tag, summary):
         if G.LAUNCHES["group_quant_conv"] != before + 1:
             raise AssertionError("group_quant_conv did not launch its kernel")
         mx = _check_conv(out, ref)
+        if not torch.equal(out, G.group_quant_conv(*args)):
+            raise AssertionError(f"group_quant_conv {label}: two runs differ")
         ms = _median_ms(lambda: G.group_quant_conv(*args))
         plain_ms = _median_ms(lambda: G.group_quant_conv_reference(*args))
-        fold_ms = _median_ms(lambda: G._fold(x, w, dm, zm, dl, zl, 3, 3))
+        fold_ms = _median_ms(lambda: G.fold_weights(bf, w, dm, zm, dl, zl, 3, 3))
+        old_fold_ms = _median_ms(lambda: G._fold(x, w, dm, zm, dl, zl, 3, 3))
+        device_ms = _device_ms(lambda: G.group_quant_conv(*args))
+        fold_dev = _device_ms(lambda: G.fold_weights(bf, w, dm, zm, dl, zl, 3, 3))
         nbytes = 2.0 * (x.numel() + w.numel() + out.numel()) + 4.0 * (2 * dm.numel() + o)
         bound = _bound(2.0 * b * h * h * 9 * c * o, nbytes)
-        label = f"{h}px {c}->{o}"
-        summary.add("group_quant_conv", label, mx, ms, plain_ms, bound)
-        print(f"group_quant_conv {label} (B={b}, H=W={h}, C={c}, O={o}, 3x3, bf16): max_abs_err "
-              f"{mx:.6g}; median ms kernel+fold {ms:.4f} (weight pre-scale alone {fold_ms:.4f}) "
-              f"plain {plain_ms:.4f} bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
-        del x, w, out, ref
+        form = G.conv_form(bf, c, o, x.data_ptr())
+        plan = G.conv_plan(b * h * h, c, o, 9)
+        how = (f"{form} body" if form == "cuda_core" else
+               f"{form} body, {plan.m_tiles} x {plan.n_tiles} tiles, {plan.steps} K steps in "
+               f"{plan.splits} split(s) of {plan.steps_per_split}")
+        summary.add("group_quant_conv", label, mx, ms, plain_ms, bound, device_ms=device_ms)
+        print(f"group_quant_conv {label} (B={b}, H=W={h}, C={c}, O={o}, 3x3, bf16; {how}): w_t, "
+              f"rd, z equal _fold's; max_abs_err {mx:.6g}; median ms fold+conv {ms:.4f} (fold "
+              f"kernel alone {fold_ms:.4f}; _fold's torch passes {old_fold_ms:.4f}) plain "
+              f"{plain_ms:.4f} bound {bound[0]:.4f} ({bound[1]}); device-only ms fold+conv "
+              f"{device_ms:.4f} ({device_ms / bound[0]:.2f}x its bound), fold kernel alone "
+              f"{fold_dev:.4f} | {tag}", flush=True)
+        del x, w, out, ref, folded
     torch.cuda.empty_cache()
 
 
@@ -542,6 +712,38 @@ INT8_SHAPES = [
     ("SDXL 32px FF-in", 2048, 1280, 10240),
     ("SDXL add_embedding.linear_1", 2, 2816, 1280),
 ]
+
+
+def wrapper_host_cost(tag):
+    """Host time of the flash and group-conv wrappers at their smallest
+    main-path shapes (SD 16px cross-attention, the 8px conv): these calls sit
+    on host-bound paths, where what a wrapper does before its launch (checks,
+    the choice of kernel form, allocations) is what a step pays for it."""
+    import torch
+    from dgq_tpu_torch.ops import attention as A
+    from dgq_tpu_torch.ops import group_conv as G
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    b, h, t, s, d, dp = 2 * IMAGES, 8, 256, 77, 160, 256
+    q = torch.randn(b * h, t, d, generator=g, device="cuda").to(bf)
+    k = torch.randn(b * h, s, d, generator=g, device="cuda").to(bf)
+    v = torch.randn(b * h, s, d, generator=g, device="cuda").to(bf)
+    qp, kp, vp = (A.repack_heads(x, h, dp) for x in (q, k, v))
+    scale = d ** -0.5
+    classic = _host_us(lambda: A.fused_attention(q, k, v, scale))
+    packed = _host_us(lambda: A.fused_attention(qp, kp, vp, scale, num_heads=h, head_dim=d))
+    x = torch.randn(b, 8, 8, 2560, generator=g, device="cuda").to(bf)
+    w = (torch.randn(1280, 2560, 3, 3, generator=g, device="cuda") / 150.0).to(bf)
+    w = w.permute(2, 3, 1, 0)
+    dm = 0.03 + 0.04 * torch.rand(9, 2560, generator=g, device="cuda")
+    zm = 100.0 + 56.0 * torch.rand(9, 2560, generator=g, device="cuda")
+    dl, zl = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
+    bias = torch.zeros(1280, device="cuda")
+    conv = _host_us(lambda: G.group_quant_conv(x, w, dm, zm, dl, zl, bias))
+    print(f"wrapper host cost, microseconds a call: flash_attention 16px cross (BH={b * h}, "
+          f"T={t}, S={s}, D={d}) {classic:.1f}; flash_attention_packed 16px cross (slots of "
+          f"{dp}) {packed:.1f}; group_quant_conv 8px 2560->1280 {conv:.1f} | {tag}", flush=True)
 
 
 def compare_int8(tag, summary):
@@ -664,24 +866,18 @@ def _to_cuda(tree):
     return None if tree is None else tree.cuda()
 
 
-def small_input_check(tag):
-    """Phase 3: the tiny UNets (base 32) on the card (kernels) against the
-    same weights and inputs on the CPU (plain versions), f32 with TF32 off.
-    fp: atol 1e-4 (summation order). Quantized SD configurations: the chaos
-    bound of the JAX package's tests, err <= max(5 * chaos, 1e-4), chaos = the
-    CPU net's largest output change under sixteen 1e-6 input perturbations
-    (the change is heavy-tailed: most draws flip no quantizer bin and move
-    nothing, one in three moves the output by 0.03 to 0.06). The tiny SDXL
-    net under the real-time softmax answers a perturbation with no change or
-    with one of about half its output's size (one flipped maximum rescales a
-    whole attention), and the card is a perturbation of the CPU of the fp
-    check's size, not of 1e-6: its sixteen draws are of size 1e-5, and the
-    card must be within 2 * chaos in the largest and in the mean error.
+def small_input_reference():
+    """Phase 3, the CPU side (needs no card and no kernel, so it runs while
+    the compilers do): the tiny UNets (base 32) with their weights and
+    inputs, each configuration's output on the CPU (plain versions) and its
+    chaos, the CPU net's largest output change (in the maximum and in the
+    mean) under sixteen input perturbations. fp nets take no perturbation.
     The packed configurations run the same nets with `pack_attention_heads`
     weights (the tiny SD heads are 4 to 16 wide in slots of 64 or 128, the
-    tiny SDXL heads 32 wide in slots of 64) and `packed_attention=True` on
-    both sides; on the card every attention must go through a packed entry
-    and none through an unpacked kernel."""
+    tiny SDXL heads 32 wide in slots of 64) and `packed_attention=True`.
+    Returns the input and, per configuration, (label, forward, params,
+    qstate, cfg, kernels that must launch, perturbation size, CPU output,
+    chaos, chaos of the mean)."""
     import torch
     from dgq_tpu_torch.calib.weight_calib import pack_attention_heads, quantize_model_weights
     from dgq_tpu_torch.models.qconfig import QConfig
@@ -689,9 +885,6 @@ def small_input_check(tag):
     from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec, unet_sdxl_apply
     from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate, synthetic_pertensor_qstate
 
-    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(1)
     x = torch.randn(2, 16, 16, 4, generator=g)
     ehs = torch.randn(2, 77, 64, generator=g)
@@ -763,9 +956,40 @@ def small_input_check(tag):
         ("SDXL W8A8 log2 real_time packed", sdxl, pack_attention_heads(xparams_q, xspec, xheads),
          xqs, xrt, ("rt_stats_packed", "quant_accum_packed"), 1e-5),
     ]
+    prepared = []
     with torch.no_grad():
         for label, fwd, p, qs, cfg, must_launch, amp in configs:
             ref = fwd(p, x, qs, cfg, "cpu")
+            chaos = chaos_mean = None
+            if amp is not None:
+                changes = [(fwd(p, x + amp * n, qs, cfg, "cpu") - ref).abs() for n in draws]
+                chaos = max(float(c.max()) for c in changes)
+                chaos_mean = max(float(c.mean()) for c in changes)
+            prepared.append((label, fwd, p, qs, cfg, must_launch, amp, ref, chaos, chaos_mean))
+    return x, prepared
+
+
+def small_input_check(x, prepared, tag):
+    """Phase 3, the card's side: each tiny UNet of `small_input_reference` on
+    the card (kernels) against its CPU output, f32 with TF32 off. fp: atol
+    1e-4 (summation order). Quantized SD configurations: the chaos bound of
+    the JAX package's tests, err <= max(5 * chaos, 1e-4), under perturbations
+    of 1e-6 (the change is heavy-tailed: most draws flip no quantizer bin and
+    move nothing, one in three moves the output by 0.03 to 0.06). The tiny
+    SDXL net under the real-time softmax answers a perturbation with no
+    change or with one of about half its output's size (one flipped maximum
+    rescales a whole attention), and the card is a perturbation of the CPU of
+    the fp check's size, not of 1e-6: its sixteen draws are of size 1e-5, and
+    the card must be within 2 * chaos in the largest and in the mean error.
+    With packed attention every attention on the card must go through a
+    packed entry and none through an unpacked kernel."""
+    import torch
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        for label, fwd, p, qs, cfg, must_launch, amp, ref, chaos, chaos_mean in prepared:
             _reset_launch_counts()
             out = fwd(_to_cuda(p), x, _to_cuda(qs), cfg, "cuda").cpu()
             launched = {n: c for n, c in _launch_counts().items() if c}
@@ -774,18 +998,14 @@ def small_input_check(tag):
             if amp is None:
                 note = "bound 1e-4"
                 ok = ok and float(err.max()) <= 1e-4
+            elif amp == 1e-6:
+                note = f"bound {max(5 * chaos, 1e-4):.6g}"
+                ok = ok and float(err.max()) <= max(5 * chaos, 1e-4)
             else:
-                changes = [(fwd(p, x + amp * n, qs, cfg, "cpu") - ref).abs() for n in draws]
-                chaos = max(float(c.max()) for c in changes)
-                if amp == 1e-6:
-                    note = f"bound {max(5 * chaos, 1e-4):.6g}"
-                    ok = ok and float(err.max()) <= max(5 * chaos, 1e-4)
-                else:
-                    chaos_mean = max(float(c.mean()) for c in changes)
-                    note = (f"bound {max(2 * chaos, 1e-4):.6g}; mean_abs_err {float(err.mean()):.6g}"
-                            f", bound {max(2 * chaos_mean, 1e-5):.6g}")
-                    ok = (ok and float(err.max()) <= max(2 * chaos, 1e-4)
-                          and float(err.mean()) <= max(2 * chaos_mean, 1e-5))
+                note = (f"bound {max(2 * chaos, 1e-4):.6g}; mean_abs_err {float(err.mean()):.6g}"
+                        f", bound {max(2 * chaos_mean, 1e-5):.6g}")
+                ok = (ok and float(err.max()) <= max(2 * chaos, 1e-4)
+                      and float(err.mean()) <= max(2 * chaos_mean, 1e-5))
             print(f"tiny UNet {label}: card vs CPU max_abs_err {float(err.max()):.6g} ({note}); "
                   f"kernel launches {launched} | {tag}", flush=True)
             if not ok:
@@ -1160,8 +1380,33 @@ def print_build_report(paths, tag):
             sym = m.group(1)
             dtype = "bf16" if "bfloat16" in sym else "f32"
             a = re.search(r"attention_kernelI\w+?Li(\d+)ELi(\d+)ELi(\d)E", sym)
-            kname = (f"{modes[a.group(3)]} DP={a.group(1)} RM={a.group(2)}" if a
-                     else "K6 int8_matmul" if "int8_matmul" in sym else "K5 group_conv")
+            f = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E", sym)
+            if a:
+                kname = f"{modes[a.group(3)]} DP={a.group(1)} RM={a.group(2)}"
+            elif f:
+                dtype = "bf16"
+                kname = (f"K2/K2p flash wgmma D<={16 * int(f.group(2))} BK={f.group(3)}"
+                         + (" split columns" if f.group(4) == "1" else "")
+                         + (" cp.async" if f.group(5) == "1" else " element loads"))
+            elif "int8_matmul" in sym:
+                kname = "K6 int8_matmul"
+            elif "group_conv_tc_kernel" in sym:
+                dtype = "bf16"
+                kname = "K5 group_conv wgmma" + (" split K" if "ILb1E" in sym else "")
+            elif "fold_oihw_kernel" in sym:
+                dtype = "bf16"
+                kname = ("K5 weight fold (OIHW, in registers), scales "
+                         + ("f32" if "fold_oihw_kernelIfE" in sym else "bf16"))
+            elif "fold_kernel" in sym:
+                t = re.search(r"fold_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)E", sym)
+                dtype = "bf16" if t and t.group(1) != "f" else "f32"
+                kname = ("K5 weight fold, scales "
+                         + ("bf16" if t and t.group(2) != "f" else "f32"))
+            elif "finish_kernel" in sym:
+                dtype = "bf16"
+                kname = "K5 split-K finish"
+            else:
+                kname = "K5 group_conv CUDA cores"
             print(f"  ptxas {kname} {dtype}: {m.group(4)} registers, {m.group(3)} bytes "
                   f"spilled | {tag}")
 
@@ -1180,29 +1425,56 @@ def main():
     print(card, flush=True)  # the nvidia-smi line as it is
     tag = f"card: {card}"
 
+    # the compilers run (one process per source) while this process computes
+    # the small-input check's CPU side, which needs neither them nor the card
     t0 = time.perf_counter()
-    paths = build.build_kernels()
+    built = {}
+
+    def build_all():
+        try:
+            built["paths"] = build.build_kernels()
+        except BaseException as exc:  # handed to the main thread, which raises it
+            built["error"] = exc
+        built["seconds"] = time.perf_counter() - t0
+
+    compiling = threading.Thread(target=build_all)
+    compiling.start()
+    try:
+        tiny_x, tiny_nets = small_input_reference()
+        cpu_seconds = time.perf_counter() - t0
+    finally:
+        compiling.join()
+    if "error" in built:
+        raise built["error"]
+    paths = built["paths"]
     build.load_kernels()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
+    print(f"build: {built['seconds']:.2f} s beside {cpu_seconds:.2f} s of the tiny nets' CPU "
+          f"references ({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
     print_build_report(paths, tag)
 
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s | {tag}", flush=True)
+        return result
+
     summary = _Summary()
-    compare_attention(tag, summary)
-    compare_attention_packed(tag, summary)
-    compare_group_conv(tag, summary)
-    compare_int8(tag, summary)
-    small_input_check(tag)
-    launches = main_paths(tag)
+    phase(compare_attention, tag, summary)
+    phase(compare_attention_packed, tag, summary)
+    phase(compare_group_conv, tag, summary)
+    phase(wrapper_host_cost, tag)
+    phase(compare_int8, tag, summary)
+    phase(small_input_check, tiny_x, tiny_nets, tag)
+    launches = phase(main_paths, tag)
     torch.cuda.empty_cache()  # the SD model is gone; SDXL needs 20 GB while it folds
-    launches["int8_matmul"] = sdxl_path(tag)["int8_matmul"]
+    launches["int8_matmul"] = phase(sdxl_path, tag)["int8_matmul"]
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **{k: v for k, v in summary[name].items() if k != "at"}}
         for name, (source, replaces) in KERNELS.items()]}
     print("kernels: max_abs_err (and mismatch_share) are the largest over the shapes above; "
-          "ms, plain_ms, bound_ms, library_ms at "
+          "ms, plain_ms, bound_ms, library_ms, device_ms at "
           + ", ".join(f"{n}: {summary[n]['at']}" for n in KERNELS) + f" | {tag}")
     print(card)
     print(json.dumps(record))

@@ -28,26 +28,63 @@
 //     round(p / delta) with start_peak.
 //
 // What bounds it on the H100. At the main path's shapes (T = S = 4096,
-// head_dim 40..512) attention is compute-bound: QK^T and PV are
+// head_dim 40..512) attention is bound by operations: Q K^T and P V are
 // 4*T*S*D flops against (T + 2S)*D elements read. The TPU kernels cache the
-// (rows, S) f32 exp or score blocks of pass 1 in VMEM (up to 8 MB) so pass 2
-// needs no second QK^T; that cache does not fit in the 227 KB of shared memory
-// a block may use here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's
-// `_accum_kernel` does) and pay 1.5x the flops of K2; K3b pays the same over
-// its two launches.
+// (rows, S) f32 exp or score blocks of pass 1 in VMEM so pass 2 needs no second
+// Q K^T; that cache does not fit in the 227 KB of shared memory a block may use
+// here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's `_accum_kernel`
+// does) and pay 1.5x the flops of K2; K3b pays the same over its two launches.
 //
-// Design (first version: right and simple, not yet fast). One block of 256
-// threads per (batch*head, 16*RM query rows). Q stays in shared memory; K and
-// V tiles of 64 keys stream through one shared buffer as f32. Each thread owns
-// RM query rows x 4 keys of every score tile (register blocking, float4 reads
-// along the head dim) and RM rows x DP/16 columns of the output accumulator,
-// which lives in registers, so D = 512 (VAE) needs no accumulator in shared
-// memory: it runs with RM = 2. All arithmetic is f32 on the CUDA cores; the
-// tensor cores (wgmma) and TMA are later work. Head dims that are not a
-// multiple of 16 (SD's 40) are zero-padded in shared memory, not in the
-// weights; the ragged key axis (cross-attention S = 77) is masked per column.
-// Every delta is read from device memory, so neither the per-step time-aware
-// slot nor the real-time reduction costs a host synchronisation.
+// Two bodies.
+//
+// (a) The bf16 flash mode (K2, K2p) runs on the tensor cores
+// (`flash_tc_kernel`, tile code in wgmma.cuh). A block of two warpgroups takes
+// 128 query rows of one head, 64 a warpgroup. Q is copied once into swizzled
+// shared memory; K and V tiles of 64 keys follow as bf16 through a ring of two
+// buffers each, filled by `cp.async` (16-byte copies that write zeros for keys
+// past S and lanes past d), so tile j+1 loads while tile j multiplies; up to
+// head_dim 64 two blocks share an SM, and one's exponentials run under the
+// other's multiplies. S = Q K^T is a `wgmma` with both operands in shared
+// memory (K is K-major as it lies in memory) into f32 registers; the row max
+// and sum are taken by shuffles within the four lanes that own a row; P is
+// rounded to bf16 in registers and is the A operand of the P V `wgmma`, whose
+// B operand is the V tile as it lies in memory (MN-major, no transpose); O is
+// rescaled in registers and divided by l at the end. The contraction is padded
+// to a multiple of 16 and the P V width to a multiple of 64 in shared memory
+// (40 -> 48 and 64), never in the weights. At head_dim 512 (the VAE) a 64 x 512
+// f32 accumulator is 256 registers a thread for one warpgroup, so there the
+// two warpgroups share 64 query rows and each holds 256 of O's columns; both
+// compute the whole of S (Q K^T twice, 1.5x the flops, chosen over an exchange
+// of P through shared memory for having no barrier inside a tile), and the
+// tile is 32 keys so that Q (64 KB) and two stages of K and V (128 KB) fit.
+// The copies are `cp.async`, not TMA: a tensor map would have to be encoded on
+// the host for every call (q, k and v are fresh tensors each time; what that
+// costs has not been measured), on paths whose steps the host already bounds,
+// and SD's 40-wide heads would need its out-of-bounds fill for the lanes past
+// d. What this leaves on the table: every thread starts copies and waits at a
+// block-wide barrier each tile, and a warpgroup's two multiplies and its
+// softmax run one after the other, so the tensor cores are busy about a third
+// of the time; TMA with `mbarrier`s, a producer warp and warpgroups that take
+// turns is the step still open. Taking a quarter of the tile loop's work away
+// (the ragged-key mask behind a branch, no O rescale where no row maximum
+// moved) changed no time: the loop waits, it is not short of cycles. A view
+// whose addresses are not multiples of 16 bytes (or whose head_dim is no
+// multiple of 8) cannot take 16-byte copies: the same kernel then fills the
+// same tiles with element loads and ordinary stores (`ASYNC = false`), and
+// returns the same bits.
+//
+// (b) Everything else (the f32 entries, and the quantizing modes K1, K3b, K4
+// in both dtypes) keeps the first version's body, f32 FMAs on the CUDA cores:
+// one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
+// memory, K and V tiles of 64 keys through one shared buffer as f32, each
+// thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
+// columns of the output. K1's codes (integers up to 255) and the log2 modes'
+// 2^-q are exact in bf16, so those modes can take the tile code of (a) next
+// with exact products. Head dims that are not a multiple of 16 (SD's 40) are
+// zero-padded in shared memory, not in the weights; the ragged key axis
+// (cross-attention S = 77) is masked per column. Every delta is read from
+// device memory, so neither the per-step time-aware slot nor the real-time
+// reduction costs a host synchronisation.
 //
 // The packed head-slot entries (K1p to K4p: `_fused_attention_packed`, which
 // runs the same four TPU bodies with `sub_heads` over (B, T, H*dp) arrays) are
@@ -64,6 +101,7 @@
 // 64-wide heads per 128-lane block) is a lane matter with no counterpart: a
 // block takes one head whatever its slot.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -412,10 +450,338 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t
   return cudaErrorInvalidValue;
 }
 
+// ---- (a) flash attention on the tensor cores, bf16 ----
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 256;  // two warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The `nvalid` (0..8) leading elements of the 16-byte chunk at src go to shared
+// memory at dst, zeros behind them. ASYNC takes whole chunks only (nvalid 0 or 8).
+template <bool ASYNC>
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const bf16* src, int nvalid) {
+  if constexpr (ASYNC) {
+    tc::cp_async16(dst, src, nvalid == 8);
+  } else {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < nvalid)
+        w[e >> 1] |= static_cast<uint32_t>(__bfloat16_as_ushort(src[e])) << (16 * (e & 1));
+    tc::st_shared16(dst, make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
+// Rows [row0, row0 + ROWS) and columns [0, 64 NC) of a matrix whose rows lie
+// `stride` elements apart -> swizzled sub-tiles at dst, sub-tile (row / 64, c)
+// holding columns 64 c..; rows past rows_valid and columns past d are zeros.
+// Thread t copies chunk t % 8 of rows t / 8 + 32 rr: every address is the
+// thread's first plus a constant (the swizzle repeats every 8 rows).
+template <int NC, int ROWS, bool ASYNC>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* __restrict__ src,
+                                          long long stride, int row0, int rows_valid, int d) {
+  static_assert(ROWS % 32 == 0, "32 rows per pass of 256 threads");
+  constexpr int SUBR = ROWS > 64 ? 64 : ROWS;
+  const int cc = threadIdx.x & 7, r0 = row0 + (threadIdx.x >> 3);
+  const uint32_t dst0 = dst + tc::swz(threadIdx.x >> 3, cc);
+  const bf16* src0 = src + r0 * stride + cc * 8;
+  const int dcol = d - cc * 8;  // valid elements from this chunk's column on, in sub-tile 0
+#pragma unroll
+  for (int rr = 0; rr < ROWS / 32; ++rr) {
+    const bool row_ok = r0 + 32 * rr < rows_valid;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int nvalid = row_ok ? min(8, max(0, dcol - 64 * c)) : 0;
+      const bf16* p = nvalid > 0 ? src0 + 32 * rr * stride + 64 * c : src;
+      copy_chunk<ASYNC>(dst0 + ((32 * rr / SUBR) * NC + c) * (SUBR * 128) + (32 * rr % SUBR) * 128,
+                        p, nvalid);
+    }
+  }
+}
+
+// 2^x by the special-function unit; results below 2^-126 are 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Starts S (64 x BK, f32 fragments) = Q K^T over the first NKS steps of 16 lanes
+// and commits the group without waiting: Q sub-tiles at q_s, K sub-tiles at k_s,
+// both K-major. S may not be touched before `mma_wait` and `pin`. (No branch
+// may stand between the multiplies of a group: the compiler would fence each.)
+template <int NKS, int BK>
+__device__ __forceinline__ void tile_qk(float (&s)[BK / 2], uint32_t q_s, uint32_t k_s) {
+  tc::mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NKS; ++kk) {
+    const uint64_t da = tc::desc(q_s + (kk / 4) * 8192 + (kk % 4) * 32);
+    const uint64_t db = tc::desc(k_s + (kk / 4) * (BK * 128) + (kk % 4) * 32);
+    if constexpr (BK == 64) tc::mma_ss_n64<0>(s, da, db, kk > 0);
+    else tc::mma_ss_n32(s, da, db, kk > 0);
+  }
+  tc::mma_commit();
+}
+
+// Starts O (64 x 64 NCB) += P V and commits: P as bf16 A fragments in registers
+// (BK / 16 steps of 16 keys), V column blocks of 64 at v_s, MN-major as they
+// lie in memory.
+template <int NCB, int BK>
+__device__ __forceinline__ void tile_pv(float (&o)[NCB][32], uint32_t (&p)[BK / 16][4],
+                                        uint32_t v_s) {
+  tc::mma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      tc::mma_rs_n64(o[cb], p[ks], tc::desc(v_s + cb * (BK * 128) + ks * 2048));
+  tc::mma_commit();
+}
+
+// NC: 64-lane chunks of the head dim; NKS: steps of 16 lanes the contraction
+// takes (ceil(d / 16), or more: the lanes past d are zeros in shared memory);
+// BK: keys per tile; SPLIT: the two warpgroups share 64 query rows and halve
+// O's columns (head_dim 512); ASYNC: tiles filled by cp.async, else by element
+// loads.
+template <int NC, int NKS, int BK, bool SPLIT, bool ASYNC>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int t_len, int s_len, int d,
+                float scale_log2, Layout lay, int o_vec) {
+  constexpr int BQ = SPLIT ? 64 : 128;
+  constexpr int NCB = SPLIT ? NC / 2 : NC;  // O column blocks a warpgroup holds
+  constexpr int KV_BYTES = NC * BK * 128;   // one K or one V tile
+  constexpr int STAGE = 2 * KV_BYTES;
+  constexpr int NS = BK / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;  // [BQ / 64][NC] sub-tiles
+  const uint32_t ring = q_s + BQ * NC * 128;                       // 2 stages of K, V tiles
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int batch = bh / lay.heads, head_off = (bh - batch * lay.heads) * lay.slot;
+  const bf16* qb = q + batch * lay.q_batch + head_off;
+  const bf16* kb = k + batch * lay.k_batch + head_off;
+  const bf16* vb = v + batch * lay.v_batch + head_off;
+  bf16* ob = o + batch * lay.o_batch + head_off;
+  const int n_tiles = (s_len + BK - 1) / BK;
+  const int wrow = SPLIT ? 0 : wg;       // this warpgroup's 64-row group of Q
+  const int cb0 = SPLIT ? wg * NCB : 0;  // its first column block of O
+
+  // K tile j and V tile j live in buffer j & 1 of their kind. Iteration j
+  // multiplies Q K(j)^T first and P V(j) last, so at its top K(j - 1) and
+  // V(j - 1) are consumed: it loads K(j + 1) over the one and V(j + 1) over
+  // the other, a whole iteration ahead of their use. Thread t copies chunk
+  // t % 8 of rows t / 8 + 32 i of every tile; its two source pointers
+  // move on a tile at a time, which keeps the address arithmetic out of the loop.
+  const int cc = tid & 7, lr = tid >> 3;
+  const uint32_t ld_dst = tc::swz(lr, cc);
+  const bf16* kp = kb + lr * lay.k_row + cc * 8;
+  const bf16* vp = vb + lr * lay.v_row + cc * 8;
+  auto copy_tile = [&](uint32_t buf, const bf16* p, const bf16* safe, long long stride, int row0) {
+#pragma unroll
+    for (int r = 0; r < BK; r += 32) {
+      const bool row_ok = row0 + lr + r < s_len;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int nvalid = row_ok ? min(8, max(0, d - cc * 8 - 64 * c)) : 0;
+        copy_chunk<ASYNC>(buf + ld_dst + c * (BK * 128) + r * 128,
+                          nvalid > 0 ? p + r * stride + 64 * c : safe, nvalid);
+      }
+    }
+  };
+  auto load_kv = [&](int tile) {
+    const uint32_t buf = ring + (tile & 1) * STAGE;
+    copy_tile(buf, kp, kb, lay.k_row, tile * BK);
+    copy_tile(buf + KV_BYTES, vp, vb, lay.v_row, tile * BK);
+    kp += BK * lay.k_row;
+    vp += BK * lay.v_row;
+  };
+  load_rows<NC, BQ, ASYNC>(q_s, qb, lay.q_row, q0, t_len, d);
+  load_kv(0);
+  tc::cp_async_commit();
+
+  float oacc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[cb][i] = 0.f;
+  // the row statistics, m in units of the raw score; row 0 is 16 warp + g, row
+  // 1 eight below
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const uint32_t q_w = q_s + wrow * NC * 8192;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    tc::cp_async_wait<0>();   // K(j) and V(j) (and Q) have landed
+    tc::fence_async_proxy();
+    __syncthreads();          // ... for every thread, and iteration j - 1 is over
+    if (j + 1 < n_tiles) load_kv(j + 1);  // in flight during the products
+    tc::cp_async_commit();
+    const uint32_t st = ring + (j & 1) * STAGE;
+
+    float s[NS];
+    tile_qk<NKS, BK>(s, q_w, st);
+    tc::mma_wait<0>();
+    tc::pin(s);
+
+    // online softmax in base 2: p = 2^(scale_log2 (s - m)), one FMA and one
+    // ex2 an element (scale_log2 > 0, so the largest raw score is the row max)
+    const int key0 = j * BK;
+    const bool ragged = key0 + BK > s_len;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int key = key0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (ragged && key >= s_len) s[i] = kNegInf;
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float corr0 = ex2((m0 - mn0) * scale_log2), corr1 = ex2((m1 - mn1) * scale_log2);
+    const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      s[i] = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+      if (i & 2) sum1 += s[i];
+      else sum0 += s[i];
+    }
+    l0 = l0 * corr0 + sum0;  // each lane's share of the row; joined at the end
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[cb][i] *= (i & 2) ? corr1 : corr0;
+    // P rounded to bf16 where it sits: two neighbouring 8-key blocks of S are
+    // one A fragment of 16 keys
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[ks][r] = tc::pack_bf16(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1]);
+    tile_pv<NCB, BK>(oacc, p, st + KV_BYTES + cb0 * (BK * 128));
+    tc::mma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) tc::pin(oacc[cb]);
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) tc::pin(p[ks]);
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + wrow * 64 + warp * 16 + g, r1 = r0 + 8;
+  auto store2 = [&](int row, int col, float a, float b) {
+    if (row >= t_len || col >= d) return;
+    bf16* dst = ob + row * lay.o_row + col;
+    if (o_vec && col + 1 < d) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+    } else {
+      dst[0] = __float2bfloat16(a);
+      if (col + 1 < d) dst[1] = __float2bfloat16(b);
+    }
+  };
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const int col = (cb0 + cb) * 64 + 8 * jb + 2 * t4;
+      store2(r0, col, oacc[cb][4 * jb] * inv0, oacc[cb][4 * jb + 1] * inv0);
+      store2(r1, col, oacc[cb][4 * jb + 2] * inv1, oacc[cb][4 * jb + 3] * inv1);
+    }
+  // a packed slot's padding lanes
+  if (!SPLIT || wg == 0)
+    for (int col = d + t4; col < lay.o_cols; col += 4) {
+      if (r0 < t_len) ob[r0 * lay.o_row + col] = __float2bfloat16(0.f);
+      if (r1 < t_len) ob[r1 * lay.o_row + col] = __float2bfloat16(0.f);
+    }
+}
+
+template <int NC, int NKS, int BK, bool SPLIT, bool ASYNC>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                      int s_len, int d, float scale, const Layout& lay, int o_vec,
+                      cudaStream_t stream) {
+  constexpr int BQ = SPLIT ? 64 : 128;
+  const int smem = 1024 + BQ * NC * 128 + 2 * 2 * NC * BK * 128;
+  auto kernel = flash_tc_kernel<NC, NKS, BK, SPLIT, ASYNC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + BQ - 1) / BQ, bh);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), t_len, s_len, d, scale * kLog2e, lay, o_vec);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// form 1: tiles by cp.async, which needs every row of q, k and v to start on a
+// 16-byte boundary and head_dim to be a multiple of 8 (the wrapper chose it from
+// the same facts; a mismatch is refused, not repaired). form 2: element loads.
+template <bool ASYNC>
+int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                int s_len, int d, float scale, const Layout& lay, cudaStream_t stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 512 || !(scale > 0.f))
+    return cudaErrorInvalidValue;
+  if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
+  if (ASYNC) {
+    const long long strides[] = {lay.q_batch, lay.q_row, lay.k_batch, lay.k_row, lay.v_batch,
+                                 lay.v_row, lay.slot};
+    for (long long st : strides)
+      if (st % 8) return cudaErrorInvalidValue;
+    if (d % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v)) return cudaErrorInvalidValue;
+  }
+  // pairs of outputs go out as one 4-byte store where every pair is aligned
+  const int o_vec = reinterpret_cast<uintptr_t>(o) % 4 == 0 && lay.o_batch % 2 == 0 &&
+                    lay.o_row % 2 == 0 && lay.slot % 2 == 0;
+  // the main paths' head dims get the exact number of contraction steps, any
+  // other the whole tier's
+#define DGQ_TC(NC, NKS, BK, SPLIT) \
+  return launch_tc<NC, NKS, BK, SPLIT, ASYNC>(q, k, v, o, bh, t_len, s_len, d, scale, lay, o_vec, stream)
+  const int nks = (d + 15) / 16;
+  if (d <= 64) {
+    if (nks == 3) DGQ_TC(1, 3, 64, false);
+    DGQ_TC(1, 4, 64, false);
+  }
+  if (d <= 128) {
+    if (nks == 5) DGQ_TC(2, 5, 64, false);
+    DGQ_TC(2, 8, 64, false);
+  }
+  if (d <= 192) {
+    if (nks == 10) DGQ_TC(3, 10, 64, false);
+    DGQ_TC(3, 12, 64, false);
+  }
+  DGQ_TC(8, 32, 32, true);
+#undef DGQ_TC
+}
+
+// The flash entries: form 0 is body (b) and takes f32 only; forms 1 and 2 are
+// body (a) and take bf16 only.
+int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
+                   int bh, int t_len, int s_len, int d, float scale, const Layout& lay,
+                   void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (form == 0 && !is_bf16)
+    return dispatch<float, kFlash>(q, k, v, o, bh, t_len, s_len, d, scale, Extra{}, lay, st);
+  if (form == 1 && is_bf16) return dispatch_tc<true>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
+  if (form == 2 && is_bf16) return dispatch_tc<false>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
 int dispatch_dtype(int is_bf16, const void* q, const void* k, const void* v, void* o, int bh,
                    int t_len, int s_len, int d, float scale, const Extra& ex, const Layout& lay,
                    void* stream) {
+  static_assert(MODE != kFlash, "the flash entries go through dispatch_flash");
   auto st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st)
@@ -458,11 +824,13 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 // are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
+// form: 0 the CUDA-core body (f32), 1 the tensor-core body with cp.async tiles,
+// 2 the tensor-core body with element loads (bf16).
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
-                                   void* stream) {
-  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale, Extra{},
-                                classic_layout(t_len, s_len, d), stream);
+                                   int form, void* stream) {
+  return dispatch_flash(form, is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                        classic_layout(t_len, s_len, d), stream);
 }
 
 // delta: device pointer to one f32; codes are clipped to 2^sm_bits - 1.
@@ -515,9 +883,9 @@ extern "C" int dgq_static_quant_attention(const void* q, const void* k, const vo
 extern "C" int dgq_flash_attention_packed(const void* q, const void* k, const void* v, void* o,
                                           int b, int heads, int t_len, int s_len, int d,
                                           int slot, const long long* strides, float scale,
-                                          int is_bf16, void* stream) {
-  return dispatch_dtype<kFlash>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale, Extra{},
-                                packed_layout(heads, slot, strides), stream);
+                                          int is_bf16, int form, void* stream) {
+  return dispatch_flash(form, is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                        packed_layout(heads, slot, strides), stream);
 }
 
 extern "C" int dgq_uniform_attention_packed(const void* q, const void* k, const void* v, void* o,

@@ -6,7 +6,7 @@ ported in `csrc/attention.cu`:
   * K1 `_static_uniform_kernel` (`sm_mode="uniform"`, no start_peak): every
     UNet attention of the g=1 policy;
   * K2 `_flash_kernel` (`sm_mode="none"`): the VAE mid-block attention and
-    the unquantized UNet path;
+    the unquantized UNet path; in bf16 on the tensor cores (`flash_form`);
   * K3 `_rt_fused_kernel` (`sm_mode="log2_real_time"`), in its two-launch
     form K3b (`_stats_kernel`, `_stats_kernel_nonpeak`, `_accum_kernel`):
     `rt_stats` reduces the per-call delta into one device scalar with an
@@ -123,17 +123,50 @@ def _scalar_delta(sm_delta, device) -> torch.Tensor:
     return delta.reshape(1).contiguous()
 
 
+# The bodies of the flash kernel, by the number the C interface takes.
+FLASH_FORMS = {"cuda_core": 0, "wgmma_async": 1, "wgmma_plain": 2}
+
+
+def flash_form(dtype, head_dim: int, ptrs, strides, slot: int = 0) -> str:
+    """Which body of the flash kernel (K2, K2p) a call runs, from what the
+    wrapper can see before the launch. f32 runs on the CUDA cores
+    ("cuda_core"). bf16 runs on the tensor cores; its K and V tiles are
+    filled by 16-byte asynchronous copies ("wgmma_async") where every row of
+    q, k and v starts on a 16-byte boundary (base addresses `ptrs` in bytes;
+    batch and row `strides` and the head `slot` in elements, all multiples of
+    8) and head_dim is a multiple of 8, else by element loads into the same
+    tiles ("wgmma_plain"): same bits, slower loads. (The tensor-core body
+    takes a positive scale only: `_flash_form_checked`.)"""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    aligned = (head_dim % 8 == 0 and slot % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+               and all(st % 8 == 0 for st in strides))
+    return "wgmma_async" if aligned else "wgmma_plain"
+
+
+def _flash_form_checked(scale, *args) -> int:
+    """`flash_form` as the number the C interface takes. The tensor-core body
+    finds the row max on the raw scores, so it needs scale > 0."""
+    form = flash_form(*args)
+    if form != "cuda_core" and not scale > 0:
+        raise ValueError(f"the bf16 flash kernel needs a positive scale, got {scale}")
+    return FLASH_FORMS[form]
+
+
 def flash_attention(q, k, v, scale: float):
     """K2: unquantized softmax attention (`_flash_kernel`)."""
     _check_inputs(q, k, v)
     lib = load_kernels()
     out = torch.empty_like(q)
     bh, t, d = q.shape
+    s = k.shape[1]
+    form = _flash_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               (t * d, d, s * d, d, s * d, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, t, k.shape[1], d, float(scale), int(q.dtype == torch.bfloat16), stream)
+            bh, t, s, d, float(scale), int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
@@ -333,9 +366,10 @@ class _Packed:
                            or out.device != q.device):
             raise ValueError(f"out must be a {q.dtype} {tuple(q.shape)} tensor on {q.device}")
         self.out = out
-        # any view whose lanes are contiguous and whose rows do not overlap:
-        # the kernel reads element by element from data_ptr(), so a storage
-        # offset needs no alignment
+        # any view whose lanes are contiguous and whose rows do not overlap: a
+        # storage offset needs no alignment (the flash kernel picks 16-byte
+        # copies or element loads from the addresses, `flash_form`; the other
+        # kernels read element by element)
         strides = ()
         for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
             sb, sr, sl = (0, c, 1) if x is None else x.stride()
@@ -355,11 +389,14 @@ def flash_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None,
     """K2p: `flash_attention` over head slots (`_flash_kernel(sub_heads)`)."""
     a = _Packed(q, k, v, num_heads, head_dim, 512, out)
     lib = load_kernels()
+    form = _flash_form_checked(scale, q.dtype, a.d,
+                               (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               tuple(a.strides)[:6], a.slot)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dgq_flash_attention_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                             a.out.data_ptr(), *a.dims(), float(scale), a.bf16,
-                                            stream)
+                                            form, stream)
     _raise_on_error(rc, "flash_attention_packed")
     LAUNCHES["flash_attention_packed"] += 1
     return a.out

@@ -29,12 +29,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 # source stem -> {C function: argument types}
 _SIGNATURES = {
     "attention": {
-        # q, k, v, o, bh, t, s, d, scale, is_bf16, stream
-        "dgq_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, o, bh, t, s, d, scale, is_bf16, form, stream
+        "dgq_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
         # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, is_bf16, stream
         "dgq_uniform_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _P),
         # q, k, z, red, bh, t, s, d, scale, start_peak, is_bf16, stream
@@ -45,7 +46,8 @@ _SIGNATURES = {
         "dgq_static_quant_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _I,
                                        _P),
         # the packed head-slot forms: (bh, t, s, d) becomes (b, heads, t, s, d, slot, strides)
-        "dgq_flash_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _P),
+        "dgq_flash_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
+                                       _P),
         "dgq_uniform_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P, _I,
                                          _I, _P),
         "dgq_rt_stats_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I, _P),
@@ -55,9 +57,14 @@ _SIGNATURES = {
                                               _I, _I, _I, _I, _P),
     },
     "group_conv": {
-        # x, w_t, rd, z, bias, out, b, h, w, c, o, kh, kw, pad, a_bits, is_bf16, stream
-        "dgq_group_quant_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _P),
+        # x, w_t, rd, z, bias, out, partial, b, h, w, c, o, kh, kw, pad, a_bits, is_bf16,
+        # form, splits, steps_per_split, stream
+        "dgq_group_quant_conv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P),
+        # w, s_t, s_c, s_o, dm, zm, s_dt, s_dc, dl, zl, w_t, rd, z, taps, c, o, is_bf16,
+        # scales_bf16, stream
+        "dgq_group_conv_fold": (_P, _L, _L, _L, _P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _P),
     },
     "int8_matmul": {
         # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, m, n, k, a_bits,

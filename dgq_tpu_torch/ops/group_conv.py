@@ -13,13 +13,16 @@ quantizes each tap's A tile to shifted-clip codes as it loads it,
 and multiplies the codes against the weights with dm*dl folded in. An
 out-of-image position is the value 0 quantized like any other.
 
-What bounds it on the H100: operations. A 3x3 conv at the UNet's widths does
-2*9*C*O flops per output pixel against (C + O) elements moved, hundreds of
-flops per byte. This first version does them in f32 on the CUDA cores
-(128 x 64 output tile a block, 8 x 4 a thread), so it sits far above the
-tensor-core bound; the weight pre-scale `w * dm * dl` is weight-sized
-elementwise work redone each call, because the time-aware dm changes with
-the step.
+What bounds it on the H100: operations at the wide-image shapes (a 3x3 conv
+at the UNet's widths does 2*9*C*O flops per output pixel against (C + O)
+elements moved), bytes at the deep ones (8x8 images, 2560 -> 1280: 59 MB of
+weights). A call is two or three launches of `csrc/group_conv.cu`: the fold
+(`w * dm * dl`, `1/(dm*dl)`, `zm + zl`; redone each call because the
+time-aware dm changes with the step), the conv, and where K is split over
+blocks the pass that adds the partial sums in a fixed order. bf16 convs whose
+C and O are multiples of 8 run on the tensor cores (`conv_form`); the rest,
+and every f32 conv, on the CUDA cores. `conv_plan` is the tile and split plan
+the tensor-core body follows, a pure function of the shape.
 
 `group_quant_conv` takes the plain PyTorch version only for tensors on the
 CPU. A CUDA tensor launches the kernel or raises.
@@ -30,6 +33,8 @@ which `w.reshape(kh*kw, C, O)` is the (taps, C, O) view the kernel reads
 with a permute); dm, zm (kh*kw, C); dl, zl scalars; bias (O,) or None.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -59,11 +64,73 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fused_eligible(x_shape, o: int, kh: int, kw: int, stride: int, padding: int, gqp) -> bool:
     """Whether the kernel takes this conv: stride 1, per-(tap, channel)
     mid-axis scales and a scalar last-axis factor. (The JAX check's VMEM and
-    band-count terms belong to the TPU kernel and have no counterpart.)"""
+    band-count terms belong to the TPU kernel and have no counterpart.) Which
+    body of the kernel an eligible conv runs is `conv_form`'s rule on dtype,
+    shape and address: shapes too narrow for 16-byte vectors (C or O not a
+    multiple of 8: conv_in's 4 channels, conv_out's 4 outputs) and every f32
+    conv take the CUDA-core body, the others the tensor-core body."""
     if stride != 1 or not isinstance(gqp, GroupQParams):
         return False
     c = x_shape[-1]
     return gqp.delta_mid.shape[-1] == c * kh * kw and gqp.delta_last.shape[-1] == 1
+
+
+# The tensor-core body's tile: output pixels and output channels per block,
+# input channels (of one tap) per K step; and the SM count the split aims at,
+# the H100 SXM's (a plan must be a pure function of the shape, so it is a
+# constant here and not read from the device; on a card with another count the
+# plan is still right, only its splits fill the card less well).
+TILE_M, TILE_N, TILE_K = 128, 320, 64
+SM_COUNT = 132
+MAX_SPLITS = 16
+
+
+def conv_form(dtype, c: int, o: int, x_ptr: int = 0) -> str:
+    """Which body of the kernel a conv runs: "tensor_core" for bf16 with C and
+    O multiples of 8 and x on a 16-byte boundary (the loads are 16-byte
+    vectors of 8 channels, the stores pairs of outputs), else "cuda_core"."""
+    if dtype == torch.bfloat16 and c % 8 == 0 and o % 8 == 0 and c >= 8 and x_ptr % 16 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
+class ConvPlan(NamedTuple):
+    """The tensor-core body's grid: m_tiles x n_tiles output tiles, each K
+    walked in `steps` steps of one (tap, 64-channel chunk), cut into `splits`
+    runs of `steps_per_split` consecutive steps (the last may be shorter)."""
+    m_tiles: int
+    n_tiles: int
+    c_chunks: int
+    steps: int
+    splits: int
+    steps_per_split: int
+
+
+def conv_plan(m: int, c: int, o: int, taps: int) -> ConvPlan:
+    """Tile and split plan for M output pixels, C -> O channels, `taps` taps.
+    A block is resident alone on its SM, so with fewer output tiles than SMs
+    (SM_COUNT = 132, the H100 SXM's; another card changes how well a split
+    fills it, not the result) the K steps are split as many ways as still fit
+    one wave of blocks, at most MAX_SPLITS and never into runs shorter than 8
+    steps; each split writes an f32 partial tile and a last pass adds them in
+    split order."""
+    m_tiles, n_tiles = -(-m // TILE_M), -(-o // TILE_N)
+    c_chunks = -(-c // TILE_K)
+    steps = taps * c_chunks
+    splits = max(1, min(SM_COUNT // (m_tiles * n_tiles), MAX_SPLITS, steps // 8))
+    per = -(-steps // splits)
+    return ConvPlan(m_tiles, n_tiles, c_chunks, steps, -(-steps // per), per)
+
+
+def plan_k_ranges(plan: ConvPlan, c: int):
+    """Per split, the (tap, first channel, end channel) pieces of K it walks."""
+    ranges = []
+    for s in range(plan.splits):
+        steps = range(s * plan.steps_per_split,
+                      min(plan.steps, (s + 1) * plan.steps_per_split))
+        ranges.append([(step // plan.c_chunks, step % plan.c_chunks * TILE_K,
+                        min(c, (step % plan.c_chunks + 1) * TILE_K)) for step in steps])
+    return ranges
 
 
 def _fold(x, w, dm, zm, dl, zl, kh, kw):
@@ -75,6 +142,43 @@ def _fold(x, w, dm, zm, dl, zl, kh, kw):
     w_t = (w.reshape(taps, c, o).float() * d[:, :, None]).to(x.dtype).contiguous()
     rd = (1.0 / d).contiguous()
     z = (zm.float() + zl.reshape(()).float()).contiguous()
+    return w_t, rd, z
+
+
+def fold_weights(dtype, w, dm, zm, dl, zl, kh: int, kw: int):
+    """`_fold` in one hand-written launch (`fold_kernel`), for CUDA tensors:
+    w (kh, kw, C, O) is read through its strides (so the HWIO view of an OIHW
+    weight needs no copy), dm and zm (taps, C) through theirs; returns w_t
+    (taps, C, O) contiguous in `dtype`, rd and z (taps, C) f32, with `_fold`'s
+    bits. The kernel writes w_t in w's own dtype, so w must have `dtype`; it
+    never gives way to `_fold`, which is the plain version's and the CPU's."""
+    taps, c, o = kh * kw, w.shape[2], w.shape[3]
+    if w.dtype != dtype:
+        raise ValueError(f"the group conv kernel needs w in x's dtype: w {w.dtype}, x {dtype}")
+    if not w.is_cuda:
+        raise ValueError(f"the fold kernel needs a CUDA tensor, got {w.device}")
+    if kh > 1 and w.stride(0) != kw * w.stride(1):
+        w = w.contiguous()  # taps not evenly spaced: no single tap stride
+    scales = [dm, zm, dl.reshape(1), zl.reshape(1)]
+    if not all(t.dtype == scales[0].dtype for t in scales) or scales[0].dtype not in (
+            torch.float32, torch.bfloat16):
+        scales = [t.float() for t in scales]
+    dm, zm, dl, zl = scales
+    if zm.stride() != dm.stride():
+        dm, zm = dm.contiguous(), zm.contiguous()
+    w_t = torch.empty(taps, c, o, dtype=dtype, device=w.device)
+    rd = torch.empty(taps, c, dtype=torch.float32, device=w.device)
+    z = torch.empty(taps, c, dtype=torch.float32, device=w.device)
+    lib = load_kernels()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = lib.dgq_group_conv_fold(
+            w.data_ptr(), w.stride(1), w.stride(2), w.stride(3), dm.data_ptr(), zm.data_ptr(),
+            dm.stride(0), dm.stride(1), dl.data_ptr(), zl.data_ptr(), w_t.data_ptr(),
+            rd.data_ptr(), z.data_ptr(), taps, c, o, int(dtype == torch.bfloat16),
+            int(dm.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"group conv fold kernel launch failed: CUDA error {rc}")
     return w_t, rd, z
 
 
@@ -118,23 +222,31 @@ def group_quant_conv(x, w, dm, zm, dl, zl, bias, kh: int = 3, kw: int = 3, paddi
         raise ValueError(f"the group conv kernel takes f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the group conv kernel needs a contiguous NHWC x")
+    if w.dtype != x.dtype:
+        raise ValueError(f"the group conv kernel needs w in x's dtype: w {w.dtype}, x {x.dtype}")
     if not 1 <= a_bits <= 16:
         raise ValueError(f"a_bits {a_bits} out of range")
     o = w.shape[3]
     ho, wo = h + 2 * padding - kh + 1, wd + 2 * padding - kw + 1
     if ho < 1 or wo < 1 or b * ho * wo >= 2 ** 31 or x.numel() >= 2 ** 31:
         raise ValueError(f"unsupported conv geometry: x {tuple(x.shape)}, out {ho}x{wo}")
-    w_t, rd, z = _fold(x, w, dm, zm, dl, zl, kh, kw)
+    w_t, rd, z = fold_weights(x.dtype, w, dm, zm, dl, zl, kh, kw)
     bias_f = (torch.zeros(o, dtype=torch.float32, device=x.device) if bias is None
               else bias.float().contiguous())
     out = torch.empty(b, ho, wo, o, dtype=x.dtype, device=x.device)
+    form, splits, per, partial = 0, 1, 1, None
+    if conv_form(x.dtype, c, o, x.data_ptr()) == "tensor_core":
+        plan = conv_plan(b * ho * wo, c, o, taps)
+        form, splits, per = 1, plan.splits, plan.steps_per_split
+        if splits > 1:
+            partial = torch.empty(splits, b * ho * wo, o, dtype=torch.float32, device=x.device)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dgq_group_quant_conv(
             x.data_ptr(), w_t.data_ptr(), rd.data_ptr(), z.data_ptr(), bias_f.data_ptr(),
-            out.data_ptr(), b, h, wd, c, o, kh, kw, padding, a_bits,
-            int(x.dtype == torch.bfloat16), stream)
+            out.data_ptr(), None if partial is None else partial.data_ptr(), b, h, wd, c, o, kh,
+            kw, padding, a_bits, int(x.dtype == torch.bfloat16), form, splits, per, stream)
     if rc != 0:
         raise RuntimeError(f"group_quant_conv kernel launch failed: CUDA error {rc}")
     LAUNCHES["group_quant_conv"] += 1

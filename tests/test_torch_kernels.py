@@ -13,9 +13,15 @@ deltas, bf16 and f32.
 
 Tolerances, with reasons:
   * K2 (flash): f32 atol 1e-4 (f32 reassociation of online vs materialized
-    softmax, measured ~1e-5); bf16 |err| <= 2^-7 |ref| + 1e-5 max|V| (each
-    side rounds its f32 result to bf16 once: half an ulp, <= 2^-8 relative).
-  * K1 (uniform softmax quant): the same, plus at most a few one-bin flips,
+    softmax, measured ~1e-5). bf16 runs on the tensor cores: Q K^T of bf16
+    inputs is exact per product, but P is rounded to bf16 before P V, so
+    each product carries a relative error of at most 2^-9 and the sum an
+    absolute error that does not shrink where the output cancels:
+    |err| <= 2^-7 |ref| + 2^-8 (P |V|) against the f32 plain result (P the
+    plain softmax; the first term is the output's rounding to bf16).
+  * K1 (uniform softmax quant): f32 as K2's; bf16 |err| <= 2^-7 |ref| +
+    1e-5 max|V| (each side rounds its f32 result to bf16 once: half an ulp,
+    <= 2^-8 relative); both plus at most a few one-bin flips,
     |err| <= 2 delta max|V| elementwise with a bounded mean. exp and the
     summation order differ, so a probability within float error of a bin
     boundary may round to the neighbouring code.
@@ -33,9 +39,12 @@ Tolerances, with reasons:
     output buffer full of NaN. Against the plain version: the tolerance of
     the unpacked kernel of the same mode.
   * K5 (group conv): the codes and the folded weights are the same numbers on
-    both sides, so only the f32 summation order differs: atol 2e-3 as
+    both sides (bf16 products are exact in the tensor cores' f32
+    accumulator), so only the f32 summation order differs: atol 2e-3 as
     tests/test_group_conv_kernel.py, plus 2^-7 |ref| in bf16 for the one
-    rounding of each side's result.
+    rounding of each side's result. Split K adds its partial tiles in split
+    order, so two runs give the same bits; the fold kernel's w_t, rd and z
+    equal `_fold`'s bit for bit.
   * K6 (int8 matmul): the integer product is exact and the f32 epilogue is
     written in the plain version's order without fused multiply-adds, so f32
     outputs agree within 1e-5 of the output's largest magnitude (expected: to
@@ -86,6 +95,17 @@ def _check(out, ref, v, dtype, delta=None):
     assert bool((err <= bound).all()), float((err - bound).max())
 
 
+def _check_flash(out, q, k, v, scale):
+    """The restated bf16 flash bound, against the f32 plain result."""
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    ref32, pav = torch.matmul(p, v.float()), torch.matmul(p, v.float().abs())
+    assert out.shape == ref32.shape
+    err = (out.float() - ref32).abs()
+    bound = 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 @pytest.mark.parametrize("s", [77, 256])
@@ -95,7 +115,68 @@ def test_flash_kernel_matches_plain(s, d, dtype):
     out = TA.fused_attention(q, k, v, d ** -0.5, sm_mode="none")
     torch.cuda.synchronize()
     assert TA.LAUNCHES["flash_attention"] == before + 1
-    _check(out, TA.attention_reference(q, k, v, d ** -0.5), v, dtype)
+    if dtype == torch.bfloat16:
+        _check_flash(out, q, k, v, d ** -0.5)
+    else:
+        _check(out, TA.attention_reference(q, k, v, d ** -0.5), v, dtype)
+
+
+@pytest.mark.parametrize("t,s,d", [
+    (200, 77, 40), (129, 300, 64), (64, 65, 80), (70, 77, 160), (130, 96, 512),  # each tier
+    (50, 33, 36), (50, 130, 12), (31, 77, 100), (40, 64, 200), (65, 40, 500),    # odd widths
+])
+def test_flash_tensor_core_forms_agree(t, s, d):
+    """The bf16 flash kernel at every head-dim tier, ragged T and S: the form
+    the wrapper picks for an aligned tensor (16-byte copies where head_dim is
+    a multiple of 8, element loads where not) and the element-load form it
+    picks for the same data one element off a 16-byte boundary give the same
+    bits, inside the bound."""
+    q, k, v = _qkv(3, t, s, d, torch.bfloat16, seed=t + s + d)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = (t * d, d, s * d, d, s * d, d)
+    want_form = "wgmma_async" if d % 8 == 0 else "wgmma_plain"
+    assert TA.flash_form(q.dtype, d, ptrs, strides) == want_form
+    out = TA.flash_attention(q, k, v, d ** -0.5)
+    _check_flash(out, q, k, v, d ** -0.5)
+    for which in range(3):
+        x = (q, k, v)[which]
+        odd = torch.empty(x.numel() + 1, device="cuda", dtype=x.dtype)[1:].view_as(x).copy_(x)
+        assert odd.is_contiguous() and odd.data_ptr() % 4 != 0
+        args = [q, k, v]
+        args[which] = odd
+        assert TA.flash_form(q.dtype, d, tuple(a.data_ptr() for a in args),
+                             strides) == "wgmma_plain"
+        before = TA.LAUNCHES["flash_attention"]
+        assert torch.equal(TA.flash_attention(*args, d ** -0.5), out)
+        assert TA.LAUNCHES["flash_attention"] == before + 1
+
+
+def test_flash_kernel_refuses_a_form_its_addresses_cannot_take():
+    """The C entry checks the form it is handed: 16-byte copies on a view one
+    element off, the tensor-core body on f32, the CUDA-core body on bf16 and
+    head dims past 512 return an error instead of launching."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    q, k, v = _qkv(2, 64, 64, 40, torch.bfloat16, seed=1)
+    odd = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)[1:].view_as(q).copy_(q)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(qq, bf16, form, d=40):
+        return lib.dgq_flash_attention(qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                       2, 64, 64, d, 0.1, bf16, form, stream)
+
+    assert call(q, 1, 1) == 0 and call(q, 1, 2) == 0 and call(odd, 1, 2) == 0
+    assert call(odd, 1, 1) != 0      # 16-byte copies from a misaligned base
+    assert call(q, 1, 0) != 0        # bf16 has no CUDA-core flash body
+    assert call(q, 0, 1) != 0        # f32 has no tensor-core body
+    assert call(q, 1, 1, d=36) != 0  # 72-byte rows
+    assert call(q, 1, 3) != 0
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="512"):
+        x = torch.zeros(1, 8, 520, device="cuda", dtype=torch.bfloat16)
+        TA.flash_attention(x, x, x, 0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -179,12 +260,13 @@ def test_static_quant_kernel_matches_plain(t, s, d, mode, sp, delta, dtype):
 
 def test_flash_kernel_at_the_1024px_vae_shape():
     """K2 at T = S = 16384, D = 512, one head: the SDXL decode's mid-block
-    attention (512 blocks of 32 query rows, 207 KB of shared memory)."""
+    attention (256 blocks of 64 query rows whose two warpgroups halve O's
+    columns, 193 KB of shared memory)."""
     q, k, v = _qkv(1, 16384, 16384, 512, torch.bfloat16, seed=5)
     q, k = q * 0.25, k * 0.25  # keep the softmax from collapsing onto one key
     out = TA.fused_attention(q, k, v, 512 ** -0.5, sm_mode="none")
     torch.cuda.synchronize()
-    _check(out, TA.attention_reference(q, k, v, 512 ** -0.5), v, torch.bfloat16)
+    _check_flash(out, q, k, v, 512 ** -0.5)
 
 
 PACKED_MODES = [("none", False), ("uniform", False), ("log2", False), ("log2", True),
@@ -226,7 +308,9 @@ def test_packed_kernel_equals_unpacked_kernel_and_plain(h, d, dp, t, s, mode, sp
     assert bool((out.reshape(b, t, h, dp)[..., d:] == 0).all())   # zeros, not NaN * 0
     assert torch.equal(TA.unpack_heads(out, h, d), want)          # bit for bit
     ref = TA.packed_attention_reference(*packed, d ** -0.5, h, d, mode, 8, sm_delta, sp)
-    if mode == "none":
+    if mode == "none" and dtype == torch.bfloat16:
+        _check_flash(TA.unpack_heads(out, h, d), *classic, d ** -0.5)
+    elif mode == "none":
         _check(out, ref, packed[2], dtype)
     elif mode == "uniform" and not sp:
         _check(out, ref, packed[2], dtype, float(sm_delta))
@@ -337,6 +421,93 @@ def test_group_conv_kernel_matches_plain(b, h, c, o, zp, dl, a_bits, dtype):
     bound = 2e-3 + (2.0 ** -7 * ref.float().abs() if dtype == torch.bfloat16 else 0.0)
     assert bool((err <= bound).all()), float((err - bound).max())
     assert float(ref.float().abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("b,h,c,o,form,split", [
+    (2, 16, 64, 128, "tensor_core", False),    # whole tiles
+    (1, 9, 40, 24, "tensor_core", False),      # ragged pixels, C < 64, O < 64
+    (2, 8, 96, 136, "tensor_core", True),      # C and O past a tile edge, split K
+    (4, 8, 1280, 1280, "tensor_core", True),   # the 8 x 8 shape class: few tiles, deep K
+    (4, 16, 640, 1280, "tensor_core", True),
+    (2, 32, 320, 320, "tensor_core", True),    # one tile of outputs, 16 of pixels
+    (4, 32, 64, 704, "tensor_core", False),    # O = 2.2 tiles
+    (2, 16, 4, 320, "cuda_core", False),       # conv_in
+    (2, 16, 320, 4, "cuda_core", False),       # conv_out
+    (1, 9, 40, 22, "cuda_core", False),        # O no multiple of 8
+])
+def test_group_conv_forms_and_the_weight_fold(b, h, c, o, form, split):
+    """bf16 at every shape class: the body and the split the plan names, the
+    fold kernel's outputs equal to `_fold`'s bit for bit from the HWIO view of
+    an OIHW weight (as the model passes it) with f32 and with bf16 scales, the
+    result over NaN-free fresh memory within the bound and the same bits on
+    a second run."""
+    x, w, dm, zm, dl, zl, bias = _conv_case(b, h, c, o, torch.bfloat16, seed=c + o + h)
+    w = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # OIHW storage, HWIO view
+    assert not w.is_contiguous()
+    assert TG.conv_form(x.dtype, c, o, x.data_ptr()) == form
+    if form == "tensor_core":  # the CUDA-core body follows no plan and never splits
+        assert (TG.conv_plan(b * h * h, c, o, 9).splits > 1) == split
+    for cast in (torch.float32, torch.bfloat16):
+        scales = tuple(t.to(cast) for t in (dm, zm, dl, zl))
+        got = TG.fold_weights(x.dtype, w, *scales, 3, 3)
+        want = TG._fold(x, w, *scales, 3, 3)
+        torch.cuda.synchronize()
+        for a, e in zip(got, want):
+            assert a.dtype == e.dtype and a.is_contiguous() and torch.equal(a, e)
+    args = (x, w, dm, zm, dl, zl, bias)
+    out = TG.group_quant_conv(*args)
+    ref = TG.group_quant_conv_reference(*args)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all())
+    assert torch.equal(out, TG.group_quant_conv(*args))
+    # the f32 call of the same conv keeps the CUDA-core body and its tolerance
+    f32 = tuple(t.float() if t is not None else t for t in args)
+    assert TG.conv_form(torch.float32, c, o, 0) == "cuda_core"
+    err32 = (TG.group_quant_conv(*f32) - TG.group_quant_conv_reference(*f32)).abs()
+    assert float(err32.max()) <= 2e-3
+
+
+def test_group_conv_tensor_core_body_takes_a_1x1_conv_and_other_paddings():
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = (2.0 * torch.randn(2, 12, 12, 64, generator=g, device="cuda")).bfloat16()
+    bias = 0.1 * torch.randn(72, generator=g, device="cuda")
+    one = torch.ones(1, device="cuda")
+    for kh, pad in ((1, 0), (3, 0), (3, 2)):
+        w = (torch.randn(kh, kh, 64, 72, generator=g, device="cuda") / 24.0).bfloat16()
+        dm = 0.02 + 0.06 * torch.rand(kh * kh, 64, generator=g, device="cuda")
+        zm = 100.0 + 56.0 * torch.rand(kh * kh, 64, generator=g, device="cuda")
+        args = (x, w, dm, zm, one, 0 * one, bias)
+        out = TG.group_quant_conv(*args, kh=kh, kw=kh, padding=pad)
+        ref = TG.group_quant_conv_reference(*args, kh=kh, kw=kh, padding=pad)
+        assert out.shape == ref.shape == (2, 12 + 2 * pad - kh + 1, 12 + 2 * pad - kh + 1, 72)
+        assert bool(((out.float() - ref.float()).abs()
+                     <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all())
+
+
+def test_group_conv_kernel_refuses_a_plan_that_does_not_cover_k():
+    """The C entry checks the split it is handed: too few or too many steps a
+    split, a split without its scratch, the tensor-core body on f32."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    x, w, dm, zm, dl, zl, bias = _conv_case(1, 8, 64, 64, torch.bfloat16, seed=2)
+    w_t, rd, z = TG.fold_weights(x.dtype, w, dm, zm, dl, zl, 3, 3)
+    out = torch.empty(1, 8, 8, 64, device="cuda", dtype=x.dtype)
+    part = torch.empty(3, 64, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(partial, bf16, form, splits, per):
+        return lib.dgq_group_quant_conv(
+            x.data_ptr(), w_t.data_ptr(), rd.data_ptr(), z.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), partial, 1, 8, 8, 64, 64, 3, 3, 1, 8, bf16, form, splits, per, stream)
+
+    assert call(None, 1, 1, 1, 9) == 0 and call(part.data_ptr(), 1, 1, 3, 3) == 0
+    assert call(part.data_ptr(), 1, 1, 3, 2) != 0   # 6 of 9 steps
+    assert call(part.data_ptr(), 1, 1, 3, 5) != 0   # the third split would be empty
+    assert call(None, 1, 1, 3, 3) != 0              # no scratch for the partial tiles
+    assert call(None, 0, 1, 1, 9) != 0              # f32 on the tensor-core body
+    assert call(None, 1, 0, 2, 5) != 0              # the CUDA-core body does not split
+    torch.cuda.synchronize()
 
 
 def test_group_conv_no_padding_and_no_bias():
@@ -451,6 +622,13 @@ def test_wrapper_rejects_bad_inputs():
     x, w, dm, zm, dl, zl, bias = _conv_case(1, 8, 32, 32, torch.float32, seed=2)
     with pytest.raises(ValueError, match="contiguous"):
         TG.group_quant_conv(x.transpose(1, 2), w, dm, zm, dl, zl, bias)
+    # a mixed dtype pair raises on the card: the fold kernel never gives way to `_fold`
+    before = TG.LAUNCHES["group_quant_conv"]
+    with pytest.raises(ValueError, match="w in x's dtype"):
+        TG.group_quant_conv(x.bfloat16(), w, dm, zm, dl, zl, bias)
+    with pytest.raises(ValueError, match="w in x's dtype"):
+        TG.fold_weights(torch.bfloat16, w, dm, zm, dl, zl, 3, 3)
+    assert TG.LAUNCHES["group_quant_conv"] == before
     x, wq, dw, zw, dx, zp, bias = _int8_case(32, 64, 32, torch.float32, 4, 8, seed=1)
     with pytest.raises(ValueError, match="contiguous"):
         TM.quantized_matmul(x.t().contiguous().t(), wq, dw, zw, dx, zp - 128)

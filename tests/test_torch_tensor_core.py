@@ -1,0 +1,277 @@
+"""What surrounds the tensor-core kernels of the port (the bf16 flash attention
+K2/K2p and the group-quantized conv K5) and can be held on the CPU: the conv's
+tile and split-K plan, the wrappers' choice of kernel body as pure functions,
+the restated bf16 flash tolerance on a plain emulation that rounds P to bf16
+as the kernel does, and the weight fold bit for bit against the same fold
+written with jax.numpy as dgq_tpu/ops/pallas/group_conv.py writes it inline.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+from dgq_tpu_torch.ops import attention as TA
+from dgq_tpu_torch.ops import group_conv as TG
+
+BATCH = 4  # the CFG batch of two images
+
+
+def _unet_conv_shapes():
+    """(pixels, C, O, taps) of every stride-1 k x k conv of the full-width SD
+    v1.4 UNet at each resolution a 64 x 64 latent passes through."""
+    shapes = set()
+    for _, kind, meta in sd_unet_spec():
+        if kind == "conv" and meta[2] > 1 and meta[3] == 1:
+            for side in (64, 32, 16, 8):
+                shapes.add((BATCH * side * side, meta[0], meta[1], meta[2] ** 2))
+    return sorted(shapes)
+
+
+# the six shapes chip_smoke.py times: H = W, C, O (3 x 3, batch 4)
+SMOKE_SHAPES = [(BATCH * h * h, c, o, 9) for h, c, o in
+                [(64, 320, 320), (32, 640, 640), (16, 1280, 1280), (8, 2560, 1280),
+                 (64, 4, 320), (16, 2560, 1280)]]
+
+
+@pytest.mark.parametrize("m,c,o,taps", sorted(set(_unet_conv_shapes() + SMOKE_SHAPES)))
+def test_conv_plan_covers_k_exactly_once(m, c, o, taps):
+    plan = TG.conv_plan(m, c, o, taps)
+    assert plan == TG.conv_plan(m, c, o, taps)  # a pure function of the shape
+    assert plan.m_tiles * TG.TILE_M >= m > (plan.m_tiles - 1) * TG.TILE_M
+    assert plan.n_tiles * TG.TILE_N >= o > (plan.n_tiles - 1) * TG.TILE_N
+    assert plan.steps == taps * plan.c_chunks and 1 <= plan.splits <= TG.MAX_SPLITS
+    # what the kernel's launcher demands of the plan: no empty split, none missing
+    assert plan.splits * plan.steps_per_split >= plan.steps
+    assert (plan.splits - 1) * plan.steps_per_split < plan.steps
+    ranges = TG.plan_k_ranges(plan, c)
+    assert len(ranges) == plan.splits and all(ranges)
+    seen = np.zeros((taps, c), dtype=np.int64)
+    for pieces in ranges:
+        for tap, lo, hi in pieces:
+            assert 0 <= lo < hi <= c
+            seen[tap, lo:hi] += 1
+    assert (seen == 1).all()  # every (tap, channel) of K in exactly one split
+    # splits walk K in order, so adding the partial sums in split order is one fixed order
+    flat = [piece for pieces in ranges for piece in pieces]
+    assert flat == sorted(flat)
+
+
+def test_conv_plan_splits_where_the_tiles_are_few():
+    """One tile per block fills the card at 64 x 64 (128 tiles for 132 SMs) and
+    leaves it idle at 8 x 8 (8 tiles), where the weights are the traffic."""
+    assert TG.conv_plan(BATCH * 64 * 64, 320, 320, 9).splits == 1
+    for m, c, o in ((BATCH * 8 * 8, 2560, 1280), (BATCH * 16 * 16, 1280, 1280),
+                    (BATCH * 32 * 32, 640, 640)):
+        deep = TG.conv_plan(m, c, o, 9)
+        assert deep.splits > 1
+        # one wave of blocks, more than half of it used
+        assert TG.SM_COUNT // 2 < deep.m_tiles * deep.n_tiles * deep.splits <= TG.SM_COUNT
+        assert deep.steps_per_split >= 8
+    # a 1 x 1 conv with few channels has too few steps to split
+    assert TG.conv_plan(64, 64, 64, 1).splits == 1
+
+
+@pytest.mark.parametrize("dtype,c,o,ptr,want", [
+    (torch.bfloat16, 320, 320, 0, "tensor_core"),
+    (torch.bfloat16, 2560, 1280, 4096, "tensor_core"),
+    (torch.bfloat16, 8, 8, 16, "tensor_core"),
+    (torch.bfloat16, 4, 320, 0, "cuda_core"),      # conv_in: 4 channels
+    (torch.bfloat16, 320, 4, 0, "cuda_core"),      # conv_out: 4 outputs
+    (torch.bfloat16, 40, 22, 0, "cuda_core"),      # ragged outputs
+    (torch.bfloat16, 320, 320, 8, "cuda_core"),    # x off a 16-byte boundary
+    (torch.float32, 320, 320, 0, "cuda_core"),     # the f32 entries keep the first body
+])
+def test_conv_form_is_a_rule_on_dtype_shape_and_address(dtype, c, o, ptr, want):
+    assert TG.conv_form(dtype, c, o, ptr) == want
+
+
+ALIGNED = (4096, 8192, 12288)
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,strides,slot,want", [
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, "cuda_core"),
+    (torch.float32, 512, ALIGNED, (512 * 4096, 512) * 3, 0, "cuda_core"),
+    (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, "wgmma_async"),     # SD's 80-byte rows
+    (torch.bfloat16, 64, ALIGNED, (4096 * 640, 640) * 3, 64, "wgmma_async"),  # SDXL packed
+    (torch.bfloat16, 160, ALIGNED, (256 * 2048, 2048) * 3, 256, "wgmma_async"),
+    (torch.bfloat16, 512, ALIGNED, (4096 * 512, 512) * 3, 0, "wgmma_async"),
+    (torch.bfloat16, 40, (4098, 8192, 12288), (163840, 40) * 3, 0, "wgmma_plain"),  # odd base
+    (torch.bfloat16, 40, (4096, 8192, 12296), (163840, 40) * 3, 0, "wgmma_plain"),  # v 8 bytes off
+    (torch.bfloat16, 36, ALIGNED, (36 * 64, 36) * 3, 0, "wgmma_plain"),    # 72-byte rows
+    (torch.bfloat16, 12, ALIGNED, (4096 * 512, 512) * 3, 64, "wgmma_plain"),  # tiny heads
+    (torch.bfloat16, 40, ALIGNED, (163844, 40) * 3, 0, "wgmma_plain"),     # a batch stride off
+    (torch.bfloat16, 40, ALIGNED, (4096 * 516, 516) * 3, 0, "wgmma_plain"),   # a row stride off
+])
+def test_flash_form_is_a_rule_on_dtype_head_dim_strides_and_addresses(dtype, d, ptrs, strides,
+                                                                      slot, want):
+    assert TA.flash_form(dtype, d, ptrs, strides, slot) == want
+    assert TA.FLASH_FORMS[want] in (0, 1, 2)
+
+
+def test_flash_form_of_real_views():
+    """The rule applied to tensors: a contiguous (BH, T, 40) bf16 tensor takes
+    16-byte copies, the same data one element further on does not."""
+    q = torch.zeros(2 * 8 * 40 + 8, dtype=torch.bfloat16)
+    base = q.data_ptr()
+    assert base % 16 == 0
+    aligned, odd = q[:640].view(2, 8, 40), q[1:641].view(2, 8, 40)
+    strides = (320, 40) * 3
+    assert TA.flash_form(q.dtype, 40, (aligned.data_ptr(),) * 3, strides) == "wgmma_async"
+    assert TA.flash_form(q.dtype, 40, (odd.data_ptr(),) * 3, strides) == "wgmma_plain"
+    assert TA.flash_form(torch.float32, 40, (odd.data_ptr(),) * 3, strides) == "cuda_core"
+
+
+def _flash_case(t, s, d, seed, amp=2.0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(amp * rng.standard_normal((2, t, d), dtype=np.float32)).bfloat16()
+    k = torch.from_numpy(amp * rng.standard_normal((2, s, d), dtype=np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((2, s, d), dtype=np.float32)).bfloat16()
+    return q, k, v
+
+
+def _flash_with_bf16_p(q, k, v, scale):
+    """The kernel's arithmetic in plain torch: exact products of the bf16
+    inputs, an f32 softmax, P rounded to bf16 before P V (the row sum taken of
+    the unrounded P), the f32 result rounded to bf16 once."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    e = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    acc = torch.matmul(e.bfloat16().float(), v.float())
+    return (acc / e.sum(dim=-1, keepdim=True)).bfloat16()
+
+
+def _flash_f32(q, k, v, scale):
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    return torch.matmul(p, v.float()), torch.matmul(p, v.float().abs())
+
+
+@pytest.mark.parametrize("s", [77, 1024])
+@pytest.mark.parametrize("d", [40, 64, 160, 512])
+def test_flash_with_bf16_p_stays_inside_the_restated_bound(d, s):
+    """|err| <= 2^-7 |ref| + 2^-8 (P |V|): the relative part is the output's
+    one rounding to bf16 on each side of the comparison, the absolute part
+    P's rounding (2^-9 relative on each product p v, and as much again of
+    slack), which does not shrink where the output cancels."""
+    q, k, v = _flash_case(96, s, d, seed=d + s)
+    scale = d ** -0.5
+    out = _flash_with_bf16_p(q, k, v, scale).float()
+    ref32, pav = _flash_f32(q, k, v, scale)
+    err = (out - ref32).abs()
+    assert bool((err <= 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav).all())
+    # and the plain version of the port, rounded to bf16, is inside it too
+    plain = TA.attention_reference(q, k, v, scale).float()
+    assert bool(((plain - ref32).abs() <= 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav).all())
+    # far inside on average: the mean error is a small part of the mean bound
+    assert float(err.mean()) <= 0.25 * float((2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav).mean())
+
+
+def test_the_bound_without_the_absolute_part_is_too_tight_for_bf16_p():
+    """The reason for restating the bound: with P rounded to bf16 the earlier
+    bound, 2^-7 |ref| + 1e-5 max|V| against the bf16 plain version, fails where
+    the output nearly cancels (many keys of similar weight, values of both
+    signs), while the restated one holds."""
+    broke = 0
+    for seed in range(4):
+        q, k, v = _flash_case(128, 2048, 64, seed=100 + seed, amp=0.5)
+        scale = 64 ** -0.5
+        out = _flash_with_bf16_p(q, k, v, scale).float()
+        plain = TA.attention_reference(q, k, v, scale).float()
+        old = 2.0 ** -7 * plain.abs() + 1e-5 * float(v.float().abs().max())
+        broke += int(((out - plain).abs() > old).sum())
+        ref32, pav = _flash_f32(q, k, v, scale)
+        assert bool(((out - ref32).abs() <= 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav).all())
+    assert broke > 0
+
+
+def _fold_inputs(c, o, seed):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((3, 3, c, o), dtype=np.float32) / np.sqrt(9 * c)).astype(np.float32)
+    dm = (0.02 + 0.06 * rng.random((9, c), dtype=np.float32)).astype(np.float32)
+    zm = (100.0 + 56.0 * rng.random((9, c), dtype=np.float32)).astype(np.float32)
+    dl = np.asarray([1.37], dtype=np.float32)
+    zl = np.asarray([3.0], dtype=np.float32)
+    return w, dm, zm, dl, zl
+
+
+def _bits(x):
+    """A float array's bit patterns (bf16 through its f32 widening, which is exact)."""
+    return np.asarray(x, dtype=np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,o", [(32, 64), (40, 24), (320, 320)])
+def test_fold_matches_the_jax_fold_bit_for_bit(c, o, dtype):
+    """`_fold`'s w_t, rd and z against the fold that
+    dgq_tpu/ops/pallas/group_conv.py writes inline before its pallas_call
+    (f32 product, one rounding to x's dtype; 1 / (dm dl); zm + zl), on the
+    same numpy inputs: the one rounding to bf16 falls alike in both
+    frameworks."""
+    w, dm, zm, dl, zl = _fold_inputs(c, o, seed=c + o)
+    tdt = getattr(torch, dtype)
+    x = torch.zeros(1, 4, 4, c, dtype=tdt)
+    wt = torch.from_numpy(w).to(tdt)
+    w_t, rd, z = TG._fold(x, wt, torch.from_numpy(dm), torch.from_numpy(zm),
+                          torch.from_numpy(dl), torch.from_numpy(zl), 3, 3)
+    assert w_t.dtype == tdt and w_t.shape == (9, c, o) and w_t.is_contiguous()
+    assert rd.dtype == z.dtype == torch.float32 and rd.shape == z.shape == (9, c)
+
+    jdt = jnp.dtype(dtype)
+    wj = jnp.asarray(w).astype(jdt)  # the weights in x's dtype, as the model holds them
+    dmf = jnp.asarray(dm).astype(jnp.float32)
+    dlf = jnp.asarray(dl).reshape(()).astype(jnp.float32)
+    w_t_j = (jnp.reshape(wj, (9, c, o)).astype(jnp.float32) * (dmf * dlf)[:, :, None]).astype(jdt)
+    rd_j = 1.0 / (dmf * dlf)
+    z_j = jnp.asarray(zm).astype(jnp.float32) + jnp.asarray(zl).reshape(()).astype(jnp.float32)
+
+    np.testing.assert_array_equal(_bits(wt.float().numpy()),
+                                  _bits(np.asarray(wj.astype(jnp.float32))))
+    np.testing.assert_array_equal(_bits(w_t.float().numpy()),
+                                  _bits(np.asarray(w_t_j.astype(jnp.float32))))
+    np.testing.assert_array_equal(_bits(rd.numpy()), _bits(np.asarray(rd_j)))
+    np.testing.assert_array_equal(_bits(z.numpy()), _bits(np.asarray(z_j)))
+
+
+def test_fold_reads_the_hwio_view_of_an_oihw_weight():
+    """The model hands the conv `w.permute(2, 3, 1, 0)` of its OIHW weight: the
+    fold of the view equals the fold of its contiguous copy."""
+    w, dm, zm, dl, zl = _fold_inputs(16, 24, seed=5)
+    oihw = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    view = oihw.permute(2, 3, 1, 0)
+    assert not view.is_contiguous() and view.stride(0) == 3 * view.stride(1)
+    x = torch.zeros(1, 4, 4, 16)
+    args = (torch.from_numpy(dm), torch.from_numpy(zm), torch.from_numpy(dl),
+            torch.from_numpy(zl), 3, 3)
+    for a, b in zip(TG._fold(x, view, *args), TG._fold(x, view.contiguous(), *args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("w_dtype,dtype,match", [
+    (torch.float32, torch.bfloat16, "w in x's dtype"),
+    (torch.bfloat16, torch.float32, "w in x's dtype"),
+    (torch.float32, torch.float32, "CUDA tensor"),
+])
+def test_fold_wrapper_raises_rather_than_fold_in_torch(w_dtype, dtype, match):
+    """`fold_weights` is the fold kernel's wrapper: a weight in another dtype
+    than the conv's, or one that is not on a card, raises before any launch.
+    `_fold` serves the plain version and the CPU only."""
+    w, dm, zm, dl, zl = (torch.from_numpy(a) for a in _fold_inputs(16, 24, seed=9))
+    with pytest.raises(ValueError, match=match):
+        TG.fold_weights(dtype, w.to(w_dtype), dm, zm, dl, zl, 3, 3)
+
+
+def test_cpu_conv_takes_a_mixed_dtype_pair_through_the_plain_version():
+    """On the CPU `group_quant_conv` is the plain version, which folds w into
+    x's dtype with `_fold`; only a CUDA tensor must match its weight's dtype."""
+    w, dm, zm, dl, zl = (torch.from_numpy(a) for a in _fold_inputs(16, 24, seed=10))
+    x = torch.from_numpy(np.random.RandomState(10).randn(1, 5, 5, 16).astype(np.float32))
+    TG.reset_launch_counts()
+    out = TG.group_quant_conv(x.bfloat16(), w, dm, zm, dl, zl, None)
+    ref = TG.group_quant_conv_reference(x.bfloat16(), w, dm, zm, dl, zl, None)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 5, 5, 24)
+    assert TG.LAUNCHES["group_quant_conv"] == 0
+    assert torch.equal(out, ref)
+
+
+def test_jax_runs_on_the_cpu_here():
+    assert jax.default_backend() == "cpu"
