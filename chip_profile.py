@@ -4,7 +4,7 @@ configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
 1024px, batch 2).
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
-    python3 chip_profile.py --changed   # only the g=8 fused, fp and decode rows
+    python3 chip_profile.py --changed   # only the rows of the quantizing attention kernels
 
 For each of the SD g=1 path (unpacked, with packed attention, and with the
 int8 deploy path), the g=8 path with the fused group conv (unpacked and
@@ -24,9 +24,10 @@ printed side by side. The unquantized (fp) SD step, whose 32 attentions are
 the flash kernel, is profiled the same way, and one VAE decode of 2 images is
 timed at 512px and at 1024px (host wall after a synchronise, median of five;
 its one attention is the flash kernel at head dim 512). `--changed` keeps only
-the rows that the flash kernel and the group conv kernel carry: g=8 fused
-(unpacked and packed), fp, and the two decodes. The last line repeats the
-figures as one JSON object. It
+the rows that the quantizing attention kernels (K1/K1p, K3b/K3p) carry: SD
+g=1 and g=8 fused, SDXL-turbo with the int8 path off, each unpacked and with
+packed attention, and no decode. The last line repeats the figures as one
+JSON object. It
 shares the model set-up with chip_smoke.py and, like it, refuses to run
 without a card.
 """
@@ -36,7 +37,8 @@ import subprocess
 import time
 
 BUCKETS = (
-    ("attention kernels (K1-K4, K1p-K4p)", ("attention_kernel", "flash_tc_kernel")),
+    ("attention kernels (K1-K4, K1p-K4p)",
+     ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel")),
     ("group conv kernels (K5: fold, conv, split-K finish)",
      ("group_conv", "fold_kernel", "fold_oihw_kernel", "finish_kernel")),
     ("int8 matmul kernel (K6)", ("int8_matmul_kernel",)),
@@ -209,35 +211,37 @@ def main():
     g1p, g8p = g1.replace(packed_attention=True), g8.replace(packed_attention=True)
     fp = QConfig(use_pallas_attention=True)
     changed_only = "--changed" in sys.argv[1:]
-    records = [] if changed_only else [
+    records = [
         profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
         profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
-        profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
-                     "g=1 int8 deploy path", 4, tag),
     ]
+    if not changed_only:
+        records.append(profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
+                                    "g=1 int8 deploy path", 4, tag))
     records += [
         profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
         profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention", 4,
                      tag),
-        profile_step(sd_step(model, None, fp), "fp (no activation quantizer)", 4, tag),
-        profile_step(sd_step(model, None, fp.replace(packed_attention=True)),
-                     "fp, packed attention", 4, tag),
     ]
     if not changed_only:
-        records.append(profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
-                                    "g=8 taps group conv", 4, tag))
-    turns = [] if changed_only else [
-        in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag)]
-    turns.append(in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
-                          "g=8 fused group conv", tag))
-    g = torch.Generator(device="cuda").manual_seed(7)
-    decodes = [time_decode(model["vae"], model["latents"], SD_VAE_SCALE, "SD decode at 512px", tag),
-               time_decode(model["vae"],
-                           torch.randn(2, 128, 128, 4, generator=g, device="cuda").to(bf),
-                           SDXL_VAE_SCALE, "SDXL decode at 1024px", tag)]
-    if changed_only:
-        print(json.dumps({"card": card, "steps": records, "in_turns": turns, "decodes": decodes}))
-        return
+        records += [
+            profile_step(sd_step(model, None, fp), "fp (no activation quantizer)", 4, tag),
+            profile_step(sd_step(model, None, fp.replace(packed_attention=True)),
+                         "fp, packed attention", 4, tag),
+            profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
+                         "g=8 taps group conv", 4, tag),
+        ]
+    turns = [in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
+             in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
+                      "g=8 fused group conv", tag)]
+    decodes = []
+    if not changed_only:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        decodes = [time_decode(model["vae"], model["latents"], SD_VAE_SCALE,
+                               "SD decode at 512px", tag),
+                   time_decode(model["vae"],
+                               torch.randn(2, 128, 128, 4, generator=g, device="cuda").to(bf),
+                               SDXL_VAE_SCALE, "SDXL decode at 1024px", tag)]
     del model, qs_g1, qs_g8
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     model = chip_smoke.build_sdxl_model(tag)
@@ -245,8 +249,10 @@ def main():
     xl = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                  t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
                  use_pallas_attention=True, use_int8_matmul=True)
+    if not changed_only:
+        records.append(profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2,
+                                    tag))
     records += [
-        profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag),
         profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
                      "SDXL-turbo int8 path off", 2, tag),
         profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False,

@@ -11,8 +11,12 @@ Phases (any failure raises, so the exit code is non-zero):
      `_check_share` / `_check_conv` / `compare_int8`, and time both (and the
      one library call that computes the same function, where there is one),
      the host time of the flash and group-conv wrappers, and for the flash
-     and group-conv kernels, whose calls can be as short as their wrapper's
-     host time, the device-only time as well (`_device_ms`). The packed
+     group-conv and bf16 quantizing attention kernels (K1, rt_stats,
+     quant_accum and their packed entries), whose calls can be as short as
+     their wrapper's host time, the device-only time as well (`_device_ms`).
+     Each bf16 attention line names the kernel form it ran (`flash_form`,
+     `quant_form`), and each tensor-core kernel's element-load form is held
+     bit for bit against its 16-byte-copy form at one shape. The packed
      head-slot attention entries are also held bit for bit against their
      unpacked kernels, over output memory that holds NaN;
   3. a small-input check: the tiny UNets on the card against the same models
@@ -82,6 +86,10 @@ CLASSIC_ATTENTION = ("static_uniform_attention", "rt_stats", "quant_accum",
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# the special-function unit: 16 exponentials a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (H100 SXM), the floor of the kernels that take one
+# exponential per score (K1 two passes, rt_stats one)
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def _median_ms(fn, reps=10, warmup=2):
@@ -161,6 +169,11 @@ def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     input read once, each output written once) over the memory rate."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _exp_floor(n):
+    """The least time (ms) the exponent unit needs for n exponentials."""
+    return 1e3 * n / PEAK_EXP_PER_S
 
 
 def _check(out, ref, v, delta=None):
@@ -260,11 +273,20 @@ def _check_conv(out, ref):
     return float(err.max())
 
 
+def _misaligned(x):
+    """A copy of x one element off a 16-byte boundary: the tensor-core kernels
+    read it with element loads."""
+    import torch
+
+    return torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)[1:].view_as(x).copy_(x)
+
+
 class _Summary(dict):
     """Per kernel: the largest max_abs_err (and mismatch share) over its
     cases, and the timings of its first case, its largest main-path shape.
     `device_ms` (`_device_ms`) is taken for the kernels whose `ms` at some
-    shape is as short as their wrapper's host time (K2, K2p, K5), else None."""
+    shape is as short as their wrapper's host time (K1, K2, K3b, K5 and the
+    packed K1p, K2p, K3p), else None."""
 
     def add(self, name, label, mx, ms, plain_ms, bound, library_ms=None, share=None,
             device_ms=None):
@@ -320,6 +342,7 @@ def compare_attention(tag, summary):
                       64, {"mode": "log2", "sp": True}))
     cases.append(("flash_attention", "VAE mid-block at 1024px", 1, 16384, 16384, 512, {}))
 
+    first_of = {}  # kernel -> the label of its first case, where the load forms are compared
     for name, label, bh_, t, s, d, opt in cases:
         # scores of spread 4 at every head dim but the VAE's 1024px shape, where
         # 16384 keys at that spread would collapse the softmax onto one key
@@ -331,6 +354,8 @@ def compare_attention(tag, summary):
         shape = f"(BH={bh_}, T={t}, S={s}, D={d}, bf16)"
         qk_flops = 2.0 * bh_ * t * s * d
         io_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        form = A.quant_form(bf, d, ptrs, (t * d, d, s * d, d, s * d, d))
         if name == "rt":
             sp = opt["sp"]
             z, red = A.rt_stats(q, k, scale, sp)
@@ -341,26 +366,47 @@ def compare_attention(tag, summary):
             # f32 sums of up to 4096 exps in another order, on numbers of size ~30
             if not (z_err <= 1e-4 and red_rel <= 1e-4):
                 raise AssertionError(f"rt_stats {label}: z err {z_err}, reduction rel {red_rel}")
+            odd_note = ""
+            if first_of.setdefault("rt", label) == label:
+                # misaligned q: the element-load form, same z, scalar and output
+                odd = _misaligned(q)
+                zo, redo = A.rt_stats(odd, k, scale, sp)
+                if not (torch.equal(zo, z) and torch.equal(redo, red)):
+                    raise AssertionError(f"rt_stats {label}: the element-load form differs")
+                odd_note = "; misaligned q (element loads) equal bit for bit"
+                del odd, zo, redo
             ms = _median_ms(lambda: A.rt_stats(q, k, scale, sp))
+            dev = _device_ms(lambda: A.rt_stats(q, k, scale, sp))
             plain_ms = _median_ms(lambda: A.rt_stats_reference(q, k, scale, sp))
             bound = _bound(qk_flops, 2.0 * (q.numel() + k.numel()) + 4.0 * z.numel())
-            summary.add("rt_stats", label, z_err, ms, plain_ms, bound)
-            print(f"rt_stats {label} {shape}: max_abs_err(z) {z_err:.3g} reduction rel err "
-                  f"{red_rel:.3g}; median ms kernel {ms:.4f} plain {plain_ms:.4f} bound "
-                  f"{bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
+            summary.add("rt_stats", label, z_err, ms, plain_ms, bound, device_ms=dev)
+            print(f"rt_stats {label} {shape}, form {form}: max_abs_err(z) {z_err:.3g} reduction "
+                  f"rel err {red_rel:.3g}{odd_note}; median ms kernel {ms:.4f} device-only "
+                  f"{dev:.4f} ({dev / bound[0]:.2f}x its bound) plain {plain_ms:.4f} bound "
+                  f"{bound[0]:.4f} ({bound[1]}), exponent-unit floor "
+                  f"{_exp_floor(bh_ * t * s):.4f} | {tag}", flush=True)
 
             delta = A.rt_delta(red, sp)
             out = A.quant_accum(q, k, v, z, red, scale, 8, sp)
             ref = A.attention_reference(q, k, v, scale, "log2", 8, delta, sp)
             torch.cuda.synchronize()
             mx, share = _check_share(out, ref)
+            if odd_note:
+                odd = _misaligned(v)
+                if not torch.equal(A.quant_accum(q, k, odd, z, red, scale, 8, sp), out):
+                    raise AssertionError(f"quant_accum {label}: the element-load form differs")
+                del odd
+                odd_note = "; misaligned v (element loads) equal bit for bit"
             ms = _median_ms(lambda: A.quant_accum(q, k, v, z, red, scale, 8, sp))
+            dev = _device_ms(lambda: A.quant_accum(q, k, v, z, red, scale, 8, sp))
             plain_ms = _median_ms(
                 lambda: A.attention_reference(q, k, v, scale, "log2", 8, delta, sp))
             bound = _bound(2 * qk_flops, io_bytes + 4.0 * z.numel())
-            summary.add("quant_accum", label, mx, ms, plain_ms, bound, share=share)
-            print(f"quant_accum {label} {shape}: max_abs_err {mx:.6g} mismatch share "
-                  f"{share:.3g}; median ms kernel {ms:.4f} plain {plain_ms:.4f} bound "
+            summary.add("quant_accum", label, mx, ms, plain_ms, bound, share=share,
+                        device_ms=dev)
+            print(f"quant_accum {label} {shape}, form {form}: max_abs_err {mx:.6g} mismatch "
+                  f"share {share:.3g}{odd_note}; median ms kernel {ms:.4f} device-only "
+                  f"{dev:.4f} ({dev / bound[0]:.2f}x its bound) plain {plain_ms:.4f} bound "
                   f"{bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
 
             # the two launches behind the one wrapper, against the real_time plain version
@@ -407,7 +453,7 @@ def compare_attention(tag, summary):
                     f"{float(lib_err.max()):.6g} mean {float(lib_err.mean()):.3g})")
             # a contiguous view that starts one element off a 16-byte boundary
             # takes the element-load form of the kernel: same bits
-            odd = torch.empty(q.numel() + 1, device="cuda", dtype=bf)[1:].view_as(q).copy_(q)
+            odd = _misaligned(q)
             forms = (A.flash_form(bf, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()), (d,)),
                      A.flash_form(bf, d, (odd.data_ptr(), k.data_ptr(), v.data_ptr()), (d,)))
             if forms != ("wgmma_async", "wgmma_plain"):
@@ -423,9 +469,30 @@ def compare_attention(tag, summary):
         else:
             mx, mean = _check(out, ref, v, float(delta_u) if mode == "uniform" else None)
             note = f"mean_abs_err {mean:.3g}"
+            if name == "static_uniform_attention":
+                note += f"; form {form}"
+                if first_of.setdefault(name, label) == label:
+                    odd = _misaligned(k)
+                    got = A.fused_attention(q, odd, v, scale, sm_mode=mode, sm_delta=dl)
+                    if form != "wgmma_async" or not torch.equal(got, out):
+                        raise AssertionError(f"{name} {label}: the element-load form differs")
+                    note += "; misaligned k (element loads) equal bit for bit"
+                    del odd, got
+                    # what skipping pass 2's exponentials for a warp's fragment
+                    # (16 rows x 64 keys) whose codes are all 0 could save
+                    codes = torch.round(torch.softmax(torch.matmul(
+                        q.float(), k.float().transpose(-1, -2)) * scale, -1) / float(dl))
+                    zero = codes.reshape(bh_, t // 16, 16, s // 64, 64).amax(dim=(2, 4)) == 0
+                    note += (f"; share of 16 x 64 fragments whose codes are all 0 "
+                             f"{float(zero.float().mean()):.3g}")
+                    del codes, zero
         ms, plain_ms = _median_ms(kernel), _median_ms(plain)
         bound = _bound(2 * qk_flops, io_bytes)
         device_ms = None
+        if name == "static_uniform_attention":
+            device_ms = _device_ms(kernel)
+            note += (f"; device-only ms {device_ms:.4f} ({device_ms / bound[0]:.2f}x its bound; "
+                     f"exponent-unit floor {_exp_floor(2 * bh_ * t * s):.4f})")
         if name == "flash_attention":
             library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
             device_ms = _device_ms(kernel)
@@ -494,6 +561,7 @@ def compare_attention_packed(tag, summary):
         cases.append(("static_uniform_attention_packed", f"SDXL {px}px self", IMAGES, heads, t, t,
                       64, 64, "uniform", False))
 
+    first_of = {}  # kernel -> the label of its first case, where the load forms are compared
     for name, label, b, h, t, s, d, dp, mode, sp in cases:
         scale = d ** -0.5
         shape = f"(B={b}, H={h}, T={t}, S={s}, d={d} in slots of {dp})"
@@ -527,8 +595,7 @@ def compare_attention_packed(tag, summary):
                 share = None
                 # a view one element off any 16-byte boundary: the element-load
                 # form of the kernel, counted under the same name, same bits
-                odd = torch.empty(qp.numel() + 1, device="cuda", dtype=bf)[1:].view_as(qp)
-                odd.copy_(qp)
+                odd = _misaligned(qp)
                 if A.flash_form(bf, d, (odd.data_ptr(),), (h * dp,), dp) != "wgmma_plain":
                     raise AssertionError(f"{label}: a misaligned view chose the 16-byte copies")
                 got = A.fused_attention(odd, kp, vp, scale, num_heads=h, head_dim=d, **kw)
@@ -558,28 +625,55 @@ def compare_attention_packed(tag, summary):
                 f"plain f32 {worst[torch.float32][0]:.3g} bf16 {worst[bf][0]:.6g}")
         if worst[bf][1] is not None:
             note += f" mismatch share {max(worst[torch.float32][1], worst[bf][1]):.3g}"
+        form = (A.flash_form if mode == "none" else A.quant_form)(
+            bf, d, (qp.data_ptr(), kp.data_ptr(), vp.data_ptr()),
+            (t * h * dp, h * dp, s * h * dp, h * dp, s * h * dp, h * dp), dp)
+        if name != "static_quant_attention_packed":  # K4p keeps the CUDA-core body
+            note += f"; form {form}"
+        odd_note = ""
+        if (name in ("static_uniform_attention_packed", "rt")
+                and first_of.setdefault(name, label) == label):
+            # the element-load form of the packed entries, on a misaligned q
+            odd = _misaligned(qp)
+            kw = dict(sm_mode=mode, sm_bits=8, sm_delta=dl, start_peak=sp)
+            got = A.fused_attention(odd, kp, vp, scale, num_heads=h, head_dim=d, **kw)
+            want = A.fused_attention(qp, kp, vp, scale, num_heads=h, head_dim=d, **kw)
+            same = torch.equal(got, want)
+            if name == "rt":
+                same = same and all(torch.equal(x, y) for x, y in zip(
+                    A.rt_stats_packed(odd, kp, scale, h, d, sp),
+                    A.rt_stats_packed(qp, kp, scale, h, d, sp)))
+            if not same:
+                raise AssertionError(f"{name} {label}: the element-load form differs")
+            odd_note = "; misaligned q (element loads) equal bit for bit"
+            del odd, got, want
         if name == "rt":
             ms = _median_ms(lambda: A.rt_stats_packed(qp, kp, scale, h, d, sp))
+            dev = _device_ms(lambda: A.rt_stats_packed(qp, kp, scale, h, d, sp))
             plain_ms = _median_ms(lambda: A.rt_stats_reference(q, k, scale, sp))
             unp_ms = _median_ms(lambda: A.rt_stats(q, k, scale, sp))
             bound = _bound(qk_flops, 2.0 * (q.numel() + k.numel()) + 4.0 * b * h * t)
             summary.add("rt_stats_packed", label, max(worst[torch.float32][2], worst[bf][2]), ms,
-                        plain_ms, bound)
-            print(f"rt_stats_packed {label} {shape}: z and scalar equal the unpacked kernel's; "
-                  f"median ms kernel {ms:.4f} unpacked kernel {unp_ms:.4f} plain {plain_ms:.4f} "
-                  f"bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
+                        plain_ms, bound, device_ms=dev)
+            print(f"rt_stats_packed {label} {shape}, form {form}: z and scalar equal the "
+                  f"unpacked kernel's{odd_note}; median ms kernel {ms:.4f} device-only {dev:.4f} "
+                  f"({dev / bound[0]:.2f}x its bound) unpacked kernel {unp_ms:.4f} plain "
+                  f"{plain_ms:.4f} bound {bound[0]:.4f} ({bound[1]}), exponent-unit floor "
+                  f"{_exp_floor(b * h * t * s):.4f} | {tag}", flush=True)
             z, red = A.rt_stats_packed(qp, kp, scale, h, d, sp)
             delta = A.rt_delta(red, sp)
             ms = _median_ms(lambda: A.quant_accum_packed(qp, kp, vp, z, red, scale, h, d, 8, sp))
+            dev = _device_ms(lambda: A.quant_accum_packed(qp, kp, vp, z, red, scale, h, d, 8, sp))
             plain_ms = _median_ms(lambda: A.packed_attention_reference(
                 qp, kp, vp, scale, h, d, "log2", 8, delta, sp))
             z0, red0 = A.rt_stats(q, k, scale, sp)
             unp_ms = _median_ms(lambda: A.quant_accum(q, k, v, z0, red0, scale, 8, sp))
             bound = _bound(2 * qk_flops, valid + 2.0 * b * t * h * dp + 4.0 * b * h * t)
             summary.add("quant_accum_packed", label, worst[bf][0], ms, plain_ms, bound,
-                        share=max(worst[torch.float32][1], worst[bf][1]))
-            print(f"quant_accum_packed {label} {shape}: {note}; median ms kernel {ms:.4f} "
-                  f"unpacked kernel {unp_ms:.4f} plain {plain_ms:.4f} bound {bound[0]:.4f} "
+                        share=max(worst[torch.float32][1], worst[bf][1]), device_ms=dev)
+            print(f"quant_accum_packed {label} {shape}: {note}{odd_note}; median ms kernel "
+                  f"{ms:.4f} device-only {dev:.4f} ({dev / bound[0]:.2f}x its bound) unpacked "
+                  f"kernel {unp_ms:.4f} plain {plain_ms:.4f} bound {bound[0]:.4f} "
                   f"({bound[1]}) | {tag}", flush=True)
             pname = "log2_real_time_attention_packed (both launches)"
         else:
@@ -600,12 +694,16 @@ def compare_attention_packed(tag, summary):
             return o.reshape(b, h, t, d).permute(0, 2, 1, 3).reshape(b, t, h * d)
 
         ms, route_ms = _median_ms(packed_route), _median_ms(unpacked_route)
-        line = (f"{pname} {label} {shape}: {note}; median ms packed entry {ms:.4f}, unpacked "
-                f"route with its four permute copies {route_ms:.4f}")
+        line = (f"{pname} {label} {shape}: {note}{odd_note}; median ms packed entry {ms:.4f}, "
+                f"unpacked route with its four permute copies {route_ms:.4f}")
         if name != "rt":
             plain_ms = _median_ms(lambda: A.packed_attention_reference(
                 qp, kp, vp, scale, h, d, mode, 8, dl, sp))
             library_ms = device_ms = None
+            if name == "static_uniform_attention_packed":
+                device_ms = _device_ms(packed_route)
+                line += (f", device-only packed entry {device_ms:.4f} (exponent-unit floor "
+                         f"{_exp_floor(2 * b * h * t * s):.4f})")
             if name == "flash_attention_packed":
                 # the one PyTorch call for K2p's function, on the same strided head views
                 q4, k4, v4 = (x.reshape(b, -1, h, dp)[..., :d].transpose(1, 2)
@@ -1381,7 +1479,12 @@ def print_build_report(paths, tag):
             dtype = "bf16" if "bfloat16" in sym else "f32"
             a = re.search(r"attention_kernelI\w+?Li(\d+)ELi(\d+)ELi(\d)E", sym)
             f = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E", sym)
-            if a:
+            qt = re.search(r"quant_tc_kernelILi(\d)ELi(\d+)ELi(\d+)ELb([01])E", sym)
+            if qt:
+                dtype = "bf16"
+                kname = (f"{modes[qt.group(1)]} wgmma D<={16 * int(qt.group(3))}"
+                         + (" cp.async" if qt.group(4) == "1" else " element loads"))
+            elif a:
                 kname = f"{modes[a.group(3)]} DP={a.group(1)} RM={a.group(2)}"
             elif f:
                 dtype = "bf16"

@@ -35,7 +35,7 @@
 // here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's `_accum_kernel`
 // does) and pay 1.5x the flops of K2; K3b pays the same over its two launches.
 //
-// Two bodies.
+// Three bodies.
 //
 // (a) The bf16 flash mode (K2, K2p) runs on the tensor cores
 // (`flash_tc_kernel`, tile code in wgmma.cuh). A block of two warpgroups takes
@@ -73,14 +73,17 @@
 // same tiles with element loads and ordinary stores (`ASYNC = false`), and
 // returns the same bits.
 //
-// (b) Everything else (the f32 entries, and the quantizing modes K1, K3b, K4
-// in both dtypes) keeps the first version's body, f32 FMAs on the CUDA cores:
+// (c) The bf16 quantizing modes K1 and K3b (with K1p, K3p) at head_dim <= 192
+// run `quant_tc_kernel` on the same tile code: one template over the mode,
+// whose note below says what each mode computes and what bounds it.
+//
+// (b) The f32 entries of every mode, K4 in both dtypes and K1 in bf16 past
+// head_dim 192 (the VAE's 512) or with codes past 256 keep the first version's
+// body, f32 FMAs on the CUDA cores:
 // one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
 // memory, K and V tiles of 64 keys through one shared buffer as f32, each
 // thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
-// columns of the output. K1's codes (integers up to 255) and the log2 modes'
-// 2^-q are exact in bf16, so those modes can take the tile code of (a) next
-// with exact products. Head dims that are not a multiple of 16 (SD's 40) are
+// columns of the output. Head dims that are not a multiple of 16 (SD's 40) are
 // zero-padded in shared memory, not in the weights; the ragged key axis
 // (cross-attention S = 77) is masked per column. Every delta is read from
 // device memory, so neither the per-step time-aware slot nor the real-time
@@ -514,6 +517,50 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Rows [row0, row0 + BK) of a K or V tile -> swizzled sub-tiles at buf, sub-tile
+// c holding lanes 64 c..; thread (lr, cc) copies chunk cc of rows lr + 32 i from
+// p, its chunk of row row0 + lr. Keys past s_len and lanes past d are zeros,
+// read from nowhere (`safe` stands in for their address).
+template <int NC, int BK, bool ASYNC>
+__device__ __forceinline__ void copy_tile(uint32_t buf, uint32_t ld_dst, const bf16* p,
+                                          const bf16* safe, long long stride, int row0, int lr,
+                                          int cc, int s_len, int d) {
+#pragma unroll
+  for (int r = 0; r < BK; r += 32) {
+    const bool row_ok = row0 + lr + r < s_len;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int nvalid = row_ok ? min(8, max(0, d - cc * 8 - 64 * c)) : 0;
+      copy_chunk<ASYNC>(buf + ld_dst + c * (BK * 128) + r * 128,
+                        nvalid > 0 ? p + r * stride + 64 * c : safe, nvalid);
+    }
+  }
+}
+
+// Outputs (row, col) and (row, col + 1), within t_len rows and d lanes; one
+// 4-byte store where `o_vec` says every pair is aligned.
+__device__ __forceinline__ void store_pair(bf16* ob, long long o_row, int row, int col, float a,
+                                           float b, int t_len, int d, int o_vec) {
+  if (row >= t_len || col >= d) return;
+  bf16* dst = ob + row * o_row + col;
+  if (o_vec && col + 1 < d) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  } else {
+    dst[0] = __float2bfloat16(a);
+    if (col + 1 < d) dst[1] = __float2bfloat16(b);
+  }
+}
+
+// Zeros into a packed slot's padding lanes d..o_cols of rows r0 and r1 (the
+// four lanes t4 of a row share them).
+__device__ __forceinline__ void zero_pad_lanes(bf16* ob, const Layout& lay, int r0, int r1,
+                                               int t_len, int d, int t4) {
+  for (int col = d + t4; col < lay.o_cols; col += 4) {
+    if (r0 < t_len) ob[r0 * lay.o_row + col] = __float2bfloat16(0.f);
+    if (r1 < t_len) ob[r1 * lay.o_row + col] = __float2bfloat16(0.f);
+  }
+}
+
 // Starts S (64 x BK, f32 fragments) = Q K^T over the first NKS steps of 16 lanes
 // and commits the group without waiting: Q sub-tiles at q_s, K sub-tiles at k_s,
 // both K-major. S may not be touched before `mma_wait` and `pin`. (No branch
@@ -587,22 +634,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t ld_dst = tc::swz(lr, cc);
   const bf16* kp = kb + lr * lay.k_row + cc * 8;
   const bf16* vp = vb + lr * lay.v_row + cc * 8;
-  auto copy_tile = [&](uint32_t buf, const bf16* p, const bf16* safe, long long stride, int row0) {
-#pragma unroll
-    for (int r = 0; r < BK; r += 32) {
-      const bool row_ok = row0 + lr + r < s_len;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int nvalid = row_ok ? min(8, max(0, d - cc * 8 - 64 * c)) : 0;
-        copy_chunk<ASYNC>(buf + ld_dst + c * (BK * 128) + r * 128,
-                          nvalid > 0 ? p + r * stride + 64 * c : safe, nvalid);
-      }
-    }
-  };
   auto load_kv = [&](int tile) {
     const uint32_t buf = ring + (tile & 1) * STAGE;
-    copy_tile(buf, kp, kb, lay.k_row, tile * BK);
-    copy_tile(buf + KV_BYTES, vp, vb, lay.v_row, tile * BK);
+    copy_tile<NC, BK, ASYNC>(buf, ld_dst, kp, kb, lay.k_row, tile * BK, lr, cc, s_len, d);
+    copy_tile<NC, BK, ASYNC>(buf + KV_BYTES, ld_dst, vp, vb, lay.v_row, tile * BK, lr, cc, s_len,
+                             d);
     kp += BK * lay.k_row;
     vp += BK * lay.v_row;
   };
@@ -680,30 +716,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
   const int r0 = q0 + wrow * 64 + warp * 16 + g, r1 = r0 + 8;
-  auto store2 = [&](int row, int col, float a, float b) {
-    if (row >= t_len || col >= d) return;
-    bf16* dst = ob + row * lay.o_row + col;
-    if (o_vec && col + 1 < d) {
-      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-    } else {
-      dst[0] = __float2bfloat16(a);
-      if (col + 1 < d) dst[1] = __float2bfloat16(b);
-    }
-  };
 #pragma unroll
   for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb) {
       const int col = (cb0 + cb) * 64 + 8 * jb + 2 * t4;
-      store2(r0, col, oacc[cb][4 * jb] * inv0, oacc[cb][4 * jb + 1] * inv0);
-      store2(r1, col, oacc[cb][4 * jb + 2] * inv1, oacc[cb][4 * jb + 3] * inv1);
+      store_pair(ob, lay.o_row, r0, col, oacc[cb][4 * jb] * inv0, oacc[cb][4 * jb + 1] * inv0,
+                 t_len, d, o_vec);
+      store_pair(ob, lay.o_row, r1, col, oacc[cb][4 * jb + 2] * inv1,
+                 oacc[cb][4 * jb + 3] * inv1, t_len, d, o_vec);
     }
-  // a packed slot's padding lanes
-  if (!SPLIT || wg == 0)
-    for (int col = d + t4; col < lay.o_cols; col += 4) {
-      if (r0 < t_len) ob[r0 * lay.o_row + col] = __float2bfloat16(0.f);
-      if (r1 < t_len) ob[r1 * lay.o_row + col] = __float2bfloat16(0.f);
-    }
+  if (!SPLIT || wg == 0) zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
 }
 
 template <int NC, int NKS, int BK, bool SPLIT, bool ASYNC>
@@ -724,8 +747,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// form 1: tiles by cp.async, which needs every row of q, k and v to start on a
-// 16-byte boundary and head_dim to be a multiple of 8 (the wrapper chose it from
+// Whether the tensor-core bodies may fill their tiles by cp.async: every row of
+// q, k and v starts on a 16-byte boundary and head_dim is a multiple of 8.
+bool async_ok(const void* q, const void* k, const void* v, int d, const Layout& lay) {
+  const long long strides[] = {lay.q_batch, lay.q_row, lay.k_batch, lay.k_row, lay.v_batch,
+                               lay.v_row, lay.slot};
+  for (long long st : strides)
+    if (st % 8) return false;
+  return d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+}
+
+// pairs of outputs go out as one 4-byte store where every pair is aligned
+int out_vec(const void* o, const Layout& lay) {
+  return reinterpret_cast<uintptr_t>(o) % 4 == 0 && lay.o_batch % 2 == 0 && lay.o_row % 2 == 0 &&
+         lay.slot % 2 == 0;
+}
+
+// form 1: tiles by cp.async, which needs `async_ok` (the wrapper chose it from
 // the same facts; a mismatch is refused, not repaired). form 2: element loads.
 template <bool ASYNC>
 int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
@@ -733,16 +771,8 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, in
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 512 || !(scale > 0.f))
     return cudaErrorInvalidValue;
   if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
-  if (ASYNC) {
-    const long long strides[] = {lay.q_batch, lay.q_row, lay.k_batch, lay.k_row, lay.v_batch,
-                                 lay.v_row, lay.slot};
-    for (long long st : strides)
-      if (st % 8) return cudaErrorInvalidValue;
-    if (d % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v)) return cudaErrorInvalidValue;
-  }
-  // pairs of outputs go out as one 4-byte store where every pair is aligned
-  const int o_vec = reinterpret_cast<uintptr_t>(o) % 4 == 0 && lay.o_batch % 2 == 0 &&
-                    lay.o_row % 2 == 0 && lay.slot % 2 == 0;
+  if (ASYNC && !async_ok(q, k, v, d, lay)) return cudaErrorInvalidValue;
+  const int o_vec = out_vec(o, lay);
   // the main paths' head dims get the exact number of contraction steps, any
   // other the whole tier's
 #define DGQ_TC(NC, NKS, BK, SPLIT) \
@@ -764,6 +794,333 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, in
 #undef DGQ_TC
 }
 
+// ---- (c) the quantizing modes K1, K3b on the tensor cores, bf16 ----
+//
+// What they compute, and what that asks of the card. All three recompute
+// S = Q K^T with `tile_qk` over the same swizzled tiles in the same order as
+// the flash body, so every launch sees S to the bit.
+//   * `rt_stats` (kStats) is Q K^T and one exponential an element: m and l
+//     online in base 2 (raw-score max, scale_log2 > 0), m2 under start_peak,
+//     then z = scale m + ln l and the call's scalar. Its ring holds K tiles
+//     alone (no V), and no O lives in registers, so two blocks share an SM and
+//     one's exponentials run under the other's multiplies.
+//   * `quant_accum` (kAccum) takes no exponential: y = clamp(a_row - s
+//     scale_log2, 0, ub) with a_row = log2(delta) + z / ln 2 is one FMA and a
+//     clamp, q = round(y) the add of 1.5 2^23, and the A fragment of P V is
+//     2^-q as bf16, bits (127 - q) << 7, formed by one integer multiply-add
+//     from the rounded float's bits. ub <= exponent_field(delta) - 1 <= 126,
+//     so 2^-q is a normal number and every product 2^-q v is exact; delta is
+//     applied once to the f32 accumulator at the end (the TPU kernel instead
+//     feeds bf16(delta 2^-q), which costs up to 2^-9 a product). Under
+//     start_peak key 0 must carry its unquantized exp(s0 - z): its A element
+//     is zeroed and exp(s0 - z) V[0, :] is added to the accumulator's rows in
+//     f32 after the loop, a rank-1 update. That keeps the largest probability
+//     of a row exact, where feeding bf16(p0 / delta) as the TPU kernel does
+//     would round it to 8 bits.
+//   * K1 (kUniform) runs rt_stats' loop without the reduction (pass 1), then
+//     recomputes Q K^T (the TPU kernel's (rows, S) exp cache does not fit in
+//     shared memory) and forms code = min(rint(2^(s c - (m c + log2(l delta)))),
+//     2^b - 1), c = scale log2 e, one FMA and one exponential an element
+//     (pass 2). A code is an integer <= 256, exact in bf16, and is the A
+//     fragment of P V; the output is delta acc, as the TPU kernel hoists delta.
+// Keys past S: their K rows are zeros in shared memory, so pass 1 masks them
+// out of m, l and m2; their V rows are zeros too, so in pass 2 any finite A
+// element gives them exactly 0. Rows past T (zero queries) are kept out of z
+// and of the call's scalar.
+// What bounds them: the exponent unit, not the tensor cores. At SD 64px self
+// (BH 32, T = S = 4096) one pass is 5.4e8 exponentials, about 0.13 ms at 16 a
+// clock on each of 132 SMs; rt_stats takes one pass, K1 two; quant_accum's
+// quantizer is some five CUDA-core operations an element (about 0.09 ms).
+template <int MODE, int NC, int NKS, bool ASYNC>
+__global__ void __launch_bounds__(kTcThreads, MODE == kStats ? 2 : 1)
+quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int t_len, int s_len, int d,
+                float scale, float scale_log2, Extra ex, Layout lay, int o_vec) {
+  constexpr int BQ = 128, BK = 64, NS = BK / 2;
+  constexpr bool PASS1 = MODE != kAccum;  // the row statistics m, l
+  constexpr bool PASS2 = MODE != kStats;  // quantize and P V
+  constexpr int KV_BYTES = NC * BK * 128;
+  constexpr int STAGE = PASS2 ? 2 * KV_BYTES : KV_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;  // [2][NC] sub-tiles
+  const uint32_t ring = q_s + BQ * NC * 128;                       // 2 stages
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int batch = bh / lay.heads, head_off = (bh - batch * lay.heads) * lay.slot;
+  const bf16* qb = q + batch * lay.q_batch + head_off;
+  const bf16* kb = k + batch * lay.k_batch + head_off;
+  const int n_tiles = (s_len + BK - 1) / BK;
+  // iterations [0, n1) are pass 1, [n1, total) pass 2, each over the key tiles
+  const int n1 = PASS1 ? n_tiles : 0, total = n1 + (PASS2 ? n_tiles : 0);
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
+  const bool sp = ex.start_peak != 0;
+
+  // iteration it's K tile (and in pass 2 its V tile) go to buffer it & 1;
+  // thread t copies chunk t % 8 of rows t / 8 + 32 i, through running pointers
+  const int cc = tid & 7, lr = tid >> 3;
+  const uint32_t ld_dst = tc::swz(lr, cc);
+  const bf16* kp0 = kb + lr * lay.k_row + cc * 8;
+  const bf16* kp = kp0;
+  const bf16* vb = PASS2 ? v + batch * lay.v_batch + head_off : kb;
+  const bf16* vp = PASS2 ? vb + lr * lay.v_row + cc * 8 : kb;
+  auto load = [&](int it) {
+    if (PASS1 && PASS2 && it == n1) kp = kp0;  // pass 2 starts again at key tile 0
+    const int row0 = (it < n1 ? it : it - n1) * BK;
+    const uint32_t buf = ring + (it & 1) * STAGE;
+    copy_tile<NC, BK, ASYNC>(buf, ld_dst, kp, kb, lay.k_row, row0, lr, cc, s_len, d);
+    kp += BK * lay.k_row;
+    if (PASS2 && it >= n1) {
+      copy_tile<NC, BK, ASYNC>(buf + KV_BYTES, ld_dst, vp, vb, lay.v_row, row0, lr, cc, s_len, d);
+      vp += BK * lay.v_row;
+    }
+  };
+  load_rows<NC, BQ, ASYNC>(q_s, qb, lay.q_row, q0, t_len, d);
+  load(0);
+  tc::cp_async_commit();
+  const uint32_t q_w = q_s + wg * NC * 8192;  // this warpgroup's 64 rows of Q
+
+  // Waits for iteration it's tiles, starts the next iteration's loads and
+  // leaves S(it) = Q K^T in s. Every tile is consumed within its iteration, so
+  // the barrier also frees the buffer the next loads overwrite.
+  auto scores = [&](int it, float (&s)[NS]) {
+    tc::cp_async_wait<0>();
+    tc::fence_async_proxy();
+    __syncthreads();
+    if (it + 1 < total) load(it + 1);
+    tc::cp_async_commit();
+    tile_qk<NKS, BK>(s, q_w, ring + (it & 1) * STAGE);
+    tc::mma_wait<0>();
+    tc::pin(s);
+  };
+
+  // pass 1: m (raw scores) and l = sum 2^(scale_log2 (s - m)), each lane its
+  // share of rows r0 and r1; m2 the raw max outside key 0 (kStats, start_peak)
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, m20 = kNegInf, m21 = kNegInf;
+  for (int it = 0; it < n1; ++it) {
+    float s[NS];
+    scores(it, s);
+    const int key0 = it * BK;
+    if (key0 + BK > s_len) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (key0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= s_len) s[i] = kNegInf;
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+    const float tm0 = quad_max(mx0), tm1 = quad_max(mx1);
+    if (MODE == kStats && sp) {
+      if (it == 0) {  // key 0 is s[0] (row r0) and s[2] (row r1) of lane t4 = 0
+        float a0 = kNegInf, a1 = kNegInf;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          if (t4 == 0 && (i == 0 || i == 2)) continue;
+          if (i & 2) a1 = fmaxf(a1, s[i]);
+          else a0 = fmaxf(a0, s[i]);
+        }
+        m20 = quad_max(a0);
+        m21 = quad_max(a1);
+      } else {
+        m20 = fmaxf(m20, tm0);
+        m21 = fmaxf(m21, tm1);
+      }
+    }
+    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+    const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float e = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+      if (i & 2) sum1 += e;
+      else sum0 += e;
+    }
+    l0 = l0 * ex2((m0 - mn0) * scale_log2) + sum0;
+    l1 = l1 * ex2((m1 - mn1) * scale_log2) + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  if (PASS1) {
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+  }
+
+  if constexpr (MODE == kStats) {
+    // z = scale m + ln l per valid row (lane t4 = 0 writes); the warp's
+    // rows fold into one value and one lane folds it into the call's scalar
+    const bool v0 = r0 < t_len, v1 = r1 < t_len;
+    if (t4 == 0) {
+      if (v0) ex.z[(size_t)bh * t_len + r0] = fmaf(m0, scale, logf(l0));
+      if (v1) ex.z[(size_t)bh * t_len + r1] = fmaf(m1, scale, logf(l1));
+    }
+    float red = sp ? 0.f : __int_as_float(0x7f800000);
+    if (sp) {
+      if (v0) red = fmaxf(red, expf((m20 - m0) * scale) / l0);
+      if (v1) red = fmaxf(red, expf((m21 - m1) * scale) / l1);
+    } else {
+      if (v0) red = fminf(red, l0);
+      if (v1) red = fminf(red, l1);
+    }
+#pragma unroll
+    for (int sh = 4; sh < 32; sh <<= 1) {
+      const float other = __shfl_xor_sync(0xffffffffu, red, sh);
+      red = sp ? fmaxf(red, other) : fminf(red, other);
+    }
+    if ((tid & 31) == 0) {
+      if (sp) atomicMax(ex.red, __float_as_int(red));
+      else atomicMin(ex.red, __float_as_int(red));
+    }
+  } else {
+    // pass 2: per-row constants of the quantizer, then P V over the key tiles
+    float delta, c0, c1, ub = 0.f, z0 = 0.f, z1 = 0.f;
+    if (MODE == kUniform) {
+      delta = *ex.delta;
+      c0 = -fmaf(m0, scale_log2, log2f(l0 * delta));
+      c1 = -fmaf(m1, scale_log2, log2f(l1 * delta));
+    } else {
+      const float r = __int_as_float(*ex.red);
+      delta = sp ? r : 1.f / r;
+      ub = fminf(fminf(static_cast<float>((__float_as_int(delta) >> 23) - 1), ex.max_code), 126.f);
+      const float log2d = log2f(delta);
+      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
+      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
+      c0 = fmaf(z0, kInvLn2, log2d);
+      c1 = fmaf(z1, kInvLn2, log2d);
+    }
+    constexpr float kMagic = 12582912.f;  // 1.5 2^23: x + kMagic rounds x to an integer
+    float oacc[NC][32];
+#pragma unroll
+    for (int cb = 0; cb < NC; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[cb][i] = 0.f;
+    float s00 = 0.f, s01 = 0.f;  // kAccum, start_peak: key 0's raw scores (lane t4 = 0)
+
+    for (int it = n1; it < total; ++it) {
+      float s[NS];
+      scores(it, s);
+      uint32_t p[BK / 16][4];
+      if constexpr (MODE == kUniform) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const float e = ex2(fmaf(s[i], scale_log2, (i & 2) ? c1 : c0));
+          s[i] = fminf((e + kMagic) - kMagic, ex.max_code);
+        }
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            p[ks][r] = tc::pack_bf16(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1]);
+      } else {
+        // bits(y + kMagic) = 0x4B400000 + q, and the bf16 2^-q is (127 - q) << 7:
+        // a pair (lo, hi) packs as kPair - 2^7 bits(lo) - 2^23 bits(hi) mod 2^32
+        constexpr uint32_t kLo = 0x4B40007Fu << 7, kPair = kLo + (0x4B40007Fu << 23);
+        uint32_t bits[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const float y = fminf(fmaxf(fmaf(s[i], -scale_log2, (i & 2) ? c1 : c0), 0.f), ub);
+          bits[i] = __float_as_uint(y + kMagic);
+        }
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            p[ks][r] = kPair - (bits[8 * ks + 2 * r] << 7) - (bits[8 * ks + 2 * r + 1] << 23);
+        if (sp && it == 0 && t4 == 0) {  // key 0: exact, added after the loop
+          s00 = s[0];
+          s01 = s[2];
+          p[0][0] &= 0xffff0000u;
+          p[0][1] &= 0xffff0000u;
+        }
+      }
+      tile_pv<NC, BK>(oacc, p, ring + (it & 1) * STAGE + KV_BYTES);
+      tc::mma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < NC; ++cb) tc::pin(oacc[cb]);
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) tc::pin(p[ks]);
+    }
+
+    // out = delta acc (+ exp(s0 - z) V[0, :] under start_peak)
+    const bool peak = MODE == kAccum && sp;
+    float p00 = 0.f, p01 = 0.f;
+    if (peak) {
+      const int lead = (tid & 31) & ~3;
+      p00 = expf(fmaf(__shfl_sync(0xffffffffu, s00, lead), scale, -z0));
+      p01 = expf(fmaf(__shfl_sync(0xffffffffu, s01, lead), scale, -z1));
+    }
+    bf16* ob = o + batch * lay.o_batch + head_off;
+#pragma unroll
+    for (int cb = 0; cb < NC; ++cb)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int col = cb * 64 + 8 * jb + 2 * t4;
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = oacc[cb][4 * jb + i] * delta;
+        if (peak) {
+          const float va = col < d ? __bfloat162float(vb[col]) : 0.f;
+          const float vb1 = col + 1 < d ? __bfloat162float(vb[col + 1]) : 0.f;
+          x[0] = fmaf(p00, va, x[0]);
+          x[1] = fmaf(p00, vb1, x[1]);
+          x[2] = fmaf(p01, va, x[2]);
+          x[3] = fmaf(p01, vb1, x[3]);
+        }
+        store_pair(ob, lay.o_row, r0, col, x[0], x[1], t_len, d, o_vec);
+        store_pair(ob, lay.o_row, r1, col, x[2], x[3], t_len, d, o_vec);
+      }
+    zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
+  }
+}
+
+template <int MODE, int NC, int NKS, bool ASYNC>
+cudaError_t launch_quant_tc(const void* q, const void* k, const void* v, void* o, int bh,
+                            int t_len, int s_len, int d, float scale, const Extra& ex,
+                            const Layout& lay, int o_vec, cudaStream_t stream) {
+  constexpr int STAGES_BYTES = 2 * (MODE == kStats ? 1 : 2) * NC * 64 * 128;
+  const int smem = 1024 + 128 * NC * 128 + STAGES_BYTES;
+  auto kernel = quant_tc_kernel<MODE, NC, NKS, ASYNC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + 127) / 128, bh);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), t_len, s_len, d, scale, scale * kLog2e, ex, lay, o_vec);
+  return cudaGetLastError();
+}
+
+// The quantizing modes' tensor-core forms (1: cp.async tiles, 2: element
+// loads), head_dim <= 192, scale > 0, and for K1 codes exact in bf16
+// (2^b - 1 <= 256); anything else is refused.
+template <int MODE, bool ASYNC>
+int dispatch_quant_tc(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                      int s_len, int d, float scale, const Extra& ex, const Layout& lay,
+                      cudaStream_t stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 192 || !(scale > 0.f))
+    return cudaErrorInvalidValue;
+  if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
+  if (MODE == kUniform && !(ex.max_code <= 256.f)) return cudaErrorInvalidValue;
+  if (ASYNC && !async_ok(q, k, MODE == kStats ? k : v, d, lay)) return cudaErrorInvalidValue;
+  const int o_vec = MODE == kStats ? 0 : out_vec(o, lay);
+#define DGQ_QTC(NC, NKS) \
+  return launch_quant_tc<MODE, NC, NKS, ASYNC>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, o_vec, stream)
+  const int nks = (d + 15) / 16;
+  if (d <= 64) {
+    if (nks == 3) DGQ_QTC(1, 3);
+    DGQ_QTC(1, 4);
+  }
+  if (d <= 128) {
+    if (nks == 5) DGQ_QTC(2, 5);
+    DGQ_QTC(2, 8);
+  }
+  if (nks == 10) DGQ_QTC(3, 10);
+  DGQ_QTC(3, 12);
+#undef DGQ_QTC
+}
+
 // The flash entries: form 0 is body (b) and takes f32 only; forms 1 and 2 are
 // body (a) and take bf16 only.
 int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
@@ -777,11 +1134,30 @@ int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const vo
   return cudaErrorInvalidValue;
 }
 
+// The entries of K1 and K3b: form 0 is body (b), in f32 (K1 also in bf16, for
+// head dims past 192 and codes past 256); forms 1 and 2 are body (c), bf16 only.
+template <int MODE>
+int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
+                   int bh, int t_len, int s_len, int d, float scale, const Extra& ex,
+                   const Layout& lay, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (form == 0 && !is_bf16)
+    return dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if constexpr (MODE == kUniform) {
+    if (form == 0) return dispatch<bf16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  }
+  if (form == 1 && is_bf16)
+    return dispatch_quant_tc<MODE, true>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if (form == 2 && is_bf16)
+    return dispatch_quant_tc<MODE, false>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
 int dispatch_dtype(int is_bf16, const void* q, const void* k, const void* v, void* o, int bh,
                    int t_len, int s_len, int d, float scale, const Extra& ex, const Layout& lay,
                    void* stream) {
-  static_assert(MODE != kFlash, "the flash entries go through dispatch_flash");
+  static_assert(MODE == kStatic, "the other modes go through dispatch_flash and dispatch_quant");
   auto st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st)
@@ -824,8 +1200,8 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 // are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
-// form: 0 the CUDA-core body (f32), 1 the tensor-core body with cp.async tiles,
-// 2 the tensor-core body with element loads (bf16).
+// form (flash, K1, K3b): 0 the CUDA-core body, 1 the tensor-core body with
+// cp.async tiles, 2 the tensor-core body with element loads (bf16).
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
                                    int form, void* stream) {
@@ -836,8 +1212,9 @@ extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, 
 // delta: device pointer to one f32; codes are clipped to 2^sm_bits - 1.
 extern "C" int dgq_uniform_attention(const void* q, const void* k, const void* v, void* o,
                                      int bh, int t_len, int s_len, int d, float scale,
-                                     const void* delta, int sm_bits, int is_bf16, void* stream) {
-  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                                     const void* delta, int sm_bits, int is_bf16, int form,
+                                     void* stream) {
+  return dispatch_quant<kUniform>(form, is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
                                   uniform_extra(delta, sm_bits), classic_layout(t_len, s_len, d),
                                   stream);
 }
@@ -846,19 +1223,19 @@ extern "C" int dgq_uniform_attention(const void* q, const void* k, const void* v
 // (start_peak = 0: ends as min l) or 0 (start_peak = 1: ends as the largest
 // non-peak probability).
 extern "C" int dgq_rt_stats(const void* q, const void* k, void* z, void* red, int bh, int t_len,
-                            int s_len, int d, float scale, int start_peak, int is_bf16,
+                            int s_len, int d, float scale, int start_peak, int is_bf16, int form,
                             void* stream) {
-  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, bh, t_len, s_len, d, scale,
-                                stats_extra(z, red, start_peak), classic_layout(t_len, s_len, d),
-                                stream);
+  return dispatch_quant<kStats>(form, is_bf16, q, k, nullptr, nullptr, bh, t_len, s_len, d,
+                                scale, stats_extra(z, red, start_peak),
+                                classic_layout(t_len, s_len, d), stream);
 }
 
 // z, red: as dgq_rt_stats left them (same stream, so the order holds).
 extern "C" int dgq_quant_accum(const void* q, const void* k, const void* v, void* o,
                                const void* z, const void* red, int bh, int t_len, int s_len,
                                int d, float scale, int sm_bits, int start_peak, int is_bf16,
-                               void* stream) {
-  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                               int form, void* stream) {
+  return dispatch_quant<kAccum>(form, is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
                                 accum_extra(z, red, sm_bits, start_peak),
                                 classic_layout(t_len, s_len, d), stream);
 }
@@ -891,9 +1268,9 @@ extern "C" int dgq_flash_attention_packed(const void* q, const void* k, const vo
 extern "C" int dgq_uniform_attention_packed(const void* q, const void* k, const void* v, void* o,
                                             int b, int heads, int t_len, int s_len, int d,
                                             int slot, const long long* strides, float scale,
-                                            const void* delta, int sm_bits, int is_bf16,
+                                            const void* delta, int sm_bits, int is_bf16, int form,
                                             void* stream) {
-  return dispatch_dtype<kUniform>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+  return dispatch_quant<kUniform>(form, is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
                                   uniform_extra(delta, sm_bits),
                                   packed_layout(heads, slot, strides), stream);
 }
@@ -901,10 +1278,10 @@ extern "C" int dgq_uniform_attention_packed(const void* q, const void* k, const 
 extern "C" int dgq_rt_stats_packed(const void* q, const void* k, void* z, void* red, int b,
                                    int heads, int t_len, int s_len, int d, int slot,
                                    const long long* strides, float scale, int start_peak,
-                                   int is_bf16, void* stream) {
+                                   int is_bf16, int form, void* stream) {
   const long long qk[8] = {strides[0], strides[1], strides[2], strides[3], 0, 0, 0, 0};
-  return dispatch_dtype<kStats>(is_bf16, q, k, nullptr, nullptr, b * heads, t_len, s_len, d,
-                                scale, stats_extra(z, red, start_peak),
+  return dispatch_quant<kStats>(form, is_bf16, q, k, nullptr, nullptr, b * heads, t_len, s_len,
+                                d, scale, stats_extra(z, red, start_peak),
                                 packed_layout(heads, slot, qk), stream);
 }
 
@@ -912,8 +1289,8 @@ extern "C" int dgq_quant_accum_packed(const void* q, const void* k, const void* 
                                       const void* z, const void* red, int b, int heads,
                                       int t_len, int s_len, int d, int slot,
                                       const long long* strides, float scale, int sm_bits,
-                                      int start_peak, int is_bf16, void* stream) {
-  return dispatch_dtype<kAccum>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                                      int start_peak, int is_bf16, int form, void* stream) {
+  return dispatch_quant<kAccum>(form, is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
                                 accum_extra(z, red, sm_bits, start_peak),
                                 packed_layout(heads, slot, strides), stream);
 }

@@ -4,14 +4,16 @@ Counterpart of `dgq_tpu/ops/pallas/attention.py`. Its Pallas kernels are
 ported in `csrc/attention.cu`:
 
   * K1 `_static_uniform_kernel` (`sm_mode="uniform"`, no start_peak): every
-    UNet attention of the g=1 policy;
+    UNet attention of the g=1 policy; in bf16 on the tensor cores
+    (`quant_form`);
   * K2 `_flash_kernel` (`sm_mode="none"`): the VAE mid-block attention and
     the unquantized UNet path; in bf16 on the tensor cores (`flash_form`);
   * K3 `_rt_fused_kernel` (`sm_mode="log2_real_time"`), in its two-launch
     form K3b (`_stats_kernel`, `_stats_kernel_nonpeak`, `_accum_kernel`):
     `rt_stats` reduces the per-call delta into one device scalar with an
     atomic, `quant_accum` reads it. A GPU grid has no order, so the TPU's
-    one-call form with a sequential phase axis has no counterpart;
+    one-call form with a sequential phase axis has no counterpart; in bf16
+    both launches run on the tensor cores (`quant_form`);
   * K4 `_static_quant_kernel` (`sm_mode="log2"`, or `"uniform"` with
     start_peak): statistics and quantized accumulation in one launch.
 
@@ -153,6 +155,30 @@ def _flash_form_checked(scale, *args) -> int:
     return FLASH_FORMS[form]
 
 
+def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int = 255) -> str:
+    """Which body of the quantizing kernels K1 (`static_uniform_attention`)
+    and K3b (`rt_stats`, `quant_accum`), and of their packed entries, a call
+    runs; the numbers are `FLASH_FORMS`'. bf16 at head_dim <= 192 runs on
+    the tensor cores, with the copies chosen as `flash_form` chooses them
+    (`ptrs`: the base addresses the kernel reads, in bytes). K1 feeds its
+    codes (integers up to `max_code` = 2^bits - 1) to the tensor cores as
+    bf16, which holds integers exactly up to 256 only. f32, head dims past
+    192 (K1 at the VAE's 512) and longer codes run on the CUDA cores. (The
+    tensor-core bodies take a positive scale only: `_quant_form_checked`.)"""
+    if dtype != torch.bfloat16 or head_dim > 192 or max_code > 256:
+        return "cuda_core"
+    return flash_form(dtype, head_dim, ptrs, strides, slot)
+
+
+def _quant_form_checked(scale, *args, **kw) -> int:
+    """`quant_form` as the number the C interface takes: the tensor-core
+    bodies take the row max on the raw scores, so they need scale > 0."""
+    form = quant_form(*args, **kw)
+    if form != "cuda_core" and not scale > 0:
+        raise ValueError(f"the bf16 quantizing kernels need a positive scale, got {scale}")
+    return FLASH_FORMS[form]
+
+
 def flash_attention(q, k, v, scale: float):
     """K2: unquantized softmax attention (`_flash_kernel`)."""
     _check_inputs(q, k, v)
@@ -183,12 +209,15 @@ def static_uniform_attention(q, k, v, scale: float, sm_delta, sm_bits: int = 8):
     lib = load_kernels()
     out = torch.empty_like(q)
     bh, t, d = q.shape
+    s = k.shape[1]
+    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               (t * d, d, s * d, d, s * d, d), max_code=2 ** sm_bits - 1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_uniform_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, t, k.shape[1], d, float(scale), delta.data_ptr(), sm_bits,
-            int(q.dtype == torch.bfloat16), stream)
+            bh, t, s, d, float(scale), delta.data_ptr(), sm_bits,
+            int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "static_uniform_attention")
     LAUNCHES["static_uniform_attention"] += 1
     return out
@@ -208,14 +237,17 @@ def rt_stats(q, k, scale: float, start_peak: bool = False):
         raise ValueError(f"rt_stats is built for head_dim <= 160, got {q.shape[2]}")
     lib = load_kernels()
     bh, t, d = q.shape
+    s = k.shape[1]
+    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr()),
+                               (t * d, d, s * d, d))
     z = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     red = torch.full((1,), 0.0 if start_peak else float("inf"), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_rt_stats(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(),
-                              bh, t, k.shape[1], d, float(scale), int(start_peak),
-                              int(q.dtype == torch.bfloat16), stream)
+                              bh, t, s, d, float(scale), int(start_peak),
+                              int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "rt_stats")
     LAUNCHES["rt_stats"] += 1
     return z, red
@@ -249,12 +281,15 @@ def quant_accum(q, k, v, z, red, scale: float, sm_bits: int = 8, start_peak: boo
             raise ValueError(f"{name} must be a contiguous f32 {shape} tensor on {q.device}")
     lib = load_kernels()
     out = torch.empty_like(q)
+    s = k.shape[1]
+    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               (t * d, d, s * d, d, s * d, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_quant_accum(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 z.data_ptr(), red.data_ptr(), bh, t, k.shape[1], d,
+                                 z.data_ptr(), red.data_ptr(), bh, t, s, d,
                                  float(scale), sm_bits, int(start_peak),
-                                 int(q.dtype == torch.bfloat16), stream)
+                                 int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "quant_accum")
     LAUNCHES["quant_accum"] += 1
     return out
@@ -367,9 +402,9 @@ class _Packed:
             raise ValueError(f"out must be a {q.dtype} {tuple(q.shape)} tensor on {q.device}")
         self.out = out
         # any view whose lanes are contiguous and whose rows do not overlap: a
-        # storage offset needs no alignment (the flash kernel picks 16-byte
-        # copies or element loads from the addresses, `flash_form`; the other
-        # kernels read element by element)
+        # storage offset needs no alignment (the tensor-core bodies pick 16-byte
+        # copies or element loads from the addresses, `flash_form` and
+        # `quant_form`; the CUDA-core bodies read element by element)
         strides = ()
         for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
             sb, sr, sl = (0, c, 1) if x is None else x.stride()
@@ -411,11 +446,13 @@ def static_uniform_attention_packed(q, k, v, scale: float, sm_delta, num_heads: 
         raise ValueError(f"sm_bits {sm_bits} out of range")
     delta = _scalar_delta(sm_delta, a.device)
     lib = load_kernels()
+    form = _quant_form_checked(scale, q.dtype, a.d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               tuple(a.strides)[:6], a.slot, max_code=2 ** sm_bits - 1)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dgq_uniform_attention_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                               a.out.data_ptr(), *a.dims(), float(scale),
-                                              delta.data_ptr(), sm_bits, a.bf16, stream)
+                                              delta.data_ptr(), sm_bits, a.bf16, form, stream)
     _raise_on_error(rc, "static_uniform_attention_packed")
     LAUNCHES["static_uniform_attention_packed"] += 1
     return a.out
@@ -428,13 +465,16 @@ def rt_stats_packed(q, k, scale: float, num_heads: int, head_dim=None,
     call, as `_rt_fused_kernel`'s one scalar does."""
     a = _Packed(q, k, k, num_heads, head_dim, 160, None, need_out=False)
     lib = load_kernels()
+    form = _quant_form_checked(scale, q.dtype, a.d, (q.data_ptr(), k.data_ptr()),
+                               tuple(a.strides)[:4], a.slot)
     z = torch.empty(a.b * num_heads, a.t, dtype=torch.float32, device=a.device)
     red = torch.full((1,), 0.0 if start_peak else float("inf"), dtype=torch.float32,
                      device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dgq_rt_stats_packed(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(),
-                                     *a.dims(), float(scale), int(start_peak), a.bf16, stream)
+                                     *a.dims(), float(scale), int(start_peak), a.bf16, form,
+                                     stream)
     _raise_on_error(rc, "rt_stats_packed")
     LAUNCHES["rt_stats_packed"] += 1
     return z, red
@@ -451,12 +491,14 @@ def quant_accum_packed(q, k, v, z, red, scale: float, num_heads: int, head_dim=N
                 or not buf.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 {shape} tensor on {a.device}")
     lib = load_kernels()
+    form = _quant_form_checked(scale, q.dtype, a.d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               tuple(a.strides)[:6], a.slot)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dgq_quant_accum_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                         a.out.data_ptr(), z.data_ptr(), red.data_ptr(),
                                         *a.dims(), float(scale), sm_bits, int(start_peak),
-                                        a.bf16, stream)
+                                        a.bf16, form, stream)
     _raise_on_error(rc, "quant_accum_packed")
     LAUNCHES["quant_accum_packed"] += 1
     return a.out

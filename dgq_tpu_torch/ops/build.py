@@ -36,12 +36,12 @@ _SIGNATURES = {
     "attention": {
         # q, k, v, o, bh, t, s, d, scale, is_bf16, form, stream
         "dgq_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, is_bf16, stream
-        "dgq_uniform_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _P),
-        # q, k, z, red, bh, t, s, d, scale, start_peak, is_bf16, stream
-        "dgq_rt_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-        # q, k, v, o, z, red, bh, t, s, d, scale, sm_bits, start_peak, is_bf16, stream
-        "dgq_quant_accum": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, is_bf16, form, stream
+        "dgq_uniform_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P),
+        # q, k, z, red, bh, t, s, d, scale, start_peak, is_bf16, form, stream
+        "dgq_rt_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        # q, k, v, o, z, red, bh, t, s, d, scale, sm_bits, start_peak, is_bf16, form, stream
+        "dgq_quant_accum": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
         # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, uniform, start_peak, is_bf16, stream
         "dgq_static_quant_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _I,
                                        _P),
@@ -49,10 +49,10 @@ _SIGNATURES = {
         "dgq_flash_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
                                        _P),
         "dgq_uniform_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P, _I,
-                                         _I, _P),
-        "dgq_rt_stats_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I, _P),
+                                         _I, _I, _P),
+        "dgq_rt_stats_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I, _I, _P),
         "dgq_quant_accum_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
-                                   _I, _P),
+                                   _I, _I, _P),
         "dgq_static_quant_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P,
                                               _I, _I, _I, _I, _P),
     },

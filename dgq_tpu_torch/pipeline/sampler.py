@@ -60,9 +60,14 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
               ehs_uncond: torch.Tensor, num_inference_steps: int = 50,
               scheduler: str = "ddim", guidance_scale: float = 7.5,
               qstate: Optional[QState] = None, cfg: QConfig = QConfig(),
-              time_aware: bool = False) -> torch.Tensor:
+              time_aware: bool = False, unet_apply=unet_sd_apply, capture: bool = False):
     """SD v1.4 latent sampling from NHWC noise latents (B, 64, 64, 4).
-    The CFG batch is [uncond, text]."""
+    The CFG batch is [uncond, text].
+
+    Returns the final latents; with capture=True also the UNet's inputs of
+    every call, stacked as the JAX sampler's scan stacks them:
+    (x, (latent_model_input (calls, 2B, 64, 64, 4), timesteps (calls,) int32)),
+    calls = steps + 1 under PNDM."""
     if scheduler not in ("ddim", "pndm"):
         raise ValueError(f"unknown scheduler {scheduler}")
     check_time_aware_steps(num_inference_steps, time_aware, qstate)
@@ -71,12 +76,15 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
     consts = sch.make_ddim(num_inference_steps) if ddim else sch.make_pndm(num_inference_steps)
     x = latents
     state = None if ddim else sch.pndm_init_state(latents)
+    inputs = []
     for i in range(len(consts.timesteps)):  # PNDM makes one more UNet call than steps
         t = int(consts.timesteps[i])
         qs = select_time_qstate(qstate, t, num_inference_steps) if time_aware else qstate
         lmi = torch.cat([x, x], dim=0)
         tt = torch.full((lmi.shape[0],), t, dtype=torch.int32, device=lmi.device)
-        eps = unet_sd_apply(params, lmi, tt, ehs, qstate=qs, cfg=cfg)
+        eps = unet_apply(params, lmi, tt, ehs, qstate=qs, cfg=cfg)
+        if capture:
+            inputs.append(lmi)
         eps_u, eps_t = eps.chunk(2, dim=0)
         eps = eps_u + guidance_scale * (eps_t - eps_u)
         if ddim:
@@ -84,6 +92,8 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
         else:
             state, x = sch.pndm_plms_step(state, i, x, eps, consts.alpha_t[i],
                                           consts.alpha_prev[i])
+    if capture:
+        return x, (torch.stack(inputs), consts.timesteps.to(latents.device))
     return x
 
 
@@ -92,15 +102,18 @@ def sdxl_turbo_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tenso
                       added_text_embeds: torch.Tensor, added_time_ids: torch.Tensor,
                       unet_apply, num_inference_steps: int = 4,
                       qstate: Optional[QState] = None, cfg: QConfig = QConfig(),
-                      time_aware: bool = False) -> torch.Tensor:
+                      time_aware: bool = False, capture: bool = False):
     """SDXL-turbo sampling: Euler trailing, guidance 0 (no CFG doubling).
     latents: (B, 128, 128, 4) NHWC noise ~N(0,1), scaled by sigma_max here.
-    `unet_apply` is `models.unet_sdxl.unet_sdxl_apply`."""
+    `unet_apply` is `models.unet_sdxl.unet_sdxl_apply`. With capture=True
+    also returns the UNet's inputs of every step, as the JAX sampler does:
+    (x, (x_in (steps, B, 128, 128, 4), timesteps (steps,) f32))."""
     check_time_aware_steps(num_inference_steps, time_aware, qstate)
     consts = sch.make_euler(num_inference_steps)
     # the carry (and so every UNet activation) stays in the latents' dtype:
     # sigmas are f32 and a bare multiply would promote a bf16 run to f32
     x = (latents.float() * consts.sigmas[0]).to(latents.dtype)
+    inputs = []
     for i in range(num_inference_steps):
         t, sigma, sigma_next = consts.timesteps[i], consts.sigmas[i], consts.sigmas[i + 1]
         qs = select_time_qstate(qstate, int(t), num_inference_steps) if time_aware else qstate
@@ -108,5 +121,9 @@ def sdxl_turbo_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tenso
         tt = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         eps = unet_apply(params, x_in, tt, ehs_text, text_embeds=added_text_embeds,
                          time_ids=added_time_ids, qstate=qs, cfg=cfg)
+        if capture:
+            inputs.append(x_in)
         x = sch.euler_step(x, eps, sigma, sigma_next)
+    if capture:
+        return x, (torch.stack(inputs), consts.timesteps.to(latents.device))
     return x

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4
-and their packed head-slot entries K1p to K4p; group_conv.cu: K5;
+and their packed head-slot entries K1p to K4p, in bf16 K1, K2 and K3 on the
+tensor cores and in both load forms; group_conv.cu: K5;
 int8_matmul.cu: K6) against their plain PyTorch versions on the card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
@@ -388,6 +389,159 @@ def test_packed_wrapper_rejects_bad_inputs():
     # the 256-wide slot is fine unquantized, and quantized with its true width
     assert TA.flash_attention_packed(q, k, v, 0.1, 8).shape == q.shape
     assert TA.log2_real_time_attention_packed(q, k, v, 0.1, 8, 160).shape == q.shape
+
+
+def _quant_run(kind, q, k, v, sp, heads=None, d=None, zr=None):
+    """One launch of a tensor-core quantizing kernel (K1, rt_stats or
+    quant_accum), classic or, with `heads`, packed; returns what it wrote.
+    quant_accum reads the given (z, red)."""
+    scale = (d or q.shape[-1]) ** -0.5
+    if kind == "uniform":
+        delta = torch.tensor(1.0 / 255.0, device="cuda")
+        if heads is None:
+            return (TA.static_uniform_attention(q, k, v, scale, delta),)
+        return (TA.static_uniform_attention_packed(q, k, v, scale, delta, heads, d),)
+    if kind == "rt_stats":
+        if heads is None:
+            return TA.rt_stats(q, k, scale, sp)
+        return TA.rt_stats_packed(q, k, scale, heads, d, sp)
+    if heads is None:
+        return (TA.quant_accum(q, k, v, *zr, scale, 8, sp),)
+    return (TA.quant_accum_packed(q, k, v, *zr, scale, heads, d, 8, sp),)
+
+
+QUANT_LAUNCHES = {"uniform": "static_uniform_attention", "rt_stats": "rt_stats",
+                  "quant_accum": "quant_accum"}
+QUANT_CASES = [(kind, t, s, d, sp) for kind in ("uniform", "rt_stats", "quant_accum")
+               for t, s, d in [(200, 77, 40), (129, 300, 64), (64, 65, 80), (70, 77, 160),
+                               (50, 33, 36), (31, 77, 100), (40, 64, 192)]
+               for sp in ((False,) if kind == "uniform" else (False, True))
+               if d <= 160 or kind == "uniform"]
+
+
+@pytest.mark.parametrize("kind,t,s,d,sp", QUANT_CASES)
+def test_quant_tensor_core_forms_agree(kind, t, s, d, sp):
+    """The bf16 quantizing kernels on the tensor cores at every head-dim tier,
+    ragged T and S: the form the wrapper picks for aligned tensors (16-byte
+    copies where head_dim is a multiple of 8, element loads where not), the
+    element-load form it picks for each input one element off a 16-byte
+    boundary, and the packed entry on the same heads (aligned, then
+    misaligned) write the same bits."""
+    bf = torch.bfloat16
+    q, k, v = _qkv(4, t, s, d, bf, seed=t + s + d + sp)
+    scale = d ** -0.5
+    strides = (t * d, d, s * d, d, s * d, d)
+    want = "wgmma_async" if d % 8 == 0 else "wgmma_plain"
+    assert TA.quant_form(bf, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()), strides) == want
+    zr = TA.rt_stats(q, k, scale, sp) if kind == "quant_accum" else None
+    name = QUANT_LAUNCHES[kind]
+    before = TA.LAUNCHES[name]
+    out = _quant_run(kind, q, k, v, sp, zr=zr)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1
+    if kind == "uniform":  # inside the tolerance of test_static_uniform_kernel_matches_plain
+        _check(out[0], TA.attention_reference(q, k, v, scale, "uniform", 8,
+                                              torch.tensor(1.0 / 255.0)), v, bf, 1.0 / 255.0)
+    for which in range(2 if kind == "rt_stats" else 3):
+        args = [q, k, v]
+        x = args[which]
+        args[which] = torch.empty(x.numel() + 1, device="cuda", dtype=bf)[1:].view_as(x).copy_(x)
+        assert TA.quant_form(bf, d, tuple(a.data_ptr() for a in args), strides) == "wgmma_plain"
+        got = _quant_run(kind, *args, sp, zr=zr)
+        assert all(torch.equal(a, b) for a, b in zip(got, out)), which
+    h, dp = 2, 64 if d <= 64 else (128 if d <= 128 else 256)
+    b = q.shape[0] // h
+    qp, kp, vp = (TA.repack_heads(x, h, dp) for x in (q, k, v))
+    packed = _quant_run(kind, qp, kp, vp, sp, heads=h, d=d, zr=zr)
+    flat = torch.empty(qp.numel() + 1, device="cuda", dtype=bf)
+    odd = flat[1:].view_as(qp).copy_(qp)
+    assert TA.quant_form(bf, d, (odd.data_ptr(),), (t * h * dp, h * dp), dp) == "wgmma_plain"
+    packed_odd = _quant_run(kind, odd, kp, vp, sp, heads=h, d=d, zr=zr)
+    torch.cuda.synchronize()
+    if kind == "rt_stats":
+        assert all(torch.equal(a, c) and torch.equal(a, e)
+                   for a, c, e in zip(out, packed, packed_odd))
+    else:
+        assert tuple(packed[0].shape) == (b, t, h * dp)
+        assert torch.equal(TA.unpack_heads(packed[0], h, d), out[0])
+        assert torch.equal(packed_odd[0], packed[0])
+
+
+def test_quant_kernels_refuse_a_form_their_inputs_cannot_take():
+    """The C entries of K1, rt_stats and quant_accum check the form they are
+    handed: 16-byte copies from a misaligned view, the tensor-core body on
+    f32, with scale <= 0, past head_dim 192 or, for K1, with codes past 256,
+    and rt_stats or quant_accum on the CUDA-core body in bf16 return an error
+    instead of launching. K1's CUDA-core body takes bf16 (head dims past
+    192)."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    bf = torch.bfloat16
+    q, k, v = _qkv(2, 64, 64, 40, bf, seed=1)
+    odd = torch.empty(q.numel() + 1, device="cuda", dtype=bf)[1:].view_as(q).copy_(q)
+    wide = torch.zeros(2, 64, 200, device="cuda", dtype=bf)
+    out = torch.empty(2, 64, 200, device="cuda", dtype=bf)
+    z = torch.zeros(2, 64, device="cuda")
+    red = torch.ones(1, device="cuda")
+    delta = torch.tensor([1.0 / 255.0], device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def uni(qq, bf16, form, d=40, bits=8, scale=0.1, kk=k, vv=v):
+        return lib.dgq_uniform_attention(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                                         out.data_ptr(), 2, 64, 64, d, scale, delta.data_ptr(),
+                                         bits, bf16, form, stream)
+
+    def stats(qq, bf16, form, d=40, scale=0.1):
+        return lib.dgq_rt_stats(qq.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(), 2,
+                                64, 64, d, scale, 0, bf16, form, stream)
+
+    def accum(qq, bf16, form, d=40, scale=0.1):
+        return lib.dgq_quant_accum(qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   z.data_ptr(), red.data_ptr(), 2, 64, 64, d, scale, 8, 0, bf16,
+                                   form, stream)
+
+    for fn in (uni, stats, accum):
+        assert fn(q, 1, 1) == 0 and fn(q, 1, 2) == 0 and fn(odd, 1, 2) == 0
+        assert fn(odd, 1, 1) != 0          # 16-byte copies from a misaligned base
+        assert fn(q, 1, 1, d=36) != 0      # 72-byte rows
+        assert fn(q, 1, 2, scale=0.0) != 0 and fn(q, 1, 1, scale=-0.1) != 0
+        assert fn(q, 1, 3) != 0
+    assert uni(q, 1, 0) == 0               # K1's CUDA-core body takes bf16
+    assert stats(q, 1, 0) != 0 and accum(q, 1, 0) != 0
+    assert uni(q, 1, 1, bits=9) != 0 and uni(q, 1, 0, bits=9) == 0
+    assert uni(wide, 1, 2, d=200, kk=wide, vv=wide) != 0
+    assert uni(wide, 1, 0, d=200, kk=wide, vv=wide) == 0
+    torch.cuda.synchronize()
+    q32 = q.float()
+    for fn in (uni, stats, accum):
+        assert fn(q32, 0, 1) != 0          # f32 has no tensor-core body
+
+
+@pytest.mark.parametrize("mode,sp", [("uniform", False), ("log2_real_time", False),
+                                     ("log2_real_time", True)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_quantizing_call_with_a_non_positive_scale_raises(mode, sp, packed):
+    """The tensor-core bodies take the row max on raw scores: a bf16 K1 or K3
+    call with scale <= 0 raises before it launches anything; f32 runs the
+    CUDA-core body, which takes any scale."""
+    classic, pk = _packed_case(2, 2, 64, 77, 40, 64, torch.bfloat16, seed=4)
+    args, kw = (pk, dict(num_heads=2, head_dim=40)) if packed else (classic, {})
+    delta = torch.tensor(1.0 / 255.0, device="cuda") if mode == "uniform" else None
+    before = dict(TA.LAUNCHES)
+    for scale in (0.0, -0.1):
+        with pytest.raises(ValueError, match="positive scale"):
+            TA.fused_attention(*args, scale, sm_mode=mode, sm_delta=delta, start_peak=sp, **kw)
+    assert TA.LAUNCHES == before
+    f32 = tuple(x.float() for x in args)
+    out = TA.fused_attention(*f32, -0.1, sm_mode=mode, sm_delta=delta, start_peak=sp, **kw)
+    ref = (TA.packed_attention_reference(*f32, -0.1, 2, 40, mode, 8, delta, sp) if packed
+           else TA.attention_reference(*f32, -0.1, mode, 8, delta, sp))
+    torch.cuda.synchronize()
+    if mode == "uniform":
+        _check(out, ref, f32[2], torch.float32, 1.0 / 255.0)
+    else:
+        assert _mismatch_share(out, ref, torch.float32) < 5e-4
 
 
 def _conv_case(b, h, c, o, dtype, seed, zp=(100.0, 156.0), dl=1.0):

@@ -242,3 +242,61 @@ def test_tiny_pndm_sample_fp(slice_setup):
                         torch.from_numpy(ehs_u), num_inference_steps=4, guidance_scale=7.5,
                         cfg=TQ(use_pallas_attention=True))
     assert float((out - ddim).abs().max()) > 1e-3  # another scheduler, another trajectory
+
+
+@pytest.mark.parametrize("scheduler,steps,calls", [("ddim", 2, 2), ("pndm", 4, 5)])
+def test_sd_sample_capture_and_unet_apply_match_jax(slice_setup, scheduler, steps, calls):
+    """capture=True returns the final latents and every UNet call's inputs,
+    (latent_model_input (calls, 2B, H, W, 4), timesteps (calls,) int32), as
+    the JAX sampler's scan stacks them (PNDM makes one call more than it has
+    steps); `unet_apply` is the function called for every UNet call.
+    Tolerance: the fp PNDM sample's, 1e-5 of the largest magnitude."""
+    spec, tp, _, _, lat, ehs_t, ehs_u, _ = slice_setup
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp, spec))
+    jx, (jl, jt) = jax.jit(lambda x: JS.sd_sample(
+        jp, x, jnp.asarray(ehs_t), jnp.asarray(ehs_u), num_inference_steps=steps,
+        scheduler=scheduler, guidance_scale=7.5, cfg=JQ(use_pallas_attention=True),
+        capture=True))(jnp.asarray(lat))
+    seen = []
+
+    def spy(params, lmi, t, ehs, **kw):
+        seen.append(int(t[0]))
+        return TU.unet_sd_apply(params, lmi, t, ehs, **kw)
+
+    x, (lmi, t) = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
+                               torch.from_numpy(ehs_u), num_inference_steps=steps,
+                               scheduler=scheduler, guidance_scale=7.5,
+                               cfg=TQ(use_pallas_attention=True), unet_apply=spy, capture=True)
+    assert tuple(lmi.shape) == np.asarray(jl).shape == (calls, 2, 8, 8, 4)
+    assert t.dtype == torch.int32 and np.asarray(jt).dtype == np.int32
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    assert seen == [int(v) for v in np.asarray(jt)]
+    for mine, ref in ((x, jx), (lmi, jl)):
+        ref = np.asarray(ref)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(mine.numpy(), ref, rtol=0, atol=1e-5 * scale)
+    # the first call's input is the noise, doubled for CFG
+    np.testing.assert_array_equal(lmi[0].numpy(), np.concatenate([lat, lat]))
+    # without capture: the latents alone, the same numbers
+    plain = TS.sd_sample(tp, torch.from_numpy(lat), torch.from_numpy(ehs_t),
+                         torch.from_numpy(ehs_u), num_inference_steps=steps, scheduler=scheduler,
+                         guidance_scale=7.5, cfg=TQ(use_pallas_attention=True))
+    assert torch.equal(plain, x)
+
+
+def test_sd_sample_calls_the_given_unet_apply():
+    """A stand-in UNet that predicts zero noise replaces unet_sd_apply on
+    every call: DDIM then only rescales the latents."""
+    calls = []
+
+    def zero_unet(params, lmi, t, ehs, qstate, cfg):
+        calls.append(tuple(lmi.shape))
+        return torch.zeros_like(lmi)
+
+    x = torch.ones(1, 4, 4, 4)
+    out, (lmi, t) = TS.sd_sample({}, x, torch.zeros(1, 77, 8), torch.zeros(1, 77, 8),
+                                 num_inference_steps=2, unet_apply=zero_unet, capture=True)
+    assert calls == [(2, 4, 4, 4)] * 2 and tuple(lmi.shape) == (2, 2, 4, 4, 4)
+    consts = TSch.make_ddim(2)
+    want = float(torch.sqrt(consts.alpha_prev[-1] / consts.alpha_t[0]))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-6)

@@ -265,3 +265,31 @@ def test_sdxl_vae_scale_and_decode():
     assert out.shape == (1, 64, 64, 3)
     np.testing.assert_allclose(out, j, rtol=0, atol=1e-3)
     assert np.abs(out - TV.vae_decode(tv, torch.from_numpy(lat)).numpy()).max() > 1e-3
+
+
+def test_sdxl_turbo_sample_capture_matches_jax(tiny):
+    """capture=True returns the final latents and every step's UNet input,
+    (x_in (steps, B, H, W, 4), timesteps (steps,) f32), as the JAX sampler's
+    scan stacks them. Tolerance: the fp sample's, 1e-5 of the largest
+    magnitude."""
+    spec, tp, inp, _ = tiny
+    jp = _to_jax(tp, spec)
+    args = (inp["x"][:1], inp["ehs"][:1], inp["te"][:1], inp["tid"][:1])
+    jx, (jin, jt) = jax.jit(lambda lat: JS.sdxl_turbo_sample(
+        jp, lat, *(jnp.asarray(a) for a in args[1:]), unet_apply=JX.unet_sdxl_apply,
+        num_inference_steps=2, cfg=JQ(use_pallas_attention=True), capture=True))(
+            jnp.asarray(args[0]))
+    x, (x_in, t) = TS.sdxl_turbo_sample(tp, *(torch.from_numpy(a) for a in args),
+                                        unet_apply=TX.unet_sdxl_apply, num_inference_steps=2,
+                                        cfg=TQ(use_pallas_attention=True), capture=True)
+    assert tuple(x_in.shape) == np.asarray(jin).shape == (2, 1, 16, 16, 4)
+    assert t.dtype == torch.float32 and np.asarray(jt).dtype == np.float32
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    for mine, ref in ((x, jx), (x_in, jin)):
+        ref = np.asarray(ref)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(mine.numpy(), ref, rtol=0, atol=1e-5 * scale)
+    plain = TS.sdxl_turbo_sample(tp, *(torch.from_numpy(a) for a in args),
+                                 unet_apply=TX.unet_sdxl_apply, num_inference_steps=2,
+                                 cfg=TQ(use_pallas_attention=True))
+    assert torch.equal(plain, x)

@@ -1,9 +1,13 @@
 """What surrounds the tensor-core kernels of the port (the bf16 flash attention
-K2/K2p and the group-quantized conv K5) and can be held on the CPU: the conv's
-tile and split-K plan, the wrappers' choice of kernel body as pure functions,
-the restated bf16 flash tolerance on a plain emulation that rounds P to bf16
-as the kernel does, and the weight fold bit for bit against the same fold
-written with jax.numpy as dgq_tpu/ops/pallas/group_conv.py writes it inline.
+K2/K2p, the quantizing attention K1/K1p and K3b/K3p, and the group-quantized
+conv K5) and can be held on the CPU: the conv's tile and split-K plan, the
+wrappers' choice of kernel body as pure functions, the restated bf16 flash
+tolerance on a plain emulation that rounds P to bf16 as the kernel does, the
+quantizing kernels' arithmetic (exact bf16 codes and 2^-q into P V, delta
+after, key 0 by a rank-1 update) emulated in torch against the plain version
+and against the JAX package's kernel, and the weight fold bit for bit
+against the same fold written with jax.numpy as
+dgq_tpu/ops/pallas/group_conv.py writes it inline.
 """
 import jax
 import jax.numpy as jnp
@@ -11,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from dgq_tpu.ops.pallas import attention as JA
 from dgq_tpu_torch.models.unet_sd import sd_unet_spec
 from dgq_tpu_torch.ops import attention as TA
 from dgq_tpu_torch.ops import group_conv as TG
@@ -182,6 +187,190 @@ def test_the_bound_without_the_absolute_part_is_too_tight_for_bf16_p():
         ref32, pav = _flash_f32(q, k, v, scale)
         assert bool(((out - ref32).abs() <= 2.0 ** -7 * ref32.abs() + 2.0 ** -8 * pav).all())
     assert broke > 0
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,strides,slot,max_code,want", [
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, 255, "cuda_core"),    # tiny nets on the card
+    (torch.float32, 64, ALIGNED, (4096 * 640, 640) * 3, 64, 255, "cuda_core"),
+    (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, 255, "wgmma_async"),  # SD 64px
+    (torch.bfloat16, 64, ALIGNED, (4096 * 640, 640) * 3, 64, 255, "wgmma_async"),  # SDXL packed
+    (torch.bfloat16, 80, ALIGNED, (1024 * 1024, 1024) * 3, 128, 255, "wgmma_async"),  # SD packed
+    (torch.bfloat16, 160, ALIGNED, (256 * 160, 160) * 3, 0, 255, "wgmma_async"),
+    (torch.bfloat16, 192, ALIGNED, (256 * 192, 192) * 3, 0, 255, "wgmma_async"),  # top of (c)
+    (torch.bfloat16, 512, ALIGNED, (4096 * 512, 512) * 3, 0, 255, "cuda_core"),   # K1, VAE width
+    (torch.bfloat16, 200, ALIGNED, (64 * 200, 200) * 3, 0, 255, "cuda_core"),
+    (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, 511, "cuda_core"),    # 9-bit codes
+    (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, 256, "wgmma_async"),
+    (torch.bfloat16, 40, (4098, 8192, 12288), (163840, 40) * 3, 0, 255, "wgmma_plain"),
+    (torch.bfloat16, 64, (4096, 8192), (4096 * 640, 640) * 2, 64, 255, "wgmma_async"),  # rt_stats
+    (torch.bfloat16, 64, (4096, 8200), (4096 * 640, 640) * 2, 64, 255, "wgmma_plain"),  # k 8 B off
+    (torch.bfloat16, 36, ALIGNED, (36 * 64, 36) * 3, 0, 255, "wgmma_plain"),   # 72-byte rows
+    (torch.bfloat16, 80, ALIGNED, (1024 * 1024, 1024) * 3, 132, 255, "wgmma_plain"),  # odd slot
+    (torch.bfloat16, 40, ALIGNED, (163840, 44) * 3, 0, 255, "wgmma_plain"),  # a row stride off
+])
+def test_quant_form_is_a_rule_on_dtype_head_dim_codes_strides_and_addresses(
+        dtype, d, ptrs, strides, slot, max_code, want):
+    assert TA.quant_form(dtype, d, ptrs, strides, slot, max_code) == want
+    assert TA.FLASH_FORMS[want] in (0, 1, 2)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_quant_form_checked_refuses_a_non_positive_scale_on_the_tensor_cores(scale):
+    """The tensor-core bodies take the row max on raw scores: a bf16 call
+    with scale <= 0 raises before any launch; the CUDA-core body takes it."""
+    args = (ALIGNED, (163840, 40) * 3)
+    with pytest.raises(ValueError, match="positive scale"):
+        TA._quant_form_checked(scale, torch.bfloat16, 40, *args)
+    assert TA._quant_form_checked(scale, torch.float32, 40, *args) == 0
+    assert TA._quant_form_checked(scale, torch.bfloat16, 512, ALIGNED,
+                                  (4096 * 512, 512) * 3) == 0
+    assert TA._quant_form_checked(0.125, torch.bfloat16, 40, *args) == 1
+
+
+LOG2E = 1.4426950408889634
+
+
+def _quant_case(bh, t, s, d, seed, amp=2.0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(amp * rng.standard_normal((bh, t, d), dtype=np.float32)).bfloat16()
+    k = torch.from_numpy(amp * rng.standard_normal((bh, s, d), dtype=np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((bh, s, d), dtype=np.float32)).bfloat16()
+    return q, k, v
+
+
+def _stats_emulated(q, k, scale):
+    """Pass 1 of the tensor-core bodies: raw scores (bf16 products are exact,
+    the sums f32), m the raw row max, l = sum 2^(scale log2 e (s - m))."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    c = scale * LOG2E
+    m = s.max(dim=-1, keepdim=True).values
+    l = torch.exp2(s * c - m * c).sum(dim=-1, keepdim=True)
+    return s, m, l
+
+
+def _exponent_field(x):
+    return int(np.asarray(float(x), dtype=np.float32).view(np.int32)) >> 23
+
+
+def _rt_emulated(q, k, v, scale, start_peak, sm_bits=8):
+    """`rt_stats` then `quant_accum` as the kernels compute them: z = scale m
+    + ln l; the call's delta; q = round(clamp(log2 delta + z / ln 2 - s scale
+    log2 e, 0, ub)); 2^-q in bf16 (exact) as P; P V in f32 on bf16 V; delta
+    once after; under start_peak key 0 zero in P and exp(s0 - z) V[0] added
+    in f32 (the rank-1 update)."""
+    s, m, l = _stats_emulated(q, k, scale)
+    z = m * scale + torch.log(l)
+    if start_peak:
+        m2 = s[..., 1:].max(dim=-1, keepdim=True).values
+        delta = float((torch.exp((m2 - m) * scale) / l).max())
+    else:
+        delta = 1.0 / float(l.min())
+    ub = min(_exponent_field(delta) - 1, 2 ** sm_bits - 1, 126)
+    y = torch.clamp(np.log2(delta) + z * LOG2E - s * (scale * LOG2E), 0, ub)
+    p = torch.exp2(-torch.round(y)).bfloat16()
+    assert torch.equal(p.float(), torch.exp2(-torch.round(y)))  # 2^-q is exact in bf16
+    if start_peak:
+        p[..., 0] = 0
+    out = torch.matmul(p.float(), v.float()) * delta
+    if start_peak:
+        out = out + torch.exp(s[..., 0:1] * scale - z) * v[:, 0:1, :].float()
+    return out.bfloat16()
+
+
+def _uniform_emulated(q, k, v, scale, delta, sm_bits=8):
+    """K1 as the kernel computes it: pass 1's m, l; code = min(rint(2^(s c -
+    (m c + log2(l delta)))), 2^b - 1), c = scale log2 e, an integer exact in
+    bf16, as P; P V in f32; delta once after."""
+    s, m, l = _stats_emulated(q, k, scale)
+    c = scale * LOG2E
+    e = torch.exp2(s * c - (m * c + torch.log2(l * delta)))
+    code = torch.clamp(torch.round(e), max=2 ** sm_bits - 1).bfloat16()
+    assert torch.equal(code.float(), torch.clamp(torch.round(e), max=2 ** sm_bits - 1))
+    return (torch.matmul(code.float(), v.float()) * delta).bfloat16()
+
+
+def _check_share(out, ref):
+    """chip_smoke.py's `_check_share` for bf16: under 5e-4 of the outputs off by
+    more than 2e-3 + 2^-7 |ref|."""
+    out, ref = out.float(), ref.float()
+    assert out.shape == ref.shape and bool(out.isfinite().all())
+    return float(((out - ref).abs() > 2e-3 + 2.0 ** -7 * ref.abs()).float().mean())
+
+
+def _check_uniform(out, ref, v, delta):
+    """chip_smoke.py's `_check` for bf16 with the uniform quantizer's terms:
+    |err| <= 2^-7 |ref| + 1e-5 max|V| + 2 delta max|V|, the mean within
+    2^-8 mean|ref| + 0.01 delta max|V|."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    vmax = float(v.float().abs().max())
+    assert bool((err <= 2.0 ** -7 * ref.abs() + 1e-5 * vmax + 2.0 * delta * vmax).all())
+    assert float(err.mean()) <= 2.0 ** -8 * float(ref.abs().mean()) + 0.01 * delta * vmax
+
+
+@pytest.mark.parametrize("start_peak", [False, True])
+@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("s", [77, 256])
+def test_real_time_kernel_arithmetic_matches_plain(s, d, start_peak):
+    """2048 rows: y = a_row - s scale log2 e is a difference of two numbers
+    near 16, as in the JAX kernel, so it carries about 2e-6 of f32 error, and
+    a probability whose exponent lies that close to a half-integer flips; a
+    flip of a row's dominant probability moves the whole row, which the share
+    bound absorbs once in 2048 rows (with 384 rows, one draw at s = 256, d = 64,
+    start_peak flipped one)."""
+    q, k, v = _quant_case(4, 512, s, d, seed=s + d + start_peak)
+    scale = d ** -0.5
+    out = _rt_emulated(q, k, v, scale, start_peak)
+    ref = TA.attention_reference(q, k, v, scale, "log2_real_time", 8, None, start_peak)
+    assert _check_share(out, ref) < 5e-4
+    # the quantizer is live, and under start_peak key 0 carries the row's peak
+    plain = TA.attention_reference(q, k, v, scale)
+    assert float((out.float() - plain.float()).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("delta", [1.0 / 255.0, 1.0 / 64.0])
+@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("s", [77, 256])
+def test_uniform_kernel_arithmetic_matches_plain(s, d, delta):
+    q, k, v = _quant_case(4, 96, s, d, seed=3 * s + d)
+    scale = d ** -0.5
+    out = _uniform_emulated(q, k, v, scale, delta)
+    ref = TA.attention_reference(q, k, v, scale, "uniform", 8, torch.tensor(delta))
+    _check_uniform(out, ref, v, delta)
+
+
+def test_rank1_key0_is_exact_where_bf16_p0_is_not():
+    """Why key 0 goes in by a rank-1 f32 update: fed as bf16(p0 / delta) into
+    P V, as the TPU kernel feeds it, the row's largest probability is rounded
+    to 8 bits and the output moves by up to 2^-9 p0 |v0|."""
+    q, k, v = _quant_case(2, 64, 77, 40, seed=21)
+    q, k[:, 0] = q.abs(), 3.0  # key 0 dominates every row
+    scale = 40 ** -0.5
+    out = _rt_emulated(q, k, v, scale, True).float()
+    ref = TA.attention_reference(q, k, v, scale, "log2_real_time", 8, None, True).float()
+    s, m, l = _stats_emulated(q, k, scale)
+    z = m * scale + torch.log(l)
+    p0 = torch.exp(s[..., 0:1] * scale - z)
+    delta = float((torch.exp((s[..., 1:].max(-1, keepdim=True).values - m) * scale) / l).max())
+    fed = (p0 / delta).bfloat16().float() * delta
+    moved = (fed - p0).abs() * v[:, 0:1, :].float().abs()
+    assert float(p0.min()) > 0.5 and float(moved.max()) > 1e-3
+    assert float((out - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("start_peak", [False, True])
+def test_real_time_kernel_arithmetic_matches_the_jax_kernel(start_peak):
+    """The same emulation against the JAX package's kernel
+    (`fused_attention(..., sm_mode="log2_real_time")` in interpret mode, as
+    its own tests run it on the CPU), on bf16-representable f32 inputs: the
+    share bound of tests/test_torch_attention.py with the bf16 rounding term."""
+    q, k, v = _quant_case(2, 64, 77, 40, seed=31 + start_peak, amp=1.5)
+    scale = 40 ** -0.5
+    j = JA.fused_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), scale,
+                           sm_mode="log2_real_time", sm_bits=8, start_peak=start_peak,
+                           interpret=True, block_t=32, block_s=128)
+    out = _rt_emulated(q, k, v, scale, start_peak)
+    assert _check_share(out, torch.from_numpy(np.array(j))) < 5e-4
 
 
 def _fold_inputs(c, o, seed):
