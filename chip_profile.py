@@ -4,10 +4,11 @@ configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
 1024px, batch 2).
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
-    python3 chip_profile.py --changed   # only the rows of the quantizing attention kernels
+    python3 chip_profile.py --changed   # only the rows of the static-delta attention and int8 kernels
 
 For each of the SD g=1 path (unpacked, with packed attention, and with the
 int8 deploy path), the g=8 path with the fused group conv (unpacked and
+packed), the same with the static log2 softmax (`log_max_1`, unpacked and
 packed), the g=8 path with the taps group conv and the SDXL-turbo path (int8
 deploy path on; off; off with packed attention), it runs one 1-step sampler
 call (one UNet forward) three times unprofiled (host wall after a
@@ -23,11 +24,15 @@ turns (unpacked, packed, packed, unpacked, five rounds) and the two medians are
 printed side by side. The unquantized (fp) SD step, whose 32 attentions are
 the flash kernel, is profiled the same way, and one VAE decode of 2 images is
 timed at 512px and at 1024px (host wall after a synchronise, median of five;
-its one attention is the flash kernel at head dim 512). `--changed` keeps only
-the rows that the quantizing attention kernels (K1/K1p, K3b/K3p) carry: SD
-g=1 and g=8 fused, SDXL-turbo with the int8 path off, each unpacked and with
-packed attention, and no decode. The last line repeats the figures as one
-JSON object. It
+its one attention is the flash kernel at head dim 512). Before the steps it
+times the static-delta attention kernels K4 / K4p and the int8 matmul K6 on
+their own at their main-path shapes (`kernel_times`: device-only time and
+the wrapper's host time, through the wrappers' public entries, so that the
+same script times a parent tree's kernels). `--changed` keeps only the rows
+that K4/K4p and K6 carry: the kernel times, SD g=8 static log2 (unpacked,
+packed, in turns), the SD g=1 int8 deploy path and the SDXL-turbo int8
+deploy path, and no decode. The last line repeats the figures as one JSON
+object. It
 shares the model set-up with chip_smoke.py and, like it, refuses to run
 without a card.
 """
@@ -41,7 +46,7 @@ BUCKETS = (
      ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel")),
     ("group conv kernels (K5: fold, conv, split-K finish)",
      ("group_conv", "fold_kernel", "fold_oihw_kernel", "finish_kernel")),
-    ("int8 matmul kernel (K6)", ("int8_matmul_kernel",)),
+    ("int8 matmul kernel (K6)", ("int8_matmul_kernel", "int8_wgmma_kernel")),
     ("library convs", ("fprop", "implicit_gemm", "cudnn", "conv2d", "convolve")),
     ("library matmuls", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),
     ("reductions", ("reduce",)),
@@ -163,6 +168,75 @@ def in_turns(unpacked, packed, label, tag, rounds=5):
     return rec
 
 
+# (label, M, K, N) of K6 on the main paths (chip_smoke.py's first six), and
+# (label, heads, T, S, head_dim, slot, mode, start_peak) of K4 at SD 64px self
+# (CFG batch 4) and SDXL 64px self (batch 2)
+K6_SHAPES = [
+    ("SD 64px FF-in", 16384, 320, 2560),
+    ("SD 8px FF-out", 256, 5120, 1280),
+    ("SD cross to_k", 308, 768, 320),
+    ("SD time embedding", 4, 320, 1280),
+    ("SDXL 32px FF-in", 2048, 1280, 10240),
+    ("SDXL add_embedding.linear_1", 2, 2816, 1280),
+]
+K4_SHAPES = [
+    ("SD 64px self log2", 4, 8, 4096, 4096, 40, 64, "log2", False),
+    ("SD 64px self log2 start_peak", 4, 8, 4096, 4096, 40, 64, "log2", True),
+    ("SD 64px self uniform start_peak", 4, 8, 4096, 4096, 40, 64, "uniform", True),
+    ("SD 64px cross log2 start_peak", 4, 8, 4096, 77, 40, 64, "log2", True),
+    ("SDXL 64px self log2", 2, 10, 4096, 4096, 64, 64, "log2", False),
+]
+
+
+def kernel_times(tag):
+    """K4 (classic and packed entries) and K6 on their own, bf16, through
+    `fused_attention` and `quantized_matmul` as the model calls them:
+    device-only ms (chip_smoke's `_device_ms`) and the wrapper's host
+    microseconds a call (`_host_us`)."""
+    import torch
+
+    import chip_smoke
+    from dgq_tpu_torch.ops import attention as A
+    from dgq_tpu_torch.ops import int8_matmul as M8
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf, recs = torch.bfloat16, []
+    for label, b, h, t, s, d, dp, mode, sp in K4_SHAPES:
+        q = (2.0 * torch.randn(b * h, t, d, generator=g, device="cuda")).to(bf)
+        k = (2.0 * torch.randn(b * h, s, d, generator=g, device="cuda")).to(bf)
+        v = torch.randn(b * h, s, d, generator=g, device="cuda").to(bf)
+        qp, kp, vp = (A.repack_heads(x, h, dp) for x in (q, k, v))
+        delta = torch.tensor(1.0 if mode == "log2" else 1.0 / 255.0, device="cuda", dtype=bf)
+        kw = dict(sm_mode=mode, sm_bits=8, sm_delta=delta, start_peak=sp)
+        for entry, fn in (("K4", lambda: A.fused_attention(q, k, v, d ** -0.5, **kw)),
+                          ("K4p", lambda: A.fused_attention(qp, kp, vp, d ** -0.5, num_heads=h,
+                                                            head_dim=d, **kw))):
+            rec = {"kernel": entry, "shape": label, "device_ms": chip_smoke._device_ms(fn),
+                   "host_us": chip_smoke._host_us(fn)}
+            recs.append(rec)
+            print(f"{entry} {label} (B={b}, H={h}, T={t}, S={s}, d={d}): device-only "
+                  f"{rec['device_ms']:.4f} ms, wrapper host {rec['host_us']:.1f} us | {tag}",
+                  flush=True)
+        del q, k, v, qp, kp, vp
+    for label, m, k, n in K6_SHAPES:
+        x = (2.0 * torch.randn(m, k, generator=g, device="cuda")).to(bf)
+        wq = torch.randint(-8, 8, (n, k), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        args = (x, wq, 0.003 + 0.002 * torch.rand(n, generator=g, device="cuda"),
+                torch.round(torch.randn(n, generator=g, device="cuda")),
+                torch.tensor(0.05, device="cuda"), torch.tensor(0.0, device="cuda"),
+                torch.randn(n, generator=g, device="cuda").to(bf),
+                wq.sum(dim=1, dtype=torch.int32).float())
+        rec = {"kernel": "K6", "shape": label,
+               "device_ms": chip_smoke._device_ms(lambda: M8.quantized_matmul(*args)),
+               "host_us": chip_smoke._host_us(lambda: M8.quantized_matmul(*args))}
+        recs.append(rec)
+        print(f"K6 {label} (M={m}, K={k}, N={n}): device-only {rec['device_ms']:.4f} ms, "
+              f"wrapper host {rec['host_us']:.1f} us | {tag}", flush=True)
+    torch.cuda.empty_cache()
+    return recs
+
+
 def time_decode(vae, latents, scale, label, tag, reps=5):
     """Host wall of one `vae_decode` of `latents`, ended by a synchronise."""
     import torch
@@ -201,6 +275,7 @@ def main():
     print(card, flush=True)
     tag = f"card: {card}"
     build.load_kernels()
+    kernels = kernel_times(tag)
     model = chip_smoke.build_model(tag)
     spec, bf = model["spec"], torch.bfloat16
     qs_g1 = synthetic_pertensor_qstate(spec, 1, True, bf)
@@ -209,19 +284,27 @@ def main():
                  use_pallas_attention=True)
     g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
     g1p, g8p = g1.replace(packed_attention=True), g8.replace(packed_attention=True)
+    log2 = g8.replace(t2i_real_time=False, log_max_1=True)
+    log2p = log2.replace(packed_attention=True)
     fp = QConfig(use_pallas_attention=True)
     changed_only = "--changed" in sys.argv[1:]
-    records = [
-        profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
-        profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
-    ]
+    records, turns = [], []
     if not changed_only:
-        records.append(profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
-                                    "g=1 int8 deploy path", 4, tag))
+        records += [
+            profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
+            profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
+        ]
+    records.append(profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
+                                "g=1 int8 deploy path", 4, tag))
+    if not changed_only:
+        records += [
+            profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
+            profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention",
+                         4, tag),
+        ]
     records += [
-        profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
-        profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention", 4,
-                     tag),
+        profile_step(sd_step(model, qs_g8, log2), "g=8 static log2", 4, tag),
+        profile_step(sd_step(model, qs_g8, log2p), "g=8 static log2, packed attention", 4, tag),
     ]
     if not changed_only:
         records += [
@@ -231,9 +314,11 @@ def main():
             profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
                          "g=8 taps group conv", 4, tag),
         ]
-    turns = [in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
-             in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
-                      "g=8 fused group conv", tag)]
+        turns += [in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
+                  in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
+                           "g=8 fused group conv", tag)]
+    turns.append(in_turns(sd_step(model, qs_g8, log2), sd_step(model, qs_g8, log2p),
+                          "g=8 static log2", tag))
     decodes = []
     if not changed_only:
         g = torch.Generator(device="cuda").manual_seed(7)
@@ -249,21 +334,21 @@ def main():
     xl = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                  t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
                  use_pallas_attention=True, use_int8_matmul=True)
+    records.append(profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag))
     if not changed_only:
-        records.append(profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2,
-                                    tag))
-    records += [
-        profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
-                     "SDXL-turbo int8 path off", 2, tag),
-        profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False,
-                                                     packed_attention=True)),
-                     "SDXL-turbo int8 path off, packed attention", 2, tag),
-    ]
-    off = xl.replace(use_int8_matmul=False)
-    turns.append(in_turns(sdxl_step(model, qs, off),
-                          sdxl_step(model, qs, off.replace(packed_attention=True)),
-                          "SDXL-turbo int8 path off", tag))
-    print(json.dumps({"card": card, "steps": records, "in_turns": turns, "decodes": decodes}))
+        records += [
+            profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
+                         "SDXL-turbo int8 path off", 2, tag),
+            profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False,
+                                                         packed_attention=True)),
+                         "SDXL-turbo int8 path off, packed attention", 2, tag),
+        ]
+        off = xl.replace(use_int8_matmul=False)
+        turns.append(in_turns(sdxl_step(model, qs, off),
+                              sdxl_step(model, qs, off.replace(packed_attention=True)),
+                              "SDXL-turbo int8 path off", tag))
+    print(json.dumps({"card": card, "kernels": kernels, "steps": records, "in_turns": turns,
+                      "decodes": decodes}))
 
 
 if __name__ == "__main__":

@@ -10,10 +10,11 @@ Phases (any failure raises, so the exit code is non-zero):
      shapes, with the tolerance stated in `_check` / `_check_flash` /
      `_check_share` / `_check_conv` / `compare_int8`, and time both (and the
      one library call that computes the same function, where there is one),
-     the host time of the flash and group-conv wrappers, and for the flash
-     group-conv and bf16 quantizing attention kernels (K1, rt_stats,
-     quant_accum and their packed entries), whose calls can be as short as
-     their wrapper's host time, the device-only time as well (`_device_ms`).
+     the host time of the flash, group-conv and int8 matmul wrappers, and for
+     the flash, group-conv, int8 matmul and bf16 quantizing attention kernels
+     (K1, rt_stats, quant_accum, K4 and their packed entries), whose calls can
+     be as short as their wrapper's host time, the device-only time as well
+     (`_device_ms`); K6's lines name the split plan and load form it ran.
      Each bf16 attention line names the kernel form it ran (`flash_form`,
      `quant_form`), and each tensor-core kernel's element-load form is held
      bit for bit against its 16-byte-copy form at one shape. The packed
@@ -285,8 +286,7 @@ class _Summary(dict):
     """Per kernel: the largest max_abs_err (and mismatch share) over its
     cases, and the timings of its first case, its largest main-path shape.
     `device_ms` (`_device_ms`) is taken for the kernels whose `ms` at some
-    shape is as short as their wrapper's host time (K1, K2, K3b, K5 and the
-    packed K1p, K2p, K3p), else None."""
+    shape is as short as their wrapper's host time (every kernel here)."""
 
     def add(self, name, label, mx, ms, plain_ms, bound, library_ms=None, share=None,
             device_ms=None):
@@ -336,8 +336,10 @@ def compare_attention(tag, summary):
         cases.append(("static_uniform_attention", f"SDXL {px}px cross", xbh, t, 77, 64, {}))
         cases.append(("rt", f"SDXL {px}px self", xbh, t, t, 64, {"sp": False}))
         cases.append(("rt", f"SDXL {px}px cross start_peak", xbh, t, 77, 64, {"sp": True}))
-        cases.append(("static_quant_attention", f"SDXL {px}px self log2", xbh, t, t, 64,
-                      {"mode": "log2", "sp": False}))
+        for mode, sp in (("log2", False), ("log2", True), ("uniform", True)):
+            cases.append(("static_quant_attention",
+                          f"SDXL {px}px self {mode}" + (" start_peak" if sp else ""), xbh, t, t,
+                          64, {"mode": mode, "sp": sp}))
         cases.append(("static_quant_attention", f"SDXL {px}px cross log2 start_peak", xbh, t, 77,
                       64, {"mode": "log2", "sp": True}))
     cases.append(("flash_attention", "VAE mid-block at 1024px", 1, 16384, 16384, 512, {}))
@@ -440,7 +442,16 @@ def compare_attention(tag, summary):
         share, library_ms = None, None
         if name == "static_quant_attention":
             mx, share = _check_share(out, ref)
-            note = f"mismatch share {share:.3g}"
+            note = f"mismatch share {share:.3g}; form {form}"
+            if first_of.setdefault((name, mode, sp), label) == label:
+                # the element-load form of each quantizer, on a misaligned q
+                odd = _misaligned(q)
+                got = A.fused_attention(odd, k, v, scale, sm_mode=mode, sm_delta=dl,
+                                        start_peak=sp)
+                if form != "wgmma_async" or not torch.equal(got, out):
+                    raise AssertionError(f"{name} {label}: the element-load form differs")
+                note += "; misaligned q (element loads) equal bit for bit"
+                del odd, got
         elif name == "flash_attention":
             # the kernel and the one PyTorch call that computes K2's function
             # (timed here, used nowhere), each against the f32 plain result
@@ -489,7 +500,7 @@ def compare_attention(tag, summary):
         ms, plain_ms = _median_ms(kernel), _median_ms(plain)
         bound = _bound(2 * qk_flops, io_bytes)
         device_ms = None
-        if name == "static_uniform_attention":
+        if name in ("static_uniform_attention", "static_quant_attention"):
             device_ms = _device_ms(kernel)
             note += (f"; device-only ms {device_ms:.4f} ({device_ms / bound[0]:.2f}x its bound; "
                      f"exponent-unit floor {_exp_floor(2 * bh_ * t * s):.4f})")
@@ -556,6 +567,10 @@ def compare_attention_packed(tag, summary):
                       "log2_real_time", True))
         cases.append(("flash_attention_packed", f"SDXL {px}px self", IMAGES, heads, t, t, 64, 64,
                       "none", False))
+        for mode, sp in (("log2", False), ("log2", True), ("uniform", True)):
+            cases.append(("static_quant_attention_packed",
+                          f"SDXL {px}px self {mode}" + (" start_peak" if sp else ""), IMAGES,
+                          heads, t, t, 64, 64, mode, sp))
         cases.append(("static_quant_attention_packed", f"SDXL {px}px cross log2 start_peak",
                       IMAGES, heads, t, 77, 64, 64, "log2", True))
         cases.append(("static_uniform_attention_packed", f"SDXL {px}px self", IMAGES, heads, t, t,
@@ -628,11 +643,10 @@ def compare_attention_packed(tag, summary):
         form = (A.flash_form if mode == "none" else A.quant_form)(
             bf, d, (qp.data_ptr(), kp.data_ptr(), vp.data_ptr()),
             (t * h * dp, h * dp, s * h * dp, h * dp, s * h * dp, h * dp), dp)
-        if name != "static_quant_attention_packed":  # K4p keeps the CUDA-core body
-            note += f"; form {form}"
+        note += f"; form {form}"
         odd_note = ""
-        if (name in ("static_uniform_attention_packed", "rt")
-                and first_of.setdefault(name, label) == label):
+        if (name in ("static_uniform_attention_packed", "rt", "static_quant_attention_packed")
+                and first_of.setdefault((name, mode, sp), label) == label):
             # the element-load form of the packed entries, on a misaligned q
             odd = _misaligned(qp)
             kw = dict(sm_mode=mode, sm_bits=8, sm_delta=dl, start_peak=sp)
@@ -700,7 +714,7 @@ def compare_attention_packed(tag, summary):
             plain_ms = _median_ms(lambda: A.packed_attention_reference(
                 qp, kp, vp, scale, h, d, mode, 8, dl, sp))
             library_ms = device_ms = None
-            if name == "static_uniform_attention_packed":
+            if name in ("static_uniform_attention_packed", "static_quant_attention_packed"):
                 device_ms = _device_ms(packed_route)
                 line += (f", device-only packed entry {device_ms:.4f} (exponent-unit floor "
                          f"{_exp_floor(2 * b * h * t * s):.4f})")
@@ -801,7 +815,9 @@ def compare_group_conv(tag, summary):
     torch.cuda.empty_cache()
 
 
-# K6's shapes on the main paths (batch IMAGES, SD with CFG): label, M, K, N
+# K6's shapes on the main paths (batch IMAGES, SD with CFG): label, M, K, N;
+# then two ragged ones that no path runs: M and K off the tiles (K % 16 = 8:
+# the element-load form), and every edge odd
 INT8_SHAPES = [
     ("SD 64px FF-in", 16384, 320, 2560),
     ("SD 8px FF-out", 256, 5120, 1280),
@@ -809,6 +825,8 @@ INT8_SHAPES = [
     ("SD time embedding", 4, 320, 1280),
     ("SDXL 32px FF-in", 2048, 1280, 10240),
     ("SDXL add_embedding.linear_1", 2, 2816, 1280),
+    ("ragged M and K", 333, 1000, 640),
+    ("ragged, odd K", 77, 1001, 200),
 ]
 
 
@@ -845,17 +863,21 @@ def wrapper_host_cost(tag):
 
 
 def compare_int8(tag, summary):
-    """Phase 2, K6 at its main-path shapes: f32 and bf16, A8 with W4 and W8
-    codes and A6 with W4, against the plain version. The integer product is
-    exact and the f32 epilogue is the plain version's, operation for
-    operation, so the bound is tight: f32 outputs within 1e-5 of the output's
-    largest magnitude, bf16 outputs within one bf16 ulp (2^-7 |ref|); the
-    codes the kernel builds equal `quantize_int` bit for bit. Timed in bf16,
-    A8 x W4, with the qstate's delta 0.05 and zero point 128. Work per call:
-    2*M*N*K integer operations; bytes are x, the codes, the four (N,)
-    vectors and the output once each. The library time is the
-    `int8_impl="xla"` route on the same inputs (quantize with torch ops,
-    `torch._int_mm`, epilogue), which wants more than 16 rows."""
+    """Phase 2, K6 at its main-path shapes and two ragged ones: f32 and bf16,
+    A8 with W4 and W8 codes and A6 with W4, against the plain version. The
+    integer product is exact (split K adds s32 partials) and the f32 epilogue
+    is the plain version's, operation for operation, so the bound is tight:
+    f32 outputs within 1e-5 of the output's largest magnitude, bf16 outputs
+    within one bf16 ulp (2^-7 |ref|); the codes the kernel builds (and their
+    row sums, `return_codes`) equal `quantize_int`'s bit for bit. Where the
+    plan splits K, the unsplit plan gives the same bits. Timed in bf16, A8 x
+    W4, with the qstate's delta 0.05 and zero point 128 and a bf16 bias, as
+    the int8 path calls it: the event reading, the device-only time and the
+    wrapper's host time. Work per call: 2*M*N*K integer operations; bytes are
+    x, the codes, the four (N,) vectors and the output once each. The
+    library time is the `int8_impl="xla"` route on the same inputs (quantize
+    with torch ops, `torch._int_mm`, epilogue), which wants more than 16
+    rows and K and N multiples of 8."""
     import torch
     from dgq_tpu_torch.models.layers import _int8_matmul_xla
     from dgq_tpu_torch.models.qconfig import QConfig
@@ -900,6 +922,13 @@ def compare_int8(tag, summary):
                     raise AssertionError(f"int8_matmul {label} {dtype} A{a_bits}W{w_bits}: error "
                                          f"{float(err.max())} exceeds the bound")
                 worst = max(worst, float(err.max()))
+                plan = M8.int8_plan(m, n, k)
+                if plan.splits > 1:
+                    whole = M8.Int8Plan(*plan[:3], 1, plan.steps)
+                    one = M8.quantized_matmul(x, wq, dw, zw, dx, zx, bias, ksum, a_bits=a_bits,
+                                              plan=whole)
+                    if not torch.equal(one, out):
+                        raise AssertionError(f"int8_matmul {label}: the unsplit plan differs")
         # timing: bf16, A8 x W4, the synthetic qstate's scalars
         x = (2.0 * torch.randn(m, k, generator=g, device="cuda")).bfloat16()
         wq = torch.randint(-8, 8, (n, k), generator=g, device="cuda",
@@ -907,13 +936,17 @@ def compare_int8(tag, summary):
         p = {"w_q8": wq, "w_d": 0.003 + 0.002 * torch.rand(n, generator=g, device="cuda"),
              "w_z": torch.round(torch.randn(n, generator=g, device="cuda")),
              "w_ksum": wq.sum(dim=1, dtype=torch.int32).float(),
-             "b": torch.randn(n, generator=g, device="cuda")}
+             "b": torch.randn(n, generator=g, device="cuda").bfloat16()}
         dx, zx = torch.tensor(0.05, device="cuda"), torch.tensor(0.0, device="cuda")
         args = (x, wq, p["w_d"], p["w_z"], dx, zx, p["b"], p["w_ksum"])
         ms = _median_ms(lambda: M8.quantized_matmul(*args))
+        dev = _device_ms(lambda: M8.quantized_matmul(*args))
+        host_us = _host_us(lambda: M8.quantized_matmul(*args))
         plain_ms = _median_ms(lambda: M8.quantized_matmul_reference(*args))
+        plan = M8.int8_plan(m, n, k)
+        form = M8.int8_form(k, x.data_ptr(), wq.data_ptr())
         library_ms = None
-        if m > 16:
+        if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes
             qp = QParams(dx, torch.tensor(128.0, device="cuda"))
             cfg = QConfig(a_bits=8, use_aq=True, use_int8_matmul=True, int8_impl="xla")
             lib = _int8_matmul_xla(p, x, qp, cfg)
@@ -923,12 +956,19 @@ def compare_int8(tag, summary):
             library_ms = _median_ms(lambda: _int8_matmul_xla(p, x, qp, cfg))
         nbytes = 2.0 * m * k + 1.0 * n * k + 2.0 * m * n + 4.0 * 4 * n
         bound = _bound(2.0 * m * n * k, nbytes, PEAK_INT8_OPS)
-        summary.add("int8_matmul", label, worst, ms, plain_ms, bound, library_ms)
-        lib_note = "none (M <= 16)" if library_ms is None else f"{library_ms:.4f}"
-        print(f"int8_matmul {label} (M={m}, K={k}, N={n}): f32/bf16 x A8W4/A8W8/A6W4 "
-              f"max_abs_err {worst:.6g}, codes equal quantize_int; bf16 A8W4 median ms kernel "
-              f"{ms:.4f} plain {plain_ms:.4f} library (quantize + torch._int_mm + epilogue) "
-              f"{lib_note} bound {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
+        summary.add("int8_matmul", label, worst, ms, plain_ms, bound, library_ms,
+                    device_ms=dev)
+        lib_note = ("none (torch._int_mm wants M > 16, K and N multiples of 8)"
+                    if library_ms is None else f"{library_ms:.4f}")
+        split = ("unsplit" if plan.splits == 1 else
+                 f"K split {plan.splits} ways, {plan.steps_per_split} of {plan.steps} steps each"
+                 ", same bits as unsplit")
+        print(f"int8_matmul {label} (M={m}, K={k}, N={n}; {plan.m_tiles} x {plan.n_tiles} tiles, "
+              f"{split}; form {form}): f32/bf16 x A8W4/A8W8/A6W4 max_abs_err {worst:.6g}, codes "
+              f"and row sums equal quantize_int; bf16 A8W4 median ms kernel {ms:.4f} device-only "
+              f"{dev:.4f} ({dev / bound[0]:.2f}x its bound) wrapper host {host_us:.1f} us plain "
+              f"{plain_ms:.4f} library (quantize + torch._int_mm + epilogue) {lib_note} bound "
+              f"{bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1471,6 +1511,7 @@ def print_build_report(paths, tag):
     """Registers and spills of every kernel instance, from `-Xptxas -v`."""
     modes = {"0": "K2/K2p flash", "1": "K1/K1p uniform", "2": "K3b/K3p rt_stats",
              "3": "K3b/K3p quant_accum", "4": "K4/K4p static_quant"}
+    spilled = []
     for path in paths.values():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
         for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n.*?\n\s*(\d+) bytes stack "
@@ -1491,8 +1532,10 @@ def print_build_report(paths, tag):
                 kname = (f"K2/K2p flash wgmma D<={16 * int(f.group(2))} BK={f.group(3)}"
                          + (" split columns" if f.group(4) == "1" else "")
                          + (" cp.async" if f.group(5) == "1" else " element loads"))
-            elif "int8_matmul" in sym:
-                kname = "K6 int8_matmul"
+            elif "int8_wgmma_kernel" in sym:
+                dtype = "bf16" if "bfloat16" in sym else "f32"
+                kname = ("K6 int8_matmul wgmma s8"
+                         + (" cp.async" if "Lb1E" in sym else " element loads"))
             elif "group_conv_tc_kernel" in sym:
                 dtype = "bf16"
                 kname = "K5 group_conv wgmma" + (" split K" if "ILb1E" in sym else "")
@@ -1512,6 +1555,9 @@ def print_build_report(paths, tag):
                 kname = "K5 group_conv CUDA cores"
             print(f"  ptxas {kname} {dtype}: {m.group(4)} registers, {m.group(3)} bytes "
                   f"spilled | {tag}")
+            if int(m.group(3)):
+                spilled.append(f"{kname} {dtype}")
+    print(f"ptxas: instances that spill: {', '.join(spilled) or 'none'} | {tag}")
 
 
 def main():

@@ -1,6 +1,8 @@
 """Weight quantization for deployment: per-out-channel scale init and
-load-time folding, and the attention head packing (port of the deploy half
-of `dgq_tpu/calib/weight_calib.py`; AdaRound waits for a later slice).
+load-time folding (nearest rounding, or AdaRound's learned rounding where a
+checkpoint carries its offsets), and the attention head packing (port of the
+deploy half of `dgq_tpu/calib/weight_calib.py`; the AdaRound reconstruction
+that learns the offsets waits for a later slice).
 
 Weights are input-independent, so they are fake-quantized once at load and
 inference runs on the folded float weights. Torch layouts put the out
@@ -13,13 +15,14 @@ layout of the packed attention path.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from dgq_tpu_torch.models.qconfig import QConfig
 from dgq_tpu_torch.ops.int8_matmul import pack_weight_int8
+from dgq_tpu_torch.quant.adaround import adaround_quant
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.scalers import Scaler, init_scale_channelwise
 
@@ -40,9 +43,13 @@ def init_weight_qparams(params: dict, spec, bits: int,
             for name, kind, _ in spec if kind in ("conv", "linear")}
 
 
-def fold_weight_quant(params: dict, wqp: Dict[str, QParams], spec, cfg: QConfig) -> dict:
+def fold_weight_quant(params: dict, wqp: Dict[str, QParams], spec, cfg: QConfig,
+                      alphas: Optional[Dict[str, torch.Tensor]] = None,
+                      soft: bool = False) -> dict:
     """Params with each quantized layer's weight replaced by its
-    quantize-dequantized value (nearest rounding)."""
+    quantize-dequantized value: nearest rounding, or for a layer named in
+    `alphas` AdaRound's learned rounding with those offsets (in the weight's
+    layout; soft during a reconstruction, hard for deployment)."""
     out = dict(params)
     for name, kind, _ in spec:
         if kind not in ("conv", "linear") or name not in wqp:
@@ -50,7 +57,10 @@ def fold_weight_quant(params: dict, wqp: Dict[str, QParams], spec, cfg: QConfig)
         if cfg.disable_out_quant and name in EXCLUDED_LAYERS:
             continue
         p = dict(params[name])
-        p["w"] = fake_quant(p["w"], wqp[name], cfg.w_bits)
+        if alphas is not None and name in alphas:
+            p["w"] = adaround_quant(p["w"], wqp[name], alphas[name], cfg.w_bits, soft=soft)
+        else:
+            p["w"] = fake_quant(p["w"], wqp[name], cfg.w_bits)
         out[name] = p
     return out
 

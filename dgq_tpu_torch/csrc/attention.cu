@@ -73,13 +73,14 @@
 // same tiles with element loads and ordinary stores (`ASYNC = false`), and
 // returns the same bits.
 //
-// (c) The bf16 quantizing modes K1 and K3b (with K1p, K3p) at head_dim <= 192
-// run `quant_tc_kernel` on the same tile code: one template over the mode,
-// whose note below says what each mode computes and what bounds it.
+// (c) The bf16 quantizing modes K1, K3b and K4 (with K1p, K3p, K4p) at
+// head_dim <= 192 run `quant_tc_kernel` on the same tile code: one template
+// over the mode, whose note below says what each mode computes and what bounds
+// it.
 //
-// (b) The f32 entries of every mode, K4 in both dtypes and K1 in bf16 past
-// head_dim 192 (the VAE's 512) or with codes past 256 keep the first version's
-// body, f32 FMAs on the CUDA cores:
+// (b) The f32 entries of every mode, and K1 in bf16 past head_dim 192 (the
+// VAE's 512) or with codes past 256, keep the first version's body, f32 FMAs
+// on the CUDA cores:
 // one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
 // memory, K and V tiles of 64 keys through one shared buffer as f32, each
 // thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
@@ -238,8 +239,10 @@ Layout packed_layout(int heads, int slot, const long long* strides) {
 
 constexpr float kInvLn2 = 1.4426950408889634f;
 
+// K4 (kStatic) carries both passes and the log2 row constants: it may take a
+// whole SM's registers (one block) where the other modes fit two blocks' share.
 template <typename T, int DP, int RM, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, MODE == kStatic ? 1 : 2)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int t_len, int s_len, int d, float scale, Extra ex,
                  Layout lay) {
@@ -794,7 +797,7 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, in
 #undef DGQ_TC
 }
 
-// ---- (c) the quantizing modes K1, K3b on the tensor cores, bf16 ----
+// ---- (c) the quantizing modes K1, K3b, K4 on the tensor cores, bf16 ----
 //
 // What they compute, and what that asks of the card. All three recompute
 // S = Q K^T with `tile_qk` over the same swizzled tiles in the same order as
@@ -823,13 +826,25 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, in
 //     2^b - 1), c = scale log2 e, one FMA and one exponential an element
 //     (pass 2). A code is an integer <= 256, exact in bf16, and is the A
 //     fragment of P V; the output is delta acc, as the TPU kernel hoists delta.
+//   * K4 (kStatic) is K1's pass 1 and a pass 2 with a static delta read from
+//     device memory. `log2`: quant_accum's quantizer, its row constant
+//     c = z / ln 2 + log2 delta formed in registers from pass 1's m and l
+//     (z = scale m + ln l, as rt_stats would write it), ub = min(
+//     exponent_field(delta) - 1, 2^b - 1, 126). The 126 keeps 2^-q a normal
+//     bf16; body (b), f32, caps at exponent_field(delta) - 1 alone, so the
+//     two differ only for delta >= 2, and only for probabilities under
+//     delta 2^-126 (log_max_1 gives delta 1 and calibrated deltas are <= 1).
+//     `uniform` (with start_peak): K1's codes. Under start_peak both forms
+//     take key 0 by the rank-1 update, as quant_accum does. Since y is formed
+//     from register m and l, a bin can flip at a half-integer differently
+//     than in body (b): the same share bound as K3b holds it.
 // Keys past S: their K rows are zeros in shared memory, so pass 1 masks them
 // out of m, l and m2; their V rows are zeros too, so in pass 2 any finite A
 // element gives them exactly 0. Rows past T (zero queries) are kept out of z
 // and of the call's scalar.
 // What bounds them: the exponent unit, not the tensor cores. At SD 64px self
 // (BH 32, T = S = 4096) one pass is 5.4e8 exponentials, about 0.13 ms at 16 a
-// clock on each of 132 SMs; rt_stats takes one pass, K1 two; quant_accum's
+// clock on each of 132 SMs; rt_stats takes one pass, K1 and K4 two; the log2
 // quantizer is some five CUDA-core operations an element (about 0.09 ms).
 template <int MODE, int NC, int NKS, bool ASYNC>
 __global__ void __launch_bounds__(kTcThreads, MODE == kStats ? 2 : 1)
@@ -975,19 +990,29 @@ quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       else atomicMin(ex.red, __float_as_int(red));
     }
   } else {
-    // pass 2: per-row constants of the quantizer, then P V over the key tiles
+    // pass 2: per-row constants of the quantizer, then P V over the key tiles.
+    // z = scale m + ln l: read from rt_stats' output (kAccum) or formed from
+    // pass 1 (kStatic)
+    const bool uni = MODE == kUniform || (MODE == kStatic && ex.uniform);
     float delta, c0, c1, ub = 0.f, z0 = 0.f, z1 = 0.f;
-    if (MODE == kUniform) {
+    if (MODE == kAccum) {
+      const float r = __int_as_float(*ex.red);
+      delta = sp ? r : 1.f / r;
+      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
+      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
+    } else {
       delta = *ex.delta;
+    }
+    if (MODE == kStatic) {
+      z0 = fmaf(m0, scale, logf(l0));
+      z1 = fmaf(m1, scale, logf(l1));
+    }
+    if (uni) {
       c0 = -fmaf(m0, scale_log2, log2f(l0 * delta));
       c1 = -fmaf(m1, scale_log2, log2f(l1 * delta));
     } else {
-      const float r = __int_as_float(*ex.red);
-      delta = sp ? r : 1.f / r;
       ub = fminf(fminf(static_cast<float>((__float_as_int(delta) >> 23) - 1), ex.max_code), 126.f);
       const float log2d = log2f(delta);
-      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
-      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
       c0 = fmaf(z0, kInvLn2, log2d);
       c1 = fmaf(z1, kInvLn2, log2d);
     }
@@ -997,13 +1022,20 @@ quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int cb = 0; cb < NC; ++cb)
 #pragma unroll
       for (int i = 0; i < 32; ++i) oacc[cb][i] = 0.f;
-    float s00 = 0.f, s01 = 0.f;  // kAccum, start_peak: key 0's raw scores (lane t4 = 0)
+    float s00 = 0.f, s01 = 0.f;  // start_peak: key 0's raw scores (lane t4 = 0)
 
     for (int it = n1; it < total; ++it) {
       float s[NS];
       scores(it, s);
       uint32_t p[BK / 16][4];
-      if constexpr (MODE == kUniform) {
+      // start_peak: key 0 is s[0] (row r0) and s[2] (row r1) of lane t4 = 0; its
+      // raw scores are kept for the exact term added after the loop
+      const bool peak0 = MODE != kUniform && sp && it == n1 && t4 == 0;
+      if (peak0) {
+        s00 = s[0];
+        s01 = s[2];
+      }
+      if (uni) {
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
           const float e = ex2(fmaf(s[i], scale_log2, (i & 2) ? c1 : c0));
@@ -1029,12 +1061,10 @@ quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             p[ks][r] = kPair - (bits[8 * ks + 2 * r] << 7) - (bits[8 * ks + 2 * r + 1] << 23);
-        if (sp && it == 0 && t4 == 0) {  // key 0: exact, added after the loop
-          s00 = s[0];
-          s01 = s[2];
-          p[0][0] &= 0xffff0000u;
-          p[0][1] &= 0xffff0000u;
-        }
+      }
+      if (peak0) {  // key 0's A elements: zero, its exact term is added after the loop
+        p[0][0] &= 0xffff0000u;
+        p[0][1] &= 0xffff0000u;
       }
       tile_pv<NC, BK>(oacc, p, ring + (it & 1) * STAGE + KV_BYTES);
       tc::mma_wait<0>();
@@ -1045,7 +1075,7 @@ quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // out = delta acc (+ exp(s0 - z) V[0, :] under start_peak)
-    const bool peak = MODE == kAccum && sp;
+    const bool peak = MODE != kUniform && sp;
     float p00 = 0.f, p01 = 0.f;
     if (peak) {
       const int lead = (tid & 31) & ~3;
@@ -1093,8 +1123,8 @@ cudaError_t launch_quant_tc(const void* q, const void* k, const void* v, void* o
 }
 
 // The quantizing modes' tensor-core forms (1: cp.async tiles, 2: element
-// loads), head_dim <= 192, scale > 0, and for K1 codes exact in bf16
-// (2^b - 1 <= 256); anything else is refused.
+// loads), head_dim <= 192, scale > 0, and for uniform codes (K1, K4 uniform)
+// codes exact in bf16 (2^b - 1 <= 256); anything else is refused.
 template <int MODE, bool ASYNC>
 int dispatch_quant_tc(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
                       int s_len, int d, float scale, const Extra& ex, const Layout& lay,
@@ -1102,7 +1132,8 @@ int dispatch_quant_tc(const void* q, const void* k, const void* v, void* o, int 
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 192 || !(scale > 0.f))
     return cudaErrorInvalidValue;
   if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
-  if (MODE == kUniform && !(ex.max_code <= 256.f)) return cudaErrorInvalidValue;
+  const bool uniform_codes = MODE == kUniform || (MODE == kStatic && ex.uniform);
+  if (uniform_codes && !(ex.max_code <= 256.f)) return cudaErrorInvalidValue;
   if (ASYNC && !async_ok(q, k, MODE == kStats ? k : v, d, lay)) return cudaErrorInvalidValue;
   const int o_vec = MODE == kStats ? 0 : out_vec(o, lay);
 #define DGQ_QTC(NC, NKS) \
@@ -1134,8 +1165,9 @@ int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const vo
   return cudaErrorInvalidValue;
 }
 
-// The entries of K1 and K3b: form 0 is body (b), in f32 (K1 also in bf16, for
-// head dims past 192 and codes past 256); forms 1 and 2 are body (c), bf16 only.
+// The entries of K1, K3b and K4: form 0 is body (b), in f32 (K1 also in bf16,
+// for head dims past 192 and codes past 256); forms 1 and 2 are body (c), bf16
+// only.
 template <int MODE>
 int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, int d, float scale, const Extra& ex,
@@ -1151,17 +1183,6 @@ int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const vo
   if (form == 2 && is_bf16)
     return dispatch_quant_tc<MODE, false>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
   return cudaErrorInvalidValue;
-}
-
-template <int MODE>
-int dispatch_dtype(int is_bf16, const void* q, const void* k, const void* v, void* o, int bh,
-                   int t_len, int s_len, int d, float scale, const Extra& ex, const Layout& lay,
-                   void* stream) {
-  static_assert(MODE == kStatic, "the other modes go through dispatch_flash and dispatch_quant");
-  auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? dispatch<__nv_bfloat16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st)
-             : dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
 }
 
 float max_code_of(int sm_bits) { return static_cast<float>((1 << sm_bits) - 1); }
@@ -1200,7 +1221,7 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 // are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
-// form (flash, K1, K3b): 0 the CUDA-core body, 1 the tensor-core body with
+// form (every entry): 0 the CUDA-core body, 1 the tensor-core body with
 // cp.async tiles, 2 the tensor-core body with element loads (bf16).
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
@@ -1245,8 +1266,8 @@ extern "C" int dgq_quant_accum(const void* q, const void* k, const void* v, void
 extern "C" int dgq_static_quant_attention(const void* q, const void* k, const void* v, void* o,
                                           int bh, int t_len, int s_len, int d, float scale,
                                           const void* delta, int sm_bits, int uniform,
-                                          int start_peak, int is_bf16, void* stream) {
-  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
+                                          int start_peak, int is_bf16, int form, void* stream) {
+  return dispatch_quant<kStatic>(form, is_bf16, q, k, v, o, bh, t_len, s_len, d, scale,
                                  static_extra(delta, sm_bits, uniform, start_peak),
                                  classic_layout(t_len, s_len, d), stream);
 }
@@ -1300,8 +1321,9 @@ extern "C" int dgq_static_quant_attention_packed(const void* q, const void* k, c
                                                  int s_len, int d, int slot,
                                                  const long long* strides, float scale,
                                                  const void* delta, int sm_bits, int uniform,
-                                                 int start_peak, int is_bf16, void* stream) {
-  return dispatch_dtype<kStatic>(is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
+                                                 int start_peak, int is_bf16, int form,
+                                                 void* stream) {
+  return dispatch_quant<kStatic>(form, is_bf16, q, k, v, o, b * heads, t_len, s_len, d, scale,
                                  static_extra(delta, sm_bits, uniform, start_peak),
                                  packed_layout(heads, slot, strides), stream);
 }

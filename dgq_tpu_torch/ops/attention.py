@@ -15,7 +15,8 @@ ported in `csrc/attention.cu`:
     one-call form with a sequential phase axis has no counterpart; in bf16
     both launches run on the tensor cores (`quant_form`);
   * K4 `_static_quant_kernel` (`sm_mode="log2"`, or `"uniform"` with
-    start_peak): statistics and quantized accumulation in one launch.
+    start_peak): statistics and quantized accumulation in one launch; in
+    bf16 on the tensor cores (`quant_form`).
 
 The packed head-slot path (`_fused_attention_packed` there: the same four
 bodies, K1p to K4p, over (B, T, H*dp) arrays) is `fused_attention(...,
@@ -156,15 +157,18 @@ def _flash_form_checked(scale, *args) -> int:
 
 
 def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int = 255) -> str:
-    """Which body of the quantizing kernels K1 (`static_uniform_attention`)
-    and K3b (`rt_stats`, `quant_accum`), and of their packed entries, a call
-    runs; the numbers are `FLASH_FORMS`'. bf16 at head_dim <= 192 runs on
-    the tensor cores, with the copies chosen as `flash_form` chooses them
-    (`ptrs`: the base addresses the kernel reads, in bytes). K1 feeds its
-    codes (integers up to `max_code` = 2^bits - 1) to the tensor cores as
-    bf16, which holds integers exactly up to 256 only. f32, head dims past
-    192 (K1 at the VAE's 512) and longer codes run on the CUDA cores. (The
-    tensor-core bodies take a positive scale only: `_quant_form_checked`.)"""
+    """Which body of the quantizing kernels K1 (`static_uniform_attention`),
+    K3b (`rt_stats`, `quant_accum`) and K4 (`static_quant_attention`), and
+    of their packed entries, a call runs; the numbers are `FLASH_FORMS`'.
+    bf16 at head_dim <= 192 runs on the tensor cores, with the copies chosen
+    as `flash_form` chooses them (`ptrs`: the base addresses the kernel
+    reads, in bytes). The uniform quantizer (K1, K4 uniform) feeds its codes
+    (integers up to `max_code` = 2^bits - 1) to the tensor cores as bf16,
+    which holds integers exactly up to 256 only; the log2 quantizer feeds
+    powers of two and takes any code length (leave `max_code` at its
+    default). f32, head dims past 192 (K1 at the VAE's 512) and longer
+    uniform codes run on the CUDA cores. (The tensor-core bodies take a
+    positive scale only: `_quant_form_checked`.)"""
     if dtype != torch.bfloat16 or head_dim > 192 or max_code > 256:
         return "cuda_core"
     return flash_form(dtype, head_dim, ptrs, strides, slot)
@@ -305,6 +309,20 @@ def log2_real_time_attention(q, k, v, scale: float, sm_bits: int = 8,
     return quant_accum(q, k, v, z, red, scale, sm_bits, start_peak)
 
 
+def _static_max_code(sm_mode: str, sm_bits: int) -> int:
+    """The code bound `quant_form` weighs for K4: the uniform codes' own; the
+    log2 quantizer's codes are exponents and do not limit the body."""
+    return 2 ** sm_bits - 1 if sm_mode == "uniform" else 255
+
+
+def _static_quant_f32(fn, q, k, v, out=None):
+    """K4 / K4p on bf16 tensors whose uniform codes pass 256, which bf16 does
+    not hold exactly: the f32 kernel (the CUDA-core body) on f32 copies, the
+    result rounded to bf16 once, into `out` where one is given."""
+    res = fn(q.float(), k.float(), v.float()).to(q.dtype)
+    return res if out is None else out.copy_(res)
+
+
 def static_quant_attention(q, k, v, scale: float, sm_mode: str, sm_delta, sm_bits: int = 8,
                            start_peak: bool = False):
     """K4: softmax attention with a static-delta quantizer in one launch:
@@ -313,16 +331,23 @@ def static_quant_attention(q, k, v, scale: float, sm_mode: str, sm_delta, sm_bit
     _check_quant_inputs(q, k, v, sm_bits)
     if sm_mode not in ("log2", "uniform"):
         raise ValueError(f"static_quant_attention takes 'log2' or 'uniform', got {sm_mode!r}")
+    bh, t, d = q.shape
+    s = k.shape[1]
+    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               (t * d, d, s * d, d, s * d, d),
+                               max_code=_static_max_code(sm_mode, sm_bits))
+    if q.dtype == torch.bfloat16 and form == FLASH_FORMS["cuda_core"]:
+        return _static_quant_f32(lambda *f32: static_quant_attention(
+            *f32, scale, sm_mode, sm_delta, sm_bits, start_peak), q, k, v)
     delta = _scalar_delta(sm_delta, q.device)
     lib = load_kernels()
     out = torch.empty_like(q)
-    bh, t, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_static_quant_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, k.shape[1], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, s, d,
             float(scale), delta.data_ptr(), sm_bits, int(sm_mode == "uniform"),
-            int(start_peak), int(q.dtype == torch.bfloat16), stream)
+            int(start_peak), int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "static_quant_attention")
     LAUNCHES["static_quant_attention"] += 1
     return out
@@ -522,13 +547,21 @@ def static_quant_attention_packed(q, k, v, scale: float, sm_mode: str, sm_delta,
         raise ValueError(f"sm_bits {sm_bits} out of range")
     if sm_mode not in ("log2", "uniform"):
         raise ValueError(f"static_quant_attention takes 'log2' or 'uniform', got {sm_mode!r}")
+    form = _quant_form_checked(scale, q.dtype, a.d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               tuple(a.strides)[:6], a.slot,
+                               max_code=_static_max_code(sm_mode, sm_bits))
+    if a.bf16 and form == FLASH_FORMS["cuda_core"]:
+        return _static_quant_f32(lambda *f32: static_quant_attention_packed(
+            *f32, scale, sm_mode, sm_delta, num_heads, head_dim, sm_bits, start_peak),
+            q, k, v, a.out)
     delta = _scalar_delta(sm_delta, a.device)
     lib = load_kernels()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.dgq_static_quant_attention_packed(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a.out.data_ptr(), *a.dims(), float(scale),
-            delta.data_ptr(), sm_bits, int(sm_mode == "uniform"), int(start_peak), a.bf16, stream)
+            delta.data_ptr(), sm_bits, int(sm_mode == "uniform"), int(start_peak), a.bf16, form,
+            stream)
     _raise_on_error(rc, "static_quant_attention_packed")
     LAUNCHES["static_quant_attention_packed"] += 1
     return a.out

@@ -42,9 +42,10 @@ _SIGNATURES = {
         "dgq_rt_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
         # q, k, v, o, z, red, bh, t, s, d, scale, sm_bits, start_peak, is_bf16, form, stream
         "dgq_quant_accum": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
-        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, uniform, start_peak, is_bf16, stream
+        # q, k, v, o, bh, t, s, d, scale, delta, sm_bits, uniform, start_peak, is_bf16, form,
+        # stream
         "dgq_static_quant_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _I, _I, _I,
-                                       _P),
+                                       _I, _P),
         # the packed head-slot forms: (bh, t, s, d) becomes (b, heads, t, s, d, slot, strides)
         "dgq_flash_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
                                        _P),
@@ -54,7 +55,7 @@ _SIGNATURES = {
         "dgq_quant_accum_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _I, _I,
                                    _I, _I, _P),
         "dgq_static_quant_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _F, _P,
-                                              _I, _I, _I, _I, _P),
+                                              _I, _I, _I, _I, _I, _P),
     },
     "group_conv": {
         # x, w_t, rd, z, bias, out, partial, b, h, w, c, o, kh, kw, pad, a_bits, is_bf16,
@@ -67,9 +68,10 @@ _SIGNATURES = {
                                 _I, _I, _P),
     },
     "int8_matmul": {
-        # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, m, n, k, a_bits,
-        # is_bf16, stream
-        "dgq_int8_matmul": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, ws, counters, m, n,
+        # k, a_bits, is_bf16, bias_bf16, form, splits, steps_per_split, stream
+        "dgq_int8_matmul": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P),
     },
 }
 

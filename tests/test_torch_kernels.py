@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4
-and their packed head-slot entries K1p to K4p, in bf16 K1, K2 and K3 on the
-tensor cores and in both load forms; group_conv.cu: K5;
-int8_matmul.cu: K6) against their plain PyTorch versions on the card. Marked `cuda`: they skip
+and their packed head-slot entries K1p to K4p, in bf16 on the tensor cores
+and in both load forms; group_conv.cu: K5; int8_matmul.cu: K6, split and
+unsplit, in both load forms) against their plain PyTorch versions on the
+card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
 
@@ -392,10 +393,16 @@ def test_packed_wrapper_rejects_bad_inputs():
 
 
 def _quant_run(kind, q, k, v, sp, heads=None, d=None, zr=None):
-    """One launch of a tensor-core quantizing kernel (K1, rt_stats or
-    quant_accum), classic or, with `heads`, packed; returns what it wrote.
-    quant_accum reads the given (z, red)."""
+    """One launch of a tensor-core quantizing kernel (K1, rt_stats,
+    quant_accum or K4 in its log2 or uniform form), classic or, with `heads`,
+    packed; returns what it wrote. quant_accum reads the given (z, red)."""
     scale = (d or q.shape[-1]) ** -0.5
+    if kind.startswith("static_"):
+        mode = kind[len("static_"):]
+        delta = torch.tensor(0.5 if mode == "log2" else 1.0 / 255.0, device="cuda")
+        if heads is None:
+            return (TA.static_quant_attention(q, k, v, scale, mode, delta, 8, sp),)
+        return (TA.static_quant_attention_packed(q, k, v, scale, mode, delta, heads, d, 8, sp),)
     if kind == "uniform":
         delta = torch.tensor(1.0 / 255.0, device="cuda")
         if heads is None:
@@ -411,11 +418,14 @@ def _quant_run(kind, q, k, v, sp, heads=None, d=None, zr=None):
 
 
 QUANT_LAUNCHES = {"uniform": "static_uniform_attention", "rt_stats": "rt_stats",
-                  "quant_accum": "quant_accum"}
-QUANT_CASES = [(kind, t, s, d, sp) for kind in ("uniform", "rt_stats", "quant_accum")
+                  "quant_accum": "quant_accum", "static_log2": "static_quant_attention",
+                  "static_uniform": "static_quant_attention"}
+QUANT_CASES = [(kind, t, s, d, sp)
+               for kind in ("uniform", "rt_stats", "quant_accum", "static_log2", "static_uniform")
                for t, s, d in [(200, 77, 40), (129, 300, 64), (64, 65, 80), (70, 77, 160),
                                (50, 33, 36), (31, 77, 100), (40, 64, 192)]
-               for sp in ((False,) if kind == "uniform" else (False, True))
+               for sp in ((False,) if kind == "uniform" else
+                          (True,) if kind == "static_uniform" else (False, True))
                if d <= 160 or kind == "uniform"]
 
 
@@ -442,6 +452,11 @@ def test_quant_tensor_core_forms_agree(kind, t, s, d, sp):
     if kind == "uniform":  # inside the tolerance of test_static_uniform_kernel_matches_plain
         _check(out[0], TA.attention_reference(q, k, v, scale, "uniform", 8,
                                               torch.tensor(1.0 / 255.0)), v, bf, 1.0 / 255.0)
+    if kind.startswith("static_"):  # inside test_static_quant_kernel_matches_plain's share
+        mode = kind[len("static_"):]
+        delta = torch.tensor(0.5 if mode == "log2" else 1.0 / 255.0)
+        ref = TA.attention_reference(q, k, v, scale, mode, 8, delta, sp)
+        assert _mismatch_share(out[0], ref, bf) < 5e-4
     for which in range(2 if kind == "rt_stats" else 3):
         args = [q, k, v]
         x = args[which]
@@ -516,6 +531,63 @@ def test_quant_kernels_refuse_a_form_their_inputs_cannot_take():
     q32 = q.float()
     for fn in (uni, stats, accum):
         assert fn(q32, 0, 1) != 0          # f32 has no tensor-core body
+
+
+def test_static_quant_kernel_refuses_a_form_its_inputs_cannot_take():
+    """K4's C entries check the form they are handed: 16-byte copies from a
+    misaligned view, the tensor-core body on f32, with scale <= 0, past
+    head_dim 192 or with uniform codes past 256 return an error; its
+    CUDA-core body takes f32 only (no bf16 instance of it is built)."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    bf = torch.bfloat16
+    q, k, v = _qkv(2, 64, 64, 40, bf, seed=2)
+    odd = torch.empty(q.numel() + 1, device="cuda", dtype=bf)[1:].view_as(q).copy_(q)
+    out = torch.empty(2, 64, 200, device="cuda", dtype=bf)
+    delta = torch.tensor([0.5], device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def static(qq, bf16, form, d=40, bits=8, uniform=0, scale=0.1):
+        return lib.dgq_static_quant_attention(qq.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              out.data_ptr(), 2, 64, 64, d, scale,
+                                              delta.data_ptr(), bits, uniform, 1, bf16, form,
+                                              stream)
+
+    for uniform in (0, 1):
+        assert static(q, 1, 1, uniform=uniform) == 0 and static(odd, 1, 2, uniform=uniform) == 0
+        assert static(odd, 1, 1, uniform=uniform) != 0
+        assert static(q, 1, 1, d=36, uniform=uniform) != 0
+        assert static(q, 1, 2, scale=0.0, uniform=uniform) != 0
+        assert static(q, 1, 0, uniform=uniform) != 0      # no bf16 CUDA-core body
+        assert static(q, 1, 2, d=200, uniform=uniform) != 0
+        assert static(q.float(), 0, 1, uniform=uniform) != 0
+    assert static(q, 1, 1, bits=9, uniform=1) != 0        # 511 is not exact in bf16
+    assert static(q, 1, 1, bits=9, uniform=0) == 0        # log2 codes are exponents
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_static_uniform_codes_past_256_take_the_f32_kernel(packed):
+    """bf16 K4 / K4p with 9-bit uniform codes: `quant_form` sends them to the
+    CUDA-core body, which runs on f32 copies; the result, rounded to bf16
+    once, is inside the bf16 tolerance of the plain version and equals the
+    f32 kernel's result rounded to bf16."""
+    classic, pk = _packed_case(2, 2, 130, 77, 40, 64, torch.bfloat16, seed=8)
+    args, kw = (pk, dict(num_heads=2, head_dim=40)) if packed else (classic, {})
+    delta = torch.tensor(1.0 / 511.0, device="cuda")
+    before = TA.LAUNCHES["static_quant_attention_packed" if packed else "static_quant_attention"]
+    out = TA.fused_attention(*args, 40 ** -0.5, sm_mode="uniform", sm_bits=9, sm_delta=delta,
+                             start_peak=True, **kw)
+    torch.cuda.synchronize()
+    name = "static_quant_attention_packed" if packed else "static_quant_attention"
+    assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.bfloat16
+    f32 = TA.fused_attention(*(x.float() for x in args), 40 ** -0.5, sm_mode="uniform", sm_bits=9,
+                             sm_delta=delta, start_peak=True, **kw)
+    assert torch.equal(out, f32.bfloat16())
+    ref = (TA.packed_attention_reference(*args, 40 ** -0.5, 2, 40, "uniform", 9, delta, True)
+           if packed else TA.attention_reference(*args, 40 ** -0.5, "uniform", 9, delta, True))
+    assert _mismatch_share(out, ref, torch.bfloat16) < 5e-4
 
 
 @pytest.mark.parametrize("mode,sp", [("uniform", False), ("log2_real_time", False),
@@ -723,6 +795,61 @@ def test_int8_matmul_kernel_matches_plain(m, k, n, w_bits, a_bits, dtype):
     out2 = TM.quantized_matmul(x, wq, dw, zw, dx, zx, None, None, a_bits=a_bits)
     ref2 = TM.quantized_matmul_reference(x, wq, dw, zw, dx, zx, None, None, a_bits=a_bits)
     assert float((out2.float() - ref2.float()).abs().max()) <= 2.0 ** -7 * float(ref2.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 320, 1280),      # time embedding: 3 splits of one step
+    (2, 2816, 1280),     # SDXL add_embedding.linear_1: 11 splits
+    (256, 5120, 1280),   # SD 8px FF-out: 10 splits of 4 steps
+    (308, 768, 320),     # cross to_k: ragged M and N, 6 splits
+    (333, 1000, 640),    # ragged M and K (K % 16 = 8: element loads), 3 splits
+    (77, 1001, 200),     # every edge ragged, odd K
+])
+def test_int8_matmul_split_and_unsplit_plans_agree(m, k, n, dtype):
+    """The plan `int8_plan` gives (K split over blocks where the tiles are
+    few) and one unsplit run of the whole K write the same bits, and the same
+    codes and row sums (`return_codes`); both equal the plain version within
+    its bound; a second split call gives the same bits, so every tile's
+    counter was left at 0."""
+    x, wq, dw, zw, dx, zp, bias = _int8_case(m, k, n, dtype, 8, 8, seed=m + n)
+    zx = zp - 128
+    ksum = wq.sum(dim=1, dtype=torch.int32).float()
+    plan = TM.int8_plan(m, n, k)
+    assert plan.splits > 1
+    whole = TM.Int8Plan(plan.m_tiles, plan.n_tiles, plan.steps, 1, plan.steps)
+    split = TM.quantized_matmul(x, wq, dw, zw, dx, zx, bias, ksum, return_codes=True)
+    one = TM.quantized_matmul(x, wq, dw, zw, dx, zx, bias, ksum, return_codes=True, plan=whole)
+    again = TM.quantized_matmul(x, wq, dw, zw, dx, zx, bias, ksum)
+    torch.cuda.synchronize()
+    for a, b in zip(split, one):
+        assert torch.equal(a, b)
+    assert torch.equal(again, split[0])
+    assert not bool(TM._COUNTERS[x.device].any())
+    want = quantize_int(x.float(), QParams(dx, zp), 8)
+    assert torch.equal(split[1], want) and torch.equal(split[2], want.float().sum(dim=1))
+    ref = TM.quantized_matmul_reference(x, wq, dw, zw, dx, zx, bias, ksum)
+    err = (split[0].float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert bool((err <= 2.0 ** -7 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_element_loads_equal_the_async_copies(dtype):
+    """x one element off a 16-byte boundary takes the element-load form, the
+    same tiles filled another way: the same bits. A bf16 bias, read as it is,
+    gives the bits of its f32 widening."""
+    x, wq, dw, zw, dx, zp, bias = _int8_case(300, 640, 384, dtype, 4, 8, seed=5)
+    odd = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)[1:].view_as(x).copy_(x)
+    assert TM.int8_form(640, x.data_ptr(), wq.data_ptr()) == "cp_async"
+    assert TM.int8_form(640, odd.data_ptr(), wq.data_ptr()) == "element"
+    args = (wq, dw, zw, dx, zp - 128)
+    want = TM.quantized_matmul(x, *args, bias)
+    assert torch.equal(TM.quantized_matmul(odd, *args, bias), want)
+    b16 = bias.bfloat16()
+    assert torch.equal(TM.quantized_matmul(x, *args, b16), TM.quantized_matmul(x, *args, b16.float()))
 
 
 def test_int8_matmul_reads_scale_and_zero_point_from_the_device():

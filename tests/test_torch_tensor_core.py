@@ -1,13 +1,15 @@
 """What surrounds the tensor-core kernels of the port (the bf16 flash attention
-K2/K2p, the quantizing attention K1/K1p and K3b/K3p, and the group-quantized
-conv K5) and can be held on the CPU: the conv's tile and split-K plan, the
-wrappers' choice of kernel body as pure functions, the restated bf16 flash
-tolerance on a plain emulation that rounds P to bf16 as the kernel does, the
+K2/K2p, the quantizing attention K1/K1p, K3b/K3p and K4/K4p, the
+group-quantized conv K5 and the int8 matmul K6) and can be held on the CPU:
+the conv's and the int8 matmul's tile and split-K plans, the wrappers'
+choice of kernel body as pure functions, the restated bf16 flash tolerance
+on a plain emulation that rounds P to bf16 as the kernel does, the
 quantizing kernels' arithmetic (exact bf16 codes and 2^-q into P V, delta
 after, key 0 by a rank-1 update) emulated in torch against the plain version
-and against the JAX package's kernel, and the weight fold bit for bit
-against the same fold written with jax.numpy as
-dgq_tpu/ops/pallas/group_conv.py writes it inline.
+and against the JAX package's kernel, K6's split-K sums in s32 against the
+plain version and the JAX kernel, and the weight fold bit for bit against
+the same fold written with jax.numpy as dgq_tpu/ops/pallas/group_conv.py
+writes it inline.
 """
 import jax
 import jax.numpy as jnp
@@ -16,9 +18,12 @@ import pytest
 import torch
 
 from dgq_tpu.ops.pallas import attention as JA
+from dgq_tpu.ops.pallas import int8_matmul as JM
 from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
 from dgq_tpu_torch.ops import attention as TA
 from dgq_tpu_torch.ops import group_conv as TG
+from dgq_tpu_torch.ops import int8_matmul as TM
 
 BATCH = 4  # the CFG batch of two images
 
@@ -371,6 +376,253 @@ def test_real_time_kernel_arithmetic_matches_the_jax_kernel(start_peak):
                            interpret=True, block_t=32, block_s=128)
     out = _rt_emulated(q, k, v, scale, start_peak)
     assert _check_share(out, torch.from_numpy(np.array(j))) < 5e-4
+
+
+def _static_emulated(q, k, v, scale, mode, delta, start_peak, sm_bits=8, cap=126):
+    """K4 as the tensor-core kernel computes it: pass 1's m, l; z = scale m +
+    ln l in registers; `log2`: q = round(clamp(log2 delta + z / ln 2 - s scale
+    log2 e, 0, ub)), ub = min(exponent_field(delta) - 1, 2^b - 1, cap), 2^-q
+    in bf16 (exact) as P; `uniform`: K1's codes as P; P V in f32 on bf16 V,
+    delta once after; under start_peak key 0 zero in P and exp(s0 - z) V[0]
+    added in f32. cap=None is body (b)'s bound, without the 126."""
+    s, m, l = _stats_emulated(q, k, scale)
+    z = m * scale + torch.log(l)
+    c = scale * LOG2E
+    if mode == "uniform":
+        e = torch.exp2(s * c - (m * c + torch.log2(l * delta)))
+        code = torch.clamp(torch.round(e), max=2 ** sm_bits - 1)
+        p = code.bfloat16()
+    else:
+        ub = min(_exponent_field(delta) - 1, 2 ** sm_bits - 1, 10 ** 9 if cap is None else cap)
+        y = torch.clamp(np.log2(delta) + z * LOG2E - s * c, 0, ub)
+        code = torch.round(y)
+        p = torch.exp2(-code).bfloat16()
+    assert torch.equal(p.float(), code if mode == "uniform" else torch.exp2(-code))  # exact
+    if start_peak:
+        p[..., 0] = 0
+    out = torch.matmul(p.float(), v.float()) * delta
+    if start_peak:
+        out = out + torch.exp(s[..., 0:1] * scale - z) * v[:, 0:1, :].float()
+    return out.bfloat16(), code
+
+
+STATIC_MODES = [("log2", False), ("log2", True), ("uniform", True)]
+
+
+@pytest.mark.parametrize("delta", [1.0, 0.125])
+@pytest.mark.parametrize("mode,start_peak", STATIC_MODES)
+@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("s", [77, 256])
+def test_static_kernel_arithmetic_matches_plain(s, d, mode, start_peak, delta):
+    """K4's tensor-core arithmetic against the plain version, 2048 rows (the
+    log2 quantizer's y is formed from register m and l, a difference of two
+    numbers near 16, so a bin can flip at a half-integer; the share bound
+    absorbs a flip of a row's dominant probability once in 2048 rows); delta 1
+    (`log_max_1`) and a calibrated 2^-3."""
+    q, k, v = _quant_case(4, 512, s, d, seed=s + d + 7 * start_peak + int(8 * delta))
+    scale = d ** -0.5
+    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak)
+    ref = TA.attention_reference(q, k, v, scale, mode, 8, torch.tensor(delta), start_peak)
+    assert _check_share(out, ref) < 5e-4
+    plain = TA.attention_reference(q, k, v, scale)
+    assert float((out.float() - plain.float()).abs().max()) > 1e-3  # the quantizer is live
+
+
+@pytest.mark.parametrize("mode,start_peak", STATIC_MODES)
+def test_static_kernel_arithmetic_matches_the_jax_kernel(mode, start_peak):
+    """The same emulation against the JAX package's K4
+    (`fused_attention(..., sm_mode="log2" / "uniform", start_peak=...)` in
+    interpret mode, as its own tests run it on the CPU), on
+    bf16-representable f32 inputs: the share bound with the bf16 rounding
+    term."""
+    q, k, v = _quant_case(2, 64, 77, 40, seed=41 + 3 * start_peak + (mode == "uniform"),
+                          amp=1.5)
+    scale, delta = 40 ** -0.5, 0.125
+    j = JA.fused_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), scale,
+                           sm_mode=mode, sm_bits=8, sm_delta=jnp.asarray(delta, jnp.float32),
+                           start_peak=start_peak, interpret=True, block_t=32, block_s=128)
+    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak)
+    assert _check_share(out, torch.from_numpy(np.array(j))) < 5e-4
+
+
+def test_static_log2_cap_at_126_is_a_kept_difference_from_delta_2():
+    """The tensor-core K4 caps a log2 code at 126 so that 2^-q stays a normal
+    bf16; body (b) caps at exponent_field(delta) - 1 alone. For delta <= 1
+    (log_max_1, calibrated deltas) the two caps are one; from delta 2 on they
+    part, but only for probabilities under delta 2^-126.5, whose products
+    with V are below any bf16 output's resolution."""
+    for delta in (1.0, 0.125, 2.0 ** -20):
+        assert min(_exponent_field(delta) - 1, 255, 126) == min(_exponent_field(delta) - 1, 255)
+    delta = 4.0
+    assert min(_exponent_field(delta) - 1, 255) == 128
+    q, k, v = _quant_case(2, 64, 256, 64, seed=5, amp=8.0)  # scores spread past 90 nats
+    scale = 64 ** -0.5
+    tc, code_tc = _static_emulated(q, k, v, scale, "log2", delta, False)
+    b, code_b = _static_emulated(q, k, v, scale, "log2", delta, False, cap=None)
+    moved = code_tc != code_b
+    assert bool(moved.any())  # the inputs reach the codes past 126
+    s, m, l = _stats_emulated(q, k, scale)
+    p = torch.exp((s - m) * scale) / l
+    assert bool((p[moved] < delta * 2.0 ** -126).all())
+    assert torch.equal(tc, b)  # no bf16 output moves
+
+
+@pytest.mark.parametrize("mode,bits,d,want", [
+    ("log2", 8, 40, "wgmma_async"),
+    ("log2", 12, 40, "wgmma_async"),    # log2 codes are exponents: any length
+    ("uniform", 8, 64, "wgmma_async"),
+    ("uniform", 9, 40, "cuda_core"),    # 511 is not exact in bf16: f32 copies, CUDA cores
+    ("log2", 8, 160, "wgmma_async"),
+])
+def test_quant_form_routes_k4(mode, bits, d, want):
+    """bf16 K4 / K4p at head_dim <= 192 take the tensor cores through
+    `quant_form`; the code bound it weighs is the uniform codes' alone."""
+    strides = (256 * d, d) * 3
+    got = TA.quant_form(torch.bfloat16, d, ALIGNED, strides, 0, TA._static_max_code(mode, bits))
+    assert got == want
+    assert TA.quant_form(torch.float32, d, ALIGNED, strides, 0,
+                         TA._static_max_code(mode, bits)) == "cuda_core"
+
+
+def _int8_layer_shapes():
+    """(M, K, N) of every linear and 1x1 conv of SD v1.4 (CFG batch 4 at
+    512px: 64 to 8 px, the 77 text tokens, the time embedding) and of
+    SDXL-turbo (batch 2 at 1024px: 128 to 32 px, the text tokens, the time
+    and add embeddings), each (K, N) at every M its model runs."""
+    shapes = set()
+    for spec, ms in ((sd_unet_spec(), (16384, 4096, 1024, 256, 308, 4)),
+                     (sdxl_unet_spec(), (32768, 8192, 2048, 154, 2))):
+        for _, kind, meta in spec:
+            if kind == "linear" or (kind == "conv" and meta[2] == 1):
+                shapes.update((m, meta[0], meta[1]) for m in ms)
+    return shapes
+
+
+# the six shapes chip_smoke.py times (label, M, K, N), and its two ragged ones
+INT8_SMOKE = [(16384, 320, 2560), (256, 5120, 1280), (308, 768, 320), (4, 320, 1280),
+              (2048, 1280, 10240), (2, 2816, 1280), (333, 1000, 640), (77, 1001, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", sorted(_int8_layer_shapes() | set(INT8_SMOKE)))
+def test_int8_plan_covers_k_exactly_once(m, k, n):
+    plan = TM.int8_plan(m, n, k)
+    assert plan == TM.int8_plan(m, n, k)  # a pure function of the shape
+    assert plan.m_tiles * TM.TILE_M >= m > (plan.m_tiles - 1) * TM.TILE_M
+    assert plan.n_tiles * TM.TILE_N >= n > (plan.n_tiles - 1) * TM.TILE_N
+    assert plan.steps * TM.TILE_K >= k > (plan.steps - 1) * TM.TILE_K
+    assert 1 <= plan.splits <= TM.MAX_SPLITS
+    # what the kernel's launcher demands of the plan: no empty split, none missing
+    assert plan.splits * plan.steps_per_split >= plan.steps
+    assert (plan.splits - 1) * plan.steps_per_split < plan.steps
+    ranges = TM.plan_k_ranges(plan, k)
+    seen = np.zeros(k, dtype=np.int64)
+    for lo, hi in ranges:
+        assert 0 <= lo < hi <= k
+        seen[lo:hi] += 1
+    assert (seen == 1).all() and ranges == sorted(ranges)
+    tiles = plan.m_tiles * plan.n_tiles
+    assert tiles * plan.splits <= max(tiles, TM.SM_COUNT)  # a split never adds a wave
+    if 2 * tiles <= TM.SM_COUNT and plan.steps > 1:
+        # fewer tiles than SMs, and two splits still fit one wave: K is split
+        assert plan.splits > 1
+    if 2 * tiles > TM.SM_COUNT:
+        assert plan.splits == 1
+
+
+def test_int8_plan_splits_the_small_m_layers():
+    """The time embedding (5 tiles), SD's 8px FF-out (10 tiles, 40 steps) and
+    SDXL's add_embedding (5 tiles, 22 steps) split; the wide shapes fill the
+    card with tiles alone."""
+    assert TM.int8_plan(4, 1280, 320).splits == 3
+    deep = TM.int8_plan(256, 1280, 5120)
+    assert deep.splits == 10 and deep.steps_per_split == 4
+    assert TM.int8_plan(2, 1280, 2816).splits == 11
+    assert TM.int8_plan(16384, 2560, 320).splits == 1
+    assert TM.int8_plan(2048, 10240, 1280).splits == 1
+
+
+@pytest.mark.parametrize("k,x_ptr,w_ptr,want", [
+    (320, 0, 4096, "cp_async"),
+    (5120, 256, 512, "cp_async"),
+    (1000, 0, 0, "element"),    # K % 16 = 8: weight rows off 16 bytes
+    (36, 0, 0, "element"),
+    (320, 2, 0, "element"),     # x one bf16 element off
+    (320, 0, 8, "element"),     # codes 8 bytes off
+])
+def test_int8_form_is_a_rule_on_k_and_addresses(k, x_ptr, w_ptr, want):
+    assert TM.int8_form(k, x_ptr, w_ptr) == want
+    assert TM.INT8_FORMS[want] in (1, 2)
+
+
+def _int8_split_emulated(x, wq, dw, zw, dx, zx, bias, plan, a_bits=8, f32_partials=False):
+    """K6 as the kernel computes it under `plan`: the codes, each split's
+    partial product and row sums over its K range as exact integers, the
+    partials added in s32 (or, to show why not, rounded to f32 first), then
+    the f32 epilogue in the plain version's order."""
+    k = x.shape[1]
+    nb, pb = -(2 ** (a_bits - 1)), 2 ** (a_bits - 1) - 1
+    xq = torch.clamp(torch.round(x.float() / dx) + zx, nb, pb).long()
+    acc = torch.zeros(x.shape[0], wq.shape[0], dtype=torch.float32 if f32_partials else torch.long)
+    xsum = torch.zeros(x.shape[0], 1, dtype=torch.long)
+    for lo, hi in TM.plan_k_ranges(plan, k):
+        part = xq[:, lo:hi] @ wq[:, lo:hi].long().t()
+        assert int(part.abs().max()) < 2 ** 31  # an s32 partial holds it
+        acc = acc + (part.float() if f32_partials else part)
+        xsum = xsum + xq[:, lo:hi].sum(dim=1, keepdim=True)
+    assert f32_partials or int(acc.abs().max()) < 2 ** 31
+    wsum = wq.long().sum(dim=1).float()[None, :]
+    dwr, zwr = dw.float()[None, :], zw.float()[None, :]
+    y = (dx * dwr) * (acc.float() - zx * wsum - zwr * xsum.float() + (float(k) * zx) * zwr)
+    return y + bias.float()[None, :]
+
+
+def _int8_split_case(m, k, n, w_bits, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((1.5 * rng.standard_normal((m, k))).astype(np.float32))
+    lo = 2 ** (w_bits - 1)
+    wq = torch.from_numpy(rng.integers(-lo, lo, (n, k)).astype(np.int8))
+    dw = torch.from_numpy((0.005 + 0.01 * rng.random(n)).astype(np.float32))
+    zw = torch.from_numpy(np.round(2.0 * rng.standard_normal(n)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    return x, wq, dw, zw, torch.tensor(6.0 / 256), torch.tensor(5.0), bias
+
+
+@pytest.mark.parametrize("m,k,n,w_bits", [(40, 700, 300, 4), (8, 5120, 16, 8), (4, 320, 1280, 4),
+                                          (130, 1001, 33, 8)])
+def test_int8_split_k_sums_in_s32_give_the_unsplit_bits(m, k, n, w_bits):
+    """Under the plan's split the s32 partials add to the unsplit product
+    exactly, so the output equals the plain version (one exact product) bit
+    for bit, and the JAX kernel in interpret mode within its 1e-5."""
+    x, wq, dw, zw, dx, zx, bias = _int8_split_case(m, k, n, w_bits, seed=m + k + n)
+    plan = TM.int8_plan(m, n, k)
+    assert plan.splits > 1
+    out = _int8_split_emulated(x, wq, dw, zw, dx, zx, bias, plan)
+    ref = TM.quantized_matmul_reference(x, wq, dw, zw, dx, zx, bias)
+    assert torch.equal(out, ref)
+    j = JM.quantized_matmul(jnp.asarray(x.numpy()), jnp.asarray(wq.numpy().T),
+                            jnp.asarray(dw.numpy()), jnp.asarray(zw.numpy()),
+                            jnp.asarray(float(dx), jnp.float32), jnp.asarray(float(zx), jnp.float32),
+                            jnp.asarray(bias.numpy()), block_m=16, block_n=128,
+                            out_dtype=jnp.float32, interpret=True)
+    j = np.asarray(j, np.float64)
+    assert np.abs(out.double().numpy() - j).max() <= 1e-5 * np.abs(j).max()
+
+
+def test_int8_f32_partials_would_change_bits_at_wide_k():
+    """Why the partials add in s32: W8 x A8 codes near 127 at K = 5120 pass
+    2^24, where an f32 partial rounds; added as f32 they miss the exact sum."""
+    rng = np.random.default_rng(0)
+    m, k, n = 8, 5120, 16
+    x = torch.from_numpy((rng.random((m, k)) * 127.0 * (6.0 / 256)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(100, 128, (n, k)).astype(np.int8))
+    one, zero = torch.ones(n), torch.zeros(n)
+    dx, zx = torch.tensor(6.0 / 256), torch.tensor(0.0)
+    plan = TM.int8_plan(m, n, k)
+    assert plan.splits > 1
+    exact = _int8_split_emulated(x, wq, one, zero, dx, zx, zero, plan)
+    rounded = _int8_split_emulated(x, wq, one, zero, dx, zx, zero, plan, f32_partials=True)
+    assert torch.equal(exact, TM.quantized_matmul_reference(x, wq, one, zero, dx, zx, zero))
+    assert not torch.equal(rounded, exact)
 
 
 def _fold_inputs(c, o, seed):
