@@ -41,6 +41,18 @@ Phases (any failure raises, so the exit code is non-zero):
      4e W4A8 with log2 real_time softmax, start_peak and the int8 deploy path;
      4f the same with the int8 path off, unpacked and then with packed
         attention (the JAX bench's `--model sdxl` default).
+  5. `cli_path`, between 4d and 4e: the inference entry point from local
+     files. Full-width SD v1.4 checkpoints (g=8, g=1 joined by `ckpt_tools
+     merge`, static log2) and an HF-named VAE written through the port's
+     writers and read back bit for bit, then `dgq_tpu_torch.cli.infer.main`
+     in this process four ways (the README's command; with --pallas_attn
+     --group_impl fused; g=1; static log2), f32 activations with bf16
+     weights (--fp16), STEPS_CLI PNDM steps, with exact launch counts, and
+     three witnesses of the gap between the first two (the first on
+     initial latents moved by 1e-6, whose change bounds the kernel runs'
+     first UNet forward, and each kernel flag alone); the
+     f32 kernel bodies these runs take against their plain versions; then
+     the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
@@ -59,6 +71,7 @@ STEPS_G1 = 10
 STEPS_G8 = 4
 STEPS_INT8 = 4
 STEPS_SDXL = 4
+STEPS_CLI = 10  # divides 1000, as a time-aware run needs
 IMAGES = 2
 ATTN_SRC = "dgq_tpu_torch/csrc/attention.cu"
 CONV_SRC = "dgq_tpu_torch/csrc/group_conv.cu"
@@ -87,6 +100,7 @@ CLASSIC_ATTENTION = ("static_uniform_attention", "rt_stats", "quant_accum",
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
 # the special-function unit: 16 exponentials a clock on each of 132 SMs at the
 # 1.98 GHz boost clock (H100 SXM), the floor of the kernels that take one
 # exponential per score (K1 two passes, rt_stats one)
@@ -260,15 +274,15 @@ def _check_share(out, ref, bf16=True):
     return float(err.max()), share
 
 
-def _check_conv(out, ref):
+def _check_conv(out, ref, bf16=True):
     """K5: the codes and folded weights are the same numbers on both sides, so
     only the f32 summation order and each side's one rounding to bf16 differ:
-    |err| <= 2e-3 + 2^-7 |ref|."""
+    |err| <= 2e-3 + 2^-7 |ref| (the second term left out for f32 tensors)."""
     out, ref = out.float(), ref.float()
     if out.shape != ref.shape or not bool(out.isfinite().all()):
         raise AssertionError(f"bad kernel output: shape {tuple(out.shape)}")
     err = (out - ref).abs()
-    bound = 2e-3 + 2.0 ** -7 * ref.abs()
+    bound = 2e-3 + (2.0 ** -7 * ref.abs() if bf16 else 0.0)
     if not bool((err <= bound).all()):
         raise AssertionError(f"error exceeds the bound by {float((err - bound).max())}")
     return float(err.max())
@@ -1378,6 +1392,437 @@ def main_paths(tag):
             "static_quant_attention_packed": k4p["static_quant_attention_packed"]}
 
 
+def _expect_launches(label, expect):
+    """Check the launch counts since the last reset and return them:
+    `expect` maps a kernel to its exact count; a kernel it does not name
+    must not have run."""
+    launches = _launch_counts()
+    for name, got in launches.items():
+        if got != expect.get(name, 0):
+            raise AssertionError(f"{label}: {name} ran {got} times, expected "
+                                 f"{expect.get(name, 0)}")
+    return launches
+
+
+def _scaled_slots(qstate, t_slots):
+    """act_0 ... act_{T-1}: `qstate` with every delta scaled by 1 + t/T in
+    slot t, so that a slot read back in the wrong place shows."""
+    import torch
+    from dgq_tpu_torch.models.qconfig import GroupQParams
+    from dgq_tpu_torch.quant.affine import QParams
+
+    def leaf(v, s):
+        if isinstance(v, GroupQParams):
+            return GroupQParams(v.delta_mid * s, v.zp_mid, v.delta_last, v.zp_last)
+        if isinstance(v, QParams):
+            return QParams(v.delta * s, v.zero_point)
+        return torch.clamp(v * s, max=1.0)  # a log2 delta: at most 1
+    return {f"act_{t}": {k: {n: leaf(v, 1.0 + t / t_slots) for n, v in sub.items()}
+                         for k, sub in qstate.items()} for t in range(t_slots)}
+
+
+def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag):
+    """load_merged of `path` on the card gives `params`, `wqp` and every
+    slot's qstate bit for bit, and the group layers. Returns its seconds."""
+    import os
+
+    import torch
+    from dgq_tpu_torch.io.dgq_ckpt import load_merged
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, w2, al2, pt2, gl2 = load_merged(path, spec, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = (not al2 and gl2 == tuple(group_layers) and set(pt2) == set(per_t)
+            and set(w2) == set(wqp) and set(p2) == set(params))
+    same = same and all(torch.equal(a, p2[n][k]) for n, p in params.items()
+                        for k, a in p.items() if a is not None)
+    same = same and all(torch.equal(qp.delta, w2[n].delta)
+                        and torch.equal(qp.zero_point, w2[n].zero_point) for n, qp in wqp.items())
+    for key, qs in per_t.items():
+        for sub in ("a", "sm"):
+            same = same and set(qs[sub]) == set(pt2[key][sub])
+            for n, v in qs[sub].items():
+                got = pt2[key][sub][n]
+                fields = (("delta_mid", "zp_mid", "delta_last", "zp_last") if hasattr(
+                    v, "delta_mid") else ("delta", "zero_point") if hasattr(v, "delta") else ())
+                same = same and (all(torch.equal(getattr(v, f).float(), getattr(got, f))
+                                     for f in fields) if fields else torch.equal(v.float(), got))
+    del p2, w2, pt2
+    if not same:
+        raise AssertionError(f"{label}: load_merged of {path} is not what was written")
+    print(f"{label}: load_merged of {os.path.getsize(path) / 1e9:.3f} GB on the card {seconds:.2f} "
+          f"s, params, wqp and {len(per_t)} slots "
+          f"bit for bit, {len(group_layers)} group layers | {tag}", flush=True)
+    return seconds
+
+
+def f32_bodies(tag):
+    """The f32 CUDA-core bodies that `cli_path`'s runs take (f32 activations):
+    the attention kernels at their largest SD 512px shapes and K5 at every
+    shape of `CONV_SHAPES` (each resolution the fused run gives it), each
+    against its plain version on the same inputs (the f32 checks of phase 2
+    and 3; K5's fold kernel equal to `_fold`'s bit for bit and its output
+    within `_check_conv`'s f32 bound) and timed device-only (`_device_ms`)
+    beside the plain version's time and the bound at the card's f32 rate
+    outside the tensor cores (PEAK_F32_FLOPS). Returns {kernel: device ms}."""
+    import torch
+    from dgq_tpu_torch.ops import attention as A, group_conv as G
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bh, t, d = 2 * IMAGES * 8, 4096, 40
+    q, k = (2.0 * torch.randn(bh, t, d, generator=g, device="cuda") for _ in range(2))
+    v = torch.randn(bh, t, d, generator=g, device="cuda")
+    scale, qk = d ** -0.5, 2.0 * bh * t * t * d
+    io = 4.0 * (2 * q.numel() + k.numel() + v.numel())
+    delta_u = torch.tensor(1.0 / 255.0, device="cuda")
+    z, red = A.rt_stats(q, k, scale)
+    vq = 2.0 * torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
+    kq = 2.0 * torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
+    vv = torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
+    one, zero = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
+    cases = [  # name, shape, kernel, plain version, check, flops, bytes
+        ("static_uniform_attention", "64px self", lambda: A.static_uniform_attention(
+            q, k, v, scale, delta_u), lambda: A.attention_reference(
+            q, k, v, scale, "uniform", 8, delta_u), lambda o, r: _check_f32(o, r, v, 1 / 255)[0],
+         2 * qk, io),
+        ("rt_stats", "64px self", lambda: A.rt_stats(q, k, scale)[0], lambda: A.rt_stats_reference(
+            q, k, scale)[0], lambda o, r: float((o - r).abs().max()), qk, 4.0 * (q.numel() + k.numel())),
+        ("quant_accum", "64px self", lambda: A.quant_accum(q, k, v, z, red, scale), lambda:
+         A.attention_reference(q, k, v, scale, "log2", 8, A.rt_delta(red)),
+         lambda o, r: _check_share(o, r, bf16=False)[0], 2 * qk, io),
+        ("static_quant_attention", "64px self log2", lambda: A.static_quant_attention(
+            q, k, v, scale, "log2", one[0] * 0.5), lambda: A.attention_reference(
+            q, k, v, scale, "log2", 8, one[0] * 0.5), lambda o, r: _check_share(o, r, bf16=False)[0],
+         2 * qk, io),
+        ("flash_attention", "VAE mid-block", lambda: A.flash_attention(vq, kq, vv, 512 ** -0.5),
+         lambda: A.attention_reference(vq, kq, vv, 512 ** -0.5), lambda o, r: _check_f32(
+             o, r, vv)[0], 4.0 * IMAGES * 4096 * 4096 * 512, 4.0 * 4 * vq.numel()),
+    ]
+    b = 2 * IMAGES
+    for label, h, c, o in CONV_SHAPES:  # inputs drawn as compare_group_conv draws them
+        x = 2.0 * torch.randn(b, h, h, c, generator=g, device="cuda")
+        w = (torch.randn(o, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5).permute(
+            2, 3, 1, 0)
+        dm = 0.03 + 0.04 * torch.rand(9, c, generator=g, device="cuda")
+        zm = 100.0 + 56.0 * torch.rand(9, c, generator=g, device="cuda")
+        bias = 0.1 * torch.randn(o, generator=g, device="cuda")
+        conv = (x, w, dm, zm, one, zero, bias)
+        if not all(torch.equal(mine, ref) for mine, ref in zip(
+                G.fold_weights(torch.float32, w, dm, zm, one, zero, 3, 3),
+                G._fold(x, w, dm, zm, one, zero, 3, 3))):
+            raise AssertionError(f"f32 group conv fold {label}: w_t, rd or z differ from _fold's")
+        cases.append(("group_quant_conv", label, lambda conv=conv: G.group_quant_conv(*conv),
+                      lambda conv=conv: G.group_quant_conv_reference(*conv),
+                      lambda o, r: _check_conv(o, r, bf16=False),
+                      2.0 * b * h * h * 9 * c * o,
+                      4.0 * (x.numel() + w.numel() + 2 * dm.numel() + o + b * h * h * o)))
+    out = {}
+    for name, label, fn, plain, check, flops, nbytes in cases:
+        err = check(fn(), plain())
+        if name == "rt_stats" and not err <= 1e-2:
+            raise AssertionError(f"f32 {name} {label}: error {err} against its plain version")
+        dev = _device_ms(fn)
+        plain_ms = _median_ms(plain, reps=3)
+        bound = _bound(flops, nbytes, peak=PEAK_F32_FLOPS)
+        out[f"{name} {label}"] = dev
+        print(f"f32 {name} {label} (cuda_core body, as cli_path runs it): max_abs_err {err:.4g}; "
+              f"device-only ms {dev:.4f} ({dev / bound[0]:.1f}x its f32 bound {bound[0]:.4f}, "
+              f"{bound[1]}), plain {plain_ms:.4f} | {tag}", flush=True)
+    return out
+
+
+def text_encoders_full_width(tag):
+    """The CLIP text encoders at full width, card against CPU in f32 (TF32
+    off): CLIP-L (12 layers, 768 wide) through clip_text_encode, the bigG
+    WithProjection (32 layers, 1280 wide, proj 1280) through clip_text_pooled,
+    and both through sdxl_encode_prompt, on seeded token ids where one row
+    holds an EOS id and the other none (the argmax fallback). Bound:
+    1e-4 * max|ref|."""
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.pipeline.text_encoder import (clip_text_encode, clip_text_pooled,
+                                                     init_clip_text, sdxl_encode_prompt)
+
+    eos = 49407
+    g = torch.Generator(device="cuda").manual_seed(0)
+    enc_l = init_clip_text(g, "cuda")
+    enc_g = init_clip_text(g, "cuda", width=1280, layers=32, proj_dim=1280)
+    sizes = [sum(v.numel() for x in p.values() for v in (x.values() if isinstance(x, dict)
+                                                         else [x])) for p in (enc_l, enc_g)]
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, eos, size=(2, 77))
+    ids[0, 12:] = eos  # a prompt of 11 tokens padded with EOS; row 1 has none
+    ids = torch.from_numpy(ids)
+    cpu_l = {k: _to_cpu(v) for k, v in enc_l.items()}
+    cpu_g = {k: _to_cpu(v) for k, v in enc_g.items()}
+    runs = {
+        "CLIP-L clip_text_encode": lambda p_l, p_g, i: clip_text_encode(p_l, i),
+        "bigG clip_text_pooled": lambda p_l, p_g, i: clip_text_pooled(
+            p_g, i, num_layers=32, num_heads=20, eos_id=eos),
+        "sdxl_encode_prompt": lambda p_l, p_g, i: torch.cat([t.reshape(2, -1) for t in (
+            sdxl_encode_prompt(p_l, p_g, i, i, layers_g=32, heads_g=20, eos_id=eos))], 1),
+    }
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for label, fn in runs.items():
+            fn(enc_l, enc_g, ids.cuda())  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(enc_l, enc_g, ids.cuda())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            ref = fn(cpu_l, cpu_g, ids)
+            err = float((out.cpu() - ref).abs().max())
+            bound = 1e-4 * float(ref.abs().max())
+            print(f"text encoders {label} {tuple(out.shape)}: card {seconds:.4f} s, card vs CPU "
+                  f"max_abs_err {err:.6g} (bound {bound:.6g}) | {tag}", flush=True)
+            if not (err <= bound and bool(out.isfinite().all())):
+                raise AssertionError(f"text encoders {label}: card and CPU disagree")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    print(f"text encoders: CLIP-L {sizes[0]} params, bigG with projection {sizes[1]} params "
+          f"| {tag}", flush=True)
+
+
+def _to_cpu(v):
+    return {k: x.cpu() for k, x in v.items()} if isinstance(v, dict) else v.cpu()
+
+
+def cli_path(tag):
+    """Phase 5: the inference entry point from local files at full width.
+    SD v1.4 f32 weights, minmax W4 qparams, STEPS_CLI slots of g=8 group,
+    g=1 per-tensor (uniform softmax) and static-log2 (delta-only `sm`)
+    activation states, and an HF-named VAE decoder state dict, all drawn on
+    the card from seed 0 and written through the port's writers into a
+    temporary directory under build/ (the g=1 file by `ckpt_tools merge` as a
+    command); each file read back bit for bit, then `cli.infer.main` in this
+    process on it (--fp16: bf16 weights under f32 activations, as the JAX CLI
+    runs): (a) the README's command, (b) (a) with --pallas_attn --group_impl
+    fused, (c) g=1 with --pallas_attn, (d) static log2 with --pallas_attn.
+    Between (b) and (c), three witnesses of the gap between (a)'s and (b)'s
+    quantized latents: (a') (a) on initial latents moved by 1e-6 (the chaos
+    of the trajectory), (b1) only --pallas_attn, (b2) only --group_impl
+    fused; the gap of each to (a) is printed for the first UNet forward
+    (same inputs) and the final latents, and the kernel runs' first forward
+    must stay within 5x (a')'s. Each run's kernel launches are exact; then
+    the f32 kernel bodies and the full-width text encoders.
+    Returns the launch counts of the runs, by run."""
+    import os
+    import shutil
+    import sys
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes, softmax_qpoint_names
+    from dgq_tpu_torch.calib.weight_calib import init_weight_qparams
+    from dgq_tpu_torch.cli import infer
+    from dgq_tpu_torch.io import dgq_ckpt
+    from dgq_tpu_torch.io.convert import params_to_torch_unet
+    from dgq_tpu_torch.models.unet_sd import init_unet_sd, quantizable_layers, sd_unet_spec
+    from dgq_tpu_torch.ops.attention import flash_form, quant_form
+    from dgq_tpu_torch.ops.group_conv import conv_form
+    from dgq_tpu_torch.pipeline import sd_pipeline
+    from dgq_tpu_torch.pipeline.schedulers import make_pndm
+    from dgq_tpu_torch.pipeline.vae import init_vae_decoder, vae_decoder_spec
+    from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate, synthetic_pertensor_qstate
+
+    f32 = torch.float32
+    spec = sd_unet_spec()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_unet_sd(g, "cuda", f32, spec)
+    n_params = sum(v.numel() for p in params.values() for v in p.values() if v is not None)
+    n_attn = len(attention_prefixes(spec))
+    if n_params != 859_520_964 or len(quantizable_layers(spec)) != 282 or n_attn != 32:
+        raise AssertionError(f"SD v1.4 has {n_params} params")
+    wqp = init_weight_qparams(params, spec, 4)
+    g8, group_layers = synthetic_group_qstate(spec, 0, False, f32, device="cuda")
+    g8 = _scaled_slots(g8, STEPS_CLI)
+    g1 = _scaled_slots(synthetic_pertensor_qstate(spec, 0, False, f32, device="cuda"), STEPS_CLI)
+    sm_names = softmax_qpoint_names(spec)
+    log2 = synthetic_pertensor_qstate(spec, 0, False, f32, device="cuda")
+    log2 = _scaled_slots({"a": {n: v for n, v in log2["a"].items() if n not in sm_names},
+                          "sm": {n: torch.tensor(0.5, device="cuda") for n in sm_names}},
+                         STEPS_CLI)
+    stride = {n: m[3] for n, k, m in spec if k == "conv"}
+    n_fused = sum(stride[n] == 1 for n in group_layers)
+    forwards = len(make_pndm(STEPS_CLI).timesteps)  # PNDM: one more UNet call than steps
+
+    # the checkpoints go under the checkout's build/ (gitignored), which holds
+    # two full-width f32 files at once
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(tmp_root, exist_ok=True)
+    print(f"cli_path: {shutil.disk_usage(tmp_root).free / 2 ** 30:.1f} GiB free under "
+          f"{tmp_root} | {tag}", flush=True)
+    taps = []
+    real_sample = sd_pipeline.sd_sample
+    real_latents = sd_pipeline.SDPipeline._initial_latents
+
+    def tapped_sample(*args, **kwargs):  # keeps the final latents, the first eps, the time
+        apply, first = kwargs["unet_apply"], []
+
+        def first_eps(*a, **k):
+            eps = apply(*a, **k)
+            if not first:
+                first.append(eps.clone())
+            return eps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = real_sample(*args, **{**kwargs, "unet_apply": first_eps})
+        torch.cuda.synchronize()
+        taps.append((x.clone(), time.perf_counter() - t0, first[0]))
+        return x
+
+    def perturbed_latents(self, *args):  # the chaos witness: 1e-6 noise on the initial latents
+        x = real_latents(self, *args)
+        gp = torch.Generator(device=x.device).manual_seed(1)
+        return x + 1e-6 * torch.randn(x.shape, generator=gp, device=x.device)
+
+    def timed(label, fn, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        seconds = time.perf_counter() - t0
+        print(f"{label}: {seconds:.2f} s, {os.path.getsize(path) / 1e9:.3f} GB | {tag}",
+              flush=True)
+
+    results = {}
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        vae_dir = os.path.join(tmp, "vae")
+        os.makedirs(vae_dir)
+        vae_path = os.path.join(vae_dir, "diffusion_pytorch_model.bin")
+        vae = init_vae_decoder(g, "cuda")
+        timed("write the VAE decoder (HF names, OIHW)", lambda: torch.save(
+            params_to_torch_unet(vae, vae_decoder_spec()), vae_path), vae_path)
+        del vae
+        common = ["--model", "sd", "--fp16", "--vae_weights", vae_dir, "--num_inference_steps",
+                  str(STEPS_CLI), "--time_aware_aqtizer", "--use_aq", "--outdir", tmp]
+        readme = ["--use_group", "--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak"]
+        k3b = {"rt_stats": n_attn * forwards, "quant_accum": n_attn * forwards}
+        k5 = {"group_quant_conv": n_fused * forwards}
+        witness = "(a') (a) on initial latents moved by 1e-6"
+        runs = [
+            ("g8", "(a) the README's command", readme, {"flash_attention": 2}),
+            ("g8", "(b) README + --pallas_attn --group_impl fused",
+             readme + ["--pallas_attn", "--group_impl", "fused"],
+             {"flash_attention": 2, **k3b, **k5}),
+            # witnesses of the (a)/(b) gap: the chaos of (a), and each kernel alone
+            ("g8", witness, readme, {"flash_attention": 2}),
+            ("g8", "(b1) README + --pallas_attn", readme + ["--pallas_attn"],
+             {"flash_attention": 2, **k3b}),
+            ("g8", "(b2) README + --group_impl fused", readme + ["--group_impl", "fused"],
+             {"flash_attention": 2, **k5}),
+            ("g1", "(c) g=1 --pallas_attn", ["--pallas_attn"],
+             {"flash_attention": 2, "static_uniform_attention": n_attn * forwards}),
+            ("log2", "(d) static log2 --t2i_log_quant --pallas_attn",
+             ["--t2i_log_quant", "--pallas_attn"],
+             {"flash_attention": 2, "static_quant_attention": n_attn * forwards}),
+        ]
+        files = {}
+        sd_pipeline.sd_sample = tapped_sample
+        try:
+            for state, label, flags, expect in runs:
+                if state not in files:
+                    for old in files.values():
+                        os.remove(old)
+                    files.clear()
+                    if state == "g8":
+                        path = os.path.join(tmp, "sd_w4a8g8.pth")
+                        per_t, gl = g8, group_layers
+                        timed("write the g=8 merged checkpoint (save_merged)",
+                              lambda: dgq_ckpt.save_merged(path, params, wqp, spec, per_t), path)
+                    elif state == "g1":
+                        path = os.path.join(tmp, "sd_w4a8g1.pth")
+                        per_t, gl = g1, ()
+                        wpath = os.path.join(tmp, "cali_ckpt.pth_weight_only")
+                        apath = os.path.join(tmp, "cali_ckpt_activation_w4a8g1.pth")
+                        timed("write the weight-only checkpoint (save_weight_only)",
+                              lambda: dgq_ckpt.save_weight_only(wpath, params, wqp, spec), wpath)
+                        timed("write the g=1 activation checkpoint (save_act_ckpt)",
+                              lambda: dgq_ckpt.save_act_ckpt(apath, per_t, spec), apath)
+                        timed("python -m dgq_tpu_torch.cli.ckpt_tools merge", lambda: subprocess.run(
+                            [sys.executable, "-m", "dgq_tpu_torch.cli.ckpt_tools", "merge", wpath,
+                             apath, path], check=True, capture_output=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__))), path)
+                        os.remove(wpath)
+                    else:
+                        path = os.path.join(tmp, "sd_w4a8g1_log2.pth")
+                        per_t, gl = log2, ()
+                        timed("write the static-log2 merged checkpoint (save_merged)",
+                              lambda: dgq_ckpt.save_merged(path, params, wqp, spec, per_t), path)
+                    files[state] = path
+                    _assert_round_trip(f"{state} checkpoint", path, spec, params, wqp, per_t, gl,
+                                       tag)
+                    torch.cuda.empty_cache()
+                for f in os.listdir(tmp):
+                    if f.endswith((".npy", ".png")):
+                        os.remove(os.path.join(tmp, f))
+                taps.clear()
+                sd_pipeline.SDPipeline._initial_latents = (perturbed_latents if label == witness
+                                                           else real_latents)
+                _reset_launch_counts()
+                res = infer.main(common + ["--cali_ckpt", files[state]] + flags)
+                shown = {n: c for n, c in _expect_launches(f"cli_path {label}", expect).items()
+                         if c}
+                images = {os.path.basename(o): np.load(o) for o in res["outputs"]}
+                if len(images) != 4 or any(a.shape != (512, 512, 3) or a.dtype != np.uint8
+                                           or a.std() == 0 for a in images.values()):
+                    raise AssertionError(f"cli_path {label}: bad images "
+                                         f"{[(n, a.shape, a.dtype) for n, a in images.items()]}")
+                (_, fp_s, _), (q_lat, q_s, q_eps) = taps
+                qtag = next(t for t in res["run_s"] if t != "fp")
+                results[label] = {"images": images, "q_latents": q_lat, "q_eps": q_eps,
+                                  "launches": shown}
+                print(f"cli_path {label}: {sorted(images)}; load + fold {res['load_fold_s']:.2f} "
+                      f"s; " + "; ".join(
+                          f"{t}: {s / STEPS_CLI:.4f} s per step ({forwards} UNet forwards at "
+                          f"batch 4 in {s:.2f} s), {res['run_s'][t] / 2:.4f} s per image"
+                          for t, s in (("fp", fp_s), (qtag, q_s)))
+                      + f"; launches {shown} | {tag}", flush=True)
+        finally:
+            sd_pipeline.sd_sample = real_sample
+            sd_pipeline.SDPipeline._initial_latents = real_latents
+    del params, wqp, g8, g1, log2
+    torch.cuda.empty_cache()
+
+    a, b = results[runs[0][1]], results[runs[1][1]]
+    fp_names = sorted(n for n in a["images"] if n.endswith("_fp.npy"))
+    off = np.mean([np.abs(a["images"][n].astype(int) - b["images"][n].astype(int)) > 1
+                   for n in fp_names])
+    print(f"cli_path: the fp images of (a) and (b) (the same fp run: the flags change only the "
+          f"quantized one) differ by more than one level on a share {off:.6g} of their values "
+          f"(bound 0.01) | {tag}", flush=True)
+    if not off <= 0.01:
+        raise AssertionError("cli_path: the fp run of the CLI is not deterministic")
+    print(f"cli_path: (a)'s quantized run: mean |eps| of the first UNet forward "
+          f"{float(a['q_eps'].abs().mean()):.6g}, mean |final latents| "
+          f"{float(a['q_latents'].abs().mean()):.6g} | {tag}", flush=True)
+    # the kernel runs' first UNet forward (the same inputs as (a)'s) must stay
+    # within 5x (a')'s chaos, in the largest and in the mean change, as the
+    # JAX package's tests bound a quantized net; the final latents are read
+    chaos = (results[witness]["q_eps"] - a["q_eps"]).abs()
+    for label in (r[1] for r in runs[1:5]):
+        r = results[label]
+        d1, d = (r["q_eps"] - a["q_eps"]).abs(), (r["q_latents"] - a["q_latents"]).abs()
+        print(f"cli_path: {label} against (a), quantized run: first UNet forward's eps max |d| "
+              f"{float(d1.max()):.6g}, mean |d| {float(d1.mean()):.6g}; final latents max |d| "
+              f"{float(d.max()):.6g}, mean |d| {float(d.mean()):.6g} | {tag}", flush=True)
+        if label != witness and not (float(d1.max()) <= 5 * float(chaos.max())
+                                     and float(d1.mean()) <= 5 * float(chaos.mean())):
+            raise AssertionError(f"cli_path {label}: the first UNet forward differs from (a)'s by "
+                                 f"more than 5x the chaos of (a)")
+    print(f"cli_path: f32 activations with bf16 weights: attention forms quant_form "
+          f"{quant_form(f32, 40, (0, 0, 0), (8, 8))} (K1, K3b, K4), VAE flash_form "
+          f"{flash_form(f32, 512, (0, 0, 0), (8, 8))} (K2), K5 conv_form "
+          f"{conv_form(f32, 320, 320)} | {tag}", flush=True)
+    f32_bodies(tag)
+    text_encoders_full_width(tag)
+    return {label: r["launches"] for label, r in results.items()}
+
+
 def build_sdxl_model(tag):
     """SDXL-turbo at full width with W4-folded bf16 weights and packed int8
     codes, the VAE decoder and the sampler's inputs at 1024px, all drawn on
@@ -1453,11 +1898,7 @@ def drive_sdxl(model, label, qstate, cfg, expect, tag):
     sdxl_sample_and_decode(model, qstate, cfg, 1)  # warm-up
     _reset_launch_counts()
     lat, images, (t0, t1, t2) = sdxl_sample_and_decode(model, qstate, cfg, STEPS_SDXL)
-    launches = _launch_counts()
-    for name, got in launches.items():
-        if got != expect.get(name, 0):
-            raise AssertionError(f"{label}: {name} ran {got} times, expected "
-                                 f"{expect.get(name, 0)}")
+    launches = _expect_launches(label, expect)
     if tuple(images.shape) != (IMAGES, 1024, 1024, 3) or not bool(images.isfinite().all()):
         raise AssertionError(f"{label}: bad images {tuple(images.shape)}")
     if not bool(lat.isfinite().all()) or float(images.float().std()) == 0.0:
@@ -1615,7 +2056,9 @@ def main():
     phase(compare_int8, tag, summary)
     phase(small_input_check, tiny_x, tiny_nets, tag)
     launches = phase(main_paths, tag)
-    torch.cuda.empty_cache()  # the SD model is gone; SDXL needs 20 GB while it folds
+    torch.cuda.empty_cache()  # the SD model is gone
+    phase(cli_path, tag)
+    torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     launches["int8_matmul"] = phase(sdxl_path, tag)["int8_matmul"]
 
     record = {"kernels": [

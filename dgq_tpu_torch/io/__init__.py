@@ -1,1 +1,1 @@
-"""Weight bridge from JAX-layout numpy pytrees to torch tensors."""
+"""The weight bridge, the .pth checkpoint formats and local state-dict loading."""

@@ -1,4 +1,6 @@
-"""The weight bridge: JAX-layout numpy pytrees -> torch tensors.
+"""The weight bridge: JAX-layout numpy pytrees -> torch tensors, and torch
+state dicts (a reference UNet's, a checkpoint's per-out-channel weight
+qparams) -> the port's params (port of `dgq_tpu/io/convert.py`).
 
 The JAX package keeps conv weights HWIO and linear weights (I, O); the port
 keeps PyTorch's OIHW and (O, I) (`F.conv2d` / `F.linear`). Callers turn a
@@ -9,6 +11,12 @@ The packed int8 entries of the int8 deploy path cross over too: 'w_q8' is
 (K, N) int8 in the JAX package and (N, K) here, 'w_q8c' is HWIO there and
 OIHW here, and 'w_d', 'w_z', 'w_ksum' are per-out-channel vectors in both.
 They keep their own dtypes (int8 codes, f32 scales) whatever `dtype` says.
+
+A torch state dict is already in the port's layouts, so
+`torch_unet_to_params` / `params_to_torch_unet` only rename and move
+tensors, and `channel_qp_to_torch` keeps a per-out-channel qparam at
+(O, 1, 1, 1) / (O, 1), where the JAX package turns it to (1, 1, 1, O) /
+(1, O) for its HWIO / (I, O) weights.
 
 Head-slot packed attention projections (`pack_attention_heads` on either
 side) cross as they are: the bridge goes by the spec's names and kinds, not
@@ -34,6 +42,8 @@ def conv_w_to_torch(w) -> np.ndarray:
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy has no native bf16: go through f32 (exact)
         t = torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
@@ -108,3 +118,41 @@ def qstate_from_numpy(qstate_np: dict, device="cuda") -> dict:
 
     return {key: {name: leaf(v) for name, v in sub.items()}
             for key, sub in qstate_np.items()}
+
+
+def channel_qp_to_torch(arr, kind: str, device="cuda") -> torch.Tensor:
+    """Per-out-channel wqtizer delta / zero point as the port's weights take
+    it: (O, 1, 1, 1) for a conv, (O, 1) for a linear, out channel first
+    whatever shape it came in (the reference's own shapes pass unchanged).
+    Scalars pass through."""
+    a = np.asarray(arr)
+    if a.ndim and a.size > 1:
+        a = a.reshape((-1, 1, 1, 1) if kind == "conv" else (-1, 1))
+    return _tensor(a, device)
+
+
+def torch_unet_to_params(state: dict, spec, device="cuda") -> dict:
+    """A plain (unquantized) reference UNet state dict ('<path>.weight' /
+    '.bias' -> arrays or tensors) -> the port's params, by the layer spec."""
+    params = {}
+    for name, kind, _ in spec:
+        w = _tensor(state[f"{name}.weight"], device)
+        b = state.get(f"{name}.bias")
+        if kind in ("conv", "linear"):
+            params[name] = {"w": w, "b": None if b is None else _tensor(b, device)}
+        else:
+            params[name] = {"scale": w, "bias": _tensor(state[f"{name}.bias"], device)}
+    return params
+
+
+def params_to_torch_unet(params: dict, spec) -> dict:
+    """Inverse of torch_unet_to_params: {'<path>.weight' / '.bias': CPU
+    tensor}, dtypes kept (for torch.save)."""
+    state = {}
+    for name, kind, _ in spec:
+        p = params[name]
+        w, b = (p["w"], p.get("b")) if kind in ("conv", "linear") else (p["scale"], p["bias"])
+        state[f"{name}.weight"] = w.detach().cpu()
+        if b is not None:
+            state[f"{name}.bias"] = b.detach().cpu()
+    return state

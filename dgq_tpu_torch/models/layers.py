@@ -200,7 +200,10 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
         # the mid axis is c-major (c, i, j); the kernel wants (tap, channel)
         dm = gqp.delta_mid.reshape(c, kh * kw).t()
         zm = gqp.zp_mid.reshape(c, kh * kw).t()
-        return group_quant_conv(x.contiguous(), _w_hwio(p), dm, zm, gqp.delta_last,
+        # the kernel folds w in x's dtype: bf16 weights under f32
+        # activations (the CLI's --fp16) are widened first, exactly, as the
+        # JAX wrapper's fold widens them to f32
+        return group_quant_conv(x.contiguous(), _w_hwio(p).to(x.dtype), dm, zm, gqp.delta_last,
                                 gqp.zp_last, p.get("b"), kh=kh, kw=kw, padding=padding,
                                 a_bits=cfg.a_bits)
     if gqp is not None and impl in ("fused", "taps"):

@@ -11,11 +11,17 @@ The mid-block attention always goes through `fused_attention`: on the GPU
 that is the K2 flash kernel, which streams K/V through shared memory, so the
 TPU's VMEM cap and its chunked-softmax branch do not apply; on the CPU it is
 the plain materialized softmax.
+
+`hf_vae_to_params` converts an HF AutoencoderKL state dict (decoder side),
+whose tensors are already in the port's layouts; `latents_to_images` turns
+decoded images into uint8 arrays.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dgq_tpu_torch.io.convert import _tensor
 from dgq_tpu_torch.models.layers import conv2d, group_norm, linear, silu, upsample_nearest2x
 from dgq_tpu_torch.models.unet_sd import init_unet_sd
 from dgq_tpu_torch.ops.attention import fused_attention
@@ -110,3 +116,32 @@ def vae_decoder_spec(base: int = 128):
 def init_vae_decoder(generator: torch.Generator, device="cuda", base: int = 128,
                      dtype=torch.float32) -> dict:
     return init_unet_sd(generator, device, dtype, spec=vae_decoder_spec(base))
+
+
+def hf_vae_to_params(state: dict, device="cuda") -> dict:
+    """An HF AutoencoderKL state dict (arrays or tensors) -> decoder params:
+    the 'decoder.*' and 'post_quant_conv.*' keys; norms {'scale', 'bias'},
+    convs and linears {'w', 'b'} in the layouts they come in."""
+    params: dict = {}
+    for k, v in state.items():
+        if not (k.startswith("decoder.") or k.startswith("post_quant_conv")):
+            continue
+        base, leaf = k.rsplit(".", 1)
+        v = _tensor(v, device)
+        p = params.setdefault(base, {})
+        if v.dim() >= 2:
+            p["w" if leaf == "weight" else "b"] = v
+        elif leaf == "weight":
+            p["scale"] = v  # a norm's scale
+        elif leaf == "bias":
+            p["bias" if "norm" in base else "b"] = v
+    return {name: ({"scale": p.get("scale"), "bias": p.get("bias")} if "norm" in name
+                   else {"w": p.get("w"), "b": p.get("b")})
+            for name, p in params.items()}
+
+
+def latents_to_images(images: torch.Tensor) -> np.ndarray:
+    """Decoded NHWC images in about [-1, 1] -> uint8 numpy (computed in the
+    images' dtype, as the JAX package does)."""
+    arr = torch.clamp(images / 2 + 0.5, 0.0, 1.0)
+    return (arr * 255).round().to(torch.uint8).cpu().numpy()

@@ -209,10 +209,11 @@ def test_port_imports_no_jax():
             "dgq_tpu_torch.pipeline.vae, dgq_tpu_torch.io.convert, "
             "dgq_tpu_torch.calib.weight_calib, dgq_tpu_torch.utils.synthetic, "
             "dgq_tpu_torch.ops.build, dgq_tpu_torch.ops.group_conv, "
-            "dgq_tpu_torch.ops.int8_matmul, dgq_tpu_torch.models.unet_sdxl, chip_smoke, "
-            "chip_profile\n"
+            "dgq_tpu_torch.ops.int8_matmul, dgq_tpu_torch.models.unet_sdxl, "
+            "dgq_tpu_torch.io.dgq_ckpt, dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
+            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, chip_smoke, chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'dgq_tpu', 'sklearn', 'transformers')]\n"
+            "('jax', 'dgq_tpu', 'sklearn', 'transformers', 'safetensors', 'PIL')]\n"
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
@@ -229,7 +230,9 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
             "dgq_tpu_torch.io.convert, dgq_tpu_torch.calib.weight_calib, "
             "dgq_tpu_torch.utils.synthetic, dgq_tpu_torch.ops.build, "
             "dgq_tpu_torch.ops.group_conv, dgq_tpu_torch.ops.int8_matmul, "
-            "dgq_tpu_torch.models.unet_sdxl\n"
+            "dgq_tpu_torch.models.unet_sdxl, dgq_tpu_torch.io.dgq_ckpt, "
+            "dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
+            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
