@@ -54,6 +54,15 @@ Phases (any failure raises, so the exit code is non-zero):
      f32 kernel bodies these runs take against their plain versions; then
      the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
+  6. `calib_path`, after `cli_path`: calibration without reconstruction from
+     the port alone at full width (SD v1.4, 512px, f32, random weights from
+     seed 42, CALI_PROMPTS prompts and CALI_STEPS PNDM steps): the MSE
+     weight scales and the tiny net's g=2 calibration on the card against
+     the CPU; `cli.quantize_weight.main --cali --no_recon --use_aq
+     --pallas_attn` (g=1, K1 / K2), `cli.quantize_act.main --group_num 8`
+     with the t2i flags and --pallas_attn (K3b), every checkpoint read back
+     bit for bit; `cli.ckpt_tools merge` and `cli.infer.main` on the result
+     (K3b, K5). Seconds, peak memory and exact launch counts of each run.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
@@ -1422,8 +1431,9 @@ def _scaled_slots(qstate, t_slots):
 
 
 def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag):
-    """load_merged of `path` on the card gives `params`, `wqp` and every
-    slot's qstate bit for bit, and the group layers. Returns its seconds."""
+    """load_merged of `path` on the card gives `params`, `wqp` (None for an
+    activation checkpoint) and every slot's qstate bit for bit, and the group
+    layers. Returns its seconds."""
     import os
 
     import torch
@@ -1434,8 +1444,11 @@ def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag)
     p2, w2, al2, pt2, gl2 = load_merged(path, spec, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    same = (not al2 and gl2 == tuple(group_layers) and set(pt2) == set(per_t)
-            and set(w2) == set(wqp) and set(p2) == set(params))
+    same = not al2 and gl2 == tuple(group_layers) and set(pt2) == set(per_t)
+    if params is None:  # an activation checkpoint: no weights in it
+        same = same and p2 is None and w2 is None
+        params = wqp = p2 = w2 = {}
+    same = same and set(w2) == set(wqp) and set(p2) == set(params)
     same = same and all(torch.equal(a, p2[n][k]) for n, p in params.items()
                         for k, a in p.items() if a is not None)
     same = same and all(torch.equal(qp.delta, w2[n].delta)
@@ -1823,6 +1836,393 @@ def cli_path(tag):
     return {label: r["launches"] for label, r in results.items()}
 
 
+# ------------------------------------------------------------ calib_path ----
+CALI_PROMPTS = 2  # the CLIs' --cali_prompt_data_n, 64 in the scripts
+CALI_STEPS = 5    # the CLIs' --step_size, 25 for SD in the scripts: 6 PNDM calls
+CALI_TINY_DRAWS = 8
+CALI_BATCH = 8    # the CLIs' calibration batch for SD (cut to the slot's interval)
+TINY_RTOL = 1e-5  # a leaf no perturbation moved: zero points equal, deltas this close
+
+
+def _tiny_runs(params_q, spec, cali, device):
+    """The tiny SD net's two calibrations on `device` (one slot of two
+    samples), each -> (per_t, group layers, {kernel: launches}):
+      "full": `calibrate_activations`, g=2, W8A8 with the t2i flags and the
+          fused attention (K3b in every forward): what the CLI runs, and
+          chaotic (the live quantizers turn any change of the input into
+          other ranges, k-means partitions and axes);
+      "stage": `init_act_qstate` in one chunk and `group_calibrate_qstate`
+          from an empty state, W8A8 without the t2i flags: no quantizer is
+          live, so a change of 1e-6 moves no zero point and no axis (the
+          attention runs K2), and the card must give the CPU's groups."""
+    from dgq_tpu_torch.calib.act_calib import (
+        calibrate_activations,
+        group_calibrate_qstate,
+        init_act_qstate,
+    )
+    from dgq_tpu_torch.models.qconfig import QConfig
+
+    if device == "cuda":
+        params_q, cali = _to_cuda(params_q), tuple(c.cuda() for c in cali)
+    base = dict(w_bits=8, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+                use_pallas_attention=True)
+    full = QConfig(**base, t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True)
+    stage = QConfig(**base)
+    out = {}
+    _reset_launch_counts()
+    out["full"] = calibrate_activations(params_q, spec, full, cali, interval=2, group_num=2,
+                                        batch_size=2, init_chunk=500) + (_launch_counts(),)
+    _reset_launch_counts()
+    init, _ = init_act_qstate(params_q, cali, spec, stage, chunk=500)
+    grouped, gl = group_calibrate_qstate(params_q, {"a": {}, "sm": {}}, [cali], stage, spec, 2)
+    out["stage"] = ({"init": init, "group": grouped}, gl, _launch_counts())
+    return out
+
+
+def calib_reference():
+    """calib_path's CPU side (no card, no kernel; it runs while the compilers
+    do): the tiny net (base 32, weights and data from seed 3), both its
+    calibrations on the CPU on its latents and on CALI_TINY_DRAWS copies
+    moved by 1e-6; its tap order under (e)'s and (f)'s flags (the names and
+    order of the full-width net, whose spec has the same layers); and the MSE
+    weight scales of one full-width SD weight (down_blocks.0.resnets.0.conv1,
+    320 x 2880) on the CPU."""
+    import torch
+    from dgq_tpu_torch.calib.act_calib import tap_execution_order
+    from dgq_tpu_torch.calib.weight_calib import quantize_model_weights
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.models.unet_sd import init_unet_sd, sd_unet_spec
+    from dgq_tpu_torch.quant.scalers import init_scale_channelwise
+
+    g = torch.Generator().manual_seed(3)
+    spec = sd_unet_spec(base=32, cross=64)
+    params = init_unet_sd(g, "cpu", spec=spec)
+    cali = (torch.randn(2, 16, 16, 4, generator=g), torch.tensor([801, 801], dtype=torch.int32),
+            torch.randn(2, 77, 64, generator=g))
+    params_q, _ = quantize_model_weights(params, spec, QConfig(w_bits=8, use_wq=True))
+    ref = _tiny_runs(params_q, spec, cali, "cpu")
+    gp = torch.Generator().manual_seed(4)
+    moved = [_tiny_runs(params_q, spec, (cali[0] + 1e-6 * torch.randn(cali[0].shape, generator=gp),)
+                        + cali[1:], "cpu") for _ in range(CALI_TINY_DRAWS)]
+    t2i = dict(t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True)
+    order = {lbl: tap_execution_order(params, tuple(c[:1] for c in cali),
+                                      QConfig(use_aq=True, use_pallas_attention=True, **kw))
+             for lbl, kw in (("e", {}), ("f", t2i))}
+    w = torch.randn(320, 320, 3, 3, generator=torch.Generator().manual_seed(5)) / 2880 ** 0.5
+    return {"tiny": (params_q, spec, cali), "ref": ref, "moved": moved, "order": order,
+            "tiny_names": [n for n, _, _ in spec], "w": w,
+            "w_qp": init_scale_channelwise(w, 4, "mse")}
+
+
+def _tiny_check(tag, ref):
+    """calib_path (0), the tiny net: both calibrations on the card against
+    the CPU. Every leaf that none of the CPU's CALI_TINY_DRAWS perturbations
+    moved must be the CPU's (zero points equal, deltas within TINY_RTOL
+    relative), and so must every group layer. "stage" is not chaotic: nine
+    in ten leaves at least must be stable there, and every axis equal.
+    "full" is: the perturbations move most leaves, so its deltas and zero
+    points are held only to 5x their largest change and its differing axes
+    to 5x the most one perturbation flips, and an axis may differ only on a
+    point whose grid they moved (each such axis is printed as its
+    witness)."""
+    import torch
+    from dgq_tpu_torch.calib.act_calib import group_axes, moved_leaves, state_gap, state_leaves
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = _tiny_runs(*ref["tiny"], "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+    failed = []
+    for run, kernels in (("full", ("rt_stats", "quant_accum")), ("stage", ("flash_attention",))):
+        cpu, cpu_gl, _ = ref["ref"][run]
+        got, got_gl, launched = card[run]
+        perturbed = [m[run][0] for m in ref["moved"]]
+        leaves = set(state_leaves(cpu))
+        moved = set().union(*(moved_leaves(cpu, m, TINY_RTOL) for m in perturbed))
+        stable = leaves - moved
+        off = sorted(moved_leaves(cpu, got, TINY_RTOL) & stable)
+        ca, ka = group_axes(cpu), group_axes(got)
+        differ = sorted(k for k in ca if ca[k] != ka.get(k))
+        unexplained = [k for k in differ if k not in {(s, n) for s, _, n in moved}]
+        err_d, err_z = state_gap(cpu, got)
+        chaos_d = max(state_gap(cpu, m)[0] for m in perturbed)
+        chaos_z = max(state_gap(cpu, m)[1] for m in perturbed)
+        flips = max(sum(v != ca[k] for k, v in group_axes(m).items()) for m in perturbed)
+        launched = {n: c for n, c in launched.items() if c}
+        print(f"calib_path: tiny SD {run} calibration, card against CPU: {len(stable)} of "
+              f"{len(leaves)} leaves no perturbation moved, {len(off)} of them off the CPU's "
+              f"(zero points equal, deltas within {TINY_RTOL:g} relative)"
+              f"{': ' + str(off[:3]) if off else ''}; "
+              f"delta max |d| {err_d:.6g} (the perturbations' {chaos_d:.6g}), zero point max "
+              f"|d| {err_z:.6g} (theirs {chaos_z:.6g}); group layers "
+              f"{len(got_gl)} (CPU {len(cpu_gl)}, {'equal' if got_gl == cpu_gl else 'DIFFERENT'}); "
+              f"group axes: {len(differ)} of {len(ca)} (point, slot) choices differ, "
+              f"{len(unexplained)} on points no perturbation moved (a perturbation flips up to "
+              f"{flips}); launches {launched} | {tag}",
+              flush=True)
+        for k in differ:
+            flipped = sum(group_axes(m).get(k) != ca[k] for m in perturbed)
+            print(f"calib_path:   witness {run} {k[1]} ({k[0]}): CPU groups the "
+                  f"{'last' if ca[k] else 'mid'} axis, the card the {'last' if ka[k] else 'mid'}; "
+                  f"{flipped} of {len(perturbed)} perturbations flip it | {tag}", flush=True)
+        if off or got_gl != cpu_gl or unexplained or any(not launched.get(k) for k in kernels):
+            failed.append(run)
+        if run == "full" and (err_d > max(5 * chaos_d, 1e-6) or err_z > max(5 * chaos_z, 1e-6)
+                              or len(differ) > 5 * flips):
+            failed.append(run)
+        if run == "stage" and (differ or len(stable) < 0.9 * len(leaves)):
+            failed.append("stage: an axis differs, or the CPU's perturbations moved over a tenth "
+                          "of its leaves")
+    if failed:
+        raise AssertionError(f"calib_path: the tiny net's calibration on the card is not the "
+                             f"CPU's: {failed}")
+
+
+def _counting_unet(counts):
+    """unet_sd_apply that counts its forwards into `counts`: all of them,
+    and those whose flags send attention to the kernels."""
+    from dgq_tpu_torch.models import unet_sd
+
+    real = unet_sd.unet_sd_apply
+
+    def apply(params, *args, qstate=None, cfg=None, **kw):
+        counts["forwards"] += 1
+        if cfg is not None and cfg.use_pallas_attention:
+            counts["kernel_forwards"] += 1
+        return real(params, *args, qstate=qstate, cfg=cfg, **kw)
+    return apply
+
+
+def _check_calibrated(label, per_t, spec, tag):
+    """Every activation quantizer has a state in every slot, every delta is
+    finite and positive. Prints the group-quantized points' axes."""
+    import numpy as np
+    from dgq_tpu_torch.calib.act_calib import act_qpoint_names, group_axes, state_leaves
+
+    names = act_qpoint_names(spec)
+    for slot, qs in per_t.items():
+        missing = [n for n in names if n not in qs["a"]]
+        if missing:
+            raise AssertionError(f"{label} {slot}: no state for {missing[:4]}")
+    bad = [k for k, (d, _) in state_leaves(per_t).items()
+           if not (np.isfinite(d).all() and (d > 0).all())]
+    if bad:
+        raise AssertionError(f"{label}: deltas not finite and positive at {bad[:4]}")
+    axes = group_axes(per_t)
+    layers = sorted({n for _, n in axes})
+    mixed = [n for n in layers if len({axes[(s, n)] for s in per_t}) > 1]
+    last = sum(v for v in axes.values())
+    print(f"{label}: {len(per_t)} slots, {len(per_t['act_0']['a'])} activation quantizers a "
+          f"slot, every delta finite and > 0; {len(layers)} group-quantized points, "
+          f"{len(axes) - last} (point, slot) choices of the mid axis and {last} of the last "
+          f"axis, {len(mixed)} points mixed across slots | {tag}", flush=True)
+
+
+def calib_path(tag, ref):
+    """Phase 6: calibration without reconstruction at full width, from the
+    port alone (random SD v1.4 weights from seed 42, f32 as the JAX CLIs
+    run, 512px, the calibration cut to CALI_PROMPTS prompts and CALI_STEPS
+    PNDM steps: 6 time slots of 4 samples, batch 4):
+      (0) the card against the CPU: MSE weight scales of one full-width
+          weight; the tiny net's g=2 calibration (fused attention, t2i
+          flags), within 5x the largest change of the CPU run under
+          CALI_TINY_DRAWS perturbations of 1e-6 (deltas, zero points, and
+          the count of group-axis choices that differ: this random-weight
+          net's quantized forward is chaotic, and a perturbation of 1e-6
+          flips a few axes), with the same group layers;
+      (e) `cli.quantize_weight.main`: --wq 4 --cali --no_recon --use_aq
+          --pallas_attn (MSE scales over 859.52M parameters, g=1 activation
+          calibration through K1 / K2);
+      (f) `cli.quantize_act.main` on (e)'s weight-only file: --group_num 8,
+          the four t2i flags, --pallas_attn (K3b in every forward);
+      (g) `cli.ckpt_tools merge`, then `cli.infer.main` on the merged file
+          (--use_aq --use_group, the t2i flags, --pallas_attn --group_impl
+          fused, CALI_STEPS PNDM steps, 2 images through an HF-named VAE).
+    Each checkpoint is read back bit for bit, each run's kernel launches are
+    exact, and the first quantized forward's relative error with the
+    calibrated g=8 state is printed beside that of `synthetic_group_qstate`."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes, conv_meta_by_name, group_axes
+    from dgq_tpu_torch.calib.weight_calib import fold_weight_quant
+    from dgq_tpu_torch.cli import ckpt_tools, infer, quantize_act, quantize_weight
+    from dgq_tpu_torch.io import dgq_ckpt
+    from dgq_tpu_torch.io.convert import params_to_torch_unet
+    from dgq_tpu_torch.models import unet_sd
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.pipeline.schedulers import make_pndm
+    from dgq_tpu_torch.pipeline.vae import init_vae_decoder, vae_decoder_spec
+    from dgq_tpu_torch.quant.scalers import init_scale_channelwise, lp_loss
+    from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate
+
+    print(f"calib_path: cuts: --cali_prompt_data_n 64 -> {CALI_PROMPTS}, --step_size 25 -> "
+          f"{CALI_STEPS} ({CALI_STEPS + 1} time slots, interval {2 * CALI_PROMPTS}, so the "
+          f"calibration batch is {2 * CALI_PROMPTS}, not 8); widths, depth and 512px not cut "
+          f"| {tag}", flush=True)
+
+    # (0) the card against the CPU
+    w_card = init_scale_channelwise(ref["w"].cuda(), 4, "mse")
+    d_cpu, d_card = ref["w_qp"].delta.reshape(-1), w_card.delta.cpu().reshape(-1)
+    z_cpu, z_card = ref["w_qp"].zero_point.reshape(-1), w_card.zero_point.cpu().reshape(-1)
+    rows = ((d_cpu - d_card).abs() > 1e-6 * d_cpu.abs()) | (z_cpu != z_card)
+    flat = ref["w"].reshape(320, -1).double()
+
+    def loss(d, z):
+        q = torch.clamp(torch.round(flat / d[:, None]) + z[:, None], 0, 15)
+        return lp_loss(d[:, None] * (q - z[:, None]), flat, p=2.4, dim=1)
+    tie = (loss(d_cpu.double(), z_cpu.double()) - loss(d_card.double(), z_card.double())).abs()
+    tie_ok = bool((tie[rows] <= 1e-6 * loss(d_cpu.double(), z_cpu.double())[rows]).all())
+    print(f"calib_path: MSE scales of down_blocks.0.resnets.0.conv1 (320 x 2880, W4), card "
+          f"against CPU: {int(rows.sum())} of 320 rows on another grid point (their losses "
+          f"equal within 1e-6: {tie_ok}), the rest within 1e-6 relative | {tag}", flush=True)
+    if not tie_ok:
+        raise AssertionError("calib_path: the card's MSE scales differ from the CPU's")
+    _tiny_check(tag, ref)
+
+    spec = unet_sd.sd_unet_spec()
+    n_att = len(attention_prefixes(spec))
+    if ref["tiny_names"] != [n for n, _, _ in spec]:
+        raise AssertionError("calib_path: the tiny net's layers are not SD v1.4's")
+    # The expected launches, from the tap order (the tiny net's, whose layers
+    # are SD v1.4's), the chunk of 32 taps and the batches of a slot: per
+    # slot one forward for the order, one a chunk and one a batch (the EMA
+    # pass of (e), the group statistics of (f)). In (e) an attention runs K1
+    # once its softmax quantizer has a scale, from the chunk after the one
+    # holding its aqtizer_w, and K2 before; in (f) every attention runs K3b.
+    slots = CALI_STEPS + 1
+    batches = -(-2 * CALI_PROMPTS // min(CALI_BATCH, 2 * CALI_PROMPTS))
+
+    def plan(order):
+        chunks = range(0, len(order), 32)
+        k1 = sum(sum(n.endswith(".aqtizer_w") for n in order[:c]) for c in chunks)
+        return slots * (1 + len(chunks) + batches), slots * (k1 + batches * n_att)
+    fwd_e, k1_e = plan(ref["order"]["e"])
+    fwd_f, _ = plan(ref["order"]["f"])
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(tmp_root, exist_ok=True)
+    real_apply = unet_sd.unet_sd_apply
+
+    def run_cli(label, fn, argv, forwards, want):
+        """fn(argv) with its forwards counted; its seconds, peak memory and
+        launches printed, the forwards that reach the kernels held to
+        `forwards` and the launches to want(those forwards)."""
+        counts = {"forwards": 0, "kernel_forwards": 0}
+        unet_sd.unet_sd_apply = _counting_unet(counts)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            res = fn(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            unet_sd.unet_sd_apply = real_apply
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {n: c for n, c in _launch_counts().items() if c}
+        want = {n: c for n, c in want(counts["kernel_forwards"]).items() if c}
+        s = res.get("seconds", {})
+        print(f"calib_path {label}: {seconds:.2f} s, peak {peak:.2f} GiB allocated; "
+              + (f"MSE weight-scale init {s['weight_init']:.2f} s over 859.52M parameters; "
+                 if "weight_init" in s else "")
+              + (f"calibration data {s['cali_data']:.2f} s; activation calibration per time "
+                 f"slot {', '.join(f'{v:.2f}' for v in s['act_slots'])} s; " if s else "")
+              + f"{counts['forwards']} UNet forwards, {counts['kernel_forwards']} with the "
+              f"kernels' attention (expected {forwards}); launches {got} (expected {want}) | "
+              f"{tag}", flush=True)
+        if counts["kernel_forwards"] != forwards or got != want:
+            raise AssertionError(f"calib_path {label}: {counts['kernel_forwards']} forwards, "
+                                 f"launches {got}; expected {forwards} and {want}")
+        return res
+
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        common = ["--model", "sd", "--wq", "4", "--cali_prompt_data_n", str(CALI_PROMPTS),
+                  "--step_size", str(CALI_STEPS), "--outdir", os.path.join(tmp, "results"),
+                  "--cali_data_path", os.path.join(tmp, "cali"), "--pallas_attn"]
+        t2i = ["--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak", "--time_aware_aqtizer"]
+        w = run_cli("(e) quantize_weight", quantize_weight.main,
+                    common + ["--cali", "--no_recon", "--use_aq"], fwd_e,
+                    lambda f: {"static_uniform_attention": k1_e, "flash_attention": n_att * f - k1_e})
+        _check_calibrated("calib_path (e) g=1", w["per_t"], spec, tag)
+        _assert_round_trip("calib_path (e) weight-only", w["weight_only"], spec, w["params"],
+                           w["wqp"], {}, (), tag)
+        _assert_round_trip("calib_path (e) merged g=1", w["merged"], spec, w["params"], w["wqp"],
+                           w["per_t"], (), tag)
+        weight_only = w["weight_only"]
+        del w
+        a = run_cli("(f) quantize_act", quantize_act.main,
+                    common + ["--cali_ckpt", weight_only, "--aq", "8", "--softmax_a_bit", "8",
+                              "--group_num", "8"] + t2i, fwd_f,
+                    lambda f: {"rt_stats": n_att * f, "quant_accum": n_att * f})
+        _check_calibrated("calib_path (f) g=8", a["per_t"], spec, tag)
+        if not a["group_layers"]:
+            raise AssertionError("calib_path (f): no group layers")
+        _assert_round_trip("calib_path (f) activations g=8", a["act_ckpt"], spec, None, None,
+                           a["per_t"], a["group_layers"], tag)
+
+        # the first quantized forward against the fp one: the calibrated g=8
+        # state (slot 0) beside synthetic_group_qstate
+        params, wqp, _ = dgq_ckpt.load_weight_only(weight_only, spec)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn(2, 64, 64, 4, generator=g, device="cuda")
+        ehs = torch.randn(2, 77, 768, generator=g, device="cuda")
+        t = torch.full((2,), int(make_pndm(CALI_STEPS).timesteps[0]), dtype=torch.int32,
+                       device="cuda")
+        syn, syn_gl = synthetic_group_qstate(spec, 0, False, torch.float32, device="cuda")
+        cfg = QConfig(w_bits=4, a_bits=8, **_g8_kwargs(tuple(a["group_layers"]), "fused"))
+        rel = {}
+        with torch.no_grad():
+            params_q = fold_weight_quant(params, wqp, spec, cfg)
+            eps = real_apply(params, x, t, ehs)
+            for lbl, qs, gl in (("calibrated", a["per_t"]["act_0"], a["group_layers"]),
+                                ("synthetic_group_qstate", syn, syn_gl)):
+                e = real_apply(params_q, x, t, ehs, qstate=qs,
+                               cfg=cfg.replace(group_conv_layers=tuple(gl)))
+                rel[lbl] = float((e - eps).norm() / eps.norm())
+        del params, wqp, params_q, syn, eps, e
+        print(f"calib_path: first quantized forward, ||eps_q - eps_fp|| / ||eps_fp|| at t = "
+              f"{int(t[0])}: calibrated g=8 state (slot 0) {rel['calibrated']:.6g}, "
+              f"synthetic_group_qstate {rel['synthetic_group_qstate']:.6g} | {tag}", flush=True)
+
+        # (g) merge, then the inference CLI on the merged file
+        merged = os.path.join(tmp, "sd_w4a8g8_merged.pth")
+        if ckpt_tools.main(["merge", weight_only, a["act_ckpt"], merged]) != 0:
+            raise AssertionError("calib_path (g): ckpt_tools merge failed")
+        vae_dir = os.path.join(tmp, "vae")
+        os.makedirs(vae_dir)
+        torch.save(params_to_torch_unet(init_vae_decoder(g, "cuda"), vae_decoder_spec()),
+                   os.path.join(vae_dir, "diffusion_pytorch_model.bin"))
+        # K5 takes a group conv of stride 1 whose groups lie on the mid
+        # (C·kh·kw) axis in every slot: a point whose axis differs across
+        # slots stacks a full-length last axis everywhere and runs the taps
+        meta = conv_meta_by_name(spec)
+        axes = group_axes(a["per_t"])
+        k5_convs = sum(meta[n][3] == 1 and not any(axes[(s, n)] for s in a["per_t"])
+                       for n in a["group_layers"])
+        del a
+        res = run_cli("(g) infer", infer.main,
+                      ["--model", "sd", "--cali_ckpt", merged, "--use_aq", "--use_group",
+                       "--num_inference_steps", str(CALI_STEPS), "--vae_weights", vae_dir,
+                       "--outdir", tmp, "--pallas_attn", "--group_impl", "fused"] + t2i,
+                      CALI_STEPS + 1,  # one batched forward a PNDM call
+                      lambda f: {"flash_attention": 2,  # the VAE's attention, two decodes
+                                 "rt_stats": n_att * f, "quant_accum": n_att * f,
+                                 "group_quant_conv": k5_convs * f})
+        images = [np.load(o) for o in res["outputs"]]
+        print(f"calib_path (g) infer: {[os.path.basename(o) for o in res['outputs']]}, load + "
+              f"fold {res['load_fold_s']:.2f} s, runs {res['run_s']} s; K5 on {k5_convs} convs "
+              f"a forward, the others on taps (last-axis or mixed-axis groups, stride 2) | "
+              f"{tag}", flush=True)
+        if len(images) != 4 or any(i.shape != (512, 512, 3) or i.dtype != np.uint8 for i in images):
+            raise AssertionError("calib_path (g): not four uint8 images of 512px")
+    torch.cuda.empty_cache()
+
+
 def build_sdxl_model(tag):
     """SDXL-turbo at full width with W4-folded bf16 weights and packed int8
     codes, the VAE decoder and the sampler's inputs at 1024px, all drawn on
@@ -2031,6 +2431,7 @@ def main():
     compiling.start()
     try:
         tiny_x, tiny_nets = small_input_reference()
+        calib_ref = calib_reference()
         cpu_seconds = time.perf_counter() - t0
     finally:
         compiling.join()
@@ -2039,7 +2440,8 @@ def main():
     paths = built["paths"]
     build.load_kernels()
     print(f"build: {built['seconds']:.2f} s beside {cpu_seconds:.2f} s of the tiny nets' CPU "
-          f"references ({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
+          f"references (small-input check and calib_path) "
+          f"({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
     print_build_report(paths, tag)
 
     def phase(fn, *args):
@@ -2058,6 +2460,8 @@ def main():
     launches = phase(main_paths, tag)
     torch.cuda.empty_cache()  # the SD model is gone
     phase(cli_path, tag)
+    torch.cuda.empty_cache()
+    phase(calib_path, tag, calib_ref)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     launches["int8_matmul"] = phase(sdxl_path, tag)["int8_matmul"]
 

@@ -1,8 +1,9 @@
-"""Weight quantization for deployment: per-out-channel scale init and
+"""Weight quantization: per-out-channel scale init with any scaler of
+`quant.scalers` (minmax, or the MSE search of `cli.quantize_weight --cali`),
 load-time folding (nearest rounding, or AdaRound's learned rounding where a
-checkpoint carries its offsets), and the attention head packing (port of the
-deploy half of `dgq_tpu/calib/weight_calib.py`; the AdaRound reconstruction
-that learns the offsets waits for a later slice).
+checkpoint carries its offsets), and the attention head packing (port of
+`dgq_tpu/calib/weight_calib.py`; the AdaRound reconstruction that learns the
+offsets waits for a later slice).
 
 Weights are input-independent, so they are fake-quantized once at load and
 inference runs on the folded float weights. Torch layouts put the out

@@ -1,6 +1,7 @@
-"""Shared CLI plumbing, the inference half (port of `dgq_tpu/cli/common.py`):
-the device, model construction and weight loading, logging, and the
-quantization flags. The calibration half waits for slice 5.
+"""Shared CLI plumbing (port of `dgq_tpu/cli/common.py`): the device,
+model construction and weight loading, logging, the quantization flags, and
+the calibration inputs (prompt embeddings, calibration data and the cache
+key of their `.npz` file).
 
 The model is chosen by --model {sd,sdxl}; the DIFFUSERS_REWRITE environment
 variable gives the default, as in the reference.
@@ -9,11 +10,14 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import hashlib
 import logging
 import os
 import random
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -104,6 +108,182 @@ def load_prompts(path: str, num: int, seed: Optional[int] = None) -> list:
     if len(lines) <= num:
         return lines
     return random.Random(seed).sample(lines, num)
+
+
+def timed(device: str, fn):
+    """(fn(), seconds it took), the card synchronised at both ends."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def slot_clock(device: str, log):
+    """A `progress` callback for `calibrate_activations` that logs each
+    message and notes its time (the card synchronised), and a function that
+    gives the seconds between the notes: one a time slot."""
+    marks = []
+
+    def progress(msg):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        log.info(msg)
+    return progress, lambda: [b - a for a, b in zip(marks, marks[1:])]
+
+
+class _DictKey:
+    """Prints as `jax.tree_util.DictKey` does, for the JAX package's path
+    strings in `_params_fingerprint`."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __repr__(self):
+        return f"DictKey(key={self.key!r})"
+
+
+def _tree_leaves(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, path + (k,))
+        elif v is not None:
+            yield path + (k,), v
+
+
+def _params_fingerprint(params: dict) -> str:
+    """Content hash of a weight tree for calibration-cache keys: each leaf's
+    path and shape plus 17 strided values, a few KB hashed. The leaves are
+    taken in the JAX package's layouts (`io.convert.reference_layout`, the layout
+    `params_to_numpy` gives) under its path strings, so the same weights give
+    the same key in both packages. Only the sampled values leave the device."""
+    from dgq_tpu_torch.io.convert import reference_layout
+
+    h = hashlib.md5()
+    leaves = [(str(tuple(_DictKey(k) for k in path)), path[-1], v)
+              for path, v in _tree_leaves(params)]
+    for path_s, key, leaf in sorted(leaves, key=lambda kv: kv[0]):
+        leaf = reference_layout(key, torch.as_tensor(leaf))
+        h.update(path_s.encode())
+        h.update(str(tuple(leaf.shape)).encode())
+        stride = max(1, leaf.numel() // 16)
+        sample = leaf.reshape(-1)[::stride][:17].detach().cpu().double().numpy()
+        h.update(np.ascontiguousarray(sample).tobytes())
+    return h.hexdigest()[:12]
+
+
+def encode_cali_prompts(model_type: str, prompts: list, text_weights: str, tokenizer_path: str,
+                        text_weights_2: Optional[str] = None,
+                        tokenizer_2_path: Optional[str] = None, batch_size: int = 16,
+                        device="cuda"):
+    """Real captions through the CLIP text encoder(s), for calibration data.
+    SD: (text, uncond), the conditional and empty-prompt embeddings of the
+    CFG pair. SDXL-turbo (guidance 0): (ehs, pooled) of the dual encoders.
+    `transformers` is imported only for the tokenizers."""
+    from transformers import CLIPTokenizer
+
+    from dgq_tpu_torch.io.hf_loader import load_state_dict_any
+    from dgq_tpu_torch.pipeline.text_encoder import (
+        clip_meta_from_params,
+        clip_text_encode,
+        hf_clip_text_to_params,
+        sdxl_encode_prompt,
+    )
+
+    tok = CLIPTokenizer.from_pretrained(tokenizer_path)
+
+    def ids_of(tk, texts):
+        return torch.as_tensor(tk(texts, padding="max_length", max_length=77, truncation=True,
+                                  return_tensors="np").input_ids, device=device)
+
+    params = hf_clip_text_to_params(load_state_dict_any(text_weights), device)
+    layers, heads = clip_meta_from_params(params)
+    chunks = [list(prompts[i:i + batch_size]) for i in range(0, len(prompts), batch_size)]
+    if model_type == "sd":
+        texts = [clip_text_encode(params, ids_of(tok, c), layers, heads) for c in chunks]
+        unconds = [clip_text_encode(params, ids_of(tok, [""] * len(c)), layers, heads)
+                   for c in chunks]
+        return torch.cat(texts), torch.cat(unconds)
+    tok2 = CLIPTokenizer.from_pretrained(tokenizer_2_path) if tokenizer_2_path else tok
+    params2 = (hf_clip_text_to_params(load_state_dict_any(text_weights_2), device)
+               if text_weights_2 else params)
+    layers2, heads2 = clip_meta_from_params(params2)
+    ehss, pooleds = [], []
+    for c in chunks:
+        ehs, pooled = sdxl_encode_prompt(params, params2, ids_of(tok, c), ids_of(tok2, c),
+                                         layers_l=layers, heads_l=heads, layers_g=layers2,
+                                         heads_g=heads2, eos_id=tok2.eos_token_id)
+        ehss.append(ehs)
+        pooleds.append(pooled)
+    return torch.cat(ehss), torch.cat(pooleds)
+
+
+def cali_embeddings_from_args(args, model_type: str, cross: int, n_prompts: int, seed: int,
+                              pooled_dim: Optional[int] = None, device="cuda"):
+    """The calibration prompt embeddings of a CLI run: real captions through
+    real text-encoder weights when --prompt_path / --text_weights /
+    --tokenizer are given, synthetic embeddings otherwise. -> (pair, tag),
+    the tag for the cache key ('' for the synthetic path, a content hash of
+    the real embeddings otherwise)."""
+    from dgq_tpu_torch.calib.data import synthetic_prompt_embeddings, synthetic_sdxl_embeddings
+
+    prompt_path = getattr(args, "prompt_path", None)
+    if prompt_path:
+        missing = [f for f in ("text_weights", "tokenizer") if not getattr(args, f, None)]
+        if missing:
+            raise SystemExit(f"--prompt_path requires --{' --'.join(missing)} "
+                             "(caption-conditioned calibration needs the text encoder)")
+        prompts = load_prompts(prompt_path, n_prompts, seed=seed)
+        pair = encode_cali_prompts(model_type, prompts, args.text_weights, args.tokenizer,
+                                   text_weights_2=getattr(args, "text_weights_2", None),
+                                   tokenizer_2_path=getattr(args, "tokenizer_2", None),
+                                   device=device)
+        return pair, "_c" + _params_fingerprint({"t": pair[0], "u": pair[1]})
+    if model_type == "sd":
+        return synthetic_prompt_embeddings(n_prompts, dim=cross, seed=seed, device=device), ""
+    return synthetic_sdxl_embeddings(n_prompts, dim=cross,
+                                     pooled_dim=pooled_dim or pooled_dim_for(model_type),
+                                     seed=seed, device=device), ""
+
+
+def build_cali_data(model_type: str, params: dict, apply_fn, cross: int, n_prompts: int,
+                    steps: int, latent_hw: int, seed: int, cache_path: Optional[str] = None,
+                    pooled_dim: Optional[int] = None, cache_prefix: Optional[str] = None,
+                    embeds: Optional[tuple] = None, embeds_tag: str = ""):
+    """Generate (or load from the cache) calibration data for either model
+    family -> (cali_data, interval): SD (lmi, t, ehs) with CFG doubling,
+    SDXL-turbo (lmi, t, ehs, text_embeds, time_ids) at guidance 0.
+
+    embeds: the prompt embeddings pair (SD (text, uncond), SDXL (ehs,
+    pooled)); None draws synthetic ones on the weights' device. cache_prefix
+    derives the cache file name here, from everything that changes the data
+    (prompts, steps, resolution, seed, a fingerprint of the weights), in the
+    JAX package's form; cache_path overrides it verbatim."""
+    from dgq_tpu_torch.calib.data import (
+        generate_sd_cali_data,
+        generate_sdxl_cali_data,
+        synthetic_prompt_embeddings,
+        synthetic_sdxl_embeddings,
+    )
+
+    if cache_path is None and cache_prefix is not None:
+        cache_path = (f"{cache_prefix}_{model_type}_{steps}steps_n{n_prompts}"
+                      f"_hw{latent_hw}_s{seed}_p{_params_fingerprint(params)}{embeds_tag}.npz")
+    device = params["conv_in"]["w"].device
+    if model_type == "sd":
+        text, uncond = embeds or synthetic_prompt_embeddings(n_prompts, dim=cross, seed=seed,
+                                                             device=device)
+        return generate_sd_cali_data(params, text, uncond, steps=steps, scheduler="pndm",
+                                     latent_hw=latent_hw, seed=seed, cache_path=cache_path,
+                                     unet_apply=apply_fn)
+    text, pooled = embeds or synthetic_sdxl_embeddings(
+        n_prompts, dim=cross, pooled_dim=pooled_dim or pooled_dim_for(model_type), seed=seed,
+        device=device)
+    return generate_sdxl_cali_data(params, text, pooled, steps=steps, latent_hw=latent_hw,
+                                   seed=seed, cache_path=cache_path, unet_apply=apply_fn)
 
 
 def parse_depths(s: str) -> tuple:

@@ -80,28 +80,30 @@ def params_from_numpy(params_np: dict, spec, device="cuda",
     return params
 
 
+def reference_layout(key: str, v: torch.Tensor) -> torch.Tensor:
+    """A params leaf viewed in the JAX package's layout: a conv weight 'w'
+    (OIHW) as HWIO, a linear 'w' (O, I) as (I, O), the packed codes 'w_q8'
+    as (K, N) and 'w_q8c' as HWIO; every other leaf as it is. A view, no
+    copy, on the leaf's own device."""
+    if key in ("w", "w_q8c") and v.dim() == 4:
+        return v.permute(2, 3, 1, 0)
+    if key in ("w", "w_q8") and v.dim() == 2:
+        return v.t()
+    return v
+
+
 def params_to_numpy(params: dict, spec) -> dict:
     """Inverse of params_from_numpy: torch params -> JAX-layout f32 numpy
     (HWIO convs, (I, O) linears), e.g. to run the same weights in JAX."""
     def leaf_np(key, v):
         if v is None:
             return None
-        v = v.detach().cpu()
-        return v.numpy() if key in ("w_q8", "w_q8c") else v.float().numpy()
+        v = reference_layout(key, v.detach().cpu())
+        if key == "w_q8":
+            return np.ascontiguousarray(v.numpy())
+        return v.numpy() if key == "w_q8c" else v.float().numpy()
 
-    out = {}
-    for name, kind, _ in spec:
-        p = {k: leaf_np(k, v) for k, v in params[name].items()}
-        if kind == "conv":
-            p["w"] = np.transpose(p["w"], (2, 3, 1, 0))
-        elif kind == "linear":
-            p["w"] = p["w"].T
-        if "w_q8" in p:
-            p["w_q8"] = np.ascontiguousarray(p["w_q8"].T)
-        if "w_q8c" in p:
-            p["w_q8c"] = np.transpose(p["w_q8c"], (2, 3, 1, 0))
-        out[name] = p
-    return out
+    return {name: {k: leaf_np(k, v) for k, v in params[name].items()} for name, _, _ in spec}
 
 
 def qstate_from_numpy(qstate_np: dict, device="cuda") -> dict:

@@ -22,6 +22,11 @@ and each group path reshapes it to (taps, C, O) or (taps*C, O).
 
 Params are dicts: conv {'w': OIHW, 'b': (O,)}, linear {'w': (O, I), 'b'},
 norms {'scale', 'bias'}.
+
+Calibration taps (`models.qconfig.collect_act_taps`) see every quantizer's
+pre-quant input, in the JAX package's order, on every path: a group conv
+publishes its unfolded input and the fused attention its post-softmax
+weights, both made only when the installed collector asks for that name.
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ from dgq_tpu_torch.models.qconfig import (
     GroupQParams,
     QConfig,
     QState,
+    _tap,
     aq_apply,
     softmax_q_apply,
+    taps_active,
 )
 from dgq_tpu_torch.ops.attention import fused_attention
 from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmul_f32acc
@@ -195,6 +202,9 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
     o, c, kh, kw = p["w"].shape
     gqp = (qstate or {}).get("a", {}).get(name)
     impl = cfg.group_conv_impl
+    if gqp is not None and impl in ("fused", "taps", "im2col"):
+        # the paths that never unfold still publish the unfolded layout
+        _tap_unfolded(name, x, kh, kw, stride, padding)
     if gqp is not None and impl == "fused" and fused_eligible(
             x.shape, o, kh, kw, stride, padding, gqp):
         # the mid axis is c-major (c, i, j); the kernel wants (tap, channel)
@@ -217,11 +227,21 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
         # axis (a bare (C,) would broadcast against the location axis L)
         d = gqp.delta.reshape(-1).repeat_interleave(kh * kw)
         z = gqp.zero_point.reshape(-1).expand(c).repeat_interleave(kh * kw)
+        _tap(name, x_unf)
         x_unf = fake_quant(x_unf, QParams(d.reshape(1, -1, 1), z.reshape(1, -1, 1)), cfg.a_bits)
     else:
         x_unf = aq_apply(qstate, cfg, name, x_unf)
     return conv2d_unfolded(p, x_unf.to(x.dtype), _out_hw(x.shape[1], x.shape[2], kh, kw,
                                                          stride, padding))
+
+
+def _tap_unfolded(name: str, x: torch.Tensor, kh: int, kw: int, stride: int,
+                  padding: int) -> None:
+    """Publish the unfolded (B, C*kh*kw, L) input of a group conv, made only
+    when the installed collector asks for `name`."""
+    b, h, w, c = x.shape
+    ho, wo = _out_hw(h, w, kh, kw, stride, padding)
+    _tap(name, lambda: unfold_nhwc(x, kh, kw, stride, padding), shape=(b, c * kh * kw, ho * wo))
 
 
 def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: QConfig,
@@ -240,9 +260,11 @@ def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: Q
         b, h, w, c = x.shape
         y = _int8_dispatch(p, x.reshape(b * h * w, c), qp, cfg)
         if y is not None:
+            _tap(name, x)
             return y.reshape(b, h, w, y.shape[-1])
     qpf = _fold_qp(qstate, cfg, name)
     if qpf is not None:
+        _tap(name, x)
         return _codes_conv2d(p, x, qpf, cfg, stride, padding)
     return conv2d(p, aq_apply(qstate, cfg, name, x).to(x.dtype), stride, padding)
 
@@ -390,9 +412,11 @@ def quant_linear(p, x: torch.Tensor, name: str, qstate: Optional[QState],
     if qp is not None:
         y = _int8_dispatch(p, x.reshape(-1, x.shape[-1]), qp, cfg)
         if y is not None:
+            _tap(name, x)
             return y.reshape(x.shape[:-1] + (y.shape[-1],))
     qpf = _fold_qp(qstate, cfg, name)
     if qpf is not None:
+        _tap(name, x)
         return _codes_linear(p, x, qpf, cfg)
     return linear(p, aq_apply(qstate, cfg, name, x).to(x.dtype))
 
@@ -544,7 +568,9 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
         # dp % 128 == 0: one head per slot. dp == 64 with an even head count:
         # slot-64 packed weights, and models whose heads are 64 wide already
         # (SDXL) with no weight packing at all.
-        if (cfg.use_pallas_attention and dp * num_heads == q.shape[-1]
+        # calibration taps need the reference layout: a collector turns the
+        # packed path off, as in the JAX package
+        if (cfg.use_pallas_attention and not taps_active() and dp * num_heads == q.shape[-1]
                 and (dp % 128 == 0 or (dp == 64 and num_heads % 2 == 0))):
             return _attention_packed(p, prefix, q, k, v, num_heads, head_dim, scale, qstate,
                                      cfg, start_peak, x.dtype)
@@ -565,9 +591,16 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
                        aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k[..., 1:, :])], dim=-2)
     else:
         k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k)
-    v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
 
     if cfg.use_pallas_attention:
+        v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
+
+        def softmax_tap():  # the post-softmax weights the fused kernels never hold
+            attn = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale,
+                                 dim=-1)
+            return attn[..., 1:] if start_peak else attn
+        _tap(f"{prefix}.aqtizer_w", softmax_tap,
+             shape=(b, num_heads, t, s - 1 if start_peak else s))
         sm_mode, sm_delta = _sm_select(qstate, cfg, prefix, q.device)
         out = fused_attention(
             q.reshape(b * num_heads, t, head_dim),
@@ -586,6 +619,8 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
                 softmax_q_apply(qstate, cfg, f"{prefix}.aqtizer_w", attn[..., 1:])], dim=-1)
         else:
             attn = softmax_q_apply(qstate, cfg, f"{prefix}.aqtizer_w", attn)
+        # aqtizer_v after aqtizer_w, the JAX package's tap order on this path
+        v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
         out = torch.matmul(attn.to(v.dtype), v)
     out = out.permute(0, 2, 1, 3).reshape(b, t, c).to(x.dtype)
     return _attn_out(p, prefix, out, qstate, cfg, num_heads)

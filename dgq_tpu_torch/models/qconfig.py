@@ -1,6 +1,5 @@
-"""Quantization configuration and runtime quantizer state (port of
-`dgq_tpu/models/qconfig.py`; the calibration taps `_tap` / `collect_act_taps`
-are left out until calibration is ported).
+"""Quantization configuration, runtime quantizer state and the activation
+taps of calibration (port of `dgq_tpu/models/qconfig.py`).
 
   * QConfig: the static policy, with the JAX package's field names so one
     dict builds both. The one field the port does not serve yet
@@ -8,11 +7,16 @@ are left out until calibration is ported).
   * QState: a plain dict {'a': {layer_name: QParams | GroupQParams},
     'sm': {attn_name: delta}}; time-aware states carry a leading [T] slot
     axis on every leaf.
+  * Taps: every activation-quantizer input publishes its pre-quant tensor
+    to the collector installed by `collect_act_taps`, also when quantization
+    is off (see `TapCollector`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -20,6 +24,74 @@ from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.log2 import log2_fake_quant, log2_real_time_quant
 
 QState = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Activation taps. The JAX package's collectors are jitted, so XLA drops
+# every tap a collector does not return. Here the forward is eager and a tap
+# costs whatever its collector keeps, so a collector names the taps it wants
+# and reduces each one where it is published: a full-width forward has
+# hundreds of taps, and one 64px self-attention softmax at batch 8 is 4.3 GB.
+# ---------------------------------------------------------------------------
+class TapCollector:
+    """Receives the taps of the forwards run under `collect_act_taps`.
+
+    names: the tap names to receive (None: every tap). reduce(name, x, prev)
+    -> the value stored under `name` (default: x itself; prev is the value
+    stored before, or None). shapes_only=True stores each tap's shape (a
+    tuple) and never makes a tap that is computed only for the collector
+    (the unfolded conv input, the post-softmax weights under the fused
+    attention). `store` keeps the values in the order of first publication."""
+
+    def __init__(self, names=None, reduce: Optional[Callable] = None,
+                 shapes_only: bool = False):
+        self.names = None if names is None else frozenset(names)
+        self.reduce = reduce
+        self.shapes_only = shapes_only
+        self.store: dict = {}
+
+    def wants(self, name: str) -> bool:
+        return self.names is None or name in self.names
+
+    def put(self, name: str, x, shape: Optional[tuple] = None) -> None:
+        """x: a tensor, or a function that makes the tensor of shape `shape`
+        (called only when the collector keeps more than shapes)."""
+        if not self.wants(name):
+            return
+        if self.shapes_only:
+            self.store[name] = tuple(x.shape if shape is None else shape)
+            return
+        if callable(x):
+            x = x()
+        self.store[name] = x if self.reduce is None else self.reduce(
+            name, x, self.store.get(name))
+
+
+_TAPS: contextvars.ContextVar[Optional[TapCollector]] = contextvars.ContextVar(
+    "dgq_torch_act_taps", default=None)
+
+
+@contextlib.contextmanager
+def collect_act_taps(collector: TapCollector):
+    token = _TAPS.set(collector)
+    try:
+        yield collector
+    finally:
+        _TAPS.reset(token)
+
+
+def _tap(name: str, x, shape: Optional[tuple] = None) -> None:
+    """Publish a pre-quant tensor (or, with `shape`, a function that makes
+    one that exists only for the collector) to the installed collector."""
+    c = _TAPS.get()
+    if c is not None:
+        c.put(name, x, shape)
+
+
+def taps_active() -> bool:
+    """True when a tap collector is installed."""
+    return _TAPS.get() is not None
+
 
 # field -> the ROADMAP item that ports it
 _NOT_PORTED = {
@@ -105,6 +177,7 @@ class GroupQParams:
 def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
              x: torch.Tensor) -> torch.Tensor:
     """Apply the activation quantizer registered for `name`, if any."""
+    _tap(name, x)
     if not cfg.use_aq or qstate is None:
         return x
     qp = qstate.get("a", {}).get(name)
@@ -130,6 +203,7 @@ def softmax_q_apply(qstate: Optional[QState], cfg: QConfig, name: str,
     """Quantize post-softmax attention weights (aqtizer_w): log2 when
     t2i_log_quant (per-call max under t2i_real_time, else a calibrated or
     pinned delta), otherwise a uniform always-zero affine quantizer."""
+    _tap(name, attn_weights)
     if not cfg.use_aq or qstate is None:
         return attn_weights
     if cfg.t2i_log_quant:

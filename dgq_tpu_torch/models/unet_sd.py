@@ -3,7 +3,7 @@
 The hardcoded SD v1.4 topology (320/640/1280 channels, one-layer
 transformers, twelve skip connections) as a function over a flat params
 dict keyed by the reference state-dict paths. The reconstruction capture
-(`record`, `inject_at`) is a calibration tool and waits for slice 5.
+(`record`, `inject_at`) serves weight reconstruction and waits for that slice.
 """
 from __future__ import annotations
 

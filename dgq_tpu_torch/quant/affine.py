@@ -4,6 +4,7 @@
 clamp(round(x/delta)+zp, NB, PB) then delta*(xq-zp), in the shifted-clip
 form, with a straight-through estimator on the round. Rounding is half to
 even, as `jnp.round`, so the results are bit-identical to the JAX package.
+The EMA range helpers serve activation calibration (`calib.act_calib`).
 """
 from __future__ import annotations
 
@@ -76,3 +77,35 @@ def dequantize_int(codes: torch.Tensor, qp: QParams, bits: int, symmetric: bool 
     """Inverse of quantize_int."""
     off = int_code_offset(bits, symmetric, always_zero)
     return (qp.delta * (codes.to(out_dtype) + off - qp.zero_point)).to(out_dtype)
+
+
+def ema_minmax_update(x: torch.Tensor, x_min, x_max, momentum: float = 0.95):
+    """EMA running min/max (the reference's act_momentum_update)."""
+    return (x_min * momentum + x.min() * (1.0 - momentum),
+            x_max * momentum + x.max() * (1.0 - momentum))
+
+
+def minmax_qparams_from_range(x_min, x_max, bits: int, symmetric: bool = False,
+                              always_zero: bool = False) -> QParams:
+    """Affine params for a known [min, max] range, as the minmax scaler gives
+    them for a tensor whose extremes are x_min / x_max (x_min clamped <= 0,
+    x_max >= 0). Python floats become float32 tensors, as `jnp.asarray`
+    makes them in the JAX package."""
+    x_min = torch.as_tensor(x_min, dtype=torch.float32)
+    x_max = torch.as_tensor(x_max, dtype=torch.float32)
+    level = 2 ** bits
+    lo = torch.clamp(x_min, max=0.0)
+    hi = torch.clamp(x_max, min=0.0)
+    delta = (hi - lo) / (level - 1)
+    if symmetric:
+        hi2 = torch.maximum(torch.abs(lo), hi)
+        lo = -hi2
+        delta = (hi2 - lo) / (level - 2)
+    if always_zero:
+        delta = hi / (level - 1)
+    delta = torch.clamp(delta, min=1e-8)
+    if symmetric or always_zero:
+        zero_point = torch.zeros_like(delta)
+    else:
+        zero_point = torch.round(-lo / delta)
+    return QParams(delta=delta, zero_point=zero_point)

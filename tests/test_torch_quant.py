@@ -95,8 +95,17 @@ def test_minmax_scalers_bit_identical(symmetric, always_zero):
 
 
 def test_unported_scalers_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        t_sc.init_scale_channelwise(torch.zeros(2, 3), 4, t_sc.Scaler.MSE)
+    """The scalers that once raised here are all ported
+    (tests/test_torch_calib_quant.py holds each against JAX): the channelwise
+    MSE search gives the JAX package's delta within 1e-6 relative and its
+    zero points exactly, and a name that is no scaler is refused."""
+    w = _rand(2, 3, seed=9)
+    j = j_sc.init_scale_channelwise(jnp.asarray(w), 4, j_sc.Scaler.MSE)
+    t = t_sc.init_scale_channelwise(torch.from_numpy(w), 4, t_sc.Scaler.MSE)
+    np.testing.assert_allclose(t.delta.numpy(), np.asarray(j.delta), rtol=1e-6)
+    _same(j.zero_point, t.zero_point)
+    with pytest.raises(ValueError):
+        t_sc.init_scale_channelwise(torch.zeros(2, 3), 4, "no-such-scaler")
 
 
 def test_aq_apply_and_softmax_q_apply_bit_identical():
@@ -211,7 +220,9 @@ def test_port_imports_no_jax():
             "dgq_tpu_torch.ops.build, dgq_tpu_torch.ops.group_conv, "
             "dgq_tpu_torch.ops.int8_matmul, dgq_tpu_torch.models.unet_sdxl, "
             "dgq_tpu_torch.io.dgq_ckpt, dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
-            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, chip_smoke, chip_profile\n"
+            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
+            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, chip_smoke, "
+            "chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers', 'safetensors', 'PIL')]\n"
             "assert not bad, bad")
@@ -232,7 +243,8 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
             "dgq_tpu_torch.ops.group_conv, dgq_tpu_torch.ops.int8_matmul, "
             "dgq_tpu_torch.models.unet_sdxl, dgq_tpu_torch.io.dgq_ckpt, "
             "dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
-            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools\n"
+            "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
+            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
