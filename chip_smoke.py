@@ -63,6 +63,18 @@ Phases (any failure raises, so the exit code is non-zero):
      with the t2i flags and --pallas_attn (K3b), every checkpoint read back
      bit for bit; `cli.ckpt_tools merge` and `cli.infer.main` on the result
      (K3b, K5). Seconds, peak memory and exact launch counts of each run.
+  7. `recon_path`, after `calib_path`: weight reconstruction (AdaRound /
+     BRECQ) at full width from the port alone (SD v1.4, 512px, f32, seed 42,
+     the same calibration cuts, RECON_ITERS Adam steps a unit): the tiny
+     net's walks on the card against the CPU at the CPU tests' limits (each
+     step's loss, the share of offsets within 1e-4); `cli.quantize_weight.main`'s
+     default path over all 78 units with --partial_dir, the same command
+     resumed bit for bit, the temporal block with the Fisher-weighted loss
+     (the whole UNet's backward at batch 8), no kernel launched in any of
+     them; `cli.infer.main --pallas_attn` on the reconstructed W4 file (K2 in
+     every UNet attention). Seconds a unit and an Adam step by unit kind
+     (`_ReconProbe` times the walk from outside it), peak memory, the
+     largest unit's captures a sample, the hours a 20000-step run would take.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
@@ -1995,6 +2007,46 @@ def _counting_unet(counts):
     return apply
 
 
+def _run_cli(phase, label, fn, argv, forwards, want, tag):
+    """fn(argv) with its UNet forwards counted; its seconds, peak memory and
+    launches printed, the forwards that reach the kernels held to `forwards`
+    and the launches to want(those forwards)."""
+    import torch
+    from dgq_tpu_torch.models import unet_sd
+
+    counts = {"forwards": 0, "kernel_forwards": 0}
+    real_apply = unet_sd.unet_sd_apply
+    unet_sd.unet_sd_apply = _counting_unet(counts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        unet_sd.unet_sd_apply = real_apply
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {n: c for n, c in _launch_counts().items() if c}
+    want = {n: c for n, c in want(counts["kernel_forwards"]).items() if c}
+    s = res.get("seconds", {})
+    print(f"{phase} {label}: {seconds:.2f} s, peak {peak:.2f} GiB allocated; "
+          + (f"MSE weight-scale init {s['weight_init']:.2f} s over 859.52M parameters; "
+             if "weight_init" in s else "")
+          + (f"calibration data {s['cali_data']:.2f} s; " if "cali_data" in s else "")
+          + (f"reconstruction {s['recon']:.2f} s; " if "recon" in s else "")
+          + (f"activation calibration per time slot "
+             f"{', '.join(f'{v:.2f}' for v in s['act_slots'])} s; " if "act_slots" in s else "")
+          + f"{counts['forwards']} UNet forwards, {counts['kernel_forwards']} with the "
+          f"kernels' attention (expected {forwards}); launches {got} (expected {want}) | "
+          f"{tag}", flush=True)
+    if counts["kernel_forwards"] != forwards or got != want:
+        raise AssertionError(f"{phase} {label}: {counts['kernel_forwards']} forwards, "
+                             f"launches {got}; expected {forwards} and {want}")
+    return res
+
+
 def _check_calibrated(label, per_t, spec, tag):
     """Every activation quantizer has a state in every slot, every delta is
     finite and positive. Prints the group-quantized points' axes."""
@@ -2108,37 +2160,7 @@ def calib_path(tag, ref):
     real_apply = unet_sd.unet_sd_apply
 
     def run_cli(label, fn, argv, forwards, want):
-        """fn(argv) with its forwards counted; its seconds, peak memory and
-        launches printed, the forwards that reach the kernels held to
-        `forwards` and the launches to want(those forwards)."""
-        counts = {"forwards": 0, "kernel_forwards": 0}
-        unet_sd.unet_sd_apply = _counting_unet(counts)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launch_counts()
-        try:
-            t0 = time.perf_counter()
-            res = fn(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            unet_sd.unet_sd_apply = real_apply
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        got = {n: c for n, c in _launch_counts().items() if c}
-        want = {n: c for n, c in want(counts["kernel_forwards"]).items() if c}
-        s = res.get("seconds", {})
-        print(f"calib_path {label}: {seconds:.2f} s, peak {peak:.2f} GiB allocated; "
-              + (f"MSE weight-scale init {s['weight_init']:.2f} s over 859.52M parameters; "
-                 if "weight_init" in s else "")
-              + (f"calibration data {s['cali_data']:.2f} s; activation calibration per time "
-                 f"slot {', '.join(f'{v:.2f}' for v in s['act_slots'])} s; " if s else "")
-              + f"{counts['forwards']} UNet forwards, {counts['kernel_forwards']} with the "
-              f"kernels' attention (expected {forwards}); launches {got} (expected {want}) | "
-              f"{tag}", flush=True)
-        if counts["kernel_forwards"] != forwards or got != want:
-            raise AssertionError(f"calib_path {label}: {counts['kernel_forwards']} forwards, "
-                                 f"launches {got}; expected {forwards} and {want}")
-        return res
+        return _run_cli("calib_path", label, fn, argv, forwards, want, tag)
 
     with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
         common = ["--model", "sd", "--wq", "4", "--cali_prompt_data_n", str(CALI_PROMPTS),
@@ -2220,6 +2242,345 @@ def calib_path(tag, ref):
               f"{tag}", flush=True)
         if len(images) != 4 or any(i.shape != (512, 512, 3) or i.dtype != np.uint8 for i in images):
             raise AssertionError("calib_path (g): not four uint8 images of 512px")
+    torch.cuda.empty_cache()
+
+
+RECON_ITERS = 20        # the CLI's --iters, 20000 by default
+RECON_LR = 1e-3         # reconstruct_unit's Adam rate
+RECON_FISHER_UNITS = 7  # (j)'s --max_units: the 7th unit is the first transformer
+RECON_UNITS_SD = 78     # reconstruction units of SD v1.4
+
+
+RECON_DEFAULT_SAMPLES = 4 * 64 * 26 // 2  # the CLI's default data size: 64 prompts, 25 steps
+
+
+class _ReconProbe:
+    """Times and records a reconstruction walk from outside it: while open,
+    the functions `calibrate_weights` calls in `calib.reconstruction` are
+    wrapped. `units` gets one dict a reconstructed unit, in order: 'name',
+    'kind', the seconds of its captures, folds, Fisher gradients and Adam
+    loop (the card synchronised around each call), 'iters', 'losses' (a
+    list), the bytes a sample of the captures its Adam loop holds, and for a
+    unit (not the temporal block) 'err_learned' / 'err_nearest' from
+    `unit_error` on its cached data. 'captures' counts the capture calls."""
+
+    NAMES = ("capture_unit_io", "fold_weight_quant", "capture_unit_grad", "reconstruct_unit",
+             "reconstruct_tib")
+
+    def __init__(self):
+        self.units, self.captures = [], 0
+        self._by_name, self._current, self._saved = {}, None, {}
+
+    def _unit(self, name, kind=None):
+        if name not in self._by_name:
+            self._by_name[name] = {"name": name, "kind": kind, "capture_s": 0.0, "fold_s": 0.0,
+                                   "grad_s": 0.0, "adam_s": 0.0}
+            self.units.append(self._by_name[name])
+        self._current = self._by_name[name]
+        if kind is not None:
+            self._current["kind"] = kind
+        return self._current
+
+    @staticmethod
+    def _timed(fn, *args, **kw):
+        import torch
+
+        sync = torch.cuda.synchronize if torch.cuda.is_initialized() else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        return out, time.perf_counter() - t0
+
+    def __enter__(self):
+        from dgq_tpu_torch.calib import reconstruction as TR
+
+        real = {n: getattr(TR, n) for n in self.NAMES}
+        self._saved = real
+
+        def capture(params, batch, unit_name, *args, **kw):
+            out, s = self._timed(real["capture_unit_io"], params, batch, unit_name, *args, **kw)
+            self.captures += 1
+            self._unit(unit_name)["capture_s"] += s
+            return out
+
+        def fold(*args, **kw):
+            out, s = self._timed(real["fold_weight_quant"], *args, **kw)
+            self._current["fold_s"] += s
+            return out
+
+        def grad(params_fp, params_q, batch, unit_name, *args, **kw):
+            out, s = self._timed(real["capture_unit_grad"], params_fp, params_q, batch,
+                                 unit_name, *args, **kw)
+            self._unit(unit_name)["grad_s"] += s
+            return out
+
+        def unit(key, u, params, wqp, inputs, outputs, cfg, **kw):
+            (alphas, losses), s = self._timed(real["reconstruct_unit"], key, u, params, wqp,
+                                              inputs, outputs, cfg, **kw)
+            held = sum(x.nbytes for x in inputs) + outputs.nbytes
+            if kw.get("cached_grads") is not None:
+                held += kw["cached_grads"].nbytes
+            r = self._unit(u.name, u.kind)
+            r.update(adam_s=s, iters=kw["iters"], losses=losses.tolist(),
+                     bytes_a_sample=held / outputs.shape[0])
+            r["err_learned"], r["err_nearest"] = TR.unit_error(u, params, wqp, alphas, inputs,
+                                                               outputs, cfg)
+            return alphas, losses
+
+        def tib(key, params, spec, *args, **kw):
+            (alphas, losses), s = self._timed(real["reconstruct_tib"], key, params, spec,
+                                              *args, **kw)
+            self._unit("time_embedding", "tib").update(adam_s=s, iters=kw["iters"],
+                                                       losses=losses.tolist(), bytes_a_sample=0)
+            return alphas, losses
+
+        for n, fn in zip(self.NAMES, (capture, fold, grad, unit, tib)):
+            setattr(TR, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from dgq_tpu_torch.calib import reconstruction as TR
+
+        for n, fn in self._saved.items():
+            setattr(TR, n, fn)
+
+
+def _tiny_recon(params, spec, cali, device):
+    """The tiny SD net's reconstruction walks on `device`, W4 minmax scales,
+    RECON_FISHER_UNITS units, RECON_ITERS Adam steps at batch 2, one capture
+    chunk: "mse" (asym) and "tib fisher_diag" -> {label: (offsets on the
+    CPU, the probe's unit records)}."""
+    from dgq_tpu_torch.calib.reconstruction import calibrate_weights
+    from dgq_tpu_torch.calib.weight_calib import init_weight_qparams
+    from dgq_tpu_torch.models.qconfig import QConfig
+
+    if device == "cuda":
+        params, cali = _to_cuda(params), tuple(c.cuda() for c in cali)
+    wqp = init_weight_qparams(params, spec, 4)
+    out = {}
+    for label, kw in (("mse", {}), ("tib fisher_diag", {"tib_recon": True,
+                                                         "opt_mode": "fisher_diag"})):
+        with _ReconProbe() as probe:
+            alphas = calibrate_weights(params, spec, QConfig(w_bits=4, use_wq=True), wqp, cali,
+                                       iters=RECON_ITERS, batch_size=2, capture_batch=4, seed=0,
+                                       max_units=RECON_FISHER_UNITS, **kw)
+        out[label] = ({n: a.cpu() for n, a in alphas.items()}, probe.units)
+    return out
+
+
+def recon_reference():
+    """recon_path's CPU side (it runs while the compilers do): the tiny SD
+    net (base 32, cross 64; weights and 4 samples at 16x16 from seed 11),
+    both walks of `_tiny_recon` on the CPU."""
+    import torch
+    from dgq_tpu_torch.models.unet_sd import init_unet_sd, sd_unet_spec
+
+    g = torch.Generator().manual_seed(11)
+    spec = sd_unet_spec(base=32, cross=64)
+    params = init_unet_sd(g, "cpu", spec=spec)
+    cali = (torch.randn(4, 16, 16, 4, generator=g),
+            torch.tensor([1, 250, 501, 999], dtype=torch.int32),
+            torch.randn(4, 77, 64, generator=g))
+    return {"tiny": (params, spec, cali), "ref": _tiny_recon(params, spec, cali, "cpu")}
+
+
+# the CPU tests' tolerances (tests/test_torch_recon_loops.py): each step's loss
+# within this relative gap, and more than RECON_NEAR_SHARE of the offsets
+# within 1e-4. The walk with the temporal block gets 1e-4, as the tests give
+# the temporal block: its sinusoidal input near 1000 rad differs by about
+# 1e-4 between two libms.
+RECON_LOSS_RTOL = {"mse": 5e-5, "tib fisher_diag": 1e-4}
+RECON_NEAR_SHARE = 0.9
+
+
+def _tiny_recon_check(tag, ref):
+    """recon_path (0): the tiny walks on the card (TF32 off) against the CPU,
+    with the CPU tests' tolerances: every step's loss of every unit within
+    RECON_LOSS_RTOL relative, more than RECON_NEAR_SHARE of the offsets within
+    1e-4, the same units walked, and as an outer bound every offset within
+    2 lr K (Adam moves an offset by at most about lr a step, so two runs of K
+    steps cannot part further) and the hard rounding equal wherever
+    |alpha_cpu| exceeds it."""
+    import torch
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = _tiny_recon(*ref["tiny"], "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+    bound = 2 * RECON_LR * RECON_ITERS
+    failed = []
+    for label, (got, got_units) in card.items():
+        cpu, cpu_units = ref["ref"][label]
+        worst, flips, near, total = 0.0, 0, 0, 0
+        for name in cpu:
+            d = (got[name] - cpu[name]).abs()
+            firm = cpu[name].abs() > bound
+            worst = max(worst, float(d.max()))
+            flips += int(((got[name] >= 0) != (cpu[name] >= 0))[firm].sum())
+            near += int((d <= 1e-4).sum())
+            total += d.numel()
+        same_walk = [u["name"] for u in got_units] == [u["name"] for u in cpu_units]
+        loss_gap = max(abs(a - b) / abs(b) for gu, cu in zip(got_units, cpu_units)
+                       for a, b in zip(gu["losses"], cu["losses"]))
+        steps = sum(len(u["losses"]) for u in cpu_units)
+        print(f"recon_path: tiny SD {label} walk ({len(cpu_units)} units, {len(cpu)} layers), "
+              f"card against CPU: every step's loss within {loss_gap:.3g} relative over "
+              f"{steps} steps (limit {RECON_LOSS_RTOL[label]:g}); {near / total:.6f} of the "
+              f"offsets within 1e-4 (limit > {RECON_NEAR_SHARE}); offsets max |d| {worst:.6g} "
+              f"(outer bound 2 lr K = {bound:g}), {flips} hard roundings differ where "
+              f"|alpha_cpu| > it | {tag}", flush=True)
+        if (set(got) != set(cpu) or not same_walk or loss_gap > RECON_LOSS_RTOL[label]
+                or not near / total > RECON_NEAR_SHARE or worst > bound or flips):
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"recon_path: the tiny reconstruction on the card is not the "
+                             f"CPU's: {failed}")
+
+
+def _check_recon(label, units, want, tag):
+    """A reconstruction run's probe records (`_ReconProbe.units`): `want`
+    units, every loss finite, the learned hard rounding no worse than 1.5x
+    nearest rounding on each unit's cached data (tests/test_calibration.py's
+    bound); prints the seconds a unit by kind, ms an Adam step by kind, the
+    largest unit's captures a sample and at the CLI's default data size, and
+    the hours a 20000-step run would take at this data size."""
+    import math
+
+    if len(units) != want:
+        raise AssertionError(f"recon_path {label}: {len(units)} units, expected {want}")
+    bad = [r["name"] for r in units if not all(math.isfinite(v) for v in r["losses"])]
+    worse = [r["name"] for r in units if "err_learned" in r
+             and not r["err_learned"] <= 1.5 * r["err_nearest"]]
+    hours = 0.0
+    for kind in sorted({r["kind"] for r in units}):
+        rs = [r for r in units if r["kind"] == kind]
+
+        def mean(key):
+            return sum(r[key] for r in rs) / len(rs)
+        ratios = [r["err_learned"] / r["err_nearest"] for r in rs if "err_learned" in r]
+        print(f"recon_path {label}: {len(rs)} {kind} units, s a unit: captures "
+              f"{mean('capture_s'):.3f}, folds {mean('fold_s'):.3f}, Fisher gradients "
+              f"{mean('grad_s'):.3f}, Adam loop {mean('adam_s'):.3f} "
+              f"({1e3 * mean('adam_s') / RECON_ITERS:.2f} ms a step at batch 8); last loss "
+              f"{min(r['losses'][-1] for r in rs):.6g} to {max(r['losses'][-1] for r in rs):.6g}"
+              + (f"; unit error learned / nearest rounding {min(ratios):.4f} to "
+                 f"{max(ratios):.4f}" if ratios else "") + f" | {tag}", flush=True)
+        hours += sum(r["capture_s"] + r["fold_s"] + r["grad_s"]
+                     + r["adam_s"] / r["iters"] * 20000 for r in rs) / 3600
+    big = max(units, key=lambda r: r["bytes_a_sample"])
+    print(f"recon_path {label}: the largest captures an Adam loop holds are {big['name']}'s, "
+          f"{big['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample: "
+          f"{big['bytes_a_sample'] * RECON_DEFAULT_SAMPLES / 2 ** 30:.2f} GiB at the CLI's "
+          f"default {RECON_DEFAULT_SAMPLES} samples | {tag}", flush=True)
+    print(f"recon_path {label}: a 20000-step run of these {len(units)} units at this data size "
+          f"would take {hours:.2f} h | {tag}", flush=True)
+    if bad or worse:
+        raise AssertionError(f"recon_path {label}: losses not finite at {bad[:4]}, learned "
+                             f"rounding worse than 1.5x nearest at {worse[:4]}")
+
+
+def recon_path(tag, ref):
+    """Phase 7: weight reconstruction (AdaRound / BRECQ) at full width, from
+    the port alone: SD v1.4, f32, 512px, random weights from seed 42, the
+    calibration data cut as calib_path cuts it (CALI_PROMPTS prompts,
+    CALI_STEPS PNDM steps: 24 samples), RECON_ITERS Adam steps a unit:
+      (0) the tiny net's walks, card against CPU (`_tiny_recon_check`);
+      (h) `cli.quantize_weight.main --wq 4 --cali --iters RECON_ITERS
+          --partial_dir D`: the whole 78-unit walk, mse, asym;
+      (i) the same command again on D: every unit resumed, the offsets bit
+          for bit (h)'s;
+      (j) --recon_loss fisher_diag --tib_recon --max_units RECON_FISHER_UNITS:
+          the temporal block, then a resnet, lone layers and a transformer
+          at 64px, each with the full-width Fisher gradient (the whole UNet's
+          backward at batch 8);
+      (k) `cli.infer.main --pallas_attn` on (h)'s weight-only file: W4 with
+          no activation state, so every UNet attention runs K2, exact launch
+          counts, four finite uint8 images.
+    (h) to (j) differentiate the plain layers: no kernel may launch there."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes
+    from dgq_tpu_torch.calib.reconstruction import recon_units, tib_unit
+    from dgq_tpu_torch.cli import infer, quantize_weight
+    from dgq_tpu_torch.io.convert import params_to_torch_unet
+    from dgq_tpu_torch.models import unet_sd
+    from dgq_tpu_torch.pipeline.vae import init_vae_decoder, vae_decoder_spec
+
+    print(f"recon_path: cuts: --cali_prompt_data_n 64 -> {CALI_PROMPTS}, --step_size 25 -> "
+          f"{CALI_STEPS} ({4 * CALI_PROMPTS * (CALI_STEPS + 1) // 2} samples), --iters 20000 -> "
+          f"{RECON_ITERS}; (j) --max_units {RECON_FISHER_UNITS} (the first transformer is the "
+          f"7th unit); widths, depth ({RECON_UNITS_SD} units), 512px and batch 8 not cut | {tag}",
+          flush=True)
+    _tiny_recon_check(tag, ref)
+
+    spec = unet_sd.sd_unet_spec()
+    n_att = len(attention_prefixes(spec))
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(tmp_root, exist_ok=True)
+    no_kernel = lambda f: {}  # noqa: E731
+
+    def cli(label, argv, forwards=0, want=no_kernel):
+        with _ReconProbe() as probe:
+            res = _run_cli("recon_path", label, quantize_weight.main, argv, forwards, want, tag)
+        return res, probe
+
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        common = ["--model", "sd", "--wq", "4", "--cali", "--cali_prompt_data_n",
+                  str(CALI_PROMPTS), "--step_size", str(CALI_STEPS), "--iters",
+                  str(RECON_ITERS), "--cali_data_path", os.path.join(tmp, "cali")]
+        walk = common + ["--partial_dir", os.path.join(tmp, "parts")]
+        h, probe = cli("(h) quantize_weight", walk + ["--outdir", os.path.join(tmp, "h")])
+        _check_recon("(h)", probe.units, RECON_UNITS_SD, tag)
+        alphas, weight_only = h["alphas"], h["weight_only"]
+        del h
+        i, probe = cli("(i) quantize_weight, resumed",
+                       walk + ["--outdir", os.path.join(tmp, "i")])
+        saves = len(os.listdir(os.path.join(tmp, "parts")))
+        same = set(i["alphas"]) == set(alphas) and all(
+            torch.equal(i["alphas"][n], a) for n, a in alphas.items())
+        print(f"recon_path (i): {saves} partial saves, {len(probe.units)} units reconstructed "
+              f"and {probe.captures} captures made, {len(alphas)} layers' offsets bit for bit "
+              f"(h)'s: {same} | {tag}", flush=True)
+        if saves != RECON_UNITS_SD or probe.units or probe.captures or not same:
+            raise AssertionError("recon_path (i): the resumed run is not (h)'s")
+        del i, alphas
+        j, probe = cli("(j) quantize_weight, tib + fisher_diag",
+                       common + ["--outdir", os.path.join(tmp, "j"), "--recon_loss",
+                                 "fisher_diag", "--tib_recon", "--max_units",
+                                 str(RECON_FISHER_UNITS)])
+        tib = set(tib_unit(spec).layers)  # its record first, then the units it leaves
+        _check_recon("(j)", probe.units, 1 + sum(
+            bool(set(u.layers) - tib) for u in recon_units(spec)[:RECON_FISHER_UNITS]), tag)
+        kinds = [r["kind"] for r in probe.units]
+        if (kinds[0] != "tib" or "transformer" not in kinds or "resnet" not in kinds
+                or not all(r["grad_s"] > 0 for r in probe.units[1:])):
+            raise AssertionError(f"recon_path (j): the walk is {kinds}, or a unit had no "
+                                 f"Fisher gradient")
+        del j
+
+        vae_dir = os.path.join(tmp, "vae")
+        os.makedirs(vae_dir)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        torch.save(params_to_torch_unet(init_vae_decoder(g, "cuda"), vae_decoder_spec()),
+                   os.path.join(vae_dir, "diffusion_pytorch_model.bin"))
+        res = _run_cli("recon_path", "(k) infer", infer.main,
+                       ["--model", "sd", "--cali_ckpt", weight_only, "--num_inference_steps",
+                        str(CALI_STEPS), "--vae_weights", vae_dir, "--outdir", tmp,
+                        "--pallas_attn"],
+                       CALI_STEPS + 1,  # one batched forward a PNDM call
+                       lambda f: {"flash_attention": n_att * f + 2}, tag)  # + the two decodes
+        images = [np.load(o) for o in res["outputs"]]
+        print(f"recon_path (k) infer: {[os.path.basename(o) for o in res['outputs']]}, load + "
+              f"fold {res['load_fold_s']:.2f} s, runs {res['run_s']} s | {tag}", flush=True)
+        if len(images) != 4 or any(im.shape != (512, 512, 3) or im.dtype != np.uint8
+                                   for im in images):
+            raise AssertionError("recon_path (k): not four uint8 images of 512px")
     torch.cuda.empty_cache()
 
 
@@ -2432,6 +2793,7 @@ def main():
     try:
         tiny_x, tiny_nets = small_input_reference()
         calib_ref = calib_reference()
+        recon_ref = recon_reference()
         cpu_seconds = time.perf_counter() - t0
     finally:
         compiling.join()
@@ -2440,7 +2802,7 @@ def main():
     paths = built["paths"]
     build.load_kernels()
     print(f"build: {built['seconds']:.2f} s beside {cpu_seconds:.2f} s of the tiny nets' CPU "
-          f"references (small-input check and calib_path) "
+          f"references (small-input check, calib_path and recon_path) "
           f"({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
     print_build_report(paths, tag)
 
@@ -2462,6 +2824,8 @@ def main():
     phase(cli_path, tag)
     torch.cuda.empty_cache()
     phase(calib_path, tag, calib_ref)
+    torch.cuda.empty_cache()
+    phase(recon_path, tag, recon_ref)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     launches["int8_matmul"] = phase(sdxl_path, tag)["int8_matmul"]
 

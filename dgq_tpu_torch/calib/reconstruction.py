@@ -1,0 +1,584 @@
+"""AdaRound / BRECQ weight reconstruction (port of
+`dgq_tpu/calib/reconstruction.py`).
+
+Walk the UNet's reconstruction units (ResnetBlock2D and
+BasicTransformerBlock as blocks, the other convs and linears as lone
+layers) in forward order, and for each optimise AdaRound offsets for `iters`
+Adam steps against the fp unit's outputs, the inputs taken from the
+quantized prefix (asym: the units before it hard-rounded with their learned
+offsets).
+
+The PyTorch form:
+  * a capture runs the UNet with a `CaptureUntil` record, which ends the
+    forward once the unit is recorded (the JAX package lets XLA drop what
+    follows). Captures repeat per unit, the fp targets included, so no more
+    than one unit's activations are held at a time, and the
+    quantized-prefix capture is re-run as earlier units freeze;
+  * the optimisation is a Python loop of `torch.optim.Adam` steps (the JAX
+    package scans an optax Adam: the same update rule) through the unit's
+    plain layers. The kernel wrappers refuse a tensor that requires grad,
+    so no gradient can pass through a kernel unseen;
+  * `batch_indices` is the one place the loops draw: a `torch.Generator`
+    seeded from the run's seed and the unit's index. The same seed draws
+    other batches than the JAX package's `jax.random` stream;
+  * no mesh: multi-GPU is not ported.
+
+A key is a tuple of ints, `(seed,)` for a run and `(seed, u_idx)` for its
+unit u_idx, standing where the JAX package folds a `jax.random` key.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from dgq_tpu_torch.calib.weight_calib import EXCLUDED_LAYERS, fold_weight_quant
+from dgq_tpu_torch.models.layers import (
+    basic_transformer_block,
+    quant_conv2d,
+    quant_linear,
+    resnet_block,
+    silu,
+    timestep_embedding,
+)
+from dgq_tpu_torch.models.qconfig import QConfig
+from dgq_tpu_torch.models.unet_sd import (
+    NUM_HEADS,
+    CaptureUntil,
+    StopForward,
+    inject_at,
+    unet_sd_apply,
+)
+from dgq_tpu_torch.quant.adaround import (
+    adaround_init_alpha,
+    adaround_quant,
+    linear_temp_decay,
+    rounding_reg_loss,
+)
+from dgq_tpu_torch.quant.affine import QParams, fake_quant
+
+TIB_STREAM = 987  # the temporal block's key: (seed, 987)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReconUnit:
+    kind: str          # 'resnet' | 'transformer' | 'layer' | 'tib'
+    name: str          # record key / layer name
+    layers: tuple      # quantizable sublayer names
+    meta: tuple = ()   # for 'layer': (layer_kind, conv meta)
+    sum_axis: int = -1  # the reference lp_loss sums torch axis 1; see recon_units
+    heads: int = NUM_HEADS  # attention heads (SDXL: channels / min(64, base))
+
+
+def recon_units(spec) -> list[ReconUnit]:
+    """The reconstruction units in forward-execution order."""
+    qlayers = [(n, k, m) for n, k, m in spec if k in ("conv", "linear")]
+    units: list[ReconUnit] = []
+    seen = set()
+
+    # SDXL's head count is per block (inner_dim / min(64, base)); SD v1.4
+    # has 8 everywhere
+    is_sdxl = any(n == "add_embedding.linear_1" for n, _, _ in spec)
+    base = next(m[1] for n, k, m in spec if n == "conv_in")
+    to_q_dim = {n[: -len(".attn1.to_q")]: m[0] for n, k, m in qlayers
+                if n.endswith(".attn1.to_q")}
+
+    def heads_for(prefix: str) -> int:
+        return to_q_dim[prefix] // min(64, base) if is_sdxl else NUM_HEADS
+
+    def block_prefix(name):
+        for marker in (".resnets.", ".transformer_blocks."):
+            if marker in name:
+                head, tail = name.split(marker, 1)
+                idx = tail.split(".", 1)[0]
+                return head + marker + idx, ("resnet" if marker == ".resnets." else "transformer")
+        return None, None
+
+    for name, kind, meta in qlayers:
+        prefix, bkind = block_prefix(name)
+        if prefix is None:
+            if name in EXCLUDED_LAYERS:
+                continue  # conv_in / conv_out are never quantized
+            # a lone linear acts on (B, T, C): the reference sums torch axis
+            # 1 (T), ours 1; a conv's torch axis 1 is C, ours -1; the time
+            # embedding acts on (B, C)
+            sum_axis = 1 if kind == "linear" else -1
+            if name.startswith("time_embedding"):
+                sum_axis = -1
+            units.append(ReconUnit("layer", name, (name,), (kind, meta), sum_axis))
+        elif prefix not in seen:
+            seen.add(prefix)
+            sub = [n for n, k, m in qlayers if n.startswith(prefix + ".")]
+            # resnet NHWC: torch sum(1) = C -> ours -1; transformer (B, T, C):
+            # torch sum(1) = T -> ours 1
+            sum_axis = -1 if bkind == "resnet" else 1
+            heads = heads_for(prefix) if bkind == "transformer" else NUM_HEADS
+            units.append(ReconUnit(bkind, prefix, tuple(sub), (), sum_axis, heads))
+    return units
+
+
+def make_unit_apply(unit: ReconUnit, cfg: QConfig, with_qstate: bool = False) -> Callable:
+    """(params, *inputs) -> output for one unit; with_qstate=True gives
+    (params, qstate, *inputs) -> output, for the activation-delta mode."""
+    if unit.kind == "resnet":
+        has_shortcut = any(l.endswith("conv_shortcut") for l in unit.layers)
+        fn = lambda p, qs, x, temb: resnet_block(  # noqa: E731
+            p, unit.name, x, temb, qs, cfg, has_shortcut)
+    elif unit.kind == "transformer":
+        fn = lambda p, qs, x, ehs: basic_transformer_block(  # noqa: E731
+            p, unit.name, x, ehs, unit.heads, qs, cfg)
+    else:
+        lkind, meta = unit.meta
+        if lkind == "conv":
+            _, _, _, stride, pad = meta
+            fn = lambda p, qs, x: quant_conv2d(  # noqa: E731
+                p[unit.name], x, unit.name, qs, cfg, stride, pad)
+        else:
+            fn = lambda p, qs, x: quant_linear(p[unit.name], x, unit.name, qs, cfg)  # noqa: E731
+    if with_qstate:
+        return fn
+    return lambda p, *inputs: fn(p, None, *inputs)
+
+
+def _sub_params(params: dict, unit: ReconUnit) -> dict:
+    """Every params entry a unit's apply touches (its norms included)."""
+    if unit.kind == "layer":
+        return {unit.name: params[unit.name]}
+    return {k: v for k, v in params.items() if k.startswith(unit.name + ".")}
+
+
+def batch_indices(key: tuple, iters: int, batch_size: int, n: int) -> torch.Tensor:
+    """The sample indices of every step of one Adam loop, (iters, batch_size)
+    int64 on the CPU, drawn uniformly from [0, n) by a `torch.Generator`
+    seeded from `key`. The only draw of the reconstruction loops."""
+    seed = 0
+    for part in key:
+        seed = (seed * 1_000_003 + int(part) + 1) % 2 ** 62
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, n, (iters, batch_size), generator=g)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with `jnp.abs`'s gradient at 0 (1; torch.abs gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _round_on(step: int, warmup: float, iters: int) -> bool:
+    """step >= warmup * iters, compared in float32 as the JAX package does."""
+    return bool(np.float32(step) >= np.float32(warmup * iters))
+
+
+def _reg(alphas: dict, step: int, iters: int, warmup: float) -> torch.Tensor:
+    """The rounding regularizer of every layer at this step's temperature,
+    summed in the key order in which the JAX package sees a dict."""
+    device = next(iter(alphas.values())).device
+    b = linear_temp_decay(torch.full((), float(step), device=device), iters, warmup)
+    return sum(rounding_reg_loss(alphas[n], b) for n in sorted(alphas))
+
+
+def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, device,
+               loss_fn: Callable, lr: float, schedule: Optional[Callable] = None):
+    """Adam over the tensors of `leaves` (made leaves that require grad):
+    loss_fn(idx, step) on each step's indices. schedule(step) -> the step's
+    learning rate. Returns the losses, (iters,) on the device."""
+    opt = torch.optim.Adam(list(leaves.values()), lr=lr)
+    idx = batch_indices(key, iters, batch_size, n).to(device)
+    losses = []
+    for step in range(iters):
+        if schedule is not None:
+            for group in opt.param_groups:
+                group["lr"] = schedule(step)
+        with torch.enable_grad():
+            loss = loss_fn(idx[step], step)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return torch.stack(losses) if losses else torch.zeros(0, device=device)
+
+
+def cosine_decay(lr: float, iters: int) -> Callable:
+    """optax.cosine_decay_schedule(lr, iters): lr (1 + cos(pi min(step,
+    iters) / iters)) / 2, in float32."""
+    def schedule(step: int) -> float:
+        count = np.float32(min(step, iters))
+        decay = np.float32(0.5) * (np.float32(1.0)
+                                   + np.cos(np.float32(np.pi) * count / np.float32(iters)))
+        return float(np.float32(lr) * decay)
+    return schedule
+
+
+def reconstruct_unit_act_deltas(key: tuple, unit: ReconUnit, params_q: dict, qstate_unit: dict,
+                                cached_inputs: tuple, cached_outputs: torch.Tensor,
+                                cfg: QConfig, iters: int = 20000, batch_size: int = 32,
+                                p_norm: float = 2.0, lr: float = 4e-5):
+    """Activation-delta reconstruction (the reference's use_aq branch): Adam
+    with a cosine-annealed learning rate on the unit's activation-quantizer
+    deltas, Lp loss against the fp outputs. params_q: weight-folded params;
+    qstate_unit: {'a': {name: per-tensor QParams}, 'sm': ...} for this unit.
+    Returns (the optimised qstate subset, the losses)."""
+    apply_fn = make_unit_apply(unit, cfg.replace(use_aq=True), with_qstate=True)
+    sub = _sub_params(params_q, unit)
+    deltas = {n: qp.delta.detach().clone().requires_grad_(True)
+              for n, qp in qstate_unit["a"].items()}
+    zps = {n: qp.zero_point for n, qp in qstate_unit["a"].items()}
+    sm = qstate_unit.get("sm", {})
+
+    def loss_fn(i, step):
+        qs = {"a": {n: QParams(deltas[n], zps[n]) for n in deltas}, "sm": sm}
+        pred = apply_fn(sub, qs, *(x[i] for x in cached_inputs))
+        return torch.mean(torch.sum(_abs(pred - cached_outputs[i]) ** p_norm,
+                                    dim=unit.sum_axis))
+
+    losses = _adam_loop(deltas, key, iters, batch_size, cached_outputs.shape[0],
+                        cached_outputs.device, loss_fn, lr, cosine_decay(lr, iters))
+    return ({"a": {n: QParams(deltas[n].detach(), zps[n]) for n in deltas}, "sm": sm},
+            losses)
+
+
+def capture_unit_io(params: dict, cali_batch: tuple, unit_name: str, cfg: QConfig,
+                    unet_apply=unet_sd_apply, want_inputs: bool = True):
+    """Run the UNet on one calibration batch as far as `unit_name` and return
+    the unit's (inputs, output); want_inputs=False returns ((), output).
+
+    cali_batch: the UNet's positional tensors after `params`: SD (sample, t,
+    ehs), SDXL (sample, t, ehs, text_embeds, time_ids)."""
+    rec = CaptureUntil(unit_name)
+    with torch.no_grad():
+        try:
+            unet_apply(params, *cali_batch, qstate=None, cfg=cfg, record=rec)
+        except StopForward:
+            pass
+    if unit_name not in rec:
+        raise KeyError(f"{unit_name} is no reconstruction unit of this UNet")
+    ins, out = rec[unit_name]
+    return (ins, out) if want_inputs else ((), out)
+
+
+class _OutShape(dict):
+    """A `record` that keeps only the shape of one unit's output, and lets
+    the forward run on."""
+
+    def __init__(self, key: str):
+        super().__init__()
+        self.key = key
+
+    def __setitem__(self, key, value):
+        if key == self.key:
+            super().__setitem__(key, value[1].shape)
+
+
+def capture_unit_grad(params_fp: dict, params_q_prefix: dict, cali_batch: tuple,
+                      unit_name: str, cfg: QConfig, unet_apply=unet_sd_apply) -> torch.Tensor:
+    """|dKL/d(unit output)| + 1, the Fisher weighting: KL(softmax(fp) ||
+    softmax(quantized)) over the channel axis, batchmean by the batch's
+    leading size, differentiated at a zero injected at the unit's output of
+    the quantized net (weights quantized up to and including the unit). The
+    zero takes its shape from the unit's output in the fp forward."""
+    batch = tuple(cali_batch)
+    shape = _OutShape(unit_name)
+    with torch.no_grad():
+        out_fp = unet_apply(params_fp, *batch, qstate=None, cfg=cfg, record=shape)
+        p_fp = torch.softmax(out_fp.float(), dim=-1)
+        logp = torch.log(p_fp + 1e-12)
+        del out_fp
+    if unit_name not in shape:
+        raise KeyError(f"{unit_name} is no reconstruction unit of this UNet")
+    d = torch.zeros(shape[unit_name], dtype=torch.float32, device=p_fp.device,
+                    requires_grad=True)
+    with torch.enable_grad(), inject_at({unit_name: d}):
+        out_q = unet_apply(params_q_prefix, *batch, qstate=None, cfg=cfg)
+        logq = torch.log_softmax(out_q.float(), dim=-1)
+        loss = torch.sum(p_fp * (logp - logq)) / batch[0].shape[0]
+    (g,) = torch.autograd.grad(loss, d)
+    return torch.abs(g) + 1.0
+
+
+def _soft_params(params: dict, sub: dict, layers, wqp, alphas: dict, bits: int) -> dict:
+    """`sub` with each layer's weight soft-rounded by its offsets."""
+    pq = dict(sub)
+    for n in layers:
+        pq[n] = dict(sub[n])
+        pq[n]["w"] = adaround_quant(params[n]["w"], wqp[n], alphas[n], bits, soft=True)
+    return pq
+
+
+def _init_alphas(params: dict, wqp, layers) -> dict:
+    with torch.no_grad():
+        return {n: adaround_init_alpha(params[n]["w"], wqp[n].delta).requires_grad_(True)
+                for n in layers}
+
+
+def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, QParams],
+                     cached_inputs: tuple, cached_outputs: torch.Tensor, cfg: QConfig,
+                     iters: int = 20000, batch_size: int = 32, w: float = 0.01,
+                     warmup: float = 0.2, p_norm: float = 2.0, lr: float = 1e-3,
+                     opt_mode: str = "mse", cached_grads: Optional[torch.Tensor] = None):
+    """Optimise one unit's AdaRound offsets. Returns ({layer: alpha}, the
+    losses (iters,)).
+
+    Loss: the reconstruction loss plus, from step warmup * iters on, w times
+    the rounding regularizer at its annealed temperature. opt_mode: 'mse'
+    (|pred - out|^p summed over unit.sum_axis, then the mean), 'fisher_diag'
+    or 'fisher_full' (both need cached_grads from capture_unit_grad)."""
+    apply_fn = make_unit_apply(unit, cfg)
+    sub = _sub_params(params, unit)
+    alphas = _init_alphas(params, wqp, unit.layers)
+    if opt_mode != "mse" and cached_grads is None:
+        raise ValueError("the fisher modes need cached_grads")
+
+    def rec_loss(pred, bout, bgrad):
+        if opt_mode == "mse":
+            return torch.mean(torch.sum(_abs(pred - bout) ** p_norm, dim=unit.sum_axis))
+        if opt_mode == "fisher_diag":
+            return torch.mean(torch.sum((pred - bout) ** 2 * bgrad ** 2, dim=unit.sum_axis))
+        a = _abs(pred - bout)
+        g = _abs(bgrad)
+        dot = torch.sum(a * g, dim=tuple(range(1, pred.dim())))
+        return torch.mean(dot.reshape((-1,) + (1,) * (pred.dim() - 1)) * a * g) / 100.0
+
+    def loss_fn(i, step):
+        pq = _soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits)
+        pred = apply_fn(pq, *(x[i] for x in cached_inputs))
+        rec = rec_loss(pred, cached_outputs[i], None if cached_grads is None else cached_grads[i])
+        if _round_on(step, warmup, iters):
+            rec = rec + w * _reg(alphas, step, iters, warmup)
+        return rec
+
+    losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
+                        cached_outputs.device, loss_fn, lr)
+    return {n: a.detach() for n, a in alphas.items()}, losses
+
+
+def tib_unit(spec) -> ReconUnit:
+    """The temporal-information block (TFMQ): the time-embedding MLP and
+    every resnet's time_emb_proj, reconstructed jointly against the fp tuple
+    of all time_emb_proj outputs."""
+    layers = ["time_embedding.linear_1", "time_embedding.linear_2"] + [
+        n for n, k, _ in spec if k == "linear" and n.endswith(".time_emb_proj")]
+    return ReconUnit("tib", "time_embedding", tuple(layers), (), -1)
+
+
+def make_tib_apply(spec, cfg: QConfig) -> Callable:
+    """(params, timesteps) -> the tuple of every time_emb_proj output: t ->
+    sinusoidal projection -> embedding MLP -> silu -> each projection."""
+    proj_names = [n for n, k, _ in spec if k == "linear" and n.endswith(".time_emb_proj")]
+
+    def apply_fn(p, timesteps):
+        base = p["time_embedding.linear_1"]["w"].shape[1]
+        t_emb = timestep_embedding(timesteps, base)
+        emb = quant_linear(p["time_embedding.linear_1"], t_emb, "time_embedding.linear_1",
+                           None, cfg)
+        emb = quant_linear(p["time_embedding.linear_2"], silu(emb), "time_embedding.linear_2",
+                           None, cfg)
+        temb = silu(emb)
+        return tuple(quant_linear(p[n], temb, n, None, cfg) for n in proj_names)
+
+    return apply_fn
+
+
+def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
+                    timesteps: torch.Tensor, cfg: QConfig, iters: int = 20000,
+                    batch_size: int = 32, w: float = 0.01, warmup: float = 0.2,
+                    p_norm: float = 2.0, lr: float = 1e-3):
+    """Joint AdaRound over the temporal-information block, the loss summed
+    over its output tuple. Returns ({layer: alpha}, the losses)."""
+    unit = tib_unit(spec)
+    apply_fn = make_tib_apply(spec, cfg)
+    sub = {n: params[n] for n in unit.layers}
+    alphas = _init_alphas(params, wqp, unit.layers)
+    with torch.no_grad():
+        fp_outs = apply_fn(sub, timesteps)
+
+    def loss_fn(i, step):
+        preds = apply_fn(_soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits),
+                         timesteps[i])
+        rec = sum(torch.mean(torch.sum(_abs(pr - tg[i]) ** p_norm, dim=-1))
+                  for pr, tg in zip(preds, fp_outs))
+        if _round_on(step, warmup, iters):
+            rec = rec + w * _reg(alphas, step, iters, warmup)
+        return rec
+
+    losses = _adam_loop(alphas, key, iters, batch_size, timesteps.shape[0], timesteps.device,
+                        loss_fn, lr)
+    return {n: a.detach() for n, a in alphas.items()}, losses
+
+
+def _partial_name(unit: ReconUnit, layer: str) -> str:
+    rel = "layer" if layer == unit.name else layer[len(unit.name) + 1:]
+    return f"{rel}.wqtizer.alpha"
+
+
+def _alpha_to_jax(a: torch.Tensor) -> np.ndarray:
+    """An offset in the JAX package's layout (HWIO conv, (I, O) linear), as
+    its partial saves hold it."""
+    a = a.detach().cpu()
+    return np.ascontiguousarray((a.permute(2, 3, 1, 0) if a.dim() == 4 else a.t()).numpy())
+
+
+def _alpha_from_jax(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _load_partial(partial_dir: str, unit: ReconUnit, device) -> Optional[dict]:
+    """The offsets of a unit's partial save ({layer: alpha} in the port's
+    layout), or None when there is none."""
+    from dgq_tpu_torch.io.dgq_ckpt import load_pth
+
+    path = os.path.join(partial_dir, f"{unit.name}.pth")
+    if not os.path.exists(path):
+        return None
+    out = {}
+    for k, v in load_pth(path).items():
+        rel = k[: -len(".wqtizer.alpha")]
+        out[unit.name if rel == "layer" else f"{unit.name}.{rel}"] = _alpha_from_jax(v, device)
+    return out
+
+
+def _save_partial(partial_dir: str, unit: ReconUnit, alphas: dict) -> None:
+    """One unit's offsets as the JAX package saves them: `<unit>.pth` with
+    keys '<rel>.wqtizer.alpha' ('layer' for a lone layer), HWIO / (I, O)."""
+    from dgq_tpu_torch.io.dgq_ckpt import save_pth
+
+    os.makedirs(partial_dir, exist_ok=True)
+    save_pth({_partial_name(unit, n): _alpha_to_jax(a) for n, a in alphas.items()},
+             os.path.join(partial_dir, f"{unit.name}.pth"))
+
+
+@torch.no_grad()
+def unit_error(unit: ReconUnit, params: dict, wqp: Dict[str, QParams], alphas: dict,
+               inputs: tuple, target: torch.Tensor, cfg: QConfig, chunk: int = 8) -> tuple:
+    """(learned, nearest): the mean squared error of the unit's output against
+    `target` on the cached `inputs`, its layers hard-rounded by `alphas`, and
+    with nearest rounding; `chunk` samples a forward. Not part of the walk:
+    a caller that wants to judge the learned rounding calls it."""
+    apply_fn = make_unit_apply(unit, cfg)
+    sub = _sub_params(params, unit)
+    errs = []
+    for learned in (True, False):
+        pq = dict(sub)
+        for n in unit.layers:
+            w = params[n]["w"]
+            pq[n] = dict(sub[n], w=adaround_quant(w, wqp[n], alphas[n], cfg.w_bits, soft=False)
+                         if learned else fake_quant(w, wqp[n], cfg.w_bits))
+        total = 0.0
+        for i in range(0, target.shape[0], chunk):
+            pred = apply_fn(pq, *(x[i:i + chunk] for x in inputs))
+            total += float(((pred - target[i:i + chunk]) ** 2).sum())
+        errs.append(total / target.numel())
+    return tuple(errs)
+
+
+def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
+                      cali_data: tuple, iters: int = 20000, batch_size: int = 32,
+                      w: float = 0.01, warmup: float = 0.2, asym: bool = True,
+                      capture_batch: int = 8, seed: int = 0, unet_apply=unet_sd_apply,
+                      progress: Optional[Callable[[str], None]] = None,
+                      max_units: Optional[int] = None, partial_dir: Optional[str] = None,
+                      tib_recon: bool = False, opt_mode: str = "mse") -> Dict[str, torch.Tensor]:
+    """The whole weight-reconstruction pass. Returns the AdaRound offsets of
+    every reconstructed layer (in the weights' layout).
+
+    cali_data: the stacked UNet inputs (SD: samples NHWC, timesteps, ehs),
+    moved to the weights' device. One unit's captures (its inputs and
+    outputs over every sample, and its Fisher weights) are held there too, as
+    the JAX package holds them on its device, so the largest unit bounds the
+    calibration set a card can take.
+    max_units limits the walk (debug and tests). partial_dir keeps one .pth a
+    unit as it completes and resumes a unit whose save exists. tib_recon
+    reconstructs the temporal-information block jointly first and takes its
+    layers out of the per-unit walks, which then see them hard-rounded."""
+    units = recon_units(spec)
+    if max_units is not None:
+        units = units[:max_units]
+    key = (seed,)
+    device = params["conv_in"]["w"].device
+    cali_data = tuple(x.to(device) for x in cali_data)
+    all_alphas: Dict[str, torch.Tensor] = {}
+    n = cali_data[0].shape[0]
+
+    params_units = params
+    if tib_recon:
+        if progress:
+            progress("reconstructing temporal information block (TFMQ)")
+        tib_layers = set(tib_unit(spec).layers)
+        tib_alphas, _ = reconstruct_tib(
+            key + (TIB_STREAM,), params, spec, wqp, cali_data[1], cfg, iters=iters,
+            batch_size=batch_size, w=w, warmup=warmup)
+        all_alphas.update(tib_alphas)
+        units = [dataclasses.replace(u, layers=tuple(l for l in u.layers if l not in tib_layers))
+                 for u in units]
+        units = [u for u in units if u.layers]
+        # the per-unit walks see the temporal block hard-rounded inside each
+        # unit's forward too, as it behaves at deployment
+        with torch.no_grad():
+            params_units = fold_weight_quant(params, {k: wqp[k] for k in tib_layers}, spec, cfg,
+                                             alphas=tib_alphas, soft=False)
+
+    def batched_capture(p, unit_name, want_inputs=True):
+        """The unit's (inputs, output) over every sample, each chunk written
+        into tensors made at the first (no second copy for a concatenation)."""
+        inputs = out = None
+        for i in range(0, n, capture_batch):
+            bi, bo = capture_unit_io(p, tuple(x[i:i + capture_batch] for x in cali_data),
+                                     unit_name, cfg, unet_apply, want_inputs=want_inputs)
+            if out is None:
+                inputs = tuple(x.new_empty((n,) + x.shape[1:]) for x in bi)
+                out = bo.new_empty((n,) + bo.shape[1:])
+            for whole, part in zip(inputs + (out,), bi + (bo,)):
+                whole[i:i + part.shape[0]] = part
+            del bi, bo
+        return inputs, out
+
+    for u_idx, unit in enumerate(units):
+        if partial_dir:
+            part = _load_partial(partial_dir, unit, device)
+            if part is not None:
+                # the asym prefix then quantizes with the loaded offsets, as
+                # a continuous run would
+                all_alphas.update(part)
+                if progress:
+                    progress(f"[{u_idx + 1}/{len(units)}] {unit.name}: "
+                             f"resumed from partial save ({len(part)} layers)")
+                continue
+        if progress:
+            progress(f"[{u_idx + 1}/{len(units)}] reconstructing {unit.name}")
+        # the asym path replaces the fp inputs with the quantized prefix's
+        replace_inputs = asym and bool(all_alphas)
+        fp_inputs, fp_out = batched_capture(params, unit.name, want_inputs=not replace_inputs)
+        if replace_inputs:
+            with torch.no_grad():
+                pq = fold_weight_quant(params, {k: wqp[k] for k in all_alphas}, spec, cfg,
+                                       alphas=all_alphas, soft=False)
+            q_inputs, _ = batched_capture(pq, unit.name)
+            del pq
+        else:
+            q_inputs = fp_inputs
+        del fp_inputs
+        cached_grads = None
+        if opt_mode != "mse":
+            # |dKL/d(unit out)| + 1 with the prefix and the unit itself
+            # hard-quantized
+            fold_names = set(all_alphas) | set(unit.layers)
+            with torch.no_grad():
+                pq_g = fold_weight_quant(params, {k: wqp[k] for k in fold_names if k in wqp},
+                                         spec, cfg, alphas=all_alphas, soft=False)
+            cached_grads = fp_out.new_empty(fp_out.shape, dtype=torch.float32)
+            for i in range(0, n, capture_batch):
+                cached_grads[i:i + capture_batch] = capture_unit_grad(
+                    params, pq_g, tuple(x[i:i + capture_batch] for x in cali_data), unit.name,
+                    cfg, unet_apply)
+            del pq_g
+        alphas, _ = reconstruct_unit(
+            key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
+            batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
+            cached_grads=cached_grads)
+        all_alphas.update(alphas)
+        if partial_dir:
+            _save_partial(partial_dir, unit, alphas)
+    return all_alphas

@@ -2,6 +2,9 @@
 
   merge:  python -m dgq_tpu_torch.cli.ckpt_tools merge W_CKPT ACT_CKPT OUT
   check:  python -m dgq_tpu_torch.cli.ckpt_tools check AGGREGATE_CKPT PARTIAL_DIR
+          (the per-unit saves of `quantize_weight --partial_dir`, whose
+          offsets are in the JAX package's layout and whose lone layers are
+          keyed 'layer', are read as such)
   clean:  python -m dgq_tpu_torch.cli.ckpt_tools clean RUN_DIR
 """
 from __future__ import annotations
@@ -22,6 +25,27 @@ def cmd_merge(args):
     print(f"merged -> {args.out}")
 
 
+def _partial_key(block: str, key: str) -> str:
+    """The aggregate key of a partial save's entry: '<rel>.wqtizer.alpha'
+    under the unit, 'layer' standing for a lone layer's own name."""
+    if key.startswith("model."):
+        return key
+    if key.startswith("layer."):
+        return f"model.{block}.{key[len('layer.'):]}"
+    return f"model.{block}.{key}"
+
+
+def _as_reference_layout(key: str, v: np.ndarray) -> np.ndarray:
+    """A partial save's array in the aggregate's layout: the reconstruction
+    saves offsets ('.wqtizer.alpha') in the JAX package's layout (HWIO conv,
+    (I, O) linear); the weight file holds them out channel first."""
+    if not key.endswith(".wqtizer.alpha"):
+        return v
+    if v.ndim == 4:
+        return np.transpose(v, (3, 2, 0, 1))
+    return v.T if v.ndim == 2 else v
+
+
 def cmd_check(args):
     """Check per-block partial saves against the aggregate state dict."""
     from dgq_tpu_torch.io.dgq_ckpt import load_pth
@@ -36,11 +60,14 @@ def cmd_check(args):
         block = fn[: -len(".pth")]
         part = load_pth(os.path.join(args.partial_dir, fn))
         for k, v in part.items():
-            full_key = f"model.{block}.{k}" if not k.startswith("model.") else k
+            full_key = _partial_key(block, k)
             if full_key not in agg:
                 print(f"MISSING {full_key}")
                 bad += 1
-            elif not np.allclose(np.asarray(v), np.asarray(agg[full_key]), atol=1e-6):
+                continue
+            ref = np.asarray(agg[full_key])
+            v = _as_reference_layout(k, np.asarray(v))
+            if v.shape != ref.shape or not np.allclose(v, ref, atol=1e-6):
                 print(f"MISMATCH {full_key}")
                 bad += 1
     print("OK" if bad == 0 else f"{bad} mismatches")

@@ -1,20 +1,27 @@
-"""Weight PTQ without reconstruction (port of `dgq_tpu/cli/quantize_weight.py`,
-the reference's src/quantize_weight.py):
+"""Weight PTQ (port of `dgq_tpu/cli/quantize_weight.py`, the reference's
+src/quantize_weight.py):
 
-    python -m dgq_tpu_torch.cli.quantize_weight --model sd --wq 4 --cali --no_recon [--use_aq]
+    python -m dgq_tpu_torch.cli.quantize_weight --model sd --wq 4 --cali [--use_aq]
+    python -m dgq_tpu_torch.cli.quantize_weight --model sd --wq 4 --cali --no_recon
     python -m dgq_tpu_torch.cli.quantize_weight --model sdxl --wq 4 --fast --no_recon
 
-Per-out-channel weight scales (MSE search with --cali, else minmax) are
-written as a weight-only checkpoint `cali_ckpt.pth_weight_only`; --use_aq
-then calibrates vanilla (g=1) time-aware activation scales on the folded
-weights and writes the merged `cali_ckpt.pth`. --resume_w starts from an
-existing weight-only checkpoint instead. Without HF weights or prompt data,
-random weights and synthetic prompt embeddings drive the same machinery.
+Per-out-channel weight scales (MSE search with --cali, else minmax), then by
+default AdaRound / BRECQ reconstruction of every unit (`calib.reconstruction`:
+--iters Adam steps a unit, --recon_loss mse / fisher_diag / fisher_full,
+--tib_recon, --partial_dir per-unit saves to resume from, --max_units), are
+written as a weight-only checkpoint `cali_ckpt.pth_weight_only` that carries
+the learned offsets; --no_recon keeps nearest rounding. --use_aq then
+calibrates vanilla (g=1) time-aware activation scales on the folded weights
+and writes the merged `cali_ckpt.pth`. --resume_w starts from an existing
+weight-only checkpoint instead. Without HF weights or prompt data, random
+weights and synthetic prompt embeddings drive the same machinery.
 
-AdaRound / BRECQ reconstruction (the default without --no_recon, and the
-flags that only it reads) is not ported and raises. The run is on the card
-unless --device cpu is given. `main(argv)` takes the argument list and
-returns what it wrote, so it can be driven in-process.
+The reconstruction differentiates the UNet's attention, which only the plain
+layers allow: with --pallas_attn it is refused, as the JAX package cannot
+differentiate its Pallas attention either. --dp / --tp (multi-GPU) are not
+ported and raise. The run is on the card unless --device cpu is given.
+`main(argv)` takes the argument list and returns what it wrote, so it can be
+driven in-process.
 """
 from __future__ import annotations
 
@@ -35,8 +42,6 @@ from dgq_tpu_torch.cli.common import (
     slot_clock,
     timed,
 )
-
-RECON = "ROADMAP queue 1, the reconstruction slice (calib/reconstruction.py)"
 
 
 def parse_args(argv=None):
@@ -59,16 +64,20 @@ def parse_args(argv=None):
     ap.add_argument("--dp", type=int, default=1, help="data-parallel devices (not ported)")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported)")
     ap.add_argument("--partial_dir", default=None,
-                    help="per-unit reconstruction saves (not ported)")
+                    help="save one .pth per reconstruction unit as it completes and resume "
+                         "by skipping units already saved there (check them with "
+                         "`ckpt_tools check`)")
     ap.add_argument("--tib_recon", action="store_true",
-                    help="temporal-information block reconstruction (not ported)")
+                    help="jointly reconstruct the temporal-information block (TFMQ)")
     ap.add_argument("--recon_loss", default="mse",
                     choices=["mse", "fisher_diag", "fisher_full"],
-                    help="reconstruction loss (not ported)")
+                    help="reconstruction loss")
     ap.add_argument("--fast", action="store_true", help="minmax init")
     ap.add_argument("--debug", action="store_true", help="= --fast, 4 prompts, 10 iters")
     ap.add_argument("--iters", type=int, default=20000)
-    ap.add_argument("--max_units", type=int, default=None)
+    ap.add_argument("--max_units", type=int, default=None,
+                    help="limit the reconstruction walk to the first N units (debug and "
+                         "smoke runs only)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--unet_weights", default=None,
                     help="path to torch UNet state dict (HF snapshot)")
@@ -89,25 +98,26 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Reconstruction and the flags only it (or multi-device) reads raise;
-    nothing is skipped silently."""
-    if not (args.no_recon or args.resume_w):
-        raise NotImplementedError(
-            f"weight reconstruction (AdaRound/BRECQ) is not ported: pass --no_recon or "
-            f"--resume_w; {RECON}")
-    asked = [flag for flag, on in (
-        ("--dp", args.dp > 1), ("--tp", args.tp > 1), ("--partial_dir", args.partial_dir),
-        ("--tib_recon", args.tib_recon), ("--recon_loss", args.recon_loss != "mse")) if on]
+    """Multi-device runs raise, and so does reconstruction with the fused
+    attention kernels; nothing is skipped silently."""
+    asked = [flag for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)) if on]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)} serve reconstruction or multi-device runs, which are not "
-            f"ported: {RECON}; multi-device: ROADMAP queue 1, item 17")
+            f"{', '.join(asked)} serve multi-device runs, which are not ported: ROADMAP "
+            f"queue 1, item 17")
+    if args.pallas_attn and not (args.no_recon or args.resume_w):
+        raise NotImplementedError(
+            "--pallas_attn with weight reconstruction: the reconstruction differentiates the "
+            "UNet's attention, and the fused attention kernels have no backward (the JAX "
+            "package cannot differentiate its Pallas attention either). Drop --pallas_attn, "
+            "or pass --no_recon; ROADMAP queue 3, differences kept on purpose")
 
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns {'weight_only': path or None, 'merged': path or
-    None, 'params', 'wqp': the weights and their scales, 'per_t': the
-    activation states or None, 'seconds': {'weight_init', 'cali_data',
+    None, 'params', 'wqp', 'alphas': the weights, their scales and the
+    learned offsets (None without reconstruction), 'per_t': the activation
+    states or None, 'seconds': {'weight_init', 'cali_data', 'recon',
     'act_slots': [seconds of each time slot]}}."""
     args = parse_args(argv)
     maybe_init_multihost(args)
@@ -115,6 +125,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     outpath, log = setup_logging(args.outdir)
     from dgq_tpu_torch.calib.act_calib import calibrate_activations
+    from dgq_tpu_torch.calib.reconstruction import calibrate_weights
     from dgq_tpu_torch.calib.weight_calib import fold_weight_quant, init_weight_qparams
     from dgq_tpu_torch.io.dgq_ckpt import load_weight_only, save_merged, save_weight_only
     from dgq_tpu_torch.quant.scalers import Scaler
@@ -129,6 +140,23 @@ def main(argv=None) -> dict:
     result = {"weight_only": None, "merged": None, "per_t": None, "seconds": seconds}
     path = os.path.join(outpath, "cali_ckpt.pth")
     alphas = None
+    cali = {}
+
+    def cali_data():
+        """The calibration set (made once, or read from the .npz cache)."""
+        if not cali:
+            embeds, tag = cali_embeddings_from_args(args, args.model, cross,
+                                                    args.cali_prompt_data_n, args.seed,
+                                                    pooled_dim=pooled, device=device)
+            (cali["data"], cali["interval"]), seconds["cali_data"] = timed(
+                device, lambda: build_cali_data(
+                    args.model, params, apply_fn, cross, args.cali_prompt_data_n,
+                    args.step_size, latent_hw, args.seed, cache_prefix=args.cali_data_path,
+                    pooled_dim=pooled, embeds=embeds, embeds_tag=tag))
+            log.info(f"calibration set: {cali['data'][0].shape[0]} samples, interval "
+                     f"{cali['interval']}, {seconds['cali_data']:.2f} s")
+        return cali["data"], cali["interval"]
+
     if args.resume_w:
         log.info(f"resuming from {args.resume_w}")
         params, wqp, alphas = load_weight_only(args.resume_w, spec, device)
@@ -143,30 +171,31 @@ def main(argv=None) -> dict:
         wqp, seconds["weight_init"] = timed(
             device, lambda: init_weight_qparams(params, spec, args.wq, scaler))
         log.info(f"weight scale init: {seconds['weight_init']:.2f} s")
-        save_weight_only(f"{path}_weight_only", params, wqp, spec)
+        if not args.no_recon:
+            data, _ = cali_data()
+            alphas, seconds["recon"] = timed(device, lambda: calibrate_weights(
+                params, spec, cfg, wqp, data, iters=args.iters,
+                batch_size=8 if args.model == "sd" else 4, w=0.01, warmup=0.2, asym=True,
+                seed=args.seed, unet_apply=apply_fn, progress=log.info,
+                partial_dir=args.partial_dir, max_units=args.max_units,
+                tib_recon=args.tib_recon, opt_mode=args.recon_loss))
+            log.info(f"reconstruction: {len(alphas)} layers, {seconds['recon']:.2f} s")
+        save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
         result["weight_only"] = f"{path}_weight_only"
         log.info(f"calibrated model saved to {path}_weight_only")
-    result.update(params=params, wqp=wqp)
+    result.update(params=params, wqp=wqp, alphas=alphas)
 
     if args.use_aq:
         # vanilla (g=1) activation calibration, written with the weights as
         # one merged checkpoint (the reference nests {'weight': {'weight':
         # ...}} here, which its own loader never reads back; the flat merged
         # format is what both loaders read)
-        embeds, tag = cali_embeddings_from_args(args, args.model, cross,
-                                                args.cali_prompt_data_n, args.seed,
-                                                pooled_dim=pooled, device=device)
-        (cali_data, interval), seconds["cali_data"] = timed(device, lambda: build_cali_data(
-            args.model, params, apply_fn, cross, args.cali_prompt_data_n, args.step_size,
-            latent_hw, args.seed, cache_prefix=args.cali_data_path, pooled_dim=pooled,
-            embeds=embeds, embeds_tag=tag))
-        log.info(f"calibration set: {cali_data[0].shape[0]} samples, interval {interval}, "
-                 f"{seconds['cali_data']:.2f} s")
+        data, interval = cali_data()
         cfg_aq = qconfig_from_args(args, use_wq=True, use_aq=True)
         params_q = fold_weight_quant(params, wqp, spec, cfg, alphas=alphas, soft=False)
         progress, slot_seconds = slot_clock(device, log)
         per_t, _ = calibrate_activations(
-            params_q, spec, cfg_aq, cali_data, interval=interval, group_num=0,
+            params_q, spec, cfg_aq, data, interval=interval, group_num=0,
             running_stat=args.running_stat, batch_size=8 if args.model == "sd" else 4,
             unet_apply=apply_fn, progress=progress)
         seconds["act_slots"] = slot_seconds()

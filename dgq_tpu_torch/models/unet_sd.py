@@ -2,11 +2,18 @@
 
 The hardcoded SD v1.4 topology (320/640/1280 channels, one-layer
 transformers, twelve skip connections) as a function over a flat params
-dict keyed by the reference state-dict paths. The reconstruction capture
-(`record`, `inject_at`) serves weight reconstruction and waits for that slice.
+dict keyed by the reference state-dict paths. With `record=` the forward
+stashes every reconstruction unit's (inputs, output) under the JAX
+package's keys, and `inject_at` adds a tensor to a unit's output: weight
+reconstruction (`calib.reconstruction`) captures units and takes the
+gradient at one through them. A `CaptureUntil` record ends the forward
+with `StopForward` once its unit is recorded, so a capture runs only the
+UNet's prefix up to the unit.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -28,102 +35,163 @@ from dgq_tpu_torch.models.qconfig import QConfig, QState
 NUM_HEADS = 8
 CROSS_DIM = 768
 
+# Injection points: a tensor added to a unit's output. The gradient of a
+# loss with respect to an injected zero is the gradient at the unit's output
+# (the Fisher weighting of reconstruction).
+_INJECT: contextvars.ContextVar = contextvars.ContextVar("dgq_inject", default=None)
 
-def transformer_2d(p, prefix, x, ehs, n_layers, qstate, cfg):
+
+@contextlib.contextmanager
+def inject_at(store: dict):
+    """Inside the block, every unit named in `store` gets store[name] added to
+    its output."""
+    token = _INJECT.set(store)
+    try:
+        yield
+    finally:
+        _INJECT.reset(token)
+
+
+class StopForward(Exception):
+    """Raised by `_rec` once a `CaptureUntil` record holds its unit."""
+
+
+class CaptureUntil(dict):
+    """A `record` that ends the forward (`StopForward`) right after `key` is
+    recorded: the capture of one unit runs no layer past it."""
+
+    def __init__(self, key: str):
+        super().__init__()
+        self.key = key
+
+
+def _rec(record, key, inputs, out):
+    """Stash a reconstruction unit's (inputs, output) when capturing, after
+    adding any injection registered for it."""
+    inj = _INJECT.get()
+    if inj is not None and key in inj:
+        out = out + inj[key]
+    if record is not None:
+        record[key] = (inputs, out)
+        if isinstance(record, CaptureUntil) and record.key == key:
+            raise StopForward(key)
+    return out
+
+
+def transformer_2d(p, prefix, x, ehs, n_layers, qstate, cfg, record=None):
     """Transformer2DModel with conv proj_in/proj_out."""
     b, h, w, c = x.shape
     res = x
     x = group_norm(p[f"{prefix}.norm"], x, eps=1e-6)
+    x_in = x
     x = quant_conv2d(p[f"{prefix}.proj_in"], x, f"{prefix}.proj_in", qstate, cfg, 1, 0)
+    x = _rec(record, f"{prefix}.proj_in", (x_in,), x)
     inner = x.shape[-1]
     x = x.reshape(b, h * w, inner)
     for i in range(n_layers):
+        x_in = x
         x = basic_transformer_block(p, f"{prefix}.transformer_blocks.{i}", x, ehs,
                                     NUM_HEADS, qstate, cfg)
+        x = _rec(record, f"{prefix}.transformer_blocks.{i}", (x_in, ehs), x)
     x = x.reshape(b, h, w, inner)
+    x_in = x
     x = quant_conv2d(p[f"{prefix}.proj_out"], x, f"{prefix}.proj_out", qstate, cfg, 1, 0)
+    x = _rec(record, f"{prefix}.proj_out", (x_in,), x)
     return x + res
 
 
-def cross_attn_down_block(p, prefix, x, temb, ehs, qstate, cfg, has_shortcut, has_down):
+def _resnet(p, prefix, x, temb, qstate, cfg, shortcut, record):
+    out = resnet_block(p, prefix, x, temb, qstate, cfg, shortcut)
+    return _rec(record, prefix, (x, temb), out)
+
+
+def cross_attn_down_block(p, prefix, x, temb, ehs, qstate, cfg, has_shortcut, has_down,
+                          record=None):
     skips = []
     for i in range(2):
-        x = resnet_block(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg,
-                         has_shortcut and i == 0)
-        x = transformer_2d(p, f"{prefix}.attentions.{i}", x, ehs, 1, qstate, cfg)
+        x = _resnet(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg,
+                    has_shortcut and i == 0, record)
+        x = transformer_2d(p, f"{prefix}.attentions.{i}", x, ehs, 1, qstate, cfg, record)
         skips.append(x)
     if has_down:
         name = f"{prefix}.downsamplers.0.conv"
-        x = quant_conv2d(p[name], x, name, qstate, cfg, 2, 1)
+        x = _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 2, 1))
         skips.append(x)
     return x, skips
 
 
-def down_block(p, prefix, x, temb, qstate, cfg):
+def down_block(p, prefix, x, temb, qstate, cfg, record=None):
     skips = []
     for i in range(2):
-        x = resnet_block(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, False)
+        x = _resnet(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, False, record)
         skips.append(x)
     return x, skips
 
 
-def cross_attn_up_block(p, prefix, x, skips, temb, ehs, qstate, cfg, has_up):
+def cross_attn_up_block(p, prefix, x, skips, temb, ehs, qstate, cfg, has_up, record=None):
     for i in range(3):
         x = torch.cat([x, skips.pop()], dim=-1)
-        x = resnet_block(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, True)
-        x = transformer_2d(p, f"{prefix}.attentions.{i}", x, ehs, 1, qstate, cfg)
+        x = _resnet(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, True, record)
+        x = transformer_2d(p, f"{prefix}.attentions.{i}", x, ehs, 1, qstate, cfg, record)
     if has_up:
         x = upsample_nearest2x(x)
         name = f"{prefix}.upsamplers.0.conv"
-        x = quant_conv2d(p[name], x, name, qstate, cfg, 1, 1)
+        x = _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 1, 1))
     return x
 
 
-def up_block(p, prefix, x, skips, temb, qstate, cfg):
+def up_block(p, prefix, x, skips, temb, qstate, cfg, record=None):
     for i in range(3):
         x = torch.cat([x, skips.pop()], dim=-1)
-        x = resnet_block(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, True)
+        x = _resnet(p, f"{prefix}.resnets.{i}", x, temb, qstate, cfg, True, record)
     x = upsample_nearest2x(x)
     name = f"{prefix}.upsamplers.0.conv"
-    return quant_conv2d(p[name], x, name, qstate, cfg, 1, 1)
+    return _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 1, 1))
 
 
-def mid_block(p, prefix, x, temb, ehs, qstate, cfg):
-    x = resnet_block(p, f"{prefix}.resnets.0", x, temb, qstate, cfg, False)
-    x = transformer_2d(p, f"{prefix}.attentions.0", x, ehs, 1, qstate, cfg)
-    return resnet_block(p, f"{prefix}.resnets.1", x, temb, qstate, cfg, False)
+def mid_block(p, prefix, x, temb, ehs, qstate, cfg, record=None):
+    x = _resnet(p, f"{prefix}.resnets.0", x, temb, qstate, cfg, False, record)
+    x = transformer_2d(p, f"{prefix}.attentions.0", x, ehs, 1, qstate, cfg, record)
+    return _resnet(p, f"{prefix}.resnets.1", x, temb, qstate, cfg, False, record)
 
 
 def unet_sd_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
                   encoder_hidden_states: torch.Tensor, qstate: Optional[QState] = None,
-                  cfg: QConfig = QConfig()) -> torch.Tensor:
+                  cfg: QConfig = QConfig(), record: Optional[dict] = None) -> torch.Tensor:
     """UNet forward. sample is NHWC (B, 64, 64, 4); timesteps (B,) or a
-    scalar tensor."""
+    scalar tensor. With `record` (a dict) every reconstruction unit's
+    (inputs, output) is stashed in it."""
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(sample.shape[0])
     base = params["conv_in"]["w"].shape[0]  # 320 for real SD v1.4
     t_emb = timestep_embedding(timesteps, base).to(sample.dtype)
     emb = quant_linear(params["time_embedding.linear_1"], t_emb,
                        "time_embedding.linear_1", qstate, cfg)
-    emb = quant_linear(params["time_embedding.linear_2"], silu(emb),
+    emb = _rec(record, "time_embedding.linear_1", (t_emb,), emb)
+    emb_in = silu(emb)
+    emb = quant_linear(params["time_embedding.linear_2"], emb_in,
                        "time_embedding.linear_2", qstate, cfg)
+    emb = _rec(record, "time_embedding.linear_2", (emb_in,), emb)
 
     # conv_in / conv_out are never quantized
     x = conv2d(params["conv_in"], sample, 1, 1)
     ehs = encoder_hidden_states
     s0 = x
     x, (s1, s2, s3) = cross_attn_down_block(params, "down_blocks.0", x, emb, ehs,
-                                            qstate, cfg, False, True)
+                                            qstate, cfg, False, True, record)
     x, (s4, s5, s6) = cross_attn_down_block(params, "down_blocks.1", x, emb, ehs,
-                                            qstate, cfg, True, True)
+                                            qstate, cfg, True, True, record)
     x, (s7, s8, s9) = cross_attn_down_block(params, "down_blocks.2", x, emb, ehs,
-                                            qstate, cfg, True, True)
-    x, (s10, s11) = down_block(params, "down_blocks.3", x, emb, qstate, cfg)
-    x = mid_block(params, "mid_block", x, emb, ehs, qstate, cfg)
-    x = up_block(params, "up_blocks.0", x, [s9, s10, s11], emb, qstate, cfg)
-    x = cross_attn_up_block(params, "up_blocks.1", x, [s6, s7, s8], emb, ehs, qstate, cfg, True)
-    x = cross_attn_up_block(params, "up_blocks.2", x, [s3, s4, s5], emb, ehs, qstate, cfg, True)
-    x = cross_attn_up_block(params, "up_blocks.3", x, [s0, s1, s2], emb, ehs, qstate, cfg, False)
+                                            qstate, cfg, True, True, record)
+    x, (s10, s11) = down_block(params, "down_blocks.3", x, emb, qstate, cfg, record)
+    x = mid_block(params, "mid_block", x, emb, ehs, qstate, cfg, record)
+    x = up_block(params, "up_blocks.0", x, [s9, s10, s11], emb, qstate, cfg, record)
+    x = cross_attn_up_block(params, "up_blocks.1", x, [s6, s7, s8], emb, ehs, qstate, cfg,
+                            True, record)
+    x = cross_attn_up_block(params, "up_blocks.2", x, [s3, s4, s5], emb, ehs, qstate, cfg,
+                            True, record)
+    x = cross_attn_up_block(params, "up_blocks.3", x, [s0, s1, s2], emb, ehs, qstate, cfg,
+                            False, record)
     x = silu(group_norm(params["conv_norm_out"], x))
     return conv2d(params["conv_out"], x, 1, 1)
 

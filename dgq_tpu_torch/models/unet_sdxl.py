@@ -11,6 +11,10 @@ Differences from SD v1.4 (`unet_sd`):
     the add_embedding MLP over [text_embeds, time_embeds];
   * cross-attention dim 2048; heads = channels / 64;
   * the CrossAttn down blocks' first resnet always has a conv shortcut.
+
+`record=` and `unet_sd.inject_at` capture and perturb the reconstruction
+units as in `unet_sd`, under the JAX package's keys (the add-embedding
+linears are units too).
 """
 from __future__ import annotations
 
@@ -24,13 +28,18 @@ from dgq_tpu_torch.models.layers import (
     group_norm,
     quant_conv2d,
     quant_linear,
-    resnet_block,
     silu,
     timestep_embedding,
     upsample_nearest2x,
 )
 from dgq_tpu_torch.models.qconfig import QConfig, QState
-from dgq_tpu_torch.models.unet_sd import _resnet_spec, _transformer_spec, init_unet_sd
+from dgq_tpu_torch.models.unet_sd import (
+    _rec,
+    _resnet,
+    _resnet_spec,
+    _transformer_spec,
+    init_unet_sd,
+)
 
 SDXL_CROSS = 2048
 
@@ -39,17 +48,23 @@ def _heads(inner: int, base: int) -> int:
     return inner // min(64, base)
 
 
-def transformer_2d_linear(p, prefix, x, ehs, n_layers, base, qstate, cfg):
+def transformer_2d_linear(p, prefix, x, ehs, n_layers, base, qstate, cfg, record=None):
     """SDXL Transformer2DModel: linear proj, reshape first."""
     b, h, w, c = x.shape
     res = x
     x = group_norm(p[f"{prefix}.norm"], x, eps=1e-6)
     x = x.reshape(b, h * w, c)
+    x_in = x
     x = quant_linear(p[f"{prefix}.proj_in"], x, f"{prefix}.proj_in", qstate, cfg)
+    x = _rec(record, f"{prefix}.proj_in", (x_in,), x)
     for i in range(n_layers):
+        x_in = x
         x = basic_transformer_block(p, f"{prefix}.transformer_blocks.{i}", x, ehs,
                                     _heads(c, base), qstate, cfg)
+        x = _rec(record, f"{prefix}.transformer_blocks.{i}", (x_in, ehs), x)
+    x_in = x
     x = quant_linear(p[f"{prefix}.proj_out"], x, f"{prefix}.proj_out", qstate, cfg)
+    x = _rec(record, f"{prefix}.proj_out", (x_in,), x)
     return x.reshape(b, h, w, c) + res
 
 
@@ -65,9 +80,10 @@ def _n_tr_layers(p: dict, prefix: str) -> int:
 def unet_sdxl_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
                     encoder_hidden_states: torch.Tensor, text_embeds: torch.Tensor,
                     time_ids: torch.Tensor, qstate: Optional[QState] = None,
-                    cfg: QConfig = QConfig()) -> torch.Tensor:
+                    cfg: QConfig = QConfig(), record: Optional[dict] = None) -> torch.Tensor:
     """UNet forward. sample is NHWC (B, 128, 128, 4); timesteps (B,) or a
-    scalar tensor; text_embeds (B, 1280); time_ids (B, 6)."""
+    scalar tensor; text_embeds (B, 1280); time_ids (B, 6). `record` as in
+    `unet_sd_apply`."""
     p = params
     ehs = encoder_hidden_states
     if timesteps.dim() == 0:
@@ -78,40 +94,46 @@ def unet_sdxl_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
 
     t_emb = timestep_embedding(timesteps, base).to(sample.dtype)
     emb = quant_linear(p["time_embedding.linear_1"], t_emb, "time_embedding.linear_1", qstate, cfg)
-    emb = quant_linear(p["time_embedding.linear_2"], silu(emb), "time_embedding.linear_2",
+    emb = _rec(record, "time_embedding.linear_1", (t_emb,), emb)
+    emb_in = silu(emb)
+    emb = quant_linear(p["time_embedding.linear_2"], emb_in, "time_embedding.linear_2",
                        qstate, cfg)
+    emb = _rec(record, "time_embedding.linear_2", (emb_in,), emb)
 
     time_embeds = timestep_embedding(time_ids.reshape(-1), add_ch)
     time_embeds = time_embeds.reshape(text_embeds.shape[0], -1)
     add_embeds = torch.cat([text_embeds.float(), time_embeds], dim=-1).to(emb.dtype)
     aug = quant_linear(p["add_embedding.linear_1"], add_embeds, "add_embedding.linear_1",
                        qstate, cfg)
-    aug = quant_linear(p["add_embedding.linear_2"], silu(aug), "add_embedding.linear_2",
+    aug = _rec(record, "add_embedding.linear_1", (add_embeds,), aug)
+    aug_in = silu(aug)
+    aug = quant_linear(p["add_embedding.linear_2"], aug_in, "add_embedding.linear_2",
                        qstate, cfg)
+    aug = _rec(record, "add_embedding.linear_2", (aug_in,), aug)
     emb = emb + aug
 
     x = conv2d(p["conv_in"], sample, 1, 1)
 
     # down 0: plain resnets + downsampler
     s0 = x
-    x = resnet_block(p, "down_blocks.0.resnets.0", x, emb, qstate, cfg, False)
+    x = _resnet(p, "down_blocks.0.resnets.0", x, emb, qstate, cfg, False, record)
     s1 = x
-    x = resnet_block(p, "down_blocks.0.resnets.1", x, emb, qstate, cfg, False)
+    x = _resnet(p, "down_blocks.0.resnets.1", x, emb, qstate, cfg, False, record)
     s2 = x
     name = "down_blocks.0.downsamplers.0.conv"
-    x = quant_conv2d(p[name], x, name, qstate, cfg, 2, 1)
+    x = _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 2, 1))
     s3 = x
 
     def cross_down(prefix, x, n_layers, has_down):
         skips = []
         for i in range(2):
-            x = resnet_block(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, i == 0)
+            x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, i == 0, record)
             x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers, base,
-                                      qstate, cfg)
+                                      qstate, cfg, record)
             skips.append(x)
         if has_down:
             nm = f"{prefix}.downsamplers.0.conv"
-            x = quant_conv2d(p[nm], x, nm, qstate, cfg, 2, 1)
+            x = _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 2, 1))
             skips.append(x)
         return x, skips
 
@@ -121,26 +143,27 @@ def unet_sdxl_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
     x, (s7, s8) = cross_down("down_blocks.2", x, n_hi, False)
 
     # mid
-    x = resnet_block(p, "mid_block.resnets.0", x, emb, qstate, cfg, False)
-    x = transformer_2d_linear(p, "mid_block.attentions.0", x, ehs, n_hi, base, qstate, cfg)
-    x = resnet_block(p, "mid_block.resnets.1", x, emb, qstate, cfg, False)
+    x = _resnet(p, "mid_block.resnets.0", x, emb, qstate, cfg, False, record)
+    x = transformer_2d_linear(p, "mid_block.attentions.0", x, ehs, n_hi, base, qstate, cfg,
+                              record)
+    x = _resnet(p, "mid_block.resnets.1", x, emb, qstate, cfg, False, record)
 
     def cross_up(prefix, x, skips, n_layers):
         for i in range(3):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = resnet_block(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, True)
+            x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, True, record)
             x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers, base,
-                                      qstate, cfg)
+                                      qstate, cfg, record)
         x = upsample_nearest2x(x)
         nm = f"{prefix}.upsamplers.0.conv"
-        return quant_conv2d(p[nm], x, nm, qstate, cfg, 1, 1)
+        return _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 1, 1))
 
     x = cross_up("up_blocks.0", x, [s6, s7, s8], n_hi)
     x = cross_up("up_blocks.1", x, [s3, s4, s5], n_lo)
     # final plain up block, no upsampler
     for i, s in enumerate([s2, s1, s0]):
         x = torch.cat([x, s], dim=-1)
-        x = resnet_block(p, f"up_blocks.2.resnets.{i}", x, emb, qstate, cfg, True)
+        x = _resnet(p, f"up_blocks.2.resnets.{i}", x, emb, qstate, cfg, True, record)
 
     x = silu(group_norm(p["conv_norm_out"], x))
     return conv2d(p["conv_out"], x, 1, 1)

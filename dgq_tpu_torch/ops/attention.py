@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from dgq_tpu_torch.ops.build import load_kernels
+from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 
 # Launches of each kernel since the last reset (a run can show that the main
 # path went through the kernels). Only the kernel wrappers add to them.
@@ -185,6 +185,7 @@ def _quant_form_checked(scale, *args, **kw) -> int:
 
 def flash_attention(q, k, v, scale: float):
     """K2: unquantized softmax attention (`_flash_kernel`)."""
+    refuse_grad("flash_attention", q, k, v)
     _check_inputs(q, k, v)
     lib = load_kernels()
     out = torch.empty_like(q)
@@ -206,6 +207,7 @@ def static_uniform_attention(q, k, v, scale: float, sm_delta, sm_bits: int = 8):
     """K1: softmax attention with the uniform post-softmax quantizer
     (`_static_uniform_kernel`). sm_delta: scalar tensor (any float dtype);
     the kernel reads it from device memory, so no host synchronisation."""
+    refuse_grad("static_uniform_attention", q, k, v, sm_delta)
     _check_inputs(q, k, v)
     if not 1 <= sm_bits <= 16:
         raise ValueError(f"sm_bits {sm_bits} out of range")
@@ -236,6 +238,7 @@ def rt_stats(q, k, scale: float, start_peak: bool = False):
     order-independent for positive floats, from an initial +inf / 0 filled on
     the current stream; both buffers are allocated per call, so overlapping
     calls share nothing."""
+    refuse_grad("rt_stats", q, k)
     _check_inputs(q, k, k)
     if q.shape[2] > 160:
         raise ValueError(f"rt_stats is built for head_dim <= 160, got {q.shape[2]}")
@@ -277,6 +280,7 @@ def quant_accum(q, k, v, z, red, scale: float, sm_bits: int = 8, start_peak: boo
     through a pointer, recomputes Q K^T and forms the log2 codes from
     z - s without exp or log; under start_peak key column 0 stays exact. Its
     plain version is `attention_reference(..., "log2", sm_delta=rt_delta(red))`."""
+    refuse_grad("quant_accum", q, k, v, z, red)
     _check_quant_inputs(q, k, v, sm_bits)
     bh, t, d = q.shape
     for name, buf, shape in (("z", z, (bh, t)), ("red", red, (1,))):
@@ -304,6 +308,7 @@ def log2_real_time_attention(q, k, v, scale: float, sm_bits: int = 8,
     """K3 in its Hopper form K3b: softmax attention with the log2 quantizer
     whose delta is reduced over the whole call, as two launches on the
     current stream with no host synchronisation between them."""
+    refuse_grad("log2_real_time_attention", q, k, v)
     _check_quant_inputs(q, k, v, sm_bits)
     z, red = rt_stats(q, k, scale, start_peak)
     return quant_accum(q, k, v, z, red, scale, sm_bits, start_peak)
@@ -328,6 +333,7 @@ def static_quant_attention(q, k, v, scale: float, sm_mode: str, sm_delta, sm_bit
     """K4: softmax attention with a static-delta quantizer in one launch:
     `sm_mode="log2"` (with or without start_peak) or `"uniform"` with
     start_peak. sm_delta is a scalar tensor read from device memory."""
+    refuse_grad("static_quant_attention", q, k, v, sm_delta)
     _check_quant_inputs(q, k, v, sm_bits)
     if sm_mode not in ("log2", "uniform"):
         raise ValueError(f"static_quant_attention takes 'log2' or 'uniform', got {sm_mode!r}")
@@ -447,6 +453,7 @@ class _Packed:
 
 def flash_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None, out=None):
     """K2p: `flash_attention` over head slots (`_flash_kernel(sub_heads)`)."""
+    refuse_grad("flash_attention_packed", q, k, v)
     a = _Packed(q, k, v, num_heads, head_dim, 512, out)
     lib = load_kernels()
     form = _flash_form_checked(scale, q.dtype, a.d,
@@ -466,6 +473,7 @@ def static_uniform_attention_packed(q, k, v, scale: float, sm_delta, num_heads: 
                                     head_dim=None, sm_bits: int = 8, out=None):
     """K1p: `static_uniform_attention` over head slots
     (`_static_uniform_kernel(sub_heads)`)."""
+    refuse_grad("static_uniform_attention_packed", q, k, v, sm_delta)
     a = _Packed(q, k, v, num_heads, head_dim, 512, out)
     if not 1 <= sm_bits <= 16:
         raise ValueError(f"sm_bits {sm_bits} out of range")
@@ -488,6 +496,7 @@ def rt_stats_packed(q, k, scale: float, num_heads: int, head_dim=None,
     """K3p, first launch: `rt_stats` over head slots. z is (B*H, T), row
     b*H + h for head h of batch b; red folds every batch and head of the
     call, as `_rt_fused_kernel`'s one scalar does."""
+    refuse_grad("rt_stats_packed", q, k)
     a = _Packed(q, k, k, num_heads, head_dim, 160, None, need_out=False)
     lib = load_kernels()
     form = _quant_form_checked(scale, q.dtype, a.d, (q.data_ptr(), k.data_ptr()),
@@ -508,6 +517,7 @@ def rt_stats_packed(q, k, scale: float, num_heads: int, head_dim=None,
 def quant_accum_packed(q, k, v, z, red, scale: float, num_heads: int, head_dim=None,
                        sm_bits: int = 8, start_peak: bool = False, out=None):
     """K3p, second launch: `quant_accum` over head slots."""
+    refuse_grad("quant_accum_packed", q, k, v, z, red)
     a = _Packed(q, k, v, num_heads, head_dim, 160, out)
     if not 1 <= sm_bits <= 16:
         raise ValueError(f"sm_bits {sm_bits} out of range")
@@ -532,6 +542,7 @@ def quant_accum_packed(q, k, v, z, red, scale: float, num_heads: int, head_dim=N
 def log2_real_time_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None,
                                     sm_bits: int = 8, start_peak: bool = False, out=None):
     """K3p (`_rt_fused_kernel(sub_heads)`) as its two launches."""
+    refuse_grad("log2_real_time_attention_packed", q, k, v)
     z, red = rt_stats_packed(q, k, scale, num_heads, head_dim, start_peak)
     return quant_accum_packed(q, k, v, z, red, scale, num_heads, head_dim, sm_bits, start_peak,
                               out)
@@ -542,6 +553,7 @@ def static_quant_attention_packed(q, k, v, scale: float, sm_mode: str, sm_delta,
                                   start_peak: bool = False, out=None):
     """K4p: `static_quant_attention` over head slots
     (`_static_quant_kernel(sub_heads)`)."""
+    refuse_grad("static_quant_attention_packed", q, k, v, sm_delta)
     a = _Packed(q, k, v, num_heads, head_dim, 160, out)
     if not 1 <= sm_bits <= 16:
         raise ValueError(f"sm_bits {sm_bits} out of range")
@@ -610,6 +622,7 @@ def fused_attention(q, k, v, scale: float, sm_mode: str = "none", sm_bits: int =
     carry data (default: all dp); the kernels contract over those alone,
     which changes no bit, the others being zeros. `out` (packed layout only)
     is a buffer to write into."""
+    refuse_grad("fused_attention", q, k, v, sm_delta)
     if num_heads is not None:
         return _fused_attention_packed(q, k, v, scale, num_heads, head_dim, sm_mode, sm_bits,
                                        sm_delta, start_peak, out)

@@ -8,6 +8,10 @@ repository root, under names keyed on a hash of the source, the shared
 headers (`csrc/*.cuh`) and the flags; each is written under a temporary name
 and renamed into place, so concurrent processes never load a half-written
 file. A missing `nvcc` or a failed build raises: there is no fallback.
+
+`refuse_grad` is the guard every public kernel entry calls first: a kernel
+writes into a fresh tensor through ctypes, so its result has no grad_fn and
+a gradient through it would be zero without a word.
 """
 from __future__ import annotations
 
@@ -19,12 +23,25 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dgq_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+def refuse_grad(entry: str, *tensors) -> None:
+    """Raise RuntimeError, naming `entry`, when grad mode is on and one of
+    `tensors` requires grad: the kernels have no backward."""
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{entry}: an input requires grad, and the kernel has no backward (its result "
+            f"would carry no gradient). Call it under torch.no_grad(), or differentiate the "
+            f"plain layers (QConfig(use_pallas_attention=False), no fused group conv or int8 "
+            f"matmul)")
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from dgq_tpu_torch.models.qconfig import GroupQParams
-from dgq_tpu_torch.ops.build import load_kernels
+from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 
 # Launches of the kernel since the last reset; only the wrapper adds to it.
 LAUNCHES = {"group_quant_conv": 0}
@@ -152,6 +152,7 @@ def fold_weights(dtype, w, dm, zm, dl, zl, kh: int, kw: int):
     (taps, C, O) contiguous in `dtype`, rd and z (taps, C) f32, with `_fold`'s
     bits. The kernel writes w_t in w's own dtype, so w must have `dtype`; it
     never gives way to `_fold`, which is the plain version's and the CPU's."""
+    refuse_grad("fold_weights", w, dm, zm, dl, zl)
     taps, c, o = kh * kw, w.shape[2], w.shape[3]
     if w.dtype != dtype:
         raise ValueError(f"the group conv kernel needs w in x's dtype: w {w.dtype}, x {dtype}")
@@ -205,6 +206,7 @@ def group_quant_conv_reference(x, w, dm, zm, dl, zl, bias, kh=3, kw=3, padding=1
 def group_quant_conv(x, w, dm, zm, dl, zl, bias, kh: int = 3, kw: int = 3, padding: int = 1,
                      a_bits: int = 8):
     """K5: stride-1 group-quantized conv (`group_conv.py:group_quant_conv`)."""
+    refuse_grad("group_quant_conv", x, w, dm, zm, dl, zl, bias)
     b, h, wd, c = x.shape
     taps = kh * kw
     if tuple(w.shape[:3]) != (kh, kw, c):

@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from dgq_tpu_torch.ops.build import load_kernels
+from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 
 # Launches of the kernel since the last reset; only the wrapper adds to it.
 LAUNCHES = {"int8_matmul": 0}
@@ -181,6 +181,7 @@ def quantized_matmul(x, wq, w_delta, w_zp, x_delta, x_zp, bias=None, w_ksum=None
     (M,)). `plan` is the tile and split plan the kernel follows
     (`int8_plan`'s by default; another split of the same K gives the same
     bits, the partial sums being exact)."""
+    refuse_grad("quantized_matmul", x, wq, w_delta, w_zp, x_delta, x_zp, bias, w_ksum)
     if x.dim() != 2 or wq.dim() != 2 or wq.shape[1] != x.shape[1]:
         raise ValueError(f"expected x (M, K) and wq (N, K); got {tuple(x.shape)}, "
                          f"{tuple(wq.shape)}")

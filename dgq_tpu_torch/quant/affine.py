@@ -28,6 +28,23 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """`jnp.clip`: min(max(x, lo), hi), with torch.clamp's values. Where x ties
+    a bound the gradient splits in halves between x and the bound, as JAX's
+    does (torch.clamp hands all of it to x). Where no gradient is taken it is
+    torch.clamp itself, one pass. Where one is, a number bound becomes a 0-d
+    tensor of x's dtype filled on x's device (a copy from the host would wait
+    for the card's queue)."""
+    if not (torch.is_grad_enabled()
+            and any(torch.is_tensor(t) and t.requires_grad for t in (x, lo, hi))):
+        return torch.clamp(x, lo, hi)
+    if not torch.is_tensor(lo):
+        lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    if not torch.is_tensor(hi):
+        hi = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def quant_bounds(bits: int, symmetric: bool, always_zero: bool) -> tuple[int, int]:
     """Integer clamp bounds NB/PB."""
     level = 2 ** bits
@@ -39,7 +56,8 @@ def quant_bounds(bits: int, symmetric: bool, always_zero: bool) -> tuple[int, in
 def fake_quant(x: torch.Tensor, qp: QParams, bits: int, symmetric: bool = False,
                always_zero: bool = False) -> torch.Tensor:
     """Quantize-dequantize x: clip(r + zp, nb, pb) - zp == clip(r, nb - zp,
-    pb - zp), so the zero point lives in the clip bounds.
+    pb - zp), so the zero point lives in the clip bounds. The clip is `clip`'s,
+    so the gradients with respect to x and delta are JAX's, ties included.
 
     The arithmetic runs in the promoted dtype of x and delta, as JAX promotes
     arrays (a bf16 activation with an f32 delta computes in f32); PyTorch
@@ -48,7 +66,7 @@ def fake_quant(x: torch.Tensor, qp: QParams, bits: int, symmetric: bool = False,
     zp = torch.as_tensor(qp.zero_point, device=x.device)
     x = x.to(torch.promote_types(x.dtype, delta.dtype))
     nb, pb = quant_bounds(bits, symmetric, always_zero)
-    x_q = torch.clamp(ste_round(x / delta), nb - zp, pb - zp)
+    x_q = clip(ste_round(x / delta), nb - zp, pb - zp)
     return delta * x_q
 
 

@@ -3,8 +3,10 @@
 
   * parse_args: the same argv gives the same values in both packages (the
     port adds --device);
-  * reconstruction, and the flags only it or a multi-device run reads,
-    raise NotImplementedError naming the ROADMAP item;
+  * multi-device runs (--dp, --tp), and reconstruction with the fused
+    attention kernels (--pallas_attn), raise NotImplementedError naming the
+    ROADMAP entry, before any work (reconstruction itself is held in
+    tests/test_torch_recon_cli.py);
   * the README's verify flow on the port, on the CPU at base 32:
     `quantize_weight --fast --no_recon --use_aq`, then `quantize_act
     --group_num 2` with the t2i flags and --pallas_attn on its weight-only
@@ -59,18 +61,18 @@ def test_parse_args_match_jax(module, argv, monkeypatch):
     assert t == j
 
 
-@pytest.mark.parametrize("extra,match", [
-    ([], "--no_recon"),
-    (["--no_recon", "--dp", "2"], "--dp"),
-    (["--no_recon", "--tp", "2"], "--tp"),
-    (["--resume_w", "w.pth", "--partial_dir", "p"], "--partial_dir"),
-    (["--no_recon", "--tib_recon"], "--tib_recon"),
-    (["--no_recon", "--recon_loss", "fisher_full"], "--recon_loss"),
+@pytest.mark.parametrize("extra,match,item", [
+    (["--pallas_attn"], "--pallas_attn", "ROADMAP queue 3"),
+    (["--no_recon", "--dp", "2"], "--dp", "ROADMAP queue 1, item 17"),
+    (["--no_recon", "--tp", "2"], "--tp", "ROADMAP queue 1, item 17"),
+    (["--dp", "2", "--partial_dir", "p"], "--dp", "ROADMAP queue 1, item 17"),
+    (["--tib_recon", "--pallas_attn", "--use_aq"], "--pallas_attn", "ROADMAP queue 3"),
+    (["--recon_loss", "fisher_full", "--tp", "2"], "--tp", "ROADMAP queue 1, item 17"),
 ])
-def test_reconstruction_is_refused(extra, match, tmp_path):
+def test_reconstruction_is_refused(extra, match, item, tmp_path):
     with pytest.raises(NotImplementedError, match=match) as e:
         TQW.main(["--device", "cpu", "--base", str(BASE), "--outdir", str(tmp_path)] + extra)
-    assert "ROADMAP queue 1" in str(e.value)
+    assert item in str(e.value)
     assert not os.listdir(tmp_path)  # refused before any work
 
 

@@ -221,7 +221,8 @@ def test_port_imports_no_jax():
             "dgq_tpu_torch.ops.int8_matmul, dgq_tpu_torch.models.unet_sdxl, "
             "dgq_tpu_torch.io.dgq_ckpt, dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
             "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
-            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, chip_smoke, "
+            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, "
+            "dgq_tpu_torch.calib.reconstruction, chip_smoke, "
             "chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers', 'safetensors', 'PIL')]\n"
@@ -244,7 +245,8 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
             "dgq_tpu_torch.models.unet_sdxl, dgq_tpu_torch.io.dgq_ckpt, "
             "dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
             "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
-            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act\n"
+            "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, "
+            "dgq_tpu_torch.calib.reconstruction\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
