@@ -20,6 +20,12 @@ Phases (any failure raises, so the exit code is non-zero):
      bit for bit against its 16-byte-copy form at one shape. The packed
      head-slot attention entries are also held bit for bit against their
      unpacked kernels, over output memory that holds NaN;
+  2b. `int8_conv`: the s8 conv of `use_int8_conv` (a library route: codes,
+     an unfold from strided views, `torch._int_mm`, the f32 correction; no
+     hand-written kernel) at SD's and SDXL's k x k shapes, A8 and A6, f32
+     and bf16: the card's codes, s32 accumulator and window sums equal the
+     CPU port's bit for bit, its output within one f32 ulp; its device time
+     beside the cuDNN fake-quant conv it replaces;
   3. a small-input check: the tiny UNets on the card against the same models
      on the CPU (plain versions): SD fp, W8A8 g=1, g=1 with the int8 path,
      the g=8 configuration and the static-log2 configuration; SDXL fp and
@@ -36,9 +42,12 @@ Phases (any failure raises, so the exit code is non-zero):
      4c one step of the static-log2 (`log_max_1`) configuration, and one
         unquantized (fp) step;
      4d the g=1 path with the int8 deploy path on (`use_int8_matmul`): every
-        linear and 1x1 conv through the int8 matmul kernel.
+        linear and 1x1 conv through the int8 matmul kernel; then the same
+        with `use_int8_conv` too (50 s8 convs a forward, counted), s a step
+        beside 4d's.
      SDXL-turbo at 1024px, 4 Euler steps, guidance 0, decoded at 1024px:
-     4e W4A8 with log2 real_time softmax, start_peak and the int8 deploy path;
+     4e W4A8 with log2 real_time softmax, start_peak and the int8 deploy path,
+        then with `use_int8_conv` too (38 s8 convs a forward);
      4f the same with the int8 path off, unpacked and then with packed
         attention (the JAX bench's `--model sdxl` default).
   5. `cli_path`, between 4d and 4e: the inference entry point from local
@@ -75,6 +84,14 @@ Phases (any failure raises, so the exit code is non-zero):
      every UNet attention). Seconds a unit and an Adam step by unit kind
      (`_ReconProbe` times the walk from outside it), peak memory, the
      largest unit's captures a sample, the hours a 20000-step run would take.
+  8. `eval_path`, after `calib_path`: the evaluation path at full width
+     from the port alone: `cli.gen4eval.main` for SD v1.4 at 512px (--fp,
+     and W4A8 g=8 from calib_path's merged file with --pallas_attn
+     --group_impl fused) and for SDXL-turbo at 1024px (minmax W4), with
+     exact launch counts; `cli.eval_scores.main` (FID, IS) through a random
+     pytorch-fid-named Inception checkpoint; the open_clip ViT-g-14 and
+     ImageReward encoders at their published widths on random weights; each
+     scorer card against CPU, s an image and s per 100 images.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
@@ -1007,10 +1024,133 @@ def compare_int8(tag, summary):
     torch.cuda.empty_cache()
 
 
+# the k x k convs of the int8_conv phase: (label, batch, height, C, O, stride);
+# SD at its CFG batch 2 * IMAGES, SDXL-turbo at IMAGES
+INT8_CONV_SHAPES = (
+    ("SD 64px 320->320", 2 * IMAGES, 64, 320, 320, 1),
+    ("SD down 64->32 320", 2 * IMAGES, 64, 320, 320, 2),
+    ("SD down 32->16 640", 2 * IMAGES, 32, 640, 640, 2),
+    ("SD down 16->8 1280", 2 * IMAGES, 16, 1280, 1280, 2),
+    ("SD 8px 2560->1280", 2 * IMAGES, 8, 2560, 1280, 1),
+    ("SDXL 128px 320->320", IMAGES, 128, 320, 320, 1),
+    ("SDXL down 128->64 320", IMAGES, 128, 320, 320, 2),
+    ("SDXL down 64->32 640", IMAGES, 64, 640, 640, 2),
+)
+
+
+def int8_conv(tag):
+    """Phase 2b, the s8 conv (`use_int8_conv`, `models.layers._int8_conv`: the
+    codes, an unfold from strided views and `torch._int_mm`, the f32
+    correction; no hand-written kernel) at SD's and SDXL's k x k shapes, W4
+    minmax codes, A8 in f32 and bf16 and A6 in f32 at the first two shapes.
+    On the first image of each batch the card's codes, s32 accumulator and
+    window sums equal the CPU port's (an exact float64 product) bit for bit,
+    and its output is within one f32 ulp of the CPU's (bf16: one bf16 ulp).
+    Timed in bf16 A8 at the full batch, device-only: the whole s8 conv, its
+    unfold and product alone, and the fake-quant conv it replaces (the A8
+    quantizer, then cuDNN's bf16 conv)."""
+    import torch
+    from dgq_tpu_torch.calib.weight_calib import quantize_model_weights
+    from dgq_tpu_torch.models import layers as TL
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.quant.affine import QParams
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def ulp(t):
+        a = t.abs()
+        return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+    for i, (label, b, h, c, o, stride) in enumerate(INT8_CONV_SHAPES):
+        spec = [("C", "conv", (c, o, 3, stride, 1))]
+        params = {"C": {"w": 0.05 * torch.randn(o, c, 3, 3, generator=g, device="cuda"),
+                        "b": torch.randn(o, generator=g, device="cuda")}}
+        base = QConfig(w_bits=4, a_bits=8, use_wq=True, use_aq=True, use_int8_conv=True)
+        pq, _ = quantize_model_weights(params, spec, base)
+        x32 = torch.randn(b, h, h, c, generator=g, device="cuda")
+        runs = [(8, torch.float32), (8, torch.bfloat16)] + ([(6, torch.float32)] if i < 2 else [])
+        for a_bits, dtype in runs:
+            cfg = base.replace(a_bits=a_bits)
+            x = x32.to(dtype)
+            lo, hi = float(x.float().min()), float(x.float().max())
+            d = (hi - lo) / (2 ** a_bits - 1)
+            qp = QParams(torch.tensor(d, device="cuda"),
+                         torch.tensor(round(-lo / d), device="cuda"))
+            p = {k: (v.to(dtype) if k in ("w", "b") else v) for k, v in pq["C"].items()}
+            state = {"a": {"C": qp}, "sm": {}}
+            codes, _ = TL.int8_conv_codes(x[:1], qp, a_bits, 1)
+            acc, xsum = TL.int8_conv_acc(codes, p["w_q8c"], stride)
+            out = TL.quant_conv2d(p, x[:1], "C", state, cfg, stride, 1)
+            cpu = {k: v.cpu() for k, v in p.items()}
+            qp_cpu = QParams(qp.delta.cpu(), qp.zero_point.cpu())
+            codes_c, _ = TL.int8_conv_codes(x[:1].cpu(), qp_cpu, a_bits, 1)
+            acc_c, xsum_c = TL.int8_conv_acc(codes_c, cpu["w_q8c"], stride)
+            out_c = TL.quant_conv2d(cpu, x[:1].cpu(), "C", {"a": {"C": qp_cpu}, "sm": {}}, cfg,
+                                    stride, 1)
+            if not (torch.equal(codes.cpu(), codes_c) and torch.equal(acc.cpu(), acc_c)
+                    and torch.equal(xsum.cpu(), xsum_c)):
+                raise AssertionError(f"int8_conv {label} A{a_bits} {dtype}: the card's codes or "
+                                     f"s32 accumulator differ from the CPU's")
+            err = (out.cpu().float() - out_c.float()).abs()
+            tol = ulp(out_c.float()) if dtype == torch.float32 else 2.0 ** -7 * out_c.float().abs()
+            if out.dtype != dtype or not bool((err <= tol).all()):
+                raise AssertionError(f"int8_conv {label} A{a_bits} {dtype}: output off by "
+                                     f"{float(err.max())}")
+        # timing at the full batch, bf16 A8
+        x = x32.bfloat16()
+        p = {k: (v.bfloat16() if k in ("w", "b") else v) for k, v in pq["C"].items()}
+        lo, hi = float(x.float().min()), float(x.float().max())
+        d = (hi - lo) / 255
+        state = {"a": {"C": QParams(torch.tensor(d, device="cuda"),
+                                    torch.tensor(round(-lo / d), device="cuda"))}, "sm": {}}
+        on, off = base, base.replace(use_int8_conv=False)
+        codes, _ = TL.int8_conv_codes(x, state["a"]["C"], 8, 1)
+        y_on = TL.quant_conv2d(p, x, "C", state, on, stride, 1)
+        y_off = TL.quant_conv2d(p, x, "C", state, off, stride, 1)
+        # the fake-quant conv runs in bf16: the two agree to its rounding
+        rel = float((y_on.float() - y_off.float()).norm() / y_off.float().norm())
+        if not rel < 1e-2:
+            raise AssertionError(f"int8_conv {label}: {rel} from the fake-quant conv")
+        ms_on = _device_ms(lambda: TL.quant_conv2d(p, x, "C", state, on, stride, 1))
+        ms_mm = _device_ms(lambda: TL.int8_conv_acc(codes, p["w_q8c"], stride))
+        ms_off = _device_ms(lambda: TL.quant_conv2d(p, x, "C", state, off, stride, 1))
+        ho = (h + 2 - 3) // stride + 1
+        ops = 2.0 * b * ho * ho * o * 9 * c
+        nbytes = 2.0 * b * h * h * c + 9.0 * c * o + 2.0 * b * ho * ho * o  # x, codes, y once
+        bound = _bound(ops, nbytes, PEAK_INT8_OPS)
+        print(f"int8_conv {label} (B={b}, {h}x{h}, C={c}, O={o}, stride {stride}; M={b * ho * ho} "
+              f"K={9 * c} N={o}): card against CPU, first image: codes, s32 accumulator and "
+              f"window sums equal; output within one f32 ulp (bf16: one bf16 ulp) at A8 f32, A8 "
+              f"bf16{', A6 f32' if i < 2 else ''}; bf16 A8 against the bf16 fake-quant conv "
+              f"{rel:.3g} relative; device ms: s8 conv {ms_on:.4f} (unfold + torch._int_mm "
+              f"{ms_mm:.4f}), fake-quant conv (quantizer + cuDNN bf16) {ms_off:.4f}; bound of "
+              f"the int8 conv {bound[0]:.4f} ({bound[1]}) | {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+
+# calls of the s8 conv (`models.layers._int8_conv`, a library product, no
+# hand-written kernel), counted beside the kernels' launches under this key by
+# `_count_int8_convs`; it is no kernel of the `kernels` record
+INT8_CONV_CALLS = {"int8_conv": 0}
+
+
+def _count_int8_convs():
+    """Wrap `models.layers._int8_conv` so that each call adds one to
+    INT8_CONV_CALLS (quant_conv2d looks the name up at each call)."""
+    from dgq_tpu_torch.models import layers
+
+    real = layers._int8_conv
+
+    def counted(*args, **kwargs):
+        INT8_CONV_CALLS["int8_conv"] += 1
+        return real(*args, **kwargs)
+    layers._int8_conv = counted
+
+
 def _launch_counts():
     from dgq_tpu_torch.ops import attention as A, group_conv as G, int8_matmul as M8
 
-    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES}
+    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES, **INT8_CONV_CALLS}
 
 
 def _reset_launch_counts():
@@ -1019,6 +1159,7 @@ def _reset_launch_counts():
     A.reset_launch_counts()
     G.reset_launch_counts()
     M8.reset_launch_counts()
+    INT8_CONV_CALLS["int8_conv"] = 0
 
 
 def _g8_kwargs(group_layers, impl):
@@ -1194,7 +1335,8 @@ def small_input_check(x, prepared, tag):
 
 
 def _fold_w4_bf16(params, spec, num_heads):
-    """W4 minmax fold with the int8 codes beside it, then the attention heads
+    """W4 minmax fold with the int8 codes beside it (the matmul's 'w_q8' and the
+    k x k convs' 'w_q8c'), then the attention heads
     packed into slots (the order of the JAX bench: fold, pack, cast), then the
     float weights in bf16; the int8 entries keep their codes and f32 scales.
     Returns the unpacked and the packed parameters, which share every layer
@@ -1208,7 +1350,8 @@ def _fold_w4_bf16(params, spec, num_heads):
                 else v for k, v in p.items()}
 
     params_q, _ = quantize_model_weights(params, spec, QConfig(w_bits=4, use_wq=True,
-                                                               use_int8_matmul=True))
+                                                               use_int8_matmul=True,
+                                                               use_int8_conv=True))
     packed_q = pack_attention_heads(params_q, spec, num_heads)
     cast = {n: bf16(p) for n, p in params_q.items()}
     packed = {n: cast[n] if p is params_q[n] else bf16(p) for n, p in packed_q.items()}
@@ -1221,6 +1364,13 @@ def _n_int8_layers(params, qstate, time_aware):
     lead = 1 if time_aware else 0
     return sum("w_q8" in p and hasattr(qstate["a"].get(n), "delta")
                and qstate["a"][n].delta.dim() == lead for n, p in params.items())
+
+
+def _n_int8_convs(spec):
+    """k x k convs a forward sends to the s8 conv: every one but conv_in and
+    conv_out (excluded under disable_out_quant), none of them a group conv:
+    50 of SD v1.4's 52 and 38 of SDXL-turbo's 40."""
+    return sum(k == "conv" and m[2] > 1 and n not in ("conv_in", "conv_out") for n, k, m in spec)
 
 
 def build_model(tag):
@@ -1399,9 +1549,19 @@ def main_paths(tag):
         raise AssertionError(f"{n_int8} int8 layers, expected every linear and 1x1 conv: {n_lin}")
     cfg = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                   use_pallas_attention=True, use_int8_matmul=True, int8_impl="pallas")
-    drive_path(model, "g=1 int8 path (use_int8_matmul)", qstate, cfg, STEPS_INT8,
-               {"int8_matmul": n_int8 * STEPS_INT8,
-                "static_uniform_attention": n_attn * STEPS_INT8, "flash_attention": 1}, tag)
+    want = {"int8_matmul": n_int8 * STEPS_INT8, "static_uniform_attention": n_attn * STEPS_INT8,
+            "flash_attention": 1}
+    i8 = drive_path(model, "g=1 int8 path (use_int8_matmul)", qstate, cfg, STEPS_INT8, want, tag)
+    # 4d': and every k x k conv in real int8 (use_int8_conv, the library s8 conv)
+    n_conv = _n_int8_convs(spec)
+    if n_conv != 50 or sum("w_q8c" in p for p in model["params"].values()) != n_conv:
+        raise AssertionError(f"SD v1.4: {n_conv} k x k int8 convs a forward, expected 50")
+    i8c = drive_path(model, f"int8_conv: g=1 int8 path + use_int8_conv ({n_conv} s8 convs a "
+                     f"forward)", qstate, cfg.replace(use_int8_conv=True), STEPS_INT8,
+                     {**want, "int8_conv": n_conv * STEPS_INT8}, tag)
+    print(f"int8_conv: SD v1.4 g=1 int8 path, {STEPS_INT8} steps: use_int8_conv on "
+          f"{i8c['s'][0]:.4f} s per step, {i8c['s'][1]:.4f} s per image; off {i8['s'][0]:.4f} s "
+          f"per step, {i8['s'][1]:.4f} s per image | {tag}", flush=True)
     return {"static_uniform_attention": g1["static_uniform_attention"],
             "flash_attention": k2["flash_attention"], "rt_stats": g8["rt_stats"],
             "quant_accum": g8["quant_accum"], "group_quant_conv": g8["group_quant_conv"],
@@ -2072,7 +2232,7 @@ def _check_calibrated(label, per_t, spec, tag):
           f"axis, {len(mixed)} points mixed across slots | {tag}", flush=True)
 
 
-def calib_path(tag, ref):
+def calib_path(tag, ref, keep):
     """Phase 6: calibration without reconstruction at full width, from the
     port alone (random SD v1.4 weights from seed 42, f32 as the JAX CLIs
     run, 512px, the calibration cut to CALI_PROMPTS prompts and CALI_STEPS
@@ -2094,7 +2254,9 @@ def calib_path(tag, ref):
           fused, CALI_STEPS PNDM steps, 2 images through an HF-named VAE).
     Each checkpoint is read back bit for bit, each run's kernel launches are
     exact, and the first quantized forward's relative error with the
-    calibrated g=8 state is printed beside that of `synthetic_group_qstate`."""
+    calibrated g=8 state is printed beside that of `synthetic_group_qstate`.
+    (g)'s merged file and VAE stay in `keep` for `eval_path`, and the return
+    value names them: {'merged', 'vae_dir', 'k5_convs'}."""
     import os
     import tempfile
 
@@ -2212,10 +2374,10 @@ def calib_path(tag, ref):
               f"synthetic_group_qstate {rel['synthetic_group_qstate']:.6g} | {tag}", flush=True)
 
         # (g) merge, then the inference CLI on the merged file
-        merged = os.path.join(tmp, "sd_w4a8g8_merged.pth")
+        merged = os.path.join(keep, "sd_w4a8g8_merged.pth")
         if ckpt_tools.main(["merge", weight_only, a["act_ckpt"], merged]) != 0:
             raise AssertionError("calib_path (g): ckpt_tools merge failed")
-        vae_dir = os.path.join(tmp, "vae")
+        vae_dir = os.path.join(keep, "vae")
         os.makedirs(vae_dir)
         torch.save(params_to_torch_unet(init_vae_decoder(g, "cuda"), vae_decoder_spec()),
                    os.path.join(vae_dir, "diffusion_pytorch_model.bin"))
@@ -2242,6 +2404,351 @@ def calib_path(tag, ref):
               f"{tag}", flush=True)
         if len(images) != 4 or any(i.shape != (512, 512, 3) or i.dtype != np.uint8 for i in images):
             raise AssertionError("calib_path (g): not four uint8 images of 512px")
+    torch.cuda.empty_cache()
+    return {"merged": merged, "vae_dir": vae_dir, "k5_convs": k5_convs}
+
+
+EVAL_PROMPTS = 20  # gen4eval's SD prompts: two images in each of IS's ten splits
+EVAL_BATCH = 10
+SCORER_IMAGES = 100  # the scorers' timed batch, "s per 100 images"
+
+
+def _rand_tree(shapes, g, std=0.02):
+    """Random f32 weights on the card under checkpoint names: LayerNorm
+    weights 1 and biases 0, everything else N(0, std^2)."""
+    import torch
+
+    out = {}
+    for k, shape in shapes.items():
+        if ("ln" in k or "norm" in k or "LayerNorm" in k) and k.endswith((".weight", ".bias")):
+            out[k] = (torch.ones if k.endswith(".weight") else torch.zeros)(shape, device="cuda")
+        else:
+            out[k] = std * torch.randn(shape, generator=g, device="cuda")
+    return out
+
+
+def _open_clip_shapes(prefix, width, depth, mlp):
+    shapes = {}
+    for i in range(depth):
+        b = f"{prefix}transformer.resblocks.{i}"
+        shapes.update({f"{b}.ln_1.weight": (width,), f"{b}.ln_1.bias": (width,),
+                       f"{b}.attn.in_proj_weight": (3 * width, width),
+                       f"{b}.attn.in_proj_bias": (3 * width,),
+                       f"{b}.attn.out_proj.weight": (width, width),
+                       f"{b}.attn.out_proj.bias": (width,), f"{b}.ln_2.weight": (width,),
+                       f"{b}.ln_2.bias": (width,), f"{b}.mlp.c_fc.weight": (mlp, width),
+                       f"{b}.mlp.c_fc.bias": (mlp,), f"{b}.mlp.c_proj.weight": (width, mlp),
+                       f"{b}.mlp.c_proj.bias": (width,)})
+    return shapes
+
+
+def vit_g14_params(g):
+    """open_clip ViT-g-14 (laion2b_s34b_b88k) at its published widths: vision
+    1408 wide, 40 blocks, MLP 6144, 14px patches at 224px; text 1024 wide, 24
+    blocks, MLP 4096, 49408 tokens, 77 positions; 1024-d embeddings."""
+    vis = {"conv1.weight": (1408, 3, 14, 14), "class_embedding": (1408,),
+           "positional_embedding": (257, 1408), "ln_pre.weight": (1408,), "ln_pre.bias": (1408,),
+           "ln_post.weight": (1408,), "ln_post.bias": (1408,), "proj": (1408, 1024),
+           **_open_clip_shapes("", 1408, 40, 6144)}
+    txt = {"token_embedding.weight": (49408, 1024), "positional_embedding": (77, 1024),
+           "ln_final.weight": (1024,), "ln_final.bias": (1024,),
+           "text_projection": (1024, 1024), **_open_clip_shapes("", 1024, 24, 4096)}
+    return {"visual": _rand_tree(vis, g), "text": _rand_tree(txt, g)}
+
+
+def image_reward_params(g):
+    """ImageReward-v1.0 at its published widths: BLIP ViT-L/16 (1024 wide, 24
+    blocks, MLP 4096, 224px), BERT-base with cross-attention (768 wide, 12
+    layers, 3072, 30524 tokens, 512 positions, keys / values from 1024) and the
+    768 -> 1024 -> 128 -> 64 -> 16 -> 1 head at Sequential indices 0 to 8."""
+    vis = {"patch_embed.proj.weight": (1024, 3, 16, 16), "patch_embed.proj.bias": (1024,),
+           "cls_token": (1, 1, 1024), "pos_embed": (1, 197, 1024), "norm.weight": (1024,),
+           "norm.bias": (1024,)}
+    for i in range(24):
+        b = f"blocks.{i}"
+        vis.update({f"{b}.norm1.weight": (1024,), f"{b}.norm1.bias": (1024,),
+                    f"{b}.attn.qkv.weight": (3072, 1024), f"{b}.attn.qkv.bias": (3072,),
+                    f"{b}.attn.proj.weight": (1024, 1024), f"{b}.attn.proj.bias": (1024,),
+                    f"{b}.norm2.weight": (1024,), f"{b}.norm2.bias": (1024,),
+                    f"{b}.mlp.fc1.weight": (4096, 1024), f"{b}.mlp.fc1.bias": (4096,),
+                    f"{b}.mlp.fc2.weight": (1024, 4096), f"{b}.mlp.fc2.bias": (1024,)})
+    txt = {"embeddings.word_embeddings.weight": (30524, 768),
+           "embeddings.position_embeddings.weight": (512, 768),
+           "embeddings.LayerNorm.weight": (768,), "embeddings.LayerNorm.bias": (768,)}
+    for i in range(12):
+        b = f"encoder.layer.{i}"
+        for att, kv in (("attention", 768), ("crossattention", 1024)):
+            txt.update({f"{b}.{att}.self.query.weight": (768, 768),
+                        f"{b}.{att}.self.query.bias": (768,),
+                        f"{b}.{att}.self.key.weight": (768, kv), f"{b}.{att}.self.key.bias": (768,),
+                        f"{b}.{att}.self.value.weight": (768, kv),
+                        f"{b}.{att}.self.value.bias": (768,),
+                        f"{b}.{att}.output.dense.weight": (768, 768),
+                        f"{b}.{att}.output.dense.bias": (768,),
+                        f"{b}.{att}.output.LayerNorm.weight": (768,),
+                        f"{b}.{att}.output.LayerNorm.bias": (768,)})
+        txt.update({f"{b}.intermediate.dense.weight": (3072, 768),
+                    f"{b}.intermediate.dense.bias": (3072,),
+                    f"{b}.output.dense.weight": (768, 3072), f"{b}.output.dense.bias": (768,),
+                    f"{b}.output.LayerNorm.weight": (768,), f"{b}.output.LayerNorm.bias": (768,)})
+    head = {}
+    for i, (a, b) in zip((0, 2, 4, 6, 8), ((768, 1024), (1024, 128), (128, 64), (64, 16),
+                                           (16, 1))):
+        head.update({f"{i}.weight": (b, a), f"{i}.bias": (b,)})
+    return {"visual": _rand_tree(vis, g), "text": _rand_tree(txt, g), "mlp": _rand_tree(head, g)}
+
+
+def _cut_depth(tree, depth):
+    """The first `depth` blocks of a tower (and every other leaf), on the CPU."""
+    def keep(k):
+        m = re.match(r"(?:transformer\.resblocks|blocks|encoder\.layer)\.(\d+)\.", k)
+        return m is None or int(m.group(1)) < depth
+    return {k: v.cpu() for k, v in tree.items() if keep(k)}
+
+
+def _pt_inception_state(g):
+    """A random InceptionV3 state dict under pytorch-fid's names (BN running
+    statistics and the 1008-class fc included), on the CPU for torch.save."""
+    import torch
+    from dgq_tpu_torch.eval.inception import inception_spec
+
+    state = {}
+    for name, ci, co, k, _, _ in inception_spec():
+        w = torch.randn(co, ci, *k, generator=g, device="cuda") * (2.0 / (ci * k[0] * k[1])) ** 0.5
+        state[f"{name}.conv.weight"] = w.cpu()
+        state[f"{name}.bn.weight"] = (0.5 + torch.rand(co, generator=g, device="cuda")).cpu()
+        state[f"{name}.bn.bias"] = (0.1 * torch.randn(co, generator=g, device="cuda")).cpu()
+        state[f"{name}.bn.running_mean"] = (0.1 * torch.randn(co, generator=g, device="cuda")).cpu()
+        state[f"{name}.bn.running_var"] = (0.5 + torch.rand(co, generator=g, device="cuda")).cpu()
+    state["fc.weight"] = (0.05 * torch.randn(1008, 2048, generator=g, device="cuda")).cpu()
+    state["fc.bias"] = torch.zeros(1008)
+    return state
+
+
+def _per_100(fn, n):
+    """Seconds `fn` takes (after a warm-up call), scaled to 100 images of `n`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 100.0 * (time.perf_counter() - t0) / n, out
+
+
+def eval_path(tag, calib):
+    """Phase 8, the evaluation path at full width, from the port alone, in a
+    temporary directory under build/:
+      (l) `cli.gen4eval.main` for SD v1.4 at 512px on EVAL_PROMPTS prompts of a
+          csv written here, CALI_STEPS PNDM steps, batch EVAL_BATCH, through
+          calib_path's HF-named VAE: once --fp, once from calib_path's merged
+          W4A8 g=8 checkpoint with --use_aq --use_group, the t2i flags and
+          --pallas_attn --group_impl fused (K3b, K5 and K2 in the VAE);
+      (m) `cli.gen4eval.main` for SDXL-turbo at 1024px, 4 Euler steps, 2
+          images: --wq 4 --aq 8 --use_aq, the minmax W4 fold without a
+          checkpoint (so no activation state: the JAX CLI's behaviour);
+      (n) `cli.eval_scores.main`: FID of (l)'s quantized images against its fp
+          images (--ref_dir) and IS (--isc) through a random Inception
+          checkpoint under pytorch-fid's names, fc included
+          (`load_pt_inception`); FID again against a --ref_stats file of the
+          fp images' features, which must give the same number; the
+          extractor's features and probabilities on the card within 1e-4 of
+          the largest on the CPU; then the open_clip ViT-g-14 and ImageReward
+          encoders at their published widths with random weights made on
+          the card and synthetic token ids: at two blocks a tower, card
+          against CPU within 2e-5 (embeddings, image tokens, text states,
+          rewards), and at full depth on the card for the time.
+    The scorers run in float32 (`eval.common.strict_f32`: no TF32). Exact
+    launch counts for (l) and (m); none in (n). Prints s an image for each
+    gen4eval run and s per 100 images for each scorer."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes
+    from dgq_tpu_torch.cli import eval_scores, gen4eval
+    from dgq_tpu_torch.eval import image_reward as IR, inception as INC, open_clip as OC
+    from dgq_tpu_torch.eval.scores import frechet_distance, gaussian_stats
+    from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+
+    n_att = len(attention_prefixes(sd_unet_spec()))
+    t2i = ["--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak", "--time_aware_aqtizer"]
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batches = -(-EVAL_PROMPTS // EVAL_BATCH)
+
+    def run_cli(label, fn, argv, forwards, want):
+        return _run_cli("eval_path", label, fn, argv, forwards, want, tag)
+
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        csv = os.path.join(tmp, "prompts.csv")
+        with open(csv, "w") as f:
+            f.write("caption\n" + "".join(f"prompt number {i}\n" for i in range(EVAL_PROMPTS)))
+        # (l) SD v1.4, fp and quantized
+        fp_dir, q_dir = os.path.join(tmp, "sd_fp"), os.path.join(tmp, "sd_w4a8g8")
+        common = ["--model", "sd", "--prompts", csv, "--batch", str(EVAL_BATCH), "--steps",
+                  str(CALI_STEPS), "--vae_weights", calib["vae_dir"]]
+        fp = run_cli("(l) gen4eval --fp", gen4eval.main, common + ["--fp", "--outdir", fp_dir],
+                     0, lambda f: {"flash_attention": batches})
+        q = run_cli("(l) gen4eval W4A8 g=8", gen4eval.main,
+                    common + ["--cali_ckpt", calib["merged"], "--use_aq", "--use_group",
+                              "--pallas_attn", "--group_impl", "fused", "--outdir", q_dir] + t2i,
+                    batches * (CALI_STEPS + 1),
+                    lambda f: {"flash_attention": batches, "rt_stats": n_att * f,
+                               "quant_accum": n_att * f, "group_quant_conv": calib["k5_convs"] * f})
+        names = [f"{i}_0.png" for i in range(EVAL_PROMPTS)]
+        for label, res, d in (("fp", fp, fp_dir), ("W4A8 g=8", q, q_dir)):
+            if sorted(os.listdir(d)) != sorted(names) or res["images"] != EVAL_PROMPTS:
+                raise AssertionError(f"eval_path (l) {label}: wrote {sorted(os.listdir(d))}")
+            print(f"eval_path (l) gen4eval SD v1.4 {label}: {res['images']} images 512px, "
+                  f"{CALI_STEPS} PNDM steps CFG 7.5 f32, batch {EVAL_BATCH}: "
+                  f"{res['generate_s'] / res['images']:.4f} s per image (generation "
+                  f"{res['generate_s']:.2f} s, model load + fold {res['load_fold_s']:.2f} s) "
+                  f"| {tag}",
+                  flush=True)
+        gen = eval_scores.load_images(q_dir)
+        if gen.shape != (EVAL_PROMPTS, 512, 512, 3) or float(gen.std()) == 0.0:
+            raise AssertionError(f"eval_path (l): bad images {gen.shape}")
+        torch.cuda.empty_cache()
+
+        # (m) SDXL-turbo at 1024px through the CLI
+        csv2 = os.path.join(tmp, "prompts2.csv")
+        with open(csv2, "w") as f:
+            f.write("caption\nan astronaut\na lighthouse\n")
+        xl_dir = os.path.join(tmp, "sdxl")
+        xl = run_cli("(m) gen4eval SDXL-turbo W4 minmax", gen4eval.main,
+                     ["--model", "sdxl", "--prompts", csv2, "--batch", "2", "--steps",
+                      str(STEPS_SDXL), "--wq", "4", "--aq", "8", "--use_aq", "--vae_weights",
+                      calib["vae_dir"], "--outdir", xl_dir], 0, lambda f: {"flash_attention": 1})
+        xl_imgs = eval_scores.load_images(xl_dir)
+        if sorted(os.listdir(xl_dir)) != ["0_0.png", "1_0.png"] or xl_imgs.shape != (2, 1024, 1024,
+                                                                                      3):
+            raise AssertionError(f"eval_path (m): wrote {sorted(os.listdir(xl_dir))}")
+        print(f"eval_path (m) gen4eval SDXL-turbo W4 minmax: 2 images 1024px, {STEPS_SDXL} Euler "
+              f"steps f32: {xl['generate_s'] / xl['images']:.4f} s per image (generation "
+              f"{xl['generate_s']:.2f} s, model init + fold {xl['load_fold_s']:.2f} s) | {tag}",
+              flush=True)
+        del xl_imgs
+        torch.cuda.empty_cache()
+
+        # (n) eval_scores: FID and IS through a pytorch-fid checkpoint
+        ck = os.path.join(tmp, "pt_inception-random.pth")
+        torch.save(_pt_inception_state(g), ck)
+        out = os.path.join(tmp, "scores.json")
+        res = run_cli("(n) eval_scores FID + IS", eval_scores.main,
+                      ["--gen_dir", q_dir, "--ref_dir", fp_dir, "--inception_ckpt", ck, "--isc",
+                       "--out", out], 0, lambda f: {})
+        if set(res) != {"fid", "inception_score", "inception_score_std"} or json.load(
+                open(out)) != res or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"eval_path (n): eval_scores gave {res}")
+        params = INC.load_pt_inception(ck)
+        ref_imgs = eval_scores.load_images(fp_dir)
+        t_feat, f_ref = _per_100(lambda: INC.fid_features(params, np.concatenate(
+            [ref_imgs] * (SCORER_IMAGES // EVAL_PROMPTS)), batch_size=32), SCORER_IMAGES)
+        stats = os.path.join(tmp, "fp_stats.npz")
+        np.savez(stats, **dict(zip(("mu", "sigma"), gaussian_stats(f_ref[:EVAL_PROMPTS]))))
+        res2 = eval_scores.main(["--gen_dir", q_dir, "--ref_stats", stats, "--inception_ckpt", ck])
+        if abs(res2["fid"] - res["fid"]) > 1e-4 * max(abs(res["fid"]), 1.0):
+            raise AssertionError(f"eval_path (n): --ref_stats FID {res2['fid']}, --ref_dir "
+                                 f"{res['fid']}")
+        feats = INC.fid_features(params, gen)
+        t_probs, probs = _per_100(lambda: INC.inception_probs(params, np.concatenate(
+            [gen] * (SCORER_IMAGES // EVAL_PROMPTS)), batch_size=32), SCORER_IMAGES)
+        cpu = INC.load_pt_inception(ck, "cpu")
+        f_cpu, p_cpu = INC.fid_features(cpu, gen), INC.inception_probs(cpu, gen)
+        e_f = float(np.abs(feats - f_cpu).max() / np.abs(f_cpu).max())
+        e_p = float(np.abs(probs[:EVAL_PROMPTS] - p_cpu).max() / np.abs(p_cpu).max())
+        t_sqrtm = time.perf_counter()
+        frechet_distance(*gaussian_stats(feats), *gaussian_stats(f_ref[:EVAL_PROMPTS]))
+        t_sqrtm = time.perf_counter() - t_sqrtm
+        print(f"eval_path (n) eval_scores: {res} (FID of {EVAL_PROMPTS} W4A8 g=8 images against "
+              f"the fp images through a random extractor: relative only); --ref_stats gives "
+              f"{res2['fid']}; Inception features card against CPU {e_f:.3g}, probabilities "
+              f"{e_p:.3g} of the largest (f32, no TF32); Inception {t_feat:.4f} s per 100 images "
+              f"(features), {t_probs:.4f} (probabilities); frechet_distance at 2048 features "
+              f"{t_sqrtm:.2f} s on the host | {tag}", flush=True)
+        if not (e_f <= 1e-4 and e_p <= 1e-4):
+            raise AssertionError(f"eval_path (n): Inception card against CPU {e_f}, {e_p}")
+        del params, cpu
+        torch.cuda.empty_cache()
+
+    # (n) the open_clip ViT-g-14 encoders
+    _reset_launch_counts()
+    imgs = np.concatenate([gen] * (SCORER_IMAGES // EVAL_PROMPTS))
+    oc = vit_g14_params(g)
+    pre = OC.preprocess_images(gen[:4], 224, "cuda")
+    pre_cpu = OC.preprocess_images(gen[:4], 224, "cpu")
+    e_pre = float((pre.cpu() - pre_cpu).abs().max())
+    ids = torch.zeros(SCORER_IMAGES, 77, dtype=torch.long)
+    ids[:, 0] = 49406
+    ids[:, 1:9] = torch.randint(1, 49000, (SCORER_IMAGES, 8), generator=torch.Generator()
+                                .manual_seed(0))
+    ids[:, 9] = 49407  # EOT, the largest id
+    cut = {t: _cut_depth(oc[t], 2) for t in ("visual", "text")}
+    cut_card = {t: {k: v.cuda() for k, v in cut[t].items()} for t in cut}
+    e_img = float((OC.encode_image(cut_card, pre).cpu() - OC.encode_image(cut, pre_cpu))
+                  .abs().max())
+    e_txt = float((OC.encode_text(cut_card, ids[:4].cuda()).cpu() - OC.encode_text(cut, ids[:4]))
+                  .abs().max())
+    del cut, cut_card
+
+    def oc_score():
+        sims = []
+        for i in range(0, SCORER_IMAGES, 25):
+            ie = OC.encode_image(oc, OC.preprocess_images(imgs[i:i + 25], 224, "cuda"))
+            te = OC.encode_text(oc, ids[i:i + 25].cuda())
+            sims.append((ie * te).sum(-1))
+        return float(torch.cat(sims).mean())
+    t_oc, score = _per_100(oc_score, SCORER_IMAGES)
+    print(f"eval_path (n) open_clip ViT-g-14 (vision 1408 x 40 blocks, text 1024 x 24, random "
+          f"weights): preprocessing card against CPU {e_pre:.3g}; at 2 blocks a tower "
+          f"embeddings card against CPU {e_img:.3g} (image), {e_txt:.3g} (text); full depth "
+          f"{t_oc:.4f} s per 100 images (preprocess + image + text towers, batch 25), mean "
+          f"cosine {score:.6g} | {tag}", flush=True)
+    if not (e_pre <= 1e-4 and e_img <= 2e-5 and e_txt <= 2e-5 and np.isfinite(score)):
+        raise AssertionError(f"eval_path (n): open_clip card against CPU {e_pre} {e_img} {e_txt}")
+    del oc
+    torch.cuda.empty_cache()
+
+    # (n) ImageReward: BLIP ViT-L/16 + BERT-base with cross-attention + head
+    ir = image_reward_params(g)
+    tok = torch.zeros(SCORER_IMAGES, 35, dtype=torch.long)
+    mask = torch.zeros(SCORER_IMAGES, 35, dtype=torch.long)
+    tok[:, 0], tok[:, 1:12], tok[:, 12] = 101, torch.randint(
+        1000, 30000, (SCORER_IMAGES, 11), generator=torch.Generator().manual_seed(1)), 102
+    mask[:, :13] = 1
+    cut = {t: _cut_depth(ir[t], 2) for t in ("visual", "text")}
+    cut["mlp"] = {k: v.cpu() for k, v in ir["mlp"].items()}
+    cut_card = {t: {k: v.cuda() for k, v in cut[t].items()} for t in cut}
+    v_card = IR.encode_vision(cut_card["visual"], pre)
+    v_cpu = IR.encode_vision(cut["visual"], pre_cpu)
+    t_card = IR.encode_text_cross(cut_card["text"], tok[:4], mask[:4], v_card)
+    t_cpu = IR.encode_text_cross(cut["text"], tok[:4], mask[:4], v_cpu)
+    r_card = IR.reward_head(cut_card["mlp"], t_card[:, 0])
+    r_cpu = IR.reward_head(cut["mlp"], t_cpu[:, 0])
+    e_v = float((v_card.cpu() - v_cpu).abs().max())
+    e_t = float((t_card.cpu() - t_cpu).abs().max())
+    e_r = float((r_card.cpu() - r_cpu).abs().max())
+    del cut, cut_card
+
+    def ir_score():
+        out = []
+        for i in range(0, SCORER_IMAGES, 25):
+            out.append(IR.image_reward_scores(ir, OC.preprocess_images(imgs[i:i + 25], 224, "cuda"),
+                                              tok[i:i + 25], mask[i:i + 25]))
+        return float(torch.cat(out).mean())
+    t_ir, reward = _per_100(ir_score, SCORER_IMAGES)
+    print(f"eval_path (n) ImageReward (BLIP ViT-L/16 1024 x 24, BERT-base 768 x 12 with "
+          f"cross-attention, random weights): at 2 blocks a tower card against CPU {e_v:.3g} "
+          f"(image tokens), {e_t:.3g} (text states), {e_r:.3g} (rewards); full depth "
+          f"{t_ir:.4f} s per 100 images (batch 25), mean reward {reward:.6g} | {tag}", flush=True)
+    if not (e_v <= 2e-5 and e_t <= 2e-5 and e_r <= 2e-5 and np.isfinite(reward)):
+        raise AssertionError(f"eval_path (n): ImageReward card against CPU {e_v} {e_t} {e_r}")
+    _expect_launches("eval_path (n) scorers", {})
+    del ir
     torch.cuda.empty_cache()
 
 
@@ -2699,6 +3206,16 @@ def sdxl_path(tag):
           "flash_attention": 1}
     int8 = drive_sdxl(model, f"SDXL-turbo int8 path ({n_int8} int8 layers per forward)", qstate,
                       cfg, {**rt, "int8_matmul": n_int8 * STEPS_SDXL}, tag)
+    n_conv = _n_int8_convs(spec)
+    if n_conv != 38 or sum("w_q8c" in p for p in model["params"].values()) != n_conv:
+        raise AssertionError(f"SDXL-turbo: {n_conv} k x k int8 convs a forward, expected 38")
+    conv = drive_sdxl(model, f"int8_conv: SDXL-turbo int8 path + use_int8_conv ({n_conv} s8 "
+                      f"convs a forward)", qstate, cfg.replace(use_int8_conv=True),
+                      {**rt, "int8_matmul": n_int8 * STEPS_SDXL, "int8_conv": n_conv * STEPS_SDXL},
+                      tag)
+    print(f"int8_conv: SDXL-turbo int8 path, {STEPS_SDXL} steps: use_int8_conv on "
+          f"{conv['s'][0]:.4f} s per step, {conv['s'][1]:.4f} s per image; off {int8['s'][0]:.4f} "
+          f"s per step, {int8['s'][1]:.4f} s per image | {tag}", flush=True)
     off = cfg.replace(use_int8_matmul=False)
     unpacked = drive_sdxl(model, "SDXL-turbo, int8 path off", qstate, off, rt, tag)
     packed = drive_sdxl(model, "SDXL-turbo, int8 path off, packed attention", qstate,
@@ -2763,6 +3280,10 @@ def print_build_report(paths, tag):
 
 
 def main():
+    import os
+    import shutil
+    import tempfile
+
     import torch
 
     import dgq_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -2801,6 +3322,7 @@ def main():
         raise built["error"]
     paths = built["paths"]
     build.load_kernels()
+    _count_int8_convs()
     print(f"build: {built['seconds']:.2f} s beside {cpu_seconds:.2f} s of the tiny nets' CPU "
           f"references (small-input check, calib_path and recon_path) "
           f"({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
@@ -2818,12 +3340,21 @@ def main():
     phase(compare_group_conv, tag, summary)
     phase(wrapper_host_cost, tag)
     phase(compare_int8, tag, summary)
+    phase(int8_conv, tag)
     phase(small_input_check, tiny_x, tiny_nets, tag)
     launches = phase(main_paths, tag)
     torch.cuda.empty_cache()  # the SD model is gone
     phase(cli_path, tag)
     torch.cuda.empty_cache()
-    phase(calib_path, tag, calib_ref)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    keep = tempfile.mkdtemp(dir=build_dir)  # calib_path's merged file, for eval_path
+    try:
+        calib = phase(calib_path, tag, calib_ref, keep)
+        torch.cuda.empty_cache()
+        phase(eval_path, tag, calib)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     torch.cuda.empty_cache()
     phase(recon_path, tag, recon_ref)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds

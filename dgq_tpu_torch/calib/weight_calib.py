@@ -73,36 +73,43 @@ def quantize_model_weights(params: dict, spec, cfg: QConfig,
     codes when the policy runs the int8 deploy path)."""
     wqp = init_weight_qparams(params, spec, cfg.w_bits, scaler)
     params_q = fold_weight_quant(params, wqp, spec, cfg)
-    if cfg.use_int8_matmul:
+    if cfg.use_int8_matmul or cfg.use_int8_conv:
         params_q = attach_int8_packed(params_q, wqp, spec, cfg)
     return params_q, wqp
 
 
 @torch.no_grad()
 def attach_int8_packed(params_q: dict, wqp: Dict[str, QParams], spec, cfg: QConfig) -> dict:
-    """Attach packed int8 weight codes for the int8-matmul deploy path.
+    """Attach packed int8 weight codes for the int8 deploy path.
 
     Works on FOLDED params: folded weights sit exactly on the quantization
-    grid, so round(w_folded/delta)+zp recovers the integer codes. Linear
-    layers and 1x1 convs (which route through the matmul kernel) get 'w_q8'
-    ((N, K) int8 recentered codes, K contiguous), 'w_d', 'w_z' (recentered)
+    grid, so round(w_folded/delta)+zp recovers the integer codes. Under
+    cfg.use_int8_matmul, linear layers and 1x1 convs (which route through the
+    matmul kernel) get 'w_q8' ((N, K) int8 recentered codes, K contiguous);
+    under cfg.use_int8_conv, k x k convs get 'w_q8c' (OIHW int8 codes) for the
+    s8 conv (`models.layers._int8_conv`). Both get 'w_d', 'w_z' (recentered)
     and 'w_ksum' (the codes' per-out-channel sums, f32), all made on the
     weights' device. Group conv layers and conv_in / conv_out get none: they
-    never reach the kernel. (The k x k 'w_q8c' codes of the JAX package feed
-    its s8 conv, which the port does not have.)"""
+    never reach the int8 paths."""
     out = dict(params_q)
     for name, kind, meta in spec:
         if name not in wqp or (cfg.disable_out_quant and name in EXCLUDED_LAYERS):
             continue
         if kind not in ("conv", "linear") or name in cfg.group_conv_layers:
             continue
-        if not cfg.use_int8_matmul or (kind == "conv" and meta[2] != 1):
+        matmul = kind == "linear" or (meta[2] == 1 and tuple(params_q[name]["w"].shape[2:])
+                                      == (1, 1))
+        if not (cfg.use_int8_matmul if matmul else cfg.use_int8_conv):
             continue
         p = dict(params_q[name])
         w2 = p["w"].float().reshape(p["w"].shape[0], -1)
         qp = wqp[name]
         codes, d, zr = pack_weight_int8(w2, qp.delta.float(), qp.zero_point.float(), cfg.w_bits)
-        p["w_q8"], p["w_d"], p["w_z"] = codes.contiguous(), d, zr
+        if matmul:
+            p["w_q8"] = codes.contiguous()
+        else:
+            p["w_q8c"] = codes.reshape(p["w"].shape).contiguous()
+        p["w_d"], p["w_z"] = d, zr
         p["w_ksum"] = codes.sum(dim=1, dtype=torch.int32).float()
         out[name] = p
     return out

@@ -158,3 +158,36 @@ def params_to_torch_unet(params: dict, spec) -> dict:
         if b is not None:
             state[f"{name}.bias"] = b.detach().cpu()
     return state
+
+
+# ------------------------------------------------------------ the scorers ---
+def inception_params_from_numpy(params_np: dict, device="cuda") -> dict:
+    """The JAX package's Inception params (numpy: HWIO conv 'w', 'b', and an
+    (I, O) 'fc' head) -> the port's (OIHW, (O, I)), bit for bit."""
+    out = {}
+    for name, p in params_np.items():
+        w = np.asarray(p["w"])
+        w = conv_w_to_torch(w) if w.ndim == 4 else w.T
+        out[name] = {"w": _tensor(np.ascontiguousarray(w), device),
+                     "b": _tensor(np.asarray(p["b"]), device)}
+    return out
+
+
+def inception_params_to_numpy(params: dict) -> dict:
+    """Inverse of inception_params_from_numpy: the port's Inception params
+    -> the JAX package's layouts, f32 numpy."""
+    out = {}
+    for name, p in params.items():
+        w = p["w"].detach().cpu().float()
+        w = w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t()
+        out[name] = {"w": np.ascontiguousarray(w.numpy()),
+                     "b": p["b"].detach().cpu().float().numpy()}
+    return out
+
+
+def tree_to_torch(tree: dict, device="cuda") -> dict:
+    """A nested dict of numpy arrays under checkpoint names (the open_clip and
+    ImageReward trees, the same in both packages) -> torch tensors on
+    `device`, layouts and dtypes kept."""
+    return {k: tree_to_torch(v, device) if isinstance(v, dict) else _tensor(v, device)
+            for k, v in tree.items()}

@@ -12,7 +12,9 @@ Linears and 1x1 convs dispatch in the JAX package's order: the int8 deploy
 path (`cfg.use_int8_matmul`, packed weights and a per-tensor activation
 scale: the K6 kernel `ops.int8_matmul`, or the library route
 `int8_impl="xla"`), then the codes fold (`cfg.fold_act_dequant`), then
-fake-quant.
+fake-quant. A k x k conv with packed 'w_q8c' codes runs in real int8 under
+`cfg.use_int8_conv` (`_int8_conv`, a library s8 product, as JAX's XLA s8
+conv) before the codes fold.
 
 Group-mode convs (`cfg.group_conv_layers`) quantize the unfolded input, where
 each (channel, tap) of the c-major mid axis k = c*kh*kw + i*kw + j has its
@@ -248,8 +250,10 @@ def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: Q
                  stride: int = 1, padding: int = 0) -> torch.Tensor:
     """QuantLayer-conv forward. Group-mode layers (cfg.group_conv_layers)
     quantize the unfolded input. Otherwise, in order: a stride-1 1x1 conv with
-    packed weights and a per-tensor scale runs as an int8 matmul; a per-tensor
-    scale under cfg.fold_act_dequant takes the codes fold; else the activation
+    packed weights and a per-tensor scale runs as an int8 matmul; a k x k conv
+    with packed 'w_q8c' codes under cfg.use_int8_conv as the s8 conv
+    (`_int8_conv`); a per-tensor scale under cfg.fold_act_dequant takes the
+    codes fold; else the activation
     fake-quant applies elementwise and the conv keeps the activation's own
     dtype (the quantizer's f32 delta would otherwise upcast a bf16 run)."""
     if name in cfg.group_conv_layers and cfg.use_aq:
@@ -262,6 +266,9 @@ def quant_conv2d(p, x: torch.Tensor, name: str, qstate: Optional[QState], cfg: Q
         if y is not None:
             _tap(name, x)
             return y.reshape(b, h, w, y.shape[-1])
+    if qp is not None and "w_q8c" in p and cfg.use_int8_conv:
+        _tap(name, x)
+        return _int8_conv(p, x, qp, cfg, stride, padding)
     qpf = _fold_qp(qstate, cfg, name)
     if qpf is not None:
         _tap(name, x)
@@ -322,9 +329,9 @@ def _codes_conv2d(p, x: torch.Tensor, qp: QParams, cfg: QConfig, stride: int,
 def _int8_qp(p, qstate, cfg: QConfig, name: str):
     """Per-tensor activation QParams for the int8 path, if eligible (group
     and per-channel scales stay on the fake-quant path)."""
-    if not (cfg.use_int8_matmul and cfg.use_aq and qstate is not None):
+    if not ((cfg.use_int8_matmul or cfg.use_int8_conv) and cfg.use_aq and qstate is not None):
         return None
-    if "w_q8" not in p:
+    if "w_q8" not in p and "w_q8c" not in p:
         return None
     qp = (qstate.get("a") or {}).get(name)
     if not isinstance(qp, QParams) or qp.delta.dim() != 0:
@@ -357,10 +364,30 @@ def _int8_xla_eligible(m: int, k: int) -> bool:
 
 def _int_mm_takes(x2: torch.Tensor, n: int) -> bool:
     """`torch._int_mm` on the card wants more than 16 rows and K, N multiples
-    of 8; other shapes fall through to the next path, as shapes outside the
-    gate do."""
+    of 8: other shapes fall through to the next path on the matmul route, as
+    shapes outside its gate do, and make the s8 conv raise."""
     m, k = x2.shape
     return not x2.is_cuda or (m > 16 and k % 8 == 0 and n % 8 == 0)
+
+
+def _s8_codes(x: torch.Tensor, qp: QParams, a_bits: int):
+    """Recentered activation codes clip(round(x/dx) + round(zp), 0, 2^b - 1)
+    - 2^(b-1), still in f32, and the recentered zero point zx = round(zp) -
+    2^(b-1). The zero point is rounded first: int8 codes cannot carry its
+    fraction, while the correction would still use it."""
+    off = 2 ** (a_bits - 1)
+    zp = torch.round(qp.zero_point.float())
+    q = torch.clamp(torch.round(x.float() / qp.delta.float()) + zp, 0, 2 ** a_bits - 1) - off
+    return q, zp - off
+
+
+def _s8_matmul(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
+    """The exact s32 product a @ b_nk^T of (M, K) and (N, K) int8 codes: one
+    library call, `torch._int_mm`, on the card; float64 on the CPU (|acc| <=
+    K * 128 * 128 < 2^53)."""
+    if a.is_cuda:
+        return torch._int_mm(a, b_nk.t())
+    return (a.double() @ b_nk.double().t()).to(torch.int32)
 
 
 def _int8_matmul_xla(p, x2: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Tensor:
@@ -372,20 +399,13 @@ def _int8_matmul_xla(p, x2: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Te
         fq(x).fq(w) = dx*dw[n] * (u@w8 - zx*wksum[n] - wz[n]*rowsum[m] + K*zx*wz[n])
 
     with u / w8 the recentered codes and zx / wz the recentered zero points."""
-    off = 2 ** (cfg.a_bits - 1)
-    dx = qp.delta.float()
-    zp = torch.round(qp.zero_point.float())
-    zx = zp - off
-    u = (torch.clamp(torch.round(x2.float() / dx) + zp, 0, 2 ** cfg.a_bits - 1) - off).to(
-        torch.int8)
-    if x2.is_cuda:
-        acc = torch._int_mm(u, p["w_q8"].t()).float()
-        rowsum = u.sum(dim=1, keepdim=True, dtype=torch.int32).float()
-    else:
-        acc = (u.double() @ p["w_q8"].double().t()).float()
-        rowsum = u.double().sum(dim=1, keepdim=True).float()
+    q, zx = _s8_codes(x2, qp, cfg.a_bits)
+    u = q.to(torch.int8)
+    acc = _s8_matmul(u, p["w_q8"]).float()
+    rowsum = u.sum(dim=1, keepdim=True, dtype=torch.int32).float()
     k = x2.shape[-1]
-    y = dx * p["w_d"] * (acc - zx * p["w_ksum"] - p["w_z"] * rowsum + float(k) * zx * p["w_z"])
+    y = qp.delta.float() * p["w_d"] * (acc - zx * p["w_ksum"] - p["w_z"] * rowsum
+                                       + float(k) * zx * p["w_z"])
     if p.get("b") is not None:
         y = y + p["b"]
     return y.to(x2.dtype)
@@ -400,6 +420,66 @@ def _int8_dispatch(p, x2: torch.Tensor, qp: QParams, cfg: QConfig):
             return _int8_matmul_xla(p, x2, qp, cfg)
         return None
     return _int8_matmul(p, x2, qp, cfg)
+
+
+def int8_conv_codes(x: torch.Tensor, qp: QParams, a_bits: int, padding: int):
+    """The s8 conv's input: recentered codes clip(round(x/dx) + round(zp), 0,
+    2^b - 1) - 2^(b-1) as int8, NHWC, its border padded with the recentered
+    zero-point code zx, so that a padded tap dequantizes to exactly 0.0.
+    Returns (codes, zx as f32)."""
+    q, zx = _s8_codes(x, qp, a_bits)
+    if not padding:
+        return q.to(torch.int8), zx
+    b, h, w, c = x.shape
+    codes = zx.to(torch.int8).reshape(1, 1, 1, 1).expand(
+        b, h + 2 * padding, w + 2 * padding, c).contiguous()
+    codes[:, padding:padding + h, padding:padding + w] = q.to(torch.int8)
+    return codes, zx
+
+
+def int8_conv_acc(codes: torch.Tensor, w_q8c: torch.Tensor, stride: int):
+    """The s8 x s8 -> s32 conv of padded NHWC codes with OIHW weight codes,
+    VALID, as one product: the codes unfold into (B*Ho*Wo, kh*kw*C) rows from
+    strided views (`F.unfold` has no int8 kernel), the weights into
+    (kh*kw*C, O), through `_s8_matmul`. `torch._int_mm` on the card wants
+    more than 16 rows and K, N multiples of 8: any other shape raises (every
+    k x k conv SD and SDXL quantize meets it). Returns (acc
+    int32 (B, Ho, Wo, O), the window sums of the codes (B, Ho, Wo, 1) int32).
+    Both are JAX's s32 `conv_general_dilated` and `reduce_window`, exactly."""
+    o, c, kh, kw = w_q8c.shape
+    b, hp, wp, _ = codes.shape
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    sb, sh, sw, _ = codes.stride()
+    rows = codes.as_strided((b, ho, wo, kh, kw, c),
+                            (sb, sh * stride, sw * stride, sh, sw, 1)).reshape(b * ho * wo, -1)
+    if not _int_mm_takes(rows, o):
+        raise ValueError(f"int8 conv: torch._int_mm takes M > 16 and K, N multiples of 8, not "
+                         f"M={rows.shape[0]} K={rows.shape[1]} N={o}")
+    acc = _s8_matmul(rows, w_q8c.permute(0, 2, 3, 1).reshape(o, kh * kw * c))
+    xsum = rows.sum(dim=1, keepdim=True, dtype=torch.int32)
+    return acc.reshape(b, ho, wo, o), xsum.reshape(b, ho, wo, 1)
+
+
+def _int8_conv(p, x: torch.Tensor, qp: QParams, cfg: QConfig, stride: int,
+               padding: int) -> torch.Tensor:
+    """k x k conv in real int8: the input quantized to recentered s8 codes
+    and padded with the zero-point code (`int8_conv_codes`), one s8 x s8 ->
+    s32 product (`int8_conv_acc`), then the affine cross terms removed in
+    the JAX package's order, in f32:
+
+        y = dx*dw[o] * (acc - zx*wksum[o] - zw[o]*window_sum + kh*kw*C*zx*zw[o])
+
+    then the bias and the cast to x's dtype. JAX runs the product as an XLA
+    s8 conv outside any Pallas kernel; here it is a library product."""
+    o, c, kh, kw = p["w_q8c"].shape
+    codes, zx = int8_conv_codes(x, qp, cfg.a_bits, padding)
+    acc, xsum = int8_conv_acc(codes, p["w_q8c"], stride)
+    dx = qp.delta.float()
+    dw, zw, wksum = p["w_d"], p["w_z"], p["w_ksum"]
+    y = dx * dw * (acc.float() - zx * wksum - zw * xsum.float() + float(kh * kw * c) * zx * zw)
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y.to(x.dtype)
 
 
 def quant_linear(p, x: torch.Tensor, name: str, qstate: Optional[QState],

@@ -2,8 +2,7 @@
 taps of calibration (port of `dgq_tpu/models/qconfig.py`).
 
   * QConfig: the static policy, with the JAX package's field names so one
-    dict builds both. The one field the port does not serve yet
-    (`use_int8_conv`) raises NotImplementedError at construction.
+    dict builds both.
   * QState: a plain dict {'a': {layer_name: QParams | GroupQParams},
     'sm': {attn_name: delta}}; time-aware states carry a leading [T] slot
     axis on every leaf.
@@ -93,12 +92,6 @@ def taps_active() -> bool:
     return _TAPS.get() is not None
 
 
-# field -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "use_int8_conv": "queue 1 (the int8 implicit-GEMM conv on K6's tile code)",
-}
-
-
 GROUP_CONV_IMPLS = ("taps", "fused", "im2col", "unfold")
 INT8_IMPLS = ("pallas", "xla")
 
@@ -131,7 +124,9 @@ class QConfig:
     # scale run in real int8. int8_impl keeps the JAX package's two values:
     # 'pallas' is the hand-written kernel (ops.int8_matmul; the CUDA kernel
     # on the GPU), 'xla' the library route (torch._int_mm) behind the shape
-    # gate of models.layers._int8_xla_eligible
+    # gate of models.layers._int8_xla_eligible. use_int8_conv: k x k convs
+    # with packed 'w_q8c' codes and a per-tensor activation scale run as an
+    # s8 conv (models.layers._int8_conv); the two flags are independent
     use_int8_matmul: bool = False
     use_int8_conv: bool = False
     int8_impl: str = "pallas"
@@ -145,10 +140,6 @@ class QConfig:
     packed_attention: bool = False
 
     def __post_init__(self):
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"QConfig.{name} is not ported to dgq_tpu_torch yet: ROADMAP {item}")
         # Stricter on input than the JAX package, identical on every legal
         # value: there an unknown string silently takes the unfold branch.
         if self.group_conv_impl not in GROUP_CONV_IMPLS:

@@ -444,8 +444,7 @@ def test_qconfig_int8_fields():
     JQ(int8_impl="cublas")  # the JAX package takes any string and routes it to the kernel
     with pytest.raises(ValueError, match="'pallas', 'xla'"):
         TQ(int8_impl="cublas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ(use_int8_conv=True)
+    assert TQ(use_int8_conv=True).use_int8_conv is True  # ported: the s8 conv
 
 
 @pytest.fixture(scope="module")

@@ -138,17 +138,11 @@ def test_aq_apply_and_softmax_q_apply_bit_identical():
     ("packed_attention", True), ("fold_act_dequant", True),
 ])
 def test_qconfig_unported_fields_raise(field, value):
-    """The int8 matmul path, the codes fold and the packed attention layout
-    are ported and construct; the s8 conv still raises."""
+    """Every field that once raised is ported now (the s8 conv last) and
+    constructs, directly and through replace, from the JAX package's dict."""
     j_qc.QConfig(**{field: value})  # the JAX package takes the same dict
-    if field in ("use_int8_matmul", "fold_act_dequant", "packed_attention"):
-        assert getattr(t_qc.QConfig(**{field: value}), field) is value
-        assert getattr(t_qc.QConfig().replace(**{field: value}), field) is value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_qc.QConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_qc.QConfig().replace(**{field: value})
+    assert getattr(t_qc.QConfig(**{field: value}), field) is value
+    assert getattr(t_qc.QConfig().replace(**{field: value}), field) is value
 
 
 @pytest.mark.parametrize("impl", ["taps", "fused", "im2col", "unfold"])
@@ -222,8 +216,10 @@ def test_port_imports_no_jax():
             "dgq_tpu_torch.io.dgq_ckpt, dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
             "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
             "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, "
-            "dgq_tpu_torch.calib.reconstruction, chip_smoke, "
-            "chip_profile\n"
+            "dgq_tpu_torch.calib.reconstruction, dgq_tpu_torch.cli.gen4eval, "
+            "dgq_tpu_torch.cli.eval_scores, dgq_tpu_torch.eval.scores, "
+            "dgq_tpu_torch.eval.inception, dgq_tpu_torch.eval.image_reward, "
+            "dgq_tpu_torch.parallel.mesh, chip_smoke, chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers', 'safetensors', 'PIL')]\n"
             "assert not bad, bad")
@@ -246,7 +242,10 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
             "dgq_tpu_torch.calib.data, dgq_tpu_torch.pipeline.prepare, "
             "dgq_tpu_torch.cli.infer, dgq_tpu_torch.cli.ckpt_tools, "
             "dgq_tpu_torch.cli.quantize_weight, dgq_tpu_torch.cli.quantize_act, "
-            "dgq_tpu_torch.calib.reconstruction\n"
+            "dgq_tpu_torch.calib.reconstruction, dgq_tpu_torch.cli.gen4eval, "
+            "dgq_tpu_torch.cli.eval_scores, dgq_tpu_torch.eval.scores, "
+            "dgq_tpu_torch.eval.inception, dgq_tpu_torch.eval.image_reward, "
+            "dgq_tpu_torch.parallel.mesh\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
