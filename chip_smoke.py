@@ -92,6 +92,18 @@ Phases (any failure raises, so the exit code is non-zero):
      pytorch-fid-named Inception checkpoint; the open_clip ViT-g-14 and
      ImageReward encoders at their published widths on random weights; each
      scorer card against CPU, s an image and s per 100 images.
+  9. `dp_path`, after `recon_path`: data parallelism over torch.distributed.
+     (o) a world of one over NCCL; then one `torchrun --standalone
+     --nproc_per_node 2` launch of this script (`--dp-rank SPEC`, whose two
+     ranks share the card over gloo): (p) `cli.quantize_weight --dp 2` over
+     the first DP_UNITS units against `--dp 1` (each step's loss within 5e-5
+     relative, > 0.9 of the offsets within 1e-4, the ranks' offsets equal,
+     each rank's captures half of dp 1's; peak, capture bytes and ms an Adam
+     step a rank), (q) `cli.gen4eval --dp 2` (--fp, and W4A8 g=8 with the
+     kernels, exact launches a rank) against `--dp 1` (the same files; fp
+     images within DP_FP_LEVELS); (r) one g=1 step under
+     `utils.profiler.device_trace` (the trace names quant_tc_kernel) and
+     `spec_roofline`'s SOL beside 4a's and, after sdxl_path, 4e's forward.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
@@ -99,9 +111,11 @@ in this run on that card, and its line says so (`| card: ...`). Each phase
 prints the seconds it took.
 """
 import json
+import os
 import re
 import statistics
 import subprocess
+import sys
 import threading
 import time
 
@@ -1562,7 +1576,8 @@ def main_paths(tag):
     print(f"int8_conv: SD v1.4 g=1 int8 path, {STEPS_INT8} steps: use_int8_conv on "
           f"{i8c['s'][0]:.4f} s per step, {i8c['s'][1]:.4f} s per image; off {i8['s'][0]:.4f} s "
           f"per step, {i8['s'][1]:.4f} s per image | {tag}", flush=True)
-    return {"static_uniform_attention": g1["static_uniform_attention"],
+    return {"s_4a": g1["s"][0],  # s a forward of 4a's g=1 path, for dp_path (r)
+            "static_uniform_attention": g1["static_uniform_attention"],
             "flash_attention": k2["flash_attention"], "rt_stats": g8["rt_stats"],
             "quant_accum": g8["quant_accum"], "group_quant_conv": g8["group_quant_conv"],
             "static_quant_attention": k4["static_quant_attention"],
@@ -2830,7 +2845,7 @@ class _ReconProbe:
                 held += kw["cached_grads"].nbytes
             r = self._unit(u.name, u.kind)
             r.update(adam_s=s, iters=kw["iters"], losses=losses.tolist(),
-                     bytes_a_sample=held / outputs.shape[0])
+                     bytes_a_sample=held / outputs.shape[0], held_bytes=held)
             r["err_learned"], r["err_nearest"] = TR.unit_error(u, params, wqp, alphas, inputs,
                                                                outputs, cfg)
             return alphas, losses
@@ -3091,6 +3106,465 @@ def recon_path(tag, ref):
     torch.cuda.empty_cache()
 
 
+DP_UNITS = 7    # (p)'s --max_units: lone layers, resnets, projections, the first transformer
+DP_PROMPTS = 4  # (q)'s prompts: one batch of 4, 2 rows a rank
+DP_FP_LEVELS = 8  # (q) --fp: the largest |d| of a --dp 2 image from --dp 1's, of 255
+DP_RED_RTOL = 1e-3  # (q) one step: the first reduced real-time statistic against --dp 1's
+DP_LATENT_TOL = 2e-2  # (q) one step: the largest |d| of --dp 2's latents, of their largest |x|
+
+
+class _RealTimeProbe:
+    """While open, records each real-time softmax reduction of the fused
+    attention (`ops.attention.batch_reduce_`, between `rt_stats` and
+    `quant_accum`): `pairs` gets [the rank's own value, the value after the
+    reduction] (one value twice outside a data-parallel split)."""
+
+    def __enter__(self):
+        from dgq_tpu_torch.ops import attention
+
+        self._real, self._held = attention.batch_reduce_, []
+
+        def probe(t, op):
+            own = t.clone()
+            self._held.append((own, self._real(t, op).clone()))
+            return t
+        attention.batch_reduce_ = probe
+        return self
+
+    def __exit__(self, *exc):
+        from dgq_tpu_torch.ops import attention
+
+        attention.batch_reduce_ = self._real
+        self.pairs = [[float(a), float(b)] for a, b in self._held]
+        return False
+
+
+def dp_rank(spec_path):
+    """One rank of dp_path's torchrun launch (`python3 chip_smoke.py --dp-rank
+    SPEC`): each run of the spec's list calls the CLI's `main(argv)` with
+    the launch counts set to 0 just before it, and the rank writes
+    rank<r>.json into the spec's directory: per run its seconds, peak memory
+    and launch counts, for `quantize_weight` the probe's unit records
+    (`_ReconProbe`; its offsets go to alphas_rank<r>.pt), for `gen4eval` the
+    files it wrote and its real-time reductions (`_RealTimeProbe`). A run
+    with "tf32": false turns TF32 off for its matmuls and convolutions, as
+    `_tiny_recon_check` does."""
+    import torch
+    import torch.distributed as dist
+    from dgq_tpu_torch.cli import gen4eval, quantize_weight
+    from dgq_tpu_torch.ops import build
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    build.load_kernels()  # the parent built them: the libraries load as they are
+    rank = int(os.environ["RANK"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    results = {}
+    for run in spec["runs"]:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+            tf32 if run["tf32"] else (False, False))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        if run["cli"] == "quantize_weight":
+            with _ReconProbe() as probe:
+                res = quantize_weight.main(run["argv"])
+            torch.save({n: a.cpu() for n, a in res["alphas"].items()},
+                       os.path.join(spec["out"], f"alphas_rank{rank}.pt"))
+            extra = {"weight_only": res["weight_only"], "units": [
+                {k: u[k] for k in ("name", "kind", "losses", "held_bytes", "adam_s", "iters")}
+                for u in probe.units]}
+        else:
+            with _RealTimeProbe() as probe:
+                res = gen4eval.main(run["argv"])
+            extra = {"files": sorted(os.path.basename(f) for f in res["files"]),
+                     "reductions": probe.pairs}
+        torch.cuda.synchronize()
+        results[run["label"]] = {"seconds": time.perf_counter() - t0,
+                                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                 "launches": {n: c for n, c in _launch_counts().items() if c},
+                                 **extra}
+    results["rank"] = [dist.get_rank(), dist.get_world_size(), dist.get_backend(),
+                       f"cuda:{torch.cuda.current_device()}"]
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _nccl_world_of_one(tag):
+    """dp_path (o): a world of one over NCCL from torchrun's environment
+    variables: `init_multihost`, whose backend rule must pick nccl for one
+    rank with a card of its own, `sync_mean` on a tree on
+    the card (the identity), one all_reduce and one `all_reduce_sum_` on
+    the card; then the group is destroyed and the environment restored."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from dgq_tpu_torch.parallel.mesh import all_reduce_sum_, init_multihost, make_mesh, sync_mean
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not init_multihost(device="cuda"):  # one rank, one card: the rule picks nccl
+            raise AssertionError("dp_path (o): init_multihost found no rendezvous")
+        mesh = make_mesh(dp=1, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        tree = {"delta": torch.rand(320, generator=g, device="cuda"), "zp": 128.0}
+        synced = sync_mean(mesh, tree)
+        t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        want = t.clone()
+        dist.all_reduce(t)
+        u = [want.clone(), torch.ones(7, device="cuda")]
+        all_reduce_sum_(mesh, u)
+        torch.cuda.synchronize()
+        ok = (dist.get_backend() == "nccl" and synced is tree and torch.equal(t, want)
+              and torch.equal(u[0], want) and mesh.world == 1)
+        print(f"dp_path (o): a world of one over {dist.get_backend()} (MASTER_ADDR localhost, "
+              f"port {port}), device {mesh.device}: sync_mean the identity, all_reduce and "
+              f"all_reduce_sum_ of 4 MiB on the card unchanged: {ok} | {tag}", flush=True)
+        if not ok:
+            raise AssertionError("dp_path (o): the NCCL world of one is not the identity")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _dp_recon_check(dp1, dp1_peak, dp2, alphas1, root, tag):
+    """dp_path (p): both ranks' walks against the --dp 1 walk, with the
+    limits of `_tiny_recon_check`; the ranks' offsets equal and their
+    captures half of dp 1's."""
+    import hashlib
+
+    import torch
+
+    a0, a1 = (torch.load(os.path.join(root, f"alphas_rank{r}.pt")) for r in range(2))
+    sums = [hashlib.sha256(b"".join(a[n].numpy().tobytes() for n in sorted(a))).hexdigest()[:16]
+            for a in (a0, a1)]
+    ranks_equal = set(a0) == set(a1) and all(torch.equal(a0[n], a1[n]) for n in a0)
+    near = total = 0
+    worst = 0.0
+    for n, a in alphas1.items():
+        d = (a0[n] - a.cpu()).abs()
+        worst = max(worst, float(d.max()))
+        near += int((d <= 1e-4).sum())
+        total += d.numel()
+    names = [u["name"] for u in dp1]
+    same_walk = all([u["name"] for u in r["units"]] == names for r in dp2)
+    gap = max(abs(a - b) / abs(b) for r in dp2 for u2, u1 in zip(r["units"], dp1)
+              for a, b in zip(u2["losses"], u1["losses"]))
+    held1 = sum(u["held_bytes"] for u in dp1)
+    halves = all(2 * u2["held_bytes"] == u1["held_bytes"] for r in dp2
+                 for u2, u1 in zip(r["units"], dp1))
+    step1 = sum(u["adam_s"] / u["iters"] for u in dp1) / len(dp1)
+    print(f"dp_path (p): quantize_weight --dp 2 against --dp 1 ({len(names)} units: "
+          f"{', '.join(sorted({u['kind'] for u in dp1}))}): every step's loss within {gap:.3g} "
+          f"relative over {sum(len(u['losses']) for u in dp1)} steps (limit "
+          f"{RECON_LOSS_RTOL['mse']:g}); {near / total:.6f} of the offsets within 1e-4 (limit > "
+          f"{RECON_NEAR_SHARE}), max |d| {worst:.6g}; the ranks' offsets equal: {ranks_equal} "
+          f"(sha256 {sums[0]}, {sums[1]}) | {tag}", flush=True)
+    print(f"dp_path (p) --dp 1: peak {dp1_peak:.2f} GiB allocated, captures {held1 / 2 ** 20:.2f} "
+          f"MiB over the walk's units ({max(u['held_bytes'] for u in dp1) / 2 ** 20:.2f} MiB the "
+          f"largest), {1e3 * step1:.2f} ms an Adam step (mean over units) | {tag}", flush=True)
+    for r, res in enumerate(dp2):
+        held = sum(u["held_bytes"] for u in res["units"])
+        step = sum(u["adam_s"] / u["iters"] for u in res["units"]) / len(res["units"])
+        print(f"dp_path (p) --dp 2 rank {r}: peak {res['peak_gib']:.2f} GiB allocated, captures "
+              f"{held / 2 ** 20:.2f} MiB ({held / held1:.4f} of dp 1's; the largest unit "
+              f"{max(u['held_bytes'] for u in res['units']) / 2 ** 20:.2f} MiB), "
+              f"{1e3 * step:.2f} ms an Adam step (two ranks on one card, gradients summed over "
+              f"gloo), run {res['seconds']:.2f} s | {tag}", flush=True)
+    if (not same_walk or gap > RECON_LOSS_RTOL["mse"] or not near / total > RECON_NEAR_SHARE
+            or not ranks_equal or not halves or set(a0) != set(alphas1)):
+        raise AssertionError(f"dp_path (p): --dp 2 is not --dp 1 (walk {same_walk}, loss gap "
+                             f"{gap:.3g}, near {near / total:.4f}, ranks equal {ranks_equal}, "
+                             f"half captures {halves})")
+
+
+def _dp_one_step_check(ranks, reds1, want, tmp, tag):
+    """dp_path (q), one step of W4A8 g=8: the real-time statistic of every
+    attention call, reduced over both ranks, against --dp 1's (each rank's
+    own, unreduced value beside it: what a rank without the reduction would
+    quantize with), the first call held to DP_RED_RTOL; and the latents
+    against --dp 1's."""
+    import numpy as np
+
+    pairs = [r["q one step"]["reductions"] for r in ranks]
+    if not len(pairs[0]) == len(pairs[1]) == len(reds1) == want["rt_stats"]:
+        raise AssertionError(f"dp_path (q one step): {[len(p) for p in pairs]} reductions a "
+                             f"rank, {len(reds1)} at --dp 1, {want['rt_stats']} expected")
+    ranks_equal = all(a[1] == b[1] for a, b in zip(*pairs))
+    # relative gaps a call, the larger of the two ranks': [0] a rank's own
+    # value, [1] the reduced one; only the first call sees inputs that the
+    # chaotic forward has not yet parted
+    gaps = [[max(abs(p[i][k] - w) / abs(w) for p in pairs) for k in (0, 1)]
+            for i, w in enumerate(reds1)]
+    own, reduced = ([g[k] for g in gaps] for k in (0, 1))
+    files = sorted(sum((r["q one step"]["files"] for r in ranks), []))
+    dp1_files = sorted(os.listdir(os.path.join(tmp, "s1")))
+    worst = scale = 0.0
+    for name in dp1_files:
+        a = np.load(os.path.join(tmp, "s2", name))
+        b = np.load(os.path.join(tmp, "s1", name))
+        if a.shape != (64, 64, 4) or not np.isfinite(a).all():
+            raise AssertionError(f"dp_path (q one step): {name} is {a.shape} or not finite")
+        worst, scale = max(worst, float(np.abs(a - b).max())), max(scale, float(np.abs(b).max()))
+    counts = [r["q one step"]["launches"] for r in ranks]
+    print(f"dp_path (q one step) gen4eval W4A8 g=8, one PNDM step, latents: {len(reds1)} "
+          f"real-time reductions a rank, equal on both ranks: {ranks_equal}; against --dp 1's, "
+          f"relative, reduced over the ranks: first call {reduced[0]:.3g} (limit "
+          f"{DP_RED_RTOL:g}), median {np.median(reduced):.3g}, max {max(reduced):.3g}; a rank's "
+          f"own value (no reduction): first call {own[0]:.3g}, median {np.median(own):.3g}, max "
+          f"{max(own):.3g}; latents max |d| {worst:.6g} of max |x| {scale:.6g} "
+          f"({worst / scale:.3g}, limit {DP_LATENT_TOL:g}); the same files "
+          f"{files == dp1_files}; launches {counts} (expected {want} each) | {tag}", flush=True)
+    if (not ranks_equal or reduced[0] > DP_RED_RTOL or worst > DP_LATENT_TOL * scale
+            or files != dp1_files or any(c != want for c in counts)):
+        raise AssertionError(f"dp_path (q one step): --dp 2 is not --dp 1 (ranks equal "
+                             f"{ranks_equal}, reduced gap at the first call {reduced[0]:.3g}, "
+                             f"latents {worst:.3g} of {scale:.3g}, files {files}, launches "
+                             f"{counts})")
+
+
+def dp_path(tag, calib, s_4a):
+    """Phase 9, after recon_path: data parallelism over torch.distributed, in
+    a temporary directory under build/ (SD v1.4 at full width, random weights
+    from seed 42):
+      (o) a world of one over NCCL (`_nccl_world_of_one`);
+      (p) `cli.quantize_weight --dp 2`: two ranks of one torchrun launch
+          (`python -m torch.distributed.run --standalone --nproc_per_node 2`)
+          share the card over gloo; f32, minmax W4, recon_path's 24
+          samples and RECON_ITERS Adam steps over the first DP_UNITS units, TF32
+          off; against the same command with --dp 1 in this process: each
+          step's loss within 5e-5 relative, more than 0.9 of the offsets
+          within 1e-4, every rank's offsets equal, each rank's captures half
+          of dp 1's; rank 0 writes the one checkpoint;
+      (q) in the same launch, `cli.gen4eval --dp 2` at 512px, DP_PROMPTS
+          prompts, CALI_STEPS PNDM steps, through calib_path's VAE: --fp, and
+          W4A8 g=8 from calib_path's merged file with --pallas_attn
+          --group_impl fused (K3b, K5 and K2 in each rank, exact launch
+          counts); against --dp 1 in this process: the same files, and the fp
+          images within DP_FP_LEVELS levels of 255; then one W4A8 step with
+          its latents written (`_dp_one_step_check`): the first real-time
+          statistic, reduced over the ranks between rt_stats and
+          quant_accum, within DP_RED_RTOL of --dp 1's (every call's gap
+          printed), and the latents within DP_LATENT_TOL of their largest
+          value;
+      (r) one SD v1.4 g=1 DDIM step (K1) under `utils.profiler.device_trace`:
+          the trace names quant_tc_kernel; the kernels' busy share of the
+          step; `spec_roofline`'s SOL ms at batch 4 beside 4a's s a forward
+          (SDXL-turbo's beside 4e's is printed after sdxl_path).
+    Any rank's failure fails the launch and the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes
+    from dgq_tpu_torch.cli import gen4eval, quantize_weight
+    from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+
+    _nccl_world_of_one(tag)
+    n_att = len(attention_prefixes(sd_unet_spec()))
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    t2i = ["--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak", "--time_aware_aqtizer"]
+    forwards = CALI_STEPS + 1  # a PNDM call is one forward of the CFG-doubled batch
+    q8 = {"flash_attention": 1, "rt_stats": n_att * forwards, "quant_accum": n_att * forwards,
+          "group_quant_conv": calib["k5_convs"] * forwards}
+    # one PNDM step (one forward), the latents written as they are: no VAE
+    q1 = {"rt_stats": n_att, "quant_accum": n_att, "group_quant_conv": calib["k5_convs"]}
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        csv = os.path.join(tmp, "prompts.csv")
+        with open(csv, "w") as f:
+            f.write("caption\n" + "".join(f"prompt number {i}\n" for i in range(DP_PROMPTS)))
+        qw = ["--model", "sd", "--wq", "4", "--cali_prompt_data_n", str(CALI_PROMPTS),
+              "--step_size", str(CALI_STEPS), "--iters", str(RECON_ITERS), "--max_units",
+              str(DP_UNITS), "--cali_data_path", os.path.join(tmp, "cali")]
+        gen = ["--model", "sd", "--prompts", csv, "--batch", str(DP_PROMPTS), "--steps",
+               str(CALI_STEPS), "--vae_weights", calib["vae_dir"]]
+        gen1 = ["--model", "sd", "--prompts", csv, "--batch", str(DP_PROMPTS), "--steps", "1"]
+        gen_q = ["--cali_ckpt", calib["merged"], "--use_aq", "--use_group", "--pallas_attn",
+                 "--group_impl", "fused"] + t2i
+
+        # --dp 1 in this process (TF32 off for the walk, as in the ranks)
+        saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with _ReconProbe() as probe:
+                res = _run_cli("dp_path", "(p) quantize_weight --dp 1", quantize_weight.main,
+                               qw + ["--outdir", os.path.join(tmp, "qw1")], 0, lambda f: {}, tag)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+        dp1_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        alphas1, dp1_units = res["alphas"], probe.units
+        del res
+        _run_cli("dp_path", "(q) gen4eval --fp --dp 1", gen4eval.main,
+                 gen + ["--fp", "--outdir", os.path.join(tmp, "fp1")], 0,
+                 lambda f: {"flash_attention": 1}, tag)
+        _run_cli("dp_path", "(q) gen4eval W4A8 g=8 --dp 1", gen4eval.main,
+                 gen + gen_q + ["--outdir", os.path.join(tmp, "q1")], forwards, lambda f: q8,
+                 tag)
+        with _RealTimeProbe() as probe:
+            _run_cli("dp_path", "(q) gen4eval W4A8 g=8 one step --dp 1", gen4eval.main,
+                     gen1 + gen_q + ["--outdir", os.path.join(tmp, "s1")], 1, lambda f: q1, tag)
+        reds1 = [b for _, b in probe.pairs]
+
+        # --dp 2: one torchrun launch, two ranks on the card
+        spec = {"out": tmp, "runs": [
+            {"label": "p", "cli": "quantize_weight", "tf32": False,
+             "argv": qw + ["--dp", "2", "--outdir", os.path.join(tmp, "qw2")]},
+            {"label": "q fp", "cli": "gen4eval", "tf32": True,
+             "argv": gen + ["--fp", "--dp", "2", "--outdir", os.path.join(tmp, "fp2")]},
+            {"label": "q w4a8g8", "cli": "gen4eval", "tf32": True,
+             "argv": gen + gen_q + ["--dp", "2", "--outdir", os.path.join(tmp, "q2")]},
+            {"label": "q one step", "cli": "gen4eval", "tf32": True,
+             "argv": gen1 + gen_q + ["--dp", "2", "--outdir", os.path.join(tmp, "s2")]}]}
+        spec_path = os.path.join(tmp, "dp_spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", os.path.abspath(__file__), "--dp-rank", spec_path],
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if launch.returncode != 0:
+            raise AssertionError(f"dp_path: the --dp 2 launch exited {launch.returncode}:\n"
+                                 f"{launch.stdout[-3000:]}\n{launch.stderr[-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        named = [f"rank {r} of 2: backend gloo, device cuda:0" in launch.stderr for r in range(2)]
+        print(f"dp_path: torchrun --standalone --nproc_per_node 2, {seconds:.2f} s for the launch "
+              f"(start-up, the three runs, exit); ranks {[r['rank'] for r in ranks]}; each "
+              f"rank's first line names its backend and device: {all(named)} | {tag}",
+              flush=True)
+        if not all(named) or [r["rank"][:3] for r in ranks] != [[0, 2, "gloo"], [1, 2, "gloo"]]:
+            raise AssertionError("dp_path: the ranks are not two gloo ranks of one group")
+
+        # (p)
+        run_dirs = os.listdir(os.path.join(tmp, "qw2"))
+        wrote = [r["p"]["weight_only"] for r in ranks]
+        if len(run_dirs) != 1 or wrote[1] is not None or not os.path.exists(wrote[0]):
+            raise AssertionError(f"dp_path (p): run directories {run_dirs}, checkpoints {wrote}")
+        _dp_recon_check(dp1_units, dp1_peak, [r["p"] for r in ranks], alphas1, tmp, tag)
+
+        # (q)
+        for label, dp1_dir, dp2_dir, want in (("q fp", "fp1", "fp2", {"flash_attention": 1}),
+                                              ("q w4a8g8", "q1", "q2", q8)):
+            files = [r[label]["files"] for r in ranks]
+            dp1_files = sorted(os.listdir(os.path.join(tmp, dp1_dir)))
+            counts = [r[label]["launches"] for r in ranks]
+            diffs = []
+            for name in dp1_files:
+                a = np.asarray(Image.open(os.path.join(tmp, dp2_dir, name)), dtype=np.int16)
+                b = np.asarray(Image.open(os.path.join(tmp, dp1_dir, name)), dtype=np.int16)
+                if a.shape != (512, 512, 3) or a.std() == 0:
+                    raise AssertionError(f"dp_path ({label}): {name} is {a.shape}, degenerate")
+                diffs.append(np.abs(a - b))
+            worst = max(int(d.max()) for d in diffs)
+            mean = float(np.mean([d.mean() for d in diffs]))
+            print(f"dp_path ({label}) gen4eval --dp 2: rank files {files}, launches per rank "
+                  f"{counts} (expected {want} each), peak "
+                  f"{[round(r[label]['peak_gib'], 2) for r in ranks]} GiB, "
+                  f"{[round(r[label]['seconds'], 2) for r in ranks]} s; against --dp 1: "
+                  f"the same files {sorted(sum(files, [])) == dp1_files}, max |d| {worst} of 255, "
+                  f"mean |d| {mean:.4f} | {tag}", flush=True)
+            if sorted(sum(files, [])) != dp1_files or len(dp1_files) != DP_PROMPTS or any(
+                    c != want for c in counts):
+                raise AssertionError(f"dp_path ({label}): files {files} / {dp1_files}, "
+                                     f"launches {counts}")
+            if label == "q fp" and worst > DP_FP_LEVELS:
+                raise AssertionError(f"dp_path (q fp): --dp 2 images differ from --dp 1's by "
+                                     f"{worst} levels (limit {DP_FP_LEVELS})")
+        _dp_one_step_check(ranks, reds1, q1, tmp, tag)
+
+        # (r)
+        _profiled_step(tmp, s_4a, tag)
+    torch.cuda.empty_cache()
+
+
+def _profiled_step(tmp, s_4a, tag):
+    """dp_path (r): one SD v1.4 g=1 DDIM step (K1 in every attention, batch
+    4) on main_paths' model, after a warm-up step, under `device_trace`;
+    then `spec_roofline`'s SOL beside 4a's measured s a forward."""
+    import torch
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.pipeline.sampler import sd_sample
+    from dgq_tpu_torch.utils.flops import spec_roofline
+    from dgq_tpu_torch.utils.profiler import device_trace
+    from dgq_tpu_torch.utils.synthetic import synthetic_pertensor_qstate
+
+    model = build_model(tag)
+    cfg = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+                  use_pallas_attention=True)
+    qstate = synthetic_pertensor_qstate(model["spec"], 1, True, torch.bfloat16)
+
+    def step():
+        out = sd_sample(model["params"], model["latents"], model["ehs_t"], model["ehs_u"],
+                        num_inference_steps=1, guidance_scale=7.5, qstate=qstate, cfg=cfg,
+                        time_aware=True)
+        torch.cuda.synchronize()
+        return out
+    step()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with device_trace(os.path.join(tmp, "trace")) as prof:
+        step()
+    wall = time.perf_counter() - t0
+    launches = {n: c for n, c in _launch_counts().items() if c}
+    with open(prof.trace_path) as f:
+        text = f.read()
+    events = json.loads(text)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_us = sum(e.get("dur", 0) for e in kernels)
+    k1 = [e for e in kernels if "quant_tc_kernel" in e.get("name", "")]
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in kernels) - min(e["ts"] for e in kernels)
+               if kernels else 0.0)
+    print(f"dp_path (r): one g=1 DDIM step (batch 4) under device_trace: {wall:.4f} s with the "
+          f"profiler on; {os.path.getsize(prof.trace_path) / 2 ** 20:.2f} MiB trace, "
+          f"{len(kernels)} kernel events, {len(k1)} of quant_tc_kernel "
+          f"({sum(e.get('dur', 0) for e in k1) / 1e3:.3f} ms); kernels busy "
+          f"{busy_us / 1e3:.3f} ms of the {span_us / 1e3:.3f} ms from the first kernel's start "
+          f"to the last one's end ({busy_us / max(span_us, 1e-9):.4f}); launches {launches} | "
+          f"{tag}", flush=True)
+    if "quant_tc_kernel" not in text or launches != {"static_uniform_attention": 32}:
+        raise AssertionError(f"dp_path (r): the trace does not name quant_tc_kernel, or the "
+                             f"launches are {launches}")
+    sol = spec_roofline(model["spec"], latent_hw=64, batch=2 * IMAGES)
+    print(f"dp_path (r): spec_roofline SD v1.4 at batch {2 * IMAGES} (989 TF/s, 3350 GB/s): SOL "
+          f"{sol['sol_s'] * 1e3:.3f} ms (compute {sol['compute_s'] * 1e3:.3f}, memory "
+          f"{sol['memory_s'] * 1e3:.3f}); 4a's g=1 forward {s_4a * 1e3:.3f} ms: SOL is "
+          f"{sol['sol_s'] / s_4a:.4f} of it | {tag}", flush=True)
+    del model
+
+
+def sdxl_roofline(s_4e, tag):
+    """dp_path (r), SDXL-turbo: `spec_roofline` at batch IMAGES beside 4e's
+    measured s a forward (sdxl_path runs after dp_path)."""
+    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
+    from dgq_tpu_torch.utils.flops import spec_roofline
+
+    sol = spec_roofline(sdxl_unet_spec(), latent_hw=128, batch=IMAGES, attn_head_dim=64)
+    print(f"dp_path (r): spec_roofline SDXL-turbo at batch {IMAGES} (989 TF/s, 3350 GB/s): SOL "
+          f"{sol['sol_s'] * 1e3:.3f} ms (compute {sol['compute_s'] * 1e3:.3f}, memory "
+          f"{sol['memory_s'] * 1e3:.3f}); 4e's forward {s_4e * 1e3:.3f} ms: SOL is "
+          f"{sol['sol_s'] / s_4e:.4f} of it | {tag}", flush=True)
+
+
 def build_sdxl_model(tag):
     """SDXL-turbo at full width with W4-folded bf16 weights and packed int8
     codes, the VAE decoder and the sampler's inputs at 1024px, all drawn on
@@ -3343,22 +3817,27 @@ def main():
     phase(int8_conv, tag)
     phase(small_input_check, tiny_x, tiny_nets, tag)
     launches = phase(main_paths, tag)
+    s_4a = launches.pop("s_4a")
     torch.cuda.empty_cache()  # the SD model is gone
     phase(cli_path, tag)
     torch.cuda.empty_cache()
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build_dir, exist_ok=True)
-    keep = tempfile.mkdtemp(dir=build_dir)  # calib_path's merged file, for eval_path
+    keep = tempfile.mkdtemp(dir=build_dir)  # calib_path's merged file, for eval_path, dp_path
     try:
         calib = phase(calib_path, tag, calib_ref, keep)
         torch.cuda.empty_cache()
         phase(eval_path, tag, calib)
+        torch.cuda.empty_cache()
+        phase(recon_path, tag, recon_ref)
+        torch.cuda.empty_cache()
+        phase(dp_path, tag, calib, s_4a)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
-    torch.cuda.empty_cache()
-    phase(recon_path, tag, recon_ref)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
-    launches["int8_matmul"] = phase(sdxl_path, tag)["int8_matmul"]
+    sdxl = phase(sdxl_path, tag)
+    launches["int8_matmul"] = sdxl["int8_matmul"]
+    sdxl_roofline(sdxl["s"][0], tag)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3375,4 +3854,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(sys.argv[2])
+    else:
+        main()

@@ -21,7 +21,14 @@ The PyTorch form:
   * `batch_indices` is the one place the loops draw: a `torch.Generator`
     seeded from the run's seed and the unit's index. The same seed draws
     other batches than the JAX package's `jax.random` stream;
-  * no mesh: multi-GPU is not ported.
+  * data parallelism (`calibrate_weights(mesh=)`, one process a rank): a
+    rank captures only its contiguous slice of the samples (the JAX
+    package's P("dp") layout), every rank draws the same global indices,
+    computes the loss over those in its slice weighted by their share of the
+    batch, and the gradients are summed over the dp group before each Adam
+    update: the global batch's gradient, which GSPMD computes for the JAX
+    package. When the sample count does not divide by dp, every rank holds
+    every sample, as the JAX package replicates them.
 
 A key is a tuple of ints, `(seed,)` for a run and `(seed, u_idx)` for its
 unit u_idx, standing where the JAX package folds a `jax.random` key.
@@ -52,6 +59,7 @@ from dgq_tpu_torch.models.unet_sd import (
     inject_at,
     unet_sd_apply,
 )
+from dgq_tpu_torch.parallel.mesh import all_reduce_sum_, barrier, batch_rows, broadcast_
 from dgq_tpu_torch.quant.adaround import (
     adaround_init_alpha,
     adaround_quant,
@@ -179,25 +187,88 @@ def _reg(alphas: dict, step: int, iters: int, warmup: float) -> torch.Tensor:
     return sum(rounding_reg_loss(alphas[n], b) for n in sorted(alphas))
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's part of a data-parallel walk: samples [lo, hi) of n (the
+    cached tensors hold only those), and the mesh whose dp group sums the
+    gradients."""
+    mesh: object
+    lo: int
+    hi: int
+    n: int
+
+
+def _shard(mesh, n: int) -> Optional[Shard]:
+    """The rank's Shard of n samples, or None when it holds them all (no
+    mesh, dp = 1, or n % dp != 0, where the JAX package replicates)."""
+    if mesh is None or mesh.dp == 1 or n % mesh.dp:
+        return None
+    rows = batch_rows(mesh, n)
+    return Shard(mesh, rows.start, rows.stop, n)
+
+
+def _reg_fn(alphas: dict, iters: int, w: float, warmup: float) -> Callable:
+    """step -> w times the rounding regularizer from step warmup * iters on,
+    None before."""
+    def reg_fn(step):
+        return w * _reg(alphas, step, iters, warmup) if _round_on(step, warmup, iters) else None
+    return reg_fn
+
+
 def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, device,
-               loss_fn: Callable, lr: float, schedule: Optional[Callable] = None):
+               rec_fn: Callable, lr: float, schedule: Optional[Callable] = None,
+               reg_fn: Optional[Callable] = None, shard: Optional[Shard] = None):
     """Adam over the tensors of `leaves` (made leaves that require grad):
-    loss_fn(idx, step) on each step's indices. schedule(step) -> the step's
-    learning rate. Returns the losses, (iters,) on the device."""
-    opt = torch.optim.Adam(list(leaves.values()), lr=lr)
-    idx = batch_indices(key, iters, batch_size, n).to(device)
+    each step's loss is rec_fn(idx), the reconstruction loss (a mean over
+    the samples idx of the cached tensors), plus reg_fn(step) where that is
+    not None. schedule(step) -> the step's learning rate. Returns the
+    losses, (iters,) on the device.
+
+    With a shard, every rank draws the same global indices (of shard.n);
+    rec_fn takes the ones in its slice, re-based, and its mean is weighted
+    by their share of the batch; the regularizer enters on the rank that
+    holds the first slice; the gradients are summed over the dp group before
+    each update, and the losses once at the end. A rank that holds none of a
+    step's indices adds zeros. The slices are cut on the host here, so no
+    step waits for the device."""
+    params = list(leaves.values())
+    opt = torch.optim.Adam(params, lr=lr)
+    idx = batch_indices(key, iters, batch_size, n if shard is None else shard.n)
+    if shard is None:
+        steps, weights = idx.to(device), [None] * iters
+    else:
+        mine = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
+        steps, weights = [m.to(device) for m in mine], [len(m) / batch_size for m in mine]
+    regularizes = shard is None or shard.lo == 0
     losses = []
     for step in range(iters):
         if schedule is not None:
             for group in opt.param_groups:
                 group["lr"] = schedule(step)
         with torch.enable_grad():
-            loss = loss_fn(idx[step], step)
+            if weights[step] is None:
+                loss = rec_fn(steps[step])
+            elif weights[step]:
+                loss = rec_fn(steps[step]) * weights[step]
+            else:
+                loss = torch.zeros((), device=device)
+            reg = reg_fn(step) if reg_fn is not None and regularizes else None
+            if reg is not None:
+                loss = loss + reg
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
+        if shard is not None:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_sum_(shard.mesh, [p.grad for p in params])
         opt.step()
         losses.append(loss.detach())
-    return torch.stack(losses) if losses else torch.zeros(0, device=device)
+    out = torch.stack(losses) if losses else torch.zeros(0, device=device)
+    if shard is not None:
+        all_reduce_sum_(shard.mesh, [out])
+    return out
 
 
 def cosine_decay(lr: float, iters: int) -> Callable:
@@ -227,14 +298,14 @@ def reconstruct_unit_act_deltas(key: tuple, unit: ReconUnit, params_q: dict, qst
     zps = {n: qp.zero_point for n, qp in qstate_unit["a"].items()}
     sm = qstate_unit.get("sm", {})
 
-    def loss_fn(i, step):
+    def rec_fn(i):
         qs = {"a": {n: QParams(deltas[n], zps[n]) for n in deltas}, "sm": sm}
         pred = apply_fn(sub, qs, *(x[i] for x in cached_inputs))
         return torch.mean(torch.sum(_abs(pred - cached_outputs[i]) ** p_norm,
                                     dim=unit.sum_axis))
 
     losses = _adam_loop(deltas, key, iters, batch_size, cached_outputs.shape[0],
-                        cached_outputs.device, loss_fn, lr, cosine_decay(lr, iters))
+                        cached_outputs.device, rec_fn, lr, cosine_decay(lr, iters))
     return ({"a": {n: QParams(deltas[n].detach(), zps[n]) for n in deltas}, "sm": sm},
             losses)
 
@@ -272,12 +343,15 @@ class _OutShape(dict):
 
 
 def capture_unit_grad(params_fp: dict, params_q_prefix: dict, cali_batch: tuple,
-                      unit_name: str, cfg: QConfig, unet_apply=unet_sd_apply) -> torch.Tensor:
+                      unit_name: str, cfg: QConfig, unet_apply=unet_sd_apply,
+                      mean_over: Optional[int] = None) -> torch.Tensor:
     """|dKL/d(unit output)| + 1, the Fisher weighting: KL(softmax(fp) ||
-    softmax(quantized)) over the channel axis, batchmean by the batch's
-    leading size, differentiated at a zero injected at the unit's output of
-    the quantized net (weights quantized up to and including the unit). The
-    zero takes its shape from the unit's output in the fp forward."""
+    softmax(quantized)) over the channel axis, batchmean by `mean_over` (the
+    batch's leading size when None; a dp rank passes the size of the whole
+    capture chunk its rows belong to), differentiated at a zero injected at
+    the unit's output of the quantized net (weights quantized up to and
+    including the unit). The zero takes its shape from the unit's output in
+    the fp forward."""
     batch = tuple(cali_batch)
     shape = _OutShape(unit_name)
     with torch.no_grad():
@@ -292,7 +366,7 @@ def capture_unit_grad(params_fp: dict, params_q_prefix: dict, cali_batch: tuple,
     with torch.enable_grad(), inject_at({unit_name: d}):
         out_q = unet_apply(params_q_prefix, *batch, qstate=None, cfg=cfg)
         logq = torch.log_softmax(out_q.float(), dim=-1)
-        loss = torch.sum(p_fp * (logp - logq)) / batch[0].shape[0]
+        loss = torch.sum(p_fp * (logp - logq)) / (mean_over or batch[0].shape[0])
     (g,) = torch.autograd.grad(loss, d)
     return torch.abs(g) + 1.0
 
@@ -316,9 +390,11 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
                      cached_inputs: tuple, cached_outputs: torch.Tensor, cfg: QConfig,
                      iters: int = 20000, batch_size: int = 32, w: float = 0.01,
                      warmup: float = 0.2, p_norm: float = 2.0, lr: float = 1e-3,
-                     opt_mode: str = "mse", cached_grads: Optional[torch.Tensor] = None):
+                     opt_mode: str = "mse", cached_grads: Optional[torch.Tensor] = None,
+                     shard: Optional[Shard] = None):
     """Optimise one unit's AdaRound offsets. Returns ({layer: alpha}, the
-    losses (iters,)).
+    losses (iters,)). With a shard the cached tensors hold this rank's
+    samples only (`_adam_loop`).
 
     Loss: the reconstruction loss plus, from step warmup * iters on, w times
     the rounding regularizer at its annealed temperature. opt_mode: 'mse'
@@ -340,16 +416,14 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
         dot = torch.sum(a * g, dim=tuple(range(1, pred.dim())))
         return torch.mean(dot.reshape((-1,) + (1,) * (pred.dim() - 1)) * a * g) / 100.0
 
-    def loss_fn(i, step):
+    def rec_fn(i):
         pq = _soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits)
         pred = apply_fn(pq, *(x[i] for x in cached_inputs))
-        rec = rec_loss(pred, cached_outputs[i], None if cached_grads is None else cached_grads[i])
-        if _round_on(step, warmup, iters):
-            rec = rec + w * _reg(alphas, step, iters, warmup)
-        return rec
+        return rec_loss(pred, cached_outputs[i], None if cached_grads is None else cached_grads[i])
 
     losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
-                        cached_outputs.device, loss_fn, lr)
+                        cached_outputs.device, rec_fn, lr,
+                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard)
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -393,17 +467,14 @@ def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
     with torch.no_grad():
         fp_outs = apply_fn(sub, timesteps)
 
-    def loss_fn(i, step):
+    def rec_fn(i):
         preds = apply_fn(_soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits),
                          timesteps[i])
-        rec = sum(torch.mean(torch.sum(_abs(pr - tg[i]) ** p_norm, dim=-1))
-                  for pr, tg in zip(preds, fp_outs))
-        if _round_on(step, warmup, iters):
-            rec = rec + w * _reg(alphas, step, iters, warmup)
-        return rec
+        return sum(torch.mean(torch.sum(_abs(pr - tg[i]) ** p_norm, dim=-1))
+                   for pr, tg in zip(preds, fp_outs))
 
     losses = _adam_loop(alphas, key, iters, batch_size, timesteps.shape[0], timesteps.device,
-                        loss_fn, lr)
+                        rec_fn, lr, reg_fn=_reg_fn(alphas, iters, w, warmup))
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -480,7 +551,8 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
                       capture_batch: int = 8, seed: int = 0, unet_apply=unet_sd_apply,
                       progress: Optional[Callable[[str], None]] = None,
                       max_units: Optional[int] = None, partial_dir: Optional[str] = None,
-                      tib_recon: bool = False, opt_mode: str = "mse") -> Dict[str, torch.Tensor]:
+                      tib_recon: bool = False, opt_mode: str = "mse",
+                      mesh=None) -> Dict[str, torch.Tensor]:
     """The whole weight-reconstruction pass. Returns the AdaRound offsets of
     every reconstructed layer (in the weights' layout).
 
@@ -492,7 +564,17 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     max_units limits the walk (debug and tests). partial_dir keeps one .pth a
     unit as it completes and resumes a unit whose save exists. tib_recon
     reconstructs the temporal-information block jointly first and takes its
-    layers out of the per-unit walks, which then see them hard-rounded."""
+    layers out of the per-unit walks, which then see them hard-rounded.
+
+    mesh: a `parallel.mesh.DPMesh`, one process a rank. A rank captures
+    (and weighs by Fisher) only its contiguous slice of the samples, so it
+    holds n / dp of each unit's captures, and the Adam loops sum the
+    gradients over the dp group (`_adam_loop`); every rank ends each unit
+    with the same offsets. When n % dp != 0 every rank holds every sample
+    and runs the whole loop, and rank 0's offsets are broadcast. The
+    temporal block runs on every rank, then rank 0's offsets are broadcast.
+    Only rank 0 writes the partial saves (a barrier after each); every rank
+    reads them on resume."""
     units = recon_units(spec)
     if max_units is not None:
         units = units[:max_units]
@@ -501,6 +583,9 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     cali_data = tuple(x.to(device) for x in cali_data)
     all_alphas: Dict[str, torch.Tensor] = {}
     n = cali_data[0].shape[0]
+    shard = _shard(mesh, n)
+    lo, hi = (0, n) if shard is None else (shard.lo, shard.hi)
+    shared = mesh is not None and mesh.world > 1
 
     params_units = params
     if tib_recon:
@@ -510,6 +595,8 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         tib_alphas, _ = reconstruct_tib(
             key + (TIB_STREAM,), params, spec, wqp, cali_data[1], cfg, iters=iters,
             batch_size=batch_size, w=w, warmup=warmup)
+        if shared:
+            broadcast_(mesh, list(tib_alphas.values()))
         all_alphas.update(tib_alphas)
         units = [dataclasses.replace(u, layers=tuple(l for l in u.layers if l not in tib_layers))
                  for u in units]
@@ -520,18 +607,27 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
             params_units = fold_weight_quant(params, {k: wqp[k] for k in tib_layers}, spec, cfg,
                                              alphas=tib_alphas, soft=False)
 
-    def batched_capture(p, unit_name, want_inputs=True):
-        """The unit's (inputs, output) over every sample, each chunk written
-        into tensors made at the first (no second copy for a concatenation)."""
-        inputs = out = None
+    def chunks():
+        """(start, stop, size of its whole chunk) of each capture chunk, cut
+        to this rank's samples [lo, hi)."""
         for i in range(0, n, capture_batch):
-            bi, bo = capture_unit_io(p, tuple(x[i:i + capture_batch] for x in cali_data),
-                                     unit_name, cfg, unet_apply, want_inputs=want_inputs)
+            s, e = max(i, lo), min(i + capture_batch, hi)
+            if s < e:
+                yield s, e, min(i + capture_batch, n) - i
+
+    def batched_capture(p, unit_name, want_inputs=True):
+        """The unit's (inputs, output) over the rank's samples, each chunk
+        written into tensors made at the first (no second copy for a
+        concatenation)."""
+        inputs = out = None
+        for s, e, _ in chunks():
+            bi, bo = capture_unit_io(p, tuple(x[s:e] for x in cali_data), unit_name, cfg,
+                                     unet_apply, want_inputs=want_inputs)
             if out is None:
-                inputs = tuple(x.new_empty((n,) + x.shape[1:]) for x in bi)
-                out = bo.new_empty((n,) + bo.shape[1:])
+                inputs = tuple(x.new_empty((hi - lo,) + x.shape[1:]) for x in bi)
+                out = bo.new_empty((hi - lo,) + bo.shape[1:])
             for whole, part in zip(inputs + (out,), bi + (bo,)):
-                whole[i:i + part.shape[0]] = part
+                whole[s - lo:e - lo] = part
             del bi, bo
         return inputs, out
 
@@ -563,22 +659,26 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         cached_grads = None
         if opt_mode != "mse":
             # |dKL/d(unit out)| + 1 with the prefix and the unit itself
-            # hard-quantized
+            # hard-quantized, batchmean over the whole capture chunk
             fold_names = set(all_alphas) | set(unit.layers)
             with torch.no_grad():
                 pq_g = fold_weight_quant(params, {k: wqp[k] for k in fold_names if k in wqp},
                                          spec, cfg, alphas=all_alphas, soft=False)
             cached_grads = fp_out.new_empty(fp_out.shape, dtype=torch.float32)
-            for i in range(0, n, capture_batch):
-                cached_grads[i:i + capture_batch] = capture_unit_grad(
-                    params, pq_g, tuple(x[i:i + capture_batch] for x in cali_data), unit.name,
-                    cfg, unet_apply)
+            for s, e, size in chunks():
+                cached_grads[s - lo:e - lo] = capture_unit_grad(
+                    params, pq_g, tuple(x[s:e] for x in cali_data), unit.name, cfg, unet_apply,
+                    mean_over=size)
             del pq_g
         alphas, _ = reconstruct_unit(
             key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
             batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
-            cached_grads=cached_grads)
+            cached_grads=cached_grads, shard=shard)
+        if shared and shard is None:
+            broadcast_(mesh, list(alphas.values()))
         all_alphas.update(alphas)
         if partial_dir:
-            _save_partial(partial_dir, unit, alphas)
+            if mesh is None or mesh.rank == 0:
+                _save_partial(partial_dir, unit, alphas)
+            barrier(mesh)
     return all_alphas

@@ -1,7 +1,12 @@
 """Shared CLI plumbing (port of `dgq_tpu/cli/common.py`): the device,
-model construction and weight loading, logging, the quantization flags, and
-the calibration inputs (prompt embeddings, calibration data and the cache
-key of their `.npz` file).
+model construction and weight loading, logging, the quantization flags, the
+calibration inputs (prompt embeddings, calibration data and the cache key of
+their `.npz` file), and the process group of a multi-process run.
+
+In a run of several ranks (torchrun, or --multihost) only rank 0 writes
+files (checkpoints, run.log, partial saves, caches); the other ranks log to
+stderr under their rank. The JAX package's processes each write the same
+files; ROADMAP queue 3 keeps the difference.
 
 The model is chosen by --model {sd,sdxl}; the DIFFUSERS_REWRITE environment
 variable gives the default, as in the reference.
@@ -19,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def model_type_from_env(default: str = "sd") -> str:
@@ -27,27 +33,81 @@ def model_type_from_env(default: str = "sd") -> str:
 
 def resolve_device(name: str) -> str:
     """The device a CLI runs on. 'cuda' without a usable card is an error:
-    the entry points never fall back to the CPU on their own."""
+    the entry points never fall back to the CPU on their own. A rank of a
+    process group takes its own card (`parallel.mesh.rank_device`) as the
+    current device, so 'cuda' means that card."""
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for, but torch.cuda.is_available() is "
                            "false; pass --device cpu to run on the CPU")
     if name not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {name!r}: cuda or cpu")
+    if name == "cuda" and dist.is_initialized():
+        from dgq_tpu_torch.parallel.mesh import rank_device
+
+        torch.cuda.set_device(rank_device(name))
     return name
 
 
-def setup_logging(outdir: str) -> tuple[str, logging.Logger]:
-    os.makedirs(outdir, exist_ok=True)
-    outpath = os.path.join(outdir, datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
-    os.makedirs(outpath, exist_ok=True)
-    logging.basicConfig(
-        format="%(asctime)s - %(levelname)s - %(name)s -   %(message)s",
-        datefmt="%m/%d/%Y %H:%M:%S",
-        level=logging.INFO,
-        handlers=[logging.FileHandler(os.path.join(outpath, "run.log")),
-                  logging.StreamHandler()],
-    )
-    return outpath, logging.getLogger("dgq_tpu_torch")
+def process_rank() -> int:
+    """This process's rank in the process group, 0 without one."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def writes_files() -> bool:
+    """Whether this process writes the run's files: rank 0 of a process
+    group, or a process on its own."""
+    return process_rank() == 0
+
+
+def built_once(fn):
+    """fn()'s result on every rank of a process group, computed once: rank 0
+    computes it (reading or writing any cache itself) and broadcasts it (CPU
+    tensors and Python values) to the others. fn() alone without a process
+    group."""
+    if not dist.is_initialized():
+        return fn()
+    out = [fn() if writes_files() else None]
+    dist.broadcast_object_list(out, src=0)
+    return out[0]
+
+
+def announce_rank(device: str) -> None:
+    """In a process group, print the rank's backend and device to stderr
+    (the first line of a CLI that does not log through `setup_logging`)."""
+    if dist.is_initialized():
+        import sys
+
+        from dgq_tpu_torch.parallel.mesh import describe_rank
+
+        print(describe_rank(device), file=sys.stderr, flush=True)
+
+
+def setup_logging(outdir: str, device: str = "cuda") -> tuple[Optional[str], logging.Logger]:
+    """-> (the run's directory, the logger). Rank 0 (or a process on its
+    own) makes `outdir/<timestamp>/` and logs to its run.log and to stderr;
+    another rank makes nothing, logs to stderr under its rank and gets None
+    for the directory. In a process group the first line names the rank's
+    backend and device."""
+    rank = process_rank()
+    fmt = "%(asctime)s - %(levelname)s - %(name)s -   %(message)s"
+    outpath = None
+    if rank == 0:
+        os.makedirs(outdir, exist_ok=True)
+        outpath = os.path.join(outdir, datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
+        os.makedirs(outpath, exist_ok=True)
+        handlers = [logging.FileHandler(os.path.join(outpath, "run.log")),
+                    logging.StreamHandler()]
+    else:
+        fmt = f"%(asctime)s - rank {rank} - %(levelname)s - %(name)s -   %(message)s"
+        handlers = [logging.StreamHandler()]
+    logging.basicConfig(format=fmt, datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO,
+                        handlers=handlers)
+    log = logging.getLogger("dgq_tpu_torch")
+    if dist.is_initialized():
+        from dgq_tpu_torch.parallel.mesh import describe_rank
+
+        log.info(describe_rank(device))
+    return outpath, log
 
 
 def build_model(model_type: str, base: Optional[int] = None, seed: int = 0,
@@ -310,7 +370,10 @@ def add_quant_args(ap: argparse.ArgumentParser) -> None:
                     help="fused attention kernels with the softmax quantizer "
                          "inside (the hand-written CUDA kernels on the card)")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-process runtime (not ported: raises)")
+                    help="join the process group before any device use (torchrun's "
+                         "MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE, or SLURM's "
+                         "SLURM_PROCID / SLURM_NTASKS with MASTER_ADDR / MASTER_PORT); "
+                         "every rank runs the command, rank 0 writes")
     ap.add_argument("--prompt_path", default=None,
                     help="captions: COCO annotations json or a plain-text "
                          "file, one prompt per line")
@@ -326,11 +389,28 @@ def add_quant_args(ap: argparse.ArgumentParser) -> None:
 
 
 def maybe_init_multihost(args) -> None:
-    """--multihost is refused: multi-GPU is not ported yet."""
+    """With --multihost, join the process group (`parallel.mesh.
+    init_multihost`) before any device use; no rendezvous in the
+    environment is an error, as in the JAX package."""
     if getattr(args, "multihost", False):
-        raise NotImplementedError(
-            "--multihost is not ported to dgq_tpu_torch: ROADMAP queue 1, item 17 "
-            "(parallel/mesh.py onto torch.distributed)")
+        from dgq_tpu_torch.parallel.mesh import init_multihost
+
+        if not init_multihost(device=getattr(args, "device", "cuda")):
+            raise RuntimeError(
+                "--multihost set but no rendezvous found: launch with torchrun (MASTER_ADDR / "
+                "MASTER_PORT / RANK / WORLD_SIZE) or under SLURM (SLURM_PROCID / SLURM_NTASKS "
+                "with MASTER_ADDR / MASTER_PORT exported)")
+
+
+def dp_mesh(args, module: str):
+    """The data-parallel mesh of a run with --dp N > 1 (None for 1): the
+    process group is joined from the environment, and a process outside a
+    group of N ranks gets the torchrun line that starts `module`."""
+    if args.dp == 1:
+        return None
+    from dgq_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp=args.dp, device=args.device, program=module)
 
 
 def qconfig_from_args(args, use_wq=True, use_aq=False):

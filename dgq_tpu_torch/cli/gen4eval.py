@@ -8,9 +8,21 @@ the reference's src/gen4eval_SD.py / gen4eval_SDXL.py / gen4eval_fp.py).
 Each image is named '{global_prompt_idx}_{rep}' (the reference's name_rep
 scheme) and written as .png (a 256px copy under '<outdir>_im256' with
 --im256) when a VAE decodes it, else as the raw latents' .npy.
-Process-level data parallelism is the reference's: --gpu_rank / --world_size
-slice the prompt list (`parallel.mesh.shard_prompts`). --dp (an in-process
-device mesh) and --multihost are not ported and raise.
+Two kinds of data parallelism: --gpu_rank / --world_size slice the prompt
+list over independent processes (`parallel.mesh.shard_prompts`, the
+reference's scheme), and --dp N splits each batch's rows over N ranks of a
+process group started by torchrun:
+
+    torchrun --nproc_per_node 2 -m dgq_tpu_torch.cli.gen4eval --dp 2 ...
+
+Each rank draws the whole batch's initial latents and stand-in embeddings,
+keeps its rows (a tail batch padded to a multiple of dp with copies of its
+last row, whose outputs are dropped) and writes their files under the
+global names. The real-time softmax quantizer's delta, a reduction over
+the whole batch, is reduced over every rank's rows (`parallel.mesh.
+batch_split`; a padded copy moves no min or max), so the images are those
+of --dp 1 up to the order of sums, which a quantized trajectory can grow
+over many steps. --batch must be a multiple of --dp.
 
 It runs on the card (--device cuda, the default) and refuses to start
 without one; --device cpu runs on the CPU. Initial latents and stand-in
@@ -58,7 +70,8 @@ def parse_args(argv=None):
     ap.add_argument("--gpu_rank", type=int, default=0)
     ap.add_argument("--world_size", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1,
-                    help="in-process data-parallel devices (not ported: > 1 raises)")
+                    help="data-parallel ranks: each batch's rows split over them (start the "
+                         "ranks with torchrun --nproc_per_node N)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=-1)
     ap.add_argument("--n_per_prompt", type=int, default=1)
@@ -86,25 +99,27 @@ def main(argv=None) -> dict:
     seconds to build the model and fold its weights}."""
     args = parse_args(argv)
     from dgq_tpu_torch.cli.common import (
+        announce_rank,
         build_model,
+        dp_mesh,
         maybe_init_multihost,
         pooled_dim_for,
         qconfig_from_args,
         resolve_device,
     )
 
+    if args.batch % args.dp:
+        raise SystemExit(f"--batch {args.batch} must be a multiple of --dp {args.dp}")
     maybe_init_multihost(args)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp serves an in-process multi-device mesh, which is not ported: ROADMAP queue "
-            "1, item 17 (--gpu_rank / --world_size shard prompts across processes)")
+    mesh = dp_mesh(args, "dgq_tpu_torch.cli.gen4eval")
     device = resolve_device(args.device)
+    announce_rank(device)
     import torch
 
     from dgq_tpu_torch.calib.data import synthetic_prompt_embeddings, synthetic_sdxl_embeddings
     from dgq_tpu_torch.io.hf_loader import load_state_dict_any
     from dgq_tpu_torch.models.qconfig import QConfig
-    from dgq_tpu_torch.parallel.mesh import shard_prompts
+    from dgq_tpu_torch.parallel.mesh import batch_rows, batch_split, shard_prompts
     from dgq_tpu_torch.pipeline.sd_pipeline import SDPipeline, SDXLTurboPipeline
     from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
     from dgq_tpu_torch.pipeline.vae import hf_vae_to_params
@@ -206,32 +221,45 @@ def main(argv=None) -> dict:
         size_kw["width"] = args.width
     t_start = time.perf_counter()
     files = []
-    for i in range(0, len(prompts), args.batch):
-        batch_prompts = prompts[i : i + args.batch]
-        for rep in range(args.n_per_prompt):
-            seed = args.seed + rep * 100003 + i
-            emb_a, emb_b = batch_embeds(batch_prompts, seed)
-            imgs = pipe.generate_from_embeddings(emb_a, emb_b, steps=steps, seed=seed,
-                                                 **size_kw)
-            for j, img in enumerate(imgs):
-                # '{global_prompt_idx}_{rep}': collision-free for any
-                # n_per_prompt and rank count; eval_scores recovers the prompt
-                # index from the stem for CLIP alignment
-                name = f"{prompt_base + i + j}_{rep}"
-                if img.dtype == np.uint8:
-                    from PIL import Image
+    count = 0
+    with batch_split(mesh):  # the real-time delta over every rank's rows
+        for i in range(0, len(prompts), args.batch):
+            batch_prompts = prompts[i : i + args.batch]
+            n_real = len(batch_prompts)
+            positions, rows = range(n_real), None
+            if mesh is not None:
+                # this rank's rows of the batch padded to a dp multiple; a padded
+                # row repeats the last one and its output is dropped
+                mine = batch_rows(mesh, -(-n_real // mesh.dp) * mesh.dp)
+                positions = range(mine.start, mine.stop)
+                rows = [min(p, n_real - 1) for p in positions]
+            for rep in range(args.n_per_prompt):
+                seed = args.seed + rep * 100003 + i
+                emb_a, emb_b = batch_embeds(batch_prompts, seed)
+                imgs = pipe.generate_from_embeddings(emb_a, emb_b, steps=steps, seed=seed,
+                                                     rows=rows, **size_kw)
+                for j, img in zip(positions, imgs):
+                    if j >= n_real:
+                        continue
+                    count += 1
+                    # '{global_prompt_idx}_{rep}': collision-free for any
+                    # n_per_prompt and rank count; eval_scores recovers the prompt
+                    # index from the stem for CLIP alignment
+                    name = f"{prompt_base + i + j}_{rep}"
+                    if img.dtype == np.uint8:
+                        from PIL import Image
 
-                    files.append(os.path.join(args.outdir, f"{name}.png"))
-                    Image.fromarray(img).save(files[-1])
-                    if args.im256:
-                        files.append(os.path.join(im256_dir, f"{name}.png"))
-                        Image.fromarray(img).resize((256, 256)).save(files[-1])
-                else:
-                    files.append(os.path.join(args.outdir, f"{name}.npy"))
-                    np.save(files[-1], img)
+                        files.append(os.path.join(args.outdir, f"{name}.png"))
+                        Image.fromarray(img).save(files[-1])
+                        if args.im256:
+                            files.append(os.path.join(im256_dir, f"{name}.png"))
+                            Image.fromarray(img).resize((256, 256)).save(files[-1])
+                    else:
+                        files.append(os.path.join(args.outdir, f"{name}.npy"))
+                        np.save(files[-1], img)
     dt = time.perf_counter() - t_start
-    count = len(prompts) * args.n_per_prompt
-    print(f"rank {args.gpu_rank}: {count} images in {dt:.1f}s "
+    dp = f", dp rank {mesh.rank} of {mesh.dp}" if mesh is not None else ""
+    print(f"rank {args.gpu_rank}{dp}: {count} images in {dt:.1f}s "
           f"({count / max(dt, 1e-9):.3f} img/s)")
     return {"files": files, "images": count, "generate_s": dt, "load_fold_s": load_fold_s}
 

@@ -6,8 +6,10 @@ with the same seed, side by side.
         --t2i_log_quant --t2i_real_time --t2i_start_peak --time_aware_aqtizer
 
 It runs on the card (--device cuda, the default) and refuses to start
-without one; --device cpu runs the plain versions on the CPU. `main(argv)`
-takes the argument list, so it can be driven in-process.
+without one; --device cpu runs the plain versions on the CPU. With
+--multihost (torchrun or SLURM) every rank runs both images and rank 0
+writes them. `main(argv)` takes the argument list, so it can be driven
+in-process.
 """
 from __future__ import annotations
 
@@ -21,12 +23,14 @@ import torch
 
 from dgq_tpu_torch.cli.common import (
     add_quant_args,
+    announce_rank,
     build_model,
     maybe_init_multihost,
     model_type_from_env,
     pooled_dim_for,
     qconfig_from_args,
     resolve_device,
+    writes_files,
 )
 
 
@@ -73,6 +77,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     maybe_init_multihost(args)
     device = resolve_device(args.device)
+    announce_rank(device)
     steps = args.num_inference_steps
     if steps < 0:
         steps = 25 if args.model == "sd" else 4
@@ -172,6 +177,8 @@ def main(argv=None) -> dict:
                 imgs = pipe.generate_from_embeddings(text, uncond, steps=steps, seed=args.seed,
                                                      scheduler="pndm", **hw)
         run_s[tag] = time.perf_counter() - t  # imgs is on the host: the device is done
+        if not writes_files():
+            return
         for i in range(imgs.shape[0]):
             name = f"tmp_{args.model}_{args.prompt.replace(' ', '_')}_{i}_{tag}"
             out = os.path.join(args.outdir, name + ".npy")

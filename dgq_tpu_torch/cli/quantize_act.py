@@ -11,6 +11,8 @@ activation calibration with k-means grouping and writes
 `cali_ckpt_activation_w{W}a{A}g{G}.pth`, which `cli.ckpt_tools merge` joins
 with the weights for `cli.infer`. The run is on the card unless --device cpu
 is given; `main(argv)` takes the argument list and returns what it wrote.
+With --multihost (torchrun or SLURM) every rank runs the calibration and
+rank 0 writes the checkpoint ('act_ckpt' is None on the other ranks).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from dgq_tpu_torch.cli.common import (
     add_quant_args,
     build_cali_data,
     build_model,
+    built_once,
     cali_embeddings_from_args,
     maybe_init_multihost,
     model_type_from_env,
@@ -30,6 +33,7 @@ from dgq_tpu_torch.cli.common import (
     setup_logging,
     slot_clock,
     timed,
+    writes_files,
 )
 
 
@@ -62,7 +66,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     maybe_init_multihost(args)
     device = resolve_device(args.device)
-    outpath, log = setup_logging(args.outdir)
+    outpath, log = setup_logging(args.outdir, device)
     from dgq_tpu_torch.calib.act_calib import calibrate_activations
     from dgq_tpu_torch.calib.weight_calib import fold_weight_quant
     from dgq_tpu_torch.io.dgq_ckpt import load_weight_only, save_act_ckpt
@@ -84,10 +88,11 @@ def main(argv=None) -> dict:
     if tag:
         log.info(f"caption-conditioned calibration data ({args.prompt_path})")
     seconds = {}
-    (cali_data, interval), seconds["cali_data"] = timed(device, lambda: build_cali_data(
-        args.model, params, apply_fn, cross, args.cali_prompt_data_n, args.step_size,
-        args.latent_hw or latent_hw, args.seed, cache_prefix=args.cali_data_path,
-        pooled_dim=pooled, embeds=embeds, embeds_tag=tag))
+    (cali_data, interval), seconds["cali_data"] = timed(device, lambda: built_once(
+        lambda: build_cali_data(
+            args.model, params, apply_fn, cross, args.cali_prompt_data_n, args.step_size,
+            args.latent_hw or latent_hw, args.seed, cache_prefix=args.cali_data_path,
+            pooled_dim=pooled, embeds=embeds, embeds_tag=tag)))
     log.info(f"calibration set: {cali_data[0].shape[0]} samples, interval {interval}, "
              f"{seconds['cali_data']:.2f} s")
     progress, slot_seconds = slot_clock(device, log)
@@ -96,10 +101,12 @@ def main(argv=None) -> dict:
         group_mode=args.group_mode, batch_size=8 if args.model == "sd" else 4,
         scaler=Scaler.MINMAX, unet_apply=apply_fn, progress=progress)
     seconds["act_slots"] = slot_seconds()
-    out = os.path.join(outpath,
-                       f"cali_ckpt_activation_w{args.wq}a{args.aq}g{args.group_num}.pth")
-    save_act_ckpt(out, per_t, spec)
-    log.info(f"activation checkpoint saved to {out}")
+    out = None
+    if writes_files():
+        out = os.path.join(outpath,
+                           f"cali_ckpt_activation_w{args.wq}a{args.aq}g{args.group_num}.pth")
+        save_act_ckpt(out, per_t, spec)
+        log.info(f"activation checkpoint saved to {out}")
     log.info(f"group conv layers: {len(group_layers)}")
     return {"act_ckpt": out, "per_t": per_t, "group_layers": group_layers, "seconds": seconds}
 

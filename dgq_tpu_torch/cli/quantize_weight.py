@@ -18,21 +18,33 @@ weights and synthetic prompt embeddings drive the same machinery.
 
 The reconstruction differentiates the UNet's attention, which only the plain
 layers allow: with --pallas_attn it is refused, as the JAX package cannot
-differentiate its Pallas attention either. --dp / --tp (multi-GPU) are not
-ported and raise. The run is on the card unless --device cpu is given.
-`main(argv)` takes the argument list and returns what it wrote, so it can be
-driven in-process.
+differentiate its Pallas attention either. --dp N runs the reconstruction
+data-parallel over N ranks, one process each, started by torchrun:
+
+    torchrun --nproc_per_node 2 -m dgq_tpu_torch.cli.quantize_weight --dp 2 ...
+
+Each rank holds its slice of every unit's captures and the gradients are
+summed over the ranks (`calibrate_weights(mesh=)`); the weight-scale init
+and the activation calibration run on every rank, and rank 0 writes. --tp
+(channel parallelism) is not ported and raises. The run is on the card
+unless --device cpu is given. `main(argv)` takes the argument list and
+returns what it wrote (rank 0's paths; None on the other ranks), so it can
+be driven in-process.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import torch.distributed as dist
+
 from dgq_tpu_torch.cli.common import (
     add_quant_args,
     build_cali_data,
     build_model,
+    built_once,
     cali_embeddings_from_args,
+    dp_mesh,
     maybe_init_multihost,
     model_type_from_env,
     pooled_dim_for,
@@ -41,6 +53,7 @@ from dgq_tpu_torch.cli.common import (
     setup_logging,
     slot_clock,
     timed,
+    writes_files,
 )
 
 
@@ -61,8 +74,12 @@ def parse_args(argv=None):
     ap.add_argument("--resume_w", default=None,
                     help="resume from an existing weight-only checkpoint (continues "
                          "into the activation phase with --use_aq)")
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel devices (not ported)")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: the reconstruction's captures shard over them "
+                         "and its gradients are summed (start the ranks with torchrun "
+                         "--nproc_per_node N)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel devices (not ported: > 1 raises)")
     ap.add_argument("--partial_dir", default=None,
                     help="save one .pth per reconstruction unit as it completes and resume "
                          "by skipping units already saved there (check them with "
@@ -98,13 +115,12 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Multi-device runs raise, and so does reconstruction with the fused
-    attention kernels; nothing is skipped silently."""
-    asked = [flag for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} serve multi-device runs, which are not ported: ROADMAP "
-            f"queue 1, item 17")
+    """--tp raises, and so does reconstruction with the fused attention
+    kernels; nothing is skipped silently."""
+    if args.tp > 1:
+        from dgq_tpu_torch.parallel.mesh import TP_REFUSAL
+
+        raise NotImplementedError(f"--tp {args.tp}: {TP_REFUSAL}")
     if args.pallas_attn and not (args.no_recon or args.resume_w):
         raise NotImplementedError(
             "--pallas_attn with weight reconstruction: the reconstruction differentiates the "
@@ -120,10 +136,15 @@ def main(argv=None) -> dict:
     states or None, 'seconds': {'weight_init', 'cali_data', 'recon',
     'act_slots': [seconds of each time slot]}}."""
     args = parse_args(argv)
-    maybe_init_multihost(args)
     refuse_unported(args)
+    maybe_init_multihost(args)
+    mesh = dp_mesh(args, "dgq_tpu_torch.cli.quantize_weight")
     device = resolve_device(args.device)
-    outpath, log = setup_logging(args.outdir)
+    outpath, log = setup_logging(args.outdir, device)
+    if mesh is not None:
+        log.info(f"mesh: dp={mesh.dp} tp={mesh.tp} ({mesh.world} ranks, gradients summed "
+                 f"over the {dist.get_backend()} group)")
+    writes = writes_files()
     from dgq_tpu_torch.calib.act_calib import calibrate_activations
     from dgq_tpu_torch.calib.reconstruction import calibrate_weights
     from dgq_tpu_torch.calib.weight_calib import fold_weight_quant, init_weight_qparams
@@ -138,7 +159,7 @@ def main(argv=None) -> dict:
     pooled = pooled_dim_for(args.model, args.base)
     seconds = {}
     result = {"weight_only": None, "merged": None, "per_t": None, "seconds": seconds}
-    path = os.path.join(outpath, "cali_ckpt.pth")
+    path = os.path.join(outpath, "cali_ckpt.pth") if writes else None
     alphas = None
     cali = {}
 
@@ -149,10 +170,10 @@ def main(argv=None) -> dict:
                                                     args.cali_prompt_data_n, args.seed,
                                                     pooled_dim=pooled, device=device)
             (cali["data"], cali["interval"]), seconds["cali_data"] = timed(
-                device, lambda: build_cali_data(
+                device, lambda: built_once(lambda: build_cali_data(
                     args.model, params, apply_fn, cross, args.cali_prompt_data_n,
                     args.step_size, latent_hw, args.seed, cache_prefix=args.cali_data_path,
-                    pooled_dim=pooled, embeds=embeds, embeds_tag=tag))
+                    pooled_dim=pooled, embeds=embeds, embeds_tag=tag)))
             log.info(f"calibration set: {cali['data'][0].shape[0]} samples, interval "
                      f"{cali['interval']}, {seconds['cali_data']:.2f} s")
         return cali["data"], cali["interval"]
@@ -161,7 +182,7 @@ def main(argv=None) -> dict:
         log.info(f"resuming from {args.resume_w}")
         params, wqp, alphas = load_weight_only(args.resume_w, spec, device)
         alphas = alphas or None
-        if not args.use_aq:
+        if not args.use_aq and writes:
             save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
             result["weight_only"] = f"{path}_weight_only"
             log.info(f"resumed checkpoint re-saved to {path}_weight_only")
@@ -178,11 +199,12 @@ def main(argv=None) -> dict:
                 batch_size=8 if args.model == "sd" else 4, w=0.01, warmup=0.2, asym=True,
                 seed=args.seed, unet_apply=apply_fn, progress=log.info,
                 partial_dir=args.partial_dir, max_units=args.max_units,
-                tib_recon=args.tib_recon, opt_mode=args.recon_loss))
+                tib_recon=args.tib_recon, opt_mode=args.recon_loss, mesh=mesh))
             log.info(f"reconstruction: {len(alphas)} layers, {seconds['recon']:.2f} s")
-        save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
-        result["weight_only"] = f"{path}_weight_only"
-        log.info(f"calibrated model saved to {path}_weight_only")
+        if writes:
+            save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
+            result["weight_only"] = f"{path}_weight_only"
+            log.info(f"calibrated model saved to {path}_weight_only")
     result.update(params=params, wqp=wqp, alphas=alphas)
 
     if args.use_aq:
@@ -199,9 +221,11 @@ def main(argv=None) -> dict:
             running_stat=args.running_stat, batch_size=8 if args.model == "sd" else 4,
             unet_apply=apply_fn, progress=progress)
         seconds["act_slots"] = slot_seconds()
-        save_merged(path, params, wqp, spec, per_t, alphas=alphas)
-        result.update(merged=path, per_t=per_t)
-        log.info(f"calibrated model (weight+act) saved to {path}")
+        result["per_t"] = per_t
+        if writes:
+            save_merged(path, params, wqp, spec, per_t, alphas=alphas)
+            result["merged"] = path
+            log.info(f"calibrated model (weight+act) saved to {path}")
     return result
 
 

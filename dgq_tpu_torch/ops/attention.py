@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
+from dgq_tpu_torch.parallel.mesh import batch_reduce_
 
 # Launches of each kernel since the last reset (a run can show that the main
 # path went through the kernels). Only the kernel wrappers add to them.
@@ -63,8 +64,9 @@ def attention_reference(q, k, v, scale, sm_mode="none", sm_bits=8,
     if sm_mode != "none":
         if sm_mode == "log2_real_time":
             # start_peak slices column 0 off BEFORE the quantizer, so the
-            # dynamic delta excludes the peak
-            delta = p[..., 1:].max() if start_peak else p.max()
+            # dynamic delta excludes the peak; a data-parallel rank takes the
+            # max over every rank's rows (`batch_reduce_`)
+            delta = batch_reduce_(p[..., 1:].max() if start_peak else p.max(), "max")
         else:
             delta = torch.as_tensor(sm_delta, device=p.device)
         if sm_mode in ("log2", "log2_real_time"):
@@ -307,10 +309,13 @@ def log2_real_time_attention(q, k, v, scale: float, sm_bits: int = 8,
                              start_peak: bool = False):
     """K3 in its Hopper form K3b: softmax attention with the log2 quantizer
     whose delta is reduced over the whole call, as two launches on the
-    current stream with no host synchronisation between them."""
+    current stream with no host synchronisation between them. A
+    data-parallel rank folds its reduction with every rank's between the two
+    (`batch_reduce_`: min, or max under start_peak, in place on the card)."""
     refuse_grad("log2_real_time_attention", q, k, v)
     _check_quant_inputs(q, k, v, sm_bits)
     z, red = rt_stats(q, k, scale, start_peak)
+    batch_reduce_(red, "max" if start_peak else "min")
     return quant_accum(q, k, v, z, red, scale, sm_bits, start_peak)
 
 
@@ -541,9 +546,12 @@ def quant_accum_packed(q, k, v, z, red, scale: float, num_heads: int, head_dim=N
 
 def log2_real_time_attention_packed(q, k, v, scale: float, num_heads: int, head_dim=None,
                                     sm_bits: int = 8, start_peak: bool = False, out=None):
-    """K3p (`_rt_fused_kernel(sub_heads)`) as its two launches."""
+    """K3p (`_rt_fused_kernel(sub_heads)`) as its two launches, the
+    reduction folded over a data-parallel run's ranks between them, as in
+    `log2_real_time_attention`."""
     refuse_grad("log2_real_time_attention_packed", q, k, v)
     z, red = rt_stats_packed(q, k, scale, num_heads, head_dim, start_peak)
+    batch_reduce_(red, "max" if start_peak else "min")
     return quant_accum_packed(q, k, v, z, red, scale, num_heads, head_dim, sm_bits, start_peak,
                               out)
 

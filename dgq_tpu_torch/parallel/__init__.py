@@ -1,5 +1,11 @@
-"""Multi-process scaling (port of `dgq_tpu/parallel/`). Only the prompt
-sharding of the evaluation CLI is ported; the device mesh waits for ROADMAP
-queue 1, item 17."""
+"""Multi-process scaling over torch.distributed (port of `dgq_tpu/parallel/`):
+data parallelism and prompt sharding. Channel parallelism waits for ROADMAP
+queue 1, item 17b."""
 
-from dgq_tpu_torch.parallel.mesh import shard_prompts  # noqa: F401
+from dgq_tpu_torch.parallel.mesh import (  # noqa: F401
+    init_multihost,
+    make_mesh,
+    shard_batch,
+    shard_prompts,
+    sync_mean,
+)

@@ -10,6 +10,10 @@ with `seed`. The JAX package draws them from `jax.random.PRNGKey(seed)`, a
 stream no port reproduces without JAX, so the same seed gives other
 latents here; `_initial_latents` is the one place that draws them, so a
 test can hand both packages the same ones.
+
+`generate_from_embeddings(rows=)` generates some rows of a batch (a
+data-parallel rank's): the latents are drawn for the whole batch first, so
+each row gets the noise it gets when the whole batch runs.
 """
 from __future__ import annotations
 
@@ -73,9 +77,13 @@ class SDPipeline:
     def generate_from_embeddings(self, ehs_text: torch.Tensor, ehs_uncond: torch.Tensor,
                                  steps: int = 25, scheduler: str = "pndm",
                                  guidance_scale: float = 7.5, height: int = 512,
-                                 width: int = 512, seed: int = 42) -> np.ndarray:
-        """Latents (no VAE) or uint8 images, as numpy."""
+                                 width: int = 512, seed: int = 42,
+                                 rows: Optional[list] = None) -> np.ndarray:
+        """Latents (no VAE) or uint8 images, as numpy; of the batch rows
+        `rows` only, when given."""
         latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
+        if rows is not None:
+            latents, ehs_text, ehs_uncond = latents[rows], ehs_text[rows], ehs_uncond[rows]
         final = sd_sample(self.unet_params, latents, ehs_text, ehs_uncond,
                           num_inference_steps=steps, scheduler=scheduler,
                           guidance_scale=guidance_scale, qstate=self.qstate, cfg=self.cfg,
@@ -136,9 +144,11 @@ class SDXLTurboPipeline:
 
     def generate_from_embeddings(self, ehs_text: torch.Tensor, text_embeds: torch.Tensor,
                                  steps: int = 4, height: int = 1024, width: int = 1024,
-                                 seed: int = 42) -> np.ndarray:
-        b = ehs_text.shape[0]
-        latents = self._initial_latents(b, height, width, seed)
+                                 seed: int = 42, rows: Optional[list] = None) -> np.ndarray:
+        latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
+        if rows is not None:
+            latents, ehs_text, text_embeds = latents[rows], ehs_text[rows], text_embeds[rows]
+        b = latents.shape[0]
         # SDXL micro-conditioning time_ids: (orig_h, orig_w, crop_t, crop_l, h, w)
         time_ids = torch.tensor([[height, width, 0.0, 0.0, height, width]],
                                 dtype=torch.float32, device=self.device).repeat(b, 1)

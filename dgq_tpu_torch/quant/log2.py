@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from dgq_tpu_torch.parallel.mesh import batch_reduce_
 from dgq_tpu_torch.quant.affine import quant_bounds
 from dgq_tpu_torch.quant.scalers import lp_loss
 
@@ -76,9 +77,10 @@ def log2_fake_quant(x: torch.Tensor, delta, bits: int, symmetric: bool = False,
 
 def log2_real_time_quant(x: torch.Tensor, bits: int, symmetric: bool = False,
                          always_zero: bool = True) -> torch.Tensor:
-    """`real_time` mode: delta = max over the whole tensor."""
+    """`real_time` mode: delta = max over the whole tensor (over every
+    rank's rows in a data-parallel run, `parallel.mesh.batch_reduce_`)."""
     nb, pb = quant_bounds(bits, symmetric, always_zero)
-    return _apply(x, x.max(), nb, pb)
+    return _apply(x, batch_reduce_(x.max(), "max"), nb, pb)
 
 
 def log2_ema_update(delta, x: torch.Tensor, momentum: float = 0.95) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Shared by the port's reconstruction tests (tests/test_torch_recon*.py):
-the tiny SD and SDXL nets of tests/test_torch_calib_act.py in both packages
-from the same numpy weights, JAX's index stream for the port's Adam loops,
-and the comparison of learned offsets.
+"""Shared by the port's reconstruction tests (tests/test_torch_recon*.py,
+tests/test_torch_dp_*.py): the tiny SD and SDXL nets of
+tests/test_torch_calib_act.py in both packages from the same numpy weights,
+JAX's index stream for the port's Adam loops, the comparison of learned
+offsets, and `launch_ranks`, which starts the ranks of a CPU process group.
 
 Offsets are compared in the port's layout (`reference_layout` views the
 port's in the JAX package's). Adam normalises each step by the gradient's
@@ -11,6 +12,10 @@ their last bits (PyTorch's and XLA:CPU's sums run in other orders). Over K
 steps such an offset parts from JAX's by at most 2 lr K: that is the
 tolerance, `alpha_bound`. The hard rounding (alpha >= 0) must agree
 wherever |alpha_jax| exceeds it."""
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -133,3 +138,30 @@ def to_t(batch):
 
 def to_j(batch):
     return tuple(jnp.asarray(x) for x in batch)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def launch_ranks(code: str, store, *args, world: int = 2, timeout: float = 240) -> list:
+    """Run `python -c code rank world init_method *args` once for each rank
+    of a CPU process group (gloo) whose rendezvous is the file `store` (it
+    must not exist yet), one thread each. Returns each rank's output, and
+    fails naming the rank whose exit code is not 0."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID", "SLURM_TASKS_PER_NODE")}
+    env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), f"file://{store}",
+                               *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    return outs

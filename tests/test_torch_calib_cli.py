@@ -61,16 +61,24 @@ def test_parse_args_match_jax(module, argv, monkeypatch):
     assert t == j
 
 
-@pytest.mark.parametrize("extra,match,item", [
-    (["--pallas_attn"], "--pallas_attn", "ROADMAP queue 3"),
-    (["--no_recon", "--dp", "2"], "--dp", "ROADMAP queue 1, item 17"),
-    (["--no_recon", "--tp", "2"], "--tp", "ROADMAP queue 1, item 17"),
-    (["--dp", "2", "--partial_dir", "p"], "--dp", "ROADMAP queue 1, item 17"),
-    (["--tib_recon", "--pallas_attn", "--use_aq"], "--pallas_attn", "ROADMAP queue 3"),
-    (["--recon_loss", "fisher_full", "--tp", "2"], "--tp", "ROADMAP queue 1, item 17"),
+TORCHRUN = "torchrun --nproc_per_node 2 -m dgq_tpu_torch.cli.quantize_weight"
+
+
+@pytest.mark.parametrize("extra,exc,match,item", [
+    (["--pallas_attn"], NotImplementedError, "--pallas_attn", "ROADMAP queue 3"),
+    # --dp outside a process group of its size names the torchrun line
+    (["--no_recon", "--dp", "2"], RuntimeError, TORCHRUN, "a process group of 2 ranks"),
+    (["--no_recon", "--tp", "2"], NotImplementedError, "--tp", "ROADMAP queue 1, item 17b"),
+    (["--dp", "2", "--partial_dir", "p"], RuntimeError, TORCHRUN, "a process group of 2 ranks"),
+    (["--tib_recon", "--pallas_attn", "--use_aq"], NotImplementedError, "--pallas_attn",
+     "ROADMAP queue 3"),
+    (["--recon_loss", "fisher_full", "--tp", "2"], NotImplementedError, "--tp",
+     "ROADMAP queue 1, item 17b"),
 ])
-def test_reconstruction_is_refused(extra, match, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=match) as e:
+def test_reconstruction_is_refused(extra, exc, match, item, tmp_path, monkeypatch):
+    for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(exc, match=match) as e:
         TQW.main(["--device", "cpu", "--base", str(BASE), "--outdir", str(tmp_path)] + extra)
     assert item in str(e.value)
     assert not os.listdir(tmp_path)  # refused before any work

@@ -171,14 +171,18 @@ def test_infer_command_with_vae(merged, tmp_path):
         assert os.path.exists(tmp_path / n.replace(".npy", ".png"))
 
 
-def test_device_cuda_without_a_card_and_multihost_are_refused(merged, tmp_path):
+def test_device_cuda_without_a_card_and_multihost_are_refused(merged, tmp_path, monkeypatch):
+    """--multihost without a rendezvous in the environment raises, as the
+    JAX package's does."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: --device cuda is legal here")
+    for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
     argv = [a if a != "cpu" else "cuda" for a in TINY] + ["--cali_ckpt", merged,
                                                          "--outdir", str(tmp_path)]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         TI.main(argv)
-    with pytest.raises(NotImplementedError, match="queue 1, item 17"):
+    with pytest.raises(RuntimeError, match="--multihost set but no rendezvous found"):
         TI.main(TINY + ["--multihost", "--outdir", str(tmp_path)])
     assert _npys(tmp_path) == []
 

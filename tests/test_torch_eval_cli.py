@@ -184,10 +184,13 @@ def test_gen4eval_fp_matches_jax(tiny_sd_files, tmp_path, monkeypatch):
         assert np.asarray(pil.open(os.path.join(tdir + "_im256", f))).shape == (256, 256, 3)
 
 
-def test_gen4eval_sdxl_quantized_shards_and_refusals(tmp_path):
+def test_gen4eval_sdxl_quantized_shards_and_refusals(tmp_path, monkeypatch):
     """SDXL-turbo, minmax W4 without a checkpoint, no VAE: raw latents as
-    .npy under global '{prompt}_{rep}' names for rank 1 of 2; --dp 2 and
-    --multihost raise and cite the roadmap."""
+    .npy under global '{prompt}_{rep}' names for rank 1 of 2; outside a
+    process group --dp 2 raises naming the torchrun line, and --multihost
+    raises as the JAX package's does (no rendezvous)."""
+    for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
     prompts = tmp_path / "p.tsv"
     prompts.write_text("Prompt\n" + "".join(f"prompt {i}\n" for i in range(5)))
     out = str(tmp_path / "out")
@@ -199,6 +202,7 @@ def test_gen4eval_sdxl_quantized_shards_and_refusals(tmp_path):
     assert res["images"] == len(shard_prompts(list(range(5)), 1, 2)) == 2
     lat = np.load(os.path.join(out, "3_0.npy"))
     assert lat.shape == (8, 8, 4) and lat.dtype == np.float32 and np.isfinite(lat).all()
-    for bad in (["--dp", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
+    for bad, match in ((["--dp", "2"], "torchrun --nproc_per_node 2 -m dgq_tpu_torch.cli.gen4eval"),
+                       (["--multihost"], "--multihost set but no rendezvous found")):
+        with pytest.raises(RuntimeError, match=match):
             TG.main(argv + bad)

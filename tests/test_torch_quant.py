@@ -219,7 +219,8 @@ def test_port_imports_no_jax():
             "dgq_tpu_torch.calib.reconstruction, dgq_tpu_torch.cli.gen4eval, "
             "dgq_tpu_torch.cli.eval_scores, dgq_tpu_torch.eval.scores, "
             "dgq_tpu_torch.eval.inception, dgq_tpu_torch.eval.image_reward, "
-            "dgq_tpu_torch.parallel.mesh, chip_smoke, chip_profile\n"
+            "dgq_tpu_torch.parallel.mesh, dgq_tpu_torch.cli.flops, dgq_tpu_torch.utils.profiler, "
+            "chip_smoke, chip_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'dgq_tpu', 'sklearn', 'transformers', 'safetensors', 'PIL')]\n"
             "assert not bad, bad")
@@ -245,7 +246,7 @@ def test_every_port_module_is_covered_by_the_no_jax_import():
             "dgq_tpu_torch.calib.reconstruction, dgq_tpu_torch.cli.gen4eval, "
             "dgq_tpu_torch.cli.eval_scores, dgq_tpu_torch.eval.scores, "
             "dgq_tpu_torch.eval.inception, dgq_tpu_torch.eval.image_reward, "
-            "dgq_tpu_torch.parallel.mesh\n"
+            "dgq_tpu_torch.parallel.mesh, dgq_tpu_torch.cli.flops, dgq_tpu_torch.utils.profiler\n"
             f"missing = [m for m in {modules!r} if m not in sys.modules]\n"
             "assert not missing, missing")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -117,8 +117,12 @@ def test_use_aq_after_reconstruction_carries_the_offsets(tmp_path):
         assert torch.equal(alphas[n], w["alphas"][n])
 
 
-@pytest.mark.parametrize("extra", [["--dp", "2"], ["--tp", "2"], ["--pallas_attn"]])
-def test_refused_before_any_work(extra, tmp_path):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("extra,exc", [(["--dp", "2"], RuntimeError),  # no process group
+                                       (["--tp", "2"], NotImplementedError),
+                                       (["--pallas_attn"], NotImplementedError)])
+def test_refused_before_any_work(extra, exc, tmp_path, monkeypatch):
+    for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(exc):
         TQW.main(_argv(tmp_path, *extra))
     assert not os.path.exists(tmp_path / "results")
