@@ -104,6 +104,18 @@ Phases (any failure raises, so the exit code is non-zero):
      images within DP_FP_LEVELS); (r) one g=1 step under
      `utils.profiler.device_trace` (the trace names quant_tc_kernel) and
      `spec_roofline`'s SOL beside 4a's and, after sdxl_path, 4e's forward.
+ 10. `tp_path`, after `dp_path`: channel parallelism. One `torchrun
+     --standalone --nproc_per_node 2` launch of this script (`--tp-rank
+     SPEC`; the ranks share the card over gloo), each run against the same
+     command at `--tp 1`: (s) `cli.quantize_weight --tp 2` over the first
+     DP_UNITS units against dp_path's `--dp 1` run (each step's loss within
+     5e-5 relative, > 0.9 of the gathered offsets within 1e-4, each rank's
+     rows of the written file equal to its shards; bytes held, peak and ms
+     an Adam step a rank); (t) `--tp 2 --fast --no_recon --use_aq
+     --pallas_attn` (the weight-only file bit for bit, K1 and K2 launches
+     a rank equal to `--tp 1`'s, the activation state finite and positive);
+     (u) SDXL-turbo at 1024px, `--tp 2 --fast --no_recon` (the file bit for
+     bit; peak a rank, build + shard + scale-init seconds).
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
@@ -2845,7 +2857,8 @@ class _ReconProbe:
                 held += kw["cached_grads"].nbytes
             r = self._unit(u.name, u.kind)
             r.update(adam_s=s, iters=kw["iters"], losses=losses.tolist(),
-                     bytes_a_sample=held / outputs.shape[0], held_bytes=held)
+                     bytes_a_sample=held / outputs.shape[0], held_bytes=held,
+                     alpha_bytes=sum(a.nbytes for a in alphas.values()))
             r["err_learned"], r["err_nearest"] = TR.unit_error(u, params, wqp, alphas, inputs,
                                                                outputs, cfg)
             return alphas, losses
@@ -3365,7 +3378,9 @@ def dp_path(tag, calib, s_4a):
           the trace names quant_tc_kernel; the kernels' busy share of the
           step; `spec_roofline`'s SOL ms at batch 4 beside 4a's s a forward
           (SDXL-turbo's beside 4e's is printed after sdxl_path).
-    Any rank's failure fails the launch and the phase."""
+    Any rank's failure fails the launch and the phase. Returns (p)'s --dp 1
+    walk for tp_path (s): {'alphas' (on the CPU), 'units', 'peak', 'held',
+    'argv'}."""
     import tempfile
 
     import numpy as np
@@ -3390,7 +3405,8 @@ def dp_path(tag, calib, s_4a):
             f.write("caption\n" + "".join(f"prompt number {i}\n" for i in range(DP_PROMPTS)))
         qw = ["--model", "sd", "--wq", "4", "--cali_prompt_data_n", str(CALI_PROMPTS),
               "--step_size", str(CALI_STEPS), "--iters", str(RECON_ITERS), "--max_units",
-              str(DP_UNITS), "--cali_data_path", os.path.join(tmp, "cali")]
+              str(DP_UNITS), "--cali_data_path", os.path.join(os.path.dirname(calib["merged"]),
+                                                               "dp_cali")]
         gen = ["--model", "sd", "--prompts", csv, "--batch", str(DP_PROMPTS), "--steps",
                str(CALI_STEPS), "--vae_weights", calib["vae_dir"]]
         gen1 = ["--model", "sd", "--prompts", csv, "--batch", str(DP_PROMPTS), "--steps", "1"]
@@ -3408,6 +3424,9 @@ def dp_path(tag, calib, s_4a):
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
         dp1_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         alphas1, dp1_units = res["alphas"], probe.units
+        tp1 = {"alphas": {n: a.cpu() for n, a in alphas1.items()}, "units": dp1_units,
+               "peak": dp1_peak, "held": _held_bytes(res["params"], alphas1, dp1_units),
+               "argv": qw}  # the calibration cache stays in calib_path's `keep`
         del res
         _run_cli("dp_path", "(q) gen4eval --fp --dp 1", gen4eval.main,
                  gen + ["--fp", "--outdir", os.path.join(tmp, "fp1")], 0,
@@ -3495,6 +3514,7 @@ def dp_path(tag, calib, s_4a):
         # (r)
         _profiled_step(tmp, s_4a, tag)
     torch.cuda.empty_cache()
+    return tp1
 
 
 def _profiled_step(tmp, s_4a, tag):
@@ -3550,6 +3570,368 @@ def _profiled_step(tmp, s_4a, tag):
           f"{sol['memory_s'] * 1e3:.3f}); 4a's g=1 forward {s_4a * 1e3:.3f} ms: SOL is "
           f"{sol['sol_s'] / s_4a:.4f} of it | {tag}", flush=True)
     del model
+
+
+TP_ADAM_RTOL = RECON_LOSS_RTOL["mse"]  # (s): every step's loss against --tp 1's
+TP_LAUNCH_TIMEOUT = 900  # s, the --tp 2 launch
+# (t)'s calibration cut, from calib_path's 2 prompts x 5 PNDM steps: two
+# ranks that share the card gather every cut layer's output through the host
+# over gloo, 3.5 s a forward at batch 4 against 0.19 at --tp 1 (an H100 at 700 W),
+# and an activation calibration makes 15 forwards a time slot
+TP_CALI_PROMPTS = 1
+TP_CALI_STEPS = 1
+
+
+def _held_bytes(params, alphas, units):
+    """The bytes a rank holds of the weights (its shards and the replicated
+    leaves, `cut` the shards alone), of the offsets of every reconstructed
+    layer, and of the Adam moments of the largest unit (two a offset; one
+    unit's loop is alive at a time): {'weights', 'cut', 'offsets',
+    'moments'}."""
+    import torch
+
+    weights = cut = 0
+    for p in params.values():
+        for k, v in p.items():
+            if torch.is_tensor(v):
+                weights += v.nbytes
+                cut += v.nbytes if "tp" in p else 0
+    return {"weights": weights, "cut": cut,
+            "offsets": sum(a.nbytes for a in (alphas or {}).values()),
+            "moments": 2 * max((u.get("alpha_bytes", 0) for u in units), default=0)}
+
+
+def _rows_of_file(path, params, wqp, alphas):
+    """Whether each of a rank's tensors equals its rows of the weight-only
+    file at `path` bit for bit (the whole tensor for a replicated layer):
+    (all equal, tensors compared)."""
+    import torch
+    from dgq_tpu_torch.io.dgq_ckpt import PREFIX
+
+    state = torch.load(path, map_location="cpu", mmap=True, weights_only=False)["weight"]
+    ok, n = True, 0
+    for name, p in params.items():
+        rows = p["tp"].rows if "tp" in p else slice(None)
+        mine = {"w": p.get("w"), "b": p.get("b"), "weight": p.get("scale"),
+                "bias": p.get("bias")}
+        if name in wqp:
+            mine["wqtizer.delta"], mine["wqtizer.zero_point"] = wqp[name]
+        if alphas and name in alphas:
+            mine["wqtizer.alpha"] = alphas[name]
+        for key, v in mine.items():
+            if v is None:
+                continue
+            whole = state[f"{PREFIX}{name}.{key}"]
+            part = whole[rows] if key not in ("weight", "bias") else whole
+            ok = ok and torch.equal(part.reshape(v.shape), v.detach().cpu())
+            n += 1
+    return ok, n
+
+
+def _same_files(a, b):
+    """(every tensor of two weight-only files equal bit for bit, tensors,
+    bytes), read through mmap."""
+    import torch
+
+    x = torch.load(a, map_location="cpu", mmap=True, weights_only=False)["weight"]
+    y = torch.load(b, map_location="cpu", mmap=True, weights_only=False)["weight"]
+    same = set(x) == set(y) and all(torch.equal(x[k], y[k]) for k in x)
+    return same, len(x), sum(v.nbytes for v in x.values())
+
+
+def tp_rank(spec_path):
+    """One rank of tp_path's torchrun launch (`python3 chip_smoke.py --tp-rank
+    SPEC`): each run of the spec's list calls `cli.quantize_weight.main(argv)`
+    with the launch counts set to 0 just before it; after a barrier (rank 0
+    has written), a run with "rows" holds the rank's shards against their
+    rows of the written file. The rank writes rank<r>.json into the spec's
+    directory: per run its seconds (and the CLI's), peak memory, launch
+    counts, bytes held (`_held_bytes`), the probe's unit records; its offset
+    shards and their rows go to alphas_<label>_rank<r>.pt, and rank 0 writes
+    each activation state to per_t_<label>.pt. A run with "tf32": false
+    turns TF32 off, as dp_rank does."""
+    import torch
+    import torch.distributed as dist
+    from dgq_tpu_torch.cli import quantize_weight
+    from dgq_tpu_torch.ops import build
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    build.load_kernels()
+    rank = int(os.environ["RANK"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    results = {}
+    for run in spec["runs"]:
+        label = run["label"]
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+            tf32 if run["tf32"] else (False, False))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        with _ReconProbe() as probe:
+            res = quantize_weight.main(run["argv"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out = {"seconds": seconds, "cli_seconds": res["seconds"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": {n: c for n, c in _launch_counts().items() if c},
+               "held": _held_bytes(res["params"], res["alphas"], probe.units),
+               "weight_only": res["weight_only"], "units": [
+                   {k: u[k] for k in ("name", "kind", "losses", "held_bytes", "adam_s", "iters")}
+                   for u in probe.units]}
+        dist.barrier()
+        if run.get("rows"):
+            written = [os.path.join(run["outdir"], d, "cali_ckpt.pth_weight_only")
+                       for d in os.listdir(run["outdir"])]
+            out["rows_equal"] = _rows_of_file(written[0], res["params"], res["wqp"],
+                                              res["alphas"])
+        if res["alphas"]:
+            marks = {n: res["params"][n].get("tp") for n in res["alphas"]}
+            torch.save({n: (a.cpu(), marks[n] and marks[n].rows.start)
+                        for n, a in res["alphas"].items()},
+                       os.path.join(spec["out"], f"alphas_{label}_rank{rank}.pt"))
+        if res["per_t"] is not None and rank == 0:
+            torch.save(_to_cpu_tree(res["per_t"]), os.path.join(spec["out"], f"per_t_{label}.pt"))
+        results[label] = out
+        del res
+    results["rank"] = [dist.get_rank(), dist.get_world_size(), dist.get_backend(),
+                       f"cuda:{torch.cuda.current_device()}"]
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _to_cpu_tree(tree):
+    """A state tree (dicts, QParams) with every tensor on the host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_cpu_tree(v) for v in tree))
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def _state_gap(a, b):
+    """Two activation states side by side: (the deltas' largest relative
+    gap, zero points that differ, zero points)."""
+    import numpy as np
+    from dgq_tpu_torch.calib.act_calib import state_leaves
+
+    la, lb = state_leaves(a), state_leaves(b)
+    if set(la) != set(lb):
+        raise AssertionError("tp_path (t): the activation states name other leaves")
+    gap, moved, zps = 0.0, 0, 0
+    for k, (d, z) in la.items():
+        d2, z2 = lb[k]
+        gap = max(gap, float(np.max(np.abs(d - d2) / np.maximum(np.abs(d2), 1e-30))))
+        moved += int(np.sum(z != z2))
+        zps += int(np.size(z))
+    return gap, moved, zps
+
+
+def _gathered(root, label):
+    """The offsets of both ranks' shards of run `label`, put together by
+    their rows, on the CPU."""
+    import torch
+
+    parts = [torch.load(os.path.join(root, f"alphas_{label}_rank{r}.pt")) for r in range(2)]
+    out = {}
+    for name, (a0, start) in parts[0].items():
+        if start is None:  # a replicated layer: each rank holds it whole
+            out[name] = a0
+        else:
+            out[name] = torch.cat([a for _, a in sorted(
+                (p[name][1], p[name][0]) for p in parts)])
+    return out
+
+
+def _tp_walk_check(tp1, ranks, root, tag):
+    """tp_path (s): both ranks' walks against --tp 1's (its --dp 1 run in
+    dp_path, the same command): every step's loss within TP_ADAM_RTOL,
+    more than RECON_NEAR_SHARE of the gathered offsets within 1e-4, each
+    rank's rows of the written file equal to its shards; bytes held, peak
+    and ms an Adam step a rank beside tp 1's."""
+    gathered = _gathered(root, "s")
+    near = total = 0
+    worst = 0.0
+    for n, a in tp1["alphas"].items():
+        d = (gathered[n] - a).abs()
+        worst = max(worst, float(d.max()))
+        near += int((d <= 1e-4).sum())
+        total += d.numel()
+    names = [u["name"] for u in tp1["units"]]
+    runs = [r["s"] for r in ranks]
+    same_walk = all([u["name"] for u in r["units"]] == names for r in runs)
+    gap = max(abs(a - b) / abs(b) for r in runs for u2, u1 in zip(r["units"], tp1["units"])
+              for a, b in zip(u2["losses"], u1["losses"]))
+    ranks_equal = all(u0["losses"] == u1["losses"]
+                      for u0, u1 in zip(runs[0]["units"], runs[1]["units"]))
+    rows = [r["rows_equal"] for r in runs]
+    step1 = sum(u["adam_s"] / u["iters"] for u in tp1["units"]) / len(tp1["units"])
+    h1 = tp1["held"]
+    total1 = h1["weights"] + h1["offsets"] + h1["moments"]
+    steps = sum(len(u["losses"]) for u in tp1["units"])
+    print(f"tp_path (s): quantize_weight --tp 2 against --tp 1 ({len(names)} units): every "
+          f"step's loss within {gap:.3g} relative over {steps} steps (limit "
+          f"{TP_ADAM_RTOL:g}); {near / total:.6f} of the gathered offsets within "
+          f"1e-4 (limit > {RECON_NEAR_SHARE}), max |d| {worst:.6g}; the ranks' losses equal: "
+          f"{ranks_equal}; each rank's rows of the written file equal its shards: {rows} | {tag}",
+          flush=True)
+    print(f"tp_path (s) --tp 1: peak {tp1['peak']:.2f} GiB allocated; held: weights "
+          f"{h1['weights'] / 2 ** 20:.2f} MiB, offsets {h1['offsets'] / 2 ** 20:.2f} MiB, Adam "
+          f"moments {h1['moments'] / 2 ** 20:.2f} MiB (the largest unit's); {1e3 * step1:.2f} ms "
+          f"an Adam step (mean over units) | {tag}", flush=True)
+    for r, run in enumerate(runs):
+        h = run["held"]
+        step = sum(u["adam_s"] / u["iters"] for u in run["units"]) / len(run["units"])
+        cut1 = h1["weights"] - (h["weights"] - h["cut"])  # tp 1's bytes of the cut leaves
+        print(f"tp_path (s) --tp 2 rank {r}: peak {run['peak_gib']:.2f} GiB allocated "
+              f"({run['peak_gib'] / tp1['peak']:.4f} of tp 1's); held: weights "
+              f"{h['weights'] / 2 ** 20:.2f} MiB ({h['weights'] / h1['weights']:.4f} of tp 1's; "
+              f"the cut leaves {h['cut'] / cut1:.4f}), offsets {h['offsets'] / 2 ** 20:.2f} MiB "
+              f"({h['offsets'] / h1['offsets']:.4f}), Adam moments {h['moments'] / 2 ** 20:.2f} "
+              f"MiB ({h['moments'] / h1['moments']:.4f}); weights + offsets + moments "
+              f"{(h['weights'] + h['offsets'] + h['moments']) / total1:.4f} of tp 1's; "
+              f"{1e3 * step:.2f} ms an Adam step (two ranks on one card, every cut "
+              f"layer's gather over gloo), run {run['seconds']:.2f} s | {tag}", flush=True)
+    if (not same_walk or gap > TP_ADAM_RTOL or not near / total > RECON_NEAR_SHARE
+            or not all(ok for ok, _ in rows) or set(gathered) != set(tp1["alphas"])):
+        raise AssertionError(f"tp_path (s): --tp 2 is not --tp 1 (walk {same_walk}, loss gap "
+                             f"{gap:.3g}, near {near / total:.4f}, rows {rows})")
+
+
+def tp_path(tag, tp1):
+    """Phase 10, after dp_path: channel parallelism (`--tp`, the weights cut
+    over two ranks by `shard_params_tp`, each cut layer gathering its out
+    channels over the tp group), in a temporary directory under build/. One
+    torchrun launch (`python -m torch.distributed.run --standalone
+    --nproc_per_node 2`, `--tp-rank`) whose two ranks share the card over
+    gloo, each run against the same command at --tp 1 in this process:
+      (s) SD v1.4 at full width, `quantize_weight --tp 2` over the first
+          DP_UNITS units (24 samples, RECON_ITERS Adam steps, TF32 off)
+          against dp_path's --dp 1 run, the same command, whose calibration
+          cache it reads (`_tp_walk_check`);
+      (t) SD v1.4, `--tp 2 --fast --no_recon --use_aq --pallas_attn`,
+          TP_CALI_PROMPTS prompt x TP_CALI_STEPS PNDM step (one time slot,
+          15 forwards at batch 2; its calibration data built by both ranks
+          on their shards):
+          the weight-only file equal to --tp 1's bit for bit (minmax scales
+          are exact per channel), each rank's K1 and K2 launches equal to
+          --tp 1's (attention runs replicated), the activation state finite
+          and positive; its largest relative gap to --tp 1's printed (the
+          quantized trajectory is chaotic, so no gate);
+      (u) SDXL-turbo at 1024px, `--tp 2 --fast --no_recon`: the weight-only
+          file equal to --tp 1's bit for bit; the weights built on the host,
+          each rank moving its shards to the card: peak GiB a rank beside
+          --tp 1's, and the seconds of build + shard + scale init.
+    Any rank's failure fails the launch and the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+    from dgq_tpu_torch.cli import quantize_weight
+    from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        cali_t = ["--model", "sd", "--wq", "4", "--cali_prompt_data_n", str(TP_CALI_PROMPTS),
+                  "--step_size", str(TP_CALI_STEPS), "--fast", "--no_recon", "--use_aq",
+                  "--pallas_attn", "--cali_data_path", os.path.join(tmp, "cali_t")]
+        sdxl_u = ["--model", "sdxl", "--wq", "4", "--fast", "--no_recon"]
+        refs = {}
+        for label, argv in (("t", cali_t), ("u", sdxl_u)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            res = quantize_weight.main(argv + ["--outdir", os.path.join(tmp, f"{label}1")])
+            torch.cuda.synchronize()
+            refs[label] = {"seconds": time.perf_counter() - t0, "cli_seconds": res["seconds"],
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "launches": {n: c for n, c in _launch_counts().items() if c},
+                           "weight_only": res["weight_only"], "per_t": res["per_t"]}
+            del res
+        torch.cuda.empty_cache()
+
+        runs = [
+            {"label": "s", "tf32": False, "rows": True, "outdir": os.path.join(tmp, "s2"),
+             "argv": tp1["argv"] + ["--tp", "2", "--outdir", os.path.join(tmp, "s2")]},
+            {"label": "t", "tf32": True, "outdir": os.path.join(tmp, "t2"),
+             "argv": cali_t + ["--tp", "2", "--outdir", os.path.join(tmp, "t2")]},
+            {"label": "u", "tf32": True, "outdir": os.path.join(tmp, "u2"),
+             "argv": sdxl_u + ["--tp", "2", "--outdir", os.path.join(tmp, "u2")]}]
+        spec_path = os.path.join(tmp, "tp_spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"out": tmp, "runs": runs}, f)
+        t0 = time.perf_counter()
+        launch = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", os.path.abspath(__file__), "--tp-rank", spec_path],
+            capture_output=True, text=True, timeout=TP_LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if launch.returncode != 0:
+            raise AssertionError(f"tp_path: the --tp 2 launch exited {launch.returncode}:\n"
+                                 f"{launch.stdout[-3000:]}\n{launch.stderr[-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"tp_path: torchrun --standalone --nproc_per_node 2, {seconds:.2f} s for the launch "
+              f"(start-up, the three runs, exit); ranks {[r['rank'] for r in ranks]}; run s "
+              f"{[round(r['s']['seconds'], 2) for r in ranks]} s, t "
+              f"{[round(r['t']['seconds'], 2) for r in ranks]} s, u "
+              f"{[round(r['u']['seconds'], 2) for r in ranks]} s | {tag}", flush=True)
+        if [r["rank"][:3] for r in ranks] != [[0, 2, "gloo"], [1, 2, "gloo"]]:
+            raise AssertionError("tp_path: the ranks are not two gloo ranks of one group")
+
+        # (s)
+        _tp_walk_check(tp1, ranks, tmp, tag)
+
+        # (t)
+        ref = refs["t"]
+        wrote = [r["t"]["weight_only"] for r in ranks]
+        same, n_t, _ = _same_files(wrote[0], ref["weight_only"])
+        per_t = torch.load(os.path.join(tmp, "per_t_t.pt"), weights_only=False)
+        _check_calibrated("tp_path (t) --tp 2", per_t, sd_unet_spec(), tag)
+        gap, moved, zps = _state_gap(per_t, _to_cpu_tree(ref["per_t"]))
+        want = {n: ref["launches"].get(n, 0) for n in ("static_uniform_attention",
+                                                       "flash_attention")}
+        got = [{n: r["t"]["launches"].get(n, 0) for n in want} for r in ranks]
+        peaks, secs = ([round(r["t"][k], 2) for r in ranks] for k in ("peak_gib", "seconds"))
+        print(f"tp_path (t) quantize_weight --tp 2 --fast --no_recon --use_aq --pallas_attn: the "
+              f"weight-only file equals --tp 1's bit for bit: {same} ({n_t} tensors; rank 1 wrote "
+              f"{wrote[1]}); launches a rank {got} (--tp 1: {want}); activation state against "
+              f"--tp 1's: deltas within {gap:.6g} relative, {moved} of {zps} zero points moved "
+              f"(a reading: the quantized trajectory is chaotic); peak {peaks} GiB a rank, --tp 1 "
+              f"{ref['peak_gib']:.2f}; {secs} s a rank, --tp 1 {ref['seconds']:.2f} s | {tag}",
+              flush=True)
+        if (not same or wrote[1] is not None or any(g != want for g in got)
+                or not all(want.values())):
+            raise AssertionError(f"tp_path (t): file equal {same}, launches {got} / {want}")
+        shutil.rmtree(os.path.join(tmp, "t1"))
+        shutil.rmtree(os.path.join(tmp, "t2"))
+
+        # (u)
+        ref = refs["u"]
+        same, n_u, nbytes = _same_files(ranks[0]["u"]["weight_only"], ref["weight_only"])
+
+        def setup_s(cli):
+            return cli["build"] + cli.get("shard", 0.0) + cli["weight_init"]
+        u = [r["u"] for r in ranks]
+        print(f"tp_path (u) SDXL-turbo quantize_weight --tp 2 --fast --no_recon: the weight-only "
+              f"file ({n_u} tensors, {nbytes / 2 ** 30:.2f} GiB) equals --tp 1's bit for bit: "
+              f"{same}; peak {[round(x['peak_gib'], 2) for x in u]} GiB a rank against --tp 1's "
+              f"{ref['peak_gib']:.2f} ({[round(x['peak_gib'] / ref['peak_gib'], 4) for x in u]}); "
+              f"build + shard + scale init {[round(setup_s(x['cli_seconds']), 2) for x in u]} s a "
+              f"rank (build {[round(x['cli_seconds']['build'], 2) for x in u]}, shard "
+              f"{[round(x['cli_seconds']['shard'], 2) for x in u]}), --tp 1 "
+              f"{setup_s(ref['cli_seconds']):.2f} s; run {[round(x['seconds'], 2) for x in u]} s "
+              f"a rank, --tp 1 {ref['seconds']:.2f} s | {tag}", flush=True)
+        if not same:
+            raise AssertionError("tp_path (u): the SDXL-turbo file differs from --tp 1's")
+    torch.cuda.empty_cache()
 
 
 def sdxl_roofline(s_4e, tag):
@@ -3823,7 +4205,8 @@ def main():
     torch.cuda.empty_cache()
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build_dir, exist_ok=True)
-    keep = tempfile.mkdtemp(dir=build_dir)  # calib_path's merged file, for eval_path, dp_path
+    # calib_path's merged file, for eval_path and dp_path; dp_path's calibration cache, for tp_path
+    keep = tempfile.mkdtemp(dir=build_dir)
     try:
         calib = phase(calib_path, tag, calib_ref, keep)
         torch.cuda.empty_cache()
@@ -3831,7 +4214,9 @@ def main():
         torch.cuda.empty_cache()
         phase(recon_path, tag, recon_ref)
         torch.cuda.empty_cache()
-        phase(dp_path, tag, calib, s_4a)
+        tp1 = phase(dp_path, tag, calib, s_4a)
+        torch.cuda.empty_cache()
+        phase(tp_path, tag, tp1)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
@@ -3856,5 +4241,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(sys.argv[2])
     else:
         main()

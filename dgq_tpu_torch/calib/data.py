@@ -23,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def synthetic_prompt_embeddings(n: int, seq: int = 77, dim: int = 768, seed: int = 0,
@@ -72,7 +73,9 @@ def _load_cache(cache_path: Optional[str], keys: tuple):
 
 
 def _save_cache(cache_path: Optional[str], **arrays) -> None:
-    if cache_path:
+    """Write the .npz cache: on rank 0 alone in a process group (the ranks
+    of a tp group build the data together)."""
+    if cache_path and not (dist.is_initialized() and dist.get_rank() != 0):
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
         np.savez(cache_path, **arrays)
 

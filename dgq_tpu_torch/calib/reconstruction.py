@@ -28,7 +28,15 @@ The PyTorch form:
     batch, and the gradients are summed over the dp group before each Adam
     update: the global batch's gradient, which GSPMD computes for the JAX
     package. When the sample count does not divide by dp, every rank holds
-    every sample, as the JAX package replicates them.
+    every sample, as the JAX package replicates them;
+  * channel parallelism (a mesh with tp > 1, the weights cut by
+    `parallel.mesh.shard_params_tp`): a rank's offsets are its rows of each
+    cut layer's, the unit's forward gathers every cut layer's out channels
+    (`parallel.tp`), so the reconstruction loss is whole on every rank of a
+    tp group, and each rank adds the rounding regularizer of its own
+    offsets; the gradients are summed over the dp group only. The broadcasts
+    of offsets run over the dp group from the rank of the same tp index, and
+    a partial save gathers a unit's offsets first (rank 0 writes).
 
 A key is a tuple of ints, `(seed,)` for a run and `(seed, u_idx)` for its
 unit u_idx, standing where the JAX package folds a `jax.random` key.
@@ -59,7 +67,15 @@ from dgq_tpu_torch.models.unet_sd import (
     inject_at,
     unet_sd_apply,
 )
-from dgq_tpu_torch.parallel.mesh import all_reduce_sum_, barrier, batch_rows, broadcast_
+from dgq_tpu_torch.parallel.mesh import (
+    all_reduce_sum_,
+    all_reduce_tp_,
+    barrier,
+    batch_rows,
+    broadcast_,
+    gather_params_tp,
+    shard_params_tp,
+)
 from dgq_tpu_torch.quant.adaround import (
     adaround_init_alpha,
     adaround_quant,
@@ -217,7 +233,8 @@ def _reg_fn(alphas: dict, iters: int, w: float, warmup: float) -> Callable:
 
 def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, device,
                rec_fn: Callable, lr: float, schedule: Optional[Callable] = None,
-               reg_fn: Optional[Callable] = None, shard: Optional[Shard] = None):
+               reg_fn: Optional[Callable] = None, shard: Optional[Shard] = None,
+               mesh=None):
     """Adam over the tensors of `leaves` (made leaves that require grad):
     each step's loss is rec_fn(idx), the reconstruction loss (a mean over
     the samples idx of the cached tensors), plus reg_fn(step) where that is
@@ -226,11 +243,17 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
 
     With a shard, every rank draws the same global indices (of shard.n);
     rec_fn takes the ones in its slice, re-based, and its mean is weighted
-    by their share of the batch; the regularizer enters on the rank that
-    holds the first slice; the gradients are summed over the dp group before
+    by their share of the batch; the regularizer enters on the ranks that
+    hold the first slice; the gradients are summed over the dp group before
     each update, and the losses once at the end. A rank that holds none of a
     step's indices adds zeros. The slices are cut on the host here, so no
-    step waits for the device."""
+    step waits for the device.
+
+    With a mesh of tp > 1 the leaves are the rank's shards of the offsets:
+    rec_fn is whole on every rank of the tp group, reg_fn covers the rank's
+    own shards, and the losses returned are the reconstruction loss plus the
+    regularizer summed over the tp group (the two are summed apart, so the
+    replicated reconstruction loss is counted once)."""
     params = list(leaves.values())
     opt = torch.optim.Adam(params, lr=lr)
     idx = batch_indices(key, iters, batch_size, n if shard is None else shard.n)
@@ -240,21 +263,21 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
         mine = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
         steps, weights = [m.to(device) for m in mine], [len(m) / batch_size for m in mine]
     regularizes = shard is None or shard.lo == 0
-    losses = []
+    zero = torch.zeros((), device=device)
+    recs, regs = [], []
     for step in range(iters):
         if schedule is not None:
             for group in opt.param_groups:
                 group["lr"] = schedule(step)
         with torch.enable_grad():
             if weights[step] is None:
-                loss = rec_fn(steps[step])
+                rec = rec_fn(steps[step])
             elif weights[step]:
-                loss = rec_fn(steps[step]) * weights[step]
+                rec = rec_fn(steps[step]) * weights[step]
             else:
-                loss = torch.zeros((), device=device)
+                rec = zero
             reg = reg_fn(step) if reg_fn is not None and regularizes else None
-            if reg is not None:
-                loss = loss + reg
+            loss = rec if reg is None else rec + reg
         opt.zero_grad(set_to_none=True)
         if loss.requires_grad:
             loss.backward()
@@ -264,11 +287,16 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
                     p.grad = torch.zeros_like(p)
             all_reduce_sum_(shard.mesh, [p.grad for p in params])
         opt.step()
-        losses.append(loss.detach())
-    out = torch.stack(losses) if losses else torch.zeros(0, device=device)
+        recs.append(rec.detach())
+        regs.append(zero if reg is None else reg.detach())
+    if not recs:
+        return torch.zeros(0, device=device)
+    rec_out, reg_out = torch.stack(recs), torch.stack(regs)
     if shard is not None:
-        all_reduce_sum_(shard.mesh, [out])
-    return out
+        all_reduce_sum_(shard.mesh, [rec_out, reg_out])
+    if mesh is not None and mesh.tp > 1:
+        all_reduce_tp_(mesh, [reg_out])
+    return rec_out + reg_out
 
 
 def cosine_decay(lr: float, iters: int) -> Callable:
@@ -391,10 +419,11 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
                      iters: int = 20000, batch_size: int = 32, w: float = 0.01,
                      warmup: float = 0.2, p_norm: float = 2.0, lr: float = 1e-3,
                      opt_mode: str = "mse", cached_grads: Optional[torch.Tensor] = None,
-                     shard: Optional[Shard] = None):
+                     shard: Optional[Shard] = None, mesh=None):
     """Optimise one unit's AdaRound offsets. Returns ({layer: alpha}, the
     losses (iters,)). With a shard the cached tensors hold this rank's
-    samples only (`_adam_loop`).
+    samples only; with a mesh of tp > 1 the offsets are the rank's shards
+    (`_adam_loop`).
 
     Loss: the reconstruction loss plus, from step warmup * iters on, w times
     the rounding regularizer at its annealed temperature. opt_mode: 'mse'
@@ -423,7 +452,7 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
 
     losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
                         cached_outputs.device, rec_fn, lr,
-                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard)
+                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard, mesh=mesh)
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -457,9 +486,10 @@ def make_tib_apply(spec, cfg: QConfig) -> Callable:
 def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
                     timesteps: torch.Tensor, cfg: QConfig, iters: int = 20000,
                     batch_size: int = 32, w: float = 0.01, warmup: float = 0.2,
-                    p_norm: float = 2.0, lr: float = 1e-3):
+                    p_norm: float = 2.0, lr: float = 1e-3, mesh=None):
     """Joint AdaRound over the temporal-information block, the loss summed
-    over its output tuple. Returns ({layer: alpha}, the losses)."""
+    over its output tuple. Returns ({layer: alpha}, the losses). mesh: as in
+    `reconstruct_unit`."""
     unit = tib_unit(spec)
     apply_fn = make_tib_apply(spec, cfg)
     sub = {n: params[n] for n in unit.layers}
@@ -474,7 +504,7 @@ def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
                    for pr, tg in zip(preds, fp_outs))
 
     losses = _adam_loop(alphas, key, iters, batch_size, timesteps.shape[0], timesteps.device,
-                        rec_fn, lr, reg_fn=_reg_fn(alphas, iters, w, warmup))
+                        rec_fn, lr, reg_fn=_reg_fn(alphas, iters, w, warmup), mesh=mesh)
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -527,7 +557,9 @@ def unit_error(unit: ReconUnit, params: dict, wqp: Dict[str, QParams], alphas: d
     """(learned, nearest): the mean squared error of the unit's output against
     `target` on the cached `inputs`, its layers hard-rounded by `alphas`, and
     with nearest rounding; `chunk` samples a forward. Not part of the walk:
-    a caller that wants to judge the learned rounding calls it."""
+    a caller that wants to judge the learned rounding calls it. On weights
+    cut over channels every rank of the tp group calls it with its shards,
+    and each gets the whole unit's error (the unit's output is gathered)."""
     apply_fn = make_unit_apply(unit, cfg)
     sub = _sub_params(params, unit)
     errs = []
@@ -566,15 +598,18 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     reconstructs the temporal-information block jointly first and takes its
     layers out of the per-unit walks, which then see them hard-rounded.
 
-    mesh: a `parallel.mesh.DPMesh`, one process a rank. A rank captures
-    (and weighs by Fisher) only its contiguous slice of the samples, so it
-    holds n / dp of each unit's captures, and the Adam loops sum the
-    gradients over the dp group (`_adam_loop`); every rank ends each unit
-    with the same offsets. When n % dp != 0 every rank holds every sample
-    and runs the whole loop, and rank 0's offsets are broadcast. The
-    temporal block runs on every rank, then rank 0's offsets are broadcast.
-    Only rank 0 writes the partial saves (a barrier after each); every rank
-    reads them on resume."""
+    mesh: a `parallel.mesh.Mesh`, one process a rank. A rank captures
+    (and weighs by Fisher) only its dp slice of the samples, so it holds
+    n / dp of each unit's captures, and the Adam loops sum the gradients
+    over the dp group (`_adam_loop`); every rank of a dp group ends each
+    unit with the same offsets. When n % dp != 0 every rank holds every
+    sample and runs the whole loop, and dp rank 0's offsets are broadcast
+    over the dp group. The temporal block runs on every rank, then dp rank
+    0's offsets are broadcast. With tp > 1 `params` and `wqp` are the
+    rank's shards (`shard_params_tp`) and so are the offsets returned. Only
+    rank 0 writes the partial saves, the whole offsets gathered over each
+    tp group (a barrier after each); every rank reads them on resume and
+    keeps its rows."""
     units = recon_units(spec)
     if max_units is not None:
         units = units[:max_units]
@@ -585,7 +620,7 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     n = cali_data[0].shape[0]
     shard = _shard(mesh, n)
     lo, hi = (0, n) if shard is None else (shard.lo, shard.hi)
-    shared = mesh is not None and mesh.world > 1
+    shared = mesh is not None and mesh.dp > 1
 
     params_units = params
     if tib_recon:
@@ -594,7 +629,7 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         tib_layers = set(tib_unit(spec).layers)
         tib_alphas, _ = reconstruct_tib(
             key + (TIB_STREAM,), params, spec, wqp, cali_data[1], cfg, iters=iters,
-            batch_size=batch_size, w=w, warmup=warmup)
+            batch_size=batch_size, w=w, warmup=warmup, mesh=mesh)
         if shared:
             broadcast_(mesh, list(tib_alphas.values()))
         all_alphas.update(tib_alphas)
@@ -635,6 +670,7 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         if partial_dir:
             part = _load_partial(partial_dir, unit, device)
             if part is not None:
+                part = shard_params_tp(mesh, part, like=params)
                 # the asym prefix then quantizes with the loaded offsets, as
                 # a continuous run would
                 all_alphas.update(part)
@@ -673,12 +709,13 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         alphas, _ = reconstruct_unit(
             key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
             batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
-            cached_grads=cached_grads, shard=shard)
+            cached_grads=cached_grads, shard=shard, mesh=mesh)
         if shared and shard is None:
             broadcast_(mesh, list(alphas.values()))
         all_alphas.update(alphas)
         if partial_dir:
+            whole = gather_params_tp(mesh, alphas, like=params)
             if mesh is None or mesh.rank == 0:
-                _save_partial(partial_dir, unit, alphas)
+                _save_partial(partial_dir, unit, whole)
             barrier(mesh)
     return all_alphas

@@ -8,7 +8,11 @@ offsets waits for a later slice).
 Weights are input-independent, so they are fake-quantized once at load and
 inference runs on the folded float weights. Torch layouts put the out
 channel first (OIHW / (O, I)), so the (O,1,1,1) / (O,1) qparams broadcast
-directly. conv_in / conv_out keep float weights but still get qparams.
+directly. conv_in / conv_out keep float weights but still get qparams. The
+scale init and the folds work on each out channel alone, so on weights cut
+over channels (`parallel.mesh.shard_params_tp`) a rank's scales and folded
+rows are the matching rows of the whole's, and a fold keeps the layer's
+mark; `attach_int8_packed` refuses a cut layer.
 `attach_int8_packed` adds the packed int8 codes of the int8 deploy path
 (`ops.int8_matmul`) beside the folded weights.
 `pack_attention_heads` repacks the attention projections into the head-slot
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 
 from dgq_tpu_torch.models.qconfig import QConfig
 from dgq_tpu_torch.ops.int8_matmul import pack_weight_int8
+from dgq_tpu_torch.parallel.tp import refuse_sharded
 from dgq_tpu_torch.quant.adaround import adaround_quant
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.scalers import Scaler, init_scale_channelwise
@@ -102,6 +107,7 @@ def attach_int8_packed(params_q: dict, wqp: Dict[str, QParams], spec, cfg: QConf
         if not (cfg.use_int8_matmul if matmul else cfg.use_int8_conv):
             continue
         p = dict(params_q[name])
+        refuse_sharded(p, "attach_int8_packed")
         w2 = p["w"].float().reshape(p["w"].shape[0], -1)
         qp = wqp[name]
         codes, d, zr = pack_weight_int8(w2, qp.delta.float(), qp.zero_point.float(), cfg.w_bits)

@@ -59,14 +59,22 @@ def writes_files() -> bool:
     return process_rank() == 0
 
 
-def built_once(fn):
+def built_once(fn, mesh=None):
     """fn()'s result on every rank of a process group, computed once: rank 0
     computes it (reading or writing any cache itself) and broadcasts it (CPU
     tensors and Python values) to the others. fn() alone without a process
-    group."""
+    group.
+
+    With weights cut over channels (a mesh of tp > 1) a forward needs every
+    rank of a tp group, so dp rank 0's tp group (ranks 0 to tp - 1) computes
+    fn() together, each rank on its shards, and rank 0 broadcasts. The data
+    are then those of the whole weights up to summation order, as the JAX
+    package builds them on its sharded weights; no rank ever holds the whole
+    weights on its card."""
     if not dist.is_initialized():
         return fn()
-    out = [fn() if writes_files() else None]
+    tp = mesh.tp if mesh is not None else 1
+    out = [fn() if process_rank() < tp else None]
     dist.broadcast_object_list(out, src=0)
     return out[0]
 
@@ -112,14 +120,17 @@ def setup_logging(outdir: str, device: str = "cuda") -> tuple[Optional[str], log
 
 def build_model(model_type: str, base: Optional[int] = None, seed: int = 0,
                 hf_unet_path: Optional[str] = None, sdxl_depths: tuple = (2, 10),
-                init_params: bool = True, device="cuda"):
+                init_params: bool = True, device="cuda", host: bool = False):
     """-> (spec, params, unet_apply, latent_hw, cross).
 
     hf_unet_path: a torch state dict (file or snapshot directory) of the
     reference UNet, converted on load. Without it, random weights drawn on
     `device` from a generator seeded with `seed` (smoke and benchmark runs
     only); init_params=False gives params=None, for callers that take the
-    weights from a checkpoint."""
+    weights from a checkpoint. host=True keeps the whole weights on the
+    host, for a run that moves only its shards to the card
+    (`parallel.mesh.shard_params_tp`): random weights are still drawn on
+    `device`, the same values, one leaf at a time."""
     if model_type == "sd":
         from dgq_tpu_torch.models.unet_sd import sd_unet_spec, unet_sd_apply
 
@@ -137,12 +148,13 @@ def build_model(model_type: str, base: Optional[int] = None, seed: int = 0,
         from dgq_tpu_torch.io.convert import torch_unet_to_params
         from dgq_tpu_torch.io.hf_loader import load_state_dict_any
 
-        params = torch_unet_to_params(load_state_dict_any(hf_unet_path), spec, device)
+        params = torch_unet_to_params(load_state_dict_any(hf_unet_path), spec,
+                                      "cpu" if host else device)
     elif init_params:
         from dgq_tpu_torch.models.unet_sd import init_unet_sd
 
         params = init_unet_sd(torch.Generator(device=device).manual_seed(seed), device,
-                              spec=spec)
+                              spec=spec, store="cpu" if host else None)
     else:
         params = None
     return spec, params, apply_fn, latent_hw, cross
@@ -207,11 +219,32 @@ class _DictKey:
 
 
 def _tree_leaves(tree: dict, path=()):
+    """(path, leaf, the channel-parallel mark of the leaf's layer or None)."""
+    mark = tree.get("tp")
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _tree_leaves(v, path + (k,))
-        elif v is not None:
-            yield path + (k,), v
+        elif v is not None and k != "tp":
+            yield path + (k,), v, mark
+
+
+def _samples(leaf: torch.Tensor, mark) -> tuple:
+    """(shape, the 17 strided values) of a leaf in the JAX package's layout
+    (out axis last): of the whole leaf where `mark` says this is one rank's
+    rows of it, each value taken on the rank that holds it and gathered over
+    the tp group (a max against -inf, which moves no bit)."""
+    if mark is None or leaf.shape[-1] * mark.tp != mark.out:
+        stride = max(1, leaf.numel() // 16)
+        return tuple(leaf.shape), leaf.reshape(-1)[::stride][:17].detach().double()
+    shape = tuple(leaf.shape[:-1]) + (mark.out,)
+    numel = leaf.numel() * mark.tp
+    j = torch.arange(0, numel, max(1, numel // 16), device=leaf.device)[:17]
+    o = j % mark.out - mark.rows.start
+    own = (o >= 0) & (o < leaf.shape[-1])
+    vals = torch.full(j.shape, float("-inf"), dtype=torch.float64, device=leaf.device)
+    vals[own] = leaf.reshape(-1, leaf.shape[-1])[j[own] // mark.out, o[own]].detach().double()
+    dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=mark.group)
+    return shape, vals
 
 
 def _params_fingerprint(params: dict) -> str:
@@ -219,19 +252,19 @@ def _params_fingerprint(params: dict) -> str:
     path and shape plus 17 strided values, a few KB hashed. The leaves are
     taken in the JAX package's layouts (`io.convert.reference_layout`, the layout
     `params_to_numpy` gives) under its path strings, so the same weights give
-    the same key in both packages. Only the sampled values leave the device."""
+    the same key in both packages. Only the sampled values leave the device.
+    Weights cut over channels give the whole weights' key on every rank of
+    the tp group, which calls it together (`_samples`)."""
     from dgq_tpu_torch.io.convert import reference_layout
 
     h = hashlib.md5()
-    leaves = [(str(tuple(_DictKey(k) for k in path)), path[-1], v)
-              for path, v in _tree_leaves(params)]
-    for path_s, key, leaf in sorted(leaves, key=lambda kv: kv[0]):
-        leaf = reference_layout(key, torch.as_tensor(leaf))
+    leaves = [(str(tuple(_DictKey(k) for k in path)), path[-1], v, mark)
+              for path, v, mark in _tree_leaves(params)]
+    for path_s, key, leaf, mark in sorted(leaves, key=lambda kv: kv[0]):
+        shape, sample = _samples(reference_layout(key, torch.as_tensor(leaf)), mark)
         h.update(path_s.encode())
-        h.update(str(tuple(leaf.shape)).encode())
-        stride = max(1, leaf.numel() // 16)
-        sample = leaf.reshape(-1)[::stride][:17].detach().cpu().double().numpy()
-        h.update(np.ascontiguousarray(sample).tobytes())
+        h.update(str(shape).encode())
+        h.update(np.ascontiguousarray(sample.cpu().numpy()).tobytes())
     return h.hexdigest()[:12]
 
 
@@ -403,14 +436,16 @@ def maybe_init_multihost(args) -> None:
 
 
 def dp_mesh(args, module: str):
-    """The data-parallel mesh of a run with --dp N > 1 (None for 1): the
-    process group is joined from the environment, and a process outside a
-    group of N ranks gets the torchrun line that starts `module`."""
-    if args.dp == 1:
+    """The (dp, tp) mesh of a run with --dp N and --tp M (a CLI without --tp
+    has M = 1), None when N * M = 1: the process group is joined from the
+    environment, and a process outside a group of N * M ranks gets the
+    torchrun line that starts `module`."""
+    tp = getattr(args, "tp", 1)
+    if args.dp * tp == 1:
         return None
     from dgq_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh(dp=args.dp, device=args.device, program=module)
+    return make_mesh(dp=args.dp, tp=tp, device=args.device, program=module)
 
 
 def qconfig_from_args(args, use_wq=True, use_aq=False):

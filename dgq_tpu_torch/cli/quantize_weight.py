@@ -25,11 +25,19 @@ data-parallel over N ranks, one process each, started by torchrun:
 
 Each rank holds its slice of every unit's captures and the gradients are
 summed over the ranks (`calibrate_weights(mesh=)`); the weight-scale init
-and the activation calibration run on every rank, and rank 0 writes. --tp
-(channel parallelism) is not ported and raises. The run is on the card
-unless --device cpu is given. `main(argv)` takes the argument list and
-returns what it wrote (rank 0's paths; None on the other ranks), so it can
-be driven in-process.
+and the activation calibration run on every rank, and rank 0 writes. --tp N
+cuts every weight's out channels over N ranks right after the model is
+built, as the JAX package shards them (`parallel.mesh.shard_params_tp`: the
+weights are built on the host and each rank moves only its shards to its
+card); every later step runs on the shards, each cut layer gathering its
+out channels (`parallel.tp`), and every write gathers the whole tensors
+first. --dp and --tp combine, over dp * tp ranks:
+
+    torchrun --nproc_per_node 4 -m dgq_tpu_torch.cli.quantize_weight --dp 2 --tp 2 ...
+
+The run is on the card unless --device cpu is given. `main(argv)` takes
+the argument list and returns what it wrote (rank 0's paths; None on the
+other ranks), so it can be driven in-process.
 """
 from __future__ import annotations
 
@@ -79,7 +87,8 @@ def parse_args(argv=None):
                          "and its gradients are summed (start the ranks with torchrun "
                          "--nproc_per_node N)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel devices (not ported: > 1 raises)")
+                    help="channel-parallel ranks: every weight's out channels shard over them "
+                         "(start dp * tp ranks with torchrun)")
     ap.add_argument("--partial_dir", default=None,
                     help="save one .pth per reconstruction unit as it completes and resume "
                          "by skipping units already saved there (check them with "
@@ -115,12 +124,8 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """--tp raises, and so does reconstruction with the fused attention
-    kernels; nothing is skipped silently."""
-    if args.tp > 1:
-        from dgq_tpu_torch.parallel.mesh import TP_REFUSAL
-
-        raise NotImplementedError(f"--tp {args.tp}: {TP_REFUSAL}")
+    """Reconstruction with the fused attention kernels raises; nothing is
+    skipped silently."""
     if args.pallas_attn and not (args.no_recon or args.resume_w):
         raise NotImplementedError(
             "--pallas_attn with weight reconstruction: the reconstruction differentiates the "
@@ -132,9 +137,11 @@ def refuse_unported(args) -> None:
 def main(argv=None) -> dict:
     """Runs the CLI; returns {'weight_only': path or None, 'merged': path or
     None, 'params', 'wqp', 'alphas': the weights, their scales and the
-    learned offsets (None without reconstruction), 'per_t': the activation
-    states or None, 'seconds': {'weight_init', 'cali_data', 'recon',
-    'act_slots': [seconds of each time slot]}}."""
+    learned offsets (None without reconstruction; with --tp the rank's
+    shards), 'per_t': the activation states or None, 'seconds': {'build' (the
+    weights built or their spec made), 'shard' (the weights cut and moved
+    to the card), 'weight_init', 'cali_data', 'recon', 'act_slots': [seconds
+    of each time slot]}}."""
     args = parse_args(argv)
     refuse_unported(args)
     maybe_init_multihost(args)
@@ -143,25 +150,36 @@ def main(argv=None) -> dict:
     outpath, log = setup_logging(args.outdir, device)
     if mesh is not None:
         log.info(f"mesh: dp={mesh.dp} tp={mesh.tp} ({mesh.world} ranks, gradients summed "
-                 f"over the {dist.get_backend()} group)")
+                 f"over the {dist.get_backend()} group"
+                 + (", weights cut over tp" if mesh.tp > 1 else "") + ")")
     writes = writes_files()
     from dgq_tpu_torch.calib.act_calib import calibrate_activations
     from dgq_tpu_torch.calib.reconstruction import calibrate_weights
     from dgq_tpu_torch.calib.weight_calib import fold_weight_quant, init_weight_qparams
     from dgq_tpu_torch.io.dgq_ckpt import load_weight_only, save_merged, save_weight_only
+    from dgq_tpu_torch.parallel.mesh import gather_params_tp, shard_params_tp
     from dgq_tpu_torch.quant.scalers import Scaler
 
-    spec, params, apply_fn, latent_hw, cross = build_model(
-        args.model, base=args.base, seed=args.seed, hf_unet_path=args.unet_weights,
-        sdxl_depths=args.sdxl_depths, init_params=not args.resume_w, device=device)
+    # with --tp the whole weights stay on the host; each rank moves its shards
+    host = mesh is not None and mesh.tp > 1
+    seconds = {}
+    (spec, params, apply_fn, latent_hw, cross), seconds["build"] = timed(
+        device, lambda: build_model(args.model, base=args.base, seed=args.seed,
+                                    hf_unet_path=args.unet_weights, sdxl_depths=args.sdxl_depths,
+                                    init_params=not args.resume_w, device=device, host=host))
     cfg = qconfig_from_args(args, use_wq=True)
     latent_hw = args.latent_hw or latent_hw
     pooled = pooled_dim_for(args.model, args.base)
-    seconds = {}
     result = {"weight_only": None, "merged": None, "per_t": None, "seconds": seconds}
     path = os.path.join(outpath, "cali_ckpt.pth") if writes else None
     alphas = None
     cali = {}
+
+    def whole(params, wqp, alphas):
+        """The whole tensors for a write (gathered over the tp group onto
+        the host; every rank takes part, rank 0 writes)."""
+        return (gather_params_tp(mesh, params), gather_params_tp(mesh, wqp, like=params),
+                alphas and gather_params_tp(mesh, alphas, like=params))
 
     def cali_data():
         """The calibration set (made once, or read from the .npz cache)."""
@@ -173,20 +191,24 @@ def main(argv=None) -> dict:
                 device, lambda: built_once(lambda: build_cali_data(
                     args.model, params, apply_fn, cross, args.cali_prompt_data_n,
                     args.step_size, latent_hw, args.seed, cache_prefix=args.cali_data_path,
-                    pooled_dim=pooled, embeds=embeds, embeds_tag=tag)))
+                    pooled_dim=pooled, embeds=embeds, embeds_tag=tag), mesh))
             log.info(f"calibration set: {cali['data'][0].shape[0]} samples, interval "
                      f"{cali['interval']}, {seconds['cali_data']:.2f} s")
         return cali["data"], cali["interval"]
 
     if args.resume_w:
         log.info(f"resuming from {args.resume_w}")
-        params, wqp, alphas = load_weight_only(args.resume_w, spec, device)
+        params, wqp, alphas = load_weight_only(args.resume_w, spec, "cpu" if host else device)
         alphas = alphas or None
         if not args.use_aq and writes:
             save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
             result["weight_only"] = f"{path}_weight_only"
             log.info(f"resumed checkpoint re-saved to {path}_weight_only")
+        params = shard_params_tp(mesh, params)
+        wqp = shard_params_tp(mesh, wqp, like=params)
+        alphas = alphas and shard_params_tp(mesh, alphas, like=params)
     else:
+        params, seconds["shard"] = timed(device, lambda: shard_params_tp(mesh, params))
         scaler = Scaler.MINMAX if (args.fast or not args.cali) else Scaler.MSE
         log.info(f"weight scale init: {scaler} w{args.wq}")
         wqp, seconds["weight_init"] = timed(
@@ -201,10 +223,12 @@ def main(argv=None) -> dict:
                 partial_dir=args.partial_dir, max_units=args.max_units,
                 tib_recon=args.tib_recon, opt_mode=args.recon_loss, mesh=mesh))
             log.info(f"reconstruction: {len(alphas)} layers, {seconds['recon']:.2f} s")
+        w_params, w_wqp, w_alphas = whole(params, wqp, alphas)
         if writes:
-            save_weight_only(f"{path}_weight_only", params, wqp, spec, alphas=alphas)
+            save_weight_only(f"{path}_weight_only", w_params, w_wqp, spec, alphas=w_alphas)
             result["weight_only"] = f"{path}_weight_only"
             log.info(f"calibrated model saved to {path}_weight_only")
+        del w_params, w_wqp, w_alphas
     result.update(params=params, wqp=wqp, alphas=alphas)
 
     if args.use_aq:
@@ -222,8 +246,9 @@ def main(argv=None) -> dict:
             unet_apply=apply_fn, progress=progress)
         seconds["act_slots"] = slot_seconds()
         result["per_t"] = per_t
+        w_params, w_wqp, w_alphas = whole(params, wqp, alphas)
         if writes:
-            save_merged(path, params, wqp, spec, per_t, alphas=alphas)
+            save_merged(path, w_params, w_wqp, spec, per_t, alphas=w_alphas)
             result["merged"] = path
             log.info(f"calibrated model (weight+act) saved to {path}")
     return result

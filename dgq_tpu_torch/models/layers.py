@@ -25,6 +25,11 @@ and each group path reshapes it to (taps, C, O) or (taps*C, O).
 Params are dicts: conv {'w': OIHW, 'b': (O,)}, linear {'w': (O, I), 'b'},
 norms {'scale', 'bias'}.
 
+A layer cut over channels (`parallel.mesh.shard_params_tp`, marked "tp")
+runs `linear`, `conv2d` and `conv2d_unfolded` by the column-parallel rule of
+`parallel.tp` and gives the whole output; the int8, codes-fold and
+group-conv routes refuse it.
+
 Calibration taps (`models.qconfig.collect_act_taps`) see every quantizer's
 pre-quant input, in the JAX package's order, on every path: a group conv
 publishes its unfolded input and the fused attention its post-softmax
@@ -50,10 +55,13 @@ from dgq_tpu_torch.models.qconfig import (
 from dgq_tpu_torch.ops.attention import fused_attention
 from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmul_f32acc
 from dgq_tpu_torch.ops.int8_matmul import quantized_matmul
+from dgq_tpu_torch.parallel.tp import column_parallel, refuse_sharded
 from dgq_tpu_torch.quant.affine import QParams, fake_quant, quant_bounds, ste_round
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    if "tp" in p:
+        return column_parallel(linear, p, x)
     y = F.linear(x, p["w"].to(x.dtype))
     if p.get("b") is not None:
         y = y + p["b"]
@@ -62,6 +70,8 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
     """NHWC conv with OIHW weights."""
+    if "tp" in p:
+        return column_parallel(conv2d, p, x, stride, padding)
     y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].to(x.dtype), stride=stride, padding=padding)
     y = y.permute(0, 2, 3, 1)
     if p.get("b") is not None:
@@ -99,6 +109,8 @@ def unfold_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
 
 def conv2d_unfolded(p, x_unf: torch.Tensor, out_hw) -> torch.Tensor:
     """Conv as a matmul over the unfolded input (B, CKK, L) -> NHWC."""
+    if "tp" in p:
+        return column_parallel(conv2d_unfolded, p, x_unf, out_hw)
     o = p["w"].shape[0]
     w_unf = p["w"].reshape(o, -1).t()  # OIHW flattens c-major, as unfold_nhwc
     y = torch.matmul(x_unf.transpose(1, 2), w_unf.to(x_unf.dtype))
@@ -201,6 +213,7 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
     """The group branch of quant_conv2d, by cfg.group_conv_impl. 'fused'
     launches the kernel where `fused_eligible` holds and takes the taps path
     elsewhere (the stride-2 downsamplers), as the JAX package does."""
+    refuse_sharded(p, "the group-quantized conv")
     o, c, kh, kw = p["w"].shape
     gqp = (qstate or {}).get("a", {}).get(name)
     impl = cfg.group_conv_impl
@@ -303,6 +316,7 @@ def _fold_codes(x: torch.Tensor, qp: QParams, bits: int):
 def _codes_linear(p, x: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Tensor:
     """Codes fold for a linear: the f32 accumulator is scaled by delta before
     the bias and the cast, as in the JAX package."""
+    refuse_sharded(p, "the codes fold")
     q, d = _fold_codes(x, qp, cfg.a_bits)
     y = matmul_f32acc(q.reshape(-1, q.shape[-1]), p["w"].to(q.dtype).t()) * d
     if p.get("b") is not None:
@@ -318,6 +332,7 @@ def _codes_conv2d(p, x: torch.Tensor, qp: QParams, cfg: QConfig, stride: int,
     copies of the codes and the weights: both are exact there (and in TF32:
     8-bit codes, bf16 weights), the sum is f32, and delta, the bias and the one
     cast follow as in the JAX package. No extra rounding."""
+    refuse_sharded(p, "the codes fold")
     q, d = _fold_codes(x, qp, cfg.a_bits)
     y = F.conv2d(q.float().permute(0, 3, 1, 2), p["w"].to(q.dtype).float(), stride=stride,
                  padding=padding).permute(0, 2, 3, 1) * d
@@ -414,6 +429,7 @@ def _int8_matmul_xla(p, x2: torch.Tensor, qp: QParams, cfg: QConfig) -> torch.Te
 def _int8_dispatch(p, x2: torch.Tensor, qp: QParams, cfg: QConfig):
     """The int8 matmul by cfg.int8_impl, or None where the library route's
     gate sends the layer on to the next path."""
+    refuse_sharded(p, "the int8 matmul")
     if cfg.int8_impl == "xla":
         if _int8_xla_eligible(x2.shape[0], x2.shape[1]) and _int_mm_takes(
                 x2, p["w_q8"].shape[0]):
@@ -471,6 +487,7 @@ def _int8_conv(p, x: torch.Tensor, qp: QParams, cfg: QConfig, stride: int,
 
     then the bias and the cast to x's dtype. JAX runs the product as an XLA
     s8 conv outside any Pallas kernel; here it is a library product."""
+    refuse_sharded(p, "the int8 conv")
     o, c, kh, kw = p["w_q8c"].shape
     codes, zx = int8_conv_codes(x, qp, cfg.a_bits, padding)
     acc, xsum = int8_conv_acc(codes, p["w_q8c"], stride)

@@ -31,6 +31,7 @@ from dgq_tpu_torch.models.layers import (
     upsample_nearest2x,
 )
 from dgq_tpu_torch.models.qconfig import QConfig, QState
+from dgq_tpu_torch.parallel.tp import out_count
 
 NUM_HEADS = 8
 CROSS_DIM = 768
@@ -58,7 +59,9 @@ class StopForward(Exception):
 
 class CaptureUntil(dict):
     """A `record` that ends the forward (`StopForward`) right after `key` is
-    recorded: the capture of one unit runs no layer past it."""
+    recorded: the capture of one unit runs no layer past it. Every rank of a
+    tp group runs the same forward and records the same keys, so each stops
+    after the same layer, with no collective of a later layer pending."""
 
     def __init__(self, key: str):
         super().__init__()
@@ -163,7 +166,7 @@ def unet_sd_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
     (inputs, output) is stashed in it."""
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(sample.shape[0])
-    base = params["conv_in"]["w"].shape[0]  # 320 for real SD v1.4
+    base = out_count(params["conv_in"])  # 320 for real SD v1.4
     t_emb = timestep_embedding(timesteps, base).to(sample.dtype)
     emb = quant_linear(params["time_embedding.linear_1"], t_emb,
                        "time_embedding.linear_1", qstate, cfg)
@@ -293,16 +296,19 @@ def quantizable_layers(spec=None):
 
 @torch.no_grad()
 def init_unet_sd(generator: torch.Generator, device="cuda", dtype=torch.float32,
-                 spec=None) -> dict:
+                 spec=None, store=None) -> dict:
     """Random params of reference shapes (OIHW convs, (O, I) linears),
     N(0, 1/fan_in) weights, zero biases, unit norms. Drawn on `device` from
     `generator` (which must live on that device), so a full-width model never
-    passes through the host."""
+    passes through the host. store: where the params are kept (default
+    `device`); each weight is drawn on `device` and moved there at once, so
+    the values do not depend on it and the card holds one leaf at a time."""
     spec = spec if spec is not None else sd_unet_spec()
+    draw, device = device, store if store is not None else device
 
     def normal(shape, fan_in):
-        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w / math.sqrt(fan_in)).to(dtype)
+        w = torch.randn(shape, generator=generator, device=draw, dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(device, dtype)
 
     params = {}
     for name, kind, meta in spec:

@@ -40,6 +40,7 @@ from dgq_tpu_torch.models.unet_sd import (
     _transformer_spec,
     init_unet_sd,
 )
+from dgq_tpu_torch.parallel.tp import out_count
 
 SDXL_CROSS = 2048
 
@@ -88,8 +89,8 @@ def unet_sdxl_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
     ehs = encoder_hidden_states
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(sample.shape[0])
-    base = p["conv_in"]["w"].shape[0]
-    temb_dim = p["time_embedding.linear_2"]["w"].shape[0]
+    base = out_count(p["conv_in"])
+    temb_dim = out_count(p["time_embedding.linear_2"])
     add_ch = (p["add_embedding.linear_1"]["w"].shape[1] - temb_dim) // 6
 
     t_emb = timestep_embedding(timesteps, base).to(sample.dtype)

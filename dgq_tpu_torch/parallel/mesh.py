@@ -1,4 +1,4 @@
-"""Data parallelism over `torch.distributed` (port of
+"""Data and channel parallelism over `torch.distributed` (port of
 `dgq_tpu/parallel/mesh.py`).
 
 The JAX package runs one process over an in-process device `Mesh` and lets
@@ -7,8 +7,9 @@ GSPMD insert the collectives. The port runs one process per rank, started by
 
   * `init_multihost` joins the process group from explicit arguments,
     torchrun's environment or SLURM's;
-  * `make_mesh` describes the run (`DPMesh`: dp, tp, rank, world, the dp
-    group and the rank's device);
+  * `make_mesh` describes the run (`Mesh`: dp, tp, rank, world, the dp
+    and tp groups and the rank's device); rank = d * tp + t, the layout of
+    the JAX package's `devices.reshape(dp, tp)`;
   * `shard_batch` / `batch_rows` give rank r its contiguous rows
     [r n/dp, (r+1) n/dp), the layout of JAX's `NamedSharding(P("dp"))`;
   * `sync_mean` averages a tree over the world (the reference's
@@ -17,13 +18,16 @@ GSPMD insert the collectives. The port runs one process per rank, started by
   * `batch_split` / `batch_reduce_` make a reduction over a batch whose
     rows the ranks share (the real-time softmax quantizer's delta) run over
     every rank's rows, as GSPMD keeps it global in the JAX package;
-  * `shard_prompts` slices a prompt list over independent processes.
+  * `shard_prompts` slices a prompt list over independent processes;
+  * `shard_params_tp` cuts each weight's out channels over the tp group and
+    marks the layer, whose forward then takes the column-parallel rule of
+    `parallel.tp`; `gather_params_tp` puts the whole tensors back together
+    for a write.
 
 Backend rule: NCCL when every rank of a node has a card of its own; gloo on
 the CPU or when ranks share a card (NCCL refuses two ranks on one device;
-gloo takes CUDA tensors for all_reduce and broadcast). A collective that
-fails raises: nothing falls back. Channel parallelism (tp > 1,
-`shard_params_tp`) is not ported: ROADMAP queue 1, item 17b.
+gloo takes CUDA tensors for all_reduce, broadcast and all_gather). A
+collective that fails raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-TP_REFUSAL = ("tensor parallelism (tp > 1, shard_params_tp) is not ported to dgq_tpu_torch: "
-              "ROADMAP queue 1, item 17b")
+from dgq_tpu_torch.parallel.tp import TPShard, all_gather_rows
+from dgq_tpu_torch.quant.affine import QParams
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -131,27 +135,52 @@ def init_multihost(coordinator_address: Optional[str] = None,
 
 
 @dataclasses.dataclass(frozen=True)
-class DPMesh:
-    """A data-parallel run: dp ranks (tp = 1), this process's rank of the
-    world, the dp process group (None in a world of one) and the rank's
-    device."""
+class Mesh:
+    """A (dp, tp) run: this process's rank of the world, rank = d * tp + t;
+    `group`, the dp group (the dp ranks that share t; the world when tp = 1,
+    None in a world of one); `tp_group`, the tp group (the tp ranks that
+    share d; None when tp = 1); and the rank's device."""
     dp: int
     tp: int
     rank: int
     world: int
     group: Optional[object]
     device: str
+    tp_group: Optional[object] = None
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+
+def _groups(dp: int, tp: int, rank: int) -> tuple:
+    """(dp group, tp group) of `rank`. Every rank makes every group, in the
+    same order (all dp groups, then all tp groups), as `new_group` needs."""
+    if tp == 1:
+        return dist.group.WORLD, None
+    dp_group = tp_group = None
+    for t in range(tp):
+        group = dist.new_group([d * tp + t for d in range(dp)])
+        if rank % tp == t:
+            dp_group = group
+    for d in range(dp):
+        group = dist.new_group(list(range(d * tp, (d + 1) * tp)))
+        if rank // tp == d:
+            tp_group = group
+    return dp_group, tp_group
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1, multihost: bool = False,
-              device: str = "cuda", program: str = "<module>") -> DPMesh:
+              device: str = "cuda", program: str = "<module>") -> Mesh:
     """The (dp, tp) mesh over the process group, joined first (from the
     environment, `init_multihost`) when dp * tp > 1 or `multihost`; dp None
     takes every rank. Raises unless the world holds dp * tp ranks, naming the
-    torchrun line that starts `program`, and when tp > 1 (item 17b)."""
-    if tp != 1:
-        raise NotImplementedError(TP_REFUSAL)
-    if multihost or (dp or 1) > 1:
+    torchrun line that starts `program`."""
+    if multihost or (dp or 1) * tp > 1:
         init_multihost(device=device)
     up = dist.is_initialized()
     world = dist.get_world_size() if up else 1
@@ -162,11 +191,12 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, multihost: bool = False,
             f"one of {world}. Start one process per rank with torchrun: `torchrun "
             f"--nproc_per_node {dp * tp} -m {program} ...` (or under SLURM with MASTER_ADDR "
             f"and MASTER_PORT exported)")
-    return DPMesh(dp, tp, dist.get_rank() if up else 0, world,
-                  dist.group.WORLD if up else None, rank_device(device))
+    rank = dist.get_rank() if up else 0
+    dp_group, tp_group = _groups(dp, tp, rank) if up else (None, None)
+    return Mesh(dp, tp, rank, world, dp_group, rank_device(device), tp_group)
 
 
-def batch_rows(mesh: Optional[DPMesh], n: int) -> slice:
+def batch_rows(mesh: Optional[Mesh], n: int) -> slice:
     """Rank r's contiguous rows of a batch of n: [r n/dp, (r+1) n/dp), the
     layout of JAX's NamedSharding(P("dp")); all of them without a mesh or
     with dp = 1. n must divide by dp."""
@@ -175,11 +205,10 @@ def batch_rows(mesh: Optional[DPMesh], n: int) -> slice:
     if n % mesh.dp:
         raise ValueError(f"a batch of {n} does not shard over dp={mesh.dp}")
     per = n // mesh.dp
-    r = mesh.rank // mesh.tp
-    return slice(r * per, (r + 1) * per)
+    return slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
 
 
-def shard_batch(mesh: Optional[DPMesh], tree):
+def shard_batch(mesh: Optional[Mesh], tree):
     """Every tensor (or array) of `tree` (dicts, tuples and lists of them)
     cut to this rank's rows of its leading axis (`batch_rows`)."""
     if isinstance(tree, dict):
@@ -189,13 +218,13 @@ def shard_batch(mesh: Optional[DPMesh], tree):
     return tree[batch_rows(mesh, tree.shape[0])]
 
 
-def _collective_device(mesh: Optional[DPMesh]) -> str:
+def _collective_device(mesh: Optional[Mesh]) -> str:
     if mesh is not None:
         return mesh.device
     return f"cuda:{torch.cuda.current_device()}" if dist.get_backend() == "nccl" else "cpu"
 
 
-def sync_mean(mesh: Optional[DPMesh], tree):
+def sync_mean(mesh: Optional[Mesh], tree):
     """The mean of each leaf of a per-process tree over the world (the
     reference's `allaverage`: all_reduce, divide by the world size): every
     process passes its own statistic (a tensor of any shape, or a Python
@@ -233,21 +262,29 @@ def _flat(tensors: list, collective) -> None:
         t.copy_(part.view_as(t))
 
 
-def all_reduce_sum_(mesh: DPMesh, tensors: list) -> None:
+def all_reduce_sum_(mesh: Mesh, tensors: list) -> None:
     """Sum `tensors` (one dtype, one device) over the dp group, in place,
     in one collective."""
     _flat(tensors, lambda flat: dist.all_reduce(flat, group=mesh.group))
 
 
-def broadcast_(mesh: DPMesh, tensors: list, src: int = 0) -> None:
-    """Rank `src`'s values of `tensors` on every rank, in place."""
-    _flat(tensors, lambda flat: dist.broadcast(flat, src, group=mesh.group))
+def all_reduce_tp_(mesh: Mesh, tensors: list) -> None:
+    """Sum `tensors` (one dtype, one device) over the tp group, in place,
+    in one collective."""
+    _flat(tensors, lambda flat: dist.all_reduce(flat, group=mesh.tp_group))
 
 
-def barrier(mesh: Optional[DPMesh]) -> None:
+def broadcast_(mesh: Mesh, tensors: list) -> None:
+    """The values of `tensors` on dp rank 0 of this rank's dp group (global
+    rank t, where the rank's own tp shard lives too) on every rank of the
+    group, in place."""
+    _flat(tensors, lambda flat: dist.broadcast(flat, mesh.tp_rank, group=mesh.group))
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
     """Wait for every rank of the mesh (nothing without one)."""
-    if mesh is not None and mesh.group is not None:
-        dist.barrier(group=mesh.group)
+    if mesh is not None and mesh.world > 1:
+        dist.barrier()
 
 
 # The process group of a data-parallel run that splits each batch's rows over
@@ -256,7 +293,7 @@ _BATCH_GROUP: list = [None]
 
 
 @contextlib.contextmanager
-def batch_split(mesh: Optional[DPMesh]):
+def batch_split(mesh: Optional[Mesh]):
     """Within the block each rank of `mesh` runs its own rows of batches
     that are, whole, one function of all their rows: a reduction over the
     batch (`batch_reduce_`) then runs over every rank's rows. Without a
@@ -278,6 +315,78 @@ def batch_reduce_(t: torch.Tensor, op: str) -> torch.Tensor:
         dist.all_reduce(t, op={"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op],
                         group=group)
     return t
+
+
+def _cut(v, mark: Optional[TPShard], device):
+    """v on `device`: the mark's rows of it, as a new tensor, where v is a
+    tensor whose axis 0 is the layer's whole out count (a QParams field by
+    field); v whole otherwise."""
+    if isinstance(v, QParams):
+        return QParams(*(_cut(f, mark, device) for f in v))
+    if not torch.is_tensor(v):
+        return v
+    if mark is not None and v.dim() >= 1 and v.shape[0] == mark.out:
+        part = v[mark.rows]
+        return torch.empty(part.shape, dtype=part.dtype, device=device).copy_(part)
+    return v.to(device)
+
+
+def shard_params_tp(mesh: Optional[Mesh], tree: dict, like: Optional[dict] = None) -> dict:
+    """The JAX package's `shard_params_tp` in the port's layouts: the out
+    axis is axis 0 (OIHW convs, (O, I) linears), where JAX's HWIO / (I, O)
+    put it last. A layer whose weight has 2 or more dimensions and an out
+    count O that divides by tp keeps rows [t O/tp, (t+1) O/tp) of every
+    leaf whose axis 0 is O (the weight and its bias) and is marked with a
+    `parallel.tp.TPShard`; every other leaf is replicated. Each leaf is put
+    on the mesh's device, a cut one as a fresh copy of the rank's rows, so
+    weights built on the host reach the card one shard at a time.
+
+    like: the rank's cut params; `tree` is then a dict keyed by layer name of
+    tensors or QParams (weight scales, AdaRound offsets) in the whole
+    layers' shapes, cut where `like`'s layers are. The identity without a
+    mesh or with tp = 1. Needs no process group."""
+    if mesh is None or mesh.tp == 1:
+        return tree
+    out = {}
+    for name, v in tree.items():
+        if like is not None:
+            out[name] = _cut(v, (like.get(name) or {}).get("tp"), mesh.device)
+            continue
+        w = v.get("w")
+        cut = torch.is_tensor(w) and w.dim() >= 2 and w.shape[0] % mesh.tp == 0
+        mark = TPShard(mesh.tp_group, mesh.tp, mesh.tp_rank, w.shape[0]) if cut else None
+        out[name] = {k: _cut(x, mark, mesh.device) for k, x in v.items()}
+        if cut:
+            out[name]["tp"] = mark
+    return out
+
+
+def _joined(v, mark: Optional[TPShard]):
+    """v on the host, gathered over the mark's group where its axis 0 is
+    the rank's rows of the layer's out axis (a QParams field by field)."""
+    if isinstance(v, QParams):
+        return QParams(*(_joined(f, mark) for f in v))
+    if not torch.is_tensor(v):
+        return v
+    if mark is not None and v.dim() >= 1 and v.shape[0] == mark.out // mark.tp:
+        v = all_gather_rows(v.detach(), mark)
+    return v.cpu()
+
+
+def gather_params_tp(mesh: Optional[Mesh], tree: dict, like: Optional[dict] = None) -> dict:
+    """The whole tensors of a tree that `shard_params_tp` cut, on the host,
+    the marks dropped: every cut leaf all-gathered over its tp group and
+    moved to the host at once, so the card never holds more than one whole
+    leaf beside the shards (the JAX package gets the same from `np.asarray`
+    of a sharded array). `like` as in `shard_params_tp`. A collective: every
+    rank of every tp group calls it. The identity without a mesh or with
+    tp = 1."""
+    if mesh is None or mesh.tp == 1:
+        return tree
+    if like is not None:
+        return {name: _joined(v, (like.get(name) or {}).get("tp")) for name, v in tree.items()}
+    return {name: {k: _joined(x, p.get("tp")) for k, x in p.items() if k != "tp"}
+            for name, p in tree.items()}
 
 
 def shard_prompts(prompts: list, rank: int, world_size: int) -> list:

@@ -143,15 +143,25 @@ def to_j(batch):
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+TEARDOWN = """
+import torch.distributed
+if torch.distributed.is_initialized():
+    torch.distributed.destroy_process_group()
+"""
+
+
 def launch_ranks(code: str, store, *args, world: int = 2, timeout: float = 240) -> list:
     """Run `python -c code rank world init_method *args` once for each rank
     of a CPU process group (gloo) whose rendezvous is the file `store` (it
-    must not exist yet), one thread each. Returns each rank's output, and
-    fails naming the rank whose exit code is not 0."""
+    must not exist yet), one thread each; each rank destroys its group when
+    `code` ends. Returns each rank's output, and fails naming the rank whose
+    exit code is not 0."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
         "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID", "SLURM_TASKS_PER_NODE")}
     env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", JAX_PLATFORMS="cpu")
+    # a process that exits with its gloo group alive can abort in teardown
+    code += TEARDOWN
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), f"file://{store}",
                                *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]

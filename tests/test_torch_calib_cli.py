@@ -3,10 +3,11 @@
 
   * parse_args: the same argv gives the same values in both packages (the
     port adds --device);
-  * multi-device runs (--dp, --tp), and reconstruction with the fused
-    attention kernels (--pallas_attn), raise NotImplementedError naming the
-    ROADMAP entry, before any work (reconstruction itself is held in
-    tests/test_torch_recon_cli.py);
+  * reconstruction with the fused attention kernels (--pallas_attn) raises
+    NotImplementedError naming the ROADMAP entry, and --dp or --tp outside
+    a process group of their size raise RuntimeError naming the torchrun
+    line, before any work (reconstruction itself is held in
+    tests/test_torch_recon_cli.py, --tp in tests/test_torch_tp.py);
   * the README's verify flow on the port, on the CPU at base 32:
     `quantize_weight --fast --no_recon --use_aq`, then `quantize_act
     --group_num 2` with the t2i flags and --pallas_attn on its weight-only
@@ -68,12 +69,12 @@ TORCHRUN = "torchrun --nproc_per_node 2 -m dgq_tpu_torch.cli.quantize_weight"
     (["--pallas_attn"], NotImplementedError, "--pallas_attn", "ROADMAP queue 3"),
     # --dp outside a process group of its size names the torchrun line
     (["--no_recon", "--dp", "2"], RuntimeError, TORCHRUN, "a process group of 2 ranks"),
-    (["--no_recon", "--tp", "2"], NotImplementedError, "--tp", "ROADMAP queue 1, item 17b"),
+    (["--no_recon", "--tp", "2"], RuntimeError, TORCHRUN, "a process group of 2 ranks"),
     (["--dp", "2", "--partial_dir", "p"], RuntimeError, TORCHRUN, "a process group of 2 ranks"),
     (["--tib_recon", "--pallas_attn", "--use_aq"], NotImplementedError, "--pallas_attn",
      "ROADMAP queue 3"),
-    (["--recon_loss", "fisher_full", "--tp", "2"], NotImplementedError, "--tp",
-     "ROADMAP queue 1, item 17b"),
+    (["--recon_loss", "fisher_full", "--tp", "2"], RuntimeError, TORCHRUN,
+     "a process group of 2 ranks"),
 ])
 def test_reconstruction_is_refused(extra, exc, match, item, tmp_path, monkeypatch):
     for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
@@ -137,7 +138,7 @@ def test_quantize_weight_checkpoints_load_in_jax_bit_for_bit(flow):
     assert jgl == () and len(jper) == 3  # PNDM: 2 steps, 3 UNet calls
     _same_states(jper, w["per_t"])
     assert len(w["per_t"]["act_0"]["a"]) > 300
-    assert set(w["seconds"]) == {"weight_init", "cali_data", "act_slots"}
+    assert set(w["seconds"]) == {"build", "shard", "weight_init", "cali_data", "act_slots"}
     assert len(w["seconds"]["act_slots"]) == 3
 
 

@@ -14,8 +14,8 @@
     puts on its device; `all_reduce_sum_` and `broadcast_` in place;
     `batch_reduce_` folds a min or max over both ranks inside `batch_split`
     and leaves it alone outside;
-  * `make_mesh` raises, naming torchrun, when the world is not dp * tp, and
-    when tp > 1 (ROADMAP item 17b).
+  * `make_mesh` raises, naming torchrun, when the world is not dp * tp, tp
+    > 1 included (the dp x tp groups are held in tests/test_torch_tp.py).
 """
 import json
 
@@ -186,7 +186,7 @@ def test_batch_reduce_over_both_ranks_inside_batch_split(ranks):
 
 def test_batch_reduce_without_a_split_is_the_identity():
     t = torch.tensor([3.0])
-    with TM.batch_split(None), TM.batch_split(TM.DPMesh(1, 1, 0, 1, None, "cpu")):
+    with TM.batch_split(None), TM.batch_split(TM.Mesh(1, 1, 0, 1, None, "cpu")):
         assert TM.batch_reduce_(t, "min") is t and t.item() == 3.0
 
 
@@ -195,7 +195,7 @@ def test_make_mesh_refuses_a_wrong_world_and_tp(ranks, no_rendezvous):
         assert "torchrun --nproc_per_node 4" in res["wrong"]
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m x.y"):
         TM.make_mesh(dp=2, device="cpu", program="x.y")
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         TM.make_mesh(dp=1, tp=2, device="cpu")
     mesh = TM.make_mesh(dp=1, device="cpu")  # a world of one needs no group
     assert (mesh.dp, mesh.rank, mesh.world, mesh.group) == (1, 0, 1, None)
@@ -204,7 +204,7 @@ def test_make_mesh_refuses_a_wrong_world_and_tp(ranks, no_rendezvous):
 
 def test_batch_rows_without_a_mesh_and_uneven():
     assert TM.batch_rows(None, 5) == slice(0, 5)
-    mesh = TM.DPMesh(2, 1, 1, 2, None, "cpu")
+    mesh = TM.Mesh(2, 1, 1, 2, None, "cpu")
     assert TM.batch_rows(mesh, 6) == slice(3, 6)
     with pytest.raises(ValueError, match="does not shard"):
         TM.batch_rows(mesh, 5)

@@ -12,8 +12,9 @@
   * `--tib_recon --recon_loss fisher_diag --max_units 7`: the temporal block
     and the Fisher-weighted walk (the 7th unit is the first transformer);
   * `--use_aq` after reconstruction: the merged file carries the offsets;
-  * `--dp 2`, `--tp 2` and reconstruction with `--pallas_attn` raise before
-    any work (tests/test_torch_calib_cli.py holds the messages).
+  * `--dp 2` and `--tp 2` outside a process group of 2 ranks, and
+    reconstruction with `--pallas_attn`, raise before any work
+    (tests/test_torch_calib_cli.py holds the messages).
 
 The offsets themselves are held to the JAX package's in
 tests/test_torch_recon_walk.py (the CLIs draw their stand-in data from
@@ -68,7 +69,7 @@ def test_reconstruction_is_the_default_and_writes_the_offsets(runs):
     assert set(w["alphas"]) == covered
     assert [c["unit"] for c in w["recon"]] == recon_units(spec)[:6]
     assert all(bool(torch.isfinite(c["losses"]).all()) for c in w["recon"])
-    assert set(w["seconds"]) == {"weight_init", "cali_data", "recon"}
+    assert set(w["seconds"]) == {"build", "shard", "weight_init", "cali_data", "recon"}
     _, _, alphas = TK.load_weight_only(w["weight_only"], spec, device="cpu")
     assert set(alphas) == covered
     for n in covered:
@@ -118,7 +119,7 @@ def test_use_aq_after_reconstruction_carries_the_offsets(tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc", [(["--dp", "2"], RuntimeError),  # no process group
-                                       (["--tp", "2"], NotImplementedError),
+                                       (["--tp", "2"], RuntimeError),  # no process group
                                        (["--pallas_attn"], NotImplementedError)])
 def test_refused_before_any_work(extra, exc, tmp_path, monkeypatch):
     for name in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
