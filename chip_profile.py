@@ -4,7 +4,7 @@ configurations (2 images, bf16: SD v1.4 at 512px, CFG batch 4; SDXL-turbo at
 1024px, batch 2).
 
     python3 chip_profile.py      # from the repository root; needs one CUDA card
-    python3 chip_profile.py --changed   # only the rows of the static-delta attention and int8 kernels
+    python3 chip_profile.py --changed   # only the f32 rows (the CLIs' activations)
 
 For each of the SD g=1 path (unpacked, with packed attention, and with the
 int8 deploy path), the g=8 path with the fused group conv (unpacked and
@@ -28,11 +28,14 @@ its one attention is the flash kernel at head dim 512). Before the steps it
 times the static-delta attention kernels K4 / K4p and the int8 matmul K6 on
 their own at their main-path shapes (`kernel_times`: device-only time and
 the wrapper's host time, through the wrappers' public entries, so that the
-same script times a parent tree's kernels). `--changed` keeps only the rows
-that K4/K4p and K6 carry: the kernel times, SD g=8 static log2 (unpacked,
-packed, in turns), the SD g=1 int8 deploy path and the SDXL-turbo int8
-deploy path, and no decode. The last line repeats the figures as one JSON
-object. It
+same script times a parent tree's kernels). The f32 rows (`f32_rows`) are
+the forwards the CLIs run, f32 activations over the same bf16 weights (as
+`--fp16` runs them): SD g=8 with the fused group conv and the kernels'
+attention (K5, K3b), the same with the taps group conv, the fp forward with
+the kernels' attention (K2 at head dims 40 to 160), and one f32 VAE decode
+of 2 images at 512px (K2 at head dim 512), each profiled as above.
+`--changed` runs only the f32 rows. The last line repeats the figures as
+one JSON object. It
 shares the model set-up with chip_smoke.py and, like it, refuses to run
 without a card.
 """
@@ -43,7 +46,7 @@ import time
 
 BUCKETS = (
     ("attention kernels (K1-K4, K1p-K4p)",
-     ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel")),
+     ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel", "flash_tf32_kernel")),
     ("group conv kernels (K5: fold, conv, split-K finish)",
      ("group_conv", "fold_kernel", "fold_oihw_kernel", "finish_kernel")),
     ("int8 matmul kernel (K6)", ("int8_matmul_kernel", "int8_wgmma_kernel")),
@@ -256,6 +259,37 @@ def time_decode(vae, latents, scale, label, tag, reps=5):
     return rec
 
 
+def f32_rows(model, tag):
+    """The f32 forwards of the CLIs (`--fp16`: bf16 weights, f32 activations,
+    f32 activation states), one step each, and one f32 decode at 512px."""
+    import torch
+
+    import chip_smoke
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.pipeline.vae import SD_VAE_SCALE, init_vae_decoder, vae_decode
+    from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate
+
+    f32 = torch.float32
+    m32 = {**model, "latents": model["latents"].float(), "ehs_t": model["ehs_t"].float(),
+           "ehs_u": model["ehs_u"].float()}
+    qs, group_layers = synthetic_group_qstate(model["spec"], 1, True, f32)
+    g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
+    records = [
+        profile_step(sd_step(m32, qs, g8), "f32 g=8 fused group conv (K5, K3b)", 4, tag),
+        profile_step(sd_step(m32, qs, g8.replace(group_conv_impl="taps")),
+                     "f32 g=8 taps group conv (K3b)", 4, tag),
+        profile_step(sd_step(m32, None, QConfig(use_pallas_attention=True)),
+                     "f32 fp, the kernels' attention (K2)", 4, tag),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    vae = init_vae_decoder(g, "cuda", dtype=f32)
+    records.append(profile_step(lambda: vae_decode(vae, m32["latents"], scale=SD_VAE_SCALE),
+                                "f32 VAE decode at 512px (K2 at head dim 512)", 2, tag))
+    del vae
+    torch.cuda.empty_cache()
+    return records
+
+
 def main():
     import sys
 
@@ -275,6 +309,12 @@ def main():
     print(card, flush=True)
     tag = f"card: {card}"
     build.load_kernels()
+    changed_only = "--changed" in sys.argv[1:]
+    if changed_only:
+        model = chip_smoke.build_model(tag)
+        records = f32_rows(model, tag)
+        print(json.dumps({"card": card, "steps": records}))
+        return
     kernels = kernel_times(tag)
     model = chip_smoke.build_model(tag)
     spec, bf = model["spec"], torch.bfloat16
@@ -287,46 +327,32 @@ def main():
     log2 = g8.replace(t2i_real_time=False, log_max_1=True)
     log2p = log2.replace(packed_attention=True)
     fp = QConfig(use_pallas_attention=True)
-    changed_only = "--changed" in sys.argv[1:]
-    records, turns = [], []
-    if not changed_only:
-        records += [
-            profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
-            profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
-        ]
-    records.append(profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
-                                "g=1 int8 deploy path", 4, tag))
-    if not changed_only:
-        records += [
-            profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
-            profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention",
-                         4, tag),
-        ]
+    records, turns = f32_rows(model, tag), []
     records += [
+        profile_step(sd_step(model, qs_g1, g1), "g=1", 4, tag),
+        profile_step(sd_step(model, qs_g1, g1p), "g=1 packed attention", 4, tag),
+        profile_step(sd_step(model, qs_g1, g1.replace(use_int8_matmul=True)),
+                     "g=1 int8 deploy path", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8), "g=8 fused group conv", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8p), "g=8 fused group conv, packed attention", 4, tag),
         profile_step(sd_step(model, qs_g8, log2), "g=8 static log2", 4, tag),
         profile_step(sd_step(model, qs_g8, log2p), "g=8 static log2, packed attention", 4, tag),
+        profile_step(sd_step(model, None, fp), "fp (no activation quantizer)", 4, tag),
+        profile_step(sd_step(model, None, fp.replace(packed_attention=True)),
+                     "fp, packed attention", 4, tag),
+        profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
+                     "g=8 taps group conv", 4, tag),
     ]
-    if not changed_only:
-        records += [
-            profile_step(sd_step(model, None, fp), "fp (no activation quantizer)", 4, tag),
-            profile_step(sd_step(model, None, fp.replace(packed_attention=True)),
-                         "fp, packed attention", 4, tag),
-            profile_step(sd_step(model, qs_g8, g8.replace(group_conv_impl="taps")),
-                         "g=8 taps group conv", 4, tag),
-        ]
-        turns += [in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
-                  in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
-                           "g=8 fused group conv", tag)]
-    turns.append(in_turns(sd_step(model, qs_g8, log2), sd_step(model, qs_g8, log2p),
-                          "g=8 static log2", tag))
-    decodes = []
-    if not changed_only:
-        g = torch.Generator(device="cuda").manual_seed(7)
-        decodes = [time_decode(model["vae"], model["latents"], SD_VAE_SCALE,
-                               "SD decode at 512px", tag),
-                   time_decode(model["vae"],
-                               torch.randn(2, 128, 128, 4, generator=g, device="cuda").to(bf),
-                               SDXL_VAE_SCALE, "SDXL decode at 1024px", tag)]
+    turns += [in_turns(sd_step(model, qs_g1, g1), sd_step(model, qs_g1, g1p), "g=1", tag),
+              in_turns(sd_step(model, qs_g8, g8), sd_step(model, qs_g8, g8p),
+                       "g=8 fused group conv", tag),
+              in_turns(sd_step(model, qs_g8, log2), sd_step(model, qs_g8, log2p),
+                       "g=8 static log2", tag)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    decodes = [time_decode(model["vae"], model["latents"], SD_VAE_SCALE, "SD decode at 512px", tag),
+               time_decode(model["vae"],
+                           torch.randn(2, 128, 128, 4, generator=g, device="cuda").to(bf),
+                           SDXL_VAE_SCALE, "SDXL decode at 1024px", tag)]
     del model, qs_g1, qs_g8
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     model = chip_smoke.build_sdxl_model(tag)
@@ -334,19 +360,16 @@ def main():
     xl = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
                  t2i_log_quant=True, t2i_real_time=True, t2i_start_peak=True,
                  use_pallas_attention=True, use_int8_matmul=True)
-    records.append(profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag))
-    if not changed_only:
-        records += [
-            profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False)),
-                         "SDXL-turbo int8 path off", 2, tag),
-            profile_step(sdxl_step(model, qs, xl.replace(use_int8_matmul=False,
-                                                         packed_attention=True)),
-                         "SDXL-turbo int8 path off, packed attention", 2, tag),
-        ]
-        off = xl.replace(use_int8_matmul=False)
-        turns.append(in_turns(sdxl_step(model, qs, off),
-                              sdxl_step(model, qs, off.replace(packed_attention=True)),
-                              "SDXL-turbo int8 path off", tag))
+    off = xl.replace(use_int8_matmul=False)
+    records += [
+        profile_step(sdxl_step(model, qs, xl), "SDXL-turbo int8 deploy path", 2, tag),
+        profile_step(sdxl_step(model, qs, off), "SDXL-turbo int8 path off", 2, tag),
+        profile_step(sdxl_step(model, qs, off.replace(packed_attention=True)),
+                     "SDXL-turbo int8 path off, packed attention", 2, tag),
+    ]
+    turns.append(in_turns(sdxl_step(model, qs, off),
+                          sdxl_step(model, qs, off.replace(packed_attention=True)),
+                          "SDXL-turbo int8 path off", tag))
     print(json.dumps({"card": card, "kernels": kernels, "steps": records, "in_turns": turns,
                       "decodes": decodes}))
 

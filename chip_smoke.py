@@ -60,8 +60,10 @@ Phases (any failure raises, so the exit code is non-zero):
      three witnesses of the gap between the first two (the first on
      initial latents moved by 1e-6, whose change bounds the kernel runs'
      first UNet forward, and each kernel flag alone); the
-     f32 kernel bodies these runs take against their plain versions; then
-     the CLIP-L and bigG text encoders at full width, card against CPU.
+     f32 kernel bodies these runs take against their plain versions
+     (`f32_bodies`: K2/K2p and K5 as three TF32 products a product beside
+     the CUDA-core bodies they replace, K1, K3b and K4 on the CUDA cores);
+     then the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
   6. `calib_path`, after `cli_path`: calibration without reconstruction from
      the port alone at full width (SD v1.4, 512px, f32, random weights from
@@ -1670,19 +1672,181 @@ def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag)
     return seconds
 
 
-def f32_bodies(tag):
-    """The f32 CUDA-core bodies that `cli_path`'s runs take (f32 activations):
-    the attention kernels at their largest SD 512px shapes and K5 at every
-    shape of `CONV_SHAPES` (each resolution the fused run gives it), each
-    against its plain version on the same inputs (the f32 checks of phase 2
-    and 3; K5's fold kernel equal to `_fold`'s bit for bit and its output
-    within `_check_conv`'s f32 bound) and timed device-only (`_device_ms`)
-    beside the plain version's time and the bound at the card's f32 rate
-    outside the tensor cores (PEAK_F32_FLOPS). Returns {kernel: device ms}."""
-    import torch
-    from dgq_tpu_torch.ops import attention as A, group_conv as G
+# K2 in f32 at the CLIs' shapes: label, BH, T = S, D (SD v1.4 at 512px with
+# CFG batch 4 x 8 heads, SDXL-turbo at 1024px with batch IMAGES x 10 / 20 heads,
+# the VAE decoder's one head at 512px and 1024px)
+F32_FLASH_SHAPES = [
+    ("VAE mid-block 512px", IMAGES, 4096, 512),
+    ("VAE mid-block 1024px", 1, 16384, 512),
+    ("SD 64px self", 2 * IMAGES * 8, 4096, 40),
+    ("SD 32px self", 2 * IMAGES * 8, 1024, 80),
+    ("SD 16px self", 2 * IMAGES * 8, 256, 160),
+    ("SDXL 64px self", IMAGES * 10, 4096, 64),
+    ("SDXL 32px self", IMAGES * 20, 1024, 64),
+]
+PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (H100 SXM data sheet)
 
+
+def _tf32_bound(flops, nbytes):
+    """The least time (ms) of an f32 product formed from three TF32 products:
+    three times the operations at the TF32 rate, or the bytes."""
+    return _bound(3.0 * flops, nbytes, peak=PEAK_TF32_FLOPS)
+
+
+def f32_bodies(tag):
+    """The f32 kernel bodies that `cli_path`'s runs take (f32 activations),
+    each against its plain version on the same inputs and timed device-only
+    (`_device_ms`) beside the plain version's time. K2 / K2p and K5 run on the
+    tensor cores as three TF32 products a product: K2 at `F32_FLASH_SHAPES`
+    within `_check_f32`'s 1e-4, the packed entry bit for bit against it with
+    zeros in its padding lanes, K5 at every shape of `CONV_SHAPES` within
+    `_check_conv(bf16=False)` with the fold kernel's panels, rd and z equal
+    to `fold_panels(_fold(...))`'s bit for bit; each line names its form,
+    the first version's CUDA-core body's device ms on the same inputs (the
+    earlier time), the bound at the TF32 rate (three products) and at the
+    f32 rate outside the tensor cores, and for K2 `scaled_dot_product_attention`
+    in f32 with TF32 off (a yardstick the port never calls). K1, K3b and K4
+    keep the CUDA-core body at their largest SD 512px shape. Returns {case:
+    device ms}."""
+    import torch
+    import torch.nn.functional as F
+    from dgq_tpu_torch.ops import attention as A, group_conv as G
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+
+    def line(name, label, form, err, dev, old_dev, plain_ms, flops, nbytes, extra=""):
+        tf32, cores = _tf32_bound(flops, nbytes), _bound(flops, nbytes, peak=PEAK_F32_FLOPS)
+        out[f"{name} {label}"] = dev
+        print(f"f32 {name} {label}, form {form}: max_abs_err {err:.4g}; device-only ms {dev:.4f} "
+              f"(the CUDA-core body's {old_dev:.4f}); bound {tf32[0]:.4f} at the TF32 rate, three "
+              f"products ({tf32[1]}; {dev / tf32[0]:.2f}x), {cores[0]:.4f} at the f32 rate "
+              f"({cores[1]}); plain {plain_ms:.4f}{extra} | {tag}", flush=True)
+
+    for label, bh, t, d in F32_FLASH_SHAPES:
+        # scores of spread 4, but of spread 1/4 at 16384 keys (the softmax would
+        # collapse onto one key)
+        amp = 0.5 if t == 16384 else 2.0
+        q, k = (amp * torch.randn(bh, t, d, generator=g, device="cuda") for _ in range(2))
+        v = torch.randn(bh, t, d, generator=g, device="cuda")
+        scale = d ** -0.5
+        kernel = lambda: A.flash_attention(q, k, v, scale)
+        plain = lambda: A.attention_reference(q, k, v, scale)
+        form = A.flash_form(torch.float32, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                            (t * d, d) * 3)
+        before = A.LAUNCHES["flash_attention"]
+        got = kernel()
+        torch.cuda.synchronize()
+        if A.LAUNCHES["flash_attention"] != before + 1 or form != "tf32x3_vector":
+            raise AssertionError(f"f32 flash_attention {label}: form {form}, no launch")
+        err = _check_f32(got, plain(), v)[0]
+        lib_err = float((F.scaled_dot_product_attention(q, k, v, scale=scale) - plain()).abs().max())
+        old_out = torch.empty_like(q)
+
+        def old():  # body (b), form 0 of the same C entry
+            rc = lib.dgq_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         old_out.data_ptr(), bh, t, t, d, scale, 0, 0, stream())
+            if rc:
+                raise RuntimeError(f"the CUDA-core flash body failed: CUDA error {rc}")
+        old()
+        old_err = float((old_out - got).abs().max())
+        extra = ""
+        if d in (40, 64):
+            # K2p: the same body over packed head slots of 64 lanes, bit for bit
+            heads = 8 if d == 40 else 10 if t == 4096 else 20
+            packed = [A.repack_heads(x, heads, 64) for x in (q, k, v)]
+            buf = torch.full(packed[0].shape, float("nan"), device="cuda")
+            got_p = A.flash_attention_packed(*packed, scale, heads, d, out=buf)
+            torch.cuda.synchronize()
+            if not (torch.equal(A.unpack_heads(got_p, heads, d), got)
+                    and bool((got_p.reshape(*got_p.shape[:2], heads, 64)[..., d:] == 0).all())):
+                raise AssertionError(f"f32 flash_attention_packed {label}: not K2's bits, or "
+                                     f"padding lanes not zero")
+            extra += f"; K2p (slots of 64, over NaN) equal bit for bit, zero padding lanes"
+            del packed, buf, got_p
+        if label == "SD 64px self":
+            odd = _misaligned(q)
+            if not torch.equal(A.flash_attention(odd, k, v, scale), got):
+                raise AssertionError(f"f32 flash_attention {label}: the element-load form differs")
+            extra += "; misaligned q (tf32x3_plain) equal bit for bit"
+            del odd
+        flops = 4.0 * bh * t * t * d
+        nbytes = 4.0 * 4 * q.numel()
+        slow = t == 16384
+        dev = _device_ms(kernel, calls=4 if slow else 16, reps=3 if slow else 5)
+        old_dev = _device_ms(old, calls=1 if slow else 4, reps=3)
+        lib_dev = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                             calls=4 if slow else 16, reps=3 if slow else 5)
+        plain_ms = _median_ms(plain, reps=3)
+        extra += (f"; scaled_dot_product_attention (f32, TF32 off) device-only ms {lib_dev:.4f}, "
+                  f"max_abs_err {lib_err:.4g}; the CUDA-core body's max |d| {old_err:.4g}")
+        line("flash_attention", label + f" (BH={bh}, T=S={t}, D={d})", form, err, dev, old_dev,
+             plain_ms, flops, nbytes, extra)
+        del q, k, v, got, old_out
+        torch.cuda.empty_cache()
+
+    one, zero = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
+    b = 2 * IMAGES
+    for label, h, c, o in CONV_SHAPES:  # inputs drawn as compare_group_conv draws them
+        x = 2.0 * torch.randn(b, h, h, c, generator=g, device="cuda")
+        w = (torch.randn(o, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5).permute(
+            2, 3, 1, 0)
+        dm = 0.03 + 0.04 * torch.rand(9, c, generator=g, device="cuda")
+        zm = 100.0 + 56.0 * torch.rand(9, c, generator=g, device="cuda")
+        bias = 0.1 * torch.randn(o, generator=g, device="cuda")
+        conv = (x, w, dm, zm, one, zero, bias)
+        form = G.conv_form(torch.float32, c, o, x.data_ptr())
+        w_t, rd, z = G._fold(x, w, dm, zm, one, zero, 3, 3)
+        if form == "tf32x3":
+            got_f = G.fold_weights(torch.float32, w, dm, zm, one, zero, 3, 3, panels=True)
+            want_f = (G.fold_panels(w_t), rd, z)
+            what = "the fold kernel's panels, rd, z"
+        else:
+            got_f = G.fold_weights(torch.float32, w, dm, zm, one, zero, 3, 3)
+            want_f = (w_t, rd, z)
+            what = "the fold kernel's w_t, rd, z"
+        if not all(torch.equal(mine, ref) for mine, ref in zip(got_f, want_f)):
+            raise AssertionError(f"f32 group conv fold {label}: {what} differ from the plain fold")
+        before = G.LAUNCHES["group_quant_conv"]
+        got = G.group_quant_conv(*conv)
+        torch.cuda.synchronize()
+        if G.LAUNCHES["group_quant_conv"] != before + 1:
+            raise AssertionError("f32 group_quant_conv did not launch its kernel")
+        err = _check_conv(got, G.group_quant_conv_reference(*conv), bf16=False)
+        if not torch.equal(got, G.group_quant_conv(*conv)):
+            raise AssertionError(f"f32 group_quant_conv {label}: two runs differ")
+        old_out = torch.empty_like(got)
+
+        def old(conv=conv, old_out=old_out):  # the fold to w_t and body (b), form 0
+            wt, r, zz = G.fold_weights(torch.float32, *conv[1:6], 3, 3)
+            rc = lib.dgq_group_quant_conv(
+                conv[0].data_ptr(), wt.data_ptr(), r.data_ptr(), zz.data_ptr(),
+                conv[6].data_ptr(), old_out.data_ptr(), None, b, h, h, c, o, 3, 3, 1, 8, 0, 0, 1,
+                1, stream())
+            if rc:
+                raise RuntimeError(f"the CUDA-core conv body failed: CUDA error {rc}")
+        old()
+        old_err = float((old_out - got).abs().max())
+        plan = G.conv_plan(b * h * h, c, o, 9, torch.float32)
+        how = (f"{form}" if form == "cuda_core" else
+               f"{form}, {plan.m_tiles} x {plan.n_tiles} tiles, {plan.steps} K steps in "
+               f"{plan.splits} split(s) of {plan.steps_per_split}")
+        dev = _device_ms(lambda conv=conv: G.group_quant_conv(*conv))
+        old_dev = _device_ms(old, calls=4, reps=3)
+        plain_ms = _median_ms(lambda conv=conv: G.group_quant_conv_reference(*conv), reps=3)
+        line("group_quant_conv", f"{label} (B={b}, H=W={h}, C={c}, O={o}, 3x3)", how, err, dev,
+             old_dev, plain_ms, 2.0 * b * h * h * 9 * c * o,
+             4.0 * (x.numel() + w.numel() + 2 * dm.numel() + o + b * h * h * o),
+             f"; {what} equal bit for bit; the CUDA-core body's max |d| {old_err:.4g}; "
+             f"library: none")
+        del x, w, got, old_out, w_t
+
+    # the quantizing modes keep the CUDA-core body (b) in f32
     bh, t, d = 2 * IMAGES * 8, 4096, 40
     q, k = (2.0 * torch.randn(bh, t, d, generator=g, device="cuda") for _ in range(2))
     v = torch.randn(bh, t, d, generator=g, device="cuda")
@@ -1690,10 +1854,6 @@ def f32_bodies(tag):
     io = 4.0 * (2 * q.numel() + k.numel() + v.numel())
     delta_u = torch.tensor(1.0 / 255.0, device="cuda")
     z, red = A.rt_stats(q, k, scale)
-    vq = 2.0 * torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
-    kq = 2.0 * torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
-    vv = torch.randn(IMAGES, 4096, 512, generator=g, device="cuda")
-    one, zero = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
     cases = [  # name, shape, kernel, plain version, check, flops, bytes
         ("static_uniform_attention", "64px self", lambda: A.static_uniform_attention(
             q, k, v, scale, delta_u), lambda: A.attention_reference(
@@ -1708,29 +1868,7 @@ def f32_bodies(tag):
             q, k, v, scale, "log2", one[0] * 0.5), lambda: A.attention_reference(
             q, k, v, scale, "log2", 8, one[0] * 0.5), lambda o, r: _check_share(o, r, bf16=False)[0],
          2 * qk, io),
-        ("flash_attention", "VAE mid-block", lambda: A.flash_attention(vq, kq, vv, 512 ** -0.5),
-         lambda: A.attention_reference(vq, kq, vv, 512 ** -0.5), lambda o, r: _check_f32(
-             o, r, vv)[0], 4.0 * IMAGES * 4096 * 4096 * 512, 4.0 * 4 * vq.numel()),
     ]
-    b = 2 * IMAGES
-    for label, h, c, o in CONV_SHAPES:  # inputs drawn as compare_group_conv draws them
-        x = 2.0 * torch.randn(b, h, h, c, generator=g, device="cuda")
-        w = (torch.randn(o, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5).permute(
-            2, 3, 1, 0)
-        dm = 0.03 + 0.04 * torch.rand(9, c, generator=g, device="cuda")
-        zm = 100.0 + 56.0 * torch.rand(9, c, generator=g, device="cuda")
-        bias = 0.1 * torch.randn(o, generator=g, device="cuda")
-        conv = (x, w, dm, zm, one, zero, bias)
-        if not all(torch.equal(mine, ref) for mine, ref in zip(
-                G.fold_weights(torch.float32, w, dm, zm, one, zero, 3, 3),
-                G._fold(x, w, dm, zm, one, zero, 3, 3))):
-            raise AssertionError(f"f32 group conv fold {label}: w_t, rd or z differ from _fold's")
-        cases.append(("group_quant_conv", label, lambda conv=conv: G.group_quant_conv(*conv),
-                      lambda conv=conv: G.group_quant_conv_reference(*conv),
-                      lambda o, r: _check_conv(o, r, bf16=False),
-                      2.0 * b * h * h * 9 * c * o,
-                      4.0 * (x.numel() + w.numel() + 2 * dm.numel() + o + b * h * h * o)))
-    out = {}
     for name, label, fn, plain, check, flops, nbytes in cases:
         err = check(fn(), plain())
         if name == "rt_stats" and not err <= 1e-2:
@@ -1738,10 +1876,13 @@ def f32_bodies(tag):
         dev = _device_ms(fn)
         plain_ms = _median_ms(plain, reps=3)
         bound = _bound(flops, nbytes, peak=PEAK_F32_FLOPS)
+        tf32 = _tf32_bound(flops, nbytes)
         out[f"{name} {label}"] = dev
         print(f"f32 {name} {label} (cuda_core body, as cli_path runs it): max_abs_err {err:.4g}; "
               f"device-only ms {dev:.4f} ({dev / bound[0]:.1f}x its f32 bound {bound[0]:.4f}, "
-              f"{bound[1]}), plain {plain_ms:.4f} | {tag}", flush=True)
+              f"{bound[1]}; bound at the TF32 rate, three products, {tf32[0]:.4f}), plain "
+              f"{plain_ms:.4f}; library: none | {tag}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = saved
     return out
 
 
@@ -2027,9 +2168,10 @@ def cli_path(tag):
             raise AssertionError(f"cli_path {label}: the first UNet forward differs from (a)'s by "
                                  f"more than 5x the chaos of (a)")
     print(f"cli_path: f32 activations with bf16 weights: attention forms quant_form "
-          f"{quant_form(f32, 40, (0, 0, 0), (8, 8))} (K1, K3b, K4), VAE flash_form "
-          f"{flash_form(f32, 512, (0, 0, 0), (8, 8))} (K2), K5 conv_form "
-          f"{conv_form(f32, 320, 320)} | {tag}", flush=True)
+          f"{quant_form(f32, 40, (0, 0, 0), (8, 8))} (K1, K3b, K4), flash_form "
+          f"{flash_form(f32, 512, (0, 0, 0), (8, 8))} (K2: the VAE at head dim 512, the UNet's "
+          f"40 {flash_form(f32, 40, (0, 0, 0), (8, 8))}), K5 conv_form "
+          f"{conv_form(f32, 320, 320)} (conv_in {conv_form(f32, 4, 320)}) | {tag}", flush=True)
     f32_bodies(tag)
     text_encoders_full_width(tag)
     return {label: r["launches"] for label, r in results.items()}
@@ -4096,6 +4238,8 @@ def print_build_report(paths, tag):
             a = re.search(r"attention_kernelI\w+?Li(\d+)ELi(\d+)ELi(\d)E", sym)
             f = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E", sym)
             qt = re.search(r"quant_tc_kernelILi(\d)ELi(\d+)ELi(\d+)ELb([01])E", sym)
+            tf = re.search(r"flash_tf32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                           sym)
             if qt:
                 dtype = "bf16"
                 kname = (f"{modes[qt.group(1)]} wgmma D<={16 * int(qt.group(3))}"
@@ -4111,6 +4255,12 @@ def print_build_report(paths, tag):
                 dtype = "bf16" if "bfloat16" in sym else "f32"
                 kname = ("K6 int8_matmul wgmma s8"
                          + (" cp.async" if "Lb1E" in sym else " element loads"))
+            elif tf:
+                kname = (f"K2/K2p flash 3xTF32 wgmma D<={8 * int(tf.group(2))} BK={tf.group(3)} "
+                         f"{tf.group(5)} x {tf.group(4)} columns"
+                         + (" 16-byte loads" if tf.group(6) == "1" else " element loads"))
+            elif "group_conv_tf32_kernel" in sym:
+                kname = "K5 group_conv 3xTF32 wgmma" + (" split K" if "ILb1E" in sym else "")
             elif "group_conv_tc_kernel" in sym:
                 dtype = "bf16"
                 kname = "K5 group_conv wgmma" + (" split K" if "ILb1E" in sym else "")
@@ -4119,12 +4269,13 @@ def print_build_report(paths, tag):
                 kname = ("K5 weight fold (OIHW, in registers), scales "
                          + ("f32" if "fold_oihw_kernelIfE" in sym else "bf16"))
             elif "fold_kernel" in sym:
-                t = re.search(r"fold_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)E", sym)
+                t = re.search(r"fold_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Lb([01])E",
+                              sym)
                 dtype = "bf16" if t and t.group(1) != "f" else "f32"
-                kname = ("K5 weight fold, scales "
-                         + ("bf16" if t and t.group(2) != "f" else "f32"))
+                kname = ("K5 weight fold" + (" to TF32 panels" if t and t.group(3) == "1" else "")
+                         + ", scales " + ("bf16" if t and t.group(2) != "f" else "f32"))
             elif "finish_kernel" in sym:
-                dtype = "bf16"
+                dtype = "f32" if "finish_kernelIfE" in sym else "bf16"
                 kname = "K5 split-K finish"
             else:
                 kname = "K5 group_conv CUDA cores"

@@ -35,7 +35,7 @@
 // here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's `_accum_kernel`
 // does) and pay 1.5x the flops of K2; K3b pays the same over its two launches.
 //
-// Three bodies.
+// Four bodies.
 //
 // (a) The bf16 flash mode (K2, K2p) runs on the tensor cores
 // (`flash_tc_kernel`, tile code in wgmma.cuh). A block of two warpgroups takes
@@ -78,9 +78,14 @@
 // over the mode, whose note below says what each mode computes and what bounds
 // it.
 //
-// (b) The f32 entries of every mode, and K1 in bf16 past head_dim 192 (the
-// VAE's 512) or with codes past 256, keep the first version's body, f32 FMAs
-// on the CUDA cores:
+// (d) The f32 flash mode (K2, K2p) runs on the tensor cores too, each f32
+// product formed from three TF32 products (`flash_tf32_kernel`, whose note
+// says how).
+//
+// (b) The f32 entries of the quantizing modes, and K1 in bf16 past head_dim
+// 192 (the VAE's 512) or with codes past 256, keep the first version's body,
+// f32 FMAs on the CUDA cores (the f32 flash entry keeps it too, as form 0, for
+// timing; no wrapper picks it):
 // one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
 // memory, K and V tiles of 64 keys through one shared buffer as f32, each
 // thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
@@ -554,13 +559,27 @@ __device__ __forceinline__ void store_pair(bf16* ob, long long o_row, int row, i
   }
 }
 
+// The same for f32 outputs, one 8-byte store where `o_vec` says so.
+__device__ __forceinline__ void store_pair(float* ob, long long o_row, int row, int col, float a,
+                                           float b, int t_len, int d, int o_vec) {
+  if (row >= t_len || col >= d) return;
+  float* dst = ob + row * o_row + col;
+  if (o_vec && col + 1 < d) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    dst[0] = a;
+    if (col + 1 < d) dst[1] = b;
+  }
+}
+
 // Zeros into a packed slot's padding lanes d..o_cols of rows r0 and r1 (the
 // four lanes t4 of a row share them).
-__device__ __forceinline__ void zero_pad_lanes(bf16* ob, const Layout& lay, int r0, int r1,
+template <typename T>
+__device__ __forceinline__ void zero_pad_lanes(T* ob, const Layout& lay, int r0, int r1,
                                                int t_len, int d, int t4) {
   for (int col = d + t4; col < lay.o_cols; col += 4) {
-    if (r0 < t_len) ob[r0 * lay.o_row + col] = __float2bfloat16(0.f);
-    if (r1 < t_len) ob[r1 * lay.o_row + col] = __float2bfloat16(0.f);
+    if (r0 < t_len) ob[r0 * lay.o_row + col] = from_f32<T>(0.f);
+    if (r1 < t_len) ob[r1 * lay.o_row + col] = from_f32<T>(0.f);
   }
 }
 
@@ -1152,8 +1171,353 @@ int dispatch_quant_tc(const void* q, const void* k, const void* v, void* o, int 
 #undef DGQ_QTC
 }
 
-// The flash entries: form 0 is body (b) and takes f32 only; forms 1 and 2 are
-// body (a) and take bf16 only.
+// ---- (d) flash attention on the tensor cores, f32: 3xTF32 ----
+//
+// The f32 flash mode (K2, K2p) as `wgmma` on TF32 operands, each product of
+// f32 numbers formed from three TF32 products (wgmma.cuh, `split_tf32`): one
+// TF32 product keeps 11 bits, which at the VAE's scores (spread about 4) gives
+// errors near 1e-3, ten times the f32 tolerance. A block is one warpgroup and
+// takes 64 query rows of one head and one range of O's columns; each key tile
+// of BK keys is a sequence of steps through a ring of two shared-memory
+// stages:
+//   * NCH steps of S = Q K^T, one per 32 lanes of the head dim: the step's Q
+//     chunk (64 rows) and K chunk (BK keys), each as TF32 big and small
+//     parts, K-major as they lie, `Tf32<BK>::ss` three times a k8 step into
+//     a fresh accumulator that is then added to S in f32;
+//   * after the last, the online softmax in base 2 (as body (a)), P split
+//     into big and small in registers, where it is the A operand of P V;
+//   * NPB steps of P V, one per NB of O's columns: V's tile stored
+//     transposed (the keys contiguous, the only way `wgmma` takes a TF32 B
+//     operand), its keys in the order `key_slot` gives, `Tf32<NB>::rs` three
+//     times a k8 step into a fresh accumulator, then O = O corr + P V in f32.
+// The fresh accumulators are what keeps the f32 tolerance: the tensor cores
+// add rounding toward zero, and at head dim 512 one accumulator over all of
+// Q K^T (192 adds) and one over all of P V (three adds a k8 step of 4096 keys)
+// drifted to 1.1e-4 from the f32 plain result at the VAE's shape.
+// A step's operands are loaded from device memory into registers a step
+// ahead, then split and stored into the free stage while the previous step
+// multiplies (no copy engine rounds, so no `cp.async`). Q is read again for
+// every key tile, from L2: at head dim 512 (the VAE) 64 rows of Q in big and
+// small parts are 256 KB, more than a block's shared memory, and they cannot
+// stay in registers beside O. There each block holds half of O's columns
+// (blockIdx.z; 128 registers a thread) and both halves form the whole of S,
+// so Q K^T is done twice (1.5x the minimal flops), and the Q and K chunks of
+// a 32-key tile move 192 KB from L2 for 9.4 MFLOP. Below 512 a block holds all
+// of O (40 to 160 columns) and a tile is 64 keys. What bounds it is the
+// operations, three TF32 products at 495 TFLOP/s; what holds it is the step
+// machinery: with one step of prefetch in registers each step waits on its
+// own loads, and two or three blocks an SM hide only part of it (on an H100,
+// 3.8x the bound at SD's 64px self-attention, faster than the plain version
+// and the library call, but 9.4x at the VAE's 512px shape, 2.4x slower than
+// the plain version). A `cp.async` ring of raw tiles several steps ahead,
+// split in shared memory, is the open step. `VEC`: 16-byte loads where every
+// row starts on a 16-byte boundary and head_dim is a multiple of 4; else
+// element loads of the same numbers (same bits).
+constexpr int kTfThreads = 128;  // one warpgroup
+
+// Where key `key` of a tile goes along P V's contraction: the S accumulator
+// leaves keys 2t and 2t + 1 of every 8-key block with lane t, the A fragment
+// wants k t and t + 4 there, so each block is contracted in the key order
+// 0 2 4 6 1 3 5 7 and V^T is stored in that order.
+__device__ __forceinline__ int key_slot(int key) {
+  return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+}
+
+// Elements [col, col + 4) of row `row` of a matrix whose rows lie `stride`
+// apart, zeros for a row past rows_valid and for lanes past d.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ src, long long stride, int row,
+                                        int rows_valid, int col, int d) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= rows_valid || col >= d) return r;
+  const float* p = src + row * stride + col;
+  if constexpr (VEC) {
+    r = __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    r.x = __ldg(p);
+    if (col + 1 < d) r.y = __ldg(p + 1);
+    if (col + 2 < d) r.z = __ldg(p + 2);
+    if (col + 3 < d) r.w = __ldg(p + 3);
+  }
+  return r;
+}
+
+// big and small TF32 parts of four f32 into swizzled chunks at dst and dst + off
+__device__ __forceinline__ void store_split4(uint32_t dst, uint32_t off, float4 v) {
+  uint32_t b[4], s[4];
+  tc::split_tf32(v.x, b[0], s[0]);
+  tc::split_tf32(v.y, b[1], s[1]);
+  tc::split_tf32(v.z, b[2], s[2]);
+  tc::split_tf32(v.w, b[3], s[3]);
+  tc::st_shared16(dst, make_uint4(b[0], b[1], b[2], b[3]));
+  tc::st_shared16(dst + off, make_uint4(s[0], s[1], s[2], s[3]));
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+// NCH: 32-lane chunks of the head dim; NKS: k8 steps of Q K^T (ceil(d / 8),
+// or more: lanes past d are zeros); BK: keys per tile; NB: O columns a P V
+// step; NPB: P V steps, so a block holds NB * NPB of O's columns, from
+// blockIdx.z * NB * NPB on.
+// The 40-column tier runs three blocks an SM in 168 registers (60 bytes of
+// spills); the wider tiers take all 255 registers and two blocks.
+template <int NCH, int NKS, int BK, int NB, int NPB, bool VEC>
+__global__ void __launch_bounds__(kTfThreads, NB * NPB <= 40 ? 3 : 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int t_len, int s_len, int d,
+                  float scale_log2, Layout lay, int o_vec) {
+  static_assert(NKS <= 4 * NCH && BK % 32 == 0 && NB % 8 == 0, "tile shape");
+  constexpr int NST = NCH + NPB;                     // steps a key tile
+  constexpr int QK_BYTES = (64 + BK) * 256;          // Q and K chunks, big and small
+  constexpr int PV_HALF = NB * BK * 4;               // V^T block, big (small follows)
+  constexpr int STAGE = QK_BYTES > 2 * PV_HALF ? QK_BYTES : 2 * PV_HALF;
+  constexpr int NQK = 4 + BK / 16;                   // float4 a thread: Q and K chunks
+  constexpr int NPV = (BK / 32) * ((NB + 15) / 16);  // float4 a thread: a V block
+  constexpr int NSTG = NQK > NPV ? NQK : NPV;
+  constexpr int NS = BK / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * 64, col0 = blockIdx.z * NB * NPB;
+  const int batch = bh / lay.heads, head_off = (bh - batch * lay.heads) * lay.slot;
+  const float* qb = q + batch * lay.q_batch + head_off;
+  const float* kb = k + batch * lay.k_batch + head_off;
+  const float* vb = v + batch * lay.v_batch + head_off;
+  float* ob = o + batch * lay.o_batch + head_off;
+  const int n_tiles = (s_len + BK - 1) / BK;
+  const int total = n_tiles * NST;
+  const int cc = tid & 7, lr = tid >> 3;  // Q, K chunks: 16-byte chunk cc of rows lr + 16 p
+
+  float4 stg[NSTG];
+  // step i of key tile j into registers; a V block: key lane + 32 (p % (BK / 32)),
+  // lanes 4 n4.. of the block, n4 = warp + 4 (p / (BK / 32))
+  auto load = [&](int j, int i) {
+    const int key0 = j * BK;
+    if (i < NCH) {
+      const int col = 32 * i + 4 * cc;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) stg[p] = load4<VEC>(qb, lay.q_row, q0 + lr + 16 * p, t_len, col, d);
+#pragma unroll
+      for (int p = 0; p < BK / 16; ++p)
+        stg[4 + p] = load4<VEC>(kb, lay.k_row, key0 + lr + 16 * p, s_len, col, d);
+    } else {
+      const int c0 = col0 + (i - NCH) * NB;
+#pragma unroll
+      for (int p = 0; p < NPV; ++p) {
+        const int n4 = warp + 4 * (p / (BK / 32));
+        stg[p] = n4 < NB / 4 ? load4<VEC>(vb, lay.v_row, key0 + lane + 32 * (p % (BK / 32)), s_len,
+                                          c0 + 4 * n4, d)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  // ... split into big and small and stored into the stage at st
+  auto store = [&](int i, uint32_t st) {
+    if (i < NCH) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) store_split4(st + tc::swz(lr + 16 * p, cc), 8192, stg[p]);
+#pragma unroll
+      for (int p = 0; p < BK / 16; ++p)
+        store_split4(st + 16384 + tc::swz(lr + 16 * p, cc), BK * 128, stg[4 + p]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < NPV; ++p) {
+        const int n4 = warp + 4 * (p / (BK / 32));
+        if (n4 >= NB / 4) continue;
+        const int slot = key_slot(lane + 32 * (p % (BK / 32)));
+        const float e4[4] = {stg[p].x, stg[p].y, stg[p].z, stg[p].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = 4 * n4 + e;  // row n of V^T: sub-tile slot / 32, chunk (slot % 32) / 4
+          const uint32_t dst = st + (slot >> 5) * (NB * 128) + n * 128 +
+                               ((((slot & 31) >> 2) ^ (n & 7)) << 4) + ((slot & 3) << 2);
+          uint32_t big, small;
+          tc::split_tf32(e4[e], big, small);
+          st_shared4(dst, big);
+          st_shared4(dst + PV_HALF, small);
+        }
+      }
+    }
+  };
+
+  float oacc[NPB][NB / 2];
+#pragma unroll
+  for (int b = 0; b < NPB; ++b)
+#pragma unroll
+    for (int x = 0; x < NB / 2; ++x) oacc[b][x] = 0.f;
+  // S, this chunk's part of it, and this step's P V: each chain of tensor-core
+  // adds starts afresh and is added to S or O in f32 (wgmma.cuh)
+  float s[NS], sc[NS], pv[NB / 2];
+  uint32_t pb[BK / 8][4], ps[BK / 8][4];  // P's big and small A fragments, one a k8 step
+  // the row statistics, m in raw-score units; row 0 is 16 warp + g, row 1 eight below;
+  // corr: this tile's rescale of O, applied as each P V step adds to its columns
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, corr0 = 1.f, corr1 = 1.f;
+
+  load(0, 0);
+  store(0, ring);
+  if (total > 1) load(NST > 1 ? 0 : 1, 1 % NST);
+
+  for (int j = 0; j < n_tiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < NST; ++i) {
+      const int st = j * NST + i;
+      const uint32_t cur = ring + (st & 1) * STAGE, nxt = ring + ((st + 1) & 1) * STAGE;
+      tc::fence_async_proxy();  // this step's operands are stored ...
+      __syncthreads();          // ... by every thread, and the other stage is consumed
+      tc::mma_fence();
+      if (i < NCH) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (4 * i + u < NKS) {
+            const uint64_t qbig = tc::desc(cur + 32 * u), qsmall = tc::desc(cur + 8192 + 32 * u);
+            const uint64_t kbig = tc::desc(cur + 16384 + 32 * u);
+            const uint64_t ksmall = tc::desc(cur + 16384 + BK * 128 + 32 * u);
+            tc::Tf32<BK>::ss(sc, qbig, ksmall, u > 0);
+            tc::Tf32<BK>::ss(sc, qsmall, kbig, 1);
+            tc::Tf32<BK>::ss(sc, qbig, kbig, 1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < BK / 8; ++u) {
+          const uint32_t vt = cur + (u / 4) * (NB * 128) + (u % 4) * 32;
+          tc::Tf32<NB>::rs(pv, pb[u], tc::desc(vt + PV_HALF), u > 0);
+          tc::Tf32<NB>::rs(pv, ps[u], tc::desc(vt), 1);
+          tc::Tf32<NB>::rs(pv, pb[u], tc::desc(vt), 1);
+        }
+      }
+      tc::mma_commit();
+      // the next step's operands go into the other stage while this one multiplies
+      if (st + 1 < total) store((i + 1) % NST, nxt);
+      if (st + 2 < total) load(j + (i + 2) / NST, (i + 2) % NST);
+      tc::mma_wait<0>();
+      if (i < NCH) {
+        tc::pin(sc);
+#pragma unroll
+        for (int x = 0; x < NS; ++x) s[x] = i == 0 ? sc[x] : s[x] + sc[x];
+      } else {
+        tc::pin(pv);
+#pragma unroll
+        for (int u = 0; u < BK / 8; ++u) {
+          tc::pin(pb[u]);
+          tc::pin(ps[u]);
+        }
+#pragma unroll
+        for (int x = 0; x < NB / 2; ++x)
+          oacc[i - NCH][x] = fmaf(oacc[i - NCH][x], (x & 2) ? corr1 : corr0, pv[x]);
+      }
+      if (i == NCH - 1) {
+        // online softmax in base 2, as body (a); then P into big and small A
+        // fragments: keys 2 t4 and 2 t4 + 1 of block u are k t4 and t4 + 4
+        const int key0 = j * BK;
+        const bool ragged = key0 + BK > s_len;
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int x = 0; x < NS; ++x) {
+          const int key = key0 + 8 * (x >> 2) + 2 * t4 + (x & 1);
+          if (ragged && key >= s_len) s[x] = kNegInf;
+          if (x & 2) mx1 = fmaxf(mx1, s[x]);
+          else mx0 = fmaxf(mx0, s[x]);
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        corr0 = ex2((m0 - mn0) * scale_log2);
+        corr1 = ex2((m1 - mn1) * scale_log2);
+        const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int x = 0; x < NS; ++x) {
+          s[x] = ex2(fmaf(s[x], scale_log2, (x & 2) ? off1 : off0));
+          if (x & 2) sum1 += s[x];
+          else sum0 += s[x];
+        }
+        l0 = l0 * corr0 + sum0;  // each lane's share of the row; joined at the end
+        l1 = l1 * corr1 + sum1;
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int u = 0; u < BK / 8; ++u) {
+          tc::split_tf32(s[4 * u], pb[u][0], ps[u][0]);      // (g, key 2 t4)
+          tc::split_tf32(s[4 * u + 2], pb[u][1], ps[u][1]);  // (g + 8, key 2 t4)
+          tc::split_tf32(s[4 * u + 1], pb[u][2], ps[u][2]);  // (g, key 2 t4 + 1)
+          tc::split_tf32(s[4 * u + 3], pb[u][3], ps[u][3]);  // (g + 8, key 2 t4 + 1)
+        }
+      }
+    }
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int b = 0; b < NPB; ++b)
+#pragma unroll
+    for (int jb = 0; jb < NB / 8; ++jb) {
+      const int col = col0 + b * NB + 8 * jb + 2 * t4;
+      store_pair(ob, lay.o_row, r0, col, oacc[b][4 * jb] * inv0, oacc[b][4 * jb + 1] * inv0,
+                 t_len, d, o_vec);
+      store_pair(ob, lay.o_row, r1, col, oacc[b][4 * jb + 2] * inv1, oacc[b][4 * jb + 3] * inv1,
+                 t_len, d, o_vec);
+    }
+  if (blockIdx.z == 0) zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
+}
+
+template <int NCH, int NKS, int BK, int NB, int NPB, bool VEC>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                        int s_len, int d, float scale, const Layout& lay, int o_vec,
+                        cudaStream_t stream) {
+  constexpr int QK_BYTES = (64 + BK) * 256, PV_BYTES = NB * BK * 8;
+  const int smem = 1024 + 2 * (QK_BYTES > PV_BYTES ? QK_BYTES : PV_BYTES);
+  auto kernel = flash_tf32_kernel<NCH, NKS, BK, NB, NPB, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + 63) / 64, bh, (d + NB * NPB - 1) / (NB * NPB));
+  kernel<<<grid, kTfThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), t_len, s_len, d, scale * kLog2e, lay, o_vec);
+  return cudaGetLastError();
+}
+
+// Whether the f32 tensor-core body may load 16-byte vectors: every row of q,
+// k and v starts on a 16-byte boundary and head_dim is a multiple of 4.
+bool vec_ok(const void* q, const void* k, const void* v, int d, const Layout& lay) {
+  const long long strides[] = {lay.q_batch, lay.q_row, lay.k_batch, lay.k_row, lay.v_batch,
+                               lay.v_row, lay.slot};
+  for (long long st : strides)
+    if (st % 4) return false;
+  return d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+}
+
+// form 3: 16-byte loads, which need `vec_ok`; form 4: element loads. Head-dim
+// tiers: SD's 40, SDXL's 64, SD's 80 and 160 (two 80-column steps), the VAE's
+// 512 (blockIdx.z takes 256 of O's columns in eight 32-column steps, 32-key
+// tiles; 32-column steps hold fewer registers than 64-column ones, which
+// spilled more).
+template <bool VEC>
+int dispatch_tf32(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                  int s_len, int d, float scale, const Layout& lay, cudaStream_t stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 512 || !(scale > 0.f))
+    return cudaErrorInvalidValue;
+  if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
+  if (VEC && !vec_ok(q, k, v, d, lay)) return cudaErrorInvalidValue;
+  const int o_vec = reinterpret_cast<uintptr_t>(o) % 8 == 0 && lay.o_batch % 2 == 0 &&
+                    lay.o_row % 2 == 0 && lay.slot % 2 == 0;
+#define DGQ_TF(NCH, NKS, BK, NB, NPB) \
+  return launch_tf32<NCH, NKS, BK, NB, NPB, VEC>(q, k, v, o, bh, t_len, s_len, d, scale, lay, o_vec, stream)
+  if (d <= 40) DGQ_TF(2, 5, 64, 40, 1);
+  if (d <= 64) DGQ_TF(2, 8, 64, 64, 1);
+  if (d <= 80) DGQ_TF(3, 10, 64, 80, 1);
+  if (d <= 160) DGQ_TF(5, 20, 64, 80, 2);
+  DGQ_TF(16, 64, 32, 32, 8);
+#undef DGQ_TF
+}
+
+// The flash entries: form 0 is body (b) and takes f32 only (the wrapper no
+// longer picks it: it stays for timing the first version against body (d));
+// forms 1 and 2 are body (a) and take bf16 only; forms 3 and 4 are body (d)
+// and take f32 only.
 int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, int d, float scale, const Layout& lay,
                    void* stream) {
@@ -1162,6 +1526,8 @@ int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const vo
     return dispatch<float, kFlash>(q, k, v, o, bh, t_len, s_len, d, scale, Extra{}, lay, st);
   if (form == 1 && is_bf16) return dispatch_tc<true>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
   if (form == 2 && is_bf16) return dispatch_tc<false>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
+  if (form == 3 && !is_bf16) return dispatch_tf32<true>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
+  if (form == 4 && !is_bf16) return dispatch_tf32<false>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1222,7 +1588,9 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
 // form (every entry): 0 the CUDA-core body, 1 the tensor-core body with
-// cp.async tiles, 2 the tensor-core body with element loads (bf16).
+// cp.async tiles, 2 the tensor-core body with element loads (bf16); the flash
+// entries also 3 and 4, the f32 tensor-core body (3xTF32) with 16-byte and
+// with element loads.
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
                                    int form, void* stream) {

@@ -60,10 +60,15 @@
 //     split writes its f32 partial tile and `finish_kernel` adds them in split
 //     order with the bias, so the result does not depend on the order the
 //     blocks ran in.
+//   * `group_conv_tf32_kernel`, f32 (3xTF32 on the tensor cores): the bf16
+//     body's structure with each f32 product formed from three TF32 products,
+//     a tile of 128 pixels x 160 outputs and K steps of 32 channels; its note
+//     says why. Its fold writes the weights as two K-major panels, TF32 big
+//     and small parts, in place of w_t (`fold_kernel<..., true>`).
 //   * `group_conv_kernel`, the first version's body (f32 FMAs on the CUDA
-//     cores, 128 x 64 tile, K in chunks of 32): the f32 entries, and bf16 convs
-//     too narrow or too oddly placed for 16-byte vectors (C or O no multiple of
-//     8: conv_in's 4 channels, conv_out's 4 outputs; x off a 16-byte boundary).
+//     cores, 128 x 64 tile, K in chunks of 32): convs too narrow or too oddly
+//     placed for 16-byte vectors (C or O no multiple of 8: conv_in's 4
+//     channels, conv_out's 4 outputs; x off a 16-byte boundary), both dtypes.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -365,9 +370,10 @@ group_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_t,
     }
 }
 
-// out = bf16(sum over splits, in split order, of partial + bias); two outputs a thread
+// out = T(sum over splits, in split order, of partial + bias); two outputs a thread
+template <typename T>
 __global__ void finish_kernel(const float* __restrict__ partial, const float* __restrict__ bias,
-                              bf16* __restrict__ out, size_t pairs, int o, int splits) {
+                              T* __restrict__ out, size_t pairs, int o, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= pairs) return;
   const size_t total = pairs * 2;
@@ -378,8 +384,12 @@ __global__ void finish_kernel(const float* __restrict__ partial, const float* __
     sum.y += p.y;
   }
   const int col = static_cast<int>((2 * i) % o);
-  *reinterpret_cast<__nv_bfloat162*>(out + 2 * i) =
-      __floats2bfloat162_rn(sum.x + bias[col], sum.y + bias[col + 1]);
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(out + 2 * i) =
+        __floats2bfloat162_rn(sum.x + bias[col], sum.y + bias[col + 1]);
+  } else {
+    *reinterpret_cast<float2*>(out + 2 * i) = make_float2(sum.x + bias[col], sum.y + bias[col + 1]);
+  }
 }
 
 int launch_tc(const void* x, const void* w_t, const float* rd, const float* z, const float* bias,
@@ -419,10 +429,243 @@ int launch_tc(const void* x, const void* w_t, const float* rd, const float* z, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t pairs = static_cast<size_t>(m_total) * o / 2;
-  finish_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(partial, bias, op,
-                                                                               pairs, o, splits);
+  finish_kernel<bf16><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+      partial, bias, op, pairs, o, splits);
   return cudaGetLastError();
 }
+
+// ---- the tensor-core body, f32: 3xTF32 ----
+
+constexpr int FBN = 160;                     // output channels per block: two blocks of 80
+constexpr int FBK = 32;                      // input channels per step (of one tap): one 128-byte row
+constexpr int kFStageA = TBM * 128;          // codes [128 pixels][32 channels], one part
+constexpr int kFStageB = FBN * 128;          // weights [160 outputs][32 channels], one part
+constexpr int kFStage = 2 * kFStageA + 2 * kFStageB;  // big and small of both: 72 KB
+
+// The f32 conv on the tensor cores: `group_conv_tc_kernel`'s structure with
+// TF32 operands, each product of f32 numbers formed from three TF32 products
+// (wgmma.cuh, `split_tf32`). A is the codes, quantized in registers as the
+// bf16 body quantizes them and split into big and small parts: a code is an
+// integer of at most 9 bits, which TF32 holds exactly, so its small part is 0
+// unless a fractional clip bound (-z or qmax - z) cut it. B is the fold's two
+// K-major panels (tap, o, c), big and small (`wgmma` takes a TF32 B operand
+// K-major only), copied by `cp.async` as they lie. A step is 32 channels of
+// one tap (one 128-byte row of f32); two stages of 128 pixels x 160 outputs in
+// both parts are 144 KB. 160 outputs (not the bf16 body's 320) keep two
+// stages inside a block's shared memory and the accumulator at 80 registers
+// a thread; every UNet conv has 320, 640 or 1280 outputs, so no tile is ragged
+// there, and a pixel's codes are formed again for each 160 outputs. Split K
+// and the partial tiles are the bf16 body's. One accumulator runs over all of
+// a block's K steps (the flash kernel's fresh chains are not needed here):
+// the tensor cores' round-toward-zero adds cost at most 5.2e-4 against the
+// 2e-3 bound at the deepest shape (16 x 16, 2560 -> 1280 channels, H100), 2.3x
+// to 4.5x the TF32 bound there and at the other UNet shapes.
+template <bool SPLITK>
+__global__ void __launch_bounds__(kThreads, 1)
+group_conv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ panels,
+                       const float* __restrict__ rd, const float* __restrict__ z,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       float* __restrict__ partial, int nb, int h, int w, int c, int o, int kh,
+                       int kw, int pad, int ho, int wo, float qmax, int steps_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int pix_b[TBM], pix_h[TBM], pix_w[TBM];  // image (-1: none), row - pad, col - pad
+  const uint32_t ring = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * FBN;
+  const int m_total = nb * ho * wo;
+  if (tid < TBM) {
+    const int gm = m0 + tid;
+    if (gm < m_total) {
+      const int b = gm / (ho * wo), rem = gm - b * (ho * wo);
+      pix_b[tid] = b;
+      pix_h[tid] = rem / wo - pad;
+      pix_w[tid] = rem % wo - pad;
+    } else {
+      pix_b[tid] = -1;
+      pix_h[tid] = 0;
+      pix_w[tid] = 0;
+    }
+  }
+  __syncthreads();
+
+  const int c_chunks = (c + FBK - 1) / FBK;
+  const int s_begin = blockIdx.z * steps_per_split;
+  const int s_end = min(kh * kw * c_chunks, s_begin + steps_per_split);
+  const size_t panel = (size_t)kh * kw * o * c;  // the small panel follows the big one
+
+  // A side: this thread quantizes channels 4 cc.. of pixels prow + 32 i
+  const int cc = tid & 7, prow = tid >> 3;
+  float4 xv[4], rdv, zv;
+  auto load_x = [&](int step) {
+    const int tap = step / c_chunks, ch = (step - tap * c_chunks) * FBK + cc * 4;
+    const int ti = tap / kw, tj = tap - ti * kw;
+    const bool ch_ok = ch < c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = prow + 32 * i;
+      const int b = pix_b[m], hi_ = pix_h[m] + ti, wi_ = pix_w[m] + tj;
+      xv[i] = make_float4(0.f, 0.f, 0.f, 0.f);  // outside the image: the value 0, quantized below
+      if (ch_ok && b >= 0 && hi_ >= 0 && hi_ < h && wi_ >= 0 && wi_ < w)
+        xv[i] = __ldg(reinterpret_cast<const float4*>(x + (((size_t)b * h + hi_) * w + wi_) * c + ch));
+    }
+    rdv = make_float4(0.f, 0.f, 0.f, 0.f);  // past C: codes of 0
+    zv = rdv;
+    if (ch_ok) {
+      rdv = __ldg(reinterpret_cast<const float4*>(rd + (size_t)tap * c + ch));
+      zv = __ldg(reinterpret_cast<const float4*>(z + (size_t)tap * c + ch));
+    }
+  };
+  auto store_a = [&](uint32_t stage) {
+    const float r4[4] = {rdv.x, rdv.y, rdv.z, rdv.w}, z4[4] = {zv.x, zv.y, zv.z, zv.w};
+    bool fast = true;  // as the bf16 body: the add of kMagic where the bounds allow it
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fast = fast && fabsf(z4[e]) <= kMagicMax - qmax;
+    auto quantize = [&](auto round) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x4[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+        uint32_t big[4], small[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float code = fminf(fmaxf(round(__fmul_rn(x4[e], r4[e])), -z4[e]), qmax - z4[e]);
+          tc::split_tf32(code, big[e], small[e]);
+        }
+        const uint32_t dst = stage + tc::swz(prow + 32 * i, cc);
+        tc::st_shared16(dst, make_uint4(big[0], big[1], big[2], big[3]));
+        tc::st_shared16(dst + kFStageA, make_uint4(small[0], small[1], small[2], small[3]));
+      }
+    };
+    if (fast) quantize([](float t) { return __fsub_rn(__fadd_rn(t, kMagic), kMagic); });
+    else quantize([](float t) { return rintf(t); });
+  };
+  // B side: the step's 160 x 32 weights of both panels, ten 16-byte chunks a thread
+  const uint32_t b_dst0 = 2 * kFStageA + tc::swz(prow, cc);
+  auto load_b = [&](int step, uint32_t stage) {
+    const int tap = step / c_chunks, ch = (step - tap * c_chunks) * FBK + cc * 4;
+    const float* src0 = panels + ((size_t)tap * o + n0 + prow) * c + ch;
+#pragma unroll
+    for (int i = 0; i < FBN / 32; ++i) {  // output rows prow + 32 i
+      const bool ok = ch < c && n0 + prow + 32 * i < o;
+      const float* src = ok ? src0 + (size_t)(32 * i) * c : panels;
+      tc::cp_async16(stage + b_dst0 + i * 4096, src, ok);
+      tc::cp_async16(stage + b_dst0 + kFStageB + i * 4096, ok ? src + panel : panels, ok);
+    }
+  };
+
+  float acc[FBN / 80][40];
+#pragma unroll
+  for (int cb = 0; cb < FBN / 80; ++cb)
+#pragma unroll
+    for (int i = 0; i < 40; ++i) acc[cb][i] = 0.f;
+
+  // the bf16 body's pipeline: step s multiplies one stage while the other
+  // takes step s + 1's weights and codes
+  if (s_begin < s_end) {
+    load_b(s_begin, ring);
+    tc::cp_async_commit();
+    load_x(s_begin);
+    store_a(ring);
+    if (s_begin + 1 < s_end) load_x(s_begin + 1);
+  }
+  for (int s = s_begin; s < s_end; ++s) {
+    const uint32_t cur = ring + ((s - s_begin) & 1) * kFStage;
+    const uint32_t nxt = ring + ((s - s_begin + 1) & 1) * kFStage;
+    tc::cp_async_wait<0>();   // this step's weights have landed
+    tc::fence_async_proxy();  // ... and its codes are stored
+    __syncthreads();          // for every thread; the other stage is consumed
+    const bool more = s + 1 < s_end;
+    if (more) load_b(s + 1, nxt);
+    tc::cp_async_commit();
+    tc::mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < FBK / 8; ++ks) {
+      const uint32_t a = cur + wg * 8192 + ks * 32;
+      const uint64_t abig = tc::desc(a), asmall = tc::desc(a + kFStageA);
+#pragma unroll
+      for (int cb = 0; cb < FBN / 80; ++cb) {
+        const uint32_t b = cur + 2 * kFStageA + cb * 10240 + ks * 32;
+        tc::Tf32<80>::ss(acc[cb], abig, tc::desc(b + kFStageB), 1);
+        tc::Tf32<80>::ss(acc[cb], asmall, tc::desc(b), 1);
+        tc::Tf32<80>::ss(acc[cb], abig, tc::desc(b), 1);
+      }
+    }
+    tc::mma_commit();
+    if (more) store_a(nxt);  // quantized while the products run
+    if (s + 2 < s_end) load_x(s + 2);
+    tc::mma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < FBN / 80; ++cb) tc::pin(acc[cb]);
+  }
+
+  const int r0 = m0 + wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int cb = 0; cb < FBN / 80; ++cb)
+#pragma unroll
+    for (int jb = 0; jb < 10; ++jb) {
+      const int col = n0 + cb * 80 + 8 * jb + 2 * t4;  // O is even: col and col + 1 go together
+      if (col >= o) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gm = r0 + 8 * half;
+        if (gm >= m_total) continue;
+        const float a = acc[cb][4 * jb + 2 * half], b = acc[cb][4 * jb + 2 * half + 1];
+        if (SPLITK) {
+          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * m_total + gm) * o + col) =
+              make_float2(a, b);
+        } else {
+          *reinterpret_cast<float2*>(out + (size_t)gm * o + col) =
+              make_float2(a + bias[col], b + bias[col + 1]);
+        }
+      }
+    }
+}
+
+int launch_tf32(const void* x, const void* panels, const float* rd, const float* z,
+                const float* bias, void* out, float* partial, int nb, int h, int w, int c, int o,
+                int kh, int kw, int pad, int a_bits, int splits, int steps_per_split,
+                cudaStream_t stream) {
+  const int ho = h + 2 * pad - kh + 1, wo = w + 2 * pad - kw + 1;
+  if (nb < 1 || c < 8 || c % 8 || o < 8 || o % 8 || kh < 1 || kw < 1 || pad < 0 || ho < 1 ||
+      wo < 1 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(panels) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 8)
+    return cudaErrorInvalidValue;
+  const long long m_total = (long long)nb * ho * wo;
+  const long long steps = (long long)kh * kw * ((c + FBK - 1) / FBK);
+  const long long grid_y = (o + FBN - 1) / FBN;
+  if (m_total >= (1LL << 31) || grid_y > 65535 || splits < 1 || splits > 65535 ||
+      steps_per_split < 1 || (long long)splits * steps_per_split < steps ||
+      (long long)(splits - 1) * steps_per_split >= steps || (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const int smem = 1024 + 2 * kFStage;
+  const dim3 grid(static_cast<unsigned>((m_total + TBM - 1) / TBM), static_cast<unsigned>(grid_y),
+                  static_cast<unsigned>(splits));
+  const float qmax = static_cast<float>((1 << a_bits) - 1);
+  auto xp = static_cast<const float*>(x);
+  auto wp = static_cast<const float*>(panels);
+  auto op = static_cast<float*>(out);
+  if (splits == 1) {
+    auto kernel = group_conv_tf32_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(xp, wp, rd, z, bias, op, nullptr, nb, h, w, c, o, kh,
+                                             kw, pad, ho, wo, qmax, steps_per_split);
+    return cudaGetLastError();
+  }
+  auto kernel = group_conv_tf32_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(xp, wp, rd, z, bias, op, partial, nb, h, w, c, o, kh, kw,
+                                           pad, ho, wo, qmax, steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t pairs = static_cast<size_t>(m_total) * o / 2;
+  finish_kernel<float><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+      partial, bias, op, pairs, o, splits);
+  return cudaGetLastError();
+}
+
 
 // ---- the weight fold ----
 
@@ -436,7 +679,10 @@ template <typename S> __device__ __forceinline__ float scale_at(const void* p, l
 
 // w: element (t, ch, oc) at w[t * s_t + ch * s_c + oc * s_o]. dm, zm: element
 // (t, ch) at [t * s_dt + ch * s_dc]; dl, zl: one element each; all four of type S.
-template <typename T, typename S>
+// PANELS (f32): in place of w_t, the two K-major panels the 3xTF32 body reads,
+// (tap, o, c) as TF32 big and small parts of w_t's values, the small panel
+// taps * o * c elements after the big one at w_t.
+template <typename T, typename S, bool PANELS>
 __global__ void __launch_bounds__(256)
 fold_kernel(const T* __restrict__ w, long long s_t, long long s_c, long long s_o, const void* dm,
             const void* zm, long long s_dt, long long s_dc, const void* dl, const void* zl,
@@ -470,13 +716,29 @@ fold_kernel(const T* __restrict__ w, long long s_t, long long s_c, long long s_o
       tile[ol][cl * nt + t] = w[(t0 + t) * s_t + (c0 + cl) * s_c + (o0 + ol) * s_o];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nt * FC * FO; idx += 256) {
-    const int ol = idx % FO, cl = (idx / FO) % FC, t = idx / (FO * FC);
-    const int ch = c0 + cl, oc = o0 + ol, tap = t0 + t;
-    if (ch >= c || oc >= o) continue;
-    const float d = __fmul_rn(scale_at<S>(dm, tap * s_dt + ch * s_dc), dlv);
-    w_t[((size_t)tap * c + ch) * o + oc] =
-        from_f32<T>(__fmul_rn(to_f32<T>(tile[ol][cl * nt + t]), d));
+  if constexpr (PANELS) {
+    float* big = reinterpret_cast<float*>(w_t);
+    float* small = big + (size_t)taps * o * c;
+    for (int idx = threadIdx.x; idx < nt * FC * FO; idx += 256) {  // channels innermost
+      const int cl = idx % FC, ol = (idx / FC) % FO, t = idx / (FC * FO);
+      const int ch = c0 + cl, oc = o0 + ol, tap = t0 + t;
+      if (ch >= c || oc >= o) continue;
+      const float d = __fmul_rn(scale_at<S>(dm, tap * s_dt + ch * s_dc), dlv);
+      uint32_t b, sm;
+      tc::split_tf32(__fmul_rn(to_f32<T>(tile[ol][cl * nt + t]), d), b, sm);
+      const size_t at = ((size_t)tap * o + oc) * c + ch;
+      big[at] = __uint_as_float(b);
+      small[at] = __uint_as_float(sm);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nt * FC * FO; idx += 256) {
+      const int ol = idx % FO, cl = (idx / FO) % FC, t = idx / (FO * FC);
+      const int ch = c0 + cl, oc = o0 + ol, tap = t0 + t;
+      if (ch >= c || oc >= o) continue;
+      const float d = __fmul_rn(scale_at<S>(dm, tap * s_dt + ch * s_dc), dlv);
+      w_t[((size_t)tap * c + ch) * o + oc] =
+          from_f32<T>(__fmul_rn(to_f32<T>(tile[ol][cl * nt + t]), d));
+    }
   }
   if (blockIdx.x == 0)
     for (int idx = threadIdx.x; idx < nt * FC; idx += 256) {
@@ -553,7 +815,7 @@ int launch_fold_oihw(const void* w, const void* dm, const void* zm, long long s_
   return cudaGetLastError();
 }
 
-template <typename T, typename S>
+template <typename T, typename S, bool PANELS = false>
 int launch_fold(const void* w, long long s_t, long long s_c, long long s_o, const void* dm,
                 const void* zm, long long s_dt, long long s_dc, const void* dl, const void* zl,
                 void* w_t, float* rd, float* z, int taps, int c, int o, cudaStream_t stream) {
@@ -561,7 +823,7 @@ int launch_fold(const void* w, long long s_t, long long s_c, long long s_o, cons
   const long long gy = (c + FC - 1) / FC, gz = (taps + FT - 1) / FT;
   if (gy > 65535 || gz > 65535) return cudaErrorInvalidValue;
   const dim3 grid((o + FO - 1) / FO, static_cast<unsigned>(gy), static_cast<unsigned>(gz));
-  fold_kernel<T, S><<<grid, 256, 0, stream>>>(static_cast<const T*>(w), s_t, s_c, s_o, dm, zm, s_dt,
+  fold_kernel<T, S, PANELS><<<grid, 256, 0, stream>>>(static_cast<const T*>(w), s_t, s_c, s_o, dm, zm, s_dt,
                                               s_dc, dl, zl, static_cast<T*>(w_t), rd, z, taps, c, o);
   return cudaGetLastError();
 }
@@ -598,7 +860,10 @@ int fold_dispatch(const void* w, long long s_t, long long s_c, long long s_o, co
 // form 0: the CUDA-core body (splits must be 1). form 1: the tensor-core body
 // (bf16, C and O multiples of 8, x and w_t on 16-byte boundaries); its K steps
 // (kh*kw * ceil(c / 64)) go to `splits` blocks of `steps_per_split` steps, and
-// with splits > 1 `partial` is (splits, b*h'*w', o) f32 scratch.
+// with splits > 1 `partial` is (splits, b*h'*w', o) f32 scratch. form 2: the
+// f32 tensor-core body (3xTF32), on the same terms; w_t is then the two
+// panels dgq_group_conv_fold_panels writes, and a K step is 32 channels
+// (kh*kw * ceil(c / 32) steps).
 extern "C" int dgq_group_quant_conv(const void* x, const void* w_t, const void* rd, const void* z,
                                     const void* bias, void* out, void* partial, int nb, int h,
                                     int w, int c, int o, int kh, int kw, int pad, int a_bits,
@@ -612,6 +877,11 @@ extern "C" int dgq_group_quant_conv(const void* x, const void* w_t, const void* 
     if (!is_bf16) return cudaErrorInvalidValue;
     return launch_tc(x, w_t, rdp, zp, bp, out, static_cast<float*>(partial), nb, h, w, c, o, kh,
                      kw, pad, a_bits, splits, steps_per_split, st);
+  }
+  if (form == 2) {
+    if (is_bf16) return cudaErrorInvalidValue;
+    return launch_tf32(x, w_t, rdp, zp, bp, out, static_cast<float*>(partial), nb, h, w, c, o, kh,
+                       kw, pad, a_bits, splits, steps_per_split, st);
   }
   if (form != 0 || splits != 1) return cudaErrorInvalidValue;
   return is_bf16 ? launch<__nv_bfloat16>(x, w_t, rdp, zp, bp, out, nb, h, w, c, o, kh, kw, pad,
@@ -636,4 +906,23 @@ extern "C" int dgq_group_conv_fold(const void* w, long long s_t, long long s_c, 
                                                     w_t, rd, z, taps, c, o, is_bf16, stream)
                      : fold_dispatch<float>(w, s_t, s_c, s_o, dm, zm, s_dt, s_dc, dl, zl, w_t, rd,
                                             z, taps, c, o, is_bf16, stream);
+}
+
+// The fold for the f32 tensor-core body: as dgq_group_conv_fold on f32
+// weights, but in place of w_t it writes `panels`, (2, kh*kw, o, c) f32: the
+// TF32 big and small parts of w_t's values, transposed to K-major.
+extern "C" int dgq_group_conv_fold_panels(const void* w, long long s_t, long long s_c,
+                                          long long s_o, const void* dm, const void* zm,
+                                          long long s_dt, long long s_dc, const void* dl,
+                                          const void* zl, void* panels, void* rd, void* z,
+                                          int taps, int c, int o, int scales_bf16, void* stream) {
+  if (taps < 1 || c < 1 || o < 1) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto rdp = static_cast<float*>(rd);
+  auto zp = static_cast<float*>(z);
+  return scales_bf16 ? launch_fold<float, __nv_bfloat16, true>(w, s_t, s_c, s_o, dm, zm, s_dt, s_dc,
+                                                               dl, zl, panels, rdp, zp, taps, c, o,
+                                                               st)
+                     : launch_fold<float, float, true>(w, s_t, s_c, s_o, dm, zm, s_dt, s_dc, dl,
+                                                       zl, panels, rdp, zp, taps, c, o, st);
 }

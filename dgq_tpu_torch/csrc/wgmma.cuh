@@ -137,6 +137,80 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---- TF32: f32 operands on the tensor cores, three products a product ----
+//
+// `wgmma` on .tf32 operands reads 32-bit words and ignores their low 13 bits,
+// and it takes both operands K-major only (the transpose bits exist for 16-bit
+// types alone). One TF32 product keeps 11 significant bits, so an f32 product
+// a b is formed as a_big b_small + a_small b_big + a_big b_big in one f32
+// accumulator, the two small terms first, with x_big = rna(x) and x_small =
+// rna(x - x_big) written as TF32 words (`split_tf32`): what is left out,
+// a_small b_small and the rounding of the small parts, is below 2^-21 |a b|.
+// A k8 step takes 8 contraction elements, 32 bytes of a 128-byte swizzled row
+// (one row holds 32 f32, four steps), so the descriptors are the bf16 ones:
+// start address plus 32 ks inside a sub-tile. The A fragment in registers
+// (m64nNk8, per warp 16 rows; lane l, g = l / 4, t = l % 4): a[0] = (row g,
+// k t), a[1] = (g + 8, t), a[2] = (g, t + 4), a[3] = (g + 8, t + 4).
+
+// x rounded to TF32 (round to nearest, ties away from zero) as an f32 bit
+// pattern whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+#define TC_COMMA ,
+#define TC_ACC8(d, i) TC_ACC4(d, i), TC_ACC4(d, i + 4)
+#define TC_ACC32(d, i) TC_ACC16(d, i), TC_ACC16(d, i + 16)
+#define TC_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define TC_REGS20 TC_REGS16 ", %16, %17, %18, %19"
+#define TC_REGS32 TC_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define TC_REGS40 TC_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+
+// Tf32<N>::ss: d (64 x N) = A (64 x 8, shared) B (8 x N, shared) + (accumulate ? d : 0);
+// Tf32<N>::rs: the same with A (64 x 8) in registers; both operands K-major.
+// The tensor cores add into the accumulator rounding toward zero, so a long
+// chain of adds into one accumulator drifts toward zero by up to an ulp an
+// add: the kernels start a fresh accumulator for a short chain (a 32-lane
+// chunk of Q K^T, a key tile of P V) and add the chains in f32 registers.
+template <int N> struct Tf32;
+#define TC_TF32(N, R, REGS, ACCS, IA, IB, IP, IR0, IR1, IR2, IR3, IRB, IRP)                       \
+  template <> struct Tf32<N> {                                                                    \
+    static __device__ __forceinline__ void ss(float (&d)[R], uint64_t a, uint64_t b,              \
+                                              int accumulate) {                                   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"                              \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS "}, %" #IA    \
+                   ", %" #IB ", p, 1, 1;\n}\n"                                                    \
+                   : ACCS                                                                         \
+                   : "l"(a), "l"(b), "r"(accumulate));                                            \
+    }                                                                                             \
+    static __device__ __forceinline__ void rs(float (&d)[R], const uint32_t (&a)[4], uint64_t b,  \
+                                              int accumulate) {                                   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IRP ", 0;\n"                             \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS "}, {%" #IR0   \
+                   ", %" #IR1 ", %" #IR2 ", %" #IR3 "}, %" #IRB ", p, 1, 1;\n}\n"                   \
+                   : ACCS                                                                         \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));        \
+    }                                                                                             \
+  };
+TC_TF32(32, 16, TC_REGS16, TC_ACC16(d, 0), 16, 17, 18, 16, 17, 18, 19, 20, 21)
+TC_TF32(40, 20, TC_REGS20, TC_ACC16(d, 0) TC_COMMA TC_ACC4(d, 16), 20, 21, 22, 20, 21, 22, 23, 24, 25)
+TC_TF32(64, 32, TC_REGS32, TC_ACC32(d, 0), 32, 33, 34, 32, 33, 34, 35, 36, 37)
+TC_TF32(80, 40, TC_REGS40, TC_ACC32(d, 0) TC_COMMA TC_ACC8(d, 32), 40, 41, 42, 40, 41, 42, 43, 44, 45)
+#undef TC_TF32
+#undef TC_REGS16
+#undef TC_REGS20
+#undef TC_REGS32
+#undef TC_REGS40
+#undef TC_ACC8
+#undef TC_COMMA
+#undef TC_ACC32
+
 #undef TC_ACC4
 #undef TC_ACC16
 

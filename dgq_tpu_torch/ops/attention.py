@@ -7,7 +7,8 @@ ported in `csrc/attention.cu`:
     UNet attention of the g=1 policy; in bf16 on the tensor cores
     (`quant_form`);
   * K2 `_flash_kernel` (`sm_mode="none"`): the VAE mid-block attention and
-    the unquantized UNet path; in bf16 on the tensor cores (`flash_form`);
+    the unquantized UNet path; on the tensor cores in bf16, and in f32 as
+    three TF32 products a product (`flash_form`);
   * K3 `_rt_fused_kernel` (`sm_mode="log2_real_time"`), in its two-launch
     form K3b (`_stats_kernel`, `_stats_kernel_nonpeak`, `_accum_kernel`):
     `rt_stats` reduces the per-call delta into one device scalar with an
@@ -129,33 +130,38 @@ def _scalar_delta(sm_delta, device) -> torch.Tensor:
 
 
 # The bodies of the flash kernel, by the number the C interface takes.
-FLASH_FORMS = {"cuda_core": 0, "wgmma_async": 1, "wgmma_plain": 2}
+FLASH_FORMS = {"cuda_core": 0, "wgmma_async": 1, "wgmma_plain": 2, "tf32x3_vector": 3,
+               "tf32x3_plain": 4}
 
 
 def flash_form(dtype, head_dim: int, ptrs, strides, slot: int = 0) -> str:
     """Which body of the flash kernel (K2, K2p) a call runs, from what the
-    wrapper can see before the launch. f32 runs on the CUDA cores
-    ("cuda_core"). bf16 runs on the tensor cores; its K and V tiles are
-    filled by 16-byte asynchronous copies ("wgmma_async") where every row of
-    q, k and v starts on a 16-byte boundary (base addresses `ptrs` in bytes;
-    batch and row `strides` and the head `slot` in elements, all multiples of
-    8) and head_dim is a multiple of 8, else by element loads into the same
-    tiles ("wgmma_plain"): same bits, slower loads. (The tensor-core body
-    takes a positive scale only: `_flash_form_checked`.)"""
-    if dtype != torch.bfloat16:
-        return "cuda_core"
-    aligned = (head_dim % 8 == 0 and slot % 8 == 0 and all(p % 16 == 0 for p in ptrs)
-               and all(st % 8 == 0 for st in strides))
-    return "wgmma_async" if aligned else "wgmma_plain"
+    wrapper can see before the launch; both dtypes run on the tensor cores.
+    bf16: its K and V tiles are filled by 16-byte asynchronous copies
+    ("wgmma_async") where every row of q, k and v starts on a 16-byte
+    boundary (base addresses `ptrs` in bytes; batch and row `strides` and the
+    head `slot` in elements, all multiples of 8) and head_dim is a multiple of
+    8, else by element loads into the same tiles ("wgmma_plain"): same bits,
+    slower loads. f32 runs as three TF32 products a product; its operands are
+    loaded as 16-byte vectors ("tf32x3_vector") where the base addresses are
+    multiples of 16 bytes and head_dim, slot and strides multiples of 4
+    elements, else element by element ("tf32x3_plain"): same bits. (The
+    tensor-core bodies take a positive scale only: `_flash_form_checked`.)"""
+    if dtype == torch.bfloat16:
+        aligned = (head_dim % 8 == 0 and slot % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+                   and all(st % 8 == 0 for st in strides))
+        return "wgmma_async" if aligned else "wgmma_plain"
+    aligned = (head_dim % 4 == 0 and slot % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+               and all(st % 4 == 0 for st in strides))
+    return "tf32x3_vector" if aligned else "tf32x3_plain"
 
 
 def _flash_form_checked(scale, *args) -> int:
-    """`flash_form` as the number the C interface takes. The tensor-core body
-    finds the row max on the raw scores, so it needs scale > 0."""
-    form = flash_form(*args)
-    if form != "cuda_core" and not scale > 0:
-        raise ValueError(f"the bf16 flash kernel needs a positive scale, got {scale}")
-    return FLASH_FORMS[form]
+    """`flash_form` as the number the C interface takes. The tensor-core
+    bodies find the row max on the raw scores, so they need scale > 0."""
+    if not scale > 0:
+        raise ValueError(f"the flash kernel needs a positive scale, got {scale}")
+    return FLASH_FORMS[flash_form(*args)]
 
 
 def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int = 255) -> str:

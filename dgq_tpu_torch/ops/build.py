@@ -83,6 +83,10 @@ _SIGNATURES = {
         # scales_bf16, stream
         "dgq_group_conv_fold": (_P, _L, _L, _L, _P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _P),
+        # w, s_t, s_c, s_o, dm, zm, s_dt, s_dc, dl, zl, panels, rd, z, taps, c, o,
+        # scales_bf16, stream
+        "dgq_group_conv_fold_panels": (_P, _L, _L, _L, _P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P),
     },
     "int8_matmul": {
         # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, ws, counters, m, n,

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (dgq_tpu_torch/csrc/attention.cu: K1 to K4
 and their packed head-slot entries K1p to K4p, in bf16 on the tensor cores
-and in both load forms; group_conv.cu: K5; int8_matmul.cu: K6, split and
-unsplit, in both load forms) against their plain PyTorch versions on the
-card. Marked `cuda`: they skip
+and in both load forms, K2/K2p in f32 as three TF32 products a product in
+both load forms; group_conv.cu: K5, bf16 and 3xTF32 f32, split and unsplit;
+int8_matmul.cu: K6, split and unsplit, in both load forms) against their
+plain PyTorch versions on the card. Marked `cuda`: they skip
 when torch.cuda.is_available() is false (a CUDA kernel has no CPU mode).
 Run them on a GPU machine with
 
@@ -15,7 +16,9 @@ deltas, bf16 and f32.
 
 Tolerances, with reasons:
   * K2 (flash): f32 atol 1e-4 (f32 reassociation of online vs materialized
-    softmax, measured ~1e-5). bf16 runs on the tensor cores: Q K^T of bf16
+    softmax, measured ~1e-5; each product is formed from three TF32
+    products, which leave out under 2^-21 of it, where one would be off by
+    some 1e-3 at the VAE's scores). bf16 runs on the tensor cores: Q K^T of bf16
     inputs is exact per product, but P is rounded to bf16 before P V, so
     each product carries a relative error of at most 2^-9 and the sum an
     absolute error that does not shrink where the output cancels:
@@ -44,7 +47,9 @@ Tolerances, with reasons:
     both sides (bf16 products are exact in the tensor cores' f32
     accumulator), so only the f32 summation order differs: atol 2e-3 as
     tests/test_group_conv_kernel.py, plus 2^-7 |ref| in bf16 for the one
-    rounding of each side's result. Split K adds its partial tiles in split
+    rounding of each side's result. f32 takes the same 2e-3: a code is
+    exact in TF32 and the weights' three TF32 products leave out under 2^-21
+    of each product. Split K adds its partial tiles in split
     order, so two runs give the same bits; the fold kernel's w_t, rd and z
     equal `_fold`'s bit for bit.
   * K6 (int8 matmul): the integer product is exact and the f32 epilogue is
@@ -181,6 +186,73 @@ def test_flash_kernel_refuses_a_form_its_addresses_cannot_take():
         TA.flash_attention(x, x, x, 0.1)
 
 
+@pytest.mark.parametrize("t,s,d", [
+    (200, 77, 40), (129, 300, 64), (64, 65, 80), (70, 77, 160), (130, 96, 512),  # each tier
+    (50, 33, 36), (50, 130, 12), (31, 77, 100), (40, 64, 200), (65, 40, 500),    # odd widths
+    (33, 70, 42), (64, 64, 3),
+])
+def test_flash_tf32_forms_agree(t, s, d):
+    """The f32 flash kernel (three TF32 products a product) at every head-dim
+    tier, ragged T and S: the form the wrapper picks for an aligned tensor
+    (16-byte loads where head_dim is a multiple of 4, element loads where
+    not) and the element-load form it picks for the same data one element
+    off a 16-byte boundary give the same bits, within 1e-4 of the plain
+    version."""
+    q, k, v = _qkv(3, t, s, d, torch.float32, seed=t + s + d)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = (t * d, d, s * d, d, s * d, d)
+    want_form = "tf32x3_vector" if d % 4 == 0 else "tf32x3_plain"
+    assert TA.flash_form(q.dtype, d, ptrs, strides) == want_form
+    out = TA.flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    _check(out, TA.attention_reference(q, k, v, d ** -0.5), v, torch.float32)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        odd = torch.empty(x.numel() + 1, device="cuda", dtype=x.dtype)[1:].view_as(x).copy_(x)
+        args = {"q": q, "k": k, "v": v, name: odd}
+        assert TA.flash_form(q.dtype, d, (args["q"].data_ptr(), args["k"].data_ptr(),
+                                          args["v"].data_ptr()), strides) == "tf32x3_plain"
+        assert torch.equal(TA.flash_attention(args["q"], args["k"], args["v"], d ** -0.5), out)
+
+
+def test_flash_tf32_refuses_what_it_cannot_take():
+    """The C entry checks the f32 forms it is handed: 16-byte loads from a view
+    one element off or with head_dim no multiple of 4, either form on bf16, a
+    scale <= 0, head dims past 512; the wrapper raises on a scale <= 0 before
+    it launches anything."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    q, k, v = _qkv(2, 64, 64, 40, torch.float32, seed=2)
+    qb = q.bfloat16()
+    odd = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)[1:].view_as(q).copy_(q)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(qq, bf16, form, d=40, scale=0.1):
+        return lib.dgq_flash_attention(qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                       2, 64, 64, d, scale, bf16, form, stream)
+
+    assert call(q, 0, 3) == 0 and call(q, 0, 4) == 0 and call(odd, 0, 4) == 0
+    assert call(odd, 0, 3) != 0             # 16-byte loads from a misaligned base
+    assert call(q, 0, 3, d=38) != 0         # 152-byte rows
+    assert call(qb, 1, 3) != 0 and call(qb, 1, 4) != 0  # bf16 on the f32 body
+    assert call(q, 0, 1) != 0 and call(q, 0, 2) != 0    # f32 on the bf16 body
+    assert call(q, 0, 3, scale=0.0) != 0 and call(q, 0, 4, scale=-0.1) != 0
+    assert call(q, 0, 5) != 0
+    torch.cuda.synchronize()
+    before = dict(TA.LAUNCHES)
+    for scale in (0.0, -0.1):
+        with pytest.raises(ValueError, match="positive scale"):
+            TA.fused_attention(q, k, v, scale)
+        with pytest.raises(ValueError, match="positive scale"):
+            TA.fused_attention(*(TA.repack_heads(x, 2, 64) for x in (q, k, v)), scale,
+                               num_heads=2, head_dim=40)
+    assert TA.LAUNCHES == before
+    with pytest.raises(ValueError, match="512"):
+        x = torch.zeros(1, 8, 520, device="cuda")
+        TA.flash_attention(x, x, x, 0.1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("delta", [1.0 / 255.0, 1.0 / 64.0])
 @pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
@@ -269,6 +341,17 @@ def test_flash_kernel_at_the_1024px_vae_shape():
     out = TA.fused_attention(q, k, v, 512 ** -0.5, sm_mode="none")
     torch.cuda.synchronize()
     _check_flash(out, q, k, v, 512 ** -0.5)
+
+
+def test_flash_tf32_kernel_at_the_1024px_vae_shape():
+    """The f32 flash kernel at T = S = 16384, D = 512, one head (the SDXL-turbo
+    decode's mid-block attention in f32): 256 row tiles, each of two column
+    halves, 512 key tiles of 32; within 1e-4 of the plain version."""
+    q, k, v = _qkv(1, 16384, 16384, 512, torch.float32, seed=5)
+    q, k = q * 0.25, k * 0.25  # keep the softmax from collapsing onto one key
+    out = TA.fused_attention(q, k, v, 512 ** -0.5, sm_mode="none")
+    torch.cuda.synchronize()
+    _check(out, TA.attention_reference(q, k, v, 512 ** -0.5), v, torch.float32)
 
 
 PACKED_MODES = [("none", False), ("uniform", False), ("log2", False), ("log2", True),
@@ -686,11 +769,47 @@ def test_group_conv_forms_and_the_weight_fold(b, h, c, o, form, split):
     err = (out.float() - ref.float()).abs()
     assert bool((err <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all())
     assert torch.equal(out, TG.group_quant_conv(*args))
-    # the f32 call of the same conv keeps the CUDA-core body and its tolerance
+    # the f32 call of the same conv: the 3xTF32 body where bf16 takes the tensor
+    # cores (its fold's panels bit for bit), the CUDA-core body elsewhere; the
+    # f32 tolerance
     f32 = tuple(t.float() if t is not None else t for t in args)
-    assert TG.conv_form(torch.float32, c, o, 0) == "cuda_core"
+    want32 = "tf32x3" if form == "tensor_core" else "cuda_core"
+    assert TG.conv_form(torch.float32, c, o, 0) == want32
+    if want32 == "tf32x3":
+        panels, rd, z = TG.fold_weights(torch.float32, f32[1], *f32[2:6], 3, 3, panels=True)
+        w_t, rd_ref, z_ref = TG._fold(f32[0], f32[1], *f32[2:6], 3, 3)
+        assert torch.equal(panels, TG.fold_panels(w_t))
+        assert torch.equal(rd, rd_ref) and torch.equal(z, z_ref)
     err32 = (TG.group_quant_conv(*f32) - TG.group_quant_conv_reference(*f32)).abs()
     assert float(err32.max()) <= 2e-3
+
+
+@pytest.mark.parametrize("b,h,c,o,split", [
+    (4, 64, 320, 320, False),    # 64px: 256 output tiles, no split
+    (4, 32, 640, 640, False),    # 32px: 128 output tiles, no split
+    (4, 16, 1280, 1280, True),   # 16px
+    (4, 8, 2560, 1280, True),    # 8px: 16 tiles, deep K
+    (2, 8, 96, 136, True),       # C and O past a tile edge
+    (1, 9, 40, 24, True),        # ragged pixels, one 32-channel step and a part: 18 steps in 2
+])
+def test_group_conv_tf32_shape_classes_with_split_k(b, h, c, o, split):
+    """f32 on the tensor cores (three TF32 products a product) at every shape
+    class of the main path: the form and split the plan names, within 2e-3 of
+    the plain version, the same bits on a second run (split K adds its
+    partial tiles in split order)."""
+    x, w, dm, zm, dl, zl, bias = _conv_case(b, h, c, o, torch.float32, seed=c + o + h)
+    w = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # OIHW storage, HWIO view
+    assert TG.conv_form(x.dtype, c, o, x.data_ptr()) == "tf32x3"
+    assert (TG.conv_plan(b * h * h, c, o, 9, torch.float32).splits > 1) == split
+    args = (x, w, dm, zm, dl, zl, bias)
+    before = TG.LAUNCHES["group_quant_conv"]
+    out = TG.group_quant_conv(*args)
+    torch.cuda.synchronize()
+    assert TG.LAUNCHES["group_quant_conv"] == before + 1
+    ref = TG.group_quant_conv_reference(*args)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 2e-3
+    assert torch.equal(out, TG.group_quant_conv(*args))
 
 
 def test_group_conv_tensor_core_body_takes_a_1x1_conv_and_other_paddings():
@@ -733,6 +852,23 @@ def test_group_conv_kernel_refuses_a_plan_that_does_not_cover_k():
     assert call(None, 1, 1, 3, 3) != 0              # no scratch for the partial tiles
     assert call(None, 0, 1, 1, 9) != 0              # f32 on the tensor-core body
     assert call(None, 1, 0, 2, 5) != 0              # the CUDA-core body does not split
+    assert call(None, 1, 2, 1, 9) != 0              # bf16 on the 3xTF32 body
+    torch.cuda.synchronize()
+    # the 3xTF32 body: 9 taps x 2 steps of 32 channels, on f32 panels
+    x32 = x.float()
+    panels, rd32, z32 = TG.fold_weights(torch.float32, w.float(), dm, zm, dl, zl, 3, 3, panels=True)
+    out32 = torch.empty(1, 8, 8, 64, device="cuda")
+    part32 = torch.empty(3, 64, 64, device="cuda")
+
+    def call32(partial, splits, per):
+        return lib.dgq_group_quant_conv(
+            x32.data_ptr(), panels.data_ptr(), rd32.data_ptr(), z32.data_ptr(), bias.data_ptr(),
+            out32.data_ptr(), partial, 1, 8, 8, 64, 64, 3, 3, 1, 8, 0, 2, splits, per, stream)
+
+    assert call32(None, 1, 18) == 0 and call32(part32.data_ptr(), 3, 6) == 0
+    assert call32(None, 1, 9) != 0                  # the bf16 plan: half of K
+    assert call32(part32.data_ptr(), 3, 9) != 0     # the third split would be empty
+    assert call32(None, 3, 6) != 0                  # no scratch
     torch.cuda.synchronize()
 
 

@@ -9,7 +9,11 @@ after, key 0 by a rank-1 update) emulated in torch against the plain version
 and against the JAX package's kernel, K6's split-K sums in s32 against the
 plain version and the JAX kernel, and the weight fold bit for bit against
 the same fold written with jax.numpy as dgq_tpu/ops/pallas/group_conv.py
-writes it inline.
+writes it inline. The f32 bodies of K2/K2p and K5 (three TF32 products a
+product): the TF32 rounding bit for bit on a table of edge values, the flash
+and conv arithmetic emulated in torch against the plain versions and the JAX
+kernel, why one TF32 product is not enough, the fold's split K-major panels,
+and the f32 conv plan.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +28,7 @@ from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
 from dgq_tpu_torch.ops import attention as TA
 from dgq_tpu_torch.ops import group_conv as TG
 from dgq_tpu_torch.ops import int8_matmul as TM
+from dgq_tpu_torch.ops.tf32 import tf32_rna, tf32_split
 
 BATCH = 4  # the CFG batch of two images
 
@@ -91,7 +96,11 @@ def test_conv_plan_splits_where_the_tiles_are_few():
     (torch.bfloat16, 320, 4, 0, "cuda_core"),      # conv_out: 4 outputs
     (torch.bfloat16, 40, 22, 0, "cuda_core"),      # ragged outputs
     (torch.bfloat16, 320, 320, 8, "cuda_core"),    # x off a 16-byte boundary
-    (torch.float32, 320, 320, 0, "cuda_core"),     # the f32 entries keep the first body
+    (torch.float32, 320, 320, 0, "tf32x3"),        # f32: three TF32 products a product
+    (torch.float32, 2560, 1280, 4096, "tf32x3"),
+    (torch.float32, 4, 320, 0, "cuda_core"),       # conv_in keeps the first body in f32 too
+    (torch.float32, 320, 4, 0, "cuda_core"),       # conv_out
+    (torch.float32, 320, 320, 8, "cuda_core"),     # x off a 16-byte boundary
 ])
 def test_conv_form_is_a_rule_on_dtype_shape_and_address(dtype, c, o, ptr, want):
     assert TG.conv_form(dtype, c, o, ptr) == want
@@ -101,8 +110,14 @@ ALIGNED = (4096, 8192, 12288)
 
 
 @pytest.mark.parametrize("dtype,d,ptrs,strides,slot,want", [
-    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, "cuda_core"),
-    (torch.float32, 512, ALIGNED, (512 * 4096, 512) * 3, 0, "cuda_core"),
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, "tf32x3_vector"),
+    (torch.float32, 512, ALIGNED, (512 * 4096, 512) * 3, 0, "tf32x3_vector"),
+    (torch.float32, 64, ALIGNED, (4096 * 640, 640) * 3, 64, "tf32x3_vector"),  # SDXL packed
+    (torch.float32, 36, ALIGNED, (36 * 64, 36) * 3, 0, "tf32x3_vector"),   # 144-byte rows
+    (torch.float32, 40, (4100, 8192, 12288), (163840, 40) * 3, 0, "tf32x3_plain"),  # odd base
+    (torch.float32, 42, ALIGNED, (42 * 64, 42) * 3, 0, "tf32x3_plain"),    # 168-byte rows
+    (torch.float32, 40, ALIGNED, (163842, 40) * 3, 0, "tf32x3_plain"),     # a batch stride off
+    (torch.float32, 40, ALIGNED, (4096 * 40, 40) * 3, 42, "tf32x3_plain"),  # a slot off
     (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, "wgmma_async"),     # SD's 80-byte rows
     (torch.bfloat16, 64, ALIGNED, (4096 * 640, 640) * 3, 64, "wgmma_async"),  # SDXL packed
     (torch.bfloat16, 160, ALIGNED, (256 * 2048, 2048) * 3, 256, "wgmma_async"),
@@ -117,7 +132,7 @@ ALIGNED = (4096, 8192, 12288)
 def test_flash_form_is_a_rule_on_dtype_head_dim_strides_and_addresses(dtype, d, ptrs, strides,
                                                                       slot, want):
     assert TA.flash_form(dtype, d, ptrs, strides, slot) == want
-    assert TA.FLASH_FORMS[want] in (0, 1, 2)
+    assert TA.FLASH_FORMS[want] in (1, 2, 3, 4)  # no call picks body (b), form 0
 
 
 def test_flash_form_of_real_views():
@@ -130,7 +145,7 @@ def test_flash_form_of_real_views():
     strides = (320, 40) * 3
     assert TA.flash_form(q.dtype, 40, (aligned.data_ptr(),) * 3, strides) == "wgmma_async"
     assert TA.flash_form(q.dtype, 40, (odd.data_ptr(),) * 3, strides) == "wgmma_plain"
-    assert TA.flash_form(torch.float32, 40, (odd.data_ptr(),) * 3, strides) == "cuda_core"
+    assert TA.flash_form(torch.float32, 40, (odd.data_ptr(),) * 3, strides) == "tf32x3_plain"
 
 
 def _flash_case(t, s, d, seed, amp=2.0):
@@ -716,3 +731,251 @@ def test_cpu_conv_takes_a_mixed_dtype_pair_through_the_plain_version():
 
 def test_jax_runs_on_the_cpu_here():
     assert jax.default_backend() == "cpu"
+
+
+# ---- the f32 bodies: three TF32 products a product ----
+
+# (f32 bits in, TF32 bits out) of `cvt.rna.tf32.f32`: round to nearest on the
+# 13 dropped bits, ties away from zero, a carry into the exponent, infinity
+# past the largest finite number, subnormals kept
+TF32_EDGES = [
+    (0x3F800000, 0x3F800000),  # 1
+    (0x3F800FFF, 0x3F800000),  # just under half a unit: down
+    (0x3F801000, 0x3F802000),  # a tie: away from zero, not to even
+    (0x3F803000, 0x3F804000),  # a tie over an odd last bit: up
+    (0x3F805000, 0x3F806000),  # a tie over an even last bit: up too
+    (0xBF801000, 0xBF802000),  # a negative tie: away from zero
+    (0xBF800FFF, 0xBF800000),
+    (0x3FFFF000, 0x40000000),  # carry into the exponent: 2
+    (0x7F7FFFFF, 0x7F800000),  # the largest finite f32: infinity
+    (0x7F7FEFFF, 0x7F7FE000),
+    (0x7F800000, 0x7F800000),  # infinity stays
+    (0xFF800000, 0xFF800000),
+    (0x00000000, 0x00000000),
+    (0x80000000, 0x80000000),  # -0
+    (0x00001000, 0x00002000),  # subnormal tie: away from zero
+    (0x00000FFF, 0x00000000),  # subnormal below half a unit
+    (0x007FF000, 0x00800000),  # the largest subnormals round into the normals
+    (0x00A5B7E9, 0x00A5C000),  # a normal number whose dropped bits are past half: up
+    (0x4B3FFFFF, 0x4B400000),  # 12582911: integers above 2^11 lose bits
+    (0x437F0000, 0x437F0000),  # 255: an 8-bit code is exact
+    (0x43FF8000, 0x43FF8000),  # 511: a 9-bit code is exact
+]
+
+
+def test_tf32_rna_is_round_to_nearest_ties_away_bit_for_bit():
+    bits = torch.tensor([a for a, _ in TF32_EDGES], dtype=torch.int64)
+    x = (bits - (bits >= 2 ** 31).long() * 2 ** 32).to(torch.int32).view(torch.float32)
+    got = tf32_rna(x).view(torch.int32).long() & 0xFFFFFFFF
+    assert [hex(v) for v in got.tolist()] == [hex(b) for _, b in TF32_EDGES]
+    # an independent numpy statement of the same rule on random bit patterns
+    rng = np.random.default_rng(0)
+    r = rng.integers(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32)
+    r = r[(r & 0x7FFFFFFF) < 0x7F7FF000]  # finite and clear of overflow
+    val = r.view(np.float32).astype(np.float64)
+    ulp = np.ldexp(1.0, np.frexp(np.abs(val))[1] - 11)       # a TF32 unit at |val|
+    ulp = np.maximum(ulp, np.ldexp(1.0, -136))                # the subnormal unit
+    want = np.sign(val) * np.floor(np.abs(val) / ulp + 0.5) * ulp
+    got = tf32_rna(torch.from_numpy(r.view(np.float32).copy())).double().numpy()
+    np.testing.assert_array_equal(got, want)
+    # the split leaves less than 2^-22 of x
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    big, small = tf32_split(x)
+    assert torch.equal(tf32_rna(big), big) and torch.equal(tf32_rna(small), small)
+    assert float(((x.double() - big.double() - small.double()).abs()
+                  / x.double().abs()).max()) < 2.0 ** -22
+
+
+def _tf32_products(a, b, products=3):
+    """a @ b^T as the kernels form it: three TF32 products (the two small
+    terms first), or one, summed in f32."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    if products == 1:
+        return torch.matmul(ab, bb.transpose(-1, -2))
+    return (torch.matmul(ab, bs.transpose(-1, -2)) + torch.matmul(as_, bb.transpose(-1, -2))
+            + torch.matmul(ab, bb.transpose(-1, -2)))
+
+
+def _flash_tf32_emulated(q, k, v, scale, products=3):
+    """`flash_tf32_kernel`'s arithmetic in torch: key tiles of 64 (32 past head
+    dim 160), S from TF32 products, the online softmax in base 2 on the raw
+    scores, P split in registers and multiplied by V's TF32 parts, O divided by
+    the row sum of the unsplit P at the end."""
+    bk = 64 if q.shape[-1] <= 160 else 32
+    c = scale * LOG2E
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for key0 in range(0, k.shape[1], bk):
+        s = _tf32_products(q, k[:, key0:key0 + bk], products)
+        mn = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
+        corr = torch.exp2((m - mn) * c)
+        p = torch.exp2(s * c - mn * c)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        m = mn
+        o = o * corr + _tf32_products(p, v[:, key0:key0 + bk].transpose(-1, -2), products)
+    return o / l
+
+
+def _f32_case(bh, t, s, d, seed, amp=2.0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(amp * rng.standard_normal((bh, t, d), dtype=np.float32)),
+            torch.from_numpy(amp * rng.standard_normal((bh, s, d), dtype=np.float32)),
+            torch.from_numpy(rng.standard_normal((bh, s, d), dtype=np.float32)))
+
+
+@pytest.mark.parametrize("s", [77, 1024])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
+def test_flash_tf32_arithmetic_is_within_the_f32_bound(d, s):
+    """Three TF32 products a product keep the f32 flash kernel within
+    `_check_f32`'s 1e-4 of the f32 plain version (scores of spread 4, as the
+    card's checks draw them)."""
+    q, k, v = _f32_case(2, 48, s, d, seed=d + s)
+    scale = d ** -0.5
+    out = _flash_tf32_emulated(q, k, v, scale)
+    ref = TA.attention_reference(q, k, v, scale)
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+def test_flash_tf32_arithmetic_matches_the_jax_kernel():
+    """The same emulation against the JAX package's `_flash_kernel`
+    (`fused_attention(..., sm_mode="none")` in interpret mode, as its own tests
+    run it on the CPU), at the f32 bound."""
+    q, k, v = _f32_case(2, 64, 200, 40, seed=3)
+    scale = 40 ** -0.5
+    j = JA.fused_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)), scale, sm_mode="none",
+                           interpret=True, block_t=32, block_s=128)
+    out = _flash_tf32_emulated(q, k, v, scale)
+    assert float((out - torch.from_numpy(np.array(j))).abs().max()) <= 1e-4
+
+
+def test_one_tf32_product_breaks_the_f32_bound():
+    """Why three: with one TF32 product (11 significant bits) the scores of
+    the VAE's spread are off by some 1e-3, and the output by more than 1e-4,
+    where three products stay inside it."""
+    q, k, v = _f32_case(1, 64, 1024, 512, seed=7)
+    scale = 512 ** -0.5
+    ref = TA.attention_reference(q, k, v, scale)
+    one = float((_flash_tf32_emulated(q, k, v, scale, products=1) - ref).abs().max())
+    three = float((_flash_tf32_emulated(q, k, v, scale) - ref).abs().max())
+    assert one > 1e-4 >= three
+    assert one > 10 * three
+
+
+def _conv_tf32_emulated(x, w, dm, zm, dl, zl, bias, a_bits=8):
+    """`group_conv_tf32_kernel`'s arithmetic in torch: per tap, the codes as the
+    plain version forms them, split into TF32 parts, against the fold's
+    panels (`fold_panels`), three products summed in f32; bias in f32."""
+    w_t, rd, z = TG._fold(x, w, dm, zm, dl, zl, 3, 3)
+    panels = TG.fold_panels(w_t)
+    b, h, wd, c = x.shape
+    qmax = float(2 ** a_bits - 1)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(b * h * wd, w_t.shape[2])
+    for t in range(9):
+        i, j = divmod(t, 3)
+        code = torch.clamp(torch.round(xp[:, i:i + h, j:j + wd, :] * rd[t]), -z[t], qmax - z[t])
+        cb, cs = tf32_split(code.reshape(-1, c))
+        acc += (torch.matmul(cb, panels[1, t].T) + torch.matmul(cs, panels[0, t].T)
+                + torch.matmul(cb, panels[0, t].T))
+    return (acc + bias).reshape(b, h, wd, -1)
+
+
+@pytest.mark.parametrize("c,o,zp", [(64, 48, (100.0, 156.0)), (40, 24, (-40.0, 300.0)),
+                                    (96, 160, (20.0, 40.3))])
+def test_conv_tf32_arithmetic_is_within_the_f32_bound(c, o, zp):
+    """K5's f32 body within `_check_conv(bf16=False)`'s 2e-3 of
+    `group_quant_conv_reference`, with zero points that put the clip bounds
+    inside and outside [0, 255] and fractional ones (a code's small part is
+    then not 0)."""
+    rng = np.random.default_rng(c + o)
+    x = torch.from_numpy(2.0 * rng.standard_normal((2, 8, 8, c), dtype=np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32))
+    dm = torch.from_numpy((0.02 + 0.06 * rng.random((9, c))).astype(np.float32))
+    zm = torch.from_numpy((zp[0] + (zp[1] - zp[0]) * rng.random((9, c))).astype(np.float32))
+    dl, zl = torch.tensor([1.0]), torch.tensor([0.25])
+    bias = torch.from_numpy(0.1 * rng.standard_normal(o).astype(np.float32))
+    ref = TG.group_quant_conv_reference(x, w, dm, zm, dl, zl, bias)
+    out = _conv_tf32_emulated(x, w, dm, zm, dl, zl, bias)
+    assert float((out - ref).abs().max()) <= 2e-3
+    assert float(ref.abs().max()) > 0.5
+
+
+def _np_tf32_rna(a):
+    """TF32 rounding in numpy on uint32 bit patterns (finite inputs)."""
+    u = np.asarray(a, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    mag = u & 0x7FFFFFFF
+    return ((((mag + 0x1000) & ~np.uint64(0x1FFF)) | (u & 0x80000000)).astype(np.uint32)
+            .view(np.float32))
+
+
+@pytest.mark.parametrize("c,o", [(32, 64), (40, 24), (320, 320)])
+def test_fold_panels_are_the_split_transposed_w_t_bit_for_bit(c, o):
+    """The f32 body's weights: `fold_panels` of `_fold`'s w_t is (2, taps, O,
+    C), w_t transposed to K-major, big = rna(w_t), small = rna(w_t - big),
+    bit for bit against a numpy statement of the same rule; big + small is
+    w_t within 2^-22."""
+    w, dm, zm, dl, zl = _fold_inputs(c, o, seed=c * o)
+    x = torch.zeros(1, 4, 4, c)
+    w_t, _, _ = TG._fold(x, torch.from_numpy(w), *(torch.from_numpy(a) for a in (dm, zm, dl, zl)),
+                         3, 3)
+    panels = TG.fold_panels(w_t)
+    assert panels.shape == (2, 9, o, c) and panels.dtype == torch.float32
+    assert panels.is_contiguous()
+    wt = np.ascontiguousarray(w_t.numpy().transpose(0, 2, 1))
+    big = _np_tf32_rna(wt)
+    small = _np_tf32_rna(wt - big)
+    np.testing.assert_array_equal(_bits(panels[0].numpy()), _bits(big))
+    np.testing.assert_array_equal(_bits(panels[1].numpy()), _bits(small))
+    err = np.abs(wt.astype(np.float64) - big - small.astype(np.float64))
+    assert float((err / np.maximum(np.abs(wt), 1e-30)).max()) < 2.0 ** -22
+
+
+def _sdxl_conv_shapes():
+    """(pixels, C, O, taps) of every stride-1 k x k conv of SDXL's UNet at
+    each resolution a 128 x 128 latent passes through (batch 2, 1024px)."""
+    shapes = set()
+    for _, kind, meta in sdxl_unet_spec():
+        if kind == "conv" and meta[2] > 1 and meta[3] == 1:
+            for side in (128, 64, 32):
+                shapes.add((2 * side * side, meta[0], meta[1], meta[2] ** 2))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("m,c,o,taps",
+                         sorted(set(_unet_conv_shapes() + _sdxl_conv_shapes() + SMOKE_SHAPES)))
+def test_conv_plan_f32_covers_k_exactly_once(m, c, o, taps):
+    """The f32 body's plan (160 outputs a tile, 32 channels a step) at every
+    stride-1 conv of SD v1.4 and SDXL and at chip_smoke.py's six shapes."""
+    plan = TG.conv_plan(m, c, o, taps, torch.float32)
+    assert plan == TG.conv_plan(m, c, o, taps, torch.float32)  # a pure function
+    assert plan.tile_k == TG.TILE_K_F32
+    assert plan.m_tiles * TG.TILE_M >= m > (plan.m_tiles - 1) * TG.TILE_M
+    assert plan.n_tiles * TG.TILE_N_F32 >= o > (plan.n_tiles - 1) * TG.TILE_N_F32
+    assert plan.c_chunks * TG.TILE_K_F32 >= c > (plan.c_chunks - 1) * TG.TILE_K_F32
+    assert plan.steps == taps * plan.c_chunks and 1 <= plan.splits <= TG.MAX_SPLITS
+    assert plan.splits * plan.steps_per_split >= plan.steps
+    assert (plan.splits - 1) * plan.steps_per_split < plan.steps
+    seen = np.zeros((taps, c), dtype=np.int64)
+    ranges = TG.plan_k_ranges(plan, c)
+    assert len(ranges) == plan.splits and all(ranges)
+    for pieces in ranges:
+        for tap, lo, hi in pieces:
+            assert 0 <= lo < hi <= c and hi - lo <= TG.TILE_K_F32
+            seen[tap, lo:hi] += 1
+    assert (seen == 1).all()
+    flat = [piece for pieces in ranges for piece in pieces]
+    assert flat == sorted(flat)
+    tiles = plan.m_tiles * plan.n_tiles
+    assert tiles * plan.splits <= max(tiles, TG.SM_COUNT)  # a split never adds a wave
+
+
+def test_conv_plan_f32_splits_the_small_images():
+    """At 8 x 8 and 16 x 16 the f32 body has 16 and 64 output tiles for 132
+    SMs: K is split until a wave is full; at 64 x 64 it is not split."""
+    assert TG.conv_plan(BATCH * 64 * 64, 320, 320, 9, torch.float32).splits == 1
+    for m, c, o in ((BATCH * 8 * 8, 2560, 1280), (BATCH * 16 * 16, 1280, 1280)):
+        plan = TG.conv_plan(m, c, o, 9, torch.float32)
+        assert plan.splits > 1
+        assert TG.SM_COUNT // 2 < plan.m_tiles * plan.n_tiles * plan.splits <= TG.SM_COUNT
