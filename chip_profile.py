@@ -31,7 +31,8 @@ the wrapper's host time, through the wrappers' public entries, so that the
 same script times a parent tree's kernels). The f32 rows (`f32_rows`) are
 the forwards the CLIs run, f32 activations over the same bf16 weights (as
 `--fp16` runs them): SD g=8 with the fused group conv and the kernels'
-attention (K5, K3b), the same with the taps group conv, the fp forward with
+attention (K5, K3b), g=1 (K1), g=8 with the static log2 softmax (K5, K4),
+the g=8 forward with the taps group conv, the fp forward with
 the kernels' attention (K2 at head dims 40 to 160), and one f32 VAE decode
 of 2 images at 512px (K2 at head dim 512), each profiled as above.
 `--changed` runs only the f32 rows. The last line repeats the figures as
@@ -46,7 +47,8 @@ import time
 
 BUCKETS = (
     ("attention kernels (K1-K4, K1p-K4p)",
-     ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel", "flash_tf32_kernel")),
+     ("attention_kernel", "flash_tc_kernel", "quant_tc_kernel", "flash_tf32_kernel",
+      "quant_tf32_kernel")),
     ("group conv kernels (K5: fold, conv, split-K finish)",
      ("group_conv", "fold_kernel", "fold_oihw_kernel", "finish_kernel")),
     ("int8 matmul kernel (K6)", ("int8_matmul_kernel", "int8_wgmma_kernel")),
@@ -267,15 +269,21 @@ def f32_rows(model, tag):
     import chip_smoke
     from dgq_tpu_torch.models.qconfig import QConfig
     from dgq_tpu_torch.pipeline.vae import SD_VAE_SCALE, init_vae_decoder, vae_decode
-    from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate
+    from dgq_tpu_torch.utils.synthetic import synthetic_group_qstate, synthetic_pertensor_qstate
 
     f32 = torch.float32
     m32 = {**model, "latents": model["latents"].float(), "ehs_t": model["ehs_t"].float(),
            "ehs_u": model["ehs_u"].float()}
     qs, group_layers = synthetic_group_qstate(model["spec"], 1, True, f32)
     g8 = QConfig(w_bits=4, a_bits=8, **chip_smoke._g8_kwargs(group_layers, "fused"))
+    g1 = QConfig(w_bits=4, a_bits=8, softmax_bits=8, use_wq=True, use_aq=True,
+                 use_pallas_attention=True)
     records = [
         profile_step(sd_step(m32, qs, g8), "f32 g=8 fused group conv (K5, K3b)", 4, tag),
+        profile_step(sd_step(m32, synthetic_pertensor_qstate(model["spec"], 1, True, f32), g1),
+                     "f32 g=1 (K1)", 4, tag),
+        profile_step(sd_step(m32, qs, g8.replace(t2i_real_time=False, log_max_1=True)),
+                     "f32 g=8 static log2 fused group conv (K5, K4)", 4, tag),
         profile_step(sd_step(m32, qs, g8.replace(group_conv_impl="taps")),
                      "f32 g=8 taps group conv (K3b)", 4, tag),
         profile_step(sd_step(m32, None, QConfig(use_pallas_attention=True)),

@@ -61,8 +61,9 @@ Phases (any failure raises, so the exit code is non-zero):
      initial latents moved by 1e-6, whose change bounds the kernel runs'
      first UNet forward, and each kernel flag alone); the
      f32 kernel bodies these runs take against their plain versions
-     (`f32_bodies`: K2/K2p and K5 as three TF32 products a product beside
-     the CUDA-core bodies they replace, K1, K3b and K4 on the CUDA cores);
+     (`f32_bodies`: K2/K2p, K5, K1, K3b and K4 on the tensor cores, three
+     TF32 products a product, P V of the quantizing modes two, beside the
+     CUDA-core bodies they replace);
      then the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
   6. `calib_path`, after `cli_path`: calibration without reconstruction from
@@ -1684,6 +1685,13 @@ F32_FLASH_SHAPES = [
     ("SDXL 64px self", IMAGES * 10, 4096, 64),
     ("SDXL 32px self", IMAGES * 20, 1024, 64),
 ]
+# the quantizing modes' f32 shapes: label, BH, T, S, D (cross-attention takes start_peak)
+F32_QUANT_SHAPES = [
+    ("SD 64px self", 2 * IMAGES * 8, 4096, 4096, 40),
+    ("SDXL 64px self", IMAGES * 10, 4096, 4096, 64),
+    ("SD 16px self", 2 * IMAGES * 8, 256, 256, 160),
+    ("SD 64px cross", 2 * IMAGES * 8, 4096, 77, 40),
+]
 PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (H100 SXM data sheet)
 
 
@@ -1704,10 +1712,17 @@ def f32_bodies(tag):
     to `fold_panels(_fold(...))`'s bit for bit; each line names its form,
     the first version's CUDA-core body's device ms on the same inputs (the
     earlier time), the bound at the TF32 rate (three products) and at the
-    f32 rate outside the tensor cores, and for K2 `scaled_dot_product_attention`
-    in f32 with TF32 off (a yardstick the port never calls). K1, K3b and K4
-    keep the CUDA-core body at their largest SD 512px shape. Returns {case:
-    device ms}."""
+    f32 rate outside the tensor cores, and for K2 and K2p (SD and SDXL heads
+    in slots of 64) `scaled_dot_product_attention` in f32 with TF32 off (a
+    yardstick the port never calls). K1, K3b and K4 (log2, and uniform with
+    start_peak) run on the tensor cores too, three TF32 products for Q K^T
+    and two for P V, through their public wrappers at `F32_QUANT_SHAPES`, each
+    launch checked to take that form: K1 within `_check_f32` with delta,
+    quant_accum and K4 within `_check_share(bf16=False)`, rt_stats' z within
+    1e-4 and its scalar within 1e-5 relative of the plain version's; at the
+    first shape each packed entry over NaN and the element-load form on a
+    misaligned q equal the unpacked 16-byte-load form bit for bit. Returns
+    {case: device ms}."""
     import torch
     import torch.nn.functional as F
     from dgq_tpu_torch.ops import attention as A, group_conv as G
@@ -1767,8 +1782,15 @@ def f32_bodies(tag):
                     and bool((got_p.reshape(*got_p.shape[:2], heads, 64)[..., d:] == 0).all())):
                 raise AssertionError(f"f32 flash_attention_packed {label}: not K2's bits, or "
                                      f"padding lanes not zero")
-            extra += f"; K2p (slots of 64, over NaN) equal bit for bit, zero padding lanes"
-            del packed, buf, got_p
+            # K2p's time and the one PyTorch call for its function on the same strided views
+            q4, k4, v4 = (x.reshape(bh // heads, t, heads, 64)[..., :d].transpose(1, 2)
+                          for x in packed)
+            p_dev = _device_ms(lambda: A.flash_attention_packed(*packed, scale, heads, d, out=buf))
+            p_lib = _device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+            extra += (f"; K2p (slots of 64, over NaN) equal bit for bit, zero padding lanes, "
+                      f"device-only ms {p_dev:.4f}, scaled_dot_product_attention (f32, TF32 off) "
+                      f"on the same strided views {p_lib:.4f}")
+            del packed, buf, got_p, q4, k4, v4
         if label == "SD 64px self":
             odd = _misaligned(q)
             if not torch.equal(A.flash_attention(odd, k, v, scale), got):
@@ -1846,42 +1868,131 @@ def f32_bodies(tag):
              f"library: none")
         del x, w, got, old_out, w_t
 
-    # the quantizing modes keep the CUDA-core body (b) in f32
-    bh, t, d = 2 * IMAGES * 8, 4096, 40
-    q, k = (2.0 * torch.randn(bh, t, d, generator=g, device="cuda") for _ in range(2))
-    v = torch.randn(bh, t, d, generator=g, device="cuda")
-    scale, qk = d ** -0.5, 2.0 * bh * t * t * d
-    io = 4.0 * (2 * q.numel() + k.numel() + v.numel())
-    delta_u = torch.tensor(1.0 / 255.0, device="cuda")
-    z, red = A.rt_stats(q, k, scale)
-    cases = [  # name, shape, kernel, plain version, check, flops, bytes
-        ("static_uniform_attention", "64px self", lambda: A.static_uniform_attention(
-            q, k, v, scale, delta_u), lambda: A.attention_reference(
-            q, k, v, scale, "uniform", 8, delta_u), lambda o, r: _check_f32(o, r, v, 1 / 255)[0],
-         2 * qk, io),
-        ("rt_stats", "64px self", lambda: A.rt_stats(q, k, scale)[0], lambda: A.rt_stats_reference(
-            q, k, scale)[0], lambda o, r: float((o - r).abs().max()), qk, 4.0 * (q.numel() + k.numel())),
-        ("quant_accum", "64px self", lambda: A.quant_accum(q, k, v, z, red, scale), lambda:
-         A.attention_reference(q, k, v, scale, "log2", 8, A.rt_delta(red)),
-         lambda o, r: _check_share(o, r, bf16=False)[0], 2 * qk, io),
-        ("static_quant_attention", "64px self log2", lambda: A.static_quant_attention(
-            q, k, v, scale, "log2", one[0] * 0.5), lambda: A.attention_reference(
-            q, k, v, scale, "log2", 8, one[0] * 0.5), lambda o, r: _check_share(o, r, bf16=False)[0],
-         2 * qk, io),
-    ]
-    for name, label, fn, plain, check, flops, nbytes in cases:
-        err = check(fn(), plain())
-        if name == "rt_stats" and not err <= 1e-2:
-            raise AssertionError(f"f32 {name} {label}: error {err} against its plain version")
-        dev = _device_ms(fn)
-        plain_ms = _median_ms(plain, reps=3)
-        bound = _bound(flops, nbytes, peak=PEAK_F32_FLOPS)
-        tf32 = _tf32_bound(flops, nbytes)
-        out[f"{name} {label}"] = dev
-        print(f"f32 {name} {label} (cuda_core body, as cli_path runs it): max_abs_err {err:.4g}; "
-              f"device-only ms {dev:.4f} ({dev / bound[0]:.1f}x its f32 bound {bound[0]:.4f}, "
-              f"{bound[1]}; bound at the TF32 rate, three products, {tf32[0]:.4f}), plain "
-              f"{plain_ms:.4f}; library: none | {tag}", flush=True)
+    # the quantizing modes on body (e) (3xTF32), each through its public wrapper, beside
+    # body (b), form 0 of the same C entry, on the same inputs
+    delta_u, half = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.5, device="cuda")
+    for label, bh, t, s, d in F32_QUANT_SHAPES:
+        q = 2.0 * torch.randn(bh, t, d, generator=g, device="cuda")
+        k = 2.0 * torch.randn(bh, s, d, generator=g, device="cuda")
+        v = torch.randn(bh, s, d, generator=g, device="cuda")
+        scale, qk = d ** -0.5, 2.0 * bh * t * s * d
+        io = 4.0 * (2 * q.numel() + k.numel() + v.numel())
+        sp = s == 77  # cross-attention takes start_peak, as the g=8 path does
+        shape = f"{label} (BH={bh}, T={t}, S={s}, D={d})"
+        form = A.quant_form(torch.float32, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                            (t * d, d, s * d, d, s * d, d))
+        if form != "tf32x3_vector":
+            raise AssertionError(f"f32 quantizing kernels {shape}: form {form}")
+        z, red = A.rt_stats(q, k, scale, sp)
+        buf_o = torch.empty_like(q)
+        buf_z = torch.empty_like(z)
+        buf_r = torch.empty_like(red)
+
+        def c_call(name, *, static=None):  # body (b), form 0 of the same C entry
+            p = (q.data_ptr(), k.data_ptr())
+            if name == "rt_stats":
+                buf_r.fill_(0.0 if sp else float("inf"))
+                rc = lib.dgq_rt_stats(*p, buf_z.data_ptr(), buf_r.data_ptr(), bh, t, s, d, scale,
+                                      int(sp), 0, 0, stream())
+            elif name == "quant_accum":
+                rc = lib.dgq_quant_accum(*p, v.data_ptr(), buf_o.data_ptr(), z.data_ptr(),
+                                         red.data_ptr(), bh, t, s, d, scale, 8, int(sp), 0, 0,
+                                         stream())
+            elif name == "static_uniform_attention":
+                rc = lib.dgq_uniform_attention(*p, v.data_ptr(), buf_o.data_ptr(), bh, t, s, d,
+                                               scale, delta_u.data_ptr(), 8, 0, 0, stream())
+            else:
+                uni = static == "uniform"  # uniform codes go with start_peak
+                rc = lib.dgq_static_quant_attention(*p, v.data_ptr(), buf_o.data_ptr(), bh, t, s,
+                                                    d, scale, (delta_u if uni else half).data_ptr(),
+                                                    8, int(uni), int(sp or uni), 0, 0, stream())
+            if rc:
+                raise RuntimeError(f"the CUDA-core {name} body failed: CUDA error {rc}")
+
+        def rt_check(got, want):
+            z_err = float((got[0] - want[0]).abs().max())
+            red_rel = float(((got[1] - want[1]) / want[1]).abs())
+            if not (z_err <= 1e-4 and red_rel <= 1e-5):
+                raise AssertionError(f"f32 rt_stats {shape}: z err {z_err}, scalar rel {red_rel}")
+            return z_err, f"; the scalar within {red_rel:.3g} relative"
+
+        uni_sp = "uniform start_peak"
+        cases = [  # name, quantizer, kernel, plain version, check -> (err, note), flops, bytes
+            ("static_uniform_attention", "uniform", lambda: A.static_uniform_attention(
+                q, k, v, scale, delta_u), lambda: A.attention_reference(
+                q, k, v, scale, "uniform", 8, delta_u),
+             lambda o, r: (_check_f32(o, r, v, 1 / 255)[0], ""), 2 * qk, io),
+            ("rt_stats", "log2_real_time", lambda: A.rt_stats(q, k, scale, sp),
+             lambda: A.rt_stats_reference(q, k, scale, sp), rt_check, qk,
+             4.0 * (q.numel() + k.numel() + bh * t)),
+            ("quant_accum", "log2_real_time", lambda: A.quant_accum(q, k, v, z, red, scale, 8, sp),
+             lambda: A.attention_reference(q, k, v, scale, "log2", 8, A.rt_delta(red, sp), sp),
+             lambda o, r: (_check_share(o, r, bf16=False)[0], ""), 2 * qk, io + 4.0 * bh * t),
+            ("static_quant_attention", "log2", lambda: A.static_quant_attention(
+                q, k, v, scale, "log2", half, 8, sp), lambda: A.attention_reference(
+                q, k, v, scale, "log2", 8, half, sp),
+             lambda o, r: (_check_share(o, r, bf16=False)[0], ""), 2 * qk, io),
+            ("static_quant_attention", uni_sp, lambda: A.static_quant_attention(
+                q, k, v, scale, "uniform", delta_u, 8, True), lambda: A.attention_reference(
+                q, k, v, scale, "uniform", 8, delta_u, True),
+             lambda o, r: (_check_share(o, r, bf16=False)[0], ""), 2 * qk, io),
+        ]
+        for name, quant, fn, plain, check, flops, nbytes in cases:
+            before = A.LAUNCHES[name]
+            got = fn()
+            torch.cuda.synchronize()
+            if A.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"f32 {name} {shape}: no launch")
+            err, note = check(got, plain())
+            static = {"log2": "log2", uni_sp: "uniform"}.get(quant)
+            old = lambda name=name, static=static: c_call(name, static=static)
+            old()
+            torch.cuda.synchronize()
+            first = got[0] if name == "rt_stats" else got
+            old_err = float(((buf_z if name == "rt_stats" else buf_o) - first).abs().max())
+            if name != "rt_stats" and label == F32_QUANT_SHAPES[0][0]:
+                # K1p to K4p: the packed entry over slots of 64 holding NaN, and the
+                # element-load form on a misaligned q, bit for bit
+                heads = 8
+                qp, kp, vp = (A.repack_heads(x, heads, 64) for x in (q, k, v))
+                kw = dict(sm_mode={"static_uniform_attention": "uniform",
+                                   "quant_accum": "log2_real_time"}.get(name, static),
+                          sm_bits=8, sm_delta=delta_u if static != "log2" else half,
+                          start_peak=sp or static == "uniform")
+                whole = A.fused_attention(q, k, v, scale, **kw)
+                buf = torch.full(qp.shape, float("nan"), device="cuda")
+                packed = A.fused_attention(qp, kp, vp, scale, num_heads=heads, head_dim=d,
+                                           out=buf, **kw)
+                odd = _misaligned(q)
+                if A.quant_form(torch.float32, d, (odd.data_ptr(),), (t * d, d)) != "tf32x3_plain":
+                    raise AssertionError(f"f32 {name} {shape}: a misaligned q took 16-byte loads")
+                if not (torch.equal(A.unpack_heads(packed, heads, d), whole)
+                        and bool((packed.reshape(bh // heads, t, heads, 64)[..., d:] == 0).all())
+                        and torch.equal(A.fused_attention(odd, k, v, scale, **kw), whole)):
+                    raise AssertionError(f"f32 {name} {quant} {shape}: the packed entry or the "
+                                         f"element-load form differs")
+                note += ("; packed entry (slots of 64, over NaN) and misaligned q (tf32x3_plain) "
+                         "equal bit for bit")
+                del qp, kp, vp, buf, packed, odd, whole
+            if name == "rt_stats" and label == F32_QUANT_SHAPES[0][0]:
+                odd = _misaligned(q)
+                zp, redp = A.rt_stats_packed(*(A.repack_heads(x, 8, 64) for x in (q, k)), scale,
+                                             8, d, sp)
+                if not all(torch.equal(a, b) for a, b in zip(A.rt_stats(odd, k, scale, sp), got)):
+                    raise AssertionError(f"f32 rt_stats {shape}: the element-load form differs")
+                if not (torch.equal(zp, got[0]) and torch.equal(redp, got[1])):
+                    raise AssertionError(f"f32 rt_stats_packed {shape}: differs from rt_stats")
+                note += "; packed entry and misaligned q (tf32x3_plain) equal bit for bit"
+                del odd, zp, redp
+            dev = _device_ms(fn)
+            old_dev = _device_ms(old, calls=4, reps=3)
+            plain_ms = _median_ms(plain, reps=3)
+            exps = {"rt_stats": 1, "quant_accum": 0}.get(name, 2) * bh * t * s  # a score each pass
+            extra = (f"{note}; the CUDA-core body's max |d| {old_err:.4g}; exponent-unit floor "
+                     f"{_exp_floor(exps):.4f}; library: none")
+            line(name, f"{quant} {shape}", form, err, dev, old_dev, plain_ms, flops, nbytes, extra)
+        del q, k, v, z, red, buf_o, buf_z, buf_r
+        torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = saved
     return out
 
@@ -4240,7 +4351,13 @@ def print_build_report(paths, tag):
             qt = re.search(r"quant_tc_kernelILi(\d)ELi(\d+)ELi(\d+)ELb([01])E", sym)
             tf = re.search(r"flash_tf32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
                            sym)
-            if qt:
+            qf = re.search(r"quant_tf32_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                           sym)
+            if qf:
+                kname = (f"{modes[qf.group(1)]} 3xTF32 wgmma D<={8 * int(qf.group(3))} "
+                         f"{qf.group(5)} x {qf.group(4)} columns"
+                         + (" 16-byte loads" if qf.group(6) == "1" else " element loads"))
+            elif qt:
                 dtype = "bf16"
                 kname = (f"{modes[qt.group(1)]} wgmma D<={16 * int(qt.group(3))}"
                          + (" cp.async" if qt.group(4) == "1" else " element loads"))

@@ -35,7 +35,7 @@
 // here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's `_accum_kernel`
 // does) and pay 1.5x the flops of K2; K3b pays the same over its two launches.
 //
-// Four bodies.
+// Five bodies.
 //
 // (a) The bf16 flash mode (K2, K2p) runs on the tensor cores
 // (`flash_tc_kernel`, tile code in wgmma.cuh). A block of two warpgroups takes
@@ -82,10 +82,15 @@
 // product formed from three TF32 products (`flash_tf32_kernel`, whose note
 // says how).
 //
-// (b) The f32 entries of the quantizing modes, and K1 in bf16 past head_dim
-// 192 (the VAE's 512) or with codes past 256, keep the first version's body,
-// f32 FMAs on the CUDA cores (the f32 flash entry keeps it too, as form 0, for
-// timing; no wrapper picks it):
+// (e) The f32 quantizing modes K1, K3b and K4 (with K1p, K3p, K4p) at
+// head_dim <= 160 run on body (d)'s step machinery (`quant_tf32_kernel`): Q K^T
+// as three TF32 products, P V as two, since a quantized probability is one
+// TF32 number exactly.
+//
+// (b) The f32 quantizing modes past head_dim 160 or with uniform codes past
+// 2048, and K1 in bf16 past head_dim 192 (the VAE's 512) or with codes past
+// 256, keep the first version's body, f32 FMAs on the CUDA cores (the f32
+// flash and quantizing entries keep it as form 0 for timing as well):
 // one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
 // memory, K and V tiles of 64 keys through one shared buffer as f32, each
 // thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
@@ -816,6 +821,96 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh, in
 #undef DGQ_TC
 }
 
+// Pass 1 of the quantizing modes on the tensor cores (bodies (c) and (e)):
+// each lane's share of the statistics of rows r0 = 16 warp + g and r1 = r0 + 8,
+// m the raw-score max, l = sum 2^(scale_log2 (s - m)), m2 the raw max outside
+// key 0 (rt_stats under start_peak), from the S fragments of 64-key tiles.
+struct RowStats {
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, m20 = kNegInf, m21 = kNegInf;
+
+  // S of the keys [key0, key0 + 64); keys past s_len are masked out
+  __device__ __forceinline__ void add(float (&s)[32], int key0, int s_len, int t4,
+                                      float scale_log2, bool with_m2) {
+    if (key0 + 64 > s_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (key0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= s_len) s[i] = kNegInf;
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+    const float tm0 = quad_max(mx0), tm1 = quad_max(mx1);
+    if (with_m2) {
+      if (key0 == 0) {  // key 0 is s[0] (row r0) and s[2] (row r1) of lane t4 = 0
+        float a0 = kNegInf, a1 = kNegInf;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (t4 == 0 && (i == 0 || i == 2)) continue;
+          if (i & 2) a1 = fmaxf(a1, s[i]);
+          else a0 = fmaxf(a0, s[i]);
+        }
+        m20 = quad_max(a0);
+        m21 = quad_max(a1);
+      } else {
+        m20 = fmaxf(m20, tm0);
+        m21 = fmaxf(m21, tm1);
+      }
+    }
+    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+    const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float e = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+      if (i & 2) sum1 += e;
+      else sum0 += e;
+    }
+    l0 = l0 * ex2((m0 - mn0) * scale_log2) + sum0;
+    l1 = l1 * ex2((m1 - mn1) * scale_log2) + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  // after the last tile: each row's l, summed over its four lanes
+  __device__ __forceinline__ void finish() {
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+  }
+
+  // rt_stats' output: z = scale m + ln l per valid row (lane t4 = 0 writes); the
+  // warp's rows fold into one value (min l, or under start_peak max exp(scale
+  // (m2 - m)) / l) and one lane folds it into the call's scalar. Rows past
+  // t_len (zero queries) stay out of both.
+  __device__ __forceinline__ void write(const Extra& ex, int bh, int t_len, int r0, int r1,
+                                        int lane, float scale) const {
+    const bool v0 = r0 < t_len, v1 = r1 < t_len, sp = ex.start_peak != 0;
+    if ((lane & 3) == 0) {
+      if (v0) ex.z[(size_t)bh * t_len + r0] = fmaf(m0, scale, logf(l0));
+      if (v1) ex.z[(size_t)bh * t_len + r1] = fmaf(m1, scale, logf(l1));
+    }
+    float red = sp ? 0.f : __int_as_float(0x7f800000);
+    if (sp) {
+      if (v0) red = fmaxf(red, expf((m20 - m0) * scale) / l0);
+      if (v1) red = fmaxf(red, expf((m21 - m1) * scale) / l1);
+    } else {
+      if (v0) red = fminf(red, l0);
+      if (v1) red = fminf(red, l1);
+    }
+#pragma unroll
+    for (int sh = 4; sh < 32; sh <<= 1) {
+      const float other = __shfl_xor_sync(0xffffffffu, red, sh);
+      red = sp ? fmaxf(red, other) : fminf(red, other);
+    }
+    if (lane == 0) {
+      if (sp) atomicMax(ex.red, __float_as_int(red));
+      else atomicMin(ex.red, __float_as_int(red));
+    }
+  }
+};
+
 // ---- (c) the quantizing modes K1, K3b, K4 on the tensor cores, bf16 ----
 //
 // What they compute, and what that asks of the card. All three recompute
@@ -929,85 +1024,18 @@ quant_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::pin(s);
   };
 
-  // pass 1: m (raw scores) and l = sum 2^(scale_log2 (s - m)), each lane its
-  // share of rows r0 and r1; m2 the raw max outside key 0 (kStats, start_peak)
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, m20 = kNegInf, m21 = kNegInf;
+  // pass 1: the row statistics
+  RowStats st;
   for (int it = 0; it < n1; ++it) {
     float s[NS];
     scores(it, s);
-    const int key0 = it * BK;
-    if (key0 + BK > s_len) {
-#pragma unroll
-      for (int i = 0; i < NS; ++i)
-        if (key0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= s_len) s[i] = kNegInf;
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      if (i & 2) mx1 = fmaxf(mx1, s[i]);
-      else mx0 = fmaxf(mx0, s[i]);
-    }
-    const float tm0 = quad_max(mx0), tm1 = quad_max(mx1);
-    if (MODE == kStats && sp) {
-      if (it == 0) {  // key 0 is s[0] (row r0) and s[2] (row r1) of lane t4 = 0
-        float a0 = kNegInf, a1 = kNegInf;
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          if (t4 == 0 && (i == 0 || i == 2)) continue;
-          if (i & 2) a1 = fmaxf(a1, s[i]);
-          else a0 = fmaxf(a0, s[i]);
-        }
-        m20 = quad_max(a0);
-        m21 = quad_max(a1);
-      } else {
-        m20 = fmaxf(m20, tm0);
-        m21 = fmaxf(m21, tm1);
-      }
-    }
-    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
-    const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const float e = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
-      if (i & 2) sum1 += e;
-      else sum0 += e;
-    }
-    l0 = l0 * ex2((m0 - mn0) * scale_log2) + sum0;
-    l1 = l1 * ex2((m1 - mn1) * scale_log2) + sum1;
-    m0 = mn0;
-    m1 = mn1;
+    st.add(s, it * BK, s_len, t4, scale_log2, MODE == kStats && sp);
   }
-  if (PASS1) {
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-  }
+  if (PASS1) st.finish();
+  const float m0 = st.m0, m1 = st.m1, l0 = st.l0, l1 = st.l1;
 
   if constexpr (MODE == kStats) {
-    // z = scale m + ln l per valid row (lane t4 = 0 writes); the warp's
-    // rows fold into one value and one lane folds it into the call's scalar
-    const bool v0 = r0 < t_len, v1 = r1 < t_len;
-    if (t4 == 0) {
-      if (v0) ex.z[(size_t)bh * t_len + r0] = fmaf(m0, scale, logf(l0));
-      if (v1) ex.z[(size_t)bh * t_len + r1] = fmaf(m1, scale, logf(l1));
-    }
-    float red = sp ? 0.f : __int_as_float(0x7f800000);
-    if (sp) {
-      if (v0) red = fmaxf(red, expf((m20 - m0) * scale) / l0);
-      if (v1) red = fmaxf(red, expf((m21 - m1) * scale) / l1);
-    } else {
-      if (v0) red = fminf(red, l0);
-      if (v1) red = fminf(red, l1);
-    }
-#pragma unroll
-    for (int sh = 4; sh < 32; sh <<= 1) {
-      const float other = __shfl_xor_sync(0xffffffffu, red, sh);
-      red = sp ? fmaxf(red, other) : fminf(red, other);
-    }
-    if ((tid & 31) == 0) {
-      if (sp) atomicMax(ex.red, __float_as_int(red));
-      else atomicMin(ex.red, __float_as_int(red));
-    }
+    st.write(ex, bh, t_len, r0, r1, tid & 31, scale);
   } else {
     // pass 2: per-row constants of the quantizer, then P V over the key tiles.
     // z = scale m + ln l: read from rt_stats' output (kAccum) or formed from
@@ -1257,6 +1285,94 @@ __device__ __forceinline__ void st_shared4(uint32_t dst, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
 }
 
+// The step machinery shared by the f32 tensor-core bodies (d) and (e). A key
+// tile of BK keys is a sequence of steps: step i < NCH is the 32-lane chunk i
+// of Q K^T (64 rows of Q from q0, BK keys of K from key0), step NCH + b the
+// NB of O's columns from c0 + b NB of P V (V's BK keys, stored transposed).
+// `tf32_load` brings a step's operands into registers (stg), `tf32_store`
+// splits them into big and small TF32 parts in a ring stage, `tf32_qk` runs
+// a Q K^T step's three products a k8 step into a fresh accumulator. Thread
+// (lr, cc) = (tid / 8, tid % 8) takes 16-byte chunk cc of rows lr + 16 p of
+// the Q and K chunks; a V block takes key lane + 32 (p % (BK / 32)), lanes
+// 4 n4.. of the block, n4 = warp + 4 (p / (BK / 32)).
+template <int NCH, int BK, int NB, int NSTG, bool VEC>
+__device__ __forceinline__ void tf32_load(float4 (&stg)[NSTG], int j, int i, const float* qb,
+                                          const float* kb, const float* vb, const Layout& lay,
+                                          int q0, int c0, int t_len, int s_len, int d, int tid) {
+  constexpr int NPV = (BK / 32) * ((NB + 15) / 16);
+  const int cc = tid & 7, lr = tid >> 3, warp = tid >> 5, lane = tid & 31;
+  const int key0 = j * BK;
+  if (i < NCH) {
+    const int col = 32 * i + 4 * cc;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) stg[p] = load4<VEC>(qb, lay.q_row, q0 + lr + 16 * p, t_len, col, d);
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p)
+      stg[4 + p] = load4<VEC>(kb, lay.k_row, key0 + lr + 16 * p, s_len, col, d);
+  } else {
+    const int cb = c0 + (i - NCH) * NB;
+#pragma unroll
+    for (int p = 0; p < NPV; ++p) {
+      const int n4 = warp + 4 * (p / (BK / 32));
+      stg[p] = n4 < NB / 4 ? load4<VEC>(vb, lay.v_row, key0 + lane + 32 * (p % (BK / 32)), s_len,
+                                        cb + 4 * n4, d)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// ... split into big and small and stored into the stage at st: the Q and K
+// chunks K-major (big at st and st + 16384, small 8192 and BK 128 further), the
+// V block as V^T, its keys in `key_slot` order (small PV_HALF further)
+template <int NCH, int BK, int NB, int NSTG>
+__device__ __forceinline__ void tf32_store(const float4 (&stg)[NSTG], int i, uint32_t st, int tid) {
+  constexpr int NPV = (BK / 32) * ((NB + 15) / 16);
+  constexpr int PV_HALF = NB * BK * 4;
+  const int cc = tid & 7, lr = tid >> 3, warp = tid >> 5, lane = tid & 31;
+  if (i < NCH) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) store_split4(st + tc::swz(lr + 16 * p, cc), 8192, stg[p]);
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p)
+      store_split4(st + 16384 + tc::swz(lr + 16 * p, cc), BK * 128, stg[4 + p]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NPV; ++p) {
+      const int n4 = warp + 4 * (p / (BK / 32));
+      if (n4 >= NB / 4) continue;
+      const int slot = key_slot(lane + 32 * (p % (BK / 32)));
+      const float e4[4] = {stg[p].x, stg[p].y, stg[p].z, stg[p].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * n4 + e;  // row n of V^T: sub-tile slot / 32, chunk (slot % 32) / 4
+        const uint32_t dst = st + (slot >> 5) * (NB * 128) + n * 128 +
+                             ((((slot & 31) >> 2) ^ (n & 7)) << 4) + ((slot & 3) << 2);
+        uint32_t big, small;
+        tc::split_tf32(e4[e], big, small);
+        st_shared4(dst, big);
+        st_shared4(dst + PV_HALF, small);
+      }
+    }
+  }
+}
+
+// Q K^T chunk i of the stage at cur into a fresh accumulator sc: three TF32
+// products a k8 step, the two small terms first
+template <int NKS, int BK>
+__device__ __forceinline__ void tf32_qk(float (&sc)[BK / 2], uint32_t cur, int i) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (4 * i + u < NKS) {
+      const uint64_t qbig = tc::desc(cur + 32 * u), qsmall = tc::desc(cur + 8192 + 32 * u);
+      const uint64_t kbig = tc::desc(cur + 16384 + 32 * u);
+      const uint64_t ksmall = tc::desc(cur + 16384 + BK * 128 + 32 * u);
+      tc::Tf32<BK>::ss(sc, qbig, ksmall, u > 0);
+      tc::Tf32<BK>::ss(sc, qsmall, kbig, 1);
+      tc::Tf32<BK>::ss(sc, qbig, kbig, 1);
+    }
+  }
+}
+
 // NCH: 32-lane chunks of the head dim; NKS: k8 steps of Q K^T (ceil(d / 8),
 // or more: lanes past d are zeros); BK: keys per tile; NB: O columns a P V
 // step; NPB: P V steps, so a block holds NB * NPB of O's columns, from
@@ -1290,59 +1406,12 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ob = o + batch * lay.o_batch + head_off;
   const int n_tiles = (s_len + BK - 1) / BK;
   const int total = n_tiles * NST;
-  const int cc = tid & 7, lr = tid >> 3;  // Q, K chunks: 16-byte chunk cc of rows lr + 16 p
 
   float4 stg[NSTG];
-  // step i of key tile j into registers; a V block: key lane + 32 (p % (BK / 32)),
-  // lanes 4 n4.. of the block, n4 = warp + 4 (p / (BK / 32))
   auto load = [&](int j, int i) {
-    const int key0 = j * BK;
-    if (i < NCH) {
-      const int col = 32 * i + 4 * cc;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) stg[p] = load4<VEC>(qb, lay.q_row, q0 + lr + 16 * p, t_len, col, d);
-#pragma unroll
-      for (int p = 0; p < BK / 16; ++p)
-        stg[4 + p] = load4<VEC>(kb, lay.k_row, key0 + lr + 16 * p, s_len, col, d);
-    } else {
-      const int c0 = col0 + (i - NCH) * NB;
-#pragma unroll
-      for (int p = 0; p < NPV; ++p) {
-        const int n4 = warp + 4 * (p / (BK / 32));
-        stg[p] = n4 < NB / 4 ? load4<VEC>(vb, lay.v_row, key0 + lane + 32 * (p % (BK / 32)), s_len,
-                                          c0 + 4 * n4, d)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    tf32_load<NCH, BK, NB, NSTG, VEC>(stg, j, i, qb, kb, vb, lay, q0, col0, t_len, s_len, d, tid);
   };
-  // ... split into big and small and stored into the stage at st
-  auto store = [&](int i, uint32_t st) {
-    if (i < NCH) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) store_split4(st + tc::swz(lr + 16 * p, cc), 8192, stg[p]);
-#pragma unroll
-      for (int p = 0; p < BK / 16; ++p)
-        store_split4(st + 16384 + tc::swz(lr + 16 * p, cc), BK * 128, stg[4 + p]);
-    } else {
-#pragma unroll
-      for (int p = 0; p < NPV; ++p) {
-        const int n4 = warp + 4 * (p / (BK / 32));
-        if (n4 >= NB / 4) continue;
-        const int slot = key_slot(lane + 32 * (p % (BK / 32)));
-        const float e4[4] = {stg[p].x, stg[p].y, stg[p].z, stg[p].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 4 * n4 + e;  // row n of V^T: sub-tile slot / 32, chunk (slot % 32) / 4
-          const uint32_t dst = st + (slot >> 5) * (NB * 128) + n * 128 +
-                               ((((slot & 31) >> 2) ^ (n & 7)) << 4) + ((slot & 3) << 2);
-          uint32_t big, small;
-          tc::split_tf32(e4[e], big, small);
-          st_shared4(dst, big);
-          st_shared4(dst + PV_HALF, small);
-        }
-      }
-    }
-  };
+  auto store = [&](int i, uint32_t st) { tf32_store<NCH, BK, NB, NSTG>(stg, i, st, tid); };
 
   float oacc[NPB][NB / 2];
 #pragma unroll
@@ -1370,17 +1439,7 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();          // ... by every thread, and the other stage is consumed
       tc::mma_fence();
       if (i < NCH) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (4 * i + u < NKS) {
-            const uint64_t qbig = tc::desc(cur + 32 * u), qsmall = tc::desc(cur + 8192 + 32 * u);
-            const uint64_t kbig = tc::desc(cur + 16384 + 32 * u);
-            const uint64_t ksmall = tc::desc(cur + 16384 + BK * 128 + 32 * u);
-            tc::Tf32<BK>::ss(sc, qbig, ksmall, u > 0);
-            tc::Tf32<BK>::ss(sc, qsmall, kbig, 1);
-            tc::Tf32<BK>::ss(sc, qbig, kbig, 1);
-          }
-        }
+        tf32_qk<NKS, BK>(sc, cur, i);
       } else {
 #pragma unroll
         for (int u = 0; u < BK / 8; ++u) {
@@ -1514,6 +1573,306 @@ int dispatch_tf32(const void* q, const void* k, const void* v, void* o, int bh, 
 #undef DGQ_TF
 }
 
+// ---- (e) the quantizing modes K1, K3b, K4 on the tensor cores, f32: 3xTF32 ----
+//
+// The f32 entries of the quantizing modes on body (d)'s step machinery: one
+// warpgroup and 64 query rows a block, key tiles of 64, a two-stage ring, each
+// step's operands split into TF32 parts a step ahead in registers. Pass 1
+// (kUniform, kStats, kStatic) is NCH Q K^T steps a key tile and the row
+// statistics of body (c) on the f32 S: m on the raw scores, l in base 2, m2
+// under start_peak; kStats then writes z = scale m + ln l and folds the call's
+// scalar by the same atomic on its bit pattern. Pass 2 (kUniform, kAccum,
+// kStatic) recomputes S with the same steps, quantizes it in registers and
+// runs NPB P V steps. What each part takes:
+//   * S = Q K^T: three TF32 products (`tf32_qk`), a fresh accumulator a
+//     32-lane chunk, added in f32, in one instruction sequence for every
+//     launch and both passes: quant_accum sees the S from which rt_stats took
+//     m, l and z, and pass 2 the S of pass 1, to the bit.
+//   * P V: two products, P V_big and P V_small, because P is one TF32 number
+//     exactly. A uniform code is an integer <= 2^b - 1 <= 2048, which TF32's
+//     11 significant bits hold. A log2 term p_q = 2^-q delta (body (b)'s
+//     bitcast(bits(delta) - (q << 23))) is fed as 2^(e - q), e delta's
+//     unbiased exponent, bits (exponent_field(delta) - q) << 23: a normal
+//     TF32 number for every q <= ub = min(2^b - 1, exponent_field(delta) - 1),
+//     body (b)'s bound with no cap at 126 (the bf16 body's cap). The
+//     accumulator is multiplied once by delta's significand (delta with
+//     exponent field 127), so each term is p_q v exactly as body (b) forms it;
+//     uniform codes are multiplied by delta once, as in body (c). Each key
+//     tile's P V goes into a fresh accumulator that is added to O in f32: one
+//     accumulator over all of P V drifts past 1e-4 (the tensor cores add
+//     rounding toward zero, body (d)'s note).
+//   * start_peak: key 0's A element is zero and exp(s0 - z) V[0, :] is added
+//     in f32 after the loop (body (c)'s rank-1 update), so the row's peak stays
+//     exact.
+//   * Keys past S have zero K and V rows: pass 1 masks them out of m, l and m2,
+//     and in pass 2 their finite A elements meet zero V. Rows past T are kept
+//     out of z and of the call's scalar, and are not written.
+// What bounds it: three TF32 products for Q K^T and two for P V at 495
+// TFLOP/s (K1 and K4 form S twice), and the exponentials (one an element a
+// pass; quant_accum none); what holds it is body (d)'s step machinery (each
+// step waits on loads issued one step earlier). kStats keeps no O and runs
+// three blocks an SM, as do the 40-column tiers of the other modes.
+template <int MODE, int NCH, int NKS, int NB, int NPB, bool VEC>
+__global__ void __launch_bounds__(kTfThreads, MODE == kStats || NB * NPB <= 40 ? 3 : 1)
+quant_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int t_len, int s_len, int d,
+                  float scale, float scale_log2, Extra ex, Layout lay, int o_vec) {
+  constexpr int BK = 64, NS = BK / 2;
+  static_assert(NCH >= 2 && NKS <= 4 * NCH && NB % 8 == 0, "tile shape");
+  constexpr bool PASS1 = MODE != kAccum;  // the row statistics m, l
+  constexpr bool PASS2 = MODE != kStats;  // quantize and P V
+  constexpr int NST = NCH + NPB;          // steps a key tile of pass 2
+  constexpr int QK_BYTES = (64 + BK) * 256;
+  constexpr int PV_HALF = NB * BK * 4;
+  constexpr int STAGE = PASS2 && 2 * PV_HALF > QK_BYTES ? 2 * PV_HALF : QK_BYTES;
+  constexpr int NQK = 4 + BK / 16;
+  constexpr int NPV = (BK / 32) * ((NB + 15) / 16);
+  constexpr int NSTG = PASS2 && NPV > NQK ? NPV : NQK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * 64;
+  const int batch = bh / lay.heads, head_off = (bh - batch * lay.heads) * lay.slot;
+  const float* qb = q + batch * lay.q_batch + head_off;
+  const float* kb = k + batch * lay.k_batch + head_off;
+  const float* vb = PASS2 ? v + batch * lay.v_batch + head_off : kb;
+  const int n_tiles = (s_len + BK - 1) / BK;
+  // steps [0, n1) are pass 1 (NCH a key tile), [n1, total) pass 2 (NST a tile)
+  const int n1 = PASS1 ? n_tiles * NCH : 0;
+  const int total = n1 + (PASS2 ? n_tiles * NST : 0);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
+  const bool sp = ex.start_peak != 0;
+
+  float4 stg[NSTG];
+  auto load = [&](int j, int i) {
+    tf32_load<NCH, BK, NB, NSTG, VEC>(stg, j, i, qb, kb, vb, lay, q0, 0, t_len, s_len, d, tid);
+  };
+  auto store = [&](int i, uint32_t st) { tf32_store<NCH, BK, NB, NSTG>(stg, i, st, tid); };
+  // Step st multiplies from stage st & 1 once every thread has stored into it
+  // (`sync`); while it runs, step st + 1's operands are stored into the other
+  // stage, which the barrier freed, and step st + 2's (key tile j2, step i2)
+  // are loaded (`feed`).
+  auto sync = [] {
+    tc::fence_async_proxy();
+    __syncthreads();
+    tc::mma_fence();
+  };
+  auto feed = [&](int st, int i1, int j2, int i2) {
+    if (st + 1 < total) store(i1, ring + ((st + 1) & 1) * STAGE);
+    if (st + 2 < total) load(j2, i2);
+  };
+
+  float s[NS], sc[NS];
+  load(0, 0);
+  store(0, ring);
+  if (total > 1) load(0, 1);  // NCH >= 2: the second step is chunk 1 of key tile 0
+
+  // pass 1: the row statistics
+  RowStats rs;
+  if (PASS1) {
+    for (int j = 0; j < n_tiles; ++j) {
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        const int st = j * NCH + i;
+        sync();
+        tf32_qk<NKS, BK>(sc, ring + (st & 1) * STAGE, i);
+        tc::mma_commit();
+        // two steps on: key tile j + 1 of this pass, or tile 0 of pass 2
+        const int j2 = j + (i + 2) / NCH;
+        feed(st, (i + 1) % NCH, j2 < n_tiles ? j2 : j2 - n_tiles, (i + 2) % NCH);
+        tc::mma_wait<0>();
+        tc::pin(sc);
+#pragma unroll
+        for (int x = 0; x < NS; ++x) s[x] = i == 0 ? sc[x] : s[x] + sc[x];
+      }
+      rs.add(s, j * BK, s_len, t4, scale_log2, MODE == kStats && sp);
+    }
+    rs.finish();
+  }
+  const float m0 = rs.m0, m1 = rs.m1, l0 = rs.l0, l1 = rs.l1;
+
+  if constexpr (MODE == kStats) {
+    rs.write(ex, bh, t_len, r0, r1, lane, scale);
+  } else {
+    // pass 2: the quantizer's row constants, as body (c) forms them
+    const bool uni = MODE == kUniform || (MODE == kStatic && ex.uniform);
+    float delta, c0, c1, ub = 0.f, z0 = 0.f, z1 = 0.f;
+    if (MODE == kAccum) {
+      const float r = __int_as_float(*ex.red);
+      delta = sp ? r : 1.f / r;
+      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
+      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
+    } else {
+      delta = *ex.delta;
+    }
+    if (MODE == kStatic) {
+      z0 = fmaf(m0, scale, logf(l0));
+      z1 = fmaf(m1, scale, logf(l1));
+    }
+    // log2 terms: A element bits dexp - (q << 23), the accumulator times f =
+    // delta's significand; uniform codes: the accumulator times f = delta
+    const uint32_t dbits = __float_as_uint(delta), dexp = dbits & 0x7f800000u;
+    const float f = uni ? delta : __uint_as_float((dbits & 0x807fffffu) | 0x3f800000u);
+    if (uni) {
+      c0 = -fmaf(m0, scale_log2, log2f(l0 * delta));
+      c1 = -fmaf(m1, scale_log2, log2f(l1 * delta));
+    } else {
+      ub = fminf(static_cast<float>(static_cast<int>(dbits >> 23) - 1), ex.max_code);
+      const float log2d = log2f(delta);
+      c0 = fmaf(z0, kInvLn2, log2d);
+      c1 = fmaf(z1, kInvLn2, log2d);
+    }
+    constexpr float kMagic = 12582912.f;  // 1.5 2^23: x + kMagic rounds x to an integer
+    float oacc[NPB][NB / 2], pv[NB / 2];
+#pragma unroll
+    for (int b = 0; b < NPB; ++b)
+#pragma unroll
+      for (int x = 0; x < NB / 2; ++x) oacc[b][x] = 0.f;
+    uint32_t pa[BK / 8][4];       // P's A fragments, one a k8 step
+    float s00 = 0.f, s01 = 0.f;  // start_peak: key 0's raw scores (lane t4 = 0)
+
+    for (int j = 0; j < n_tiles; ++j) {
+#pragma unroll
+      for (int i = 0; i < NST; ++i) {
+        const int st = n1 + j * NST + i;
+        const uint32_t cur = ring + (st & 1) * STAGE;
+        sync();
+        if (i < NCH) {
+          tf32_qk<NKS, BK>(sc, cur, i);
+        } else {
+#pragma unroll
+          for (int u = 0; u < BK / 8; ++u) {
+            const uint32_t vt = cur + (u / 4) * (NB * 128) + (u % 4) * 32;
+            tc::Tf32<NB>::rs(pv, pa[u], tc::desc(vt + PV_HALF), u > 0);
+            tc::Tf32<NB>::rs(pv, pa[u], tc::desc(vt), 1);
+          }
+        }
+        tc::mma_commit();
+        feed(st, (i + 1) % NST, j + (i + 2) / NST, (i + 2) % NST);
+        tc::mma_wait<0>();
+        if (i < NCH) {
+          tc::pin(sc);
+#pragma unroll
+          for (int x = 0; x < NS; ++x) s[x] = i == 0 ? sc[x] : s[x] + sc[x];
+        } else {
+          tc::pin(pv);
+#pragma unroll
+          for (int u = 0; u < BK / 8; ++u) tc::pin(pa[u]);
+#pragma unroll
+          for (int x = 0; x < NB / 2; ++x) oacc[i - NCH][x] += pv[x];
+        }
+        if (i == NCH - 1) {
+          // S of key tile j is whole: its A fragments, keys 2 t4 and 2 t4 + 1
+          // of block u as k t4 and t4 + 4 (V^T is stored in `key_slot` order)
+          const bool peak0 = MODE != kUniform && sp && j == 0 && t4 == 0;
+          if (peak0) {
+            s00 = s[0];
+            s01 = s[2];
+          }
+          uint32_t a[NS];
+          if (uni) {
+#pragma unroll
+            for (int x = 0; x < NS; ++x) {
+              const float e = ex2(fmaf(s[x], scale_log2, (x & 2) ? c1 : c0));
+              a[x] = __float_as_uint(fminf((e + kMagic) - kMagic, ex.max_code));
+            }
+          } else {
+            // bits(y + kMagic) = 0x4B400000 + q, and (0x4B400000 << 23) is 0 mod 2^32
+#pragma unroll
+            for (int x = 0; x < NS; ++x) {
+              const float y = fminf(fmaxf(fmaf(s[x], -scale_log2, (x & 2) ? c1 : c0), 0.f), ub);
+              a[x] = dexp - (__float_as_uint(y + kMagic) << 23);
+            }
+          }
+          if (peak0) {  // key 0's A elements: zero, its exact term is added after the loop
+            a[0] = 0u;
+            a[2] = 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < BK / 8; ++u) {
+            pa[u][0] = a[4 * u];      // (g, key 2 t4)
+            pa[u][1] = a[4 * u + 2];  // (g + 8, key 2 t4)
+            pa[u][2] = a[4 * u + 1];  // (g, key 2 t4 + 1)
+            pa[u][3] = a[4 * u + 3];  // (g + 8, key 2 t4 + 1)
+          }
+        }
+      }
+    }
+
+    // out = f acc (+ exp(s0 - z) V[0, :] under start_peak)
+    const bool peak = MODE != kUniform && sp;
+    float p00 = 0.f, p01 = 0.f;
+    if (peak) {
+      const int lead = lane & ~3;
+      p00 = expf(fmaf(__shfl_sync(0xffffffffu, s00, lead), scale, -z0));
+      p01 = expf(fmaf(__shfl_sync(0xffffffffu, s01, lead), scale, -z1));
+    }
+    float* ob = o + batch * lay.o_batch + head_off;
+#pragma unroll
+    for (int b = 0; b < NPB; ++b)
+#pragma unroll
+      for (int jb = 0; jb < NB / 8; ++jb) {
+        const int col = b * NB + 8 * jb + 2 * t4;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = oacc[b][4 * jb + e] * f;
+        if (peak) {
+          const float va = col < d ? vb[col] : 0.f, vb1 = col + 1 < d ? vb[col + 1] : 0.f;
+          x[0] = fmaf(p00, va, x[0]);
+          x[1] = fmaf(p00, vb1, x[1]);
+          x[2] = fmaf(p01, va, x[2]);
+          x[3] = fmaf(p01, vb1, x[3]);
+        }
+        store_pair(ob, lay.o_row, r0, col, x[0], x[1], t_len, d, o_vec);
+        store_pair(ob, lay.o_row, r1, col, x[2], x[3], t_len, d, o_vec);
+      }
+    zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
+  }
+}
+
+template <int MODE, int NCH, int NKS, int NB, int NPB, bool VEC>
+cudaError_t launch_quant_tf32(const void* q, const void* k, const void* v, void* o, int bh,
+                              int t_len, int s_len, int d, float scale, const Extra& ex,
+                              const Layout& lay, int o_vec, cudaStream_t stream) {
+  constexpr int QK_BYTES = 128 * 256, PV_BYTES = MODE == kStats ? 0 : NB * 64 * 8;
+  const int smem = 1024 + 2 * (QK_BYTES > PV_BYTES ? QK_BYTES : PV_BYTES);
+  auto kernel = quant_tf32_kernel<MODE, NCH, NKS, NB, NPB, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + 63) / 64, bh);
+  kernel<<<grid, kTfThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), t_len, s_len, d, scale, scale * kLog2e, ex, lay, o_vec);
+  return cudaGetLastError();
+}
+
+// The quantizing modes' f32 tensor-core forms (3: 16-byte loads, which need
+// `vec_ok`; 4: element loads), head_dim <= 160 (body (d)'s tiers below the
+// VAE's), scale > 0, and for uniform codes (K1, K4 uniform) codes exact in TF32
+// (2^b - 1 <= 2048); anything else is refused.
+template <int MODE, bool VEC>
+int dispatch_quant_tf32(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                        int s_len, int d, float scale, const Extra& ex, const Layout& lay,
+                        cudaStream_t stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 160 || !(scale > 0.f))
+    return cudaErrorInvalidValue;
+  if (lay.heads < 1 || bh % lay.heads || lay.o_cols < d) return cudaErrorInvalidValue;
+  const bool uniform_codes = MODE == kUniform || (MODE == kStatic && ex.uniform);
+  if (uniform_codes && !(ex.max_code <= 2048.f)) return cudaErrorInvalidValue;
+  if (VEC && !vec_ok(q, k, MODE == kStats ? k : v, d, lay)) return cudaErrorInvalidValue;
+  const int o_vec = MODE != kStats && reinterpret_cast<uintptr_t>(o) % 8 == 0 &&
+                    lay.o_batch % 2 == 0 && lay.o_row % 2 == 0 && lay.slot % 2 == 0;
+#define DGQ_QTF(NCH, NKS, NB, NPB) \
+  return launch_quant_tf32<MODE, NCH, NKS, NB, NPB, VEC>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, o_vec, stream)
+  if (d <= 40) DGQ_QTF(2, 5, 40, 1);
+  if (d <= 64) DGQ_QTF(2, 8, 64, 1);
+  if (d <= 80) DGQ_QTF(3, 10, 80, 1);
+  DGQ_QTF(5, 20, 80, 2);
+#undef DGQ_QTF
+}
+
 // The flash entries: form 0 is body (b) and takes f32 only (the wrapper no
 // longer picks it: it stays for timing the first version against body (d));
 // forms 1 and 2 are body (a) and take bf16 only; forms 3 and 4 are body (d)
@@ -1532,8 +1891,10 @@ int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const vo
 }
 
 // The entries of K1, K3b and K4: form 0 is body (b), in f32 (K1 also in bf16,
-// for head dims past 192 and codes past 256); forms 1 and 2 are body (c), bf16
-// only.
+// for head dims past 192 and codes past 256; the wrapper picks it in f32 only
+// past head_dim 160 or past 2048 codes, and it stays for timing the first
+// version against body (e)); forms 1 and 2 are body (c), bf16 only; forms 3
+// and 4 are body (e), f32 only.
 template <int MODE>
 int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, int d, float scale, const Extra& ex,
@@ -1548,6 +1909,10 @@ int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const vo
     return dispatch_quant_tc<MODE, true>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
   if (form == 2 && is_bf16)
     return dispatch_quant_tc<MODE, false>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if (form == 3 && !is_bf16)
+    return dispatch_quant_tf32<MODE, true>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if (form == 4 && !is_bf16)
+    return dispatch_quant_tf32<MODE, false>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1588,9 +1953,8 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
 // form (every entry): 0 the CUDA-core body, 1 the tensor-core body with
-// cp.async tiles, 2 the tensor-core body with element loads (bf16); the flash
-// entries also 3 and 4, the f32 tensor-core body (3xTF32) with 16-byte and
-// with element loads.
+// cp.async tiles, 2 the tensor-core body with element loads (bf16), 3 and 4
+// the f32 tensor-core body (3xTF32) with 16-byte and with element loads.
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                    int t_len, int s_len, int d, float scale, int is_bf16,
                                    int form, void* stream) {

@@ -4,8 +4,8 @@ Counterpart of `dgq_tpu/ops/pallas/attention.py`. Its Pallas kernels are
 ported in `csrc/attention.cu`:
 
   * K1 `_static_uniform_kernel` (`sm_mode="uniform"`, no start_peak): every
-    UNet attention of the g=1 policy; in bf16 on the tensor cores
-    (`quant_form`);
+    UNet attention of the g=1 policy; on the tensor cores in bf16, and in f32
+    as three TF32 products for Q K^T and two for P V (`quant_form`);
   * K2 `_flash_kernel` (`sm_mode="none"`): the VAE mid-block attention and
     the unquantized UNet path; on the tensor cores in bf16, and in f32 as
     three TF32 products a product (`flash_form`);
@@ -13,11 +13,11 @@ ported in `csrc/attention.cu`:
     form K3b (`_stats_kernel`, `_stats_kernel_nonpeak`, `_accum_kernel`):
     `rt_stats` reduces the per-call delta into one device scalar with an
     atomic, `quant_accum` reads it. A GPU grid has no order, so the TPU's
-    one-call form with a sequential phase axis has no counterpart; in bf16
-    both launches run on the tensor cores (`quant_form`);
+    one-call form with a sequential phase axis has no counterpart; both
+    launches run on the tensor cores, in bf16 and in f32 (`quant_form`);
   * K4 `_static_quant_kernel` (`sm_mode="log2"`, or `"uniform"` with
-    start_peak): statistics and quantized accumulation in one launch; in
-    bf16 on the tensor cores (`quant_form`).
+    start_peak): statistics and quantized accumulation in one launch; on the
+    tensor cores in bf16 and f32 (`quant_form`).
 
 The packed head-slot path (`_fused_attention_packed` there: the same four
 bodies, K1p to K4p, over (B, T, H*dp) arrays) is `fused_attention(...,
@@ -164,20 +164,28 @@ def _flash_form_checked(scale, *args) -> int:
     return FLASH_FORMS[flash_form(*args)]
 
 
+# The largest head_dim and uniform code each dtype's tensor-core quantizing
+# body takes: bf16 codes are exact up to 256; TF32 (f32's three-product body,
+# built for the UNet's head dims) holds integers up to 2048.
+QUANT_TC_LIMITS = {torch.bfloat16: (192, 256), torch.float32: (160, 2048)}
+
+
 def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int = 255) -> str:
     """Which body of the quantizing kernels K1 (`static_uniform_attention`),
     K3b (`rt_stats`, `quant_accum`) and K4 (`static_quant_attention`), and
     of their packed entries, a call runs; the numbers are `FLASH_FORMS`'.
-    bf16 at head_dim <= 192 runs on the tensor cores, with the copies chosen
-    as `flash_form` chooses them (`ptrs`: the base addresses the kernel
-    reads, in bytes). The uniform quantizer (K1, K4 uniform) feeds its codes
-    (integers up to `max_code` = 2^bits - 1) to the tensor cores as bf16,
-    which holds integers exactly up to 256 only; the log2 quantizer feeds
-    powers of two and takes any code length (leave `max_code` at its
-    default). f32, head dims past 192 (K1 at the VAE's 512) and longer
+    bf16 at head_dim <= 192 and f32 at head_dim <= 160 run on the tensor
+    cores (f32 as three TF32 products for Q K^T, two for P V), with the loads
+    chosen as `flash_form` chooses them (`ptrs`: the base addresses the
+    kernel reads, in bytes). The uniform quantizer (K1, K4 uniform) feeds its
+    codes (integers up to `max_code` = 2^bits - 1) to the tensor cores as
+    they are: bf16 holds integers exactly up to 256, TF32 up to 2048; the
+    log2 quantizer feeds powers of two and takes any code length (leave
+    `max_code` at its default). Wider heads (K1 at the VAE's 512) and longer
     uniform codes run on the CUDA cores. (The tensor-core bodies take a
     positive scale only: `_quant_form_checked`.)"""
-    if dtype != torch.bfloat16 or head_dim > 192 or max_code > 256:
+    max_d, max_codes = QUANT_TC_LIMITS.get(dtype, (0, 0))
+    if head_dim > max_d or max_code > max_codes:
         return "cuda_core"
     return flash_form(dtype, head_dim, ptrs, strides, slot)
 
@@ -187,7 +195,7 @@ def _quant_form_checked(scale, *args, **kw) -> int:
     bodies take the row max on the raw scores, so they need scale > 0."""
     form = quant_form(*args, **kw)
     if form != "cuda_core" and not scale > 0:
-        raise ValueError(f"the bf16 quantizing kernels need a positive scale, got {scale}")
+        raise ValueError(f"the tensor-core quantizing kernels need a positive scale, got {scale}")
     return FLASH_FORMS[form]
 
 
@@ -333,7 +341,8 @@ def _static_max_code(sm_mode: str, sm_bits: int) -> int:
 
 def _static_quant_f32(fn, q, k, v, out=None):
     """K4 / K4p on bf16 tensors whose uniform codes pass 256, which bf16 does
-    not hold exactly: the f32 kernel (the CUDA-core body) on f32 copies, the
+    not hold exactly: the f32 kernel on f32 copies (its tensor-core body,
+    whose TF32 codes are exact up to 2048; the CUDA-core body past that), the
     result rounded to bf16 once, into `out` where one is given."""
     res = fn(q.float(), k.float(), v.float()).to(q.dtype)
     return res if out is None else out.copy_(res)

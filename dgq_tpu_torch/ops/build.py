@@ -27,9 +27,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dgq_tpu_torch"
+# --split-compile=0: each compiler optimizes the kernels of its source in parallel, on
+# every core (attention.cu holds most of the instances and bounds the build)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 def refuse_grad(entry: str, *tensors) -> None:

@@ -12,7 +12,8 @@ Run them on a GPU machine with
 (`--noconftest`: the suite's conftest imports JAX, which a GPU machine need
 not have). The cases mirror tests/test_pallas_kernels.py: ragged S = 77,
 head dims of the main path (40/80/160 SD UNet, 64 SDXL UNet, 512 VAE), two
-deltas, bf16 and f32.
+deltas, bf16 and f32. The f32 entries of K1 to K4 run on the tensor cores
+(three TF32 products for Q K^T, two for P V) at head dims up to 160.
 
 Tolerances, with reasons:
   * K2 (flash): f32 atol 1e-4 (f32 reassociation of online vs materialized
@@ -650,6 +651,163 @@ def test_static_quant_kernel_refuses_a_form_its_inputs_cannot_take():
     torch.cuda.synchronize()
 
 
+TF32_QUANT_CASES = [(kind, t, s, d, sp)
+                    for kind in ("uniform", "rt_stats", "quant_accum", "static_log2",
+                                 "static_uniform")
+                    for t, s, d in [(200, 77, 40), (129, 300, 64), (64, 65, 80), (70, 77, 160),
+                                    (50, 33, 36), (31, 77, 100), (40, 64, 42)]
+                    for sp in ((False,) if kind == "uniform" else
+                               (True,) if kind == "static_uniform" else (False, True))]
+
+
+@pytest.mark.parametrize("kind,t,s,d,sp", TF32_QUANT_CASES)
+def test_quant_tf32_forms_agree(kind, t, s, d, sp):
+    """The f32 quantizing kernels on the tensor cores (body (e): three TF32
+    products for Q K^T, two for P V) at every head-dim tier, ragged T and S:
+    the form the wrapper picks for aligned tensors (16-byte loads where
+    head_dim is a multiple of 4, element loads where not); the element-load
+    form it picks for each input one element off a 16-byte boundary, and the
+    packed entry on the same heads (aligned, then misaligned), write the same
+    bits. The uniform codes (K1, K4 uniform) are held to the plain version
+    within `_check` with delta, rt_stats' z within 1e-4 and its scalar within
+    1e-5 relative. The log2 codes are held to it where there are rows enough
+    for the share bound (test_log2_real_time_kernels_match_plain,
+    test_static_quant_kernel_matches_plain): at a few hundred rows one flip of
+    a row's dominant probability at a half-integer exponent moves the whole
+    row, more than the bound's 5e-4 of the outputs."""
+    f32 = torch.float32
+    q, k, v = _qkv(4, t, s, d, f32, seed=t + s + d + sp)
+    scale = d ** -0.5
+    strides = (t * d, d, s * d, d, s * d, d)
+    want = "tf32x3_vector" if d % 4 == 0 else "tf32x3_plain"
+    assert TA.quant_form(f32, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()), strides) == want
+    zr = TA.rt_stats(q, k, scale, sp) if kind == "quant_accum" else None
+    name = QUANT_LAUNCHES[kind]
+    before = TA.LAUNCHES[name]
+    out = _quant_run(kind, q, k, v, sp, zr=zr)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1
+    if kind == "uniform":
+        delta = torch.tensor(1.0 / 255.0)
+        _check(out[0], TA.attention_reference(q, k, v, scale, "uniform", 8, delta), v, f32,
+               1.0 / 255.0)
+    elif kind == "static_uniform":
+        delta = torch.tensor(1.0 / 255.0)
+        _check(out[0], TA.attention_reference(q, k, v, scale, "uniform", 8, delta, True), v, f32,
+               1.0 / 255.0)
+    elif kind == "rt_stats":
+        z_ref, red_ref = TA.rt_stats_reference(q, k, scale, sp)
+        assert float((out[0] - z_ref).abs().max()) <= 1e-4
+        assert float(((out[1] - red_ref) / red_ref).abs()) <= 1e-5
+    for which in range(2 if kind == "rt_stats" else 3):
+        args = [q, k, v]
+        x = args[which]
+        args[which] = torch.empty(x.numel() + 1, device="cuda", dtype=f32)[1:].view_as(x).copy_(x)
+        assert TA.quant_form(f32, d, tuple(a.data_ptr() for a in args), strides) == "tf32x3_plain"
+        got = _quant_run(kind, *args, sp, zr=zr)
+        assert all(torch.equal(a, b) for a, b in zip(got, out)), which
+    h, dp = 2, 64 if d <= 64 else (128 if d <= 128 else 256)
+    b = q.shape[0] // h
+    qp, kp, vp = (TA.repack_heads(x, h, dp) for x in (q, k, v))
+    packed = _quant_run(kind, qp, kp, vp, sp, heads=h, d=d, zr=zr)
+    odd = torch.empty(qp.numel() + 1, device="cuda", dtype=f32)[1:].view_as(qp).copy_(qp)
+    assert TA.quant_form(f32, d, (odd.data_ptr(),), (t * h * dp, h * dp), dp) == "tf32x3_plain"
+    packed_odd = _quant_run(kind, odd, kp, vp, sp, heads=h, d=d, zr=zr)
+    torch.cuda.synchronize()
+    if kind == "rt_stats":
+        assert all(torch.equal(a, c) and torch.equal(a, e)
+                   for a, c, e in zip(out, packed, packed_odd))
+    else:
+        assert tuple(packed[0].shape) == (b, t, h * dp)
+        assert torch.equal(TA.unpack_heads(packed[0], h, d), out[0])
+        assert bool((packed[0].reshape(b, t, h, dp)[..., d:] == 0).all())
+        assert torch.equal(packed_odd[0], packed[0])
+
+
+def test_quant_tf32_refuses_what_it_cannot_take():
+    """The C entries of K1, rt_stats, quant_accum and K4 check the f32
+    tensor-core forms they are handed: 16-byte loads from a misaligned view
+    or with head_dim no multiple of 4, either form on bf16, a scale <= 0, head
+    dims past 160, uniform codes past 2048; the CUDA-core body (form 0) takes
+    f32 past all of these but the dtype."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    q, k, v = _qkv(2, 64, 64, 40, torch.float32, seed=5)
+    qb = q.bfloat16()
+    odd = torch.empty(q.numel() + 1, device="cuda")[1:].view_as(q).copy_(q)
+    wide = torch.zeros(2, 64, 200, device="cuda")
+    out = torch.empty(2, 64, 200, device="cuda")
+    z = torch.zeros(2, 64, device="cuda")
+    red = torch.ones(1, device="cuda")
+    delta = torch.tensor([1.0 / 255.0], device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def uni(qq, bf16, form, d=40, bits=8, scale=0.1, kk=k, vv=v):
+        return lib.dgq_uniform_attention(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                                         out.data_ptr(), 2, 64, 64, d, scale, delta.data_ptr(),
+                                         bits, bf16, form, stream)
+
+    def stats(qq, bf16, form, d=40, scale=0.1, kk=k, vv=None):
+        return lib.dgq_rt_stats(qq.data_ptr(), kk.data_ptr(), z.data_ptr(), red.data_ptr(), 2,
+                                64, 64, d, scale, 0, bf16, form, stream)
+
+    def accum(qq, bf16, form, d=40, scale=0.1, kk=k, vv=v):
+        return lib.dgq_quant_accum(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), out.data_ptr(),
+                                   z.data_ptr(), red.data_ptr(), 2, 64, 64, d, scale, 8, 0, bf16,
+                                   form, stream)
+
+    def static(qq, bf16, form, d=40, bits=8, scale=0.1, kk=k, vv=v, uniform=1):
+        return lib.dgq_static_quant_attention(qq.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                                              out.data_ptr(), 2, 64, 64, d, scale,
+                                              delta.data_ptr(), bits, uniform, 1, bf16, form,
+                                              stream)
+
+    for fn in (uni, stats, accum, static):
+        assert fn(q, 0, 3) == 0 and fn(q, 0, 4) == 0 and fn(odd, 0, 4) == 0
+        assert fn(odd, 0, 3) != 0          # 16-byte loads from a misaligned base
+        assert fn(q, 0, 3, d=38) != 0      # 152-byte rows
+        assert fn(q, 0, 4, scale=0.0) != 0 and fn(q, 0, 3, scale=-0.1) != 0
+        assert fn(qb, 1, 3) != 0 and fn(qb, 1, 4) != 0  # bf16 on the f32 body
+        assert fn(q, 0, 1) != 0 and fn(q, 0, 2) != 0    # f32 on the bf16 body
+        assert fn(wide, 0, 4, d=200, kk=wide, vv=wide) != 0  # past head_dim 160
+        assert fn(q, 0, 5) != 0
+        assert fn(q, 0, 0, scale=-0.1) == 0  # the CUDA-core body takes any scale
+    assert uni(q, 0, 3, bits=11) == 0 and uni(q, 0, 3, bits=12) != 0  # 2047 and 4095
+    assert static(q, 0, 4, bits=12) != 0 and static(q, 0, 4, bits=12, uniform=0) == 0
+    assert uni(q, 0, 0, bits=12) == 0 and uni(wide, 0, 0, d=200, kk=wide, vv=wide) == 0
+    torch.cuda.synchronize()
+
+
+def test_f32_log2_codes_past_126_keep_the_cuda_core_bound():
+    """At delta 4 the log2 codes reach exponent_field(delta) - 1 = 128: the f32
+    tensor-core body keeps the codes past 126 that the bf16 body caps, so its
+    output agrees with the CUDA-core body (form 0) and the plain version
+    within the log2 share bound."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = 8.0 * torch.randn(2, 64, 64, generator=g, device="cuda")  # scores spread past 90 nats
+    k = 8.0 * torch.randn(2, 256, 64, generator=g, device="cuda")
+    v = torch.randn(2, 256, 64, generator=g, device="cuda")
+    delta = torch.tensor([4.0], device="cuda")
+    scale = 64 ** -0.5
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    assert bool((torch.round(-torch.log2(p / 4.0)) > 126).any())  # the inputs reach past 126
+    out = TA.static_quant_attention(q, k, v, scale, "log2", delta)
+    old = torch.empty_like(out)
+    rc = lib.dgq_static_quant_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), old.data_ptr(),
+                                        2, 64, 256, 64, scale, delta.data_ptr(), 8, 0, 0, 0, 0,
+                                        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    ref = TA.attention_reference(q, k, v, scale, "log2", 8, delta)
+    torch.cuda.synchronize()
+    assert _mismatch_share(out, ref, torch.float32) < 5e-4
+    assert _mismatch_share(out, old, torch.float32) < 5e-4
+
+
 @pytest.mark.parametrize("packed", [False, True])
 def test_bf16_static_uniform_codes_past_256_take_the_f32_kernel(packed):
     """bf16 K4 / K4p with 9-bit uniform codes: `quant_form` sends them to the
@@ -677,26 +835,25 @@ def test_bf16_static_uniform_codes_past_256_take_the_f32_kernel(packed):
                                      ("log2_real_time", True)])
 @pytest.mark.parametrize("packed", [False, True])
 def test_bf16_quantizing_call_with_a_non_positive_scale_raises(mode, sp, packed):
-    """The tensor-core bodies take the row max on raw scores: a bf16 K1 or K3
-    call with scale <= 0 raises before it launches anything; f32 runs the
-    CUDA-core body, which takes any scale."""
+    """The tensor-core bodies take the row max on raw scores: a bf16 or f32 K1
+    or K3 call with scale <= 0 raises before it launches anything; the
+    CUDA-core body, which takes any scale, runs f32 past head_dim 160 (K1)."""
     classic, pk = _packed_case(2, 2, 64, 77, 40, 64, torch.bfloat16, seed=4)
     args, kw = (pk, dict(num_heads=2, head_dim=40)) if packed else (classic, {})
     delta = torch.tensor(1.0 / 255.0, device="cuda") if mode == "uniform" else None
     before = dict(TA.LAUNCHES)
     for scale in (0.0, -0.1):
-        with pytest.raises(ValueError, match="positive scale"):
-            TA.fused_attention(*args, scale, sm_mode=mode, sm_delta=delta, start_peak=sp, **kw)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="positive scale"):
+                TA.fused_attention(*(x.to(dtype) for x in args), scale, sm_mode=mode,
+                                   sm_delta=delta, start_peak=sp, **kw)
     assert TA.LAUNCHES == before
-    f32 = tuple(x.float() for x in args)
-    out = TA.fused_attention(*f32, -0.1, sm_mode=mode, sm_delta=delta, start_peak=sp, **kw)
-    ref = (TA.packed_attention_reference(*f32, -0.1, 2, 40, mode, 8, delta, sp) if packed
-           else TA.attention_reference(*f32, -0.1, mode, 8, delta, sp))
-    torch.cuda.synchronize()
-    if mode == "uniform":
-        _check(out, ref, f32[2], torch.float32, 1.0 / 255.0)
-    else:
-        assert _mismatch_share(out, ref, torch.float32) < 5e-4
+    if mode == "uniform" and not packed:
+        q, k, v = _qkv(2, 64, 77, 200, torch.float32, seed=4)
+        out = TA.fused_attention(q, k, v, -0.1, sm_mode=mode, sm_delta=delta)
+        ref = TA.attention_reference(q, k, v, -0.1, mode, 8, delta)
+        torch.cuda.synchronize()
+        _check(out, ref, v, torch.float32, 1.0 / 255.0)
 
 
 def _conv_case(b, h, c, o, dtype, seed, zp=(100.0, 156.0), dl=1.0):

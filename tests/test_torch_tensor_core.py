@@ -13,7 +13,10 @@ writes it inline. The f32 bodies of K2/K2p and K5 (three TF32 products a
 product): the TF32 rounding bit for bit on a table of edge values, the flash
 and conv arithmetic emulated in torch against the plain versions and the JAX
 kernel, why one TF32 product is not enough, the fold's split K-major panels,
-and the f32 conv plan.
+and the f32 conv plan. The f32 bodies of K1, K3b and K4 (three TF32 products
+for Q K^T, two for P V): each mode's arithmetic as new cases (`body="f32"`)
+of the quantizing kernels' tests, against the plain version and the JAX
+kernels, and the log2 codes past 126 that body (e) keeps.
 """
 import jax
 import jax.numpy as jnp
@@ -210,8 +213,16 @@ def test_the_bound_without_the_absolute_part_is_too_tight_for_bf16_p():
 
 
 @pytest.mark.parametrize("dtype,d,ptrs,strides,slot,max_code,want", [
-    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, 255, "cuda_core"),    # tiny nets on the card
-    (torch.float32, 64, ALIGNED, (4096 * 640, 640) * 3, 64, 255, "cuda_core"),
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, 255, "tf32x3_vector"),  # the CLIs' f32
+    (torch.float32, 64, ALIGNED, (4096 * 640, 640) * 3, 64, 255, "tf32x3_vector"),
+    (torch.float32, 160, ALIGNED, (256 * 160, 160) * 3, 0, 255, "tf32x3_vector"),  # top of (e)
+    (torch.float32, 192, ALIGNED, (256 * 192, 192) * 3, 0, 255, "cuda_core"),
+    (torch.float32, 512, ALIGNED, (4096 * 512, 512) * 3, 0, 255, "cuda_core"),   # K1, VAE width
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, 2048, "tf32x3_vector"),  # 11-bit codes
+    (torch.float32, 40, ALIGNED, (163840, 40) * 3, 0, 4095, "cuda_core"),      # past TF32's
+    (torch.float32, 40, (4100, 8192, 12288), (163840, 40) * 3, 0, 255, "tf32x3_plain"),
+    (torch.float32, 42, ALIGNED, (42 * 64, 42) * 3, 0, 255, "tf32x3_plain"),  # 168-byte rows
+    (torch.float32, 64, (4096, 8196), (4096 * 640, 640) * 2, 64, 255, "tf32x3_plain"),  # rt_stats
     (torch.bfloat16, 40, ALIGNED, (163840, 40) * 3, 0, 255, "wgmma_async"),  # SD 64px
     (torch.bfloat16, 64, ALIGNED, (4096 * 640, 640) * 3, 64, 255, "wgmma_async"),  # SDXL packed
     (torch.bfloat16, 80, ALIGNED, (1024 * 1024, 1024) * 3, 128, 255, "wgmma_async"),  # SD packed
@@ -231,20 +242,22 @@ def test_the_bound_without_the_absolute_part_is_too_tight_for_bf16_p():
 def test_quant_form_is_a_rule_on_dtype_head_dim_codes_strides_and_addresses(
         dtype, d, ptrs, strides, slot, max_code, want):
     assert TA.quant_form(dtype, d, ptrs, strides, slot, max_code) == want
-    assert TA.FLASH_FORMS[want] in (0, 1, 2)
+    # bf16 takes body (b) or (c), f32 body (b) or (e)
+    assert TA.FLASH_FORMS[want] in ((0, 1, 2) if dtype == torch.bfloat16 else (0, 3, 4))
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125])
 def test_quant_form_checked_refuses_a_non_positive_scale_on_the_tensor_cores(scale):
-    """The tensor-core bodies take the row max on raw scores: a bf16 call
-    with scale <= 0 raises before any launch; the CUDA-core body takes it."""
+    """The tensor-core bodies take the row max on raw scores: a bf16 or f32
+    call with scale <= 0 raises before any launch; the CUDA-core body takes it."""
     args = (ALIGNED, (163840, 40) * 3)
-    with pytest.raises(ValueError, match="positive scale"):
-        TA._quant_form_checked(scale, torch.bfloat16, 40, *args)
-    assert TA._quant_form_checked(scale, torch.float32, 40, *args) == 0
-    assert TA._quant_form_checked(scale, torch.bfloat16, 512, ALIGNED,
-                                  (4096 * 512, 512) * 3) == 0
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="positive scale"):
+            TA._quant_form_checked(scale, dtype, 40, *args)
+        assert TA._quant_form_checked(scale, dtype, 512, ALIGNED, (4096 * 512, 512) * 3) == 0
+    assert TA._quant_form_checked(scale, torch.float32, 40, *args, max_code=4095) == 0
     assert TA._quant_form_checked(0.125, torch.bfloat16, 40, *args) == 1
+    assert TA._quant_form_checked(0.125, torch.float32, 40, *args) == 3
 
 
 LOG2E = 1.4426950408889634
@@ -258,10 +271,23 @@ def _quant_case(bh, t, s, d, seed, amp=2.0):
     return q, k, v
 
 
-def _stats_emulated(q, k, scale):
-    """Pass 1 of the tensor-core bodies: raw scores (bf16 products are exact,
-    the sums f32), m the raw row max, l = sum 2^(scale log2 e (s - m))."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+def _scores_emulated(q, k, body="bf16"):
+    """Raw S = Q K^T as the tensor-core bodies form it: bf16 products are exact,
+    the sums f32; f32 (body (e)) takes three TF32 products a 32-lane chunk of
+    the head dim, each chunk into its own accumulator, the chunks added in f32."""
+    if body == "bf16":
+        return torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = None
+    for c in range(0, q.shape[-1], 32):
+        part = _tf32_products(q[..., c:c + 32], k[..., c:c + 32])
+        s = part if s is None else s + part
+    return s
+
+
+def _stats_emulated(q, k, scale, body="bf16"):
+    """Pass 1 of the tensor-core bodies: raw scores (`_scores_emulated`), m the
+    raw row max, l = sum 2^(scale log2 e (s - m))."""
+    s = _scores_emulated(q, k, body)
     c = scale * LOG2E
     m = s.max(dim=-1, keepdim=True).values
     l = torch.exp2(s * c - m * c).sum(dim=-1, keepdim=True)
@@ -272,49 +298,106 @@ def _exponent_field(x):
     return int(np.asarray(float(x), dtype=np.float32).view(np.int32)) >> 23
 
 
-def _rt_emulated(q, k, v, scale, start_peak, sm_bits=8):
+def _significand(x):
+    """x with its exponent field set to 127: x = 2^(exponent_field(x) - 127) times it."""
+    bits = np.asarray(float(x), dtype=np.float32).view(np.int32)
+    return float(((bits & np.int32(-0x7F800001)) | np.int32(0x3F800000)).view(np.float32))
+
+
+def _log2_terms(code, delta, body):
+    """The A elements of P V for log2 codes and the factor the accumulator
+    takes after: bf16, 2^-q (exact) and delta; f32 (body (e)), 2^(e - q) with
+    e delta's unbiased exponent (a normal TF32 number for every q <=
+    exponent_field(delta) - 1) and delta's significand."""
+    if body == "bf16":
+        p = torch.exp2(-code).bfloat16()
+        assert torch.equal(p.float(), torch.exp2(-code))  # 2^-q is exact in bf16
+        return p.float(), delta
+    a = torch.exp2(float(_exponent_field(delta) - 127) - code)
+    assert torch.equal(tf32_rna(a), a)  # one TF32 part
+    return a, _significand(delta)
+
+
+def _pv_emulated(p, v, f, body):
+    """P V times f: bf16, one f32 product of the exact P with bf16 V; f32 (body
+    (e)), P (one exact TF32 part) against V's big and small parts, a fresh
+    accumulator a key tile of 64, the tiles added in f32."""
+    if body == "bf16":
+        return torch.matmul(p, v.float()) * f
+    vb, vs = tf32_split(v)
+    acc = None
+    for key0 in range(0, v.shape[1], 64):
+        pt = p[..., key0:key0 + 64]
+        part = (torch.matmul(pt, vs[:, key0:key0 + 64]) + torch.matmul(pt, vb[:, key0:key0 + 64]))
+        acc = part if acc is None else acc + part
+    return acc * f
+
+
+def _out(x, body):
+    return x.bfloat16() if body == "bf16" else x
+
+
+def _rt_emulated(q, k, v, scale, start_peak, sm_bits=8, body="bf16"):
     """`rt_stats` then `quant_accum` as the kernels compute them: z = scale m
     + ln l; the call's delta; q = round(clamp(log2 delta + z / ln 2 - s scale
-    log2 e, 0, ub)); 2^-q in bf16 (exact) as P; P V in f32 on bf16 V; delta
-    once after; under start_peak key 0 zero in P and exp(s0 - z) V[0] added
-    in f32 (the rank-1 update)."""
-    s, m, l = _stats_emulated(q, k, scale)
+    log2 e, 0, ub)), ub = min(exponent_field(delta) - 1, 2^b - 1), and 126 in
+    bf16; P from `_log2_terms`, P V by `_pv_emulated`; under start_peak key 0
+    zero in P and exp(s0 - z) V[0] added in f32 (the rank-1 update)."""
+    s, m, l = _stats_emulated(q, k, scale, body)
     z = m * scale + torch.log(l)
     if start_peak:
         m2 = s[..., 1:].max(dim=-1, keepdim=True).values
         delta = float((torch.exp((m2 - m) * scale) / l).max())
     else:
         delta = 1.0 / float(l.min())
-    ub = min(_exponent_field(delta) - 1, 2 ** sm_bits - 1, 126)
+    ub = min(_exponent_field(delta) - 1, 2 ** sm_bits - 1, 126 if body == "bf16" else 10 ** 9)
     y = torch.clamp(np.log2(delta) + z * LOG2E - s * (scale * LOG2E), 0, ub)
-    p = torch.exp2(-torch.round(y)).bfloat16()
-    assert torch.equal(p.float(), torch.exp2(-torch.round(y)))  # 2^-q is exact in bf16
+    p, f = _log2_terms(torch.round(y), delta, body)
     if start_peak:
         p[..., 0] = 0
-    out = torch.matmul(p.float(), v.float()) * delta
+    out = _pv_emulated(p, v, f, body)
     if start_peak:
         out = out + torch.exp(s[..., 0:1] * scale - z) * v[:, 0:1, :].float()
-    return out.bfloat16()
+    return _out(out, body)
 
 
-def _uniform_emulated(q, k, v, scale, delta, sm_bits=8):
+def _uniform_emulated(q, k, v, scale, delta, sm_bits=8, body="bf16"):
     """K1 as the kernel computes it: pass 1's m, l; code = min(rint(2^(s c -
     (m c + log2(l delta)))), 2^b - 1), c = scale log2 e, an integer exact in
-    bf16, as P; P V in f32; delta once after."""
-    s, m, l = _stats_emulated(q, k, scale)
+    bf16 (b <= 8) and in TF32 (b <= 11), as P; `_pv_emulated` with delta."""
+    s, m, l = _stats_emulated(q, k, scale, body)
     c = scale * LOG2E
     e = torch.exp2(s * c - (m * c + torch.log2(l * delta)))
-    code = torch.clamp(torch.round(e), max=2 ** sm_bits - 1).bfloat16()
-    assert torch.equal(code.float(), torch.clamp(torch.round(e), max=2 ** sm_bits - 1))
-    return (torch.matmul(code.float(), v.float()) * delta).bfloat16()
+    code = torch.clamp(torch.round(e), max=2 ** sm_bits - 1)
+    rounded = code.bfloat16().float() if body == "bf16" else tf32_rna(code)
+    assert torch.equal(rounded, code)
+    return _out(_pv_emulated(code, v, delta, body), body)
 
 
-def _check_share(out, ref):
-    """chip_smoke.py's `_check_share` for bf16: under 5e-4 of the outputs off by
-    more than 2e-3 + 2^-7 |ref|."""
+def _check_share(out, ref, bf16=True):
+    """chip_smoke.py's `_check_share`: the share of outputs off by more than
+    2e-3 + 2^-7 |ref| (each side's rounding to bf16; left out for f32),
+    which must stay under 5e-4."""
     out, ref = out.float(), ref.float()
     assert out.shape == ref.shape and bool(out.isfinite().all())
-    return float(((out - ref).abs() > 2e-3 + 2.0 ** -7 * ref.abs()).float().mean())
+    return float(((out - ref).abs() > 2e-3 + (2.0 ** -7 * ref.abs() if bf16 else 0.0))
+                 .float().mean())
+
+
+def _check_f32(out, ref, v, delta):
+    """chip_smoke.py's `_check_f32` with the uniform quantizer's terms: |err| <=
+    1e-4 + 2 delta max|V|, the mean within 2^-8 mean|ref| + 0.01 delta max|V|."""
+    assert out.dtype == ref.dtype == torch.float32 and bool(out.isfinite().all())
+    err = (out - ref).abs()
+    vmax = float(v.abs().max())
+    assert float(err.max()) <= 1e-4 + 2.0 * delta * vmax
+    assert float(err.mean()) <= 2.0 ** -8 * float(ref.abs().mean()) + 0.01 * delta * vmax
+
+
+def _body_case(body, bh, t, s, d, seed, amp=2.0):
+    """bf16 inputs for body (c), f32 for body (e), from one numpy draw."""
+    q, k, v = _f32_case(bh, t, s, d, seed, amp)
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16()) if body == "bf16" else (q, k, v)
 
 
 def _check_uniform(out, ref, v, delta):
@@ -328,35 +411,48 @@ def _check_uniform(out, ref, v, delta):
     assert float(err.mean()) <= 2.0 ** -8 * float(ref.abs().mean()) + 0.01 * delta * vmax
 
 
+BODIES = ["bf16", "f32"]  # body (c) on bf16 inputs, body (e) (3xTF32) on f32 inputs
+
+
+def _check_log2(out, ref, body):
+    return _check_share(out, ref, bf16=body == "bf16") < 5e-4
+
+
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("start_peak", [False, True])
-@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("d", [40, 64, 160])
 @pytest.mark.parametrize("s", [77, 256])
-def test_real_time_kernel_arithmetic_matches_plain(s, d, start_peak):
+def test_real_time_kernel_arithmetic_matches_plain(s, d, start_peak, body):
     """2048 rows: y = a_row - s scale log2 e is a difference of two numbers
     near 16, as in the JAX kernel, so it carries about 2e-6 of f32 error, and
     a probability whose exponent lies that close to a half-integer flips; a
     flip of a row's dominant probability moves the whole row, which the share
     bound absorbs once in 2048 rows (with 384 rows, one draw at s = 256, d = 64,
-    start_peak flipped one)."""
-    q, k, v = _quant_case(4, 512, s, d, seed=s + d + start_peak)
+    start_peak flipped one). Body (e) in f32 is held to the share bound without
+    the bf16 rounding term."""
+    q, k, v = _body_case(body, 4, 512, s, d, seed=s + d + start_peak)
     scale = d ** -0.5
-    out = _rt_emulated(q, k, v, scale, start_peak)
+    out = _rt_emulated(q, k, v, scale, start_peak, body=body)
     ref = TA.attention_reference(q, k, v, scale, "log2_real_time", 8, None, start_peak)
-    assert _check_share(out, ref) < 5e-4
+    assert out.dtype == ref.dtype and _check_log2(out, ref, body)
     # the quantizer is live, and under start_peak key 0 carries the row's peak
     plain = TA.attention_reference(q, k, v, scale)
     assert float((out.float() - plain.float()).abs().max()) > 1e-3
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("delta", [1.0 / 255.0, 1.0 / 64.0])
-@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("d", [40, 64, 160])
 @pytest.mark.parametrize("s", [77, 256])
-def test_uniform_kernel_arithmetic_matches_plain(s, d, delta):
-    q, k, v = _quant_case(4, 96, s, d, seed=3 * s + d)
+def test_uniform_kernel_arithmetic_matches_plain(s, d, delta, body):
+    q, k, v = _body_case(body, 4, 96, s, d, seed=3 * s + d)
     scale = d ** -0.5
-    out = _uniform_emulated(q, k, v, scale, delta)
+    out = _uniform_emulated(q, k, v, scale, delta, body=body)
     ref = TA.attention_reference(q, k, v, scale, "uniform", 8, torch.tensor(delta))
-    _check_uniform(out, ref, v, delta)
+    if body == "bf16":
+        _check_uniform(out, ref, v, delta)
+    else:
+        _check_f32(out, ref, v, delta)
 
 
 def test_rank1_key0_is_exact_where_bf16_p0_is_not():
@@ -378,91 +474,118 @@ def test_rank1_key0_is_exact_where_bf16_p0_is_not():
     assert float((out - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
 
 
+def _jax_quant(q, k, v, scale, **kw):
+    """The JAX package's kernel on the same numbers (interpret mode, as its own
+    tests run it on the CPU), as a torch f32 tensor."""
+    j = JA.fused_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), scale,
+                           sm_bits=8, interpret=True, block_t=32, block_s=128, **kw)
+    return torch.from_numpy(np.array(j))
+
+
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("start_peak", [False, True])
-def test_real_time_kernel_arithmetic_matches_the_jax_kernel(start_peak):
+def test_real_time_kernel_arithmetic_matches_the_jax_kernel(start_peak, body):
     """The same emulation against the JAX package's kernel
     (`fused_attention(..., sm_mode="log2_real_time")` in interpret mode, as
-    its own tests run it on the CPU), on bf16-representable f32 inputs: the
-    share bound of tests/test_torch_attention.py with the bf16 rounding term."""
-    q, k, v = _quant_case(2, 64, 77, 40, seed=31 + start_peak, amp=1.5)
+    its own tests run it on the CPU), on the same inputs (bf16-representable
+    f32 for body (c)): the share bound of tests/test_torch_attention.py, with
+    the bf16 rounding term for body (c)."""
+    q, k, v = _body_case(body, 2, 64, 77, 40, seed=31 + start_peak, amp=1.5)
     scale = 40 ** -0.5
-    j = JA.fused_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), scale,
-                           sm_mode="log2_real_time", sm_bits=8, start_peak=start_peak,
-                           interpret=True, block_t=32, block_s=128)
-    out = _rt_emulated(q, k, v, scale, start_peak)
-    assert _check_share(out, torch.from_numpy(np.array(j))) < 5e-4
+    j = _jax_quant(q, k, v, scale, sm_mode="log2_real_time", start_peak=start_peak)
+    out = _rt_emulated(q, k, v, scale, start_peak, body=body)
+    assert _check_log2(out, j, body)
 
 
-def _static_emulated(q, k, v, scale, mode, delta, start_peak, sm_bits=8, cap=126):
+@pytest.mark.parametrize("body", BODIES)
+def test_uniform_kernel_arithmetic_matches_the_jax_kernel(body):
+    """K1's emulation against the JAX package's `_static_uniform_kernel` in
+    interpret mode, at delta 1/255: `_check_uniform` for body (c),
+    `_check_f32` for body (e)."""
+    q, k, v = _body_case(body, 2, 64, 77, 40, seed=37, amp=1.5)
+    scale, delta = 40 ** -0.5, 1.0 / 255.0
+    j = _jax_quant(q, k, v, scale, sm_mode="uniform", sm_delta=jnp.asarray(delta, jnp.float32))
+    out = _uniform_emulated(q, k, v, scale, delta, body=body)
+    if body == "bf16":
+        _check_uniform(out, j, v, delta)
+    else:
+        _check_f32(out, j, v, delta)
+
+
+def _static_emulated(q, k, v, scale, mode, delta, start_peak, sm_bits=8, cap=126, body="bf16"):
     """K4 as the tensor-core kernel computes it: pass 1's m, l; z = scale m +
     ln l in registers; `log2`: q = round(clamp(log2 delta + z / ln 2 - s scale
-    log2 e, 0, ub)), ub = min(exponent_field(delta) - 1, 2^b - 1, cap), 2^-q
-    in bf16 (exact) as P; `uniform`: K1's codes as P; P V in f32 on bf16 V,
-    delta once after; under start_peak key 0 zero in P and exp(s0 - z) V[0]
-    added in f32. cap=None is body (b)'s bound, without the 126."""
-    s, m, l = _stats_emulated(q, k, scale)
+    log2 e, 0, ub)), ub = min(exponent_field(delta) - 1, 2^b - 1, cap), P
+    from `_log2_terms`; `uniform`: K1's codes as P; `_pv_emulated`; under
+    start_peak key 0 zero in P and exp(s0 - z) V[0] added in f32. cap=None is
+    body (b)'s bound, without the 126, which body (e) keeps too."""
+    s, m, l = _stats_emulated(q, k, scale, body)
     z = m * scale + torch.log(l)
     c = scale * LOG2E
+    if body == "f32":
+        cap = None
     if mode == "uniform":
         e = torch.exp2(s * c - (m * c + torch.log2(l * delta)))
         code = torch.clamp(torch.round(e), max=2 ** sm_bits - 1)
-        p = code.bfloat16()
+        p, f = code.clone(), delta
+        assert torch.equal(code.bfloat16().float() if body == "bf16" else tf32_rna(code), code)
     else:
         ub = min(_exponent_field(delta) - 1, 2 ** sm_bits - 1, 10 ** 9 if cap is None else cap)
         y = torch.clamp(np.log2(delta) + z * LOG2E - s * c, 0, ub)
         code = torch.round(y)
-        p = torch.exp2(-code).bfloat16()
-    assert torch.equal(p.float(), code if mode == "uniform" else torch.exp2(-code))  # exact
+        p, f = _log2_terms(code, delta, body)
     if start_peak:
         p[..., 0] = 0
-    out = torch.matmul(p.float(), v.float()) * delta
+    out = _pv_emulated(p, v, f, body)
     if start_peak:
         out = out + torch.exp(s[..., 0:1] * scale - z) * v[:, 0:1, :].float()
-    return out.bfloat16(), code
+    return _out(out, body), code
 
 
 STATIC_MODES = [("log2", False), ("log2", True), ("uniform", True)]
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("delta", [1.0, 0.125])
 @pytest.mark.parametrize("mode,start_peak", STATIC_MODES)
-@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("d", [40, 64, 160])
 @pytest.mark.parametrize("s", [77, 256])
-def test_static_kernel_arithmetic_matches_plain(s, d, mode, start_peak, delta):
+def test_static_kernel_arithmetic_matches_plain(s, d, mode, start_peak, delta, body):
     """K4's tensor-core arithmetic against the plain version, 2048 rows (the
     log2 quantizer's y is formed from register m and l, a difference of two
     numbers near 16, so a bin can flip at a half-integer; the share bound
     absorbs a flip of a row's dominant probability once in 2048 rows); delta 1
-    (`log_max_1`) and a calibrated 2^-3."""
-    q, k, v = _quant_case(4, 512, s, d, seed=s + d + 7 * start_peak + int(8 * delta))
+    (`log_max_1`) and a calibrated 2^-3; body (e) without the bf16 rounding
+    term."""
+    q, k, v = _body_case(body, 4, 512, s, d, seed=s + d + 7 * start_peak + int(8 * delta))
     scale = d ** -0.5
-    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak)
+    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak, body=body)
     ref = TA.attention_reference(q, k, v, scale, mode, 8, torch.tensor(delta), start_peak)
-    assert _check_share(out, ref) < 5e-4
+    assert out.dtype == ref.dtype and _check_log2(out, ref, body)
     plain = TA.attention_reference(q, k, v, scale)
     assert float((out.float() - plain.float()).abs().max()) > 1e-3  # the quantizer is live
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("mode,start_peak", STATIC_MODES)
-def test_static_kernel_arithmetic_matches_the_jax_kernel(mode, start_peak):
+def test_static_kernel_arithmetic_matches_the_jax_kernel(mode, start_peak, body):
     """The same emulation against the JAX package's K4
     (`fused_attention(..., sm_mode="log2" / "uniform", start_peak=...)` in
-    interpret mode, as its own tests run it on the CPU), on
-    bf16-representable f32 inputs: the share bound with the bf16 rounding
-    term."""
-    q, k, v = _quant_case(2, 64, 77, 40, seed=41 + 3 * start_peak + (mode == "uniform"),
-                          amp=1.5)
+    interpret mode, as its own tests run it on the CPU), on the same inputs
+    (bf16-representable f32 for body (c)): the share bound, with the bf16
+    rounding term for body (c)."""
+    q, k, v = _body_case(body, 2, 64, 77, 40, seed=41 + 3 * start_peak + (mode == "uniform"),
+                         amp=1.5)
     scale, delta = 40 ** -0.5, 0.125
-    j = JA.fused_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), scale,
-                           sm_mode=mode, sm_bits=8, sm_delta=jnp.asarray(delta, jnp.float32),
-                           start_peak=start_peak, interpret=True, block_t=32, block_s=128)
-    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak)
-    assert _check_share(out, torch.from_numpy(np.array(j))) < 5e-4
+    j = _jax_quant(q, k, v, scale, sm_mode=mode, sm_delta=jnp.asarray(delta, jnp.float32),
+                   start_peak=start_peak)
+    out, _ = _static_emulated(q, k, v, scale, mode, delta, start_peak, body=body)
+    assert _check_log2(out, j, body)
 
 
 def test_static_log2_cap_at_126_is_a_kept_difference_from_delta_2():
-    """The tensor-core K4 caps a log2 code at 126 so that 2^-q stays a normal
-    bf16; body (b) caps at exponent_field(delta) - 1 alone. For delta <= 1
+    """The bf16 tensor-core K4 caps a log2 code at 126 so that 2^-q stays a
+    normal bf16; body (b) caps at exponent_field(delta) - 1 alone. For delta <= 1
     (log_max_1, calibrated deltas) the two caps are one; from delta 2 on they
     part, but only for probabilities under delta 2^-126.5, whose products
     with V are below any bf16 output's resolution."""
@@ -482,21 +605,46 @@ def test_static_log2_cap_at_126_is_a_kept_difference_from_delta_2():
     assert torch.equal(tc, b)  # no bf16 output moves
 
 
+def test_f32_log2_codes_keep_the_cuda_core_bound_and_its_terms():
+    """Body (e) takes no cap at 126: at delta 4 (exponent field 129) its log2
+    codes reach ub = 128, as body (b)'s do, where the bf16 body would stop at
+    126; each term, 2^(e - q) as the A element times delta's significand
+    after, equals body (b)'s p_q = bitcast(bits(delta) - (q << 23)) bit for bit
+    for every code 0..128."""
+    delta = 4.0
+    q, k, v = _f32_case(2, 64, 256, 64, seed=5, amp=8.0)  # scores spread past 90 nats
+    scale = 64 ** -0.5
+    out, code = _static_emulated(q, k, v, scale, "log2", delta, False, body="f32")
+    assert int(code.max()) == _exponent_field(delta) - 1 == 128
+    assert bool((code > 126).any())  # kept, where the bf16 body caps them
+    _, code_b = _static_emulated(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale, "log2", delta,
+                                 False)
+    assert int(code_b.max()) == 126
+    qs = torch.arange(0, 129, dtype=torch.float32)
+    a, f = _log2_terms(qs, delta, "f32")
+    terms = (a * torch.tensor(f, dtype=torch.float32)).view(torch.int32)
+    want = int(np.asarray(delta, np.float32).view(np.int32)) - (qs.to(torch.int32) << 23)
+    assert torch.equal(terms, want)
+    ref = TA.attention_reference(q, k, v, scale, "log2", 8, torch.tensor(delta))
+    assert _check_log2(out, ref, "f32")
+
+
 @pytest.mark.parametrize("mode,bits,d,want", [
     ("log2", 8, 40, "wgmma_async"),
     ("log2", 12, 40, "wgmma_async"),    # log2 codes are exponents: any length
     ("uniform", 8, 64, "wgmma_async"),
-    ("uniform", 9, 40, "cuda_core"),    # 511 is not exact in bf16: f32 copies, CUDA cores
+    ("uniform", 9, 40, "cuda_core"),    # 511 is not exact in bf16: f32 copies, body (e)
     ("log2", 8, 160, "wgmma_async"),
 ])
 def test_quant_form_routes_k4(mode, bits, d, want):
     """bf16 K4 / K4p at head_dim <= 192 take the tensor cores through
-    `quant_form`; the code bound it weighs is the uniform codes' alone."""
+    `quant_form`; the code bound it weighs is the uniform codes' alone. f32
+    takes body (e) at these head dims and codes (511 is exact in TF32)."""
     strides = (256 * d, d) * 3
     got = TA.quant_form(torch.bfloat16, d, ALIGNED, strides, 0, TA._static_max_code(mode, bits))
     assert got == want
     assert TA.quant_form(torch.float32, d, ALIGNED, strides, 0,
-                         TA._static_max_code(mode, bits)) == "cuda_core"
+                         TA._static_max_code(mode, bits)) == "tf32x3_vector"
 
 
 def _int8_layer_shapes():
