@@ -5,7 +5,8 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the hand-written CUDA kernels from dgq_tpu_torch/csrc/ (nvcc, sm_90a,
-     one compiler process per source);
+     one compiler process per source), while a process of its own computes
+     the tiny nets' CPU references on the cores the compilers leave;
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, with the tolerance stated in `_check` / `_check_flash` /
      `_check_share` / `_check_conv` / `compare_int8`, and time both (and the
@@ -50,7 +51,7 @@ Phases (any failure raises, so the exit code is non-zero):
         then with `use_int8_conv` too (38 s8 convs a forward);
      4f the same with the int8 path off, unpacked and then with packed
         attention (the JAX bench's `--model sdxl` default).
-  5. `cli_path`, between 4d and 4e: the inference entry point from local
+  5. `cli_path`, after dp_path: the inference entry point from local
      files. Full-width SD v1.4 checkpoints (g=8, g=1 joined by `ckpt_tools
      merge`, static log2) and an HF-named VAE written through the port's
      writers and read back bit for bit, then `dgq_tpu_torch.cli.infer.main`
@@ -66,7 +67,7 @@ Phases (any failure raises, so the exit code is non-zero):
      CUDA-core bodies they replace);
      then the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
-  6. `calib_path`, after `cli_path`: calibration without reconstruction from
+  6. `calib_path`, after 4d: calibration without reconstruction from
      the port alone at full width (SD v1.4, 512px, f32, random weights from
      seed 42, CALI_PROMPTS prompts and CALI_STEPS PNDM steps): the MSE
      weight scales and the tiny net's g=2 calibration on the card against
@@ -75,19 +76,22 @@ Phases (any failure raises, so the exit code is non-zero):
      with the t2i flags and --pallas_attn (K3b), every checkpoint read back
      bit for bit; `cli.ckpt_tools merge` and `cli.infer.main` on the result
      (K3b, K5). Seconds, peak memory and exact launch counts of each run.
-  7. `recon_path`, after `calib_path`: weight reconstruction (AdaRound /
+  7. `recon_path`, while tp_path's ranks run: weight reconstruction (AdaRound /
      BRECQ) at full width from the port alone (SD v1.4, 512px, f32, seed 42,
      the same calibration cuts, RECON_ITERS Adam steps a unit): the tiny
      net's walks on the card against the CPU at the CPU tests' limits (each
      step's loss, the share of offsets within 1e-4); `cli.quantize_weight.main`'s
-     default path over all 78 units with --partial_dir, the same command
-     resumed bit for bit, the temporal block with the Fisher-weighted loss
-     (the whole UNet's backward at batch 8), no kernel launched in any of
-     them; `cli.infer.main --pallas_attn` on the reconstructed W4 file (K2 in
-     every UNet attention). Seconds a unit and an Adam step by unit kind
-     (`_ReconProbe` times the walk from outside it), peak memory, the
-     largest unit's captures a sample, the hours a 20000-step run would take.
-  8. `eval_path`, after `calib_path`: the evaluation path at full width
+     default path with --partial_dir over the units as far as
+     up_blocks.3.resnets.0, reconstructing one of each kind and place
+     (RECON_WALK) and resuming the others from saves of their nearest
+     rounding, the same command resumed bit for bit, the temporal block
+     with the Fisher-weighted loss (the whole UNet's backward at batch 8),
+     no kernel launched in any of them; `cli.infer.main --pallas_attn` on
+     the reconstructed W4 file (K2 in every UNet attention). Seconds a unit
+     and an Adam step by unit kind (`_ReconProbe` times the walk from
+     outside it), peak memory, the largest unit's captures a sample, the
+     hours a 20000-step run would take.
+  8. `eval_path`, while dp_path's ranks run: the evaluation path at full width
      from the port alone: `cli.gen4eval.main` for SD v1.4 at 512px (--fp,
      and W4A8 g=8 from calib_path's merged file with --pallas_attn
      --group_impl fused) and for SDXL-turbo at 1024px (minmax W4), with
@@ -95,7 +99,7 @@ Phases (any failure raises, so the exit code is non-zero):
      pytorch-fid-named Inception checkpoint; the open_clip ViT-g-14 and
      ImageReward encoders at their published widths on random weights; each
      scorer card against CPU, s an image and s per 100 images.
-  9. `dp_path`, after `recon_path`: data parallelism over torch.distributed.
+  9. `dp_path`, after `calib_path`: data parallelism over torch.distributed.
      (o) a world of one over NCCL; then one `torchrun --standalone
      --nproc_per_node 2` launch of this script (`--dp-rank SPEC`, whose two
      ranks share the card over gloo): (p) `cli.quantize_weight --dp 2` over
@@ -111,7 +115,7 @@ Phases (any failure raises, so the exit code is non-zero):
      --standalone --nproc_per_node 2` launch of this script (`--tp-rank
      SPEC`; the ranks share the card over gloo), each run against the same
      command at `--tp 1`: (s) `cli.quantize_weight --tp 2` over the first
-     DP_UNITS units against dp_path's `--dp 1` run (each step's loss within
+     TP_UNITS units against dp_path's `--dp 1` run (each step's loss within
      5e-5 relative, > 0.9 of the gathered offsets within 1e-4, each rank's
      rows of the written file equal to its shards; bytes held, peak and ms
      an Adam step a rank); (t) `--tp 2 --fast --no_recon --use_aq
@@ -119,13 +123,39 @@ Phases (any failure raises, so the exit code is non-zero):
      a rank equal to `--tp 1`'s, the activation state finite and positive);
      (u) SDXL-turbo at 1024px, `--tp 2 --fast --no_recon` (the file bit for
      bit; peak a rank, build + shard + scale-init seconds).
+ 11. `sdxl_cli_path`, the last (after 4e and 4f): the SDXL-turbo CLIs at
+     full width in a user's order, each through its `main(argv)`: (v) `quantize_weight
+     --model sdxl --wq 4 --cali` with reconstruction over SDXL_RECON_UNITS
+     units (learned rounding within 1.5x nearest on every unit, the file
+     and its offsets bit for bit) and resumed bit for bit; (v') `cli.infer
+     --pallas_attn` on its weight-only file (K2 in every UNet attention and
+     the 1024px decodes); (w) `--resume_w`
+     on (v)'s file with `--use_aq --pallas_attn` and the t2i flags (K3b);
+     (x) `quantize_act --group_num 8` (K3b, the host k-means timed); (y)
+     the merge and `cli.infer --pallas_attn --group_impl fused` (K3b, K5,
+     K2 in the 1024px decodes), (y') plain attention and taps, and again on
+     latents moved by 1e-6, which bounds (y)'s first forward. Exact
+     forwards and launches, every file read back bit for bit, seconds and
+     peak memory of each run.
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. The first line is the card's name and power
 limit as nvidia-smi gives them; every number printed after it was measured
 in this run on that card, and its line says so (`| card: ...`). Each phase
-prints the seconds it took.
+prints the seconds it took. The order: 1 to 4d, 6, 9 with 8 beside its
+launch, 5, its f32 kernel bodies and text encoders, 10 with 7 beside its
+launch, 4e and 4f, 11 (the two-rank launches are bound by the host, and a
+phase in this process keeps the card busy meanwhile; every line of that
+phase says it ran beside the launch, whose ranks share the card and the
+host with it).
+
+    python3 chip_smoke.py --recon-fit   # one SDXL-turbo unit at the default data size
+
+runs `sdxl_recon_fit` alone instead.
 """
+import concurrent.futures
+import functools
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -138,7 +168,7 @@ STEPS_G1 = 10
 STEPS_G8 = 4
 STEPS_INT8 = 4
 STEPS_SDXL = 4
-STEPS_CLI = 10  # divides 1000, as a time-aware run needs
+STEPS_CLI = 5  # divides 1000, as a time-aware run needs; cut from 10 for the time limit
 IMAGES = 2
 ATTN_SRC = "dgq_tpu_torch/csrc/attention.cu"
 CONV_SRC = "dgq_tpu_torch/csrc/group_conv.cu"
@@ -1209,6 +1239,12 @@ def _to_cuda(tree):
     return None if tree is None else tree.cuda()
 
 
+def _tiny_forward(apply, inputs, p, xx, qs, cfg, dev):
+    """A tiny UNet forward of small_input_reference: `apply` on latents xx
+    and the fixed `inputs` after them, on `dev`."""
+    return apply(p, xx.to(dev), *(v.to(dev) for v in inputs), qstate=qs, cfg=cfg)
+
+
 def small_input_reference():
     """Phase 3, the CPU side (needs no card and no kernel, so it runs while
     the compilers do): the tiny UNets (base 32) with their weights and
@@ -1253,12 +1289,10 @@ def small_input_reference():
     te = torch.randn(2, 128, generator=g)
     tid = torch.tensor([[128.0, 128.0, 0.0, 0.0, 128.0, 128.0]]).repeat(2, 1)
 
-    def sd(p, xx, qs, cfg, dev):
-        return unet_sd_apply(p, xx.to(dev), t.to(dev), ehs.to(dev), qstate=qs, cfg=cfg)
-
-    def sdxl(p, xx, qs, cfg, dev):
-        return unet_sdxl_apply(p, xx.to(dev), t.to(dev), ehs.to(dev), te.to(dev), tid.to(dev),
-                               qstate=qs, cfg=cfg)
+    # module-level forwards with their inputs bound: the references are
+    # computed in a process of their own and sent back
+    sd = functools.partial(_tiny_forward, unet_sd_apply, (t, ehs))
+    sdxl = functools.partial(_tiny_forward, unet_sdxl_apply, (t, ehs, te, tid))
 
     # label, forward, params, qstate, cfg, kernels that must launch, perturbation size
     configs = [
@@ -1632,10 +1666,11 @@ def _scaled_slots(qstate, t_slots):
                          for k, sub in qstate.items()} for t in range(t_slots)}
 
 
-def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag):
+def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag, alphas=None):
     """load_merged of `path` on the card gives `params`, `wqp` (None for an
-    activation checkpoint) and every slot's qstate bit for bit, and the group
-    layers. Returns its seconds."""
+    activation checkpoint), the learned offsets `alphas` (none in the file
+    when None) and every slot's qstate bit for bit, and the group layers.
+    Returns its seconds."""
     import os
 
     import torch
@@ -1646,7 +1681,9 @@ def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag)
     p2, w2, al2, pt2, gl2 = load_merged(path, spec, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    same = not al2 and gl2 == tuple(group_layers) and set(pt2) == set(per_t)
+    alphas, al2 = alphas or {}, al2 or {}
+    same = (set(al2) == set(alphas) and all(torch.equal(a, al2[n]) for n, a in alphas.items())
+            and gl2 == tuple(group_layers) and set(pt2) == set(per_t))
     if params is None:  # an activation checkpoint: no weights in it
         same = same and p2 is None and w2 is None
         params = wqp = p2 = w2 = {}
@@ -1664,11 +1701,11 @@ def _assert_round_trip(label, path, spec, params, wqp, per_t, group_layers, tag)
                     v, "delta_mid") else ("delta", "zero_point") if hasattr(v, "delta") else ())
                 same = same and (all(torch.equal(getattr(v, f).float(), getattr(got, f))
                                      for f in fields) if fields else torch.equal(v.float(), got))
-    del p2, w2, pt2
+    del p2, w2, al2, pt2
     if not same:
         raise AssertionError(f"{label}: load_merged of {path} is not what was written")
     print(f"{label}: load_merged of {os.path.getsize(path) / 1e9:.3f} GB on the card {seconds:.2f} "
-          f"s, params, wqp and {len(per_t)} slots "
+          f"s, params, wqp, {len(alphas)} layers' offsets and {len(per_t)} slots "
           f"bit for bit, {len(group_layers)} group layers | {tag}", flush=True)
     return seconds
 
@@ -2071,8 +2108,8 @@ def cli_path(tag):
     of the trajectory), (b1) only --pallas_attn, (b2) only --group_impl
     fused; the gap of each to (a) is printed for the first UNet forward
     (same inputs) and the final latents, and the kernel runs' first forward
-    must stay within 5x (a')'s. Each run's kernel launches are exact; then
-    the f32 kernel bodies and the full-width text encoders.
+    must stay within 5x (a')'s. Each run's kernel launches are exact (the
+    f32 kernel bodies these runs take are timed apart, `f32_bodies`).
     Returns the launch counts of the runs, by run."""
     import os
     import shutil
@@ -2283,14 +2320,12 @@ def cli_path(tag):
           f"{flash_form(f32, 512, (0, 0, 0), (8, 8))} (K2: the VAE at head dim 512, the UNet's "
           f"40 {flash_form(f32, 40, (0, 0, 0), (8, 8))}), K5 conv_form "
           f"{conv_form(f32, 320, 320)} (conv_in {conv_form(f32, 4, 320)}) | {tag}", flush=True)
-    f32_bodies(tag)
-    text_encoders_full_width(tag)
     return {label: r["launches"] for label, r in results.items()}
 
 
 # ------------------------------------------------------------ calib_path ----
 CALI_PROMPTS = 2  # the CLIs' --cali_prompt_data_n, 64 in the scripts
-CALI_STEPS = 5    # the CLIs' --step_size, 25 for SD in the scripts: 6 PNDM calls
+CALI_STEPS = 4    # the CLIs' --step_size, 25 for SD in the scripts: 5 PNDM calls
 CALI_TINY_DRAWS = 8
 CALI_BATCH = 8    # the CLIs' calibration batch for SD (cut to the slot's interval)
 TINY_RTOL = 1e-5  # a leaf no perturbation moved: zero points equal, deltas this close
@@ -2432,12 +2467,10 @@ def _tiny_check(tag, ref):
                              f"CPU's: {failed}")
 
 
-def _counting_unet(counts):
-    """unet_sd_apply that counts its forwards into `counts`: all of them,
-    and those whose flags send attention to the kernels."""
-    from dgq_tpu_torch.models import unet_sd
-
-    real = unet_sd.unet_sd_apply
+def _counting_unet(counts, real):
+    """The UNet forward `real` (SD's `unet_sd_apply` or SDXL-turbo's
+    `unet_sdxl_apply`) counting its forwards into `counts`: all of them, and
+    those whose flags send attention to the kernels."""
 
     def apply(params, *args, qstate=None, cfg=None, **kw):
         counts["forwards"] += 1
@@ -2452,11 +2485,12 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
     launches printed, the forwards that reach the kernels held to `forwards`
     and the launches to want(those forwards)."""
     import torch
-    from dgq_tpu_torch.models import unet_sd
+    from dgq_tpu_torch.models import unet_sd, unet_sdxl
 
     counts = {"forwards": 0, "kernel_forwards": 0}
-    real_apply = unet_sd.unet_sd_apply
-    unet_sd.unet_sd_apply = _counting_unet(counts)
+    real_apply = unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply
+    unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply = (_counting_unet(counts, f)
+                                                        for f in real_apply)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
@@ -2466,14 +2500,13 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        unet_sd.unet_sd_apply = real_apply
+        unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply = real_apply
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     got = {n: c for n, c in _launch_counts().items() if c}
     want = {n: c for n, c in want(counts["kernel_forwards"]).items() if c}
     s = res.get("seconds", {})
     print(f"{phase} {label}: {seconds:.2f} s, peak {peak:.2f} GiB allocated; "
-          + (f"MSE weight-scale init {s['weight_init']:.2f} s over 859.52M parameters; "
-             if "weight_init" in s else "")
+          + (f"MSE weight-scale init {s['weight_init']:.2f} s; " if "weight_init" in s else "")
           + (f"calibration data {s['cali_data']:.2f} s; " if "cali_data" in s else "")
           + (f"reconstruction {s['recon']:.2f} s; " if "recon" in s else "")
           + (f"activation calibration per time slot "
@@ -2516,7 +2549,7 @@ def calib_path(tag, ref, keep):
     """Phase 6: calibration without reconstruction at full width, from the
     port alone (random SD v1.4 weights from seed 42, f32 as the JAX CLIs
     run, 512px, the calibration cut to CALI_PROMPTS prompts and CALI_STEPS
-    PNDM steps: 6 time slots of 4 samples, batch 4):
+    PNDM steps: 5 time slots of 4 samples, batch 4):
       (0) the card against the CPU: MSE weight scales of one full-width
           weight; the tiny net's g=2 calibration (fused attention, t2i
           flags), within 5x the largest change of the CPU run under
@@ -3036,6 +3069,16 @@ RECON_ITERS = 20        # the CLI's --iters, 20000 by default
 RECON_LR = 1e-3         # reconstruct_unit's Adam rate
 RECON_FISHER_UNITS = 7  # (j)'s --max_units: the 7th unit is the first transformer
 RECON_UNITS_SD = 78     # reconstruction units of SD v1.4
+# (h) reconstructs one unit of each kind and place, the others of its walk
+# resumed from partial saves of their nearest rounding (`_NearestPartials`),
+# for the script's time limit: a lone layer, a resnet, a transformer at
+# 64px, the downsampler, the mid block's transformer at 8px, an up resnet on
+# skip-concatenated inputs, an upsampler, and up_blocks.3.resnets.0, whose
+# captures are the walk's largest
+RECON_WALK = ("time_embedding.linear_1", "down_blocks.0.resnets.0",
+              "down_blocks.0.attentions.0.transformer_blocks.0",
+              "down_blocks.0.downsamplers.0.conv", "mid_block.attentions.0.transformer_blocks.0",
+              "up_blocks.0.resnets.0", "up_blocks.2.upsamplers.0.conv", "up_blocks.3.resnets.0")
 
 
 RECON_DEFAULT_SAMPLES = 4 * 64 * 26 // 2  # the CLI's default data size: 64 prompts, 25 steps
@@ -3134,6 +3177,50 @@ class _ReconProbe:
             setattr(TR, n, fn)
 
 
+class _NearestPartials:
+    """While open, `calibrate_weights` first writes a partial save of the
+    nearest rounding (the offsets' initial value, whose hard rounding is
+    nearest) of every unit of its walk not in `keep` that has none, from
+    the weights and scales it was given: so that a walk under --partial_dir
+    resumes those units and reconstructs only `keep`, exactly as if an
+    earlier run had left those saves. `written` counts the saves, `seconds`
+    their time."""
+
+    def __init__(self, keep):
+        self.keep, self.written, self.seconds = set(keep), 0, 0.0
+        self._real = None
+
+    def __enter__(self):
+        import torch
+        from dgq_tpu_torch.calib import reconstruction as TR
+
+        real = self._real = TR.calibrate_weights
+
+        def calibrate(params, spec, cfg, wqp, cali_data, **kw):
+            t0 = time.perf_counter()
+            units = TR.recon_units(spec)[:kw.get("max_units")]
+            if not self.keep <= {u.name for u in units}:
+                raise AssertionError(f"_NearestPartials: {sorted(self.keep)} not all in the "
+                                     f"walk of {len(units)} units")
+            for u in units:
+                path = os.path.join(kw["partial_dir"], f"{u.name}.pth")
+                if u.name not in self.keep and not os.path.exists(path):
+                    with torch.no_grad():
+                        TR._save_partial(kw["partial_dir"], u, {
+                            n: a.detach() for n, a in TR._init_alphas(params, wqp,
+                                                                      u.layers).items()})
+                    self.written += 1
+            self.seconds += time.perf_counter() - t0
+            return real(params, spec, cfg, wqp, cali_data, **kw)
+        TR.calibrate_weights = calibrate
+        return self
+
+    def __exit__(self, *exc):
+        from dgq_tpu_torch.calib import reconstruction as TR
+
+        TR.calibrate_weights = self._real
+
+
 def _tiny_recon(params, spec, cali, device):
     """The tiny SD net's reconstruction walks on `device`, W4 minmax scales,
     RECON_FISHER_UNITS units, RECON_ITERS Adam steps at batch 2, one capture
@@ -3228,56 +3315,73 @@ def _tiny_recon_check(tag, ref):
                              f"CPU's: {failed}")
 
 
-def _check_recon(label, units, want, tag):
+def _check_recon(label, units, want, tag, phase="recon_path", batch=8,
+                 default_samples=RECON_DEFAULT_SAMPLES, kind_of=None):
     """A reconstruction run's probe records (`_ReconProbe.units`): `want`
     units, every loss finite, the learned hard rounding no worse than 1.5x
     nearest rounding on each unit's cached data (tests/test_calibration.py's
-    bound); prints the seconds a unit by kind, ms an Adam step by kind, the
-    largest unit's captures a sample and at the CLI's default data size, and
-    the hours a 20000-step run would take at this data size."""
+    bound); prints, by kind (`kind_of(record)`, the record's kind by
+    default), the seconds a unit, ms an Adam step at `batch` and the largest
+    captures a sample, then the largest unit's captures a sample and at the
+    CLI's default data size, and the hours a 20000-step run of these units
+    would take at this data size. Returns {kind: the kind's mean seconds of
+    a unit's captures, folds and gradients, and of an Adam step}."""
     import math
 
+    kind_of = kind_of or (lambda r: r["kind"])
     if len(units) != want:
-        raise AssertionError(f"recon_path {label}: {len(units)} units, expected {want}")
+        raise AssertionError(f"{phase} {label}: {len(units)} units, expected {want}")
     bad = [r["name"] for r in units if not all(math.isfinite(v) for v in r["losses"])]
     worse = [r["name"] for r in units if "err_learned" in r
              and not r["err_learned"] <= 1.5 * r["err_nearest"]]
-    hours = 0.0
-    for kind in sorted({r["kind"] for r in units}):
-        rs = [r for r in units if r["kind"] == kind]
+    hours, rates = 0.0, {}
+    for kind in sorted({kind_of(r) for r in units}):
+        rs = [r for r in units if kind_of(r) == kind]
 
         def mean(key):
             return sum(r[key] for r in rs) / len(rs)
         ratios = [r["err_learned"] / r["err_nearest"] for r in rs if "err_learned" in r]
-        print(f"recon_path {label}: {len(rs)} {kind} units, s a unit: captures "
+        big = max(rs, key=lambda r: r["bytes_a_sample"])
+        print(f"{phase} {label}: {len(rs)} {kind} units, s a unit: captures "
               f"{mean('capture_s'):.3f}, folds {mean('fold_s'):.3f}, Fisher gradients "
               f"{mean('grad_s'):.3f}, Adam loop {mean('adam_s'):.3f} "
-              f"({1e3 * mean('adam_s') / RECON_ITERS:.2f} ms a step at batch 8); last loss "
+              f"({1e3 * mean('adam_s') / mean('iters'):.2f} ms a step at batch {batch}); "
+              f"captures {big['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample at most "
+              f"({big['name']}); last loss "
               f"{min(r['losses'][-1] for r in rs):.6g} to {max(r['losses'][-1] for r in rs):.6g}"
               + (f"; unit error learned / nearest rounding {min(ratios):.4f} to "
                  f"{max(ratios):.4f}" if ratios else "") + f" | {tag}", flush=True)
         hours += sum(r["capture_s"] + r["fold_s"] + r["grad_s"]
                      + r["adam_s"] / r["iters"] * 20000 for r in rs) / 3600
+        rates[kind] = (mean("capture_s") + mean("fold_s") + mean("grad_s"),
+                       sum(r["adam_s"] / r["iters"] for r in rs) / len(rs))
     big = max(units, key=lambda r: r["bytes_a_sample"])
-    print(f"recon_path {label}: the largest captures an Adam loop holds are {big['name']}'s, "
+    print(f"{phase} {label}: the largest captures an Adam loop holds are {big['name']}'s, "
           f"{big['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample: "
-          f"{big['bytes_a_sample'] * RECON_DEFAULT_SAMPLES / 2 ** 30:.2f} GiB at the CLI's "
-          f"default {RECON_DEFAULT_SAMPLES} samples | {tag}", flush=True)
-    print(f"recon_path {label}: a 20000-step run of these {len(units)} units at this data size "
+          f"{big['bytes_a_sample'] * default_samples / 2 ** 30:.2f} GiB at the CLI's "
+          f"default {default_samples} samples | {tag}", flush=True)
+    print(f"{phase} {label}: a 20000-step run of these {len(units)} units at this data size "
           f"would take {hours:.2f} h | {tag}", flush=True)
     if bad or worse:
-        raise AssertionError(f"recon_path {label}: losses not finite at {bad[:4]}, learned "
+        raise AssertionError(f"{phase} {label}: losses not finite at {bad[:4]}, learned "
                              f"rounding worse than 1.5x nearest at {worse[:4]}")
+    return rates
 
 
 def recon_path(tag, ref):
     """Phase 7: weight reconstruction (AdaRound / BRECQ) at full width, from
     the port alone: SD v1.4, f32, 512px, random weights from seed 42, the
     calibration data cut as calib_path cuts it (CALI_PROMPTS prompts,
-    CALI_STEPS PNDM steps: 24 samples), RECON_ITERS Adam steps a unit:
+    CALI_STEPS PNDM steps: 20 samples), RECON_ITERS Adam steps a unit:
       (0) the tiny net's walks, card against CPU (`_tiny_recon_check`);
       (h) `cli.quantize_weight.main --wq 4 --cali --iters RECON_ITERS
-          --partial_dir D`: the whole 78-unit walk, mse, asym;
+          --max_units N --partial_dir D`, mse, asym, N the walk as far as
+          the last of RECON_WALK: the units of RECON_WALK (every kind and
+          place: a lone layer, a resnet, transformers at 64px and 8px, the
+          downsampler, an up resnet on skip-concatenated inputs, an
+          upsampler, up_blocks.3.resnets.0) reconstructed, each on the
+          captures of its quantized prefix, the other units resumed from
+          saves of their nearest rounding (`_NearestPartials`);
       (i) the same command again on D: every unit resumed, the offsets bit
           for bit (h)'s;
       (j) --recon_loss fisher_diag --tib_recon --max_units RECON_FISHER_UNITS:
@@ -3289,6 +3393,7 @@ def recon_path(tag, ref):
           counts, four finite uint8 images.
     (h) to (j) differentiate the plain layers: no kernel may launch there."""
     import os
+    import shutil
     import tempfile
 
     import numpy as np
@@ -3300,14 +3405,17 @@ def recon_path(tag, ref):
     from dgq_tpu_torch.models import unet_sd
     from dgq_tpu_torch.pipeline.vae import init_vae_decoder, vae_decoder_spec
 
+    spec = unet_sd.sd_unet_spec()
+    names = [u.name for u in recon_units(spec)]
+    walk_units = 1 + max(names.index(n) for n in RECON_WALK)
     print(f"recon_path: cuts: --cali_prompt_data_n 64 -> {CALI_PROMPTS}, --step_size 25 -> "
           f"{CALI_STEPS} ({4 * CALI_PROMPTS * (CALI_STEPS + 1) // 2} samples), --iters 20000 -> "
           f"{RECON_ITERS}; (j) --max_units {RECON_FISHER_UNITS} (the first transformer is the "
-          f"7th unit); widths, depth ({RECON_UNITS_SD} units), 512px and batch 8 not cut | {tag}",
-          flush=True)
+          f"7th unit); (h) reconstructs {len(RECON_WALK)} of its walk's {walk_units} units "
+          f"(of {RECON_UNITS_SD}), the others resumed from saves of their nearest rounding; "
+          f"widths, 512px and batch 8 not cut | {tag}", flush=True)
     _tiny_recon_check(tag, ref)
 
-    spec = unet_sd.sd_unet_spec()
     n_att = len(attention_prefixes(spec))
     tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(tmp_root, exist_ok=True)
@@ -3322,9 +3430,17 @@ def recon_path(tag, ref):
         common = ["--model", "sd", "--wq", "4", "--cali", "--cali_prompt_data_n",
                   str(CALI_PROMPTS), "--step_size", str(CALI_STEPS), "--iters",
                   str(RECON_ITERS), "--cali_data_path", os.path.join(tmp, "cali")]
-        walk = common + ["--partial_dir", os.path.join(tmp, "parts")]
-        h, probe = cli("(h) quantize_weight", walk + ["--outdir", os.path.join(tmp, "h")])
-        _check_recon("(h)", probe.units, RECON_UNITS_SD, tag)
+        walk = common + ["--max_units", str(walk_units), "--partial_dir",
+                         os.path.join(tmp, "parts")]
+        with _NearestPartials(RECON_WALK) as nearest:
+            h, probe = cli("(h) quantize_weight", walk + ["--outdir", os.path.join(tmp, "h")])
+        print(f"recon_path (h): {nearest.written} units resumed from saves of their nearest "
+              f"rounding, written in {nearest.seconds:.2f} s; reconstructed "
+              f"{[r['name'] for r in probe.units]} | {tag}", flush=True)
+        if [r["name"] for r in probe.units] != [n for n in names if n in RECON_WALK] or (
+                nearest.written != walk_units - len(RECON_WALK)):
+            raise AssertionError("recon_path (h): the walk did not reconstruct RECON_WALK alone")
+        _check_recon("(h)", probe.units, len(RECON_WALK), tag)
         alphas, weight_only = h["alphas"], h["weight_only"]
         del h
         i, probe = cli("(i) quantize_weight, resumed",
@@ -3335,9 +3451,10 @@ def recon_path(tag, ref):
         print(f"recon_path (i): {saves} partial saves, {len(probe.units)} units reconstructed "
               f"and {probe.captures} captures made, {len(alphas)} layers' offsets bit for bit "
               f"(h)'s: {same} | {tag}", flush=True)
-        if saves != RECON_UNITS_SD or probe.units or probe.captures or not same:
+        if saves != walk_units or probe.units or probe.captures or not same:
             raise AssertionError("recon_path (i): the resumed run is not (h)'s")
         del i, alphas
+        shutil.rmtree(os.path.join(tmp, "i"))  # the machine's disk: keep only what is read later
         j, probe = cli("(j) quantize_weight, tib + fisher_diag",
                        common + ["--outdir", os.path.join(tmp, "j"), "--recon_loss",
                                  "fisher_diag", "--tib_recon", "--max_units",
@@ -3351,6 +3468,7 @@ def recon_path(tag, ref):
             raise AssertionError(f"recon_path (j): the walk is {kinds}, or a unit had no "
                                  f"Fisher gradient")
         del j
+        shutil.rmtree(os.path.join(tmp, "j"))
 
         vae_dir = os.path.join(tmp, "vae")
         os.makedirs(vae_dir)
@@ -3373,6 +3491,7 @@ def recon_path(tag, ref):
 
 
 DP_UNITS = 7    # (p)'s --max_units: lone layers, resnets, projections, the first transformer
+TP_UNITS = 3    # tp_path (s)'s --max_units, the first of (p)'s units: lone layers and a resnet
 DP_PROMPTS = 4  # (q)'s prompts: one batch of 4, 2 rows a rank
 DP_FP_LEVELS = 8  # (q) --fp: the largest |d| of a --dp 2 image from --dp 1's, of 255
 DP_RED_RTOL = 1e-3  # (q) one step: the first reduced real-time statistic against --dp 1's
@@ -3405,6 +3524,44 @@ class _RealTimeProbe:
         return False
 
 
+def _torchrun(flag, spec_path, log_path, timeout, beside=None):
+    """One `python -m torch.distributed.run --standalone --nproc_per_node 2`
+    launch of this script's `flag` (--dp-rank / --tp-rank) on `spec_path`,
+    its output into `log_path`, in a session of its own; `beside()`, if
+    given, runs in this process while the ranks do. Waits for the launch
+    (the timeout counts from its start) and stops every process of its
+    session if it outlives that or `beside` raises. Returns (exit code,
+    seconds from the start to the end of the launch, the log)."""
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        launch = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", os.path.abspath(__file__), flag, spec_path], stdout=log,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        ended = []  # when the launch ended, which `beside` may outlast
+        watch = threading.Thread(target=lambda: ended.append((launch.wait(),
+                                                              time.perf_counter())))
+        watch.start()
+        try:
+            if beside is not None:
+                beside()
+            watch.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            if launch.poll() is None:
+                os.killpg(launch.pid, signal.SIGTERM)
+                try:
+                    launch.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(launch.pid, signal.SIGKILL)
+                    launch.wait()
+            watch.join()
+    seconds = ended[0][1] - t0
+    with open(log_path) as log:
+        return launch.returncode, seconds, log.read()
+
+
 def dp_rank(spec_path):
     """One rank of dp_path's torchrun launch (`python3 chip_smoke.py --dp-rank
     SPEC`): each run of the spec's list calls the CLI's `main(argv)` with
@@ -3419,6 +3576,7 @@ def dp_rank(spec_path):
     import torch.distributed as dist
     from dgq_tpu_torch.cli import gen4eval, quantize_weight
     from dgq_tpu_torch.ops import build
+    from dgq_tpu_torch.parallel.mesh import leave_multihost
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -3455,7 +3613,7 @@ def dp_rank(spec_path):
                        f"cuda:{torch.cuda.current_device()}"]
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
-    dist.destroy_process_group()
+    leave_multihost()
 
 
 def _nccl_world_of_one(tag):
@@ -3603,7 +3761,7 @@ def _dp_one_step_check(ranks, reds1, want, tmp, tag):
                              f"{counts})")
 
 
-def dp_path(tag, calib, s_4a):
+def dp_path(tag, calib, s_4a, beside=None):
     """Phase 9, after recon_path: data parallelism over torch.distributed, in
     a temporary directory under build/ (SD v1.4 at full width, random weights
     from seed 42):
@@ -3640,6 +3798,7 @@ def dp_path(tag, calib, s_4a):
     import torch
     from PIL import Image
     from dgq_tpu_torch.calib.act_calib import attention_prefixes
+    from dgq_tpu_torch.calib.reconstruction import recon_units
     from dgq_tpu_torch.cli import gen4eval, quantize_weight
     from dgq_tpu_torch.models.unet_sd import sd_unet_spec
 
@@ -3677,9 +3836,15 @@ def dp_path(tag, calib, s_4a):
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
         dp1_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         alphas1, dp1_units = res["alphas"], probe.units
-        tp1 = {"alphas": {n: a.cpu() for n, a in alphas1.items()}, "units": dp1_units,
-               "peak": dp1_peak, "held": _held_bytes(res["params"], alphas1, dp1_units),
-               "argv": qw}  # the calibration cache stays in calib_path's `keep`
+        # tp_path (s) walks the first TP_UNITS of these units: a unit's walk
+        # depends on the units before it alone, so its part of this run is
+        # its --tp 1 reference
+        tp_layers = {n for u in recon_units(sd_unet_spec())[:TP_UNITS] for n in u.layers}
+        tp_alphas = {n: a for n, a in alphas1.items() if n in tp_layers}
+        tp1 = {"alphas": {n: a.cpu() for n, a in tp_alphas.items()},
+               "units": dp1_units[:TP_UNITS], "peak": dp1_peak,
+               "held": _held_bytes(res["params"], tp_alphas, dp1_units[:TP_UNITS]),
+               "argv": qw + ["--max_units", str(TP_UNITS)]}  # the cache stays in `keep`
         del res
         _run_cli("dp_path", "(q) gen4eval --fp --dp 1", gen4eval.main,
                  gen + ["--fp", "--outdir", os.path.join(tmp, "fp1")], 0,
@@ -3706,20 +3871,15 @@ def dp_path(tag, calib, s_4a):
         with open(spec_path, "w") as f:
             json.dump(spec, f)
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        launch = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "2", os.path.abspath(__file__), "--dp-rank", spec_path],
-            capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if launch.returncode != 0:
-            raise AssertionError(f"dp_path: the --dp 2 launch exited {launch.returncode}:\n"
-                                 f"{launch.stdout[-3000:]}\n{launch.stderr[-6000:]}")
+        code, seconds, out = _torchrun("--dp-rank", spec_path, os.path.join(tmp, "launch.log"),
+                                       600, beside)
+        if code != 0:
+            raise AssertionError(f"dp_path: the --dp 2 launch exited {code}:\n{out[-9000:]}")
         ranks = []
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        named = [f"rank {r} of 2: backend gloo, device cuda:0" in launch.stderr for r in range(2)]
+        named = [f"rank {r} of 2: backend gloo, device cuda:0" in out for r in range(2)]
         print(f"dp_path: torchrun --standalone --nproc_per_node 2, {seconds:.2f} s for the launch "
               f"(start-up, the three runs, exit); ranks {[r['rank'] for r in ranks]}; each "
               f"rank's first line names its backend and device: {all(named)} | {tag}",
@@ -3907,6 +4067,7 @@ def tp_rank(spec_path):
     import torch.distributed as dist
     from dgq_tpu_torch.cli import quantize_weight
     from dgq_tpu_torch.ops import build
+    from dgq_tpu_torch.parallel.mesh import leave_multihost
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -3952,7 +4113,7 @@ def tp_rank(spec_path):
                        f"cuda:{torch.cuda.current_device()}"]
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
-    dist.destroy_process_group()
+    leave_multihost()
 
 
 def _to_cpu_tree(tree):
@@ -4032,7 +4193,8 @@ def _tp_walk_check(tp1, ranks, root, tag):
           f"1e-4 (limit > {RECON_NEAR_SHARE}), max |d| {worst:.6g}; the ranks' losses equal: "
           f"{ranks_equal}; each rank's rows of the written file equal its shards: {rows} | {tag}",
           flush=True)
-    print(f"tp_path (s) --tp 1: peak {tp1['peak']:.2f} GiB allocated; held: weights "
+    print(f"tp_path (s) --tp 1: peak {tp1['peak']:.2f} GiB allocated over {DP_UNITS} units; "
+          f"held over {len(tp1['units'])}: weights "
           f"{h1['weights'] / 2 ** 20:.2f} MiB, offsets {h1['offsets'] / 2 ** 20:.2f} MiB, Adam "
           f"moments {h1['moments'] / 2 ** 20:.2f} MiB (the largest unit's); {1e3 * step1:.2f} ms "
           f"an Adam step (mean over units) | {tag}", flush=True)
@@ -4041,7 +4203,8 @@ def _tp_walk_check(tp1, ranks, root, tag):
         step = sum(u["adam_s"] / u["iters"] for u in run["units"]) / len(run["units"])
         cut1 = h1["weights"] - (h["weights"] - h["cut"])  # tp 1's bytes of the cut leaves
         print(f"tp_path (s) --tp 2 rank {r}: peak {run['peak_gib']:.2f} GiB allocated "
-              f"({run['peak_gib'] / tp1['peak']:.4f} of tp 1's); held: weights "
+              f"({run['peak_gib'] / tp1['peak']:.4f} of the tp 1 walk's over {DP_UNITS} units); "
+              f"held: weights "
               f"{h['weights'] / 2 ** 20:.2f} MiB ({h['weights'] / h1['weights']:.4f} of tp 1's; "
               f"the cut leaves {h['cut'] / cut1:.4f}), offsets {h['offsets'] / 2 ** 20:.2f} MiB "
               f"({h['offsets'] / h1['offsets']:.4f}), Adam moments {h['moments'] / 2 ** 20:.2f} "
@@ -4055,7 +4218,7 @@ def _tp_walk_check(tp1, ranks, root, tag):
                              f"{gap:.3g}, near {near / total:.4f}, rows {rows})")
 
 
-def tp_path(tag, tp1):
+def tp_path(tag, tp1, beside=None):
     """Phase 10, after dp_path: channel parallelism (`--tp`, the weights cut
     over two ranks by `shard_params_tp`, each cut layer gathering its out
     channels over the tp group), in a temporary directory under build/. One
@@ -4063,9 +4226,10 @@ def tp_path(tag, tp1):
     --nproc_per_node 2`, `--tp-rank`) whose two ranks share the card over
     gloo, each run against the same command at --tp 1 in this process:
       (s) SD v1.4 at full width, `quantize_weight --tp 2` over the first
-          DP_UNITS units (24 samples, RECON_ITERS Adam steps, TF32 off)
-          against dp_path's --dp 1 run, the same command, whose calibration
-          cache it reads (`_tp_walk_check`);
+          TP_UNITS units (20 samples, RECON_ITERS Adam steps, TF32 off)
+          against those units of dp_path's --dp 1 run, the same command
+          over DP_UNITS units, whose calibration cache it reads
+          (`_tp_walk_check`);
       (t) SD v1.4, `--tp 2 --fast --no_recon --use_aq --pallas_attn`,
           TP_CALI_PROMPTS prompt x TP_CALI_STEPS PNDM step (one time slot,
           15 forwards at batch 2; its calibration data built by both ranks
@@ -4079,7 +4243,9 @@ def tp_path(tag, tp1):
           file equal to --tp 1's bit for bit; the weights built on the host,
           each rank moving its shards to the card: peak GiB a rank beside
           --tp 1's, and the seconds of build + shard + scale init.
-    Any rank's failure fails the launch and the phase."""
+    Any rank's failure fails the launch and the phase. The launch is
+    bound by the host (every cut layer's gather crosses it): `beside()`,
+    if given, runs on the card in this process while the ranks do."""
     import shutil
     import tempfile
 
@@ -4118,15 +4284,10 @@ def tp_path(tag, tp1):
         spec_path = os.path.join(tmp, "tp_spec.json")
         with open(spec_path, "w") as f:
             json.dump({"out": tmp, "runs": runs}, f)
-        t0 = time.perf_counter()
-        launch = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "2", os.path.abspath(__file__), "--tp-rank", spec_path],
-            capture_output=True, text=True, timeout=TP_LAUNCH_TIMEOUT)
-        seconds = time.perf_counter() - t0
-        if launch.returncode != 0:
-            raise AssertionError(f"tp_path: the --tp 2 launch exited {launch.returncode}:\n"
-                                 f"{launch.stdout[-3000:]}\n{launch.stderr[-6000:]}")
+        code, seconds, out = _torchrun("--tp-rank", spec_path, os.path.join(tmp, "launch.log"),
+                                       TP_LAUNCH_TIMEOUT, beside)
+        if code != 0:
+            raise AssertionError(f"tp_path: the --tp 2 launch exited {code}:\n{out[-9000:]}")
         ranks = []
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -4335,6 +4496,424 @@ def sdxl_path(tag):
     return int8
 
 
+# -------------------------------------------------------- sdxl_cli_path ----
+SDXL_CALI_PROMPTS = 2  # the CLIs' --cali_prompt_data_n, 64 in the scripts: 8 samples at 4 steps
+# (v)'s --max_units: 4 lone layers, resnets at 128px, 64px and 32px, the
+# 2-block transformers of down_blocks.1 at 64px, and the first block of a
+# 10-block transformer at 32px (down_blocks.2.attentions.0)
+SDXL_RECON_UNITS = 23
+SDXL_RECON_BATCH = 4  # quantize_weight's reconstruction batch for sdxl
+SDXL_DEFAULT_SAMPLES = 64 * 4  # the CLI's default data: 64 prompts x 4 Euler steps, no CFG pair
+
+
+def sdxl_cli_reference():
+    """sdxl_cli_path's CPU side (no card; it runs while the compilers do):
+    the tap order of a tiny SDXL-turbo (base 32, cross 64, depths (2, 10):
+    the full net's layer names, checked) under (w)'s and (x)'s flags
+    (--use_aq --pallas_attn and the t2i flags), from which the expected
+    forwards and launches of the calibration runs follow."""
+    import torch
+    from dgq_tpu_torch.calib.act_calib import tap_execution_order
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.models.unet_sd import init_unet_sd
+    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec, unet_sdxl_apply
+
+    g = torch.Generator().manual_seed(3)
+    spec = sdxl_unet_spec(32, 64, 8, (2, 10))
+    params = init_unet_sd(g, "cpu", spec=spec)
+    batch = (torch.randn(1, 16, 16, 4, generator=g), torch.tensor([999], dtype=torch.int32),
+             torch.randn(1, 77, 64, generator=g), torch.randn(1, 128, generator=g),
+             torch.tensor([[128.0, 128.0, 0.0, 0.0, 128.0, 128.0]]))
+    cfg = QConfig(use_aq=True, use_pallas_attention=True, t2i_log_quant=True,
+                  t2i_real_time=True, t2i_start_peak=True)
+    return {"names": [n for n, _, _ in spec],
+            "order": tap_execution_order(params, batch, cfg, unet_sdxl_apply)}
+
+
+def sdxl_cli_path(tag, ref):
+    """Phase 11, the last: the SDXL-turbo CLIs at full width, from the port
+    alone, each through its `main(argv)` in this process, in the order a
+    user runs them (depths (2, 10), f32 weights drawn on the card from seed
+    0, synthetic SDXL embeddings: text 2048 wide, pooled 1280; calibration
+    cut to SDXL_CALI_PROMPTS prompts x 4 Euler steps at guidance 0, 8
+    samples in 4 time slots; everything under build/):
+      (v) `quantize_weight --model sdxl --wq 4 --cali --iters RECON_ITERS
+          --max_units SDXL_RECON_UNITS --partial_dir D`: MSE scales over the
+          794 layers, then the mse reconstruction walk (lone layers, resnets
+          at 128px, 64px and 32px, 2-block transformers at 64px, the first
+          block of a 10-block one at 32px): learned rounding within 1.5x
+          nearest on every unit, finite losses, the file read back bit for
+          bit with its offsets; then the same command resumed on D: no unit
+          reconstructed, the offsets and the file bit for bit. Prints each
+          unit's captures a sample, s a unit and ms an Adam step by kind,
+          and the hours a 20000-step walk of the 117 units would take;
+      (v') `cli.infer --fp16 --pallas_attn` on (v)'s weight-only file: W4
+          with no activation state, so every UNet attention of the quantized
+          run takes K2 (head dim 64, at 64px and 32px), 2 images at 1024px;
+      (w) `quantize_weight --resume_w` (v)'s file `--use_aq --pallas_attn`
+          with the t2i flags (the activation phase after a reconstruction):
+          g=1 activation states, every attention of every calibration
+          forward on K3b (the real-time quantizer leaves no attention to K2,
+          and the calibration data's forwards run plain attention, as the
+          JAX CLI's do), the merged file read back with (v)'s offsets;
+      (x) `quantize_act --group_num 8` with the t2i flags on (v)'s file:
+          K3b in every forward, the k-means on the host (its seconds
+          printed apart from the forwards');
+      (y) `ckpt_tools merge` of (v) and (x), then `cli.infer --fp16
+          --use_aq --use_group`, t2i flags, `--pallas_attn --group_impl
+          fused` (the README's W4A8 g=8 command for sdxl): 2 images at
+          1024px, 4 Euler steps: K3b, K5 on the stride-1 group convs, K2 in
+          the two 1024px decodes;
+      (y') the same without `--pallas_attn --group_impl fused` (plain
+          attention, taps), and again on initial latents moved by 1e-6 (the
+          chaos witness): (y)'s first quantized UNet forward must stay
+          within 5x the witness's change of (y')'s, as cli_path holds SD.
+    Each run's kernel launches and forwards are exact (from the tiny net's
+    tap order: per slot one forward for the order, one a chunk of 32 taps,
+    one a batch), every activation delta finite and positive, every file
+    read back bit for bit; each run prints its seconds and peak memory."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dgq_tpu_torch.calib import act_calib
+    from dgq_tpu_torch.calib.act_calib import attention_prefixes, conv_meta_by_name, group_axes
+    from dgq_tpu_torch.calib.reconstruction import recon_units
+    from dgq_tpu_torch.cli import ckpt_tools, infer, quantize_act, quantize_weight
+    from dgq_tpu_torch.io.convert import params_to_torch_unet
+    from dgq_tpu_torch.models.unet_sd import quantizable_layers
+    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
+    from dgq_tpu_torch.pipeline import sd_pipeline
+    from dgq_tpu_torch.pipeline.vae import init_vae_decoder, vae_decoder_spec
+
+    spec = sdxl_unet_spec()
+    n_att = len(attention_prefixes(spec))
+    if ref["names"] != [n for n, _, _ in spec] or n_att != 140 or len(
+            quantizable_layers(spec)) != 794:
+        raise AssertionError("sdxl_cli_path: the tiny net's layers are not SDXL-turbo's")
+    units = recon_units(spec)
+    slots = STEPS_SDXL
+    # per slot: the tap order's forward, one a chunk of 32 taps, one a batch
+    # (the EMA pass of (w), the group statistics of (x)); the interval of 2
+    # samples is one batch
+    fwd = slots * (1 + -(-len(ref["order"]) // 32) + 1)
+    k3b = lambda f: {"rt_stats": n_att * f, "quant_accum": n_att * f}  # noqa: E731
+    no_kernel = lambda f: {}  # noqa: E731
+    t2i = ["--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak", "--time_aware_aqtizer"]
+    print(f"sdxl_cli_path: cuts: --cali_prompt_data_n 64 -> {SDXL_CALI_PROMPTS} "
+          f"({SDXL_CALI_PROMPTS * slots} samples in {slots} time slots), --iters 20000 -> "
+          f"{RECON_ITERS}, (v) --max_units {SDXL_RECON_UNITS} of {len(units)} units; widths, "
+          f"depths (2, 10), 1024px, 4 Euler steps and the batches not cut; {len(ref['order'])} "
+          f"activation taps a forward, {fwd} calibration forwards a run | {tag}", flush=True)
+
+    def depth(name):  # the blocks of the transformer a unit sits in
+        head = name.split(".transformer_blocks.")[0] + ".transformer_blocks."
+        return len({u.name for u in units if u.name.startswith(head)})
+
+    def kind_of(r):
+        if r["kind"] != "transformer":
+            return r["kind"]
+        return f"transformer (depth {depth(r['name'])})"
+
+    tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(tmp_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        print(f"sdxl_cli_path: {shutil.disk_usage(tmp).free / 2 ** 30:.1f} GiB free under "
+              f"{tmp_root} | {tag}", flush=True)
+        common = ["--model", "sdxl", "--seed", "0", "--wq", "4", "--cali_prompt_data_n",
+                  str(SDXL_CALI_PROMPTS), "--cali_data_path", os.path.join(tmp, "cali")]
+
+        def run_cli(label, fn, argv, forwards, want):
+            return _run_cli("sdxl_cli_path", label, fn, argv, forwards, want, tag)
+
+        # (v) the reconstruction walk, then resumed
+        parts = os.path.join(tmp, "parts")
+        walk = common + ["--cali", "--iters", str(RECON_ITERS), "--max_units",
+                         str(SDXL_RECON_UNITS), "--partial_dir", parts]
+        with _ReconProbe() as probe:
+            v = run_cli("(v) quantize_weight", quantize_weight.main,
+                        walk + ["--outdir", os.path.join(tmp, "v")], 0, no_kernel)
+        rates = _check_recon("(v)", probe.units, SDXL_RECON_UNITS, tag, phase="sdxl_cli_path",
+                             batch=SDXL_RECON_BATCH, default_samples=SDXL_DEFAULT_SAMPLES,
+                             kind_of=kind_of)
+        print("sdxl_cli_path (v): each unit's captures a sample (MiB) and Adam loop (s): "
+              + ", ".join(f"{r['name']} {r['bytes_a_sample'] / 2 ** 20:.2f} {r['adam_s']:.3f}"
+                          for r in probe.units) + f" | {tag}", flush=True)
+        hours = sum(rates[kind_of({"kind": u.kind, "name": u.name})][0]
+                    + 20000 * rates[kind_of({"kind": u.kind, "name": u.name})][1]
+                    for u in units) / 3600
+        print(f"sdxl_cli_path (v): a 20000-step walk of all {len(units)} units (" + ", ".join(
+            f"{sum(kind_of({'kind': u.kind, 'name': u.name}) == k for u in units)} {k}"
+            for k in sorted(rates)) + f") at these rates a kind and this data size would take "
+              f"{hours:.2f} h | {tag}", flush=True)
+        _assert_round_trip("sdxl_cli_path (v) weight-only", v["weight_only"], spec, v["params"],
+                           v["wqp"], {}, (), tag, alphas=v["alphas"])
+        params, wqp, alphas, weight_only = v["params"], v["wqp"], v["alphas"], v["weight_only"]
+        del v
+        with _ReconProbe() as probe:
+            vi = run_cli("(v) quantize_weight, resumed", quantize_weight.main,
+                         walk + ["--outdir", os.path.join(tmp, "vi")], 0, no_kernel)
+        saves = len(os.listdir(parts))
+        same = set(vi["alphas"]) == set(alphas) and all(
+            torch.equal(vi["alphas"][n], a) for n, a in alphas.items())
+        same_file, n_file, nbytes = _same_files(vi["weight_only"], weight_only)
+        print(f"sdxl_cli_path (v) resumed: {saves} partial saves, {len(probe.units)} units "
+              f"reconstructed and {probe.captures} captures made, {len(alphas)} layers' offsets "
+              f"bit for bit (v)'s: {same}; the weight-only file ({n_file} tensors, "
+              f"{nbytes / 2 ** 30:.2f} GiB) bit for bit (v)'s: {same_file} | {tag}", flush=True)
+        if saves != SDXL_RECON_UNITS or probe.units or probe.captures or not (same and same_file):
+            raise AssertionError("sdxl_cli_path (v): the resumed run is not (v)'s")
+        del vi
+        shutil.rmtree(os.path.join(tmp, "vi"))
+        torch.cuda.empty_cache()
+
+        # (v') the weight-only file through the inference CLI: W4 with no
+        # activation state, so every UNet attention of the quantized run
+        # takes K2 (head dim 64), and each 1024px decode once
+        vae_dir = os.path.join(tmp, "vae")
+        os.makedirs(vae_dir)
+        torch.save(params_to_torch_unet(init_vae_decoder(torch.Generator(device="cuda")
+                                                         .manual_seed(0), "cuda"),
+                                        vae_decoder_spec()),
+                   os.path.join(vae_dir, "diffusion_pytorch_model.bin"))
+        res = run_cli("(v') infer --pallas_attn on (v)'s weight-only file", infer.main,
+                      ["--model", "sdxl", "--cali_ckpt", weight_only, "--fp16", "--vae_weights",
+                       vae_dir, "--outdir", tmp, "--pallas_attn"], STEPS_SDXL,
+                      lambda f: {"flash_attention": n_att * f + 2})  # + the two decodes
+        images = [np.load(o) for o in res["outputs"]]
+        print(f"sdxl_cli_path (v') infer: {sorted(os.path.basename(o) for o in res['outputs'])}; "
+              f"load + fold {res['load_fold_s']:.2f} s; " + ", ".join(
+                  f"{t} {s / IMAGES:.4f} s an image ({STEPS_SDXL} steps and the 1024px decode)"
+                  for t, s in res["run_s"].items()) + f" | {tag}", flush=True)
+        if len(images) != 2 * IMAGES or any(im.shape != (1024, 1024, 3) or im.dtype != np.uint8
+                                            or im.std() == 0 for im in images):
+            raise AssertionError("sdxl_cli_path (v'): not four uint8 images of 1024px")
+        del res, images
+        torch.cuda.empty_cache()
+
+        # (w) --use_aq on (v)'s reconstructed weights: g=1 activation states,
+        # K3b in every calibration forward
+        w = run_cli("(w) quantize_weight --resume_w (v) --use_aq --pallas_attn",
+                    quantize_weight.main, common + ["--resume_w", weight_only, "--use_aq",
+                                                    "--pallas_attn"] + t2i
+                    + ["--outdir", os.path.join(tmp, "w")], fwd, k3b)
+        _check_calibrated("sdxl_cli_path (w) g=1", w["per_t"], spec, tag)
+        _assert_round_trip("sdxl_cli_path (w) merged g=1", w["merged"], spec, params, wqp,
+                           w["per_t"], (), tag, alphas=alphas)
+        os.remove(w["merged"])
+        del w
+        torch.cuda.empty_cache()
+
+        # (x) group calibration on (w)'s file, the k-means timed on the host
+        real_kmeans, kmeans = act_calib.kmeans_group_qparams, {"s": 0.0, "calls": 0}
+
+        def timed_kmeans(*args, **kw):
+            t0 = time.perf_counter()
+            out = real_kmeans(*args, **kw)
+            kmeans["s"] += time.perf_counter() - t0
+            kmeans["calls"] += 1
+            return out
+        act_calib.kmeans_group_qparams = timed_kmeans
+        try:
+            x = run_cli("(x) quantize_act --group_num 8", quantize_act.main,
+                        common + ["--cali_ckpt", weight_only, "--aq", "8", "--softmax_a_bit", "8",
+                                  "--group_num", "8", "--pallas_attn"] + t2i
+                        + ["--outdir", os.path.join(tmp, "x")], fwd, k3b)
+        finally:
+            act_calib.kmeans_group_qparams = real_kmeans
+        slot_s = sum(x["seconds"]["act_slots"])
+        print(f"sdxl_cli_path (x): the k-means on the host {kmeans['s']:.2f} s over "
+              f"{kmeans['calls']} calls ({kmeans['calls'] // slots} group points a slot), the "
+              f"rest of the {slots} slots' {slot_s:.2f} s (their forwards, statistics and init) "
+              f"{slot_s - kmeans['s']:.2f} s | {tag}", flush=True)
+        _check_calibrated("sdxl_cli_path (x) g=8", x["per_t"], spec, tag)
+        if not x["group_layers"]:
+            raise AssertionError("sdxl_cli_path (x): no group layers")
+        _assert_round_trip("sdxl_cli_path (x) activations g=8", x["act_ckpt"], spec, None, None,
+                           x["per_t"], x["group_layers"], tag)
+
+        # (y) merge, then the inference CLI three ways
+        merged = os.path.join(tmp, "sdxl_w4a8g8_merged.pth")
+        if ckpt_tools.main(["merge", weight_only, x["act_ckpt"], merged]) != 0:
+            raise AssertionError("sdxl_cli_path (y): ckpt_tools merge failed")
+        _assert_round_trip("sdxl_cli_path (y) merged g=8", merged, spec, params, wqp,
+                           x["per_t"], x["group_layers"], tag, alphas=alphas)
+        meta = conv_meta_by_name(spec)
+        axes = group_axes(x["per_t"])
+        k5 = sum(meta[n][3] == 1 and not any(axes[(s, n)] for s in x["per_t"])
+                 for n in x["group_layers"])
+        n_group = len(x["group_layers"])
+        del x, params, wqp, alphas
+        shutil.rmtree(os.path.join(tmp, "v"))
+        torch.cuda.empty_cache()
+
+        taps = []
+        real_sample = sd_pipeline.sdxl_turbo_sample
+        real_latents = sd_pipeline.SDXLTurboPipeline._initial_latents
+
+        def tapped_sample(*args, **kwargs):  # the final latents, the first eps, the time
+            apply, first = kwargs["unet_apply"], []
+
+            def first_eps(*a, **k):
+                eps = apply(*a, **k)
+                if not first:
+                    first.append(eps.clone())
+                return eps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_sample(*args, **{**kwargs, "unet_apply": first_eps})
+            torch.cuda.synchronize()
+            taps.append((out.clone(), time.perf_counter() - t0, first[0]))
+            return out
+
+        def perturbed_latents(self, *args):  # the chaos witness
+            lat = real_latents(self, *args)
+            gp = torch.Generator(device=lat.device).manual_seed(1)
+            return lat + 1e-6 * torch.randn(lat.shape, generator=gp, device=lat.device)
+
+        readme = ["--model", "sdxl", "--cali_ckpt", merged, "--fp16", "--use_aq", "--use_group",
+                  "--vae_weights", vae_dir, "--outdir", tmp] + t2i
+        kernels = ["--pallas_attn", "--group_impl", "fused"]
+        witness = "(y'') (y') on initial latents moved by 1e-6"
+        runs = [("(y) infer --pallas_attn --group_impl fused", kernels, STEPS_SDXL,
+                 lambda f: {"flash_attention": 2, **k3b(f),
+                            "group_quant_conv": k5 * f}),
+                ("(y') infer, plain attention, taps", [], 0, lambda f: {"flash_attention": 2}),
+                (witness, [], 0, lambda f: {"flash_attention": 2})]
+        results = {}
+        sd_pipeline.sdxl_turbo_sample = tapped_sample
+        try:
+            for label, flags, forwards, want in runs:
+                for f in os.listdir(tmp):
+                    if f.endswith((".npy", ".png")):
+                        os.remove(os.path.join(tmp, f))
+                taps.clear()
+                sd_pipeline.SDXLTurboPipeline._initial_latents = (
+                    perturbed_latents if label == witness else real_latents)
+                res = run_cli(label, infer.main, readme + flags, forwards, want)
+                images = {os.path.basename(o): np.load(o) for o in res["outputs"]}
+                (_, fp_s, _), (q_lat, q_s, q_eps) = taps
+                if len(images) != 2 * IMAGES or any(
+                        a.shape != (1024, 1024, 3) or a.dtype != np.uint8 or a.std() == 0
+                        for a in images.values()) or not bool(q_lat.isfinite().all()):
+                    raise AssertionError(f"sdxl_cli_path {label}: bad images "
+                                         f"{[(n, a.shape, a.dtype) for n, a in images.items()]}")
+                qtag = next(t for t in res["run_s"] if t != "fp")
+                results[label] = {"images": images, "q_eps": q_eps, "q_latents": q_lat}
+                print(f"sdxl_cli_path {label}: {sorted(images)}; load + fold "
+                      f"{res['load_fold_s']:.2f} s; " + "; ".join(
+                          f"{t}: {s / STEPS_SDXL:.4f} s a step ({STEPS_SDXL} UNet forwards at "
+                          f"batch {IMAGES}), {res['run_s'][t] / IMAGES:.4f} s an image (the "
+                          f"1024px decode included)" for t, s in (("fp", fp_s), (qtag, q_s)))
+                      + f"; K5 on {k5} of {n_group} group convs a forward | {tag}", flush=True)
+        finally:
+            sd_pipeline.sdxl_turbo_sample = real_sample
+            sd_pipeline.SDXLTurboPipeline._initial_latents = real_latents
+
+    y, plain = results[runs[0][0]], results[runs[1][0]]
+    chaos = (results[witness]["q_eps"] - plain["q_eps"]).abs()
+    d1 = (y["q_eps"] - plain["q_eps"]).abs()
+    names = sorted(n for n in y["images"] if not n.endswith("_fp.npy"))
+    img = [np.abs(y["images"][n].astype(int) - plain["images"][n].astype(int)) for n in names]
+    wimg = [np.abs(results[witness]["images"][n].astype(int) - plain["images"][n].astype(int))
+            for n in names]
+    print(f"sdxl_cli_path: (y) against (y'), quantized run: first UNet forward's eps max |d| "
+          f"{float(d1.max()):.6g}, mean |d| {float(d1.mean()):.6g}; the witness (y'') "
+          f"{float(chaos.max()):.6g}, {float(chaos.mean()):.6g} (gate: 5x); final latents mean "
+          f"|d| {float((y['q_latents'] - plain['q_latents']).abs().mean()):.6g} (witness "
+          f"{float((results[witness]['q_latents'] - plain['q_latents']).abs().mean()):.6g}); "
+          f"final images mean |d| {np.mean([d.mean() for d in img]):.4f} of 255 levels, more "
+          f"than one level on a share {np.mean([(d > 1).mean() for d in img]):.6g} (witness "
+          f"{np.mean([d.mean() for d in wimg]):.4f}, "
+          f"{np.mean([(d > 1).mean() for d in wimg]):.6g}) "
+          f"| {tag}", flush=True)
+    if not (float(d1.max()) <= 5 * float(chaos.max())
+            and float(d1.mean()) <= 5 * float(chaos.mean())):
+        raise AssertionError("sdxl_cli_path (y): the first UNet forward differs from (y')'s by "
+                             "more than 5x the chaos of (y')")
+    torch.cuda.empty_cache()
+
+
+SDXL_FIT_UNIT = "up_blocks.2.resnets.0"  # SDXL-turbo's largest captures: 960 + 320 ch at 128px
+SDXL_FIT_ITERS = 2
+
+
+def sdxl_recon_fit():
+    """`python3 chip_smoke.py --recon-fit` (not part of the run without
+    arguments, whose time limit it does not fit; about 5 minutes): whether
+    SDXL-turbo's reconstruction fits on one card at the CLI's default data
+    size. `quantize_weight --model sdxl --wq 4 --cali` (64 prompts x 4
+    Euler steps: 256 samples; random weights from seed 0) with --partial_dir
+    and --max_units as far as SDXL_FIT_UNIT, every unit before it resumed
+    from saves of its nearest rounding (`_NearestPartials`), so that the
+    walk reconstructs SDXL_FIT_UNIT alone, SDXL_FIT_ITERS Adam steps.
+    Prints its captures (a sample and in all), the run's peak memory and
+    seconds, or, when the card runs out of memory, the functions of the
+    port it ran out in. Exits 1 then, or without a card."""
+    import shutil
+    import tempfile
+    import traceback
+
+    import torch
+    from dgq_tpu_torch.calib.reconstruction import recon_units
+    from dgq_tpu_torch.cli import quantize_weight
+    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --recon-fit needs a CUDA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    tag = f"card: {card}"
+    k = [u.name for u in recon_units(sdxl_unet_spec())].index(SDXL_FIT_UNIT)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    argv = ["--model", "sdxl", "--seed", "0", "--wq", "4", "--cali", "--iters",
+            str(SDXL_FIT_ITERS), "--max_units", str(k + 1), "--partial_dir",
+            os.path.join(tmp, "parts"), "--cali_data_path", os.path.join(tmp, "cali"),
+            "--outdir", os.path.join(tmp, "out")]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _NearestPartials([SDXL_FIT_UNIT]) as nearest, _ReconProbe() as probe:
+                res = quantize_weight.main(argv)
+        except torch.cuda.OutOfMemoryError as exc:
+            where = [f"{f.name} ({os.path.basename(f.filename)}:{f.lineno})"
+                     for f in traceback.extract_tb(exc.__traceback__)
+                     if "dgq_tpu_torch" in f.filename]
+            print(f"{SDXL_FIT_UNIT} at the default data size: out of memory after "
+                  f"{time.perf_counter() - t0:.2f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated, in "
+                  f"{' <- '.join(reversed(where))}: {str(exc).splitlines()[0]} | {tag}",
+                  flush=True)
+            return 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if [r["name"] for r in probe.units] != [SDXL_FIT_UNIT] or nearest.written != k:
+            raise AssertionError(f"--recon-fit: reconstructed {[r['name'] for r in probe.units]}"
+                                 f" after {nearest.written} nearest saves, not {SDXL_FIT_UNIT} "
+                                 f"after {k}")
+        (r,) = probe.units
+        n = r["held_bytes"] / r["bytes_a_sample"]
+        print(f"{SDXL_FIT_UNIT} at the default data size ({n:.0f} samples): fits; captures "
+              f"{r['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample, {r['held_bytes'] / 2 ** 30:.2f} "
+              f"GiB in all; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated "
+              f"(reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f}) of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}; run "
+              f"{seconds:.2f} s (MSE init {res['seconds']['weight_init']:.2f}, {k} nearest saves "
+              f"{nearest.seconds:.2f}, calibration data {res['seconds']['cali_data']:.2f}, "
+              f"captures {r['capture_s']:.2f}, folds {r['fold_s']:.2f}, {r['iters']} Adam steps "
+              f"{r['adam_s']:.2f}) | {tag}", flush=True)
+        return 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def print_build_report(paths, tag):
     """Registers and spills of every kernel instance, from `-Xptxas -v`."""
     modes = {"0": "K2/K2p flash", "1": "K1/K1p uniform", "2": "K3b/K3p rt_stats",
@@ -4403,11 +4982,27 @@ def print_build_report(paths, tag):
     print(f"ptxas: instances that spill: {', '.join(spilled) or 'none'} | {tag}")
 
 
-def main():
-    import os
-    import shutil
-    import tempfile
+def _cpu_threads(n):
+    """The reference process's initializer: n threads for torch on the CPU."""
+    import torch
 
+    torch.set_num_threads(n)
+
+
+def _reference_bytes(name):
+    """(in the reference process) The CPU reference `name`, serialized by
+    torch.save: thousands of tensors sent as they are would each hold a
+    file descriptor of shared memory."""
+    import io
+
+    import torch
+
+    buf = io.BytesIO()
+    torch.save(globals()[name](), buf)
+    return buf.getvalue()
+
+
+def main():
     import torch
 
     import dgq_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -4421,8 +5016,12 @@ def main():
     print(card, flush=True)  # the nvidia-smi line as it is
     tag = f"card: {card}"
 
-    # the compilers run (one process per source) while this process computes
-    # the small-input check's CPU side, which needs neither them nor the card
+    # the compilers run (one process per source) while a process of its own
+    # computes the tiny nets' CPU references, which need neither them nor
+    # the card, on the other cores, one reference after another: each is
+    # ready well before the phase that reads it (with all the cores, their
+    # threads and nvcc's shared them, and the references took 3x as long on
+    # an 8-core host)
     t0 = time.perf_counter()
     built = {}
 
@@ -4435,27 +5034,52 @@ def main():
 
     compiling = threading.Thread(target=build_all)
     compiling.start()
+    n_refs = max(1, min(torch.get_num_threads(),
+                        (os.cpu_count() or 1) - len(build.library_paths())))
+    refs = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_threads,
+        initargs=(n_refs,))
+    pending = {name: refs.submit(_reference_bytes, name) for name in (
+        "small_input_reference", "calib_reference", "recon_reference", "sdxl_cli_reference")}
+
+    def reference(name):
+        import io
+
+        t1 = time.perf_counter()
+        out = torch.load(io.BytesIO(pending.pop(name).result()), weights_only=False)
+        print(f"CPU reference {name}: waited {time.perf_counter() - t1:.2f} s, ready "
+              f"{time.perf_counter() - t0:.2f} s after the start ({n_refs} threads) | {tag}",
+              flush=True)
+        return out
+
     try:
-        tiny_x, tiny_nets = small_input_reference()
-        calib_ref = calib_reference()
-        recon_ref = recon_reference()
-        cpu_seconds = time.perf_counter() - t0
+        _run_phases(build, built, compiling, reference, card, tag)
     finally:
-        compiling.join()
+        refs.shutdown(wait=True, cancel_futures=True)
+
+
+def _run_phases(build, built, compiling, reference, card, tag):
+    """main()'s phases once the compilers and the CPU references started."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    compiling.join()
     if "error" in built:
         raise built["error"]
     paths = built["paths"]
     build.load_kernels()
     _count_int8_convs()
-    print(f"build: {built['seconds']:.2f} s beside {cpu_seconds:.2f} s of the tiny nets' CPU "
-          f"references (small-input check, calib_path and recon_path) "
-          f"({', '.join(p.name for p in paths.values())}) | {tag}", flush=True)
+    print(f"build: {built['seconds']:.2f} s ({', '.join(p.name for p in paths.values())}) | "
+          f"{tag}", flush=True)
     print_build_report(paths, tag)
 
-    def phase(fn, *args):
+    def phase(fn, *args, note=""):
         t0 = time.perf_counter()
         result = fn(*args)
-        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s | {tag}", flush=True)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s | {tag}{note}", flush=True)
         return result
 
     summary = _Summary()
@@ -4465,32 +5089,42 @@ def main():
     phase(wrapper_host_cost, tag)
     phase(compare_int8, tag, summary)
     phase(int8_conv, tag)
-    phase(small_input_check, tiny_x, tiny_nets, tag)
+    phase(small_input_check, *reference("small_input_reference"), tag)
     launches = phase(main_paths, tag)
     s_4a = launches.pop("s_4a")
     torch.cuda.empty_cache()  # the SD model is gone
-    phase(cli_path, tag)
-    torch.cuda.empty_cache()
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build_dir, exist_ok=True)
     # calib_path's merged file, for eval_path and dp_path; dp_path's calibration cache, for tp_path
     keep = tempfile.mkdtemp(dir=build_dir)
     try:
-        calib = phase(calib_path, tag, calib_ref, keep)
+        calib = phase(calib_path, tag, reference("calib_reference"), keep)
         torch.cuda.empty_cache()
-        phase(eval_path, tag, calib)
+        # the two-rank launches are bound by the host (gloo through it): a
+        # phase runs on the card in this process while each does, for the
+        # script's time limit. Its ranks share the card and the host with
+        # that phase, so the phase's readings are not those of a card to
+        # itself: every line it prints says so. cli_path, whose seconds a
+        # step earlier runs are compared with, runs alone.
+        on_dp = "; beside dp_path's two-rank launch (its ranks share the card and the host)"
+        on_tp = "; beside tp_path's two-rank launch (its ranks share the card and the host)"
+        tp1 = phase(dp_path, tag, calib, s_4a,
+                    lambda: phase(eval_path, tag + on_dp, calib, note=on_dp))
         torch.cuda.empty_cache()
-        phase(recon_path, tag, recon_ref)
+        phase(cli_path, tag)
         torch.cuda.empty_cache()
-        tp1 = phase(dp_path, tag, calib, s_4a)
-        torch.cuda.empty_cache()
-        phase(tp_path, tag, tp1)
+        phase(f32_bodies, tag)
+        phase(text_encoders_full_width, tag)
+        phase(tp_path, tag, tp1, lambda: phase(recon_path, tag + on_tp,
+                                               reference("recon_reference"), note=on_tp))
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     torch.cuda.empty_cache()  # SDXL needs 20 GB while it folds
     sdxl = phase(sdxl_path, tag)
     launches["int8_matmul"] = sdxl["int8_matmul"]
     sdxl_roofline(sdxl["s"][0], tag)
+    torch.cuda.empty_cache()
+    phase(sdxl_cli_path, tag, reference("sdxl_cli_reference"))
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4511,5 +5145,7 @@ if __name__ == "__main__":
         dp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(sys.argv[2])
+    elif sys.argv[1:] == ["--recon-fit"]:
+        sys.exit(sdxl_recon_fit())
     else:
         main()

@@ -255,4 +255,7 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
+    from dgq_tpu_torch.parallel.mesh import leave_multihost
+
     main()
+    leave_multihost()  # a rank of a process group leaves it before it exits

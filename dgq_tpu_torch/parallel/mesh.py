@@ -22,7 +22,9 @@ GSPMD insert the collectives. The port runs one process per rank, started by
   * `shard_params_tp` cuts each weight's out channels over the tp group and
     marks the layer, whose forward then takes the column-parallel rule of
     `parallel.tp`; `gather_params_tp` puts the whole tensors back together
-    for a write.
+    for a write;
+  * `leave_multihost` ends a rank's part: a barrier, then the groups
+    destroyed and their threads joined before the process exits.
 
 Backend rule: NCCL when every rank of a node has a card of its own; gloo on
 the CPU or when ranks share a card (NCCL refuses two ranks on one device;
@@ -34,12 +36,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import weakref
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from dgq_tpu_torch.parallel.tp import TPShard, all_gather_rows
+from dgq_tpu_torch.parallel.tp import TPShard, all_gather_rows, held_weakly
 from dgq_tpu_torch.quant.affine import QParams
 
 
@@ -134,19 +137,36 @@ def init_multihost(coordinator_address: Optional[str] = None,
     return True
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, init=False)
 class Mesh:
     """A (dp, tp) run: this process's rank of the world, rank = d * tp + t;
     `group`, the dp group (the dp ranks that share t; the world when tp = 1,
     None in a world of one); `tp_group`, the tp group (the tp ranks that
-    share d; None when tp = 1); and the rank's device."""
+    share d; None when tp = 1); and the rank's device. The groups are held
+    weakly (`parallel.tp.held_weakly`): both are None once the process group
+    is destroyed."""
     dp: int
     tp: int
     rank: int
     world: int
-    group: Optional[object]
+    group_ref: Optional[weakref.ref]
     device: str
-    tp_group: Optional[object] = None
+    tp_group_ref: Optional[weakref.ref]
+
+    def __init__(self, dp: int, tp: int, rank: int, world: int, group, device: str,
+                 tp_group=None):
+        for name, value in (("dp", dp), ("tp", tp), ("rank", rank), ("world", world),
+                            ("group_ref", held_weakly(group)), ("device", device),
+                            ("tp_group_ref", held_weakly(tp_group))):
+            object.__setattr__(self, name, value)
+
+    @property
+    def group(self):
+        return None if self.group_ref is None else self.group_ref()
+
+    @property
+    def tp_group(self):
+        return None if self.tp_group_ref is None else self.tp_group_ref()
 
     @property
     def dp_rank(self) -> int:
@@ -285,6 +305,19 @@ def barrier(mesh: Optional[Mesh]) -> None:
     """Wait for every rank of the mesh (nothing without one)."""
     if mesh is not None and mesh.world > 1:
         dist.barrier()
+
+
+def leave_multihost() -> None:
+    """Leave the process group, the last call of a rank: a barrier, so that
+    no rank closes its connections while a peer still runs a collective over
+    them, then every group destroyed. Meshes and layer marks hold their
+    groups weakly, so the groups are freed here and their backend's threads
+    joined: a gloo rank that reached the interpreter's exit with them still
+    running could abort there ("terminate called without an active
+    exception", exit code -6). Nothing without a process group."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 # The process group of a data-parallel run that splits each batch's rows over

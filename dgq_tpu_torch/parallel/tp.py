@@ -37,21 +37,40 @@ weight there.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 
-@dataclasses.dataclass(frozen=True)
+def held_weakly(group):
+    """A weak reference to a process group (None for None). torch.distributed
+    owns its groups: `destroy_process_group` then frees them, and their
+    backend's threads stop there, whatever meshes and marks a process still
+    holds (`parallel.mesh.leave_multihost`)."""
+    return None if group is None else weakref.ref(group)
+
+
+@dataclasses.dataclass(frozen=True, init=False)
 class TPShard:
     """The mark of a cut layer: the tp process group (None in a rule check
-    without a process group), its size, this rank's index in it, and the
-    layer's whole out count."""
-    group: Optional[object]
+    without a process group, and once the group is destroyed; held weakly,
+    `held_weakly`), its size, this rank's index in it, and the layer's whole
+    out count."""
+    group_ref: Optional[weakref.ref]
     tp: int
     index: int
     out: int
+
+    def __init__(self, group, tp: int, index: int, out: int):
+        for name, value in (("group_ref", held_weakly(group)), ("tp", tp), ("index", index),
+                            ("out", out)):
+            object.__setattr__(self, name, value)
+
+    @property
+    def group(self):
+        return None if self.group_ref is None else self.group_ref()
 
     @property
     def rows(self) -> slice:

@@ -112,14 +112,14 @@ def _lloyd_step(x, centers, labels_out):
     k = centers.shape[0]
     labels = _labels(x, centers)
     labels_out[:] = labels
-    new = np.zeros_like(centers)
-    weight = np.zeros(k, dtype=x.dtype)
-    for j in range(k):
-        members = x[labels == j]
-        if len(members):
-            # float32, one point after another from zero: a cumulative sum
-            new[j] = np.cumsum(members, axis=0)[-1]
-            weight[j] = len(members)
+    # float32, one point after another from zero: `add.at` is unbuffered and
+    # adds in index order, so each center's sum is its points' in sample order
+    # (one feature at a time: numpy's fast path takes 1-D operands)
+    new_t = np.zeros((x.shape[1], k), dtype=x.dtype)
+    for f in range(x.shape[1]):
+        np.add.at(new_t[f], labels, x[:, f])
+    new = np.ascontiguousarray(new_t.T)
+    weight = np.bincount(labels, minlength=k).astype(x.dtype)
     empty = np.where(weight == 0)[0]
     if len(empty):
         dist = ((x - centers[labels]) ** 2).sum(axis=1)

@@ -15,6 +15,7 @@ wherever |alpha_jax| exceeds it."""
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -143,30 +144,35 @@ def to_j(batch):
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the rank leaves its process group (`parallel.mesh.leave_multihost`: a
+# barrier, then the groups destroyed and their threads joined) before it
+# exits: a gloo rank that reached the interpreter's exit with its group's
+# threads running could abort there (exit -6 after its last line)
 TEARDOWN = """
-import torch.distributed
-if torch.distributed.is_initialized():
-    torch.distributed.destroy_process_group()
+from dgq_tpu_torch.parallel.mesh import leave_multihost
+leave_multihost()
 """
 
 
 def launch_ranks(code: str, store, *args, world: int = 2, timeout: float = 240) -> list:
     """Run `python -c code rank world init_method *args` once for each rank
     of a CPU process group (gloo) whose rendezvous is the file `store` (it
-    must not exist yet), one thread each; each rank destroys its group when
-    `code` ends. Returns each rank's output, and fails naming the rank whose
+    must not exist yet), one thread each; each rank leaves its group when
+    `code` ends (TEARDOWN). Every rank must end within `timeout` seconds of
+    the launch. Returns each rank's output, and fails naming the rank whose
     exit code is not 0."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
         "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID", "SLURM_TASKS_PER_NODE")}
     env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", JAX_PLATFORMS="cpu")
-    # a process that exits with its gloo group alive can abort in teardown
     code += TEARDOWN
+    deadline = time.monotonic() + timeout
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), f"file://{store}",
                                *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        # one deadline for the launch: rank r's wait does not restart the clock
+        outs = [p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:

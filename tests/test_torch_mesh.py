@@ -15,7 +15,11 @@
     `batch_reduce_` folds a min or max over both ranks inside `batch_split`
     and leaves it alone outside;
   * `make_mesh` raises, naming torchrun, when the world is not dp * tp, tp
-    > 1 included (the dp x tp groups are held in tests/test_torch_tp.py).
+    > 1 included (the dp x tp groups are held in tests/test_torch_tp.py);
+  * `leave_multihost` (two gloo ranks at tp 2, a mesh and a cut layer still
+    held): the groups are destroyed and every gloo thread of the rank is
+    joined before it returns, so no rank reaches the interpreter's exit with
+    them running (it could abort there, exit -6, after its last line).
 """
 import json
 
@@ -73,6 +77,35 @@ print("RESULT " + json.dumps({
     "n": float(synced["n"]), "rows": mine["x"].tolist(), "pair0": mine["pair"][0].tolist(),
     "t": t.tolist(), "u": u.tolist(), "b": b.tolist(), "wrong": wrong,
     "split": [lo.item(), hi.item(), alone.item()]}), flush=True)
+"""
+
+
+LEAVE = r"""
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from dgq_tpu_torch.parallel import mesh as M
+
+rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+
+
+def gloo_threads():
+    tasks = os.listdir("/proc/self/task")
+    names = (open(f"/proc/self/task/{t}/comm").read().strip() for t in tasks)
+    return sorted(n for n in names if "gloo" in n)
+
+
+assert M.init_multihost(init, world, rank, device="cpu")
+mesh = M.make_mesh(dp=1, tp=2, device="cpu")  # the world, and a tp group of its own
+params = M.shard_params_tp(mesh, {"l": {"w": torch.ones(4, 3), "b": torch.zeros(4)}})
+M.all_reduce_tp_(mesh, [torch.ones(2)])
+M.all_reduce_sum_(mesh, [torch.ones(2)])
+up = gloo_threads()
+M.leave_multihost()
+print("LEFT " + json.dumps({"up": up, "left": gloo_threads(), "initialized":
+                            torch.distributed.is_initialized(), "groups": [
+                                mesh.group is None, mesh.tp_group is None,
+                                params["l"]["tp"].group is None]}), flush=True)
 """
 
 
@@ -200,6 +233,17 @@ def test_make_mesh_refuses_a_wrong_world_and_tp(ranks, no_rendezvous):
     mesh = TM.make_mesh(dp=1, device="cpu")  # a world of one needs no group
     assert (mesh.dp, mesh.rank, mesh.world, mesh.group) == (1, 0, 1, None)
     assert not torch.distributed.is_initialized()
+
+
+def test_leave_multihost_joins_the_gloo_threads_of_every_group(tmp_path):
+    """The rank still holds its mesh and a cut layer's mark when it leaves;
+    the groups are held weakly, so destroying them stops their threads."""
+    outs = launch_ranks(LEAVE, tmp_path / "store", timeout=120)
+    for out in outs:
+        res = json.loads(next(ln for ln in out.splitlines() if ln.startswith("LEFT "))[5:])
+        assert res["up"] and all("gloo" in n for n in res["up"])
+        assert res["left"] == [] and not res["initialized"]
+        assert res["groups"] == [True, True, True]
 
 
 def test_batch_rows_without_a_mesh_and_uneven():

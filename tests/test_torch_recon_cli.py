@@ -14,13 +14,25 @@
   * `--use_aq` after reconstruction: the merged file carries the offsets;
   * `--dp 2` and `--tp 2` outside a process group of 2 ranks, and
     reconstruction with `--pallas_attn`, raise before any work
-    (tests/test_torch_calib_cli.py holds the messages).
+    (tests/test_torch_calib_cli.py holds the messages);
+  * SDXL-turbo (`--model sdxl`, depths (1, 2), 4 calibration samples), the
+    port's CLI against the JAX package's on the same weights (a torch state
+    dict both read through --unet_weights) and the same calibration data
+    (the JAX CLI writes the `.npz` cache, whose name both packages derive
+    alike, and the port's CLI reads it), the port handed the JAX index
+    stream: the same units, every step's loss within 5e-5 relative (and
+    within 5e-5 of the unit's largest loss: the losses before the
+    regularizer starts are float error alone) and more than 0.9 of the
+    offsets within 1e-4 (the loops' limits), the hard
+    rounding as `recon_parity.compare_alphas` holds it; `--use_aq` after the
+    walk carries the offsets into the merged file.
 
-The offsets themselves are held to the JAX package's in
+For SD the offsets are held to the JAX package's in
 tests/test_torch_recon_walk.py (the CLIs draw their stand-in data from
 their own generators, so the two packages' CLIs see other data).
 """
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -28,22 +40,42 @@ import pytest
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
-from recon_parity import record_units  # noqa: E402
+from recon_parity import compare_alphas, hand_jax_indices, record_units  # noqa: E402
 
+from dgq_tpu.calib import reconstruction as JR  # noqa: E402
+from dgq_tpu.cli import quantize_weight as JQW  # noqa: E402
 from dgq_tpu.io import dgq_ckpt as JK  # noqa: E402
 from dgq_tpu_torch.calib.reconstruction import recon_units, tib_unit  # noqa: E402
 from dgq_tpu_torch.cli import ckpt_tools as TCT, quantize_weight as TQW  # noqa: E402
 from dgq_tpu_torch.io import dgq_ckpt as TK  # noqa: E402
-from dgq_tpu_torch.io.convert import reference_layout  # noqa: E402
-from dgq_tpu_torch.models.unet_sd import sd_unet_spec  # noqa: E402
+from dgq_tpu_torch.io.convert import params_to_torch_unet, reference_layout  # noqa: E402
+from dgq_tpu_torch.models.unet_sd import init_unet_sd, sd_unet_spec  # noqa: E402
+from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec  # noqa: E402
 
 BASE = 32
+SDXL_DEPTHS = (1, 2)
+SDXL_UNITS = 12  # the 12th unit of the tiny SDXL-turbo is its first transformer block
+ITERS, LR = 10, 1e-3  # --iters; reconstruct_unit's Adam rate
 
 
-def _argv(d, *extra):
-    return ["--device", "cpu", "--model", "sd", "--base", str(BASE), "--wq", "4",
-            "--cali_prompt_data_n", "2", "--step_size", "2", "--latent_hw", "16",
-            "--cali_data_path", str(d / "cali"), "--outdir", str(d / "results")] + list(extra)
+def _argv(d, *extra, model="sd", device=True):
+    """A CLI's arguments at the tiny size; device=False leaves out --device,
+    which the JAX package's CLI does not take."""
+    tiny = ["--sdxl_depths", ",".join(map(str, SDXL_DEPTHS))] if model == "sdxl" else []
+    return ((["--device", "cpu"] if device else []) + ["--model", model] + tiny
+            + ["--base", str(BASE), "--wq", "4", "--cali_prompt_data_n", "2", "--step_size", "2",
+               "--latent_hw", "16", "--cali_data_path", str(d / "cali"), "--outdir",
+               str(d / "results")] + list(extra))
+
+
+def _sdxl_weights(d):
+    """The tiny SDXL-turbo's random weights as a torch state dict under the
+    reference's names, in `d`/unet (what --unet_weights reads)."""
+    spec = sdxl_unet_spec(base=BASE, depths=SDXL_DEPTHS)
+    params = init_unet_sd(torch.Generator().manual_seed(1), "cpu", spec=spec)
+    os.makedirs(d / "unet")
+    torch.save(params_to_torch_unet(params, spec), d / "unet" / "diffusion_pytorch_model.bin")
+    return spec, str(d / "unet")
 
 
 @pytest.fixture(scope="module")
@@ -109,13 +141,83 @@ def test_tib_and_fisher_walk(tmp_path, monkeypatch):
     assert len(w["alphas"]) == len(tib | {l for u in recon_units(spec)[:7] for l in u.layers})
 
 
-def test_use_aq_after_reconstruction_carries_the_offsets(tmp_path):
-    w = TQW.main(_argv(tmp_path, "--iters", "2", "--max_units", "3", "--use_aq", "--fast"))
-    spec = sd_unet_spec(base=BASE)
+def _use_aq_carries_the_offsets(d, model, spec, units, slots):
+    """--use_aq after a walk of `units` units: the merged file holds the
+    walk's offsets bit for bit and `slots` activation states."""
+    w = TQW.main(_argv(d, "--iters", "2", "--max_units", str(units), "--use_aq", "--fast",
+                       model=model))
     _, _, alphas, per_t, _ = TK.load_merged(w["merged"], spec, device="cpu")
-    assert set(alphas) == set(w["alphas"]) and len(per_t) == 3
+    assert set(alphas) == set(w["alphas"]) and len(per_t) == slots
+    assert set(alphas) == {l for u in recon_units(spec)[:units] for l in u.layers}
     for n in alphas:
         assert torch.equal(alphas[n], w["alphas"][n])
+
+
+def test_use_aq_after_reconstruction_carries_the_offsets(tmp_path):
+    _use_aq_carries_the_offsets(tmp_path, "sd", sd_unet_spec(base=BASE), 3, 3)
+
+
+@pytest.fixture(scope="module")
+def sdxl_clis(tmp_path_factory):
+    """Both packages' `quantize_weight --model sdxl --iters ITERS --max_units
+    SDXL_UNITS` on the same weights and data: the JAX CLI first (it writes
+    the calibration cache, and its per-step losses are recorded), then the
+    port's, handed JAX's index stream. --seed 0: the JAX CLI's walk always
+    keys its loops from 0."""
+    d = tmp_path_factory.mktemp("sdxl_cli")
+    spec, unet = _sdxl_weights(d)
+    extra = ("--iters", str(ITERS), "--max_units", str(SDXL_UNITS), "--seed", "0",
+             "--unet_weights", unet)
+    j_units = []
+    unit_real = JR.reconstruct_unit
+
+    def unit(key, u, *args, **k):
+        alphas, losses = unit_real(key, u, *args, **k)
+        j_units.append((u.name, np.asarray(losses)))
+        return alphas, losses
+    mp = pytest.MonkeyPatch()
+    mp.setattr(JR, "reconstruct_unit", unit)
+    mp.setattr(sys, "argv", ["quantize_weight"]
+               + _argv(d, *extra, "--outdir", str(d / "jax"), model="sdxl", device=False))
+    try:
+        JQW.main()
+    finally:
+        mp.undo()
+    (j_file,) = [os.path.join(r, f) for r, _, fs in os.walk(d / "jax") for f in fs
+                 if f == "cali_ckpt.pth_weight_only"]
+    mp = pytest.MonkeyPatch()
+    hand_jax_indices(mp)
+    calls = record_units(mp)
+    try:
+        t = TQW.main(_argv(d, *extra, "--outdir", str(d / "port"), model="sdxl"))
+    finally:
+        mp.undo()
+    return spec, JK.load_weight_only(j_file, spec)[2], j_units, t, calls
+
+
+def test_sdxl_walk_through_the_cli_follows_the_jax_cli(sdxl_clis):
+    spec, j_alphas, j_units, t, calls = sdxl_clis
+    units = recon_units(spec)[:SDXL_UNITS]
+    assert [c["unit"] for c in calls] == units
+    assert [n for n, _ in j_units] == [u.name for u in units]
+    assert any(u.kind == "transformer" for u in units) and any(u.kind == "resnet" for u in units)
+    for c, (name, j_losses) in zip(calls, j_units):
+        # a loss of the first steps, before the regularizer starts, is the
+        # soft-rounded weights' float error alone (1e-3 of a loss of 1e3 at
+        # add_embedding.linear_1), where the two packages' summation orders
+        # differ relatively most: it is held within 5e-5 of the unit's
+        # largest loss
+        np.testing.assert_allclose(c["losses"].numpy(), j_losses, rtol=5e-5,
+                                   atol=5e-5 * float(np.abs(j_losses).max()), err_msg=name)
+    assert set(t["alphas"]) == {l for u in units for l in u.layers}
+    worst, share = compare_alphas(t["alphas"], j_alphas, LR, ITERS)
+    assert share > 0.9, (worst, share)
+
+
+def test_sdxl_use_aq_after_reconstruction_carries_the_offsets(tmp_path):
+    """2 Euler steps: 2 time slots (no PNDM call more, no CFG pair)."""
+    _use_aq_carries_the_offsets(tmp_path, "sdxl", sdxl_unet_spec(base=BASE, depths=SDXL_DEPTHS),
+                                5, 2)
 
 
 @pytest.mark.parametrize("extra,exc", [(["--dp", "2"], RuntimeError),  # no process group
