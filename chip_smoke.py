@@ -84,7 +84,9 @@ Phases (any failure raises, so the exit code is non-zero):
      default path with --partial_dir over the units as far as
      up_blocks.3.resnets.0, reconstructing one of each kind and place
      (RECON_WALK) and resuming the others from saves of their nearest
-     rounding, the same command resumed bit for bit, the temporal block
+     rounding, two of those units walked again with their captures in
+     pinned host memory (and once more on the card) bit for bit, the
+     same command resumed bit for bit, the temporal block
      with the Fisher-weighted loss (the whole UNet's backward at batch 8),
      no kernel launched in any of them; `cli.infer.main --pallas_attn` on
      the reconstructed W4 file (K2 in every UNet attention). Seconds a unit
@@ -148,9 +150,11 @@ phase in this process keeps the card busy meanwhile; every line of that
 phase says it ran beside the launch, whose ranks share the card and the
 host with it).
 
-    python3 chip_smoke.py --recon-fit   # one SDXL-turbo unit at the default data size
+    python3 chip_smoke.py --recon-fit   # the calibration CLIs at the default data size
 
-runs `sdxl_recon_fit` alone instead.
+runs `recon_fit` alone instead: SD v1.4's and SDXL-turbo's largest
+reconstruction unit (SD's captures in pinned host memory) and SD's
+activation calibration, each at the CLI's default data size.
 """
 import concurrent.futures
 import functools
@@ -2545,6 +2549,18 @@ def _check_calibrated(label, per_t, spec, tag):
           f"axis, {len(mixed)} points mixed across slots | {tag}", flush=True)
 
 
+def _act_plan(order, slots, batches, n_att):
+    """(forwards, K1 launches) of an activation calibration run over
+    `slots` time slots of `batches` batches, from its tap order and the
+    chunk of 32 taps: per slot one forward for the order, one a chunk and
+    one a batch (the EMA pass of calib_path (e), the group statistics of
+    (f)). Under (e)'s flags an attention runs K1 once its softmax quantizer
+    has a scale, from the chunk after the one holding its aqtizer_w."""
+    chunks = range(0, len(order), 32)
+    k1 = sum(sum(n.endswith(".aqtizer_w") for n in order[:c]) for c in chunks)
+    return slots * (1 + len(chunks) + batches), slots * (k1 + batches * n_att)
+
+
 def calib_path(tag, ref, keep):
     """Phase 6: calibration without reconstruction at full width, from the
     port alone (random SD v1.4 weights from seed 42, f32 as the JAX CLIs
@@ -2624,12 +2640,8 @@ def calib_path(tag, ref, keep):
     slots = CALI_STEPS + 1
     batches = -(-2 * CALI_PROMPTS // min(CALI_BATCH, 2 * CALI_PROMPTS))
 
-    def plan(order):
-        chunks = range(0, len(order), 32)
-        k1 = sum(sum(n.endswith(".aqtizer_w") for n in order[:c]) for c in chunks)
-        return slots * (1 + len(chunks) + batches), slots * (k1 + batches * n_att)
-    fwd_e, k1_e = plan(ref["order"]["e"])
-    fwd_f, _ = plan(ref["order"]["f"])
+    fwd_e, k1_e = _act_plan(ref["order"]["e"], slots, batches, n_att)
+    fwd_f, _ = _act_plan(ref["order"]["f"], slots, batches, n_att)
     tmp_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(tmp_root, exist_ok=True)
     real_apply = unet_sd.unet_sd_apply
@@ -3082,6 +3094,10 @@ RECON_WALK = ("time_embedding.linear_1", "down_blocks.0.resnets.0",
 
 
 RECON_DEFAULT_SAMPLES = 4 * 64 * 26 // 2  # the CLI's default data size: 64 prompts, 25 steps
+# (h-host) walks these two of RECON_WALK again with their captures in pinned
+# host memory: the transformer with the widest rows (64px) and the resnet
+# whose captures are the walk's largest
+RECON_HOST_UNITS = ("down_blocks.0.attentions.0.transformer_blocks.0", "up_blocks.3.resnets.0")
 
 
 class _ReconProbe:
@@ -3089,22 +3105,28 @@ class _ReconProbe:
     the functions `calibrate_weights` calls in `calib.reconstruction` are
     wrapped. `units` gets one dict a reconstructed unit, in order: 'name',
     'kind', the seconds of its captures, folds, Fisher gradients and Adam
-    loop (the card synchronised around each call), 'iters', 'losses' (a
-    list), the bytes a sample of the captures its Adam loop holds, and for a
-    unit (not the temporal block) 'err_learned' / 'err_nearest' from
-    `unit_error` on its cached data. 'captures' counts the capture calls."""
+    loop (the card synchronised around each call), of allocating (and, in
+    host memory on a card, page-locking) the tensors that hold its captures
+    ('store_s'), 'iters', 'losses' (a
+    list), the bytes a sample of the captures its Adam loop holds, the form
+    they were held in ('placement': "device" or "host"), and for a unit (not
+    the temporal block) 'err_learned' / 'err_nearest' from `unit_error` on
+    its cached data. 'captures' counts the capture calls. extra(real,
+    args, kw), where given, is called after each unit's Adam loop with the
+    real `reconstruct_unit` and the call's arguments, and its dict joins
+    the unit's record."""
 
     NAMES = ("capture_unit_io", "fold_weight_quant", "capture_unit_grad", "reconstruct_unit",
              "reconstruct_tib")
 
-    def __init__(self):
-        self.units, self.captures = [], 0
+    def __init__(self, extra=None):
+        self.units, self.captures, self.extra = [], 0, extra
         self._by_name, self._current, self._saved = {}, None, {}
 
     def _unit(self, name, kind=None):
         if name not in self._by_name:
             self._by_name[name] = {"name": name, "kind": kind, "capture_s": 0.0, "fold_s": 0.0,
-                                   "grad_s": 0.0, "adam_s": 0.0}
+                                   "grad_s": 0.0, "adam_s": 0.0, "store_s": 0.0}
             self.units.append(self._by_name[name])
         self._current = self._by_name[name]
         if kind is not None:
@@ -3127,6 +3149,13 @@ class _ReconProbe:
 
         real = {n: getattr(TR, n) for n in self.NAMES}
         self._saved = real
+        self._empty = real_empty = TR._Captures.empty
+
+        def empty(store, *args, **kw):
+            out, s = self._timed(real_empty, store, *args, **kw)
+            self._current["store_s"] += s
+            return out
+        TR._Captures.empty = empty
 
         def capture(params, batch, unit_name, *args, **kw):
             out, s = self._timed(real["capture_unit_io"], params, batch, unit_name, *args, **kw)
@@ -3154,7 +3183,11 @@ class _ReconProbe:
             r = self._unit(u.name, u.kind)
             r.update(adam_s=s, iters=kw["iters"], losses=losses.tolist(),
                      bytes_a_sample=held / outputs.shape[0], held_bytes=held,
-                     alpha_bytes=sum(a.nbytes for a in alphas.values()))
+                     alpha_bytes=sum(a.nbytes for a in alphas.values()),
+                     placement=kw.get("captures", "device"))
+            if self.extra is not None:
+                r.update(self.extra(real["reconstruct_unit"],
+                                    (key, u, params, wqp, inputs, outputs, cfg), kw))
             r["err_learned"], r["err_nearest"] = TR.unit_error(u, params, wqp, alphas, inputs,
                                                                outputs, cfg)
             return alphas, losses
@@ -3175,6 +3208,7 @@ class _ReconProbe:
 
         for n, fn in self._saved.items():
             setattr(TR, n, fn)
+        TR._Captures.empty = self._empty
 
 
 class _NearestPartials:
@@ -3184,10 +3218,13 @@ class _NearestPartials:
     the weights and scales it was given: so that a walk under --partial_dir
     resumes those units and reconstructs only `keep`, exactly as if an
     earlier run had left those saves. `written` counts the saves, `seconds`
-    their time."""
+    their time, `placed` the walk's placement lines ("captures: ..."),
+    `available` the host's MemAvailable bytes at the last of them, and
+    `call` the last call's arguments (args, keywords)."""
 
     def __init__(self, keep):
         self.keep, self.written, self.seconds = set(keep), 0, 0.0
+        self.call, self.placed, self.available = None, [], None
         self._real = None
 
     def __enter__(self):
@@ -3211,7 +3248,16 @@ class _NearestPartials:
                                                                       u.layers).items()})
                     self.written += 1
             self.seconds += time.perf_counter() - t0
-            return real(params, spec, cfg, wqp, cali_data, **kw)
+            self.call = ((params, spec, cfg, wqp, cali_data), dict(kw))
+            progress = kw.get("progress")
+
+            def placed(line):
+                if line.startswith("captures: "):
+                    self.placed.append(line)
+                    self.available = TR.host_memory().get("MemAvailable")
+                if progress:
+                    progress(line)
+            return real(params, spec, cfg, wqp, cali_data, **{**kw, "progress": placed})
         TR.calibrate_weights = calibrate
         return self
 
@@ -3368,6 +3414,67 @@ def _check_recon(label, units, want, tag, phase="recon_path", batch=8,
     return rates
 
 
+def _host_walk_check(tmp, call, h_units, h_alphas, tag):
+    """recon_path (h-host): (h)'s `calibrate_weights` call (`call`, kept by
+    `_NearestPartials`) again on a copy of (h)'s partial saves without those
+    of RECON_HOST_UNITS, so that the walk resumes every other unit and
+    reconstructs these two, first with captures="host" (pinned host memory,
+    each Adam step's rows copied to the card ahead of the step on a side
+    stream), then with captures="device". Every step's loss and every offset
+    of the two units must be (h)'s bit for bit in both forms, and the
+    placement logged as forced. Prints ms an Adam step of (h) and of each
+    form side by side."""
+    import shutil
+
+    import torch
+    from dgq_tpu_torch.calib import reconstruction as TR
+
+    args, kw = call
+    want = {r["name"]: r for r in h_units if r["name"] in RECON_HOST_UNITS}
+    layers = [l for u in TR.recon_units(args[1]) if u.name in RECON_HOST_UNITS for l in u.layers]
+    card = args[0]["conv_in"]["w"].is_cuda
+    runs, failed = {}, []
+    for form in ("host", "device"):
+        parts = os.path.join(tmp, f"parts_{form}")
+        shutil.copytree(os.path.join(tmp, "parts"), parts)
+        for name in RECON_HOST_UNITS:
+            os.remove(os.path.join(parts, f"{name}.pth"))
+        lines = []
+        with _ReconProbe() as probe:
+            alphas = TR.calibrate_weights(*args, **{**kw, "partial_dir": parts, "captures": form,
+                                                    "progress": lines.append})
+        shutil.rmtree(parts)
+        got = {r["name"]: r for r in probe.units}
+        placed = [l for l in lines if l.startswith("captures: ")]
+        where = (("in pinned host memory" if card else "in host memory") if form == "host"
+                 else ("on the card" if card else "on the CPU"))
+        same_losses = set(got) == set(want) and all(
+            got[n]["losses"] == want[n]["losses"] and got[n]["placement"] == form for n in want)
+        same_offsets = all(torch.equal(alphas[l], h_alphas[l]) for l in layers)
+        placed_ok = len(placed) == 2 and all(f'{where} (captures="{form}")' in l for l in placed)
+        runs[form] = got
+        print(f"recon_path (h-host) captures={form}: {sorted(got)} reconstructed, the other "
+              f"units resumed; every step's loss bit for bit (h)'s: {same_losses}; the "
+              f"{len(layers)} layers' offsets bit for bit (h)'s: {same_offsets}; placement "
+              f"{placed} | {tag}", flush=True)
+        if not (same_losses and same_offsets and placed_ok):
+            failed.append(form)
+        del alphas
+    for name in RECON_HOST_UNITS:
+        ms = {lbl: 1e3 * r["adam_s"] / r["iters"] for lbl, r in (
+            ("(h)", want[name]), ("host", runs["host"].get(name)),
+            ("device", runs["device"].get(name))) if r}
+        print(f"recon_path (h-host) {name}: ms an Adam step at batch 8, "
+              f"{want[name]['iters']} steps, the ring's first fill included: (h) on the card "
+              f"{ms.get('(h)', 0):.2f}, "
+              f"captures in pinned host memory {ms.get('host', 0):.2f}, on the card again "
+              f"{ms.get('device', 0):.2f}; captures "
+              f"{want[name]['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample | {tag}", flush=True)
+    if failed:
+        raise AssertionError(f"recon_path (h-host): the walk with captures={failed} is not "
+                             f"(h)'s bit for bit")
+
+
 def recon_path(tag, ref):
     """Phase 7: weight reconstruction (AdaRound / BRECQ) at full width, from
     the port alone: SD v1.4, f32, 512px, random weights from seed 42, the
@@ -3382,6 +3489,10 @@ def recon_path(tag, ref):
           upsampler, up_blocks.3.resnets.0) reconstructed, each on the
           captures of its quantized prefix, the other units resumed from
           saves of their nearest rounding (`_NearestPartials`);
+      (h-host) (h)'s walk again from a copy of D without the saves of
+          RECON_HOST_UNITS (a transformer at 64px, up_blocks.3.resnets.0),
+          with captures="host" and then "device": their losses and offsets
+          bit for bit (h)'s (`_host_walk_check`);
       (i) the same command again on D: every unit resumed, the offsets bit
           for bit (h)'s;
       (j) --recon_loss fisher_diag --tib_recon --max_units RECON_FISHER_UNITS:
@@ -3443,6 +3554,8 @@ def recon_path(tag, ref):
         _check_recon("(h)", probe.units, len(RECON_WALK), tag)
         alphas, weight_only = h["alphas"], h["weight_only"]
         del h
+        _host_walk_check(tmp, nearest.call, probe.units, alphas, tag)
+        nearest.call = None
         i, probe = cli("(i) quantize_weight, resumed",
                        walk + ["--outdir", os.path.join(tmp, "i")])
         saves = len(os.listdir(os.path.join(tmp, "parts")))
@@ -4836,30 +4949,211 @@ def sdxl_cli_path(tag, ref):
     torch.cuda.empty_cache()
 
 
+SD_FIT_UNIT = "up_blocks.3.resnets.0"  # SD v1.4's largest captures: 960 + 320 ch at 64px
 SDXL_FIT_UNIT = "up_blocks.2.resnets.0"  # SDXL-turbo's largest captures: 960 + 320 ch at 128px
-SDXL_FIT_ITERS = 2
+FIT_ITERS = 20  # Adam steps of the fitted unit; its loop then runs once more, warm
+FIT_SEED = {"sd": 42, "sdxl": 0}
+SD_FIT_SLOTS = 25 + 1  # quantize_act's default --step_size 25: 26 PNDM calls, 26 time slots
+SD_FIT_INTERVAL = 2 * 64  # its default 64 prompts, each with its CFG pair, a slot
 
 
-def sdxl_recon_fit():
+def _fit_extra(real, args, kw):
+    """`_ReconProbe`'s extra for the fits: the unit's Adam loop run again on
+    the same captures (ms a step warm, without the first run's warm-up; its
+    losses must be the first run's); one step's rows copied row by row into
+    buffers on the card, as `_RowFeed` copies them (device ms, CUDA events);
+    and the same rows gathered where the captures lie into one staging
+    buffer a tensor (pinned when the captures are on the host), as a host
+    gather would take them (the copy that the ring leaves out): twice into
+    the same buffers, the first gather paying their pages' first touch, the
+    second warm."""
+    import torch
+    from dgq_tpu_torch.calib import reconstruction as TR
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = real(*args, **kw)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    inputs, outputs = args[4], args[5]
+    idx = TR.batch_indices(args[0], 1, kw["batch_size"], outputs.shape[0])[0]
+    bufs = [torch.empty((len(idx),) + x.shape[1:], dtype=x.dtype, device="cuda")
+            for x in inputs + (outputs,)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for j, i in enumerate(idx.tolist()):
+        for buf, x in zip(bufs, inputs + (outputs,)):
+            buf[j].copy_(x[i], non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    copy_ms = start.elapsed_time(end)
+    del bufs
+    host = outputs.device.type == "cpu"
+    staged = [torch.empty((len(idx),) + x.shape[1:], dtype=x.dtype, device=x.device,
+                          pin_memory=host) for x in inputs + (outputs,)]
+    gather_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for buf, x in zip(staged, inputs + (outputs,)):
+            torch.index_select(x, 0, idx.to(x.device), out=buf)
+        torch.cuda.synchronize()
+        gather_ms.append(1e3 * (time.perf_counter() - t0))
+    return {"adam_warm_s": warm, "warm_losses": losses.tolist(), "copy_ms": copy_ms,
+            "gather_first_ms": gather_ms[0], "gather_ms": gather_ms[1],
+            "gather_bytes": sum(x.nbytes for x in staged)}
+
+
+def _recon_fit(model, unit, tag, tmp, label):
+    """`quantize_weight --model <model> --wq 4 --cali` at every data default
+    (SD v1.4: 64 prompts x 25 PNDM steps, 3328 samples; SDXL-turbo: 64 x 4
+    Euler steps, 256), random weights from FIT_SEED, with --partial_dir and
+    --max_units as far as `unit`, every unit before it resumed from saves of
+    its nearest rounding (`_NearestPartials`), so that the walk
+    reconstructs `unit` alone, FIT_ITERS Adam steps; the captures placed
+    by the CLI's rule (captures="auto"). Prints where they were held and
+    their bytes, the card's peak of its total, the pinned host bytes beside
+    the host's MemTotal and its MemAvailable as they were placed, the
+    seconds of each part, ms an Adam step cold and warm, and one step's
+    rows copied and gathered (`_fit_extra`). Returns the CLI's result."""
+    import torch
+    from dgq_tpu_torch.calib.reconstruction import host_memory, recon_units
+    from dgq_tpu_torch.cli import quantize_weight
+    from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
+
+    spec = sd_unet_spec() if model == "sd" else sdxl_unet_spec()
+    k = [u.name for u in recon_units(spec)].index(unit)
+    argv = ["--model", model, "--seed", str(FIT_SEED[model]), "--wq", "4", "--cali", "--iters",
+            str(FIT_ITERS), "--max_units", str(k + 1), "--partial_dir",
+            os.path.join(tmp, f"parts_{model}"), "--cali_data_path",
+            os.path.join(tmp, f"cali_{model}"), "--outdir", os.path.join(tmp, f"out_{model}")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _NearestPartials([unit]) as nearest, _ReconProbe(_fit_extra) as probe:
+        res = quantize_weight.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if [r["name"] for r in probe.units] != [unit] or nearest.written != k:
+        raise AssertionError(f"--recon-fit {label}: reconstructed "
+                             f"{[r['name'] for r in probe.units]} after {nearest.written} "
+                             f"nearest saves, not {unit} after {k}")
+    (r,) = probe.units
+    n = round(r["held_bytes"] / r["bytes_a_sample"])
+    host = r["placement"] == "host"
+    s = res["seconds"]
+    print(f"--recon-fit {label}: {unit} at the CLI's default data size ({n} samples): "
+          f"captures {r['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample, "
+          f"{r['held_bytes'] / 2 ** 30:.2f} GiB in all, "
+          f"{'in pinned host memory' if host else 'on the card'} ({nearest.placed}); card peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated (reserved "
+          f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}; pinned host "
+          f"{(r['held_bytes'] if host else 0) / 2 ** 30:.2f} GiB of the host's MemTotal "
+          f"{host_memory()['MemTotal'] / 2 ** 30:.2f} GiB (MemAvailable "
+          f"{nearest.available / 2 ** 30:.2f} GiB as the captures were placed); run "
+          f"{seconds:.2f} s (MSE init {s['weight_init']:.2f}, "
+          f"{k} nearest saves {nearest.seconds:.2f}, calibration data {s['cali_data']:.2f}, "
+          f"captures {r['capture_s']:.2f}, their tensors allocated"
+          f"{' and page-locked' if host else ''} {r['store_s']:.2f}, folds {r['fold_s']:.2f}, "
+          f"{r['iters']} Adam steps {r['adam_s']:.2f}: {1e3 * r['adam_s'] / r['iters']:.2f} ms "
+          f"a step, warm {1e3 * r['adam_warm_s'] / r['iters']:.2f}); one step's rows "
+          f"({r['gather_bytes'] / 2 ** 20:.1f} MiB) copied row by row to the card "
+          f"{r['copy_ms']:.2f} ms (device), gathered {'on the host' if host else 'on the card'} "
+          f"into reused {'pinned ' if host else ''}buffers {r['gather_ms']:.2f} ms warm (first "
+          f"{r['gather_first_ms']:.2f}); unit error learned / nearest "
+          f"{r['err_learned'] / r['err_nearest']:.4f} | {tag}", flush=True)
+    if r["warm_losses"] != r["losses"] or not r["err_learned"] <= 1.5 * r["err_nearest"]:
+        raise AssertionError(f"--recon-fit {label}: the warm loop's losses are not the first's, "
+                             f"or the learned rounding is worse than 1.5x nearest")
+    return res
+
+
+def _sd_act_order():
+    """The tap order of `quantize_act`'s t2i flags with --pallas_attn, from
+    the tiny SD net (base 32, cross 64; its layers are SD v1.4's)."""
+    import torch
+    from dgq_tpu_torch.calib.act_calib import tap_execution_order
+    from dgq_tpu_torch.models.qconfig import QConfig
+    from dgq_tpu_torch.models.unet_sd import init_unet_sd, sd_unet_spec
+
+    g = torch.Generator().manual_seed(3)
+    spec = sd_unet_spec(base=32, cross=64)
+    params = init_unet_sd(g, "cpu", spec=spec)
+    batch = (torch.randn(1, 16, 16, 4, generator=g), torch.tensor([801], dtype=torch.int32),
+             torch.randn(1, 77, 64, generator=g))
+    return tap_execution_order(params, batch, QConfig(
+        use_aq=True, use_pallas_attention=True, t2i_log_quant=True, t2i_real_time=True,
+        t2i_start_peak=True))
+
+
+def _act_fit(tag, weight_only, tmp):
+    """(fit-sd-act): `quantize_act --model sd --group_num 8` with the t2i
+    flags and --pallas_attn on (fit-sd)'s weight-only file at the default
+    data size, reading (fit-sd)'s calibration cache: SD_FIT_SLOTS time
+    slots of SD_FIT_INTERVAL samples, batch 8. Exact forwards and K3b
+    launches (as calib_path (f)), seconds a slot and of the host k-means,
+    every state finite and positive."""
+    from dgq_tpu_torch.calib import act_calib
+    from dgq_tpu_torch.cli import quantize_act
+    from dgq_tpu_torch.models.unet_sd import sd_unet_spec
+
+    spec = sd_unet_spec()
+    n_att = len(act_calib.attention_prefixes(spec))
+    batches = -(-SD_FIT_INTERVAL // CALI_BATCH)
+    fwd, _ = _act_plan(_sd_act_order(), SD_FIT_SLOTS, batches, n_att)
+    real_kmeans, kmeans = act_calib.kmeans_group_qparams, {"s": 0.0, "calls": 0}
+
+    def timed_kmeans(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_kmeans(*args, **kw)
+        kmeans["s"] += time.perf_counter() - t0
+        kmeans["calls"] += 1
+        return out
+    act_calib.kmeans_group_qparams = timed_kmeans
+    try:
+        x = _run_cli("--recon-fit", "(fit-sd-act) quantize_act --group_num 8", quantize_act.main,
+                     ["--model", "sd", "--wq", "4", "--aq", "8", "--softmax_a_bit", "8",
+                      "--group_num", "8", "--cali_ckpt", weight_only, "--cali_data_path",
+                      os.path.join(tmp, "cali_sd"), "--outdir", os.path.join(tmp, "act"),
+                      "--pallas_attn", "--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak",
+                      "--time_aware_aqtizer"], fwd,
+                     lambda f: {"rt_stats": n_att * f, "quant_accum": n_att * f}, tag)
+    finally:
+        act_calib.kmeans_group_qparams = real_kmeans
+    slot_s = x["seconds"]["act_slots"]
+    print(f"--recon-fit (fit-sd-act): {len(slot_s)} slots of {SD_FIT_INTERVAL} samples at batch "
+          f"{CALI_BATCH} ({fwd // SD_FIT_SLOTS} forwards a slot), s a slot {min(slot_s):.2f} to "
+          f"{max(slot_s):.2f} (mean {sum(slot_s) / len(slot_s):.2f}); the host k-means "
+          f"{kmeans['s']:.2f} s over {kmeans['calls']} calls; calibration data from (fit-sd)'s "
+          f"cache {x['seconds']['cali_data']:.2f} s | {tag}", flush=True)
+    _check_calibrated("--recon-fit (fit-sd-act) g=8", x["per_t"], spec, tag)
+    if len(x["per_t"]) != SD_FIT_SLOTS or not x["group_layers"]:
+        raise AssertionError(f"--recon-fit (fit-sd-act): {len(x['per_t'])} slots, "
+                             f"{len(x['group_layers'])} group layers")
+
+
+def recon_fit():
     """`python3 chip_smoke.py --recon-fit` (not part of the run without
-    arguments, whose time limit it does not fit; about 5 minutes): whether
-    SDXL-turbo's reconstruction fits on one card at the CLI's default data
-    size. `quantize_weight --model sdxl --wq 4 --cali` (64 prompts x 4
-    Euler steps: 256 samples; random weights from seed 0) with --partial_dir
-    and --max_units as far as SDXL_FIT_UNIT, every unit before it resumed
-    from saves of its nearest rounding (`_NearestPartials`), so that the
-    walk reconstructs SDXL_FIT_UNIT alone, SDXL_FIT_ITERS Adam steps.
-    Prints its captures (a sample and in all), the run's peak memory and
-    seconds, or, when the card runs out of memory, the functions of the
-    port it ran out in. Exits 1 then, or without a card."""
+    arguments, whose time limit it does not fit; about 20 minutes): the
+    calibration CLIs at their default data size on one card, the kernels
+    built from the checkout while (fit-sd) runs (it launches none):
+      (fit-sd) SD v1.4 `quantize_weight --cali` reconstructing
+          SD_FIT_UNIT (`_recon_fit`): 65 GiB of captures, held by the
+          placement rule in pinned host memory;
+      (fit-sd-act) `quantize_act --group_num 8` on its file (`_act_fit`):
+          K3b in every forward;
+      (fit-sdxl) SDXL-turbo `quantize_weight --cali` reconstructing
+          SDXL_FIT_UNIT.
+    When the card runs out of memory it prints the functions of the port it
+    ran out in and exits 1; it exits 1 without a card."""
     import shutil
     import tempfile
     import traceback
 
     import torch
-    from dgq_tpu_torch.calib.reconstruction import recon_units
-    from dgq_tpu_torch.cli import quantize_weight
-    from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
+    from dgq_tpu_torch.ops import build
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py --recon-fit needs a CUDA GPU")
@@ -4868,50 +5162,59 @@ def sdxl_recon_fit():
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     tag = f"card: {card}"
-    k = [u.name for u in recon_units(sdxl_unet_spec())].index(SDXL_FIT_UNIT)
+    # why the captures are page-locked with cudaHostRegister, not allocated pinned
+    torch.cuda.init()  # host_memory_stats() is empty before
+    block = 1536 * 2 ** 20 + 4096
+    probe = torch.empty(block, dtype=torch.uint8, pin_memory=True)
+    held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    del probe
+    print(f"--recon-fit: PyTorch's pinned allocator (pin_memory=True) holds {held / 2 ** 30:.4f} "
+          f"GiB for a block of {block / 2 ** 30:.4f} GiB | {tag}", flush=True)
+    built = {}
+
+    def build_all():
+        try:
+            built["paths"] = build.build_kernels()
+        except BaseException as exc:  # handed to the main thread, which raises it
+            built["error"] = exc
+    compiling = threading.Thread(target=build_all)
+    compiling.start()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=root)
-    argv = ["--model", "sdxl", "--seed", "0", "--wq", "4", "--cali", "--iters",
-            str(SDXL_FIT_ITERS), "--max_units", str(k + 1), "--partial_dir",
-            os.path.join(tmp, "parts"), "--cali_data_path", os.path.join(tmp, "cali"),
-            "--outdir", os.path.join(tmp, "out")]
+    t0 = time.perf_counter()
+
+    def phase(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t1:.1f} s | {tag}", flush=True)
+        return out
     try:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         try:
-            with _NearestPartials([SDXL_FIT_UNIT]) as nearest, _ReconProbe() as probe:
-                res = quantize_weight.main(argv)
+            res = phase("fit-sd", _recon_fit, "sd", SD_FIT_UNIT, tag, tmp, "(fit-sd)")
+            weight_only = res["weight_only"]
+            del res
+            compiling.join()
+            if "error" in built:
+                raise built["error"]
+            build.load_kernels()
+            phase("fit-sd-act", _act_fit, tag, weight_only, tmp)
+            shutil.rmtree(os.path.dirname(weight_only))
+            phase("fit-sdxl", _recon_fit, "sdxl", SDXL_FIT_UNIT, tag, tmp, "(fit-sdxl)")
         except torch.cuda.OutOfMemoryError as exc:
             where = [f"{f.name} ({os.path.basename(f.filename)}:{f.lineno})"
                      for f in traceback.extract_tb(exc.__traceback__)
                      if "dgq_tpu_torch" in f.filename]
-            print(f"{SDXL_FIT_UNIT} at the default data size: out of memory after "
-                  f"{time.perf_counter() - t0:.2f} s, peak "
+            print(f"--recon-fit: out of memory after {time.perf_counter() - t0:.2f} s, peak "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated, in "
                   f"{' <- '.join(reversed(where))}: {str(exc).splitlines()[0]} | {tag}",
                   flush=True)
             return 1
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        if [r["name"] for r in probe.units] != [SDXL_FIT_UNIT] or nearest.written != k:
-            raise AssertionError(f"--recon-fit: reconstructed {[r['name'] for r in probe.units]}"
-                                 f" after {nearest.written} nearest saves, not {SDXL_FIT_UNIT} "
-                                 f"after {k}")
-        (r,) = probe.units
-        n = r["held_bytes"] / r["bytes_a_sample"]
-        print(f"{SDXL_FIT_UNIT} at the default data size ({n:.0f} samples): fits; captures "
-              f"{r['bytes_a_sample'] / 2 ** 20:.2f} MiB a sample, {r['held_bytes'] / 2 ** 30:.2f} "
-              f"GiB in all; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated "
-              f"(reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f}) of "
-              f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}; run "
-              f"{seconds:.2f} s (MSE init {res['seconds']['weight_init']:.2f}, {k} nearest saves "
-              f"{nearest.seconds:.2f}, calibration data {res['seconds']['cali_data']:.2f}, "
-              f"captures {r['capture_s']:.2f}, folds {r['fold_s']:.2f}, {r['iters']} Adam steps "
-              f"{r['adam_s']:.2f}) | {tag}", flush=True)
-        return 0
     finally:
+        compiling.join()
         shutil.rmtree(tmp, ignore_errors=True)
+    print(f"--recon-fit: {time.perf_counter() - t0:.1f} s | {tag}", flush=True)
+    return 0
 
 
 def print_build_report(paths, tag):
@@ -5053,12 +5356,12 @@ def main():
         return out
 
     try:
-        _run_phases(build, built, compiling, reference, card, tag)
+        _run_phases(build, built, compiling, reference, card, tag, t0)
     finally:
         refs.shutdown(wait=True, cancel_futures=True)
 
 
-def _run_phases(build, built, compiling, reference, card, tag):
+def _run_phases(build, built, compiling, reference, card, tag, t0):
     """main()'s phases once the compilers and the CPU references started."""
     import os
     import shutil
@@ -5133,6 +5436,7 @@ def _run_phases(build, built, compiling, reference, card, tag):
     print("kernels: max_abs_err (and mismatch_share) are the largest over the shapes above; "
           "ms, plain_ms, bound_ms, library_ms, device_ms at "
           + ", ".join(f"{n}: {summary[n]['at']}" for n in KERNELS) + f" | {tag}")
+    print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the start of the build | {tag}")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5146,6 +5450,6 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(sys.argv[2])
     elif sys.argv[1:] == ["--recon-fit"]:
-        sys.exit(sdxl_recon_fit())
+        sys.exit(recon_fit())
     else:
         main()

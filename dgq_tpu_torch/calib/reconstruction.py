@@ -21,6 +21,11 @@ The PyTorch form:
   * `batch_indices` is the one place the loops draw: a `torch.Generator`
     seeded from the run's seed and the unit's index. The same seed draws
     other batches than the JAX package's `jax.random` stream;
+  * a unit's captures are held on the card, as the JAX package holds them
+    on its device, or, when they would not fit beside what the card holds
+    (`hold_on_host`), in pinned host memory, from which each Adam step's
+    rows are copied to the card ahead of the step (`_RowFeed`). The rows
+    are the same values either way, so the losses and offsets are too;
   * data parallelism (`calibrate_weights(mesh=)`, one process a rank): a
     rank captures only its contiguous slice of the samples (the JAX
     package's P("dp") layout), every rank draws the same global indices,
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from contextlib import nullcontext
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -231,15 +237,216 @@ def _reg_fn(alphas: dict, iters: int, w: float, warmup: float) -> Callable:
     return reg_fn
 
 
+CAPTURES = ("auto", "device", "host")
+FEED_DEPTH = 3  # the host form's ring of row buffers: rows copied up to two steps ahead
+
+
+def hold_on_host(projected: int, free: int) -> bool:
+    """The placement rule of `calibrate_weights(captures="auto")` on a card:
+    a unit's captures (`projected` bytes: its inputs, outputs and Fisher
+    weights over the rank's samples) are held in pinned host memory when
+    they exceed half of the `free` bytes of the card, and on the card
+    otherwise. The other half is left to what the unit's Adam loop and the
+    walk's later capture forwards and folds allocate."""
+    return projected > free // 2
+
+
+def _free_bytes(device) -> int:
+    """The bytes a new allocation on the card can take: the free bytes
+    `mem_get_info` reports and the blocks PyTorch's allocator holds unused
+    (the capture forward has just returned its activations there)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def host_memory() -> dict:
+    """The host's /proc/meminfo in bytes by field ("MemTotal",
+    "MemAvailable", ...: the fields given in kB); empty where it cannot be
+    read."""
+    try:
+        with open("/proc/meminfo") as f:
+            fields = [l.split() for l in f]
+    except OSError:
+        return {}
+    return {w[0].rstrip(":"): int(w[1]) * 1024 for w in fields if len(w) == 3 and w[2] == "kB"}
+
+
+def check_host_room(projected: int, mem: dict) -> None:
+    """Raises when a unit's `projected` bytes of host captures exceed the
+    host's MemAvailable in `mem` (`host_memory()`): page-locking them would
+    fault in every page, and the kernel's OOM killer would end the process
+    without a word. Checks nothing where /proc/meminfo was not read."""
+    if "MemAvailable" in mem and projected > mem["MemAvailable"]:
+        raise RuntimeError(
+            f"a unit's captures need {projected} bytes of pinned host memory, more than "
+            f"the host's MemAvailable of {mem['MemAvailable']} bytes (MemTotal "
+            f"{mem.get('MemTotal', 'unknown')} bytes)")
+
+
+class _Captures:
+    """Where one unit's captures are held, and the host memory that holds
+    them. `place` decides once, at the unit's first capture chunk:
+    `captures` "device" or "host" as given; "auto" by `hold_on_host` on a
+    card, and on the device on the CPU, where the host is the device. The
+    decision and its bytes go to `progress`.
+
+    On a card, host captures are page-locked: `empty` registers each tensor
+    with cudaHostRegister (PyTorch's pinned allocator rounds a block up to
+    a power of two: 48.75 GiB of inputs would take 64), and `close`
+    unregisters them once the card has finished every copy from or into
+    them. Host captures larger than the host's MemAvailable raise before
+    any is allocated (`check_host_room`), and so does a registration that
+    fails; nothing falls back to pageable memory."""
+
+    def __init__(self, device, captures: str, n: int, fisher: bool,
+                 progress: Optional[Callable[[str], None]] = None):
+        self.device, self.captures, self.n, self.fisher = device, captures, n, fisher
+        self.progress = progress
+        self.host: Optional[bool] = None  # undecided until the first capture chunk
+        self.projected = 0
+        self._pinned: list = []
+
+    def place(self, inputs: tuple, output: torch.Tensor) -> None:
+        """Decides from the first capture chunk's inputs and output: the
+        bytes a sample (with the f32 Fisher weights of the output under a
+        Fisher loss) times the rank's sample count."""
+        rows = output.shape[0]
+        sample = (sum(x.nbytes for x in inputs) + output.nbytes) // rows
+        if self.fisher:
+            sample += output.numel() // rows * 4
+        self.projected = sample * self.n
+        card = self.device.type == "cuda"
+        if self.captures == "auto":
+            free = _free_bytes(self.device) if card else 0
+            self.host = card and hold_on_host(self.projected, free)
+            why = f"free {free / 2 ** 30:.2f} GiB on the card" if card else "the CPU computes"
+        else:
+            self.host = self.captures == "host"
+            why = f'captures="{self.captures}"'
+        where = (("in pinned host memory" if card else "in host memory") if self.host
+                 else ("on the card" if card else "on the CPU"))
+        if self.progress:
+            self.progress(f"captures: {self.projected / 2 ** 30:.2f} GiB {where} ({why})")
+        if self.host and card:
+            check_host_room(self.projected, host_memory())
+
+    @property
+    def form(self) -> str:
+        return "host" if self.host else "device"
+
+    def empty(self, shape: tuple, dtype) -> torch.Tensor:
+        if not self.host:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        t = torch.empty(shape, dtype=dtype)
+        if self.device.type == "cuda" and t.nbytes:
+            cudart = torch.cuda.cudart()
+            err = cudart.cudaHostRegister(t.data_ptr(), t.nbytes, 0)
+            if err != cudart.cudaError.success:
+                raise RuntimeError(
+                    f"pinning {t.nbytes} bytes of host memory for a unit's captures failed "
+                    f"({err}), beside {sum(p.nbytes for p in self._pinned)} bytes pinned "
+                    f"already; the host's MemTotal is "
+                    f"{host_memory().get('MemTotal', 'unknown')} bytes")
+            self._pinned.append(t)
+        return t
+
+    def ready(self) -> None:
+        """Waits for the copies into host captures: the one synchronisation
+        before the Adam loop reads them."""
+        if self.host and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def close(self) -> None:
+        if self._pinned:
+            torch.cuda.synchronize(self.device)
+            cudart = torch.cuda.cudart()
+            for t in self._pinned:
+                cudart.cudaHostUnregister(t.data_ptr())
+            self._pinned = []
+
+
+class _RowFeed:
+    """Each Adam step's rows of the cached tensors `data`: for step k the
+    samples `rows[k]` (CPU int64) of every one, on `device`.
+
+    Device form (host=False): the data lie on the device, and a step
+    gathers its rows there. Host form: the data lie in host memory, and
+    step k's rows are copied, one contiguous row at a time, into slot
+    k % FEED_DEPTH of a ring of buffers on the device, FEED_DEPTH - 1 steps
+    ahead of the step that reads them, on a stream of their own when the
+    device is a card. Two events a slot keep the order: a step waits for
+    its slot's copies (`copied`), and a slot is refilled only after the
+    step that read it has run its backward (`freed`). The rows come
+    straight from the (pinned) capture tensors: nothing is gathered on the
+    host. Either form gives the step the same values."""
+
+    def __init__(self, data: tuple, rows, device, host: bool):
+        self.data, self.rows, self.device, self.host = data, rows, device, host
+        if not host:
+            self.idx = rows.to(device) if torch.is_tensor(rows) else [r.to(device) for r in rows]
+            return
+        size = max((len(r) for r in rows), default=0)
+        self.ring = [tuple(torch.empty((size,) + x.shape[1:], dtype=x.dtype, device=device)
+                           for x in data) for _ in range(min(FEED_DEPTH, len(rows)))]
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if self.stream is not None:
+            self.copied = [torch.cuda.Event() for _ in self.ring]
+            self.freed = [torch.cuda.Event() for _ in self.ring]
+            # The ring was allocated on the compute stream, from blocks its
+            # queued kernels may still use: the first fills wait for them.
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+        for k in range(len(self.ring)):
+            self._fill(k)
+
+    def _fill(self, k: int) -> None:
+        slot = k % len(self.ring)
+        ctx = torch.cuda.stream(self.stream) if self.stream is not None else nullcontext()
+        with ctx:
+            if self.stream is not None and k >= len(self.ring):
+                self.stream.wait_event(self.freed[slot])
+            for j, i in enumerate(self.rows[k].tolist()):
+                for buf, x in zip(self.ring[slot], self.data):
+                    buf[j].copy_(x[i], non_blocking=True)
+            if self.stream is not None:
+                self.copied[slot].record(self.stream)
+
+    def get(self, k: int) -> tuple:
+        if not self.host:
+            return tuple(x[self.idx[k]] for x in self.data)
+        slot = k % len(self.ring)
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.copied[slot])
+        m = len(self.rows[k])
+        return tuple(buf[:m] for buf in self.ring[slot])
+
+    def done(self, k: int) -> None:
+        """Step k has run its backward: its slot takes step k + depth's rows."""
+        if not self.host:
+            return
+        slot = k % len(self.ring)
+        if self.stream is not None:
+            self.freed[slot].record(torch.cuda.current_stream(self.device))
+        if k + len(self.ring) < len(self.rows):
+            self._fill(k + len(self.ring))
+
+    def close(self) -> None:
+        """The compute stream waits for every copy issued (a dp rank's step
+        without rows of its own never waited for its slot)."""
+        if self.host and self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+
 def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, device,
-               rec_fn: Callable, lr: float, schedule: Optional[Callable] = None,
+               data: tuple, rec_fn: Callable, lr: float, schedule: Optional[Callable] = None,
                reg_fn: Optional[Callable] = None, shard: Optional[Shard] = None,
-               mesh=None):
+               mesh=None, host: bool = False):
     """Adam over the tensors of `leaves` (made leaves that require grad):
-    each step's loss is rec_fn(idx), the reconstruction loss (a mean over
-    the samples idx of the cached tensors), plus reg_fn(step) where that is
-    not None. schedule(step) -> the step's learning rate. Returns the
-    losses, (iters,) on the device.
+    each step's loss is rec_fn(rows), the reconstruction loss (a mean over
+    the samples drawn), rows holding the step's samples of each tensor of
+    `data` (the cached tensors, on `device` or, with host=True, in host
+    memory: `_RowFeed`), plus reg_fn(step) where that is not None.
+    schedule(step) -> the step's learning rate. Returns the losses, (iters,)
+    on the device.
 
     With a shard, every rank draws the same global indices (of shard.n);
     rec_fn takes the ones in its slice, re-based, and its mean is weighted
@@ -258,37 +465,42 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
     opt = torch.optim.Adam(params, lr=lr)
     idx = batch_indices(key, iters, batch_size, n if shard is None else shard.n)
     if shard is None:
-        steps, weights = idx.to(device), [None] * iters
+        rows, weights = idx, [None] * iters
     else:
-        mine = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
-        steps, weights = [m.to(device) for m in mine], [len(m) / batch_size for m in mine]
+        rows = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
+        weights = [len(m) / batch_size for m in rows]
     regularizes = shard is None or shard.lo == 0
     zero = torch.zeros((), device=device)
     recs, regs = [], []
-    for step in range(iters):
-        if schedule is not None:
-            for group in opt.param_groups:
-                group["lr"] = schedule(step)
-        with torch.enable_grad():
-            if weights[step] is None:
-                rec = rec_fn(steps[step])
-            elif weights[step]:
-                rec = rec_fn(steps[step]) * weights[step]
-            else:
-                rec = zero
-            reg = reg_fn(step) if reg_fn is not None and regularizes else None
-            loss = rec if reg is None else rec + reg
-        opt.zero_grad(set_to_none=True)
-        if loss.requires_grad:
-            loss.backward()
-        if shard is not None:
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            all_reduce_sum_(shard.mesh, [p.grad for p in params])
-        opt.step()
-        recs.append(rec.detach())
-        regs.append(zero if reg is None else reg.detach())
+    feed = _RowFeed(data, rows, device, host)
+    try:
+        for step in range(iters):
+            if schedule is not None:
+                for group in opt.param_groups:
+                    group["lr"] = schedule(step)
+            with torch.enable_grad():
+                if weights[step] is None:
+                    rec = rec_fn(feed.get(step))
+                elif weights[step]:
+                    rec = rec_fn(feed.get(step)) * weights[step]
+                else:
+                    rec = zero
+                reg = reg_fn(step) if reg_fn is not None and regularizes else None
+                loss = rec if reg is None else rec + reg
+            opt.zero_grad(set_to_none=True)
+            if loss.requires_grad:
+                loss.backward()
+            feed.done(step)
+            if shard is not None:
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                all_reduce_sum_(shard.mesh, [p.grad for p in params])
+            opt.step()
+            recs.append(rec.detach())
+            regs.append(zero if reg is None else reg.detach())
+    finally:
+        feed.close()
     if not recs:
         return torch.zeros(0, device=device)
     rec_out, reg_out = torch.stack(recs), torch.stack(regs)
@@ -297,6 +509,12 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
     if mesh is not None and mesh.tp > 1:
         all_reduce_tp_(mesh, [reg_out])
     return rec_out + reg_out
+
+
+def _host_form(captures: str) -> bool:
+    if captures not in ("device", "host"):
+        raise ValueError(f'captures must be "device" or "host", not {captures!r}')
+    return captures == "host"
 
 
 def cosine_decay(lr: float, iters: int) -> Callable:
@@ -313,11 +531,13 @@ def cosine_decay(lr: float, iters: int) -> Callable:
 def reconstruct_unit_act_deltas(key: tuple, unit: ReconUnit, params_q: dict, qstate_unit: dict,
                                 cached_inputs: tuple, cached_outputs: torch.Tensor,
                                 cfg: QConfig, iters: int = 20000, batch_size: int = 32,
-                                p_norm: float = 2.0, lr: float = 4e-5):
+                                p_norm: float = 2.0, lr: float = 4e-5, captures: str = "device"):
     """Activation-delta reconstruction (the reference's use_aq branch): Adam
     with a cosine-annealed learning rate on the unit's activation-quantizer
     deltas, Lp loss against the fp outputs. params_q: weight-folded params;
     qstate_unit: {'a': {name: per-tensor QParams}, 'sm': ...} for this unit.
+    captures: "device" (the cached tensors on the deltas' device) or "host"
+    (in host memory, each step's rows copied to the device: `_RowFeed`).
     Returns (the optimised qstate subset, the losses)."""
     apply_fn = make_unit_apply(unit, cfg.replace(use_aq=True), with_qstate=True)
     sub = _sub_params(params_q, unit)
@@ -326,14 +546,15 @@ def reconstruct_unit_act_deltas(key: tuple, unit: ReconUnit, params_q: dict, qst
     zps = {n: qp.zero_point for n, qp in qstate_unit["a"].items()}
     sm = qstate_unit.get("sm", {})
 
-    def rec_fn(i):
+    def rec_fn(rows):
         qs = {"a": {n: QParams(deltas[n], zps[n]) for n in deltas}, "sm": sm}
-        pred = apply_fn(sub, qs, *(x[i] for x in cached_inputs))
-        return torch.mean(torch.sum(_abs(pred - cached_outputs[i]) ** p_norm,
-                                    dim=unit.sum_axis))
+        pred = apply_fn(sub, qs, *rows[:-1])
+        return torch.mean(torch.sum(_abs(pred - rows[-1]) ** p_norm, dim=unit.sum_axis))
 
     losses = _adam_loop(deltas, key, iters, batch_size, cached_outputs.shape[0],
-                        cached_outputs.device, rec_fn, lr, cosine_decay(lr, iters))
+                        next(iter(deltas.values())).device,
+                        tuple(cached_inputs) + (cached_outputs,), rec_fn, lr,
+                        cosine_decay(lr, iters), host=_host_form(captures))
     return ({"a": {n: QParams(deltas[n].detach(), zps[n]) for n in deltas}, "sm": sm},
             losses)
 
@@ -419,11 +640,13 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
                      iters: int = 20000, batch_size: int = 32, w: float = 0.01,
                      warmup: float = 0.2, p_norm: float = 2.0, lr: float = 1e-3,
                      opt_mode: str = "mse", cached_grads: Optional[torch.Tensor] = None,
-                     shard: Optional[Shard] = None, mesh=None):
+                     shard: Optional[Shard] = None, mesh=None, captures: str = "device"):
     """Optimise one unit's AdaRound offsets. Returns ({layer: alpha}, the
     losses (iters,)). With a shard the cached tensors hold this rank's
     samples only; with a mesh of tp > 1 the offsets are the rank's shards
-    (`_adam_loop`).
+    (`_adam_loop`). captures: "device" (the cached tensors on the weights'
+    device) or "host" (in host memory, pinned on a card; each step's rows
+    copied to the device ahead of the step: `_RowFeed`).
 
     Loss: the reconstruction loss plus, from step warmup * iters on, w times
     the rounding regularizer at its annealed temperature. opt_mode: 'mse'
@@ -445,14 +668,19 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
         dot = torch.sum(a * g, dim=tuple(range(1, pred.dim())))
         return torch.mean(dot.reshape((-1,) + (1,) * (pred.dim() - 1)) * a * g) / 100.0
 
-    def rec_fn(i):
+    k = len(cached_inputs)
+    data = tuple(cached_inputs) + (cached_outputs,) + (
+        () if cached_grads is None else (cached_grads,))
+
+    def rec_fn(rows):
         pq = _soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits)
-        pred = apply_fn(pq, *(x[i] for x in cached_inputs))
-        return rec_loss(pred, cached_outputs[i], None if cached_grads is None else cached_grads[i])
+        pred = apply_fn(pq, *rows[:k])
+        return rec_loss(pred, rows[k], rows[k + 1] if cached_grads is not None else None)
 
     losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
-                        cached_outputs.device, rec_fn, lr,
-                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard, mesh=mesh)
+                        next(iter(alphas.values())).device, data, rec_fn, lr,
+                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard, mesh=mesh,
+                        host=_host_form(captures))
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -497,14 +725,15 @@ def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
     with torch.no_grad():
         fp_outs = apply_fn(sub, timesteps)
 
-    def rec_fn(i):
+    def rec_fn(rows):
         preds = apply_fn(_soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits),
-                         timesteps[i])
-        return sum(torch.mean(torch.sum(_abs(pr - tg[i]) ** p_norm, dim=-1))
-                   for pr, tg in zip(preds, fp_outs))
+                         rows[0])
+        return sum(torch.mean(torch.sum(_abs(pr - tg) ** p_norm, dim=-1))
+                   for pr, tg in zip(preds, rows[1:]))
 
     losses = _adam_loop(alphas, key, iters, batch_size, timesteps.shape[0], timesteps.device,
-                        rec_fn, lr, reg_fn=_reg_fn(alphas, iters, w, warmup), mesh=mesh)
+                        (timesteps,) + tuple(fp_outs), rec_fn, lr,
+                        reg_fn=_reg_fn(alphas, iters, w, warmup), mesh=mesh)
     return {n: a.detach() for n, a in alphas.items()}, losses
 
 
@@ -556,12 +785,14 @@ def unit_error(unit: ReconUnit, params: dict, wqp: Dict[str, QParams], alphas: d
                inputs: tuple, target: torch.Tensor, cfg: QConfig, chunk: int = 8) -> tuple:
     """(learned, nearest): the mean squared error of the unit's output against
     `target` on the cached `inputs`, its layers hard-rounded by `alphas`, and
-    with nearest rounding; `chunk` samples a forward. Not part of the walk:
+    with nearest rounding; `chunk` samples a forward, moved to the weights'
+    device first (captures held in host memory). Not part of the walk:
     a caller that wants to judge the learned rounding calls it. On weights
     cut over channels every rank of the tp group calls it with its shards,
     and each gets the whole unit's error (the unit's output is gathered)."""
     apply_fn = make_unit_apply(unit, cfg)
     sub = _sub_params(params, unit)
+    device = params[unit.layers[0]]["w"].device
     errs = []
     for learned in (True, False):
         pq = dict(sub)
@@ -571,8 +802,8 @@ def unit_error(unit: ReconUnit, params: dict, wqp: Dict[str, QParams], alphas: d
                          if learned else fake_quant(w, wqp[n], cfg.w_bits))
         total = 0.0
         for i in range(0, target.shape[0], chunk):
-            pred = apply_fn(pq, *(x[i:i + chunk] for x in inputs))
-            total += float(((pred - target[i:i + chunk]) ** 2).sum())
+            pred = apply_fn(pq, *(x[i:i + chunk].to(device) for x in inputs))
+            total += float(((pred - target[i:i + chunk].to(device)) ** 2).sum())
         errs.append(total / target.numel())
     return tuple(errs)
 
@@ -584,15 +815,21 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
                       progress: Optional[Callable[[str], None]] = None,
                       max_units: Optional[int] = None, partial_dir: Optional[str] = None,
                       tib_recon: bool = False, opt_mode: str = "mse",
-                      mesh=None) -> Dict[str, torch.Tensor]:
+                      mesh=None, captures: str = "auto") -> Dict[str, torch.Tensor]:
     """The whole weight-reconstruction pass. Returns the AdaRound offsets of
     every reconstructed layer (in the weights' layout).
 
     cali_data: the stacked UNet inputs (SD: samples NHWC, timesteps, ehs),
     moved to the weights' device. One unit's captures (its inputs and
-    outputs over every sample, and its Fisher weights) are held there too, as
-    the JAX package holds them on its device, so the largest unit bounds the
-    calibration set a card can take.
+    outputs over the rank's samples, and its Fisher weights) are held on
+    that device too, as the JAX package holds them on its device, or in
+    pinned host memory: captures="auto" decides once a unit, at its first
+    capture chunk, by `hold_on_host` (on a card: host when they exceed half
+    of the card's free bytes; on the CPU always the device) and logs the
+    decision to `progress`; "device" and "host" force a form. Each chunk is
+    copied into host captures as it is made (no card tensor of the whole
+    size), and the Adam loop copies each step's rows back ahead of the step
+    (`_RowFeed`): the losses and offsets are those of the on-card form.
     max_units limits the walk (debug and tests). partial_dir keeps one .pth a
     unit as it completes and resumes a unit whose save exists. tib_recon
     reconstructs the temporal-information block jointly first and takes its
@@ -610,6 +847,8 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     rank 0 writes the partial saves, the whole offsets gathered over each
     tp group (a barrier after each); every rank reads them on resume and
     keeps its rows."""
+    if captures not in CAPTURES:
+        raise ValueError(f"captures must be one of {CAPTURES}, not {captures!r}")
     units = recon_units(spec)
     if max_units is not None:
         units = units[:max_units]
@@ -650,21 +889,26 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
             if s < e:
                 yield s, e, min(i + capture_batch, n) - i
 
-    def batched_capture(p, unit_name, want_inputs=True):
-        """The unit's (inputs, output) over the rank's samples, each chunk
-        written into tensors made at the first (no second copy for a
-        concatenation)."""
-        inputs = out = None
+    def batched_capture(p, unit_name, store, want_inputs=True, want_output=True):
+        """The unit's (inputs, output) over the rank's samples (() / None
+        where not wanted), each chunk copied into tensors that `store` makes
+        at the first (no second copy for a concatenation). A unit's first
+        chunk decides its placement (`_Captures.place`) from its inputs and
+        output."""
+        wholes = None
         for s, e, _ in chunks():
             bi, bo = capture_unit_io(p, tuple(x[s:e] for x in cali_data), unit_name, cfg,
-                                     unet_apply, want_inputs=want_inputs)
-            if out is None:
-                inputs = tuple(x.new_empty((hi - lo,) + x.shape[1:]) for x in bi)
-                out = bo.new_empty((hi - lo,) + bo.shape[1:])
-            for whole, part in zip(inputs + (out,), bi + (bo,)):
-                whole[s - lo:e - lo] = part
-            del bi, bo
-        return inputs, out
+                                     unet_apply, want_inputs=want_inputs or store.host is None)
+            if store.host is None:
+                store.place(bi, bo)
+            parts = (bi if want_inputs else ()) + ((bo,) if want_output else ())
+            if wholes is None:
+                wholes = tuple(store.empty((hi - lo,) + x.shape[1:], x.dtype) for x in parts)
+            for whole, part in zip(wholes, parts):
+                whole[s - lo:e - lo].copy_(part, non_blocking=True)
+            del bi, bo, parts
+        store.ready()
+        return (wholes[:len(wholes) - want_output], wholes[-1] if want_output else None)
 
     for u_idx, unit in enumerate(units):
         if partial_dir:
@@ -682,34 +926,41 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
             progress(f"[{u_idx + 1}/{len(units)}] reconstructing {unit.name}")
         # the asym path replaces the fp inputs with the quantized prefix's
         replace_inputs = asym and bool(all_alphas)
-        fp_inputs, fp_out = batched_capture(params, unit.name, want_inputs=not replace_inputs)
-        if replace_inputs:
-            with torch.no_grad():
-                pq = fold_weight_quant(params, {k: wqp[k] for k in all_alphas}, spec, cfg,
-                                       alphas=all_alphas, soft=False)
-            q_inputs, _ = batched_capture(pq, unit.name)
-            del pq
-        else:
-            q_inputs = fp_inputs
-        del fp_inputs
-        cached_grads = None
-        if opt_mode != "mse":
-            # |dKL/d(unit out)| + 1 with the prefix and the unit itself
-            # hard-quantized, batchmean over the whole capture chunk
-            fold_names = set(all_alphas) | set(unit.layers)
-            with torch.no_grad():
-                pq_g = fold_weight_quant(params, {k: wqp[k] for k in fold_names if k in wqp},
-                                         spec, cfg, alphas=all_alphas, soft=False)
-            cached_grads = fp_out.new_empty(fp_out.shape, dtype=torch.float32)
-            for s, e, size in chunks():
-                cached_grads[s - lo:e - lo] = capture_unit_grad(
-                    params, pq_g, tuple(x[s:e] for x in cali_data), unit.name, cfg, unet_apply,
-                    mean_over=size)
-            del pq_g
-        alphas, _ = reconstruct_unit(
-            key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
-            batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
-            cached_grads=cached_grads, shard=shard, mesh=mesh)
+        store = _Captures(device, captures, hi - lo, opt_mode != "mse", progress)
+        try:
+            fp_inputs, fp_out = batched_capture(params, unit.name, store,
+                                                want_inputs=not replace_inputs)
+            if replace_inputs:
+                with torch.no_grad():
+                    pq = fold_weight_quant(params, {k: wqp[k] for k in all_alphas}, spec, cfg,
+                                           alphas=all_alphas, soft=False)
+                q_inputs, _ = batched_capture(pq, unit.name, store, want_output=False)
+                del pq
+            else:
+                q_inputs = fp_inputs
+            del fp_inputs
+            cached_grads = None
+            if opt_mode != "mse":
+                # |dKL/d(unit out)| + 1 with the prefix and the unit itself
+                # hard-quantized, batchmean over the whole capture chunk
+                fold_names = set(all_alphas) | set(unit.layers)
+                with torch.no_grad():
+                    pq_g = fold_weight_quant(params, {k: wqp[k] for k in fold_names if k in wqp},
+                                             spec, cfg, alphas=all_alphas, soft=False)
+                cached_grads = store.empty(fp_out.shape, torch.float32)
+                for s, e, size in chunks():
+                    cached_grads[s - lo:e - lo].copy_(capture_unit_grad(
+                        params, pq_g, tuple(x[s:e] for x in cali_data), unit.name, cfg,
+                        unet_apply, mean_over=size), non_blocking=True)
+                store.ready()
+                del pq_g
+            alphas, _ = reconstruct_unit(
+                key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
+                batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
+                cached_grads=cached_grads, shard=shard, mesh=mesh, captures=store.form)
+            del q_inputs, fp_out, cached_grads
+        finally:
+            store.close()
         if shared and shard is None:
             broadcast_(mesh, list(alphas.values()))
         all_alphas.update(alphas)

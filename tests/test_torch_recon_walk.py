@@ -89,9 +89,19 @@ def _covered(spec, n, drop=()):
     return {l for u in JR.recon_units(spec)[:n] for l in u.layers if l not in drop}
 
 
-def test_asym_walk_follows_jax(net, walks):
-    spec = net[0]
+@pytest.mark.parametrize("captures", ["device", "host"])
+def test_asym_walk_follows_jax(net, walks, captures, monkeypatch):
+    """The walk against JAX's, with its captures on the device and (the
+    port's own placement, `captures="host"`) in host memory, where the
+    offsets are also the device walk's bit for bit."""
+    spec, jp, tp, jwqp, twqp, cali = net
     j, t, _, _, _, _ = walks
+    if captures == "host":
+        hand_jax_indices(monkeypatch)
+        host = TR.calibrate_weights(tp, spec, TQC(**W4), twqp, to_t(cali), asym=True,
+                                    captures="host", **WALK)
+        assert set(host) == set(t) and all(torch.equal(host[n], t[n]) for n in t)
+        t = host
     assert set(t) == set(j) == _covered(spec, 6)
     compare_alphas(t, j, LR, ITERS)
 
