@@ -48,8 +48,10 @@ unit u_idx, standing where the JAX package folds a `jax.random` key.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 from contextlib import nullcontext
 from typing import Callable, Dict, Optional
 
@@ -89,6 +91,7 @@ from dgq_tpu_torch.quant.adaround import (
     rounding_reg_loss,
 )
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
+from dgq_tpu_torch.utils.profiler import span
 
 TIB_STREAM = 987  # the temporal block's key: (seed, 987)
 
@@ -461,44 +464,53 @@ def _adam_loop(leaves: dict, key: tuple, iters: int, batch_size: int, n: int, de
     own shards, and the losses returned are the reconstruction loss plus the
     regularizer summed over the tp group (the two are summed apart, so the
     replicated reconstruction loss is counted once)."""
-    params = list(leaves.values())
-    opt = torch.optim.Adam(params, lr=lr)
-    idx = batch_indices(key, iters, batch_size, n if shard is None else shard.n)
-    if shard is None:
-        rows, weights = idx, [None] * iters
-    else:
-        rows = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
-        weights = [len(m) / batch_size for m in rows]
-    regularizes = shard is None or shard.lo == 0
-    zero = torch.zeros((), device=device)
-    recs, regs = [], []
-    feed = _RowFeed(data, rows, device, host)
+    with span("dgq.recon.setup"):
+        params = list(leaves.values())
+        opt = torch.optim.Adam(params, lr=lr)
+        idx = batch_indices(key, iters, batch_size, n if shard is None else shard.n)
+        if shard is None:
+            rows, weights = idx, [None] * iters
+        else:
+            rows = [row[(row >= shard.lo) & (row < shard.hi)] - shard.lo for row in idx]
+            weights = [len(m) / batch_size for m in rows]
+        regularizes = shard is None or shard.lo == 0
+        zero = torch.zeros((), device=device)
+        recs, regs = [], []
+        feed = _RowFeed(data, rows, device, host)
     try:
         for step in range(iters):
-            if schedule is not None:
-                for group in opt.param_groups:
-                    group["lr"] = schedule(step)
-            with torch.enable_grad():
-                if weights[step] is None:
-                    rec = rec_fn(feed.get(step))
-                elif weights[step]:
-                    rec = rec_fn(feed.get(step)) * weights[step]
-                else:
-                    rec = zero
-                reg = reg_fn(step) if reg_fn is not None and regularizes else None
-                loss = rec if reg is None else rec + reg
-            opt.zero_grad(set_to_none=True)
-            if loss.requires_grad:
-                loss.backward()
-            feed.done(step)
-            if shard is not None:
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                all_reduce_sum_(shard.mesh, [p.grad for p in params])
-            opt.step()
-            recs.append(rec.detach())
-            regs.append(zero if reg is None else reg.detach())
+            with span("dgq.recon.step"):
+                if schedule is not None:
+                    for group in opt.param_groups:
+                        group["lr"] = schedule(step)
+                with torch.enable_grad():
+                    if weights[step] is None or weights[step]:
+                        with span("dgq.recon.rows"):
+                            batch = feed.get(step)
+                        rec = rec_fn(batch)
+                        if weights[step] is not None:
+                            rec = rec * weights[step]
+                    else:
+                        rec = zero
+                    reg = None
+                    if reg_fn is not None and regularizes:
+                        with span("dgq.recon.reg", device=True):
+                            reg = reg_fn(step)
+                    loss = rec if reg is None else rec + reg
+                with span("dgq.recon.backward", device=True):
+                    opt.zero_grad(set_to_none=True)
+                    if loss.requires_grad:
+                        loss.backward()
+                with span("dgq.recon.optim", device=True):
+                    feed.done(step)
+                    if shard is not None:
+                        for p in params:
+                            if p.grad is None:
+                                p.grad = torch.zeros_like(p)
+                        all_reduce_sum_(shard.mesh, [p.grad for p in params])
+                    opt.step()
+                recs.append(rec.detach())
+                regs.append(zero if reg is None else reg.detach())
     finally:
         feed.close()
     if not recs:
@@ -547,9 +559,10 @@ def reconstruct_unit_act_deltas(key: tuple, unit: ReconUnit, params_q: dict, qst
     sm = qstate_unit.get("sm", {})
 
     def rec_fn(rows):
-        qs = {"a": {n: QParams(deltas[n], zps[n]) for n in deltas}, "sm": sm}
-        pred = apply_fn(sub, qs, *rows[:-1])
-        return torch.mean(torch.sum(_abs(pred - rows[-1]) ** p_norm, dim=unit.sum_axis))
+        with span("dgq.recon.unit_forward", device=True):
+            qs = {"a": {n: QParams(deltas[n], zps[n]) for n in deltas}, "sm": sm}
+            pred = apply_fn(sub, qs, *rows[:-1])
+            return torch.mean(torch.sum(_abs(pred - rows[-1]) ** p_norm, dim=unit.sum_axis))
 
     losses = _adam_loop(deltas, key, iters, batch_size, cached_outputs.shape[0],
                         next(iter(deltas.values())).device,
@@ -652,36 +665,39 @@ def reconstruct_unit(key: tuple, unit: ReconUnit, params: dict, wqp: Dict[str, Q
     the rounding regularizer at its annealed temperature. opt_mode: 'mse'
     (|pred - out|^p summed over unit.sum_axis, then the mean), 'fisher_diag'
     or 'fisher_full' (both need cached_grads from capture_unit_grad)."""
-    apply_fn = make_unit_apply(unit, cfg)
-    sub = _sub_params(params, unit)
-    alphas = _init_alphas(params, wqp, unit.layers)
-    if opt_mode != "mse" and cached_grads is None:
-        raise ValueError("the fisher modes need cached_grads")
+    with span("dgq.recon.call"):
+        apply_fn = make_unit_apply(unit, cfg)
+        sub = _sub_params(params, unit)
+        alphas = _init_alphas(params, wqp, unit.layers)
+        if opt_mode != "mse" and cached_grads is None:
+            raise ValueError("the fisher modes need cached_grads")
 
-    def rec_loss(pred, bout, bgrad):
-        if opt_mode == "mse":
-            return torch.mean(torch.sum(_abs(pred - bout) ** p_norm, dim=unit.sum_axis))
-        if opt_mode == "fisher_diag":
-            return torch.mean(torch.sum((pred - bout) ** 2 * bgrad ** 2, dim=unit.sum_axis))
-        a = _abs(pred - bout)
-        g = _abs(bgrad)
-        dot = torch.sum(a * g, dim=tuple(range(1, pred.dim())))
-        return torch.mean(dot.reshape((-1,) + (1,) * (pred.dim() - 1)) * a * g) / 100.0
+        def rec_loss(pred, bout, bgrad):
+            if opt_mode == "mse":
+                return torch.mean(torch.sum(_abs(pred - bout) ** p_norm, dim=unit.sum_axis))
+            if opt_mode == "fisher_diag":
+                return torch.mean(torch.sum((pred - bout) ** 2 * bgrad ** 2, dim=unit.sum_axis))
+            a = _abs(pred - bout)
+            g = _abs(bgrad)
+            dot = torch.sum(a * g, dim=tuple(range(1, pred.dim())))
+            return torch.mean(dot.reshape((-1,) + (1,) * (pred.dim() - 1)) * a * g) / 100.0
 
-    k = len(cached_inputs)
-    data = tuple(cached_inputs) + (cached_outputs,) + (
-        () if cached_grads is None else (cached_grads,))
+        k = len(cached_inputs)
+        data = tuple(cached_inputs) + (cached_outputs,) + (
+            () if cached_grads is None else (cached_grads,))
 
-    def rec_fn(rows):
-        pq = _soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits)
-        pred = apply_fn(pq, *rows[:k])
-        return rec_loss(pred, rows[k], rows[k + 1] if cached_grads is not None else None)
+        def rec_fn(rows):
+            with span("dgq.recon.soft_weights", device=True):
+                pq = _soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits)
+            with span("dgq.recon.unit_forward", device=True):
+                pred = apply_fn(pq, *rows[:k])
+                return rec_loss(pred, rows[k], rows[k + 1] if cached_grads is not None else None)
 
-    losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
-                        next(iter(alphas.values())).device, data, rec_fn, lr,
-                        reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard, mesh=mesh,
-                        host=_host_form(captures))
-    return {n: a.detach() for n, a in alphas.items()}, losses
+        losses = _adam_loop(alphas, key, iters, batch_size, cached_outputs.shape[0],
+                            next(iter(alphas.values())).device, data, rec_fn, lr,
+                            reg_fn=_reg_fn(alphas, iters, w, warmup), shard=shard, mesh=mesh,
+                            host=_host_form(captures))
+        return {n: a.detach() for n, a in alphas.items()}, losses
 
 
 def tib_unit(spec) -> ReconUnit:
@@ -726,10 +742,11 @@ def reconstruct_tib(key: tuple, params: dict, spec, wqp: Dict[str, QParams],
         fp_outs = apply_fn(sub, timesteps)
 
     def rec_fn(rows):
-        preds = apply_fn(_soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits),
-                         rows[0])
-        return sum(torch.mean(torch.sum(_abs(pr - tg) ** p_norm, dim=-1))
-                   for pr, tg in zip(preds, rows[1:]))
+        with span("dgq.recon.unit_forward", device=True):
+            preds = apply_fn(_soft_params(params, sub, unit.layers, wqp, alphas, cfg.w_bits),
+                             rows[0])
+            return sum(torch.mean(torch.sum(_abs(pr - tg) ** p_norm, dim=-1))
+                       for pr, tg in zip(preds, rows[1:]))
 
     losses = _adam_loop(alphas, key, iters, batch_size, timesteps.shape[0], timesteps.device,
                         (timesteps,) + tuple(fp_outs), rec_fn, lr,
@@ -808,6 +825,21 @@ def unit_error(unit: ReconUnit, params: dict, wqp: Dict[str, QParams], alphas: d
     return tuple(errs)
 
 
+WALK_PHASES = ("capture", "fold", "grad", "adam")
+
+
+@contextlib.contextmanager
+def _walk_phase(seconds: dict, name: str, device):
+    """One phase of a unit's walk under the span dgq.walk.<name>, ended by
+    one synchronisation of the card; adds its seconds to seconds[name]."""
+    t0 = time.perf_counter()
+    with span("dgq.walk." + name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
 def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
                       cali_data: tuple, iters: int = 20000, batch_size: int = 32,
                       w: float = 0.01, warmup: float = 0.2, asym: bool = True,
@@ -830,8 +862,12 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
     copied into host captures as it is made (no card tensor of the whole
     size), and the Adam loop copies each step's rows back ahead of the step
     (`_RowFeed`): the losses and offsets are those of the on-card form.
-    max_units limits the walk (debug and tests). partial_dir keeps one .pth a
-    unit as it completes and resumes a unit whose save exists. tib_recon
+    After each reconstructed unit `progress` gets one line of its phases'
+    seconds (`WALK_PHASES`: captures, weight folds, Fisher weights, the Adam
+    loop), each phase ended by a synchronisation of the card, and the ms of
+    an Adam step. max_units limits the walk (debug and tests). partial_dir
+    keeps one .pth a unit as it completes and resumes a unit whose save
+    exists. tib_recon
     reconstructs the temporal-information block jointly first and takes its
     layers out of the per-unit walks, which then see them hard-rounded.
 
@@ -927,14 +963,17 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
         # the asym path replaces the fp inputs with the quantized prefix's
         replace_inputs = asym and bool(all_alphas)
         store = _Captures(device, captures, hi - lo, opt_mode != "mse", progress)
+        secs: dict = {}
         try:
-            fp_inputs, fp_out = batched_capture(params, unit.name, store,
-                                                want_inputs=not replace_inputs)
+            with _walk_phase(secs, "capture", device):
+                fp_inputs, fp_out = batched_capture(params, unit.name, store,
+                                                    want_inputs=not replace_inputs)
             if replace_inputs:
-                with torch.no_grad():
+                with _walk_phase(secs, "fold", device), torch.no_grad():
                     pq = fold_weight_quant(params, {k: wqp[k] for k in all_alphas}, spec, cfg,
                                            alphas=all_alphas, soft=False)
-                q_inputs, _ = batched_capture(pq, unit.name, store, want_output=False)
+                with _walk_phase(secs, "capture", device):
+                    q_inputs, _ = batched_capture(pq, unit.name, store, want_output=False)
                 del pq
             else:
                 q_inputs = fp_inputs
@@ -944,23 +983,29 @@ def calibrate_weights(params: dict, spec, cfg: QConfig, wqp: Dict[str, QParams],
                 # |dKL/d(unit out)| + 1 with the prefix and the unit itself
                 # hard-quantized, batchmean over the whole capture chunk
                 fold_names = set(all_alphas) | set(unit.layers)
-                with torch.no_grad():
+                with _walk_phase(secs, "fold", device), torch.no_grad():
                     pq_g = fold_weight_quant(params, {k: wqp[k] for k in fold_names if k in wqp},
                                              spec, cfg, alphas=all_alphas, soft=False)
-                cached_grads = store.empty(fp_out.shape, torch.float32)
-                for s, e, size in chunks():
-                    cached_grads[s - lo:e - lo].copy_(capture_unit_grad(
-                        params, pq_g, tuple(x[s:e] for x in cali_data), unit.name, cfg,
-                        unet_apply, mean_over=size), non_blocking=True)
-                store.ready()
+                with _walk_phase(secs, "grad", device):
+                    cached_grads = store.empty(fp_out.shape, torch.float32)
+                    for s, e, size in chunks():
+                        cached_grads[s - lo:e - lo].copy_(capture_unit_grad(
+                            params, pq_g, tuple(x[s:e] for x in cali_data), unit.name, cfg,
+                            unet_apply, mean_over=size), non_blocking=True)
+                    store.ready()
                 del pq_g
-            alphas, _ = reconstruct_unit(
-                key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
-                batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
-                cached_grads=cached_grads, shard=shard, mesh=mesh, captures=store.form)
+            with _walk_phase(secs, "adam", device):
+                alphas, _ = reconstruct_unit(
+                    key + (u_idx,), unit, params_units, wqp, q_inputs, fp_out, cfg, iters=iters,
+                    batch_size=batch_size, w=w, warmup=warmup, opt_mode=opt_mode,
+                    cached_grads=cached_grads, shard=shard, mesh=mesh, captures=store.form)
             del q_inputs, fp_out, cached_grads
         finally:
             store.close()
+        if progress:
+            phases = ", ".join(f"{k} {secs.get(k, 0.0):.2f} s" for k in WALK_PHASES)
+            progress(f"[{u_idx + 1}/{len(units)}] {unit.name} done: {phases}; "
+                     f"{1e3 * secs['adam'] / max(iters, 1):.2f} ms an Adam step")
         if shared and shard is None:
             broadcast_(mesh, list(alphas.values()))
         all_alphas.update(alphas)

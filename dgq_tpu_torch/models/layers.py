@@ -57,6 +57,7 @@ from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmu
 from dgq_tpu_torch.ops.int8_matmul import quantized_matmul
 from dgq_tpu_torch.parallel.tp import column_parallel, refuse_sharded
 from dgq_tpu_torch.quant.affine import QParams, fake_quant, quant_bounds, ste_round
+from dgq_tpu_torch.utils.profiler import span
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +163,8 @@ def group_quant_conv2d_im2col(p, x: torch.Tensor, gqp, cfg: QConfig, stride: int
     for ij, xs in enumerate(_tap_slices(x, kh, kw, stride, padding)):
         d_ij = dm2[:, ij % dm2.shape[1]].reshape(1, 1, 1, -1) * dl4
         z_ij = zm2[:, ij % zm2.shape[1]].reshape(1, 1, 1, -1) + zl4
-        cols.append(fake_quant(xs, QParams(d_ij, z_ij), cfg.a_bits))
+        with span("dgq.fake_quant", device=True):
+            cols.append(fake_quant(xs, QParams(d_ij, z_ij), cfg.a_bits))
     big = torch.cat(cols, dim=-1)  # (B, H', W', kh*kw*C)
     w2 = _w_hwio(p).reshape(kh * kw * c, o).to(big.dtype)
     y = matmul_f32acc(big.reshape(-1, kh * kw * c), w2).reshape(b, ho, wo, o)
@@ -201,7 +203,8 @@ def group_quant_conv2d_taps(p, x: torch.Tensor, gqp, cfg: QConfig, stride: int =
     for ij, xs in enumerate(_tap_slices(x, kh, kw, stride, padding)):
         rd_ij = rdm2[:, ij % ncols].reshape(1, 1, 1, -1) * rdl4
         z_ij = zm2[:, ij % ncols].reshape(1, 1, 1, -1) + zl4
-        q = torch.clamp(ste_round(xs.float() * rd_ij), nb - z_ij, pb - z_ij).to(x.dtype)
+        with span("dgq.fake_quant", device=True):
+            q = torch.clamp(ste_round(xs.float() * rd_ij), nb - z_ij, pb - z_ij).to(x.dtype)
         acc = acc + matmul_f32acc(q.reshape(-1, c), ws[ij])
     acc = dl4 * acc.reshape(b, ho, wo, o)
     if p.get("b") is not None:
@@ -243,7 +246,9 @@ def _group_quant_conv2d(p, x, name, qstate, cfg, stride, padding):
         d = gqp.delta.reshape(-1).repeat_interleave(kh * kw)
         z = gqp.zero_point.reshape(-1).expand(c).repeat_interleave(kh * kw)
         _tap(name, x_unf)
-        x_unf = fake_quant(x_unf, QParams(d.reshape(1, -1, 1), z.reshape(1, -1, 1)), cfg.a_bits)
+        with span("dgq.fake_quant", device=True):
+            x_unf = fake_quant(x_unf, QParams(d.reshape(1, -1, 1), z.reshape(1, -1, 1)),
+                               cfg.a_bits)
     else:
         x_unf = aq_apply(qstate, cfg, name, x_unf)
     return conv2d_unfolded(p, x_unf.to(x.dtype), _out_hw(x.shape[1], x.shape[2], kh, kw,

@@ -21,6 +21,7 @@ import torch
 
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.log2 import log2_fake_quant, log2_real_time_quant
+from dgq_tpu_torch.utils.profiler import span
 
 QState = Dict[str, Any]
 
@@ -174,19 +175,20 @@ def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
     qp = qstate.get("a", {}).get(name)
     if qp is None:
         return x
-    if isinstance(qp, GroupQParams):
-        mid = (1,) * (x.dim() - 2) + (-1, 1)
-        last = (1,) * (x.dim() - 1) + (-1,)
-        delta = qp.delta_mid.reshape(mid) * qp.delta_last.reshape(last)
-        zp = qp.zp_mid.reshape(mid) + qp.zp_last.reshape(last)
+    with span("dgq.fake_quant", device=True):
+        if isinstance(qp, GroupQParams):
+            mid = (1,) * (x.dim() - 2) + (-1, 1)
+            last = (1,) * (x.dim() - 1) + (-1,)
+            delta = qp.delta_mid.reshape(mid) * qp.delta_last.reshape(last)
+            zp = qp.zp_mid.reshape(mid) + qp.zp_last.reshape(last)
+            return fake_quant(x, QParams(delta, zp), cfg.a_bits)
+        # broadcast trailing-shaped params against higher-rank activations
+        delta, zp = qp.delta, qp.zero_point
+        if 0 < delta.dim() < x.dim():
+            shape = (1,) * (x.dim() - delta.dim()) + tuple(delta.shape)
+            delta = delta.reshape(shape)
+            zp = zp.reshape(shape)
         return fake_quant(x, QParams(delta, zp), cfg.a_bits)
-    # broadcast trailing-shaped params against higher-rank activations
-    delta, zp = qp.delta, qp.zero_point
-    if 0 < delta.dim() < x.dim():
-        shape = (1,) * (x.dim() - delta.dim()) + tuple(delta.shape)
-        delta = delta.reshape(shape)
-        zp = zp.reshape(shape)
-    return fake_quant(x, QParams(delta, zp), cfg.a_bits)
 
 
 def softmax_q_apply(qstate: Optional[QState], cfg: QConfig, name: str,

@@ -41,6 +41,7 @@ from dgq_tpu_torch.models.unet_sd import (
     init_unet_sd,
 )
 from dgq_tpu_torch.parallel.tp import out_count
+from dgq_tpu_torch.utils.profiler import span, untimed_every_other
 
 SDXL_CROSS = 2048
 
@@ -87,87 +88,97 @@ def unet_sdxl_apply(params: dict, sample: torch.Tensor, timesteps: torch.Tensor,
     `unet_sd_apply`."""
     p = params
     ehs = encoder_hidden_states
-    if timesteps.dim() == 0:
-        timesteps = timesteps.expand(sample.shape[0])
-    base = out_count(p["conv_in"])
-    temb_dim = out_count(p["time_embedding.linear_2"])
-    add_ch = (p["add_embedding.linear_1"]["w"].shape[1] - temb_dim) // 6
+    # every second traced call leaves the quantizers' extents untimed
+    with span("dgq.unet"), untimed_every_other("dgq.unet"):
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        base = out_count(p["conv_in"])
+        temb_dim = out_count(p["time_embedding.linear_2"])
+        add_ch = (p["add_embedding.linear_1"]["w"].shape[1] - temb_dim) // 6
 
-    t_emb = timestep_embedding(timesteps, base).to(sample.dtype)
-    emb = quant_linear(p["time_embedding.linear_1"], t_emb, "time_embedding.linear_1", qstate, cfg)
-    emb = _rec(record, "time_embedding.linear_1", (t_emb,), emb)
-    emb_in = silu(emb)
-    emb = quant_linear(p["time_embedding.linear_2"], emb_in, "time_embedding.linear_2",
-                       qstate, cfg)
-    emb = _rec(record, "time_embedding.linear_2", (emb_in,), emb)
+        t_emb = timestep_embedding(timesteps, base).to(sample.dtype)
+        emb = quant_linear(p["time_embedding.linear_1"], t_emb, "time_embedding.linear_1",
+                           qstate, cfg)
+        emb = _rec(record, "time_embedding.linear_1", (t_emb,), emb)
+        emb_in = silu(emb)
+        emb = quant_linear(p["time_embedding.linear_2"], emb_in, "time_embedding.linear_2",
+                           qstate, cfg)
+        emb = _rec(record, "time_embedding.linear_2", (emb_in,), emb)
 
-    time_embeds = timestep_embedding(time_ids.reshape(-1), add_ch)
-    time_embeds = time_embeds.reshape(text_embeds.shape[0], -1)
-    add_embeds = torch.cat([text_embeds.float(), time_embeds], dim=-1).to(emb.dtype)
-    aug = quant_linear(p["add_embedding.linear_1"], add_embeds, "add_embedding.linear_1",
-                       qstate, cfg)
-    aug = _rec(record, "add_embedding.linear_1", (add_embeds,), aug)
-    aug_in = silu(aug)
-    aug = quant_linear(p["add_embedding.linear_2"], aug_in, "add_embedding.linear_2",
-                       qstate, cfg)
-    aug = _rec(record, "add_embedding.linear_2", (aug_in,), aug)
-    emb = emb + aug
+        time_embeds = timestep_embedding(time_ids.reshape(-1), add_ch)
+        time_embeds = time_embeds.reshape(text_embeds.shape[0], -1)
+        add_embeds = torch.cat([text_embeds.float(), time_embeds], dim=-1).to(emb.dtype)
+        aug = quant_linear(p["add_embedding.linear_1"], add_embeds, "add_embedding.linear_1",
+                           qstate, cfg)
+        aug = _rec(record, "add_embedding.linear_1", (add_embeds,), aug)
+        aug_in = silu(aug)
+        aug = quant_linear(p["add_embedding.linear_2"], aug_in, "add_embedding.linear_2",
+                           qstate, cfg)
+        aug = _rec(record, "add_embedding.linear_2", (aug_in,), aug)
+        emb = emb + aug
 
-    x = conv2d(p["conv_in"], sample, 1, 1)
+        x = conv2d(p["conv_in"], sample, 1, 1)
 
-    # down 0: plain resnets + downsampler
-    s0 = x
-    x = _resnet(p, "down_blocks.0.resnets.0", x, emb, qstate, cfg, False, record)
-    s1 = x
-    x = _resnet(p, "down_blocks.0.resnets.1", x, emb, qstate, cfg, False, record)
-    s2 = x
-    name = "down_blocks.0.downsamplers.0.conv"
-    x = _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 2, 1))
-    s3 = x
+        # each stage is a span named by its parameter prefix
+        # down 0: plain resnets + downsampler
+        with span("dgq.unet.down_blocks.0"):
+            s0 = x
+            x = _resnet(p, "down_blocks.0.resnets.0", x, emb, qstate, cfg, False, record)
+            s1 = x
+            x = _resnet(p, "down_blocks.0.resnets.1", x, emb, qstate, cfg, False, record)
+            s2 = x
+            name = "down_blocks.0.downsamplers.0.conv"
+            x = _rec(record, name, (x,), quant_conv2d(p[name], x, name, qstate, cfg, 2, 1))
+            s3 = x
 
-    def cross_down(prefix, x, n_layers, has_down):
-        skips = []
-        for i in range(2):
-            x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, i == 0, record)
-            x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers, base,
-                                      qstate, cfg, record)
-            skips.append(x)
-        if has_down:
-            nm = f"{prefix}.downsamplers.0.conv"
-            x = _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 2, 1))
-            skips.append(x)
-        return x, skips
+        def cross_down(prefix, x, n_layers, has_down):
+            skips = []
+            for i in range(2):
+                x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, i == 0, record)
+                x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers,
+                                          base, qstate, cfg, record)
+                skips.append(x)
+            if has_down:
+                nm = f"{prefix}.downsamplers.0.conv"
+                x = _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 2, 1))
+                skips.append(x)
+            return x, skips
 
-    n_lo = _n_tr_layers(p, "down_blocks.1.attentions.0")
-    n_hi = _n_tr_layers(p, "down_blocks.2.attentions.0")
-    x, (s4, s5, s6) = cross_down("down_blocks.1", x, n_lo, True)
-    x, (s7, s8) = cross_down("down_blocks.2", x, n_hi, False)
+        n_lo = _n_tr_layers(p, "down_blocks.1.attentions.0")
+        n_hi = _n_tr_layers(p, "down_blocks.2.attentions.0")
+        with span("dgq.unet.down_blocks.1"):
+            x, (s4, s5, s6) = cross_down("down_blocks.1", x, n_lo, True)
+        with span("dgq.unet.down_blocks.2"):
+            x, (s7, s8) = cross_down("down_blocks.2", x, n_hi, False)
 
-    # mid
-    x = _resnet(p, "mid_block.resnets.0", x, emb, qstate, cfg, False, record)
-    x = transformer_2d_linear(p, "mid_block.attentions.0", x, ehs, n_hi, base, qstate, cfg,
-                              record)
-    x = _resnet(p, "mid_block.resnets.1", x, emb, qstate, cfg, False, record)
+        with span("dgq.unet.mid_block"):
+            x = _resnet(p, "mid_block.resnets.0", x, emb, qstate, cfg, False, record)
+            x = transformer_2d_linear(p, "mid_block.attentions.0", x, ehs, n_hi, base, qstate,
+                                      cfg, record)
+            x = _resnet(p, "mid_block.resnets.1", x, emb, qstate, cfg, False, record)
 
-    def cross_up(prefix, x, skips, n_layers):
-        for i in range(3):
-            x = torch.cat([x, skips.pop()], dim=-1)
-            x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, True, record)
-            x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers, base,
-                                      qstate, cfg, record)
-        x = upsample_nearest2x(x)
-        nm = f"{prefix}.upsamplers.0.conv"
-        return _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 1, 1))
+        def cross_up(prefix, x, skips, n_layers):
+            for i in range(3):
+                x = torch.cat([x, skips.pop()], dim=-1)
+                x = _resnet(p, f"{prefix}.resnets.{i}", x, emb, qstate, cfg, True, record)
+                x = transformer_2d_linear(p, f"{prefix}.attentions.{i}", x, ehs, n_layers,
+                                          base, qstate, cfg, record)
+            x = upsample_nearest2x(x)
+            nm = f"{prefix}.upsamplers.0.conv"
+            return _rec(record, nm, (x,), quant_conv2d(p[nm], x, nm, qstate, cfg, 1, 1))
 
-    x = cross_up("up_blocks.0", x, [s6, s7, s8], n_hi)
-    x = cross_up("up_blocks.1", x, [s3, s4, s5], n_lo)
-    # final plain up block, no upsampler
-    for i, s in enumerate([s2, s1, s0]):
-        x = torch.cat([x, s], dim=-1)
-        x = _resnet(p, f"up_blocks.2.resnets.{i}", x, emb, qstate, cfg, True, record)
+        with span("dgq.unet.up_blocks.0"):
+            x = cross_up("up_blocks.0", x, [s6, s7, s8], n_hi)
+        with span("dgq.unet.up_blocks.1"):
+            x = cross_up("up_blocks.1", x, [s3, s4, s5], n_lo)
+        # final plain up block, no upsampler
+        with span("dgq.unet.up_blocks.2"):
+            for i, s in enumerate([s2, s1, s0]):
+                x = torch.cat([x, s], dim=-1)
+                x = _resnet(p, f"up_blocks.2.resnets.{i}", x, emb, qstate, cfg, True, record)
 
-    x = silu(group_norm(p["conv_norm_out"], x))
-    return conv2d(p["conv_out"], x, 1, 1)
+        x = silu(group_norm(p["conv_norm_out"], x))
+        return conv2d(p["conv_out"], x, 1, 1)
 
 
 def _transformer2d_linear_spec(prefix, c, n_layers, cross):

@@ -42,8 +42,12 @@ import torch
 from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 from dgq_tpu_torch.parallel.mesh import batch_reduce_
 
-# Launches of each kernel since the last reset (a run can show that the main
-# path went through the kernels). Only the kernel wrappers add to them.
+# Calls of each kernel wrapper since the last reset (a run can show that the
+# main path went through the kernels): one a Python call into the wrapper,
+# which launches one kernel. Only the wrappers add to them. The benchmark's
+# generation driver prints "rt_stats", "quant_accum" and "flash_attention" a
+# batch (with group_conv's "group_quant_conv"); device launches are counted
+# from a profiler trace, not here.
 LAUNCHES = {"static_uniform_attention": 0, "flash_attention": 0, "rt_stats": 0,
             "quant_accum": 0, "static_quant_attention": 0,
             "static_uniform_attention_packed": 0, "flash_attention_packed": 0,

@@ -44,7 +44,10 @@ from dgq_tpu_torch.models.qconfig import GroupQParams
 from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 from dgq_tpu_torch.ops.tf32 import tf32_split
 
-# Launches of the kernel since the last reset; only the wrapper adds to it.
+# Calls of the kernel's wrapper since the last reset; only the wrapper adds
+# to it. A call runs 2 or 3 kernels (the fold, the conv, and the split-K
+# finish where K is split), so this is not a count of launches. The
+# benchmark's generation driver prints "group_quant_conv" a batch.
 LAUNCHES = {"group_quant_conv": 0}
 
 

@@ -39,7 +39,8 @@ import torch
 
 from dgq_tpu_torch.ops.build import load_kernels, refuse_grad
 
-# Launches of the kernel since the last reset; only the wrapper adds to it.
+# Calls of the kernel's wrapper since the last reset (one kernel launch a
+# call); only the wrapper adds to it. The benchmark reads none of it.
 LAUNCHES = {"int8_matmul": 0}
 
 # The kernel's tile: output rows and columns per block, codes of K per step;

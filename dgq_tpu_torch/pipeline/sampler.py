@@ -17,6 +17,7 @@ from dgq_tpu_torch.models.qconfig import GroupQParams, QConfig, QState
 from dgq_tpu_torch.models.unet_sd import unet_sd_apply
 from dgq_tpu_torch.pipeline import schedulers as sch
 from dgq_tpu_torch.quant.affine import QParams
+from dgq_tpu_torch.utils.profiler import span
 
 
 def timestep_slot(t, num_inference_steps: int):
@@ -79,19 +80,21 @@ def sd_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
     inputs = []
     for i in range(len(consts.timesteps)):  # PNDM makes one more UNet call than steps
         t = int(consts.timesteps[i])
-        qs = select_time_qstate(qstate, t, num_inference_steps) if time_aware else qstate
+        with span("dgq.sampler.slot"):
+            qs = select_time_qstate(qstate, t, num_inference_steps) if time_aware else qstate
         lmi = torch.cat([x, x], dim=0)
         tt = torch.full((lmi.shape[0],), t, dtype=torch.int32, device=lmi.device)
         eps = unet_apply(params, lmi, tt, ehs, qstate=qs, cfg=cfg)
         if capture:
             inputs.append(lmi)
-        eps_u, eps_t = eps.chunk(2, dim=0)
-        eps = eps_u + guidance_scale * (eps_t - eps_u)
-        if ddim:
-            x = sch.ddim_step(x, eps, consts.alpha_t[i], consts.alpha_prev[i])
-        else:
-            state, x = sch.pndm_plms_step(state, i, x, eps, consts.alpha_t[i],
-                                          consts.alpha_prev[i])
+        with span("dgq.sampler.update"):
+            eps_u, eps_t = eps.chunk(2, dim=0)
+            eps = eps_u + guidance_scale * (eps_t - eps_u)
+            if ddim:
+                x = sch.ddim_step(x, eps, consts.alpha_t[i], consts.alpha_prev[i])
+            else:
+                state, x = sch.pndm_plms_step(state, i, x, eps, consts.alpha_t[i],
+                                              consts.alpha_prev[i])
     if capture:
         return x, (torch.stack(inputs), consts.timesteps.to(latents.device))
     return x
@@ -116,14 +119,17 @@ def sdxl_turbo_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tenso
     inputs = []
     for i in range(num_inference_steps):
         t, sigma, sigma_next = consts.timesteps[i], consts.sigmas[i], consts.sigmas[i + 1]
-        qs = select_time_qstate(qstate, int(t), num_inference_steps) if time_aware else qstate
+        with span("dgq.sampler.slot"):
+            qs = (select_time_qstate(qstate, int(t), num_inference_steps) if time_aware
+                  else qstate)
         x_in = sch.euler_scale_model_input(x, sigma)
         tt = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         eps = unet_apply(params, x_in, tt, ehs_text, text_embeds=added_text_embeds,
                          time_ids=added_time_ids, qstate=qs, cfg=cfg)
         if capture:
             inputs.append(x_in)
-        x = sch.euler_step(x, eps, sigma, sigma_next)
+        with span("dgq.sampler.update"):
+            x = sch.euler_step(x, eps, sigma, sigma_next)
     if capture:
         return x, (torch.stack(inputs), consts.timesteps.to(latents.device))
     return x

@@ -29,6 +29,7 @@ from dgq_tpu_torch.models.unet_sdxl import unet_sdxl_apply
 from dgq_tpu_torch.pipeline.sampler import sd_sample, sdxl_turbo_sample
 from dgq_tpu_torch.pipeline.text_encoder import clip_text_encode, sdxl_encode_prompt
 from dgq_tpu_torch.pipeline.vae import SDXL_VAE_SCALE, latents_to_images, vae_decode
+from dgq_tpu_torch.utils.profiler import span
 
 
 def _token_ids(tokenizer, prompts: list[str], device) -> torch.Tensor:
@@ -81,16 +82,20 @@ class SDPipeline:
                                  rows: Optional[list] = None) -> np.ndarray:
         """Latents (no VAE) or uint8 images, as numpy; of the batch rows
         `rows` only, when given."""
-        latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
-        if rows is not None:
-            latents, ehs_text, ehs_uncond = latents[rows], ehs_text[rows], ehs_uncond[rows]
-        final = sd_sample(self.unet_params, latents, ehs_text, ehs_uncond,
-                          num_inference_steps=steps, scheduler=scheduler,
-                          guidance_scale=guidance_scale, qstate=self.qstate, cfg=self.cfg,
-                          time_aware=self.time_aware, unet_apply=self.unet_apply)
-        if self.vae_params is None:
-            return final.cpu().numpy()
-        return latents_to_images(vae_decode(self.vae_params, final))
+        with span("dgq.generate"):
+            latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
+            if rows is not None:
+                latents, ehs_text, ehs_uncond = latents[rows], ehs_text[rows], ehs_uncond[rows]
+            final = sd_sample(self.unet_params, latents, ehs_text, ehs_uncond,
+                              num_inference_steps=steps, scheduler=scheduler,
+                              guidance_scale=guidance_scale, qstate=self.qstate, cfg=self.cfg,
+                              time_aware=self.time_aware, unet_apply=self.unet_apply)
+            if self.vae_params is None:
+                return final.cpu().numpy()
+            images = vae_decode(self.vae_params, final)
+            # the batch's one wait for the card
+            with span("dgq.images"):
+                return latents_to_images(images)
 
     def __call__(self, prompts: list[str], steps: int = 25, **kw) -> np.ndarray:
         text, uncond = self.encode_prompts(prompts)
@@ -145,16 +150,20 @@ class SDXLTurboPipeline:
     def generate_from_embeddings(self, ehs_text: torch.Tensor, text_embeds: torch.Tensor,
                                  steps: int = 4, height: int = 1024, width: int = 1024,
                                  seed: int = 42, rows: Optional[list] = None) -> np.ndarray:
-        latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
-        if rows is not None:
-            latents, ehs_text, text_embeds = latents[rows], ehs_text[rows], text_embeds[rows]
-        b = latents.shape[0]
-        # SDXL micro-conditioning time_ids: (orig_h, orig_w, crop_t, crop_l, h, w)
-        time_ids = torch.tensor([[height, width, 0.0, 0.0, height, width]],
-                                dtype=torch.float32, device=self.device).repeat(b, 1)
-        final = sdxl_turbo_sample(self.unet_params, latents, ehs_text, text_embeds, time_ids,
-                                  unet_apply=self.unet_apply, num_inference_steps=steps,
-                                  qstate=self.qstate, cfg=self.cfg, time_aware=self.time_aware)
-        if self.vae_params is None:
-            return final.cpu().numpy()
-        return latents_to_images(vae_decode(self.vae_params, final, scale=SDXL_VAE_SCALE))
+        with span("dgq.generate"):
+            latents = self._initial_latents(ehs_text.shape[0], height, width, seed)
+            if rows is not None:
+                latents, ehs_text, text_embeds = latents[rows], ehs_text[rows], text_embeds[rows]
+            b = latents.shape[0]
+            # SDXL micro-conditioning time_ids: (orig_h, orig_w, crop_t, crop_l, h, w)
+            time_ids = torch.tensor([[height, width, 0.0, 0.0, height, width]],
+                                    dtype=torch.float32, device=self.device).repeat(b, 1)
+            final = sdxl_turbo_sample(self.unet_params, latents, ehs_text, text_embeds,
+                                      time_ids, unet_apply=self.unet_apply,
+                                      num_inference_steps=steps, qstate=self.qstate,
+                                      cfg=self.cfg, time_aware=self.time_aware)
+            if self.vae_params is None:
+                return final.cpu().numpy()
+            images = vae_decode(self.vae_params, final, scale=SDXL_VAE_SCALE)
+            with span("dgq.images"):
+                return latents_to_images(images)

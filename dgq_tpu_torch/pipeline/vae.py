@@ -25,6 +25,7 @@ from dgq_tpu_torch.io.convert import _tensor
 from dgq_tpu_torch.models.layers import conv2d, group_norm, linear, silu, upsample_nearest2x
 from dgq_tpu_torch.models.unet_sd import init_unet_sd
 from dgq_tpu_torch.ops.attention import fused_attention
+from dgq_tpu_torch.utils.profiler import span
 
 SD_VAE_SCALE = 0.18215
 SDXL_VAE_SCALE = 0.13025
@@ -55,20 +56,21 @@ def _attn(p, prefix, x):
 @torch.no_grad()
 def vae_decode(params: dict, latents: torch.Tensor, scale: float = SD_VAE_SCALE) -> torch.Tensor:
     """latents NHWC (B, h, w, 4) -> images NHWC (B, 8h, 8w, 3) in about [-1, 1]."""
-    x = latents / scale
-    x = conv2d(params["post_quant_conv"], x, 1, 0)
-    x = conv2d(params["decoder.conv_in"], x, 1, 1)
-    x = _resnet(params, "decoder.mid_block.resnets.0", x)
-    x = _attn(params, "decoder.mid_block.attentions.0", x)
-    x = _resnet(params, "decoder.mid_block.resnets.1", x)
-    for i in range(4):
-        for j in range(3):
-            x = _resnet(params, f"decoder.up_blocks.{i}.resnets.{j}", x)
-        if i < 3:
-            x = conv2d(params[f"decoder.up_blocks.{i}.upsamplers.0.conv"],
-                       upsample_nearest2x(x), 1, 1)
-    x = silu(group_norm(params["decoder.conv_norm_out"], x, eps=1e-6))
-    return conv2d(params["decoder.conv_out"], x, 1, 1)
+    with span("dgq.vae"):
+        x = latents / scale
+        x = conv2d(params["post_quant_conv"], x, 1, 0)
+        x = conv2d(params["decoder.conv_in"], x, 1, 1)
+        x = _resnet(params, "decoder.mid_block.resnets.0", x)
+        x = _attn(params, "decoder.mid_block.attentions.0", x)
+        x = _resnet(params, "decoder.mid_block.resnets.1", x)
+        for i in range(4):
+            for j in range(3):
+                x = _resnet(params, f"decoder.up_blocks.{i}.resnets.{j}", x)
+            if i < 3:
+                x = conv2d(params[f"decoder.up_blocks.{i}.upsamplers.0.conv"],
+                           upsample_nearest2x(x), 1, 1)
+        x = silu(group_norm(params["decoder.conv_norm_out"], x, eps=1e-6))
+        return conv2d(params["decoder.conv_out"], x, 1, 1)
 
 
 def vae_decoder_spec(base: int = 128):

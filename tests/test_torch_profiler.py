@@ -1,27 +1,12 @@
-"""The port's timing and tracing helpers (`utils/profiler.py`): `wallclock`
-prints the JAX package's line, and `device_trace` writes a Chrome trace of
-the block's CPU events (the CUDA ones too on a card) and does not swallow
-an error."""
+"""The port's Chrome trace helper (`utils/profiler.py:device_trace`): it
+writes the block's CPU events (the CUDA ones too on a card) and does not
+swallow an error. The spans are tested in test_torch_tracing.py."""
 import json
-import re
 
 import pytest
+import torch
 
-jax = pytest.importorskip("jax")
-import torch  # noqa: E402
-
-from dgq_tpu.utils import profiler as JP  # noqa: E402
-from dgq_tpu_torch.utils import profiler as TP  # noqa: E402
-
-
-def test_wallclock_prints_the_jax_packages_line():
-    lines = {"jax": [], "port": []}
-    with JP.wallclock("shard 0", sink=lines["jax"].append):
-        pass
-    with TP.wallclock("shard 0", sink=lines["port"].append):
-        sum(range(1000))
-    for key in lines:
-        assert len(lines[key]) == 1 and re.fullmatch(r"shard 0: \d+\.\d{3}s", lines[key][0])
+from dgq_tpu_torch.utils import profiler as TP
 
 
 def test_device_trace_writes_the_cpu_events(tmp_path):
