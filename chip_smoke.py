@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`dgq_tpu_torch`) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py               # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --fake-quant  # the build and phase 2a's fake quantizer rows alone
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the hand-written CUDA kernels from dgq_tpu_torch/csrc/ (nvcc, sm_90a,
@@ -21,6 +22,13 @@ Phases (any failure raises, so the exit code is non-zero):
      bit for bit against its 16-byte-copy form at one shape. The packed
      head-slot attention entries are also held bit for bit against their
      unpacked kernels, over output memory that holds NaN;
+  2a. `compare_fake_quant`: the one-launch activation fake quantizer
+     (`ops.fake_quant`) bit for bit against the plain chain it replaces, at
+     the GEGLU output and the 64px q and k (start row) of SD v1.4 at CFG
+     batch 8: device-only ms of both, the bytes bound, host us a call, and
+     the library's one-pass `torch.fake_quantize_per_tensor_affine` (other
+     bits) as a yardstick. Every path below counts the kernel's launches and
+     the card's quantizers left on the chain (`_check_fake_quant`);
   2b. `int8_conv`: the s8 conv of `use_int8_conv` (a library route: codes,
      an unfold from strided views, `torch._int_mm`, the f32 correction; no
      hand-written kernel) at SD's and SDXL's k x k shapes, A8 and A6, f32
@@ -177,6 +185,7 @@ IMAGES = 2
 ATTN_SRC = "dgq_tpu_torch/csrc/attention.cu"
 CONV_SRC = "dgq_tpu_torch/csrc/group_conv.cu"
 INT8_SRC = "dgq_tpu_torch/csrc/int8_matmul.cu"
+FQ_SRC = "dgq_tpu_torch/csrc/fake_quant.cu"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "static_uniform_attention": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:256"),
@@ -192,6 +201,8 @@ KERNELS = {
     "rt_stats_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:945"),
     "quant_accum_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:945"),
     "static_quant_attention_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:916"),
+    # replaces no TPU kernel: XLA fuses the JAX package's chain into one pass
+    "fake_quant": (FQ_SRC, "none (XLA fuses dgq_tpu/quant/affine.py:49 fake_quant)"),
 }
 CLASSIC_ATTENTION = ("static_uniform_attention", "rt_stats", "quant_accum",
                      "static_quant_attention")
@@ -930,6 +941,101 @@ def compare_group_conv(tag, summary):
     torch.cuda.empty_cache()
 
 
+# The fake quantizer's rows: the largest activation `aq_apply` quantizes in an
+# SD v1.4 UNet call at CFG batch 8 (the GEGLU output into ff.net.2 at 64px),
+# and a 64px q as the unpacked attention quantizes it, (b, t, h*d) seen as
+# (b, h, t, d) with heads of 40; then that view as k with its start-peak row;
+# then a 64px linear input under a group quantizer's factors over its rows
+# (tokens) and over its columns (channels), as `quantize_act --group_num`
+# calibrates them. label, (b, t, c), heads (None: as it is), start rows,
+# group factors (None, "rows" or "columns")
+FAKE_QUANT_SHAPES = [
+    ("64px GEGLU output", (8, 4096, 1280), None, 0, None),
+    ("64px q, heads of 40", (8, 4096, 320), 8, 0, None),
+    ("64px k, heads of 40, start row", (8, 4096, 320), 8, 1, None),
+    ("64px linear input, group factors over the rows", (8, 4096, 320), None, 0, "rows"),
+    ("64px linear input, group factors over the columns", (8, 4096, 320), None, 0, "columns"),
+]
+
+
+def compare_fake_quant(tag, summary):
+    """`ops.fake_quant`'s kernel at `FAKE_QUANT_SHAPES` (f32, a time slot's
+    0-d delta and zero point, as the benchmark's cell has them) against the
+    plain chain it replaces (`fused_fake_quant_reference`: `quant.affine.
+    fake_quant`'s eight launches, and `torch.cat` for the start row): the
+    bits must be equal. Device-only ms of both (`_device_ms`), the bytes
+    bound (the input read once and the f32 output written once, over 3.35
+    TB/s) and its share, and the host us a call of the wrapper against the
+    chain's. The library's one-pass quantize-dequantize,
+    `torch.fake_quantize_per_tensor_affine`, is timed beside them as a
+    yardstick alone: it multiplies by the reciprocal of the scale and takes
+    an integer zero point, so its bits are not the chain's (its output keeps
+    the input's strides, and it passes no start row through); under group
+    factors its per-channel form, `torch.fake_quantize_per_channel_affine`,
+    over the grouped axis with the factors' products."""
+    import torch
+    from dgq_tpu_torch.ops import fake_quant as FQ
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    delta = (0.05 * torch.exp(0.6 * (torch.rand(25, generator=g, device="cuda") - 0.5)))[12]
+    zp = torch.full((25,), 128.0, device="cuda")[12]
+    scale, zero = float(delta), int(zp)  # the library takes them from the host
+    one, nil = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
+    for label, (b, t, c), heads, rows, group in FAKE_QUANT_SHAPES:
+        x = 0.5 * torch.randn(b, t, c, generator=g, device="cuda")
+        if heads:
+            x = x.reshape(b, t, heads, c // heads).permute(0, 2, 1, 3)
+        d, z, mid = delta, zp, None
+        if group:  # DGQ's factors over one axis, the other's 1 and 0
+            n = t if group == "rows" else c
+            f = 1.0 + 0.5 * torch.rand(n, generator=g, device="cuda")
+            fz = torch.round(16.0 * torch.rand(n, generator=g, device="cuda") - 8.0)
+            d, z, mid = (one, nil, (f * delta, fz + zp)) if group == "rows" else (
+                f * delta, fz + zp, (one, nil))
+            axis, scales, zeros = ((1, mid[0], mid[1]) if group == "rows" else (2, d, z))
+
+        def kernel():
+            return FQ.fused_fake_quant(x, d, z, 8, rows, mid)
+
+        def plain():
+            return FQ.fused_fake_quant_reference(x, d, z, 8, rows, mid)
+
+        def library():
+            if group:
+                return torch.fake_quantize_per_channel_affine(
+                    x, scales, zeros.int(), axis, 0, 255)
+            return torch.fake_quantize_per_tensor_affine(x, scale, zero, 0, 255)
+
+        before = FQ.LAUNCHES["fake_quant"]
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if FQ.LAUNCHES["fake_quant"] != before + 1 or not out.is_contiguous():
+            raise AssertionError(f"fake_quant {label}: no launch, or a strided output")
+        if not torch.equal(out.view(torch.int32), ref.contiguous().view(torch.int32)):
+            raise AssertionError(f"fake_quant {label}: the bits differ from the chain's")
+        lib_share = float((library() != ref).float().mean())
+        del out, ref
+        ms, plain_ms, library_ms = _median_ms(kernel), _median_ms(plain), _median_ms(library)
+        dev, plain_dev = _device_ms(kernel), _device_ms(plain)
+        # the per-channel form reads its zero points on the host (a sync a
+        # call), so the host cannot queue it ahead: its event ms stands
+        lib_dev = library_ms if group else _device_ms(library)
+        host, plain_host = _host_us(kernel), _host_us(plain)
+        bound = _bound(0, 2 * 4 * x.numel())
+        summary.add("fake_quant", label, 0.0, ms, plain_ms, bound, library_ms, device_ms=dev)
+        print(f"fake_quant {label} ({tuple(x.shape)} f32, strides {x.stride()}, "
+              f"{4 * x.numel() / 1e6:.1f} MB): bits equal the chain's; device-only ms {dev:.4f}, "
+              f"bytes bound {bound[0]:.4f} ({100 * bound[0] / dev:.1f}% of it); plain chain "
+              f"{plain_dev:.4f} ({plain_dev / dev:.2f}x); library "
+              f"(fake_quantize_per_{'channel' if group else 'tensor'}_affine, other bits: "
+              f"{lib_share:.3g} of its values differ{', event ms: it syncs' if group else ''}) "
+              f"{lib_dev:.4f} ({lib_dev / dev:.2f}x); median ms kernel {ms:.4f} plain "
+              f"{plain_ms:.4f} library {library_ms:.4f}; host us a call {host:.1f}, plain chain "
+              f"{plain_host:.1f} | {tag}", flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+
 # K6's shapes on the main paths (batch IMAGES, SD with CFG): label, M, K, N;
 # then two ragged ones that no path runs: M and K off the tiles (K % 16 = 8:
 # the element-load form), and every edge odd
@@ -1211,18 +1317,56 @@ def _count_int8_convs():
 
 
 def _launch_counts():
-    from dgq_tpu_torch.ops import attention as A, group_conv as G, int8_matmul as M8
+    from dgq_tpu_torch.ops import attention as A, fake_quant as FQ, group_conv as G
+    from dgq_tpu_torch.ops import int8_matmul as M8
 
-    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES, **INT8_CONV_CALLS}
+    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES, **FQ.LAUNCHES, **INT8_CONV_CALLS}
 
 
 def _reset_launch_counts():
-    from dgq_tpu_torch.ops import attention as A, group_conv as G, int8_matmul as M8
+    from dgq_tpu_torch.ops import attention as A, fake_quant as FQ, group_conv as G
+    from dgq_tpu_torch.ops import int8_matmul as M8
 
     A.reset_launch_counts()
     G.reset_launch_counts()
     M8.reset_launch_counts()
+    FQ.reset_launch_counts()
     INT8_CONV_CALLS["int8_conv"] = 0
+
+
+# the activation fake quantizer's counts in `_launch_counts`: its kernel's
+# launches, and the card's quantizers `aq_apply` sent to the plain chain
+FQ_COUNTS = ("fake_quant", "fake_quant_plain")
+
+
+def _kernels_only(launches):
+    """`launches` without the fake quantizer's counts, which
+    `_check_fake_quant` holds apart."""
+    return {n: c for n, c in launches.items() if n not in FQ_COUNTS}
+
+
+def _param_dtype(qstate):
+    """The dtype of the activation quantizers' deltas in `qstate` (f32 where
+    it has none)."""
+    import torch
+    from dgq_tpu_torch.quant.affine import QParams
+
+    a = (qstate or {}).get("a", {})
+    return next((p.delta.dtype for p in a.values() if isinstance(p, QParams)), torch.float32)
+
+
+def _check_fake_quant(label, launches, param_dtype):
+    """The fake quantizer's counts on a path that takes no gradient: with f32
+    parameters every `aq_apply` quantizer on the card launches the kernel and
+    none takes the chain; `ops.fake_quant.kernel_rule` refuses bf16
+    parameters (the bf16 deploy form's synthetic state), so there the
+    kernel must not run."""
+    import torch
+
+    kernel, chain = (launches.get(n, 0) for n in FQ_COUNTS)
+    if chain if param_dtype == torch.float32 else kernel:
+        raise AssertionError(f"{label}: {kernel} fake_quant launches, {chain} quantizers on the "
+                             f"chain under {param_dtype} parameters")
 
 
 def _g8_kwargs(group_layers, impl):
@@ -1389,6 +1533,7 @@ def small_input_check(x, prepared, tag):
                       and float(err.mean()) <= max(2 * chaos_mean, 1e-5))
             print(f"tiny UNet {label}: card vs CPU max_abs_err {float(err.max()):.6g} ({note}); "
                   f"kernel launches {launched} | {tag}", flush=True)
+            _check_fake_quant(f"tiny UNet {label}", launched, _param_dtype(qs))
             if not ok:
                 raise AssertionError(f"tiny UNet {label}: card and CPU disagree ({note})")
             if not launched or any(n not in launched for n in must_launch):
@@ -1512,11 +1657,12 @@ def drive_path(model, label, qstate, cfg, steps, expect, tag):
     _reset_launch_counts()
     lat, images, (t0, t1, t2) = sample_and_decode(model, qstate, cfg, steps)
     launches = _launch_counts()
-    for name, got in launches.items():
+    for name, got in _kernels_only(launches).items():
         want = expect.get(name, 0)
         if (want is None and got < 1) or (want is not None and got != want):
             raise AssertionError(f"{label}: {name} ran {got} times, expected "
                                  f"{'at least once' if want is None else want}")
+    _check_fake_quant(label, launches, _param_dtype(qstate))
     if tuple(images.shape) != (IMAGES, 512, 512, 3) or not bool(images.isfinite().all()):
         raise AssertionError(f"{label}: bad images {tuple(images.shape)}")
     if not bool(lat.isfinite().all()) or float(images.float().std()) == 0.0:
@@ -1525,7 +1671,8 @@ def drive_path(model, label, qstate, cfg, steps, expect, tag):
     print(f"{label}: {IMAGES} images 512px, {steps} DDIM steps CFG 7.5 bf16: sampling "
           f"{t1 - t0:.4f} s ({(t1 - t0) / steps:.4f} s per step = one UNet forward at batch "
           f"{2 * IMAGES}), VAE decode {t2 - t1:.4f} s, {(t2 - t0) / IMAGES:.4f} s per image; "
-          f"launches {shown} | {tag}", flush=True)
+          f"launches {shown}; a UNet forward: fake_quant {launches['fake_quant'] / steps:g}, "
+          f"fake_quant_plain {launches['fake_quant_plain'] / steps:g} | {tag}", flush=True)
     launches["s"] = ((t1 - t0) / steps, (t2 - t0) / IMAGES)
     return launches
 
@@ -1641,15 +1788,19 @@ def main_paths(tag):
             "static_quant_attention_packed": k4p["static_quant_attention_packed"]}
 
 
-def _expect_launches(label, expect):
+def _expect_launches(label, expect, param_dtype=None):
     """Check the launch counts since the last reset and return them:
     `expect` maps a kernel to its exact count; a kernel it does not name
-    must not have run."""
+    must not have run. The fake quantizer's counts are held by
+    `_check_fake_quant` under `param_dtype` (f32 unless given)."""
+    import torch
+
     launches = _launch_counts()
-    for name, got in launches.items():
+    for name, got in _kernels_only(launches).items():
         if got != expect.get(name, 0):
             raise AssertionError(f"{label}: {name} ran {got} times, expected "
                                  f"{expect.get(name, 0)}")
+    _check_fake_quant(label, launches, param_dtype or torch.float32)
     return launches
 
 
@@ -2286,7 +2437,9 @@ def cli_path(tag):
                           f"{t}: {s / STEPS_CLI:.4f} s per step ({forwards} UNet forwards at "
                           f"batch 4 in {s:.2f} s), {res['run_s'][t] / 2:.4f} s per image"
                           for t, s in (("fp", fp_s), (qtag, q_s)))
-                      + f"; launches {shown} | {tag}", flush=True)
+                      + f"; launches {shown}; a quantized UNet forward: fake_quant "
+                      f"{shown.get('fake_quant', 0) / forwards:g}, fake_quant_plain "
+                      f"{shown.get('fake_quant_plain', 0) / forwards:g} | {tag}", flush=True)
         finally:
             sd_pipeline.sd_sample = real_sample
             sd_pipeline.SDPipeline._initial_latents = real_latents
@@ -2506,7 +2659,9 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
     finally:
         unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply = real_apply
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    got = {n: c for n, c in _launch_counts().items() if c}
+    launched = _launch_counts()
+    got = {n: c for n, c in _kernels_only(launched).items() if c}
+    fq = {n: launched[n] for n in FQ_COUNTS}
     want = {n: c for n, c in want(counts["kernel_forwards"]).items() if c}
     s = res.get("seconds", {})
     print(f"{phase} {label}: {seconds:.2f} s, peak {peak:.2f} GiB allocated; "
@@ -2516,11 +2671,14 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
           + (f"activation calibration per time slot "
              f"{', '.join(f'{v:.2f}' for v in s['act_slots'])} s; " if "act_slots" in s else "")
           + f"{counts['forwards']} UNet forwards, {counts['kernel_forwards']} with the "
-          f"kernels' attention (expected {forwards}); launches {got} (expected {want}) | "
-          f"{tag}", flush=True)
+          f"kernels' attention (expected {forwards}); launches {got} (expected {want}); "
+          f"{fq} | {tag}", flush=True)
     if counts["kernel_forwards"] != forwards or got != want:
         raise AssertionError(f"{phase} {label}: {counts['kernel_forwards']} forwards, "
                              f"launches {got}; expected {forwards} and {want}")
+    # the inference CLIs take no gradient and hold f32 states: no quantizer on the chain
+    if fn.__module__ in ("dgq_tpu_torch.cli.infer", "dgq_tpu_torch.cli.gen4eval"):
+        _check_fake_quant(f"{phase} {label}", fq, torch.float32)
     return res
 
 
@@ -3857,7 +4015,7 @@ def _dp_one_step_check(ranks, reds1, want, tmp, tag):
         if a.shape != (64, 64, 4) or not np.isfinite(a).all():
             raise AssertionError(f"dp_path (q one step): {name} is {a.shape} or not finite")
         worst, scale = max(worst, float(np.abs(a - b).max())), max(scale, float(np.abs(b).max()))
-    counts = [r["q one step"]["launches"] for r in ranks]
+    counts = [_kernels_only(r["q one step"]["launches"]) for r in ranks]
     print(f"dp_path (q one step) gen4eval W4A8 g=8, one PNDM step, latents: {len(reds1)} "
           f"real-time reductions a rank, equal on both ranks: {ranks_equal}; against --dp 1's, "
           f"relative, reduced over the ranks: first call {reduced[0]:.3g} (limit "
@@ -4012,7 +4170,7 @@ def dp_path(tag, calib, s_4a, beside=None):
                                               ("q w4a8g8", "q1", "q2", q8)):
             files = [r[label]["files"] for r in ranks]
             dp1_files = sorted(os.listdir(os.path.join(tmp, dp1_dir)))
-            counts = [r[label]["launches"] for r in ranks]
+            counts = [_kernels_only(r[label]["launches"]) for r in ranks]
             diffs = []
             for name in dp1_files:
                 a = np.asarray(Image.open(os.path.join(tmp, dp2_dir, name)), dtype=np.int16)
@@ -4087,7 +4245,8 @@ def _profiled_step(tmp, s_4a, tag):
           f"{busy_us / 1e3:.3f} ms of the {span_us / 1e3:.3f} ms from the first kernel's start "
           f"to the last one's end ({busy_us / max(span_us, 1e-9):.4f}); launches {launches} | "
           f"{tag}", flush=True)
-    if "quant_tc_kernel" not in text or launches != {"static_uniform_attention": 32}:
+    if ("quant_tc_kernel" not in text
+            or _kernels_only(launches) != {"static_uniform_attention": 32}):
         raise AssertionError(f"dp_path (r): the trace does not name quant_tc_kernel, or the "
                              f"launches are {launches}")
     sol = spec_roofline(model["spec"], latent_hw=64, batch=2 * IMAGES)
@@ -4549,7 +4708,7 @@ def drive_sdxl(model, label, qstate, cfg, expect, tag):
     sdxl_sample_and_decode(model, qstate, cfg, 1)  # warm-up
     _reset_launch_counts()
     lat, images, (t0, t1, t2) = sdxl_sample_and_decode(model, qstate, cfg, STEPS_SDXL)
-    launches = _expect_launches(label, expect)
+    launches = _expect_launches(label, expect, _param_dtype(qstate))
     if tuple(images.shape) != (IMAGES, 1024, 1024, 3) or not bool(images.isfinite().all()):
         raise AssertionError(f"{label}: bad images {tuple(images.shape)}")
     if not bool(lat.isfinite().all()) or float(images.float().std()) == 0.0:
@@ -5305,6 +5464,20 @@ def _reference_bytes(name):
     return buf.getvalue()
 
 
+def fake_quant_alone():
+    """`compare_fake_quant` by itself: build the kernels, then the rows."""
+    import torch
+    from dgq_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    build.build_kernels()
+    build.load_kernels()
+    print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
+    compare_fake_quant(f"card: {card}", _Summary())
+
+
 def main():
     import torch
 
@@ -5390,6 +5563,7 @@ def _run_phases(build, built, compiling, reference, card, tag, t0):
     phase(compare_attention_packed, tag, summary)
     phase(compare_group_conv, tag, summary)
     phase(wrapper_host_cost, tag)
+    phase(compare_fake_quant, tag, summary)
     phase(compare_int8, tag, summary)
     phase(int8_conv, tag)
     phase(small_input_check, *reference("small_input_reference"), tag)
@@ -5414,7 +5588,10 @@ def _run_phases(build, built, compiling, reference, card, tag, t0):
         tp1 = phase(dp_path, tag, calib, s_4a,
                     lambda: phase(eval_path, tag + on_dp, calib, note=on_dp))
         torch.cuda.empty_cache()
-        phase(cli_path, tag)
+        cli = phase(cli_path, tag)
+        # the f32 states' g=8 run: every per-tensor quantizer takes the kernel
+        launches["fake_quant"] = cli["(b) README + --pallas_attn --group_impl fused"].get(
+            "fake_quant", 0)
         torch.cuda.empty_cache()
         phase(f32_bodies, tag)
         phase(text_encoders_full_width, tag)
@@ -5451,5 +5628,7 @@ if __name__ == "__main__":
         tp_rank(sys.argv[2])
     elif sys.argv[1:] == ["--recon-fit"]:
         sys.exit(recon_fit())
+    elif sys.argv[1:] == ["--fake-quant"]:
+        fake_quant_alone()
     else:
         main()

@@ -634,12 +634,8 @@ def _attention_packed(p, prefix, q, k, v, num_heads, head_dim, scale, qstate, cf
     so no transposed copy is made. Per-tensor quantizers act the same in this
     layout (0 -> 0 on the padding lanes)."""
     q = aq_apply(qstate, cfg, f"{prefix}.aqtizer_q", q)
-    if start_peak:
-        # key position 0 (sequence row 0) is spared, as in the reference
-        k = torch.cat([k[:, 0:1, :],
-                       aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k[:, 1:, :])], dim=1)
-    else:
-        k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k)
+    # under start_peak key position 0 (sequence row 0) is spared, as in the reference
+    k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k, start_rows=int(start_peak))
     v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)
     sm_mode, sm_delta = _sm_select(qstate, cfg, prefix, q.device)
     out = fused_attention(
@@ -688,11 +684,7 @@ def attention(p, prefix: str, x: torch.Tensor, ehs: Optional[torch.Tensor],
     v = v.reshape(b, s, num_heads, head_dim).permute(0, 2, 1, 3)
 
     q = aq_apply(qstate, cfg, f"{prefix}.aqtizer_q", q)
-    if start_peak:
-        k = torch.cat([k[..., 0:1, :],
-                       aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k[..., 1:, :])], dim=-2)
-    else:
-        k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k)
+    k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", k, start_rows=int(start_peak))
 
     if cfg.use_pallas_attention:
         v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", v)

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from dgq_tpu_torch.ops import fake_quant as fake_quant_ops
 from dgq_tpu_torch.quant.affine import QParams, fake_quant
 from dgq_tpu_torch.quant.log2 import log2_fake_quant, log2_real_time_quant
 from dgq_tpu_torch.utils.profiler import span
@@ -167,9 +168,16 @@ class GroupQParams:
 
 
 def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
-             x: torch.Tensor) -> torch.Tensor:
-    """Apply the activation quantizer registered for `name`, if any."""
-    _tap(name, x)
+             x: torch.Tensor, start_rows: int = 0) -> torch.Tensor:
+    """Apply the activation quantizer registered for `name`, if any; the
+    first `start_rows` rows along axis -2 pass through unquantized (the
+    start-peak key row) and are not published to the tap.
+
+    Per-tensor, last-axis and group parameters (f32) on a card, where no
+    gradient is wanted, take the one-launch kernel (`ops.fake_quant`, bit
+    for bit the chain); CPU tensors, learnable deltas, bf16 parameters and
+    other broadcasts take `quant.affine.fake_quant`'s chain."""
+    _tap(name, x[..., start_rows:, :] if start_rows else x)
     if not cfg.use_aq or qstate is None:
         return x
     qp = qstate.get("a", {}).get(name)
@@ -177,18 +185,36 @@ def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
         return x
     with span("dgq.fake_quant", device=True):
         if isinstance(qp, GroupQParams):
-            mid = (1,) * (x.dim() - 2) + (-1, 1)
-            last = (1,) * (x.dim() - 1) + (-1,)
-            delta = qp.delta_mid.reshape(mid) * qp.delta_last.reshape(last)
-            zp = qp.zp_mid.reshape(mid) + qp.zp_last.reshape(last)
-            return fake_quant(x, QParams(delta, zp), cfg.a_bits)
-        # broadcast trailing-shaped params against higher-rank activations
-        delta, zp = qp.delta, qp.zero_point
-        if 0 < delta.dim() < x.dim():
-            shape = (1,) * (x.dim() - delta.dim()) + tuple(delta.shape)
-            delta = delta.reshape(shape)
-            zp = zp.reshape(shape)
+            delta, zp, mid = qp.delta_last, qp.zp_last, (qp.delta_mid, qp.zp_mid)
+        else:
+            delta, zp, mid = qp.delta, qp.zero_point, None
+        if fake_quant_ops.kernel_takes(x, delta, zp, mid, start_rows):
+            return fake_quant_ops.fused_fake_quant(x, delta, zp, cfg.a_bits, start_rows, mid,
+                                                   checked=True)
+        if x.is_cuda:
+            fake_quant_ops.LAUNCHES["fake_quant_plain"] += 1
+        if not start_rows:
+            return _fake_quant_chain(qp, cfg, x)
+        return torch.cat([x[..., :start_rows, :],
+                          _fake_quant_chain(qp, cfg, x[..., start_rows:, :])], dim=-2)
+
+
+def _fake_quant_chain(qp, cfg: QConfig, x: torch.Tensor) -> torch.Tensor:
+    """`quant.affine.fake_quant` with group or plain parameters broadcast
+    against x."""
+    if isinstance(qp, GroupQParams):
+        mid = (1,) * (x.dim() - 2) + (-1, 1)
+        last = (1,) * (x.dim() - 1) + (-1,)
+        delta = qp.delta_mid.reshape(mid) * qp.delta_last.reshape(last)
+        zp = qp.zp_mid.reshape(mid) + qp.zp_last.reshape(last)
         return fake_quant(x, QParams(delta, zp), cfg.a_bits)
+    # broadcast trailing-shaped params against higher-rank activations
+    delta, zp = qp.delta, qp.zero_point
+    if 0 < delta.dim() < x.dim():
+        shape = (1,) * (x.dim() - delta.dim()) + tuple(delta.shape)
+        delta = delta.reshape(shape)
+        zp = zp.reshape(shape)
+    return fake_quant(x, QParams(delta, zp), cfg.a_bits)
 
 
 def softmax_q_apply(qstate: Optional[QState], cfg: QConfig, name: str,

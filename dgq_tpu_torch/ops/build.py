@@ -34,10 +34,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
+def wants_grad(*tensors) -> bool:
+    """Whether grad mode is on and one of `tensors` requires grad."""
+    return torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
 def refuse_grad(entry: str, *tensors) -> None:
-    """Raise RuntimeError, naming `entry`, when grad mode is on and one of
-    `tensors` requires grad: the kernels have no backward."""
-    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in tensors):
+    """Raise RuntimeError, naming `entry`, when `wants_grad(*tensors)`: the
+    kernels have no backward."""
+    if wants_grad(*tensors):
         raise RuntimeError(
             f"{entry}: an input requires grad, and the kernel has no backward (its result "
             f"would carry no gradient). Call it under torch.no_grad(), or differentiate the "
@@ -89,6 +94,12 @@ _SIGNATURES = {
         # scales_bf16, stream
         "dgq_group_conv_fold_panels": (_P, _L, _L, _L, _P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _P),
+    },
+    "fake_quant": {
+        # x, out, delta, zp, delta_step, zp_step, delta_mid, zp_mid, dmid_step, zmid_step,
+        # s0, s1, s2, s3, t0, t1, t2, t3, nb, pb, start_rows, is_bf16, device, stream
+        "dgq_fake_quant": (_P, _P, _P, _P, _L, _L, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                           _I, _I, _I, _I, _I, _P),
     },
     "int8_matmul": {
         # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, ws, counters, m, n,
