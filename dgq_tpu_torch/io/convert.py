@@ -160,6 +160,37 @@ def params_to_torch_unet(params: dict, spec) -> dict:
     return state
 
 
+# SD3's transformer: a buffer the port forms itself (`mmdit_sd3.pos_embed_table`)
+SD3_BUFFERS = ("pos_embed.pos_embed",)
+
+
+def hf_sd3_transformer_to_params(state: dict, device="cuda") -> dict:
+    """A diffusers `SD3Transformer2DModel` state dict (transformer/ of a
+    stable-diffusion-3-medium-diffusers snapshot) -> the port's params for
+    `models.mmdit_sd3`, by the spec its shapes give (depth, heads of 64,
+    latent channels, the text widths). The names are the spec's; the
+    position table is left out (the port forms it); any other key the spec
+    has no place for raises (SD3.5's QK norms, say)."""
+    from dgq_tpu_torch.models.mmdit_sd3 import mmdit_sd3_spec
+
+    def shape(key):
+        return tuple(np.shape(state[key]))
+
+    layers = 0
+    while f"transformer_blocks.{layers}.norm1.linear.weight" in state:
+        layers += 1
+    d, cin, patch, _ = shape("pos_embed.proj.weight")
+    spec = mmdit_sd3_spec(layers=layers, heads=d // 64, head_dim=64, in_channels=cin,
+                          patch=patch, joint_dim=shape("context_embedder.weight")[1],
+                          pooled_dim=shape("time_text_embed.text_embedder.linear_1.weight")[1],
+                          freq_dim=shape("time_text_embed.timestep_embedder.linear_1.weight")[1])
+    known = {f"{n}.{leaf}" for n, _, _ in spec for leaf in ("weight", "bias")}
+    extra = sorted(set(state) - known - set(SD3_BUFFERS))
+    if extra:
+        raise KeyError(f"SD3 transformer keys with no place in the port: {extra[:5]}")
+    return torch_unet_to_params(state, spec, device)
+
+
 # ------------------------------------------------------------ the scorers ---
 def inception_params_from_numpy(params_np: dict, device="cuda") -> dict:
     """The JAX package's Inception params (numpy: HWIO conv 'w', 'b', and an

@@ -733,6 +733,73 @@ def basic_transformer_block(p, prefix: str, x: torch.Tensor, ehs: Optional[torch
     return geglu_ff(p, f"{prefix}.ff", h, qstate, cfg) + x
 
 
+def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """adaLN's norm-modulate: LayerNorm without affine over the last axis
+    (two-pass f32 statistics), then x (1 + scale) + shift, with shift and
+    scale (B, C) broadcast over the tokens of x (B, T, C)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    out = xc * rstd * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
+    return out.to(x.dtype)
+
+
+def gelu_tanh_ff(p, prefix: str, x: torch.Tensor, qstate, cfg) -> torch.Tensor:
+    """FeedForward with GELU's tanh approximation: net.0.proj -> gelu -> net.2."""
+    h = quant_linear(p[f"{prefix}.net.0.proj"], x, f"{prefix}.net.0.proj", qstate, cfg)
+    h = F.gelu(h, approximate="tanh")
+    return quant_linear(p[f"{prefix}.net.2"], h, f"{prefix}.net.2", qstate, cfg)
+
+
+def joint_attention(p, prefix: str, x: torch.Tensor, c: torch.Tensor, num_heads: int,
+                    qstate: Optional[QState], cfg: QConfig, context_out: bool = True):
+    """MMDiT joint attention: one softmax over the image tokens x (B, T, C)
+    and the text tokens c (B, S, C), each stream with its own projections
+    (to_q/k/v and to_out.0; add_q/k/v_proj and to_add_out). Returns (a_x,
+    a_c), a_c None without `context_out` (the last block's text stream).
+
+    The tokens go text first: the published order is [image; text], which
+    would put CLIP's start token at key T; here it is key 0, where the
+    start-peak quantizers spare it (aqtizer_k's row and the softmax
+    quantizer's column, as in SD's cross attention). That is exact: the
+    softmax, the real-time delta (the largest weight outside the start
+    token's column, over the whole call) and each weight's log2 code depend
+    on which key a weight belongs to, not on the keys' order; only the
+    order of the kernel's f32 sums changes. The queries take the same order
+    and the outputs split back. Quantizers: aqtizer_q / _k / _v, per tensor,
+    on the joint tensors."""
+    b, t, d = x.shape
+    s = c.shape[1]
+    head_dim = d // num_heads
+    proj = {}
+    for name, src in (("to_q", x), ("to_k", x), ("to_v", x), ("add_q_proj", c),
+                      ("add_k_proj", c), ("add_v_proj", c)):
+        proj[name] = quant_linear(p[f"{prefix}.{name}"], src, f"{prefix}.{name}", qstate, cfg)
+    start_peak = cfg.t2i_start_peak
+    with span("dgq.joint_attention", device=True):
+        def heads(text, image):
+            return (torch.cat([text, image], dim=1).reshape(b, s + t, num_heads, head_dim)
+                    .permute(0, 2, 1, 3))
+        q = aq_apply(qstate, cfg, f"{prefix}.aqtizer_q", heads(proj["add_q_proj"], proj["to_q"]))
+        k = aq_apply(qstate, cfg, f"{prefix}.aqtizer_k", heads(proj["add_k_proj"], proj["to_k"]),
+                     start_rows=int(start_peak))
+        v = aq_apply(qstate, cfg, f"{prefix}.aqtizer_v", heads(proj["add_v_proj"], proj["to_v"]))
+        sm_mode, sm_delta = _sm_select(qstate, cfg, prefix, q.device)
+        n = b * num_heads
+        out = fused_attention(q.reshape(n, s + t, head_dim), k.reshape(n, s + t, head_dim),
+                              v.reshape(n, s + t, head_dim), head_dim ** -0.5, sm_mode=sm_mode,
+                              sm_bits=cfg.softmax_bits, sm_delta=sm_delta,
+                              start_peak=start_peak and cfg.use_aq)
+        out = out.reshape(b, num_heads, s + t, head_dim).permute(0, 2, 1, 3).reshape(b, s + t, d)
+        o_c, o_x = out[:, :s].to(x.dtype), out[:, s:].to(x.dtype)
+    a_x = quant_linear(p[f"{prefix}.to_out.0"], o_x, f"{prefix}.to_out.0", qstate, cfg)
+    if not context_out:
+        return a_x, None
+    return a_x, quant_linear(p[f"{prefix}.to_add_out"], o_c, f"{prefix}.to_add_out", qstate, cfg)
+
+
 def resnet_block(p, prefix: str, x: torch.Tensor, temb: torch.Tensor, qstate,
                  cfg: QConfig, has_shortcut: bool) -> torch.Tensor:
     """ResnetBlock2D, NHWC."""

@@ -167,6 +167,23 @@ class GroupQParams:
         self.zp_last = zp_last
 
 
+# the MMDiT's layers that stay float, as conv_in and conv_out in the UNets
+MMDIT_UNQUANTIZED = ("pos_embed.proj", "proj_out")
+
+
+def joint_act_sites(spec) -> list:
+    """The activation quantizers of an MMDiT (`models.mmdit_sd3`), both
+    streams: the input of every linear of `spec` but proj_out, then each
+    joint attention's aqtizer_q, aqtizer_k and aqtizer_v (on the text-first
+    joint q, k and v)."""
+    names = [n for n, k, _ in spec if k == "linear" and n not in MMDIT_UNQUANTIZED]
+    for n, k, _ in spec:
+        if k == "linear" and n.endswith(".attn.to_q"):
+            pre = n[: -len(".to_q")]
+            names += [f"{pre}.aqtizer_q", f"{pre}.aqtizer_k", f"{pre}.aqtizer_v"]
+    return names
+
+
 def aq_apply(qstate: Optional[QState], cfg: QConfig, name: str,
              x: torch.Tensor, start_rows: int = 0) -> torch.Tensor:
     """Apply the activation quantizer registered for `name`, if any; the

@@ -10,7 +10,8 @@ the diffusers way
 and every component is converted into the port's params on `device`.
 Missing components leave None (the pipeline methods that need them raise);
 only the UNet is required. `transformers` is imported only to load a
-tokenizer.
+tokenizer. SD3 ("sd3") reads <root>/transformer/ in the UNet's place and
+<root>/vae/ (16 latent channels); its text encoders are not loaded.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ import logging
 import os
 from typing import Optional
 
+from dgq_tpu_torch.io.convert import hf_sd3_transformer_to_params
 from dgq_tpu_torch.io.hf_loader import load_state_dict_any
 from dgq_tpu_torch.models.qconfig import QConfig, QState
-from dgq_tpu_torch.pipeline.sd_pipeline import SDPipeline, SDXLTurboPipeline
+from dgq_tpu_torch.pipeline.sd_pipeline import SD3Pipeline, SDPipeline, SDXLTurboPipeline
 from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
 from dgq_tpu_torch.pipeline.vae import hf_vae_to_params
 
@@ -48,10 +50,20 @@ def _load_tokenizer(root: str, sub: str):
 def prepare_pipeline(model_type: str, snapshot_dir: str, unet_params: Optional[dict] = None,
                      cfg: QConfig = QConfig(), qstate: Optional[QState] = None,
                      time_aware: bool = False, base: Optional[int] = None, device="cuda"):
-    """An SDPipeline / SDXLTurboPipeline from a snapshot directory.
+    """An SDPipeline / SDXLTurboPipeline / SD3Pipeline from a snapshot directory.
 
-    unet_params overrides the snapshot's UNet (pass quantize-folded
-    params); otherwise <root>/unet is converted."""
+    unet_params overrides the snapshot's UNet (SD3: its transformer; pass
+    quantize-folded params); otherwise <root>/unet (<root>/transformer) is
+    converted."""
+    if model_type == "sd3":
+        if unet_params is None:
+            unet_params = _load_sub(snapshot_dir, "transformer", hf_sd3_transformer_to_params,
+                                    device)
+            if unet_params is None:
+                raise FileNotFoundError(f"no transformer/ under {snapshot_dir}")
+        return SD3Pipeline(transformer_params=unet_params,
+                           vae_params=_load_sub(snapshot_dir, "vae", hf_vae_to_params, device),
+                           cfg=cfg, qstate=qstate, time_aware=time_aware, device=device)
     if unet_params is None:
         from dgq_tpu_torch.cli.common import build_model
 

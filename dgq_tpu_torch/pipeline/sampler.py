@@ -1,11 +1,15 @@
 """SD v1.4 sampling (DDIM or PNDM-PLMS) with classifier-free guidance and
 SDXL-turbo sampling (Euler, guidance 0) (port of
-`dgq_tpu/pipeline/sampler.py`).
+`dgq_tpu/pipeline/sampler.py`), and SD3's flow-matching Euler with
+classifier-free guidance (`sd3_sample`, no JAX counterpart).
 
 The JAX package compiles the loop into one `lax.scan`; here it is a Python
 loop. Time-aware activation qparams carry a leading [T_slots] axis; each step
 picks its slot by a host-side index (the schedule is known on the host), so
-no step waits on the device.
+no step waits on the device. The UNet samplers take the reference's slot
+map from the timestep (`timestep_slot`); the flow sampler's timesteps are
+fractions of 1000 and its 28 steps do not divide 1000, so it takes slot i
+at step i (`sd3_sample`).
 """
 from __future__ import annotations
 
@@ -37,9 +41,13 @@ def check_time_aware_steps(num_inference_steps: int, time_aware: bool, qstate) -
 
 def select_time_qstate(qstate: Optional[QState], t: int, steps: int) -> Optional[QState]:
     """The slice of stacked [T_slots, ...] activation qparams for timestep t."""
+    return select_slot_qstate(qstate, int(timestep_slot(int(t), steps)))
+
+
+def select_slot_qstate(qstate: Optional[QState], slot: int) -> Optional[QState]:
+    """The slice `slot` of stacked [T_slots, ...] activation qparams."""
     if qstate is None:
         return None
-    slot = int(timestep_slot(int(t), steps))
 
     def pick(leaf):
         if isinstance(leaf, QParams):
@@ -132,4 +140,47 @@ def sdxl_turbo_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tenso
             x = sch.euler_step(x, eps, sigma, sigma_next)
     if capture:
         return x, (torch.stack(inputs), consts.timesteps.to(latents.device))
+    return x
+
+
+def check_slot_count(qstate: Optional[QState], steps: int) -> None:
+    """A time-aware state selected by step index needs a slot a step."""
+    leaves = [leaf for key in ("a", "sm") for leaf in (qstate or {}).get(key, {}).values()]
+    for leaf in leaves:
+        lead = (leaf.delta if isinstance(leaf, QParams)
+                else leaf.delta_last if isinstance(leaf, GroupQParams) else leaf)
+        if lead.dim() == 0 or lead.shape[0] < steps:
+            raise ValueError(f"a time-aware state selected by step index needs {steps} slots, "
+                             f"one a step; a leaf has shape {tuple(lead.shape)}")
+
+
+@torch.no_grad()
+def sd3_sample(params: dict, latents: torch.Tensor, ehs_text: torch.Tensor,
+               pooled_text: torch.Tensor, ehs_uncond: torch.Tensor, pooled_uncond: torch.Tensor,
+               transformer_apply, num_inference_steps: int = 28, guidance_scale: float = 7.0,
+               shift: float = 3.0, qstate: Optional[QState] = None, cfg: QConfig = QConfig(),
+               time_aware: bool = False):
+    """SD3 sampling: flow-matching Euler (`schedulers.make_flow_match`) from
+    NHWC noise latents (B, 128, 128, 16), unscaled, with classifier-free
+    guidance over the CFG batch [uncond, text]: v = v_u + g (v_c - v_u), x +=
+    (sigma_{i+1} - sigma_i) v. `transformer_apply(params, x, t, ehs, pooled,
+    qstate=, cfg=)` is `models.mmdit_sd3.mmdit_sd3_apply` or a wrapper of it;
+    t = 1000 sigma. A time-aware state takes slot i at step i."""
+    if time_aware:
+        check_slot_count(qstate, num_inference_steps)
+    consts = sch.make_flow_match(num_inference_steps, shift)
+    ehs = torch.cat([ehs_uncond, ehs_text], dim=0)
+    pooled = torch.cat([pooled_uncond, pooled_text], dim=0)
+    x = latents
+    for i in range(num_inference_steps):
+        with span("dgq.sampler.slot"):
+            qs = select_slot_qstate(qstate, i) if time_aware else qstate
+        lmi = torch.cat([x, x], dim=0)
+        tt = torch.full((lmi.shape[0],), float(consts.timesteps[i]), dtype=torch.float32,
+                        device=lmi.device)
+        v = transformer_apply(params, lmi, tt, ehs, pooled, qstate=qs, cfg=cfg)
+        with span("dgq.sampler.update"):
+            v_u, v_c = v.chunk(2, dim=0)
+            x = sch.flow_euler_step(x, v_u + guidance_scale * (v_c - v_u), consts.sigmas[i],
+                                    consts.sigmas[i + 1])
     return x

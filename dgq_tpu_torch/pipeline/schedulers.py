@@ -1,5 +1,6 @@
 """DDIM and PNDM-PLMS for SD v1.4 and Euler-discrete for SDXL-turbo (port of
-`dgq_tpu/pipeline/schedulers.py`).
+`dgq_tpu/pipeline/schedulers.py`), and flow-matching Euler for SD3 (no JAX
+counterpart).
 
 SD v1.4 betas: scaled_linear 0.00085 -> 0.012, 1000 train steps,
 steps_offset=1, set_alpha_to_one=False.
@@ -184,3 +185,34 @@ def euler_step(latents: torch.Tensor, eps: torch.Tensor, sigma: torch.Tensor,
 
 def euler_init_sigma(num_inference_steps: int, **kw) -> torch.Tensor:
     return make_euler(num_inference_steps, **kw).sigmas[0]
+
+
+class FlowMatchConsts(NamedTuple):
+    timesteps: torch.Tensor  # [N] f32, sigma x 1000
+    sigmas: torch.Tensor     # [N + 1] f32, the last 0
+
+
+def flow_shift(sigma, shift: float):
+    return shift * sigma / (1 + (shift - 1) * sigma)
+
+
+def make_flow_match(num_inference_steps: int, shift: float = 3.0,
+                    num_train_timesteps: int = 1000) -> FlowMatchConsts:
+    """diffusers' FlowMatchEulerDiscreteScheduler (SD3: shift 3.0, no
+    dynamic shifting). Its training sigmas are shifted once, so the last is
+    s(1 / 1000) in f32; set_timesteps spaces sigma x 1000 linearly from 1000
+    to that in f64 and shifts again: sigma_i = s(u_i), u = linspace(1,
+    s(0.001), N), s(u) = shift u / (1 + (shift - 1) u); then f32, t = 1000
+    sigma, and a final sigma of 0."""
+    s_min = float(flow_shift(torch.tensor(1.0 / num_train_timesteps, dtype=torch.float32),
+                             shift))
+    u = np.linspace(1.0, s_min, num_inference_steps)
+    sigmas = torch.tensor(flow_shift(u, shift), dtype=torch.float32)
+    return FlowMatchConsts(timesteps=sigmas * num_train_timesteps,
+                           sigmas=torch.cat([sigmas, torch.zeros(1)]))
+
+
+def flow_euler_step(latents: torch.Tensor, v: torch.Tensor, sigma: torch.Tensor,
+                    sigma_next: torch.Tensor) -> torch.Tensor:
+    """x + (sigma_next - sigma) v, in f32, the result in the latents' dtype."""
+    return (latents.float() + (sigma_next - sigma) * v.float()).to(latents.dtype)

@@ -1,5 +1,6 @@
 """Text-to-image pipelines: CLIP text encoding -> denoising -> VAE decode
-(port of `dgq_tpu/pipeline/sd_pipeline.py`).
+(port of `dgq_tpu/pipeline/sd_pipeline.py`), and SD3 medium's (no JAX
+counterpart), which takes prompt embeddings only.
 
 Weights come from local HF snapshots through the converters; every stage
 also runs with random weights. Each pipeline runs on its `device` (the card
@@ -23,12 +24,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dgq_tpu_torch.models.mmdit_sd3 import mmdit_sd3_apply
 from dgq_tpu_torch.models.qconfig import QConfig, QState
 from dgq_tpu_torch.models.unet_sd import unet_sd_apply
 from dgq_tpu_torch.models.unet_sdxl import unet_sdxl_apply
-from dgq_tpu_torch.pipeline.sampler import sd_sample, sdxl_turbo_sample
+from dgq_tpu_torch.pipeline.sampler import sd3_sample, sd_sample, sdxl_turbo_sample
 from dgq_tpu_torch.pipeline.text_encoder import clip_text_encode, sdxl_encode_prompt
-from dgq_tpu_torch.pipeline.vae import SDXL_VAE_SCALE, latents_to_images, vae_decode
+from dgq_tpu_torch.pipeline.vae import (
+    SD3_VAE_SCALE,
+    SD3_VAE_SHIFT,
+    SDXL_VAE_SCALE,
+    latents_to_images,
+    vae_decode,
+)
 from dgq_tpu_torch.utils.profiler import span
 
 
@@ -38,10 +46,11 @@ def _token_ids(tokenizer, prompts: list[str], device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
 
 
-def _initial_latents(b: int, height: int, width: int, seed: int, device) -> torch.Tensor:
-    """NHWC noise latents (b, height // 8, width // 8, 4), f32."""
+def _initial_latents(b: int, height: int, width: int, seed: int, device,
+                     channels: int = 4) -> torch.Tensor:
+    """NHWC noise latents (b, height // 8, width // 8, channels), f32."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return torch.randn(b, height // 8, width // 8, 4, generator=g, device=device)
+    return torch.randn(b, height // 8, width // 8, channels, generator=g, device=device)
 
 
 @dataclasses.dataclass
@@ -165,5 +174,59 @@ class SDXLTurboPipeline:
             if self.vae_params is None:
                 return final.cpu().numpy()
             images = vae_decode(self.vae_params, final, scale=SDXL_VAE_SCALE)
+            with span("dgq.images"):
+                return latents_to_images(images)
+
+
+@dataclasses.dataclass
+class SD3Pipeline:
+    """Stable Diffusion 3 medium: the MMDiT (`models.mmdit_sd3`), 28
+    flow-matching Euler steps with classifier-free guidance 7.0 (shift 3.0),
+    1024px, the 16-channel VAE decode. Its text encoders (CLIP-L, CLIP-G,
+    T5-XXL) are not part of the port: prompts come as embeddings, (B, 333,
+    4096) (77 CLIP rows padded to 4096 columns, then 256 T5 rows) and pooled
+    (B, 2048). `geometry` overrides mmdit_sd3_apply's head_dim, sample_size
+    and pos_embed_max_size (SD3 medium's by default; tiny test models change
+    them); a time-aware qstate has a slot a step, selected by step index."""
+
+    transformer_params: dict
+    vae_params: Optional[dict] = None
+    cfg: QConfig = QConfig()
+    qstate: Optional[QState] = None
+    time_aware: bool = False
+    transformer_apply: object = mmdit_sd3_apply
+    geometry: dict = dataclasses.field(default_factory=dict)
+    device: str = "cuda"
+
+    def encode_prompts(self, prompts: list[str]) -> tuple:
+        raise RuntimeError(
+            "text encoders (CLIP-L, CLIP-G, T5-XXL) unavailable; pass prompt embeddings "
+            "directly to generate_from_embeddings()")
+
+    def _apply(self, params, x, t, ehs, pooled, qstate=None, cfg=QConfig()):
+        return self.transformer_apply(params, x, t, ehs, pooled, qstate=qstate, cfg=cfg,
+                                      **self.geometry)
+
+    def generate_from_embeddings(self, ehs_text: torch.Tensor, pooled_text: torch.Tensor,
+                                 ehs_uncond: torch.Tensor, pooled_uncond: torch.Tensor,
+                                 steps: int = 28, guidance_scale: float = 7.0,
+                                 height: int = 1024, width: int = 1024, seed: int = 42,
+                                 rows: Optional[list] = None) -> np.ndarray:
+        """Latents (no VAE) or uint8 images, as numpy; of the batch rows
+        `rows` only, when given."""
+        with span("dgq.generate"):
+            channels = self.transformer_params["pos_embed.proj"]["w"].shape[1]
+            latents = _initial_latents(ehs_text.shape[0], height, width, seed, self.device,
+                                       channels)
+            if rows is not None:
+                latents, ehs_text, pooled_text = latents[rows], ehs_text[rows], pooled_text[rows]
+                ehs_uncond, pooled_uncond = ehs_uncond[rows], pooled_uncond[rows]
+            final = sd3_sample(self.transformer_params, latents, ehs_text, pooled_text,
+                               ehs_uncond, pooled_uncond, self._apply,
+                               num_inference_steps=steps, guidance_scale=guidance_scale,
+                               qstate=self.qstate, cfg=self.cfg, time_aware=self.time_aware)
+            if self.vae_params is None:
+                return final.cpu().numpy()
+            images = vae_decode(self.vae_params, final, scale=SD3_VAE_SCALE, shift=SD3_VAE_SHIFT)
             with span("dgq.images"):
                 return latents_to_images(images)

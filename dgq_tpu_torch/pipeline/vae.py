@@ -5,7 +5,10 @@ post_quant_conv (1x1, 4->4), conv_in 4->512, mid (resnet / single-head
 spatial attention / resnet), 4 up stages of 3 resnets (512, 512, 256, 128)
 with nearest-2x upsampling between, GroupNorm+SiLU+conv_out -> RGB. Latents
 are scaled by 1/0.18215 first (SD v1.4), or 1/0.13025 (SDXL, whose decoder
-has the same architecture; pass `scale=SDXL_VAE_SCALE`).
+has the same architecture; pass `scale=SDXL_VAE_SCALE`). SD3's decoder has
+16 latent channels and no post_quant_conv, and takes latents / 1.5305 +
+0.0609 (`scale=SD3_VAE_SCALE, shift=SD3_VAE_SHIFT`;
+`vae_decoder_spec(latent_channels=16, post_quant_conv=False)`).
 
 The mid-block attention always goes through `fused_attention`: on the GPU
 that is the K2 flash kernel, which streams K/V through shared memory, so the
@@ -29,6 +32,8 @@ from dgq_tpu_torch.utils.profiler import span
 
 SD_VAE_SCALE = 0.18215
 SDXL_VAE_SCALE = 0.13025
+SD3_VAE_SCALE = 1.5305
+SD3_VAE_SHIFT = 0.0609
 
 
 def _resnet(p, prefix, x):
@@ -54,11 +59,17 @@ def _attn(p, prefix, x):
 
 
 @torch.no_grad()
-def vae_decode(params: dict, latents: torch.Tensor, scale: float = SD_VAE_SCALE) -> torch.Tensor:
-    """latents NHWC (B, h, w, 4) -> images NHWC (B, 8h, 8w, 3) in about [-1, 1]."""
+def vae_decode(params: dict, latents: torch.Tensor, scale: float = SD_VAE_SCALE,
+               shift: float = 0.0) -> torch.Tensor:
+    """latents NHWC (B, h, w, 4 or 16) -> images NHWC (B, 8h, 8w, 3) in about
+    [-1, 1]: latents / scale + shift, post_quant_conv where the params have
+    one, then the decoder."""
     with span("dgq.vae"):
         x = latents / scale
-        x = conv2d(params["post_quant_conv"], x, 1, 0)
+        if shift:
+            x = x + shift
+        if "post_quant_conv" in params:
+            x = conv2d(params["post_quant_conv"], x, 1, 0)
         x = conv2d(params["decoder.conv_in"], x, 1, 1)
         x = _resnet(params, "decoder.mid_block.resnets.0", x)
         x = _attn(params, "decoder.mid_block.attentions.0", x)
@@ -73,13 +84,14 @@ def vae_decode(params: dict, latents: torch.Tensor, scale: float = SD_VAE_SCALE)
         return conv2d(params["decoder.conv_out"], x, 1, 1)
 
 
-def vae_decoder_spec(base: int = 128):
+def vae_decoder_spec(base: int = 128, latent_channels: int = 4, post_quant_conv: bool = True):
     """(name, kind, meta) spec. base=128 is real SD; smaller for tests.
-    Channels: conv_in -> 4*base; up stages [4b, 4b, 2b, b]."""
-    c4, c2, c1 = base * 4, base * 2, base
-    spec = [
-        ("post_quant_conv", "conv", (4, 4, 1, 1, 0)),
-        ("decoder.conv_in", "conv", (4, c4, 3, 1, 1)),
+    Channels: conv_in -> 4*base; up stages [4b, 4b, 2b, b]. SD3:
+    latent_channels=16, post_quant_conv=False."""
+    c4, c2, c1, z = base * 4, base * 2, base, latent_channels
+    spec = [("post_quant_conv", "conv", (z, z, 1, 1, 0))] if post_quant_conv else []
+    spec += [
+        ("decoder.conv_in", "conv", (z, c4, 3, 1, 1)),
         ("decoder.conv_norm_out", "groupnorm", (c1,)),
         ("decoder.conv_out", "conv", (c1, 3, 3, 1, 1)),
     ]
@@ -116,8 +128,8 @@ def vae_decoder_spec(base: int = 128):
 
 
 def init_vae_decoder(generator: torch.Generator, device="cuda", base: int = 128,
-                     dtype=torch.float32) -> dict:
-    return init_unet_sd(generator, device, dtype, spec=vae_decoder_spec(base))
+                     dtype=torch.float32, **spec_kw) -> dict:
+    return init_unet_sd(generator, device, dtype, spec=vae_decoder_spec(base, **spec_kw))
 
 
 def hf_vae_to_params(state: dict, device="cuda") -> dict:

@@ -298,7 +298,7 @@ def test_prepare_pipeline_missing_parts(tmp_path, sdxl):
     with pytest.raises(RuntimeError, match="tokenizers"):
         xpipe.encode_prompts(["a dog"])
     with pytest.raises(ValueError, match="unknown model type"):
-        TP.prepare_pipeline("sd3", str(tmp_path), unet_params={}, device="cpu")
+        TP.prepare_pipeline("sd2", str(tmp_path), unet_params={}, device="cpu")
 
 
 def test_sdxl_prompt_path_with_tokenizer(tokenizer_dir, sdxl):
