@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # from the repository root; needs one CUDA card
     python3 chip_smoke.py --fake-quant  # the build and phase 2a's fake quantizer rows alone
+    python3 chip_smoke.py --linear-gemm # the build and phase 2b's f32 linear rows alone
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the hand-written CUDA kernels from dgq_tpu_torch/csrc/ (nvcc, sm_90a,
@@ -29,7 +30,14 @@ Phases (any failure raises, so the exit code is non-zero):
      the library's one-pass `torch.fake_quantize_per_tensor_affine` (other
      bits) as a yardstick. Every path below counts the kernel's launches and
      the card's quantizers left on the chain (`_check_fake_quant`);
-  2b. `int8_conv`: the s8 conv of `use_int8_conv` (a library route: codes,
+  2b. `compare_linear_gemm`: the 3xTF32 GEMM of the f32 linears
+     (`ops.linear_gemm`) at every f32 linear shape of the benchmark's
+     generation cells (`LINEAR_SHAPES`): its error against f64 within twice
+     the library f32 product's, against the plain version, device-only ms
+     beside its 3xTF32 bound, `F.linear`'s time (`library_ms`) and the plain
+     version's; every path below prints its GEMM launches and the f32
+     linears it left to the library;
+  2c. `int8_conv`: the s8 conv of `use_int8_conv` (a library route: codes,
      an unfold from strided views, `torch._int_mm`, the f32 correction; no
      hand-written kernel) at SD's and SDXL's k x k shapes, A8 and A6, f32
      and bf16: the card's codes, s32 accumulator and window sums equal the
@@ -186,6 +194,7 @@ ATTN_SRC = "dgq_tpu_torch/csrc/attention.cu"
 CONV_SRC = "dgq_tpu_torch/csrc/group_conv.cu"
 INT8_SRC = "dgq_tpu_torch/csrc/int8_matmul.cu"
 FQ_SRC = "dgq_tpu_torch/csrc/fake_quant.cu"
+LG_SRC = "dgq_tpu_torch/csrc/linear_gemm.cu"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "static_uniform_attention": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:256"),
@@ -203,6 +212,8 @@ KERNELS = {
     "static_quant_attention_packed": (ATTN_SRC, "dgq_tpu/ops/pallas/attention.py:916"),
     # replaces no TPU kernel: XLA fuses the JAX package's chain into one pass
     "fake_quant": (FQ_SRC, "none (XLA fuses dgq_tpu/quant/affine.py:49 fake_quant)"),
+    # replaces no TPU kernel: the JAX package's linears are XLA's dot
+    "linear_gemm": (LG_SRC, "none (XLA's dot: dgq_tpu/models/layers.py linear)"),
 }
 CLASSIC_ATTENTION = ("static_uniform_attention", "rt_stats", "quant_accum",
                      "static_quant_attention")
@@ -213,6 +224,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 # the special-function unit: 16 exponentials a clock on each of 132 SMs at the
 # 1.98 GHz boost clock (H100 SXM), the floor of the kernels that take one
 # exponential per score (K1 two passes, rt_stats one)
@@ -1036,6 +1048,131 @@ def compare_fake_quant(tag, summary):
     torch.cuda.empty_cache()
 
 
+# Every f32 linear of the benchmark's generation cells that `layers.linear`
+# sends to the kernel (at least MIN_ROWS rows): label, M, K, N, bias. SD3
+# medium at CFG batch 4 (4096 image and 333 text tokens a sample), SDXL-turbo
+# at batch 4 (1024px: 4096 and 1024 tokens, 77 text tokens), SD v1.4 at CFG
+# batch 8 (512px: 4096 to 64 tokens), and the VAEs' mid-block attention.
+# Ragged M: 1332, 616, 308 rows. Then two shapes no cell runs, every edge
+# ragged, one with no bias.
+LINEAR_SHAPES = [
+    ("SD3 image q, k, v, out", 16384, 1536, 1536, True),
+    ("SD3 image FF in", 16384, 1536, 6144, True),
+    ("SD3 image FF out", 16384, 6144, 1536, True),
+    ("SD3 proj_out", 16384, 1536, 64, True),
+    ("SD3 text q, k, v, out", 1332, 1536, 1536, True),
+    ("SD3 text FF in", 1332, 1536, 6144, True),
+    ("SD3 text FF out", 1332, 6144, 1536, True),
+    ("SD3 context_embedder", 1332, 4096, 1536, True),
+    ("SDXL 64px q, k, v (no bias)", 16384, 640, 640, False),
+    ("SDXL 64px out, proj_in, proj_out", 16384, 640, 640, True),
+    ("SDXL 64px GEGLU in", 16384, 640, 5120, True),
+    ("SDXL 64px FF out", 16384, 2560, 640, True),
+    ("SDXL 32px q, k, v (no bias)", 4096, 1280, 1280, False),
+    ("SDXL 32px GEGLU in", 4096, 1280, 10240, True),
+    ("SDXL 32px FF out", 4096, 5120, 1280, True),
+    ("SDXL cross k, v at 640 (no bias)", 308, 2048, 640, False),
+    ("SDXL cross k, v at 1280 (no bias)", 308, 2048, 1280, False),
+    ("SD 64px q, k, v (no bias)", 32768, 320, 320, False),
+    ("SD 64px GEGLU in", 32768, 320, 2560, True),
+    ("SD 64px FF out", 32768, 1280, 320, True),
+    ("SD 32px GEGLU in", 8192, 640, 5120, True),
+    ("SD 16px GEGLU in", 2048, 1280, 10240, True),
+    ("SD 8px q, k, v (no bias)", 512, 1280, 1280, False),
+    ("SD 8px GEGLU in", 512, 1280, 10240, True),
+    ("SD 8px FF out", 512, 5120, 1280, True),
+    ("SD cross k, v at 320 (no bias)", 616, 768, 320, False),
+    ("SD cross k, v at 1280 (no bias)", 616, 768, 1280, False),
+    ("VAE 512px mid attention", 16384, 512, 512, True),
+    ("VAE 1024px mid attention, SD3", 32768, 512, 512, True),
+    ("VAE 1024px mid attention, SDXL", 65536, 512, 512, True),
+    ("ragged M, N and K", 1001, 1004, 300, True),
+    ("ragged, no bias", 129, 36, 100, False),
+]
+
+
+def _w4_folded(n, k, g):
+    """An (n, k) f32 weight as the cells hold one: N(0, 1/k), then W4 minmax
+    per output channel, folded (the dequantized values)."""
+    import torch
+
+    w = torch.randn(n, k, generator=g, device="cuda") / k ** 0.5
+    lo, hi = w.amin(1, keepdim=True), w.amax(1, keepdim=True)
+    delta = (hi - lo) / 15
+    zp = torch.round(-lo / delta)
+    return (torch.clamp(torch.round(w / delta) + zp, 0, 15) - zp) * delta
+
+
+def compare_linear_gemm(tag, summary):
+    """`ops.linear_gemm`'s kernel at `LINEAR_SHAPES` (x N(0, 1), W4-folded
+    weights, f32 bias N(0, 1)): its error and `F.linear`'s (TF32 off, as the
+    cells run it) against the f64 product, the kernel's at most twice the
+    library's; its output against the plain version (`linear_gemm_reference`,
+    the three TF32 products in f32), within four times the library's error.
+    Device-only ms of the kernel and of `F.linear` and the bias add it
+    replaces (`library_ms`), the plain version's median ms, the 3xTF32 bound
+    (2 M N K operations, three times, at 495 TFLOP/s) and the kernel's share
+    of it, the f32 cores' bound (67 TFLOP/s), host us a call, and the plan."""
+    import torch
+    import torch.nn.functional as F
+    from dgq_tpu_torch.ops import linear_gemm as LG
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 products: the library yardstick would not be f32")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for label, m, k, n, has_bias in LINEAR_SHAPES:
+        x = torch.randn(m, k, generator=g, device="cuda")
+        w = _w4_folded(n, k, g)
+        b = torch.randn(n, generator=g, device="cuda") if has_bias else None
+
+        def kernel():
+            return LG.linear_gemm(x, w, b)
+
+        def library():
+            y = F.linear(x, w)
+            return y if b is None else y + b
+
+        def plain():
+            return LG.linear_gemm_reference(x, w, b)
+
+        before = LG.LAUNCHES["linear_gemm"]
+        out, lib, ref = kernel(), library(), plain()
+        torch.cuda.synchronize()
+        if LG.LAUNCHES["linear_gemm"] != before + 1 or not out.is_contiguous():
+            raise AssertionError(f"linear_gemm {label}: no launch, or a strided output")
+        exact = x.double() @ w.double().T + (0 if b is None else b.double())
+        err, lib_err = (float((t.double() - exact).abs().max()) for t in (out, lib))
+        plain_gap = float((out - ref).abs().max())
+        # the rows no cell runs have K as short as 36, where the library adds
+        # few terms and the kernel's rounding-toward-zero chain (12 adds) is
+        # what is left: there 16 f32 ulps of the largest output bound it too
+        room = 2 * lib_err
+        if label.startswith("ragged"):
+            room = max(room, 16 * 2.0 ** -23 * float(exact.abs().max()))
+        if not bool(out.isfinite().all()) or err > room or plain_gap > 2 * room:
+            raise AssertionError(f"linear_gemm {label}: error {err:.3g} against f64 (library "
+                                 f"{lib_err:.3g}), {plain_gap:.3g} against the plain version")
+        del out, exact, lib, ref
+        ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+        dev, lib_dev = _device_ms(kernel), _device_ms(library)
+        host, lib_host = _host_us(kernel), _host_us(library)
+        flops = 2.0 * m * n * k
+        bound = (1e3 * 3 * flops / PEAK_TF32_FLOPS, "operations")
+        summary.add("linear_gemm", label, err, ms, plain_ms, bound, lib_dev, device_ms=dev)
+        print(f"linear_gemm {label} (M {m}, K {k}, N {n}, {'bias' if b is not None else 'no bias'}"
+              f", plan {tuple(LG.gemm_plan(m, n))}, `layers.linear` takes the kernel: "
+              f"{LG.kernel_takes(x, w, b)}): max_abs_err against f64 {err:.3e}, library "
+              f"{lib_err:.3e} ({err / lib_err:.2f}x), against the plain version {plain_gap:.3e}; "
+              f"device-only ms {dev:.4f}, 3xTF32 bound {bound[0]:.4f} ({100 * bound[0] / dev:.1f}% "
+              f"of it, {flops / dev / 1e9:.1f} TFLOP/s), f32 cores' bound "
+              f"{1e3 * flops / PEAK_F32_FLOPS:.4f}; library (F.linear{' + b' if b is not None else ''}"
+              f", TF32 off) {lib_dev:.4f} ({lib_dev / dev:.2f}x); plain median ms {plain_ms:.4f}; "
+              f"median ms kernel {ms:.4f}; host us a call {host:.1f}, library {lib_host:.1f} | "
+              f"{tag}", flush=True)
+        del x, w, b
+    torch.cuda.empty_cache()
+
+
 # K6's shapes on the main paths (batch IMAGES, SD with CFG): label, M, K, N;
 # then two ragged ones that no path runs: M and K off the tiles (K % 16 = 8:
 # the element-load form), and every edge odd
@@ -1208,7 +1345,7 @@ INT8_CONV_SHAPES = (
 
 
 def int8_conv(tag):
-    """Phase 2b, the s8 conv (`use_int8_conv`, `models.layers._int8_conv`: the
+    """Phase 2c, the s8 conv (`use_int8_conv`, `models.layers._int8_conv`: the
     codes, an unfold from strided views and `torch._int_mm`, the f32
     correction; no hand-written kernel) at SD's and SDXL's k x k shapes, W4
     minmax codes, A8 in f32 and bf16 and A6 in f32 at the first two shapes.
@@ -1318,31 +1455,37 @@ def _count_int8_convs():
 
 def _launch_counts():
     from dgq_tpu_torch.ops import attention as A, fake_quant as FQ, group_conv as G
-    from dgq_tpu_torch.ops import int8_matmul as M8
+    from dgq_tpu_torch.ops import int8_matmul as M8, linear_gemm as LG
 
-    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES, **FQ.LAUNCHES, **INT8_CONV_CALLS}
+    return {**A.LAUNCHES, **G.LAUNCHES, **M8.LAUNCHES, **FQ.LAUNCHES, **LG.LAUNCHES,
+            **INT8_CONV_CALLS}
 
 
 def _reset_launch_counts():
     from dgq_tpu_torch.ops import attention as A, fake_quant as FQ, group_conv as G
-    from dgq_tpu_torch.ops import int8_matmul as M8
+    from dgq_tpu_torch.ops import int8_matmul as M8, linear_gemm as LG
 
     A.reset_launch_counts()
     G.reset_launch_counts()
     M8.reset_launch_counts()
     FQ.reset_launch_counts()
+    LG.reset_launch_counts()
     INT8_CONV_CALLS["int8_conv"] = 0
 
 
 # the activation fake quantizer's counts in `_launch_counts`: its kernel's
 # launches, and the card's quantizers `aq_apply` sent to the plain chain
 FQ_COUNTS = ("fake_quant", "fake_quant_plain")
+# the f32 linears' counts: the GEMM's launches, and the card's f32 linears
+# `layers.linear` left to the library (printed with every path's launches;
+# how many a path runs follows its shapes, not a kernel flag)
+LINEAR_COUNTS = ("linear_gemm", "linear_library")
 
 
 def _kernels_only(launches):
     """`launches` without the fake quantizer's counts, which
-    `_check_fake_quant` holds apart."""
-    return {n: c for n, c in launches.items() if n not in FQ_COUNTS}
+    `_check_fake_quant` holds apart, and the f32 linears'."""
+    return {n: c for n, c in launches.items() if n not in FQ_COUNTS + LINEAR_COUNTS}
 
 
 def _param_dtype(qstate):
@@ -5417,6 +5560,10 @@ def print_build_report(paths, tag):
                 kname = (f"K2/K2p flash 3xTF32 wgmma D<={8 * int(tf.group(2))} BK={tf.group(3)} "
                          f"{tf.group(5)} x {tf.group(4)} columns"
                          + (" 16-byte loads" if tf.group(6) == "1" else " element loads"))
+            elif "linear_tf32x3_gemm_kernel" in sym:
+                kname = ("linear GEMM 3xTF32 wgmma 128 x "
+                         f"{re.search(r'gemm_kernelILi(\d+)E', sym).group(1)} tiles (registers "
+                         "at entry; the consumers take 232 by setmaxnreg)")
             elif "group_conv_tf32_kernel" in sym:
                 kname = "K5 group_conv 3xTF32 wgmma" + (" split K" if "ILb1E" in sym else "")
             elif "group_conv_tc_kernel" in sym:
@@ -5476,6 +5623,23 @@ def fake_quant_alone():
     build.load_kernels()
     print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
     compare_fake_quant(f"card: {card}", _Summary())
+
+
+def linear_gemm_alone():
+    """`compare_linear_gemm` by itself: build the kernels, then the rows."""
+    import torch
+    from dgq_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    paths = build.build_kernels()
+    build.load_kernels()
+    print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
+    print_build_report({"linear_gemm": paths["linear_gemm"]}, f"card: {card}")
+    summary = _Summary()
+    compare_linear_gemm(f"card: {card}", summary)
+    print(json.dumps(summary["linear_gemm"]))
 
 
 def main():
@@ -5564,6 +5728,7 @@ def _run_phases(build, built, compiling, reference, card, tag, t0):
     phase(compare_group_conv, tag, summary)
     phase(wrapper_host_cost, tag)
     phase(compare_fake_quant, tag, summary)
+    phase(compare_linear_gemm, tag, summary)
     phase(compare_int8, tag, summary)
     phase(int8_conv, tag)
     phase(small_input_check, *reference("small_input_reference"), tag)
@@ -5592,6 +5757,9 @@ def _run_phases(build, built, compiling, reference, card, tag, t0):
         # the f32 states' g=8 run: every per-tensor quantizer takes the kernel
         launches["fake_quant"] = cli["(b) README + --pallas_attn --group_impl fused"].get(
             "fake_quant", 0)
+        # ... and its f32 linears of 128 rows or more take the GEMM
+        launches["linear_gemm"] = cli["(b) README + --pallas_attn --group_impl fused"].get(
+            "linear_gemm", 0)
         torch.cuda.empty_cache()
         phase(f32_bodies, tag)
         phase(text_encoders_full_width, tag)
@@ -5630,5 +5798,7 @@ if __name__ == "__main__":
         sys.exit(recon_fit())
     elif sys.argv[1:] == ["--fake-quant"]:
         fake_quant_alone()
+    elif sys.argv[1:] == ["--linear-gemm"]:
+        linear_gemm_alone()
     else:
         main()

@@ -1,8 +1,8 @@
-// Tensor-core tile code shared by the flash attention kernel (attention.cu) and
-// the group-quantized conv (group_conv.cu): Hopper's warpgroup matrix multiply
-// (`wgmma`, sm_90a) on bf16 operands that lie in shared memory as swizzled
-// sub-tiles, the asynchronous copies that fill them, and the fences between
-// the two.
+// Tensor-core tile code shared by the flash attention kernel (attention.cu),
+// the group-quantized conv (group_conv.cu) and the f32 linear (linear_gemm.cu):
+// Hopper's warpgroup matrix multiply (`wgmma`, sm_90a) on bf16 operands that
+// lie in shared memory as swizzled sub-tiles, the asynchronous copies that
+// fill them, and the fences between the two.
 //
 // Operand sub-tile. Every shared-memory operand is cut into sub-tiles of R rows
 // by 64 bf16 (128 bytes a row, R a multiple of 8), each starting on a 1024-byte
@@ -171,6 +171,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
 #define TC_REGS20 TC_REGS16 ", %16, %17, %18, %19"
 #define TC_REGS32 TC_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define TC_REGS40 TC_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define TC_REGS64                                                                          \
+  TC_REGS40 ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
 
 // Tf32<N>::ss: d (64 x N) = A (64 x 8, shared) B (8 x N, shared) + (accumulate ? d : 0);
 // Tf32<N>::rs: the same with A (64 x 8) in registers; both operands K-major.
@@ -202,11 +205,14 @@ TC_TF32(32, 16, TC_REGS16, TC_ACC16(d, 0), 16, 17, 18, 16, 17, 18, 19, 20, 21)
 TC_TF32(40, 20, TC_REGS20, TC_ACC16(d, 0) TC_COMMA TC_ACC4(d, 16), 20, 21, 22, 20, 21, 22, 23, 24, 25)
 TC_TF32(64, 32, TC_REGS32, TC_ACC32(d, 0), 32, 33, 34, 32, 33, 34, 35, 36, 37)
 TC_TF32(80, 40, TC_REGS40, TC_ACC32(d, 0) TC_COMMA TC_ACC8(d, 32), 40, 41, 42, 40, 41, 42, 43, 44, 45)
+TC_TF32(128, 64, TC_REGS64, TC_ACC32(d, 0) TC_COMMA TC_ACC32(d, 32), 64, 65, 66, 64, 65, 66, 67, 68,
+        69)
 #undef TC_TF32
 #undef TC_REGS16
 #undef TC_REGS20
 #undef TC_REGS32
 #undef TC_REGS40
+#undef TC_REGS64
 #undef TC_ACC8
 #undef TC_COMMA
 #undef TC_ACC32

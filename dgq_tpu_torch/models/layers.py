@@ -52,6 +52,7 @@ from dgq_tpu_torch.models.qconfig import (
     softmax_q_apply,
     taps_active,
 )
+from dgq_tpu_torch.ops import linear_gemm
 from dgq_tpu_torch.ops.attention import fused_attention
 from dgq_tpu_torch.ops.group_conv import fused_eligible, group_quant_conv, matmul_f32acc
 from dgq_tpu_torch.ops.int8_matmul import quantized_matmul
@@ -61,12 +62,22 @@ from dgq_tpu_torch.utils.profiler import span
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """x @ w^T + b. On a card, an f32 product that wants no gradient and has
+    a shape the kernel takes launches the 3xTF32 GEMM (`ops.linear_gemm`,
+    bias in its epilogue); everything else, the CPU included, runs
+    `F.linear` and then the bias."""
     if "tp" in p:
         return column_parallel(linear, p, x)
-    y = F.linear(x, p["w"].to(x.dtype))
-    if p.get("b") is not None:
-        y = y + p["b"]
-    return y
+    w, b = p["w"].to(x.dtype), p.get("b")
+    with span("dgq.linear", device=True):
+        if linear_gemm.kernel_takes(x, w, b):
+            return linear_gemm.linear_gemm(x, w, b, checked=True)
+        if x.is_cuda and x.dtype == torch.float32:
+            linear_gemm.LAUNCHES["linear_library"] += 1
+        y = F.linear(x, w)
+        if b is not None:
+            y = y + b
+        return y
 
 
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:

@@ -101,6 +101,10 @@ _SIGNATURES = {
         "dgq_fake_quant": (_P, _P, _P, _P, _L, _L, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                            _I, _I, _I, _I, _I, _P),
     },
+    "linear_gemm": {
+        # x, w, bias, out, m, n, k, x_stride, w_stride, tile_n, grid, stream
+        "dgq_linear_gemm": (_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _P),
+    },
     "int8_matmul": {
         # x, wq, dx, zx, wsum, dw, zw, bias, out, dbg_codes, dbg_xsum, ws, counters, m, n,
         # k, a_bits, is_bf16, bias_bf16, form, splits, steps_per_split, stream

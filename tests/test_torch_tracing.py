@@ -155,7 +155,8 @@ def test_unet_and_sampler_spans_are_cpu_operations_in_order(net):
     inner = _inside(spans, unet)
     assert [n for n in inner if n in STAGES] == STAGES
     assert inner.count("dgq.fake_quant") > 100
-    assert set(inner) == set(STAGES) | {"dgq.fake_quant"}
+    assert inner.count("dgq.linear") > 10  # every linear's product, kernel or library
+    assert set(inner) == set(STAGES) | {"dgq.fake_quant", "dgq.linear"}
     slot = next(s for s in spans if s[0] == "dgq.sampler.slot")
     update = next(s for s in spans if s[0] == "dgq.sampler.update")
     assert slot[2] <= unet[1] and unet[2] <= update[1]
@@ -198,12 +199,17 @@ def test_each_adam_step_holds_one_span_of_each_phase(unit):
     steps = [s for s in spans if s[0] == "dgq.recon.step"]
     assert len(steps) == 3
     for step in steps:
-        assert sorted(_inside(spans, step)) == sorted(PHASES)
+        inner = _inside(spans, step)
+        # and the unit's linears (each runs the library's product: it wants a gradient)
+        assert inner.count("dgq.linear") > 0
+        assert sorted(n for n in inner if n != "dgq.linear") == sorted(PHASES)
     call = next(s for s in spans if s[0] == "dgq.recon.call")
     assert _inside(spans, call).count("dgq.recon.setup") == 1
     counters = P.device_counters()
+    linears = _inside(spans, steps[0]).count("dgq.linear")
     assert counters == {**{n: (3, None) for n in PHASES + ["dgq.recon.step"]},
-                        "dgq.recon.call": (1, None), "dgq.recon.setup": (1, None)}
+                        "dgq.recon.call": (1, None), "dgq.recon.setup": (1, None),
+                        "dgq.linear": (3 * linears, None)}
     P.reset_counters()
     assert P.device_counters() == {}
 
