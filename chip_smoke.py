@@ -79,8 +79,8 @@ Phases (any failure raises, so the exit code is non-zero):
      first UNet forward, and each kernel flag alone); the
      f32 kernel bodies these runs take against their plain versions
      (`f32_bodies`: K2/K2p, K5, K1, K3b and K4 on the tensor cores, three
-     TF32 products a product, P V of the quantizing modes two, beside the
-     CUDA-core bodies they replace);
+     TF32 products a product, P V of the quantizing modes two; K5, K1 and
+     K4 beside the CUDA-core bodies they replace at these shapes);
      then the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
   6. `calib_path`, after 4d: calibration without reconstruction from
@@ -2045,11 +2045,12 @@ def f32_bodies(tag):
     zeros in its padding lanes, K5 at every shape of `CONV_SHAPES` within
     `_check_conv(bf16=False)` with the fold kernel's panels, rd and z equal
     to `fold_panels(_fold(...))`'s bit for bit; each line names its form,
-    the first version's CUDA-core body's device ms on the same inputs (the
-    earlier time), the bound at the TF32 rate (three products) and at the
-    f32 rate outside the tensor cores, and for K2 and K2p (SD and SDXL heads
-    in slots of 64) `scaled_dot_product_attention` in f32 with TF32 off (a
-    yardstick the port never calls). K1, K3b and K4 (log2, and uniform with
+    the bound at the TF32 rate (three products) and at the f32 rate outside
+    the tensor cores, for K5, K1 and K4 the device ms of the first version's
+    CUDA-core body (form 0, kept for their wider heads and longer codes) on
+    the same inputs, and for K2 and K2p (SD and SDXL heads in slots of 64)
+    `scaled_dot_product_attention` in f32 with TF32 off (a yardstick the port
+    never calls). K1, K3b and K4 (log2, and uniform with
     start_peak) run on the tensor cores too, three TF32 products for Q K^T
     and two for P V, through their public wrappers at `F32_QUANT_SHAPES`, each
     launch checked to take that form: K1 within `_check_f32` with delta,
@@ -2071,12 +2072,14 @@ def f32_bodies(tag):
     out = {}
 
     def line(name, label, form, err, dev, old_dev, plain_ms, flops, nbytes, extra=""):
+        """old_dev: the CUDA-core body's device ms, None where it has none."""
         tf32, cores = _tf32_bound(flops, nbytes), _bound(flops, nbytes, peak=PEAK_F32_FLOPS)
         out[f"{name} {label}"] = dev
-        print(f"f32 {name} {label}, form {form}: max_abs_err {err:.4g}; device-only ms {dev:.4f} "
-              f"(the CUDA-core body's {old_dev:.4f}); bound {tf32[0]:.4f} at the TF32 rate, three "
-              f"products ({tf32[1]}; {dev / tf32[0]:.2f}x), {cores[0]:.4f} at the f32 rate "
-              f"({cores[1]}); plain {plain_ms:.4f}{extra} | {tag}", flush=True)
+        old = "" if old_dev is None else f" (the CUDA-core body's {old_dev:.4f})"
+        print(f"f32 {name} {label}, form {form}: max_abs_err {err:.4g}; device-only ms {dev:.4f}"
+              f"{old}; bound {tf32[0]:.4f} at the TF32 rate, three products ({tf32[1]}; "
+              f"{dev / tf32[0]:.2f}x), {cores[0]:.4f} at the f32 rate ({cores[1]}); plain "
+              f"{plain_ms:.4f}{extra} | {tag}", flush=True)
 
     for label, bh, t, d in F32_FLASH_SHAPES:
         # scores of spread 4, but of spread 1/4 at 16384 keys (the softmax would
@@ -2096,15 +2099,6 @@ def f32_bodies(tag):
             raise AssertionError(f"f32 flash_attention {label}: form {form}, no launch")
         err = _check_f32(got, plain(), v)[0]
         lib_err = float((F.scaled_dot_product_attention(q, k, v, scale=scale) - plain()).abs().max())
-        old_out = torch.empty_like(q)
-
-        def old():  # body (b), form 0 of the same C entry
-            rc = lib.dgq_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         old_out.data_ptr(), bh, t, t, d, scale, 0, 0, stream())
-            if rc:
-                raise RuntimeError(f"the CUDA-core flash body failed: CUDA error {rc}")
-        old()
-        old_err = float((old_out - got).abs().max())
         extra = ""
         if d in (40, 64):
             # K2p: the same body over packed head slots of 64 lanes, bit for bit
@@ -2136,15 +2130,14 @@ def f32_bodies(tag):
         nbytes = 4.0 * 4 * q.numel()
         slow = t == 16384
         dev = _device_ms(kernel, calls=4 if slow else 16, reps=3 if slow else 5)
-        old_dev = _device_ms(old, calls=1 if slow else 4, reps=3)
         lib_dev = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                              calls=4 if slow else 16, reps=3 if slow else 5)
         plain_ms = _median_ms(plain, reps=3)
         extra += (f"; scaled_dot_product_attention (f32, TF32 off) device-only ms {lib_dev:.4f}, "
-                  f"max_abs_err {lib_err:.4g}; the CUDA-core body's max |d| {old_err:.4g}")
-        line("flash_attention", label + f" (BH={bh}, T=S={t}, D={d})", form, err, dev, old_dev,
+                  f"max_abs_err {lib_err:.4g}")
+        line("flash_attention", label + f" (BH={bh}, T=S={t}, D={d})", form, err, dev, None,
              plain_ms, flops, nbytes, extra)
-        del q, k, v, got, old_out
+        del q, k, v, got
         torch.cuda.empty_cache()
 
     one, zero = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
@@ -2203,8 +2196,8 @@ def f32_bodies(tag):
              f"library: none")
         del x, w, got, old_out, w_t
 
-    # the quantizing modes on body (e) (3xTF32), each through its public wrapper, beside
-    # body (b), form 0 of the same C entry, on the same inputs
+    # the quantizing modes on body (e) (3xTF32), each through its public wrapper; K1 and K4
+    # beside body (b), form 0 of the same C entry, on the same inputs
     delta_u, half = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.5, device="cuda")
     for label, bh, t, s, d in F32_QUANT_SHAPES:
         q = 2.0 * torch.randn(bh, t, d, generator=g, device="cuda")
@@ -2220,20 +2213,10 @@ def f32_bodies(tag):
             raise AssertionError(f"f32 quantizing kernels {shape}: form {form}")
         z, red = A.rt_stats(q, k, scale, sp)
         buf_o = torch.empty_like(q)
-        buf_z = torch.empty_like(z)
-        buf_r = torch.empty_like(red)
 
-        def c_call(name, *, static=None):  # body (b), form 0 of the same C entry
+        def c_call(name, *, static=None):  # body (b), form 0 of the same C entry (K1, K4)
             p = (q.data_ptr(), k.data_ptr())
-            if name == "rt_stats":
-                buf_r.fill_(0.0 if sp else float("inf"))
-                rc = lib.dgq_rt_stats(*p, buf_z.data_ptr(), buf_r.data_ptr(), bh, t, s, d, scale,
-                                      int(sp), 0, 0, stream())
-            elif name == "quant_accum":
-                rc = lib.dgq_quant_accum(*p, v.data_ptr(), buf_o.data_ptr(), z.data_ptr(),
-                                         red.data_ptr(), bh, t, s, d, scale, 8, int(sp), 0, 0,
-                                         stream())
-            elif name == "static_uniform_attention":
+            if name == "static_uniform_attention":
                 rc = lib.dgq_uniform_attention(*p, v.data_ptr(), buf_o.data_ptr(), bh, t, s, d,
                                                scale, delta_u.data_ptr(), 8, 0, 0, stream())
             else:
@@ -2280,11 +2263,12 @@ def f32_bodies(tag):
                 raise AssertionError(f"f32 {name} {shape}: no launch")
             err, note = check(got, plain())
             static = {"log2": "log2", uni_sp: "uniform"}.get(quant)
-            old = lambda name=name, static=static: c_call(name, static=static)
-            old()
-            torch.cuda.synchronize()
-            first = got[0] if name == "rt_stats" else got
-            old_err = float(((buf_z if name == "rt_stats" else buf_o) - first).abs().max())
+            old = None  # K3b has no CUDA-core body
+            if name in ("static_uniform_attention", "static_quant_attention"):
+                old = lambda name=name, static=static: c_call(name, static=static)
+                old()
+                torch.cuda.synchronize()
+                note += f"; the CUDA-core body's max |d| {float((buf_o - got).abs().max()):.4g}"
             if name != "rt_stats" and label == F32_QUANT_SHAPES[0][0]:
                 # K1p to K4p: the packed entry over slots of 64 holding NaN, and the
                 # element-load form on a misaligned q, bit for bit
@@ -2320,13 +2304,12 @@ def f32_bodies(tag):
                 note += "; packed entry and misaligned q (tf32x3_plain) equal bit for bit"
                 del odd, zp, redp
             dev = _device_ms(fn)
-            old_dev = _device_ms(old, calls=4, reps=3)
+            old_dev = None if old is None else _device_ms(old, calls=4, reps=3)
             plain_ms = _median_ms(plain, reps=3)
             exps = {"rt_stats": 1, "quant_accum": 0}.get(name, 2) * bh * t * s  # a score each pass
-            extra = (f"{note}; the CUDA-core body's max |d| {old_err:.4g}; exponent-unit floor "
-                     f"{_exp_floor(exps):.4f}; library: none")
+            extra = f"{note}; exponent-unit floor {_exp_floor(exps):.4f}; library: none"
             line(name, f"{quant} {shape}", form, err, dev, old_dev, plain_ms, flops, nbytes, extra)
-        del q, k, v, z, red, buf_o, buf_z, buf_r
+        del q, k, v, z, red, buf_o
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = saved
     return out
@@ -2781,16 +2764,19 @@ def _counting_unet(counts, real):
 
 
 def _run_cli(phase, label, fn, argv, forwards, want, tag):
-    """fn(argv) with its UNet forwards counted; its seconds, peak memory and
+    """fn(argv) with its UNet forwards counted (the CLIs take each family's
+    forward from `models.families.FAMILIES`); its seconds, peak memory and
     launches printed, the forwards that reach the kernels held to `forwards`
     and the launches to want(those forwards)."""
+    import dataclasses
+
     import torch
-    from dgq_tpu_torch.models import unet_sd, unet_sdxl
+    from dgq_tpu_torch.models.families import FAMILIES
 
     counts = {"forwards": 0, "kernel_forwards": 0}
-    real_apply = unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply
-    unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply = (_counting_unet(counts, f)
-                                                        for f in real_apply)
+    real = {n: FAMILIES[n] for n in ("sd", "sdxl")}
+    FAMILIES.update({n: dataclasses.replace(f, apply=_counting_unet(counts, f.apply))
+                     for n, f in real.items()})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
@@ -2800,7 +2786,7 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        unet_sd.unet_sd_apply, unet_sdxl.unet_sdxl_apply = real_apply
+        FAMILIES.update(real)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launched = _launch_counts()
     got = {n: c for n, c in _kernels_only(launched).items() if c}

@@ -173,3 +173,18 @@ def generate_sdxl_cali_data(params: dict, ehs_text: torch.Tensor, pooled_embeds:
     _save_cache(cache_path, lmi=lmi_all, t=t_all, ehs=ehs_all, te=te_all, ti=ti_all,
                 interval=interval)
     return tuple(torch.from_numpy(a) for a in (lmi_all, t_all, ehs_all, te_all, ti_all)), interval
+
+
+def _sd_stand_ins(n, cross, pooled, seed, device):
+    return synthetic_prompt_embeddings(n, dim=cross, seed=seed, device=device)
+
+
+def _sdxl_stand_ins(n, cross, pooled, seed, device):
+    return synthetic_sdxl_embeddings(n, dim=cross, pooled_dim=pooled, seed=seed, device=device)
+
+
+# Each CLI family's stand-in prompt embeddings, (n, cross width, pooled width,
+# seed, device) -> the pair its sampler takes, and its calibration-data
+# generator, keyed as `models.families.FAMILIES`.
+STAND_IN_EMBEDDINGS = {"sd": _sd_stand_ins, "sdxl": _sdxl_stand_ins}
+CALI_DATA = {"sd": generate_sd_cali_data, "sdxl": generate_sdxl_cali_data}

@@ -1,15 +1,17 @@
 """Shared CLI plumbing (port of `dgq_tpu/cli/common.py`): the device,
-model construction and weight loading, logging, the quantization flags, the
-calibration inputs (prompt embeddings, calibration data and the cache key of
-their `.npz` file), and the process group of a multi-process run.
+logging, the quantization flags, the calibration inputs (prompt embeddings,
+calibration data and the cache key of their `.npz` file), and the process
+group of a multi-process run.
 
 In a run of several ranks (torchrun, or --multihost) only rank 0 writes
 files (checkpoints, run.log, partial saves, caches); the other ranks log to
 stderr under their rank. The JAX package's processes each write the same
 files; ROADMAP queue 3 keeps the difference.
 
-The model is chosen by --model {sd,sdxl}; the DIFFUSERS_REWRITE environment
-variable gives the default, as in the reference.
+The model is chosen by --model, one of `models.families.CLI_FAMILIES`, whose
+table holds what the CLIs know of each family (`models.families.build_model`
+builds it); the DIFFUSERS_REWRITE environment variable gives the default,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from dgq_tpu_torch.models.families import FAMILIES
 
 
 def model_type_from_env(default: str = "sd") -> str:
@@ -116,56 +120,6 @@ def setup_logging(outdir: str, device: str = "cuda") -> tuple[Optional[str], log
 
         log.info(describe_rank(device))
     return outpath, log
-
-
-def build_model(model_type: str, base: Optional[int] = None, seed: int = 0,
-                hf_unet_path: Optional[str] = None, sdxl_depths: tuple = (2, 10),
-                init_params: bool = True, device="cuda", host: bool = False):
-    """-> (spec, params, unet_apply, latent_hw, cross).
-
-    hf_unet_path: a torch state dict (file or snapshot directory) of the
-    reference UNet, converted on load. Without it, random weights drawn on
-    `device` from a generator seeded with `seed` (smoke and benchmark runs
-    only); init_params=False gives params=None, for callers that take the
-    weights from a checkpoint. host=True keeps the whole weights on the
-    host, for a run that moves only its shards to the card
-    (`parallel.mesh.shard_params_tp`): random weights are still drawn on
-    `device`, the same values, one leaf at a time."""
-    if model_type == "sd":
-        from dgq_tpu_torch.models.unet_sd import sd_unet_spec, unet_sd_apply
-
-        spec = sd_unet_spec(base=base or 320)
-        apply_fn, latent_hw, cross = unet_sd_apply, 64, 768
-    elif model_type == "sdxl":
-        from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec, unet_sdxl_apply
-
-        spec = sdxl_unet_spec(base=base or 320, depths=tuple(sdxl_depths))
-        apply_fn, latent_hw, cross = unet_sdxl_apply, 128, 2048
-    else:
-        raise ValueError(f"unknown model type {model_type}")
-
-    if hf_unet_path:
-        from dgq_tpu_torch.io.convert import torch_unet_to_params
-        from dgq_tpu_torch.io.hf_loader import load_state_dict_any
-
-        params = torch_unet_to_params(load_state_dict_any(hf_unet_path), spec,
-                                      "cpu" if host else device)
-    elif init_params:
-        from dgq_tpu_torch.models.unet_sd import init_unet_sd
-
-        params = init_unet_sd(torch.Generator(device=device).manual_seed(seed), device,
-                              spec=spec, store="cpu" if host else None)
-    else:
-        params = None
-    return spec, params, apply_fn, latent_hw, cross
-
-
-def pooled_dim_for(model_type: str, base: Optional[int] = None) -> int:
-    """SDXL's pooled text-embedding width: add_embedding.linear_1 takes
-    [pooled, 6 * add_ch] with pooled = the time-embedding width, 4 * base
-    (1280 for the real model)."""
-    del model_type
-    return 4 * (base or 320)
 
 
 def load_prompts(path: str, num: int, seed: Optional[int] = None) -> list:
@@ -268,14 +222,35 @@ def _params_fingerprint(params: dict) -> str:
     return h.hexdigest()[:12]
 
 
+def text_encoders_from_args(args, count: int, device="cuda"):
+    """A family's first `count` text encoders and tokenizers (--text_weights /
+    --tokenizer, then the _2 pair), each pair loaded where both its files are
+    given, else None -> (params, tokenizers, whether all are there: else
+    stand-in embeddings take the prompts' place)."""
+    flags = ((args.text_weights, args.tokenizer), (args.text_weights_2, args.tokenizer_2))
+    texts, tokenizers = [None] * count, [None] * count
+    for i, (weights, tok) in enumerate(flags[:count]):
+        if weights and tok:
+            from transformers import CLIPTokenizer
+
+            from dgq_tpu_torch.io.hf_loader import load_state_dict_any
+            from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
+
+            texts[i] = hf_clip_text_to_params(load_state_dict_any(weights), device)
+            tokenizers[i] = CLIPTokenizer.from_pretrained(tok)
+    return texts, tokenizers, count > 0 and None not in texts + tokenizers
+
+
 def encode_cali_prompts(model_type: str, prompts: list, text_weights: str, tokenizer_path: str,
                         text_weights_2: Optional[str] = None,
                         tokenizer_2_path: Optional[str] = None, batch_size: int = 16,
                         device="cuda"):
-    """Real captions through the CLIP text encoder(s), for calibration data.
-    SD: (text, uncond), the conditional and empty-prompt embeddings of the
-    CFG pair. SDXL-turbo (guidance 0): (ehs, pooled) of the dual encoders.
-    `transformers` is imported only for the tokenizers."""
+    """Real captions through the CLIP text encoder(s), for calibration data:
+    the family's pair (keyed as `models.families.FAMILIES`). SD: (text,
+    uncond), the conditional and empty-prompt embeddings of the CFG pair.
+    SDXL-turbo (guidance 0): (ehs, pooled) of the dual encoders, the second
+    encoder and tokenizer defaulting to the first. `transformers` is imported
+    only for the tokenizers."""
     from transformers import CLIPTokenizer
 
     from dgq_tpu_torch.io.hf_loader import load_state_dict_any
@@ -295,33 +270,39 @@ def encode_cali_prompts(model_type: str, prompts: list, text_weights: str, token
     params = hf_clip_text_to_params(load_state_dict_any(text_weights), device)
     layers, heads = clip_meta_from_params(params)
     chunks = [list(prompts[i:i + batch_size]) for i in range(0, len(prompts), batch_size)]
-    if model_type == "sd":
+
+    def cfg_pair():
         texts = [clip_text_encode(params, ids_of(tok, c), layers, heads) for c in chunks]
         unconds = [clip_text_encode(params, ids_of(tok, [""] * len(c)), layers, heads)
                    for c in chunks]
         return torch.cat(texts), torch.cat(unconds)
-    tok2 = CLIPTokenizer.from_pretrained(tokenizer_2_path) if tokenizer_2_path else tok
-    params2 = (hf_clip_text_to_params(load_state_dict_any(text_weights_2), device)
-               if text_weights_2 else params)
-    layers2, heads2 = clip_meta_from_params(params2)
-    ehss, pooleds = [], []
-    for c in chunks:
-        ehs, pooled = sdxl_encode_prompt(params, params2, ids_of(tok, c), ids_of(tok2, c),
-                                         layers_l=layers, heads_l=heads, layers_g=layers2,
-                                         heads_g=heads2, eos_id=tok2.eos_token_id)
-        ehss.append(ehs)
-        pooleds.append(pooled)
-    return torch.cat(ehss), torch.cat(pooleds)
+
+    def dual_pair():
+        tok2 = CLIPTokenizer.from_pretrained(tokenizer_2_path) if tokenizer_2_path else tok
+        params2 = (hf_clip_text_to_params(load_state_dict_any(text_weights_2), device)
+                   if text_weights_2 else params)
+        layers2, heads2 = clip_meta_from_params(params2)
+        ehss, pooleds = [], []
+        for c in chunks:
+            ehs, pooled = sdxl_encode_prompt(params, params2, ids_of(tok, c), ids_of(tok2, c),
+                                             layers_l=layers, heads_l=heads, layers_g=layers2,
+                                             heads_g=heads2, eos_id=tok2.eos_token_id)
+            ehss.append(ehs)
+            pooleds.append(pooled)
+        return torch.cat(ehss), torch.cat(pooleds)
+
+    return {"sd": cfg_pair, "sdxl": dual_pair}[model_type]()
 
 
 def cali_embeddings_from_args(args, model_type: str, cross: int, n_prompts: int, seed: int,
                               pooled_dim: Optional[int] = None, device="cuda"):
     """The calibration prompt embeddings of a CLI run: real captions through
     real text-encoder weights when --prompt_path / --text_weights /
-    --tokenizer are given, synthetic embeddings otherwise. -> (pair, tag),
-    the tag for the cache key ('' for the synthetic path, a content hash of
-    the real embeddings otherwise)."""
-    from dgq_tpu_torch.calib.data import synthetic_prompt_embeddings, synthetic_sdxl_embeddings
+    --tokenizer are given, synthetic embeddings otherwise (pooled_dim: their
+    pooled width, the family's by default). -> (pair, tag), the tag for the
+    cache key ('' for the synthetic path, a content hash of the real
+    embeddings otherwise)."""
+    from dgq_tpu_torch.calib.data import STAND_IN_EMBEDDINGS
 
     prompt_path = getattr(args, "prompt_path", None)
     if prompt_path:
@@ -335,11 +316,8 @@ def cali_embeddings_from_args(args, model_type: str, cross: int, n_prompts: int,
                                    tokenizer_2_path=getattr(args, "tokenizer_2", None),
                                    device=device)
         return pair, "_c" + _params_fingerprint({"t": pair[0], "u": pair[1]})
-    if model_type == "sd":
-        return synthetic_prompt_embeddings(n_prompts, dim=cross, seed=seed, device=device), ""
-    return synthetic_sdxl_embeddings(n_prompts, dim=cross,
-                                     pooled_dim=pooled_dim or pooled_dim_for(model_type),
-                                     seed=seed, device=device), ""
+    pooled = pooled_dim or FAMILIES[model_type].pooled
+    return STAND_IN_EMBEDDINGS[model_type](n_prompts, cross, pooled, seed, device), ""
 
 
 def build_cali_data(model_type: str, params: dict, apply_fn, cross: int, n_prompts: int,
@@ -355,28 +333,16 @@ def build_cali_data(model_type: str, params: dict, apply_fn, cross: int, n_promp
     derives the cache file name here, from everything that changes the data
     (prompts, steps, resolution, seed, a fingerprint of the weights), in the
     JAX package's form; cache_path overrides it verbatim."""
-    from dgq_tpu_torch.calib.data import (
-        generate_sd_cali_data,
-        generate_sdxl_cali_data,
-        synthetic_prompt_embeddings,
-        synthetic_sdxl_embeddings,
-    )
+    from dgq_tpu_torch.calib.data import CALI_DATA, STAND_IN_EMBEDDINGS
 
     if cache_path is None and cache_prefix is not None:
         cache_path = (f"{cache_prefix}_{model_type}_{steps}steps_n{n_prompts}"
                       f"_hw{latent_hw}_s{seed}_p{_params_fingerprint(params)}{embeds_tag}.npz")
     device = params["conv_in"]["w"].device
-    if model_type == "sd":
-        text, uncond = embeds or synthetic_prompt_embeddings(n_prompts, dim=cross, seed=seed,
-                                                             device=device)
-        return generate_sd_cali_data(params, text, uncond, steps=steps, scheduler="pndm",
-                                     latent_hw=latent_hw, seed=seed, cache_path=cache_path,
-                                     unet_apply=apply_fn)
-    text, pooled = embeds or synthetic_sdxl_embeddings(
-        n_prompts, dim=cross, pooled_dim=pooled_dim or pooled_dim_for(model_type), seed=seed,
-        device=device)
-    return generate_sdxl_cali_data(params, text, pooled, steps=steps, latent_hw=latent_hw,
-                                   seed=seed, cache_path=cache_path, unet_apply=apply_fn)
+    pooled = pooled_dim or FAMILIES[model_type].pooled
+    pair = embeds or STAND_IN_EMBEDDINGS[model_type](n_prompts, cross, pooled, seed, device)
+    return CALI_DATA[model_type](params, *pair, steps=steps, latent_hw=latent_hw, seed=seed,
+                                 cache_path=cache_path, unet_apply=apply_fn)
 
 
 def parse_depths(s: str) -> tuple:

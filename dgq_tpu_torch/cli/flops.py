@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import argparse
 
+from dgq_tpu_torch.models.families import CLI_FAMILIES, FAMILIES
 from dgq_tpu_torch.utils.flops import H100_BF16_TFS, H100_HBM_GBS, bops, spec_cost, spec_roofline
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="DGQ model cost accounting (PyTorch port)")
-    ap.add_argument("--model", default="sd", choices=["sd", "sdxl"])
+    ap.add_argument("--model", default="sd", choices=CLI_FAMILIES)
     ap.add_argument("--wq", type=int, default=32)
     ap.add_argument("--aq", type=int, default=32)
     ap.add_argument("--roofline", action="store_true",
@@ -38,14 +39,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.model == "sd":
-        from dgq_tpu_torch.models.unet_sd import sd_unet_spec
-
-        spec, hw = sd_unet_spec(), 64
-    else:
-        from dgq_tpu_torch.models.unet_sdxl import sdxl_unet_spec
-
-        spec, hw = sdxl_unet_spec(), 128
+    fam = FAMILIES[args.model]
+    spec, hw = fam.spec(), fam.latent_hw
     cost = spec_cost(spec, latent_hw=hw)
     print(f"#Params: {cost['params'] / 1e6:.4f} M")
     print(f"#MACs: {cost['macs'] / 1e9:.4f} G")
@@ -55,7 +50,7 @@ def main(argv=None) -> None:
     if args.roofline:
         r = spec_roofline(spec, latent_hw=hw, batch=args.batch,
                           peak_tfs=args.peak_tfs, hbm_gbs=args.hbm_gbs,
-                          attn_head_dim=64 if args.model == "sdxl" else None)
+                          attn_head_dim=fam.attn_head_dim)
         print(f"\nRoofline, one UNet forward, batch {args.batch} "
               f"({args.peak_tfs:.0f} TF/s, {args.hbm_gbs:.0f} GB/s):")
         print(f"{'latent':>8} {'compute ms':>11} {'memory ms':>10} "

@@ -61,9 +61,10 @@ def read_prompts(path: str) -> list[str]:
 
 def parse_args(argv=None):
     from dgq_tpu_torch.cli.common import add_quant_args, model_type_from_env
+    from dgq_tpu_torch.models.families import CLI_FAMILIES
 
     ap = argparse.ArgumentParser(description="DGQ eval generation (PyTorch port)")
-    ap.add_argument("--model", default=model_type_from_env(), choices=["sd", "sdxl"])
+    ap.add_argument("--model", default=model_type_from_env(), choices=CLI_FAMILIES)
     add_quant_args(ap)
     ap.add_argument("--prompts", required=True, help="metadata.csv / PartiPrompts.tsv")
     ap.add_argument("--outdir", default="eval_images")
@@ -100,13 +101,13 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from dgq_tpu_torch.cli.common import (
         announce_rank,
-        build_model,
         dp_mesh,
         maybe_init_multihost,
-        pooled_dim_for,
         qconfig_from_args,
         resolve_device,
+        text_encoders_from_args,
     )
+    from dgq_tpu_torch.models.families import FAMILIES, build_model, pooled_dim_for
 
     if args.batch % args.dp:
         raise SystemExit(f"--batch {args.batch} must be a multiple of --dp {args.dp}")
@@ -116,15 +117,15 @@ def main(argv=None) -> dict:
     announce_rank(device)
     import torch
 
-    from dgq_tpu_torch.calib.data import synthetic_prompt_embeddings, synthetic_sdxl_embeddings
+    from dgq_tpu_torch.calib.data import STAND_IN_EMBEDDINGS
     from dgq_tpu_torch.io.hf_loader import load_state_dict_any
     from dgq_tpu_torch.models.qconfig import QConfig
     from dgq_tpu_torch.parallel.mesh import batch_rows, batch_split, shard_prompts
-    from dgq_tpu_torch.pipeline.sd_pipeline import SDPipeline, SDXLTurboPipeline
-    from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
+    from dgq_tpu_torch.pipeline.prepare import PIPELINES
     from dgq_tpu_torch.pipeline.vae import hf_vae_to_params
 
-    steps = args.steps if args.steps > 0 else (25 if args.model == "sd" else 4)
+    fam = FAMILIES[args.model]
+    steps = args.steps if args.steps > 0 else fam.steps
     all_prompts = read_prompts(args.prompts)
     prompts = shard_prompts(all_prompts, args.gpu_rank, args.world_size)
     # this rank's global prompt index base (shard_prompts slices contiguously),
@@ -171,54 +172,26 @@ def main(argv=None) -> dict:
 
             params_q, _ = quantize_model_weights(params, spec, cfg)
 
-    # text encoders and tokenizers are optional: stand-in embeddings without them
-    text_params = text_params_2 = tokenizer = tokenizer_2 = vae_params = None
-    if args.text_weights and args.tokenizer:
-        from transformers import CLIPTokenizer
-
-        text_params = hf_clip_text_to_params(load_state_dict_any(args.text_weights), device)
-        tokenizer = CLIPTokenizer.from_pretrained(args.tokenizer)
-    if args.text_weights_2 and args.tokenizer_2:
-        from transformers import CLIPTokenizer
-
-        text_params_2 = hf_clip_text_to_params(load_state_dict_any(args.text_weights_2), device)
-        tokenizer_2 = CLIPTokenizer.from_pretrained(args.tokenizer_2)
+    texts, tokenizers, mounted = text_encoders_from_args(args, fam.text_encoders, device)
+    vae_params = None
     if args.vae_weights:
         vae_params = hf_vae_to_params(load_state_dict_any(args.vae_weights), device)
     if device == "cuda":
         torch.cuda.synchronize()
     load_fold_s = time.perf_counter() - t0
 
-    if args.model == "sdxl":
-        pipe = SDXLTurboPipeline(
-            unet_params=params_q, vae_params=vae_params, cfg=cfg, qstate=qstate,
-            time_aware=time_aware, unet_apply=apply_fn, text_params_l=text_params,
-            text_params_g=text_params_2, tokenizer=tokenizer, tokenizer_2=tokenizer_2,
-            device=device)
-    else:
-        pipe = SDPipeline(unet_params=params_q, text_params=text_params, vae_params=vae_params,
-                          tokenizer=tokenizer, cfg=cfg, qstate=qstate, time_aware=time_aware,
-                          unet_apply=apply_fn, device=device)
+    pipe = PIPELINES[args.model](params_q, apply_fn, vae_params, texts, tokenizers, cfg=cfg,
+                                 qstate=qstate, time_aware=time_aware, device=device)
+    pooled = pooled_dim_for(args.base)
 
     def batch_embeds(batch_prompts, seed):
-        """The (cond, other) embedding pair of one batch: the encoders when
-        mounted, stand-ins otherwise."""
-        if args.model == "sdxl":
-            if None not in (tokenizer, tokenizer_2, text_params, text_params_2):
-                return pipe.encode_prompts(batch_prompts)
-            return synthetic_sdxl_embeddings(
-                len(batch_prompts), dim=cross, pooled_dim=pooled_dim_for(args.model, args.base),
-                seed=seed, device=device)
-        if tokenizer is not None and text_params is not None:
+        """The embedding pair of one batch that the sampler takes."""
+        if mounted:
             return pipe.encode_prompts(batch_prompts)
-        return synthetic_prompt_embeddings(len(batch_prompts), dim=cross, seed=seed,
-                                           device=device)
+        return STAND_IN_EMBEDDINGS[args.model](len(batch_prompts), cross, pooled, seed, device)
 
-    size_kw = {}
-    if args.height > 0:
-        size_kw["height"] = args.height
-    if args.width > 0:
-        size_kw["width"] = args.width
+    size = dict(height=args.height if args.height > 0 else fam.image_size,
+                width=args.width if args.width > 0 else fam.image_size)
     t_start = time.perf_counter()
     files = []
     count = 0
@@ -237,7 +210,7 @@ def main(argv=None) -> dict:
                 seed = args.seed + rep * 100003 + i
                 emb_a, emb_b = batch_embeds(batch_prompts, seed)
                 imgs = pipe.generate_from_embeddings(emb_a, emb_b, steps=steps, seed=seed,
-                                                     rows=rows, **size_kw)
+                                                     rows=rows, **size)
                 for j, img in zip(positions, imgs):
                     if j >= n_real:
                         continue

@@ -24,19 +24,19 @@ import torch
 from dgq_tpu_torch.cli.common import (
     add_quant_args,
     announce_rank,
-    build_model,
     maybe_init_multihost,
     model_type_from_env,
-    pooled_dim_for,
     qconfig_from_args,
     resolve_device,
+    text_encoders_from_args,
     writes_files,
 )
+from dgq_tpu_torch.models.families import CLI_FAMILIES, FAMILIES, build_model, pooled_dim_for
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="DGQ quantized inference (PyTorch port)")
-    ap.add_argument("--model", default=model_type_from_env(), choices=["sd", "sdxl"])
+    ap.add_argument("--model", default=model_type_from_env(), choices=CLI_FAMILIES)
     add_quant_args(ap)
     ap.add_argument("--prompt", default="a painting of a virus monster playing guitar")
     ap.add_argument("--cali_ckpt", default=None, help="weight-only or merged ckpt")
@@ -78,18 +78,18 @@ def main(argv=None) -> dict:
     maybe_init_multihost(args)
     device = resolve_device(args.device)
     announce_rank(device)
+    fam = FAMILIES[args.model]
     steps = args.num_inference_steps
     if steps < 0:
-        steps = 25 if args.model == "sd" else 4
+        steps = fam.steps
 
     from dgq_tpu_torch.calib.act_calib import stack_time_qstates
-    from dgq_tpu_torch.calib.data import synthetic_prompt_embeddings, synthetic_sdxl_embeddings
+    from dgq_tpu_torch.calib.data import STAND_IN_EMBEDDINGS
     from dgq_tpu_torch.calib.weight_calib import fold_weight_quant, quantize_model_weights
     from dgq_tpu_torch.io.dgq_ckpt import load_merged
     from dgq_tpu_torch.io.hf_loader import load_state_dict_any
     from dgq_tpu_torch.models.qconfig import QConfig
-    from dgq_tpu_torch.pipeline.sd_pipeline import SDPipeline, SDXLTurboPipeline
-    from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
+    from dgq_tpu_torch.pipeline.prepare import PIPELINES
     from dgq_tpu_torch.pipeline.vae import hf_vae_to_params
 
     def model(init_params):
@@ -126,56 +126,27 @@ def main(argv=None) -> dict:
     _sync(device)
     load_fold_s = time.perf_counter() - t0
 
-    # text encoders, VAE and tokenizers (optional local files)
-    text_params = text_params_2 = vae_params = tokenizer = tokenizer_2 = None
-    if args.text_weights:
-        text_params = hf_clip_text_to_params(load_state_dict_any(args.text_weights), device)
-    if args.text_weights_2:
-        text_params_2 = hf_clip_text_to_params(load_state_dict_any(args.text_weights_2), device)
+    # text encoders, tokenizers and VAE (optional local files)
+    texts, tokenizers, mounted = text_encoders_from_args(args, fam.text_encoders, device)
+    vae_params = None
     if args.vae_weights:
         vae_params = hf_vae_to_params(load_state_dict_any(args.vae_weights), device)
-    if args.tokenizer or args.tokenizer_2:
-        from transformers import CLIPTokenizer
-
-        if args.tokenizer:
-            tokenizer = CLIPTokenizer.from_pretrained(args.tokenizer)
-        if args.tokenizer_2:
-            tokenizer_2 = CLIPTokenizer.from_pretrained(args.tokenizer_2)
 
     if args.fp16:
         params_q = _bf16_leaves(params_q)
 
-    hw = dict(height=args.height or (512 if args.model == "sd" else 1024),
-              width=args.width or (512 if args.model == "sd" else 1024))
+    hw = dict(height=args.height or fam.image_size, width=args.width or fam.image_size)
     outputs, run_s = [], {}
 
     def run(p, c, qs, ta, tag):
         _sync(device)
         t = time.perf_counter()
-        if args.model == "sdxl":
-            pipe = SDXLTurboPipeline(
-                unet_params=p, vae_params=vae_params, cfg=c, qstate=qs, time_aware=ta,
-                unet_apply=apply_fn, text_params_l=text_params, text_params_g=text_params_2,
-                tokenizer=tokenizer, tokenizer_2=tokenizer_2, device=device)
-            if None not in (tokenizer, tokenizer_2, text_params, text_params_2):
-                imgs = pipe([args.prompt] * 2, steps=steps, seed=args.seed, **hw)
-            else:
-                text, pooled = synthetic_sdxl_embeddings(
-                    2, dim=cross, pooled_dim=pooled_dim_for(args.model, args.base),
-                    seed=args.seed, device=device)
-                imgs = pipe.generate_from_embeddings(text, pooled, steps=steps, seed=args.seed,
-                                                     **hw)
-        else:
-            pipe = SDPipeline(unet_params=p, text_params=text_params, vae_params=vae_params,
-                              tokenizer=tokenizer, cfg=c, qstate=qs, time_aware=ta,
-                              unet_apply=apply_fn, device=device)
-            if tokenizer is not None and text_params is not None:
-                imgs = pipe([args.prompt] * 2, steps=steps, seed=args.seed, **hw)
-            else:
-                text, uncond = synthetic_prompt_embeddings(2, dim=cross, seed=args.seed,
-                                                           device=device)
-                imgs = pipe.generate_from_embeddings(text, uncond, steps=steps, seed=args.seed,
-                                                     scheduler="pndm", **hw)
+        pipe = PIPELINES[args.model](p, apply_fn, vae_params, texts, tokenizers, cfg=c, qstate=qs,
+                                     time_aware=ta, device=device)
+        embeds = (pipe.encode_prompts([args.prompt] * 2) if mounted else
+                  STAND_IN_EMBEDDINGS[args.model](2, cross, pooled_dim_for(args.base), args.seed,
+                                                  device))
+        imgs = pipe.generate_from_embeddings(*embeds, steps=steps, seed=args.seed, **hw)
         run_s[tag] = time.perf_counter() - t  # imgs is on the host: the device is done
         if not writes_files():
             return

@@ -22,12 +22,10 @@ import os
 from dgq_tpu_torch.cli.common import (
     add_quant_args,
     build_cali_data,
-    build_model,
     built_once,
     cali_embeddings_from_args,
     maybe_init_multihost,
     model_type_from_env,
-    pooled_dim_for,
     qconfig_from_args,
     resolve_device,
     setup_logging,
@@ -35,11 +33,12 @@ from dgq_tpu_torch.cli.common import (
     timed,
     writes_files,
 )
+from dgq_tpu_torch.models.families import CLI_FAMILIES, FAMILIES, build_model, pooled_dim_for
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="DGQ group activation quantization (PyTorch port)")
-    ap.add_argument("--model", default=model_type_from_env(), choices=["sd", "sdxl"])
+    ap.add_argument("--model", default=model_type_from_env(), choices=CLI_FAMILIES)
     ap.add_argument("--outdir", default="results")
     add_quant_args(ap)
     ap.add_argument("--cali_ckpt", required=True, help="weight-only checkpoint")
@@ -55,7 +54,7 @@ def parse_args(argv=None):
                     help="cuda (default; fails without a card) or cpu")
     args = ap.parse_args(argv)
     if args.step_size < 0:
-        args.step_size = 25 if args.model == "sd" else 4
+        args.step_size = FAMILIES[args.model].steps
     return args
 
 
@@ -82,7 +81,7 @@ def main(argv=None) -> dict:
     params, wqp, alphas = load_weight_only(args.cali_ckpt, spec, device)
     params_q = fold_weight_quant(params, wqp, spec, cfg, alphas=alphas or None, soft=False)
 
-    pooled = pooled_dim_for(args.model, args.base)
+    pooled = pooled_dim_for(args.base)
     embeds, tag = cali_embeddings_from_args(args, args.model, cross, args.cali_prompt_data_n,
                                             args.seed, pooled_dim=pooled, device=device)
     if tag:
@@ -98,7 +97,7 @@ def main(argv=None) -> dict:
     progress, slot_seconds = slot_clock(device, log)
     per_t, group_layers = calibrate_activations(
         params_q, spec, cfg, cali_data, interval=interval, group_num=args.group_num,
-        group_mode=args.group_mode, batch_size=8 if args.model == "sd" else 4,
+        group_mode=args.group_mode, batch_size=FAMILIES[args.model].cali_batch,
         scaler=Scaler.MINMAX, unet_apply=apply_fn, progress=progress)
     seconds["act_slots"] = slot_seconds()
     out = None

@@ -49,13 +49,11 @@ import torch.distributed as dist
 from dgq_tpu_torch.cli.common import (
     add_quant_args,
     build_cali_data,
-    build_model,
     built_once,
     cali_embeddings_from_args,
     dp_mesh,
     maybe_init_multihost,
     model_type_from_env,
-    pooled_dim_for,
     qconfig_from_args,
     resolve_device,
     setup_logging,
@@ -63,11 +61,12 @@ from dgq_tpu_torch.cli.common import (
     timed,
     writes_files,
 )
+from dgq_tpu_torch.models.families import CLI_FAMILIES, FAMILIES, build_model, pooled_dim_for
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="DGQ weight quantization (PyTorch port)")
-    ap.add_argument("--model", default=model_type_from_env(), choices=["sd", "sdxl"])
+    ap.add_argument("--model", default=model_type_from_env(), choices=CLI_FAMILIES)
     ap.add_argument("--outdir", default="results")
     add_quant_args(ap)
     ap.add_argument("--use_aq", action="store_true",
@@ -119,7 +118,7 @@ def parse_args(argv=None):
         args.cali_prompt_data_n = 4
         args.iters = 10
     if args.step_size < 0:
-        args.step_size = 25 if args.model == "sd" else 4
+        args.step_size = FAMILIES[args.model].steps
     return args
 
 
@@ -169,7 +168,7 @@ def main(argv=None) -> dict:
                                     init_params=not args.resume_w, device=device, host=host))
     cfg = qconfig_from_args(args, use_wq=True)
     latent_hw = args.latent_hw or latent_hw
-    pooled = pooled_dim_for(args.model, args.base)
+    pooled = pooled_dim_for(args.base)
     result = {"weight_only": None, "merged": None, "per_t": None, "seconds": seconds}
     path = os.path.join(outpath, "cali_ckpt.pth") if writes else None
     alphas = None
@@ -218,7 +217,7 @@ def main(argv=None) -> dict:
             data, _ = cali_data()
             alphas, seconds["recon"] = timed(device, lambda: calibrate_weights(
                 params, spec, cfg, wqp, data, iters=args.iters,
-                batch_size=8 if args.model == "sd" else 4, w=0.01, warmup=0.2, asym=True,
+                batch_size=FAMILIES[args.model].cali_batch, w=0.01, warmup=0.2, asym=True,
                 seed=args.seed, unet_apply=apply_fn, progress=log.info,
                 partial_dir=args.partial_dir, max_units=args.max_units,
                 tib_recon=args.tib_recon, opt_mode=args.recon_loss, mesh=mesh))
@@ -242,7 +241,7 @@ def main(argv=None) -> dict:
         progress, slot_seconds = slot_clock(device, log)
         per_t, _ = calibrate_activations(
             params_q, spec, cfg_aq, data, interval=interval, group_num=0,
-            running_stat=args.running_stat, batch_size=8 if args.model == "sd" else 4,
+            running_stat=args.running_stat, batch_size=FAMILIES[args.model].cali_batch,
             unet_apply=apply_fn, progress=progress)
         seconds["act_slots"] = slot_seconds()
         result["per_t"] = per_t

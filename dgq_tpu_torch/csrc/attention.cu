@@ -6,7 +6,7 @@
 //         P = softmax(Q K^T * scale);  code = min(round(P / delta), 2^b - 1);
 //         out = delta * (code @ V)
 //     Every UNet self- and cross-attention of the g=1 policy runs it.
-//   * K2 `_flash_kernel` (kFlash): unquantized online-softmax flash attention
+//   * K2 `_flash_kernel`: unquantized online-softmax flash attention
 //     (the VAE mid-block attention, head_dim 512, and the fp UNet path).
 //   * K3 `_rt_fused_kernel`, as its two-launch form K3b (`_stats_kernel`,
 //     `_stats_kernel_nonpeak`, `_accum_kernel`): the log2 quantizer whose
@@ -87,18 +87,19 @@
 // as three TF32 products, P V as two, since a quantized probability is one
 // TF32 number exactly.
 //
-// (b) The f32 quantizing modes past head_dim 160 or with uniform codes past
-// 2048, and K1 in bf16 past head_dim 192 (the VAE's 512) or with codes past
-// 256, keep the first version's body, f32 FMAs on the CUDA cores (the f32
-// flash and quantizing entries keep it as form 0 for timing as well):
+// (b) K1 and K4 in f32 past head_dim 160 or with uniform codes past 2048, and K1
+// in bf16 past head_dim 192 (the VAE's 512) or with codes past 256, keep the
+// first version's body, f32 FMAs on the CUDA cores (`attention_kernel`, form 0
+// of their entries). No call of K2 or K3b reaches it (bodies (a) and (c) to (e)
+// take every head dim their wrappers accept, and K3b has no uniform codes), so
+// it has no flash, rt_stats or quant_accum mode and those entries refuse form 0:
 // one block of 256 threads per (batch*head, 16*RM query rows), Q in shared
 // memory, K and V tiles of 64 keys through one shared buffer as f32, each
 // thread owning RM query rows x 4 keys of a score tile and RM rows x DP/16
 // columns of the output. Head dims that are not a multiple of 16 (SD's 40) are
 // zero-padded in shared memory, not in the weights; the ragged key axis
-// (cross-attention S = 77) is masked per column. Every delta is read from
-// device memory, so neither the per-step time-aware slot nor the real-time
-// reduction costs a host synchronisation.
+// (cross-attention S = 77) is masked per column. The delta is read from device
+// memory, so the per-step time-aware slot costs no host synchronisation.
 //
 // The packed head-slot entries (K1p to K4p: `_fused_attention_packed`, which
 // runs the same four TPU bodies with `sub_heads` over (B, T, H*dp) arrays) are
@@ -215,7 +216,7 @@ __device__ __forceinline__ void tile_pv(const float* Ps, const float* Vs, int ty
   }
 }
 
-enum Mode : int { kFlash = 0, kUniform = 1, kStats = 2, kAccum = 3, kStatic = 4 };
+enum Mode : int { kUniform = 1, kStats = 2, kAccum = 3, kStatic = 4 };
 
 // What the quantizing modes need beyond q, k, v, o.
 struct Extra {
@@ -249,16 +250,17 @@ Layout packed_layout(int heads, int slot, const long long* strides) {
 
 constexpr float kInvLn2 = 1.4426950408889634f;
 
-// K4 (kStatic) carries both passes and the log2 row constants: it may take a
-// whole SM's registers (one block) where the other modes fit two blocks' share.
+// Body (b) runs K1 (kUniform) and K4 (kStatic): pass 1 takes each row's max m
+// and normalizer l, pass 2 recomputes the scores, quantizes them and forms P V.
+// K4 carries the log2 row constants as well: it may take a whole SM's
+// registers (one block) where K1 fits two blocks' share.
 template <typename T, int DP, int RM, int MODE>
 __global__ void __launch_bounds__(kThreads, MODE == kStatic ? 1 : 2)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int t_len, int s_len, int d, float scale, Extra ex,
                  Layout lay) {
+  static_assert(MODE == kUniform || MODE == kStatic, "body (b) runs K1 and K4 only");
   constexpr int BQ = 16 * RM, LD = DP + 4, LDP = kBK + 4, NC = DP / 16;
-  constexpr bool PASS1 = MODE == kUniform || MODE == kStats || MODE == kStatic;
-  constexpr bool LOGQ = MODE == kAccum || MODE == kStatic;  // quantizers on z = m + ln(l)
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [BQ][LD]
   float* KVs = Qs + BQ * LD;    // [kBK][LD], K then V of the current tile
@@ -272,62 +274,30 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   load_tile<T, DP>(Qs, qb, lay.q_row, q0, BQ, t_len, d);
 
-  float m[RM], l[RM], m2[RM], s[RM][4];
+  float m[RM], l[RM], s[RM][4];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m[i] = kNegInf;
-    m2[i] = kNegInf;
     l[i] = 0.f;
   }
   const int n_tiles = (s_len + kBK - 1) / kBK;
 
-  if (PASS1) {
-    // pass 1: exact row max m and normalizer l (online over key tiles);
-    // kStats under start_peak also m2, the row max outside key column 0
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      __syncthreads();
-      load_tile<T, DP>(KVs, kb, lay.k_row, kt * kBK, kBK, s_len, d);
-      __syncthreads();
-      tile_scores<DP, RM>(Qs, KVs, ty, tx, kt * kBK, s_len, scale, s);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-        const float m_new = fmaxf(m[i], group_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-        l[i] = l[i] * expf(m[i] - m_new) + group_sum(sum);
-        m[i] = m_new;
-        if (MODE == kStats && ex.start_peak) {
-          float mx2 = kNegInf;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (kt * kBK + tx + 16 * j != 0) mx2 = fmaxf(mx2, s[i][j]);
-          m2[i] = fmaxf(m2[i], group_max(mx2));
-        }
-      }
-    }
-  }
-
-  if (MODE == kStats) {
-    // every lane of a row group holds the row's m, l, m2. Rows past t_len
-    // (zero queries, l = s_len) must not reach the reduction.
-    float red = ex.start_peak ? 0.f : __int_as_float(0x7f800000);
+  // pass 1: exact row max m and normalizer l (online over key tiles)
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();
+    load_tile<T, DP>(KVs, kb, lay.k_row, kt * kBK, kBK, s_len, d);
+    __syncthreads();
+    tile_scores<DP, RM>(Qs, KVs, ty, tx, kt * kBK, s_len, scale, s);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty * RM + i;
-      if (row < t_len) {
-        if (tx == 0) ex.z[(size_t)bh * t_len + row] = m[i] + logf(l[i]);
-        red = ex.start_peak ? fmaxf(red, expf(m2[i] - m[i]) / l[i]) : fminf(red, l[i]);
-      }
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      const float m_new = fmaxf(m[i], group_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + group_sum(sum);
+      m[i] = m_new;
     }
-    const float other = __shfl_xor_sync(0xffffffffu, red, 16);  // the warp's other row group
-    red = ex.start_peak ? fmaxf(red, other) : fminf(red, other);
-    if ((threadIdx.x & 31) == 0) {
-      if (ex.start_peak) atomicMax(ex.red, __float_as_int(red));
-      else atomicMin(ex.red, __float_as_int(red));
-    }
-    return;
   }
 
   const T* vb = v + batch * lay.v_batch + head_off;
@@ -338,24 +308,17 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
-  float delta = 1.f;
-  if (MODE == kUniform || MODE == kStatic) delta = *ex.delta;
-  if (MODE == kAccum) {
-    const float r = __int_as_float(*ex.red);
-    delta = ex.start_peak ? r : 1.f / r;
-  }
-  // log2 codes straight from the score: -log2(p / delta) is linear in s,
-  // log2(delta) + (z - s) / ln 2, so q = round(a_row - s / ln 2)
+  const float delta = *ex.delta;
+  // K4's log2 codes straight from the score: -log2(p / delta) is linear in s,
+  // log2(delta) + (z - s) / ln 2 with z = m + ln(l), so q = round(a_row - s / ln 2)
   float zr[RM], a_row[RM];
   const int d_bits = __float_as_int(delta);
   const float ub = fminf(static_cast<float>((d_bits >> 23) - 1), ex.max_code);
-  if (LOGQ) {
+  if (MODE == kStatic) {
     const float log2d = log2f(delta);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty * RM + i;
-      if (MODE == kStatic) zr[i] = m[i] + logf(l[i]);
-      else zr[i] = row < t_len ? ex.z[(size_t)bh * t_len + row] : 0.f;
+      zr[i] = m[i] + logf(l[i]);
       a_row[i] = log2d + zr[i] * kInvLn2;
     }
   }
@@ -376,12 +339,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const float p = expf(s[i][j] - m[i]) / l[i];
           prow[tx + 16 * j] = fminf(rintf(p / delta), ex.max_code);
         }
-      } else if (LOGQ) {
+      } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = kt * kBK + tx + 16 * j;
           float pq;
-          if (MODE == kStatic && ex.uniform) {
+          if (ex.uniform) {
             const float p = expf(s[i][j] - m[i]) / l[i];
             pq = fminf(rintf(p / delta), ex.max_code) * delta;
           } else {
@@ -391,21 +354,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           if (ex.start_peak && col == 0) pq = expf(s[i][j] - zr[i]);
           prow[tx + 16 * j] = col < s_len ? pq : 0.f;
         }
-      } else {
-        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-        const float m_new = fmaxf(m[i], group_max(mx));
-        const float corr = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(s[i][j] - m_new);
-          prow[tx + 16 * j] = p;
-          sum += p;
-        }
-        l[i] = l[i] * corr + group_sum(sum);
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
       }
     }
     __syncthreads();  // every thread is done with K before V overwrites it
@@ -418,7 +366,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < RM; ++i) {
     const int row = q0 + ty * RM + i;
     if (row >= t_len) continue;
-    const float f = MODE == kUniform ? delta : (MODE == kFlash ? 1.f / l[i] : 1.f);
+    const float f = MODE == kUniform ? delta : 1.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
@@ -447,9 +395,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 }
 
 // Head-dim tiers: SD's 40 -> 48, 80, 160; SDXL's 64; the VAE's 512 (RM = 2 keeps the
-// (32, 512) accumulator in registers and the tiles within 227 KB). Only K1
-// and K2 are built for the 512 tier: the log2 / start_peak modes run in the
-// UNet alone.
+// (32, 512) accumulator in registers and the tiles within 227 KB). Only K1 is
+// built for the 512 tier: K4 runs in the UNet alone.
 template <typename T, int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
              int s_len, int d, float scale, const Extra& ex, const Layout& lay,
@@ -460,7 +407,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t
   if (d <= 64) return launch<T, 64, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
   if (d <= 80) return launch<T, 80, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
   if (d <= 160) return launch<T, 160, 4, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
-  if constexpr (MODE == kFlash || MODE == kUniform) {
+  if constexpr (MODE == kUniform) {
     if (d <= 512) return launch<T, 512, 2, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, stream);
   }
   return cudaErrorInvalidValue;
@@ -1873,16 +1820,13 @@ int dispatch_quant_tf32(const void* q, const void* k, const void* v, void* o, in
 #undef DGQ_QTF
 }
 
-// The flash entries: form 0 is body (b) and takes f32 only (the wrapper no
-// longer picks it: it stays for timing the first version against body (d));
-// forms 1 and 2 are body (a) and take bf16 only; forms 3 and 4 are body (d)
-// and take f32 only.
+// The flash entries: forms 1 and 2 are body (a) and take bf16 only; forms 3
+// and 4 are body (d) and take f32 only. Form 0 is refused: no flash body runs
+// on the CUDA cores.
 int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, int d, float scale, const Layout& lay,
                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (form == 0 && !is_bf16)
-    return dispatch<float, kFlash>(q, k, v, o, bh, t_len, s_len, d, scale, Extra{}, lay, st);
   if (form == 1 && is_bf16) return dispatch_tc<true>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
   if (form == 2 && is_bf16) return dispatch_tc<false>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
   if (form == 3 && !is_bf16) return dispatch_tf32<true>(q, k, v, o, bh, t_len, s_len, d, scale, lay, st);
@@ -1890,18 +1834,19 @@ int dispatch_flash(int form, int is_bf16, const void* q, const void* k, const vo
   return cudaErrorInvalidValue;
 }
 
-// The entries of K1, K3b and K4: form 0 is body (b), in f32 (K1 also in bf16,
-// for head dims past 192 and codes past 256; the wrapper picks it in f32 only
-// past head_dim 160 or past 2048 codes, and it stays for timing the first
-// version against body (e)); forms 1 and 2 are body (c), bf16 only; forms 3
-// and 4 are body (e), f32 only.
+// The entries of K1, K3b and K4: forms 1 and 2 are body (c), bf16 only; forms
+// 3 and 4 are body (e), f32 only. Form 0 is body (b), K1's and K4's alone (note
+// (b) above): the wrapper picks it for f32 past head_dim 160 or past 2048
+// uniform codes, and for K1 in bf16 past head_dim 192 or past 256 codes.
 template <int MODE>
 int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, int d, float scale, const Extra& ex,
                    const Layout& lay, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (form == 0 && !is_bf16)
-    return dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if constexpr (MODE == kUniform || MODE == kStatic) {
+    if (form == 0 && !is_bf16)
+      return dispatch<float, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  }
   if constexpr (MODE == kUniform) {
     if (form == 0) return dispatch<bf16, MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
   }
@@ -1952,7 +1897,7 @@ Extra static_extra(const void* delta, int sm_bits, int uniform, int start_peak) 
 // are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 //
 // Classic layout: q (bh, t, d), k/v (bh, s, d), o (bh, t, d), all contiguous.
-// form (every entry): 0 the CUDA-core body, 1 the tensor-core body with
+// form: 0 the CUDA-core body (K1 and K4 only), 1 the tensor-core body with
 // cp.async tiles, 2 the tensor-core body with element loads (bf16), 3 and 4
 // the f32 tensor-core body (3xTF32) with 16-byte and with element loads.
 extern "C" int dgq_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,

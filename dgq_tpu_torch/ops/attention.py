@@ -133,14 +133,16 @@ def _scalar_delta(sm_delta, device) -> torch.Tensor:
     return delta.reshape(1).contiguous()
 
 
-# The bodies of the flash kernel, by the number the C interface takes.
+# The bodies of the attention kernels, by the number the C interface takes
+# ("cuda_core": K1's and K4's alone; the other entries refuse it).
 FLASH_FORMS = {"cuda_core": 0, "wgmma_async": 1, "wgmma_plain": 2, "tf32x3_vector": 3,
                "tf32x3_plain": 4}
 
 
 def flash_form(dtype, head_dim: int, ptrs, strides, slot: int = 0) -> str:
     """Which body of the flash kernel (K2, K2p) a call runs, from what the
-    wrapper can see before the launch; both dtypes run on the tensor cores.
+    wrapper can see before the launch; both dtypes run on the tensor cores
+    (the flash entries refuse "cuda_core").
     bf16: its K and V tiles are filled by 16-byte asynchronous copies
     ("wgmma_async") where every row of q, k and v starts on a 16-byte
     boundary (base addresses `ptrs` in bytes; batch and row `strides` and the
@@ -186,8 +188,9 @@ def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int
     they are: bf16 holds integers exactly up to 256, TF32 up to 2048; the
     log2 quantizer feeds powers of two and takes any code length (leave
     `max_code` at its default). Wider heads (K1 at the VAE's 512) and longer
-    uniform codes run on the CUDA cores. (The tensor-core bodies take a
-    positive scale only: `_quant_form_checked`.)"""
+    uniform codes run on the CUDA cores, K1 and K4 only: K3b takes head dims
+    up to 160 and no `max_code`. (The tensor-core bodies take a positive
+    scale only: `_quant_form_checked`.)"""
     max_d, max_codes = QUANT_TC_LIMITS.get(dtype, (0, 0))
     if head_dim > max_d or max_code > max_codes:
         return "cuda_core"

@@ -19,8 +19,8 @@ import logging
 import os
 from typing import Optional
 
-from dgq_tpu_torch.io.convert import hf_sd3_transformer_to_params
 from dgq_tpu_torch.io.hf_loader import load_state_dict_any
+from dgq_tpu_torch.models.families import build_model, family
 from dgq_tpu_torch.models.qconfig import QConfig, QState
 from dgq_tpu_torch.pipeline.sd_pipeline import SD3Pipeline, SDPipeline, SDXLTurboPipeline
 from dgq_tpu_torch.pipeline.text_encoder import hf_clip_text_to_params
@@ -47,6 +47,30 @@ def _load_tokenizer(root: str, sub: str):
         return None
 
 
+def _sd(denoiser, apply, vae, texts, tokenizers, **kw):
+    return SDPipeline(unet_params=denoiser, unet_apply=apply, vae_params=vae,
+                      text_params=texts[0], tokenizer=tokenizers[0], **kw)
+
+
+def _sdxl(denoiser, apply, vae, texts, tokenizers, **kw):
+    return SDXLTurboPipeline(unet_params=denoiser, unet_apply=apply, vae_params=vae,
+                             text_params_l=texts[0], text_params_g=texts[1],
+                             tokenizer=tokenizers[0], tokenizer_2=tokenizers[1], **kw)
+
+
+def _sd3(denoiser, apply, vae, texts, tokenizers, **kw):
+    return SD3Pipeline(transformer_params=denoiser, transformer_apply=apply, vae_params=vae, **kw)
+
+
+# Each family's pipeline from (denoiser params, its apply, VAE, [text encoders],
+# [tokenizers], **fields), keyed as `models.families.FAMILIES`; None where a
+# part is missing.
+PIPELINES = {"sd": _sd, "sdxl": _sdxl, "sd3": _sd3}
+
+# the snapshot folders of the first and second text encoder and tokenizer
+_TEXT_PARTS = (("text_encoder", "tokenizer"), ("text_encoder_2", "tokenizer_2"))
+
+
 def prepare_pipeline(model_type: str, snapshot_dir: str, unet_params: Optional[dict] = None,
                      cfg: QConfig = QConfig(), qstate: Optional[QState] = None,
                      time_aware: bool = False, base: Optional[int] = None, device="cuda"):
@@ -55,35 +79,14 @@ def prepare_pipeline(model_type: str, snapshot_dir: str, unet_params: Optional[d
     unet_params overrides the snapshot's UNet (SD3: its transformer; pass
     quantize-folded params); otherwise <root>/unet (<root>/transformer) is
     converted."""
-    if model_type == "sd3":
-        if unet_params is None:
-            unet_params = _load_sub(snapshot_dir, "transformer", hf_sd3_transformer_to_params,
-                                    device)
-            if unet_params is None:
-                raise FileNotFoundError(f"no transformer/ under {snapshot_dir}")
-        return SD3Pipeline(transformer_params=unet_params,
-                           vae_params=_load_sub(snapshot_dir, "vae", hf_vae_to_params, device),
-                           cfg=cfg, qstate=qstate, time_aware=time_aware, device=device)
+    fam = family(model_type)
     if unet_params is None:
-        from dgq_tpu_torch.cli.common import build_model
-
         _, unet_params, _, _, _ = build_model(
-            model_type, base=base, hf_unet_path=os.path.join(snapshot_dir, "unet"),
+            model_type, base=base, hf_unet_path=os.path.join(snapshot_dir, fam.weights),
             device=device)
-
-    vae_params = _load_sub(snapshot_dir, "vae", hf_vae_to_params, device)
-    text_params = _load_sub(snapshot_dir, "text_encoder", hf_clip_text_to_params, device)
-    tokenizer = _load_tokenizer(snapshot_dir, "tokenizer")
-
-    if model_type == "sd":
-        return SDPipeline(unet_params=unet_params, text_params=text_params,
-                          vae_params=vae_params, tokenizer=tokenizer, cfg=cfg, qstate=qstate,
-                          time_aware=time_aware, device=device)
-    if model_type == "sdxl":
-        return SDXLTurboPipeline(
-            unet_params=unet_params, vae_params=vae_params, text_params_l=text_params,
-            text_params_g=_load_sub(snapshot_dir, "text_encoder_2", hf_clip_text_to_params,
-                                    device),
-            tokenizer=tokenizer, tokenizer_2=_load_tokenizer(snapshot_dir, "tokenizer_2"),
-            cfg=cfg, qstate=qstate, time_aware=time_aware, device=device)
-    raise ValueError(f"unknown model type {model_type}")
+    parts = _TEXT_PARTS[:fam.text_encoders]
+    return PIPELINES[model_type](
+        unet_params, fam.apply, _load_sub(snapshot_dir, "vae", hf_vae_to_params, device),
+        [_load_sub(snapshot_dir, enc, hf_clip_text_to_params, device) for enc, _ in parts],
+        [_load_tokenizer(snapshot_dir, tok) for _, tok in parts],
+        cfg=cfg, qstate=qstate, time_aware=time_aware, device=device)

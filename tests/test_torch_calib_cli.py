@@ -14,7 +14,10 @@
     checkpoint; every checkpoint loaded by `dgq_tpu.io.dgq_ckpt` equals,
     bit for bit, what the port computed and wrote; then `cli.ckpt_tools
     merge` and `cli.infer` on the result (finite latents under the JAX
-    CLI's file names).
+    CLI's file names);
+  * `cli.common.encode_cali_prompts` of each family (SD's CFG pair,
+    SDXL-turbo's dual encoders) on tiny CLIP weights equals the JAX
+    package's.
 
 The calibrated states themselves are held against the JAX package's in
 tests/test_torch_calib_act.py (the CLIs draw their stand-in prompt
@@ -30,12 +33,14 @@ import pytest
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
-from dgq_tpu.cli import quantize_act as JQA, quantize_weight as JQW  # noqa: E402
+from dgq_tpu.cli import common as JC, quantize_act as JQA, quantize_weight as JQW  # noqa: E402
 from dgq_tpu.io import dgq_ckpt as JK  # noqa: E402
 from dgq_tpu.models.unet_sd import sd_unet_spec  # noqa: E402
 from dgq_tpu_torch.cli import ckpt_tools as TCT, common as TC, infer as TI  # noqa: E402
 from dgq_tpu_torch.cli import quantize_act as TQA, quantize_weight as TQW  # noqa: E402
 from dgq_tpu_torch.io.convert import params_to_numpy  # noqa: E402
+from dgq_tpu_torch.models.families import build_model  # noqa: E402
+from dgq_tpu_torch.pipeline.text_encoder import init_clip_text  # noqa: E402
 
 BASE = 32
 T2I = ["--t2i_log_quant", "--t2i_real_time", "--t2i_start_peak", "--time_aware_aqtizer"]
@@ -121,7 +126,7 @@ def flow(tmp_path_factory):
 def test_quantize_weight_checkpoints_load_in_jax_bit_for_bit(flow):
     _, _, w, _ = flow
     spec = sd_unet_spec(base=BASE)
-    _, tparams, _, _, _ = TC.build_model("sd", base=BASE, seed=42, device="cpu")
+    _, tparams, _, _, _ = build_model("sd", base=BASE, seed=42, device="cpu")
     jparams, jwqp, jalphas = JK.load_weight_only(w["weight_only"], spec)
     assert not jalphas
     tnp = params_to_numpy(tparams, spec)
@@ -187,3 +192,43 @@ def test_resume_w_resaves_the_weight_only_checkpoint(flow):
     for name, qp in a[1].items():
         _same(qp.delta, b[1][name].delta)
         _same(qp.zero_point, b[1][name].zero_point)
+
+
+def _clip_file(path, vocab, width, proj, seed):
+    """A tiny CLIP text encoder (2 layers) saved under HF's names."""
+    p = init_clip_text(torch.Generator().manual_seed(seed), "cpu", vocab=vocab, width=width,
+                       layers=2, proj_dim=proj)
+    state = {"embeddings.token_embedding.weight": p.pop("token_embedding"),
+             "embeddings.position_embedding.weight": p.pop("position_embedding")}
+    if proj:
+        state["text_projection.weight"] = p.pop("text_projection")
+    for name, leaves in p.items():
+        for leaf, v in leaves.items():
+            state[f"{name}.{'bias' if leaf in ('b', 'bias') else 'weight'}"] = v
+    torch.save(state, path)
+    return str(path)
+
+
+@pytest.mark.parametrize("model", ["sd", "sdxl"])
+def test_encode_cali_prompts_matches_jax(model, tmp_path):
+    pytest.importorskip("transformers")
+    import json
+
+    from transformers.models.clip.tokenization_clip import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars + [c + "</w>" for c in chars])}
+    vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n")
+    w1 = _clip_file(tmp_path / "te1.bin", len(vocab), 64, 0, seed=0)
+    w2 = _clip_file(tmp_path / "te2.bin", len(vocab), 128, 96, seed=1)
+    kw = dict(text_weights_2=w2, tokenizer_2_path=str(tmp_path)) if model == "sdxl" else {}
+    prompts = ["a cat", "two dogs playing", "a red car"]
+    got = TC.encode_cali_prompts(model, prompts, w1, str(tmp_path), batch_size=2, device="cpu",
+                                 **kw)
+    want = JC.encode_cali_prompts(model, prompts, w1, str(tmp_path), batch_size=2, **kw)
+    shapes = ((3, 77, 64), (3, 77, 64)) if model == "sd" else ((3, 77, 192), (3, 96))
+    for a, b, shape in zip(got, want, shapes):
+        assert tuple(a.shape) == shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)

@@ -33,6 +33,7 @@ from dgq_tpu_torch.calib.weight_calib import init_weight_qparams  # noqa: E402
 from dgq_tpu_torch.cli import ckpt_tools as TCT, common as TCC, infer as TI  # noqa: E402
 from dgq_tpu_torch.io import dgq_ckpt as TK  # noqa: E402
 from dgq_tpu_torch.io.convert import params_to_numpy, params_to_torch_unet  # noqa: E402
+from dgq_tpu_torch.models import families as TF  # noqa: E402
 from dgq_tpu_torch.models import unet_sd as TU  # noqa: E402
 from dgq_tpu_torch.pipeline import vae as TV  # noqa: E402
 
@@ -76,8 +77,8 @@ def test_model_type_from_env_and_helpers(monkeypatch, tmp_path):
     assert TCC.model_type_from_env() == JCC.model_type_from_env() == "sdxl"
     assert TI.parse_args([]).model == "sdxl"
     assert TCC.parse_depths("1,3") == JCC.parse_depths("1,3") == (1, 3)
-    assert TCC.pooled_dim_for("sdxl") == JCC.pooled_dim_for("sdxl") == 1280
-    assert TCC.pooled_dim_for("sdxl", 32) == JCC.pooled_dim_for("sdxl", 32) == 128
+    assert TF.pooled_dim_for() == JCC.pooled_dim_for("sdxl") == 1280
+    assert TF.pooled_dim_for(32) == JCC.pooled_dim_for("sdxl", 32) == 128
     lines = tmp_path / "p.txt"
     lines.write_text("\n".join(f"prompt {i}" for i in range(9)) + "\n\n")
     assert TCC.load_prompts(str(lines), 4, seed=1) == JCC.load_prompts(str(lines), 4, seed=1)
@@ -99,16 +100,16 @@ def test_model_type_from_env_and_helpers(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("model", ["sd", "sdxl"])
 def test_build_model(model):
-    spec, params, apply_fn, hw, cross = TCC.build_model(model, base=BASE, sdxl_depths=(1, 1),
-                                                        device="cpu")
+    spec, params, apply_fn, hw, cross = TF.build_model(model, base=BASE, sdxl_depths=(1, 1),
+                                                       device="cpu")
     jspec, _, _, jhw, jcross = JCC.build_model(model, base=BASE, sdxl_depths=(1, 1),
                                                init_params=False)
     assert spec == jspec and (hw, cross) == (jhw, jcross)
     assert set(params) == {n for n, _, _ in spec}
-    assert TCC.build_model(model, base=BASE, sdxl_depths=(1, 1), init_params=False,
-                           device="cpu")[1] is None
+    assert TF.build_model(model, base=BASE, sdxl_depths=(1, 1), init_params=False,
+                          device="cpu")[1] is None
     # the same seed draws the same weights
-    again = TCC.build_model(model, base=BASE, sdxl_depths=(1, 1), device="cpu")[1]
+    again = TF.build_model(model, base=BASE, sdxl_depths=(1, 1), device="cpu")[1]
     assert torch.equal(again["conv_in"]["w"], params["conv_in"]["w"])
 
 

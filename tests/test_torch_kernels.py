@@ -218,8 +218,11 @@ def test_flash_tf32_forms_agree(t, s, d):
 def test_flash_tf32_refuses_what_it_cannot_take():
     """The C entry checks the f32 forms it is handed: 16-byte loads from a view
     one element off or with head_dim no multiple of 4, either form on bf16, a
-    scale <= 0, head dims past 512; the wrapper raises on a scale <= 0 before
-    it launches anything."""
+    scale <= 0, head dims past 512, and form 0 (no flash body runs on the CUDA
+    cores), in the classic and the packed entry; the wrapper raises on a
+    scale <= 0 before it launches anything."""
+    import ctypes
+
     from dgq_tpu_torch.ops.build import load_kernels
 
     lib = load_kernels()
@@ -240,6 +243,15 @@ def test_flash_tf32_refuses_what_it_cannot_take():
     assert call(q, 0, 1) != 0 and call(q, 0, 2) != 0    # f32 on the bf16 body
     assert call(q, 0, 3, scale=0.0) != 0 and call(q, 0, 4, scale=-0.1) != 0
     assert call(q, 0, 5) != 0
+    assert call(q, 0, 0) != 0 and call(q, 0, 0, scale=-0.1) != 0  # no CUDA-core flash body
+    strides = (ctypes.c_longlong * 8)(*(64 * 40, 40) * 4)  # (2, 64, 1 * 40) packed views
+
+    def packed(form):
+        return lib.dgq_flash_attention_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              out.data_ptr(), 2, 1, 64, 64, 40, 40, strides, 0.1,
+                                              0, form, stream)
+
+    assert packed(3) == 0 and packed(0) != 0
     torch.cuda.synchronize()
     before = dict(TA.LAUNCHES)
     for scale in (0.0, -0.1):
@@ -728,8 +740,11 @@ def test_quant_tf32_refuses_what_it_cannot_take():
     """The C entries of K1, rt_stats, quant_accum and K4 check the f32
     tensor-core forms they are handed: 16-byte loads from a misaligned view
     or with head_dim no multiple of 4, either form on bf16, a scale <= 0, head
-    dims past 160, uniform codes past 2048; the CUDA-core body (form 0) takes
-    f32 past all of these but the dtype."""
+    dims past 160, uniform codes past 2048. The CUDA-core body (form 0) takes
+    K1 and K4 in f32 past all of these but the dtype; rt_stats and
+    quant_accum, classic and packed, refuse it."""
+    import ctypes
+
     from dgq_tpu_torch.ops.build import load_kernels
 
     lib = load_kernels()
@@ -772,7 +787,23 @@ def test_quant_tf32_refuses_what_it_cannot_take():
         assert fn(q, 0, 1) != 0 and fn(q, 0, 2) != 0    # f32 on the bf16 body
         assert fn(wide, 0, 4, d=200, kk=wide, vv=wide) != 0  # past head_dim 160
         assert fn(q, 0, 5) != 0
+    for fn in (uni, static):
         assert fn(q, 0, 0, scale=-0.1) == 0  # the CUDA-core body takes any scale
+    for fn in (stats, accum):
+        assert fn(q, 0, 0) != 0 and fn(q, 0, 0, scale=-0.1) != 0  # no CUDA-core body
+    strides = (ctypes.c_longlong * 8)(*(64 * 40, 40) * 4)  # (2, 64, 1 * 40) packed views
+
+    def stats_packed(form):
+        return lib.dgq_rt_stats_packed(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(),
+                                       2, 1, 64, 64, 40, 40, strides, 0.1, 0, 0, form, stream)
+
+    def accum_packed(form):
+        return lib.dgq_quant_accum_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), z.data_ptr(), red.data_ptr(), 2, 1, 64,
+                                          64, 40, 40, strides, 0.1, 8, 0, 0, form, stream)
+
+    for fn in (stats_packed, accum_packed):
+        assert fn(3) == 0 and fn(0) != 0
     assert uni(q, 0, 3, bits=11) == 0 and uni(q, 0, 3, bits=12) != 0  # 2047 and 4095
     assert static(q, 0, 4, bits=12) != 0 and static(q, 0, 4, bits=12, uniform=0) == 0
     assert uni(q, 0, 0, bits=12) == 0 and uni(wide, 0, 0, d=200, kk=wide, vv=wide) == 0
