@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # from the repository root; needs one CUDA card
     python3 chip_smoke.py --fake-quant  # the build and phase 2a's fake quantizer rows alone
     python3 chip_smoke.py --linear-gemm # the build and phase 2b's f32 linear rows alone
+    python3 chip_smoke.py --k3b         # the build and `k3b_bodies`' K3b f32 rows alone
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the hand-written CUDA kernels from dgq_tpu_torch/csrc/ (nvcc, sm_90a,
@@ -81,6 +82,8 @@ Phases (any failure raises, so the exit code is non-zero):
      (`f32_bodies`: K2/K2p, K5, K1, K3b and K4 on the tensor cores, three
      TF32 products a product, P V of the quantizing modes two; K5, K1 and
      K4 beside the CUDA-core bodies they replace at these shapes);
+     `k3b_bodies`: K3b's f32 pair on body (f) bit for bit against body (e)
+     at the generation cells' shapes, both timed beside the 3xTF32 bound;
      then the CLIP-L and bigG text encoders at full width, card against CPU.
      The kernels' launch counts over each run are checked.
   6. `calib_path`, after 4d: calibration without reconstruction from
@@ -1482,10 +1485,23 @@ FQ_COUNTS = ("fake_quant", "fake_quant_plain")
 LINEAR_COUNTS = ("linear_gemm", "linear_library")
 
 
+# K3b's launches that ran body (f) (also counted under rt_stats and
+# quant_accum): how many a path runs follows its shapes, printed as a share
+K3B_COUNTS = ("k3b_tma",)
+
+
 def _kernels_only(launches):
     """`launches` without the fake quantizer's counts, which
-    `_check_fake_quant` holds apart, and the f32 linears'."""
-    return {n: c for n, c in launches.items() if n not in FQ_COUNTS + LINEAR_COUNTS}
+    `_check_fake_quant` holds apart, the f32 linears' and body (f)'s."""
+    return {n: c for n, c in launches.items()
+            if n not in FQ_COUNTS + LINEAR_COUNTS + K3B_COUNTS}
+
+
+def _k3b_share(launches):
+    """Body (f)'s share of the classic K3b launches in `launches`."""
+    k3b = launches.get("rt_stats", 0) + launches.get("quant_accum", 0)
+    return (f"body (f) {launches.get('k3b_tma', 0)} of {k3b} K3b launches"
+            + (f" ({launches.get('k3b_tma', 0) / k3b:.3f})" if k3b else ""))
 
 
 def _param_dtype(qstate):
@@ -1815,7 +1831,8 @@ def drive_path(model, label, qstate, cfg, steps, expect, tag):
           f"{t1 - t0:.4f} s ({(t1 - t0) / steps:.4f} s per step = one UNet forward at batch "
           f"{2 * IMAGES}), VAE decode {t2 - t1:.4f} s, {(t2 - t0) / IMAGES:.4f} s per image; "
           f"launches {shown}; a UNet forward: fake_quant {launches['fake_quant'] / steps:g}, "
-          f"fake_quant_plain {launches['fake_quant_plain'] / steps:g} | {tag}", flush=True)
+          f"fake_quant_plain {launches['fake_quant_plain'] / steps:g}; {_k3b_share(launches)} "
+          f"| {tag}", flush=True)
     launches["s"] = ((t1 - t0) / steps, (t2 - t0) / IMAGES)
     return launches
 
@@ -2315,6 +2332,97 @@ def f32_bodies(tag):
     return out
 
 
+# K3b's shapes in the generation cells (label, BH, T = S, D): SD3's joint
+# attention (a call's 96 heads), SDXL-turbo's 32px and 64px self-attention at
+# batch 4, SD's 64px self-attention at CFG batch 8
+K3B_TMA_SHAPES = [
+    ("SD3 joint", 96, 4429, 64),
+    ("SDXL 32px self", 80, 1024, 64),
+    ("SDXL 64px self", 40, 4096, 64),
+    ("SD 64px self", 64, 4096, 40),
+]
+
+
+def k3b_bodies(tag):
+    """K3b's f32 pair (rt_stats + quant_accum under start_peak, as the cells
+    run it) at `K3B_TMA_SHAPES` through the same C entries: body (f) (form 5,
+    where `k3b_form` routes these calls) against body (e) (form 3), bit for
+    bit (z, the call's scalar, the output); each body's device-only ms a
+    launch; the pair's share of its 3xTF32 bound (16 BH T S D operations at
+    495 TFLOP/s: Q K^T as three TF32 products in each launch, P V as two) and
+    of the model's bound that `k3b_roofline` counts (4 BH T S D); the plain
+    version's median ms (`rt_stats_reference`, then the log2
+    `attention_reference`, eight heads at a time). Returns {label: (body (e)
+    ms, body (f) ms)} for the pair."""
+    import torch
+    from dgq_tpu_torch.ops import attention as A
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for label, bh, t, d in K3B_TMA_SHAPES:
+        q = 2.0 * torch.randn(bh, t, d, generator=g, device="cuda")
+        k = 2.0 * torch.randn(bh, t, d, generator=g, device="cuda")
+        v = torch.randn(bh, t, d, generator=g, device="cuda")
+        scale = d ** -0.5
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        if A.k3b_form(torch.float32, d, t, ptrs, (t * d, d) * 3) != "tf32x3_tma":
+            raise AssertionError(f"K3b {label}: not routed to body (f)")
+        z, red, o = torch.empty(bh, t, device="cuda"), torch.zeros(1, device="cuda"), torch.empty_like(q)
+
+        def stats(form):
+            red.zero_()  # under start_peak the scalar folds a max from 0
+            rc = lib.dgq_rt_stats(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(), bh, t,
+                                  t, d, scale, 1, 0, form, stream)
+            if rc:
+                raise RuntimeError(f"rt_stats form {form}: CUDA error {rc}")
+
+        def accum(form):
+            rc = lib.dgq_quant_accum(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                     z.data_ptr(), red.data_ptr(), bh, t, t, d, scale, 8, 1, 0,
+                                     form, stream)
+            if rc:
+                raise RuntimeError(f"quant_accum form {form}: CUDA error {rc}")
+
+        got = {}
+        for form in (3, 5):
+            stats(form)
+            zr = (z.clone(), red.clone())
+            accum(form)
+            torch.cuda.synchronize()
+            got[form] = (*zr, o.clone())
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got[3], got[5])):
+            raise AssertionError(f"K3b {label}: body (f) differs from body (e)")
+        del got
+
+        def plain():
+            for i in range(0, bh, 8):
+                _, r = A.rt_stats_reference(q[i:i + 8], k[i:i + 8], scale, True)
+                A.attention_reference(q[i:i + 8], k[i:i + 8], v[i:i + 8], scale, "log2", 8,
+                                      A.rt_delta(r, True), True)
+
+        ms = {(form, fn.__name__): _device_ms(lambda fn=fn, form=form: fn(form), calls=4, reps=3)
+              for form in (3, 5) for fn in (stats, accum)}
+        e, f = (ms[(form, "stats")] + ms[(form, "accum")] for form in (3, 5))
+        plain_ms = _median_ms(plain, reps=3)
+        flops = 4.0 * bh * t * t * d
+        tf32 = 1e3 * 4 * flops / PEAK_TF32_FLOPS
+        model = 1e3 * flops / PEAK_TF32_FLOPS
+        out[label] = (e, f)
+        print(f"K3b f32 pair {label} (BH={bh}, T=S={t}, D={d}, start_peak): body (e) rt_stats "
+              f"{ms[(3, 'stats')]:.4f} + quant_accum {ms[(3, 'accum')]:.4f} = {e:.4f} device-only "
+              f"ms; body (f) {ms[(5, 'stats')]:.4f} + {ms[(5, 'accum')]:.4f} = {f:.4f} ({e / f:.2f}x)"
+              f", its bits; 3xTF32 bound {tf32:.4f} (body (e) {100 * tf32 / e:.1f}%, body (f) "
+              f"{100 * tf32 / f:.1f}%); model bound {model:.4f} (body (f) {100 * model / f:.2f}%, "
+              f"body (e) {100 * model / e:.2f}%); plain {plain_ms:.4f} | {tag}", flush=True)
+        del q, k, v, z, red, o
+        torch.cuda.empty_cache()
+    return out
+
+
 def text_encoders_full_width(tag):
     """The CLIP text encoders at full width, card against CPU in f32 (TF32
     off): CLIP-L (12 layers, 768 wide) through clip_text_encode, the bigG
@@ -2801,7 +2909,7 @@ def _run_cli(phase, label, fn, argv, forwards, want, tag):
              f"{', '.join(f'{v:.2f}' for v in s['act_slots'])} s; " if "act_slots" in s else "")
           + f"{counts['forwards']} UNet forwards, {counts['kernel_forwards']} with the "
           f"kernels' attention (expected {forwards}); launches {got} (expected {want}); "
-          f"{fq} | {tag}", flush=True)
+          f"{fq}; {_k3b_share(launched)} | {tag}", flush=True)
     if counts["kernel_forwards"] != forwards or got != want:
         raise AssertionError(f"{phase} {label}: {counts['kernel_forwards']} forwards, "
                              f"launches {got}; expected {forwards} and {want}")
@@ -5523,7 +5631,12 @@ def print_build_report(paths, tag):
                            sym)
             qf = re.search(r"quant_tf32_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
                            sym)
-            if qf:
+            pf = re.search(r"pipelined17quant_tf32_kernelILi(\d)ELi(\d+)ELi(\d+)E", sym)
+            if pf:
+                kname = (f"{modes[pf.group(1)]} body (f) TMA pipeline 3xTF32 wgmma "
+                         f"D<={8 * int(pf.group(2))} {pf.group(3)} columns (registers at entry; "
+                         f"the consumers take 232 by setmaxnreg)")
+            elif qf:
                 kname = (f"{modes[qf.group(1)]} 3xTF32 wgmma D<={8 * int(qf.group(3))} "
                          f"{qf.group(5)} x {qf.group(4)} columns"
                          + (" 16-byte loads" if qf.group(6) == "1" else " element loads"))
@@ -5626,6 +5739,22 @@ def linear_gemm_alone():
     summary = _Summary()
     compare_linear_gemm(f"card: {card}", summary)
     print(json.dumps(summary["linear_gemm"]))
+
+
+def k3b_alone():
+    """`k3b_bodies` by itself: build the kernels, report the attention
+    library's instances, then the rows."""
+    import torch
+    from dgq_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    paths = build.build_kernels()
+    build.load_kernels()
+    print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
+    print_build_report({"attention": paths["attention"]}, f"card: {card}")
+    print(json.dumps(k3b_bodies(f"card: {card}")))
 
 
 def main():
@@ -5748,6 +5877,7 @@ def _run_phases(build, built, compiling, reference, card, tag, t0):
             "linear_gemm", 0)
         torch.cuda.empty_cache()
         phase(f32_bodies, tag)
+        phase(k3b_bodies, tag)
         phase(text_encoders_full_width, tag)
         phase(tp_path, tag, tp1, lambda: phase(recon_path, tag + on_tp,
                                                reference("recon_reference"), note=on_tp))
@@ -5786,5 +5916,7 @@ if __name__ == "__main__":
         fake_quant_alone()
     elif sys.argv[1:] == ["--linear-gemm"]:
         linear_gemm_alone()
+    elif sys.argv[1:] == ["--k3b"]:
+        k3b_alone()
     else:
         main()

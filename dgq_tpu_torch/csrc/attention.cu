@@ -35,7 +35,7 @@
 // here, so K1 and K4 recompute Q K^T in pass 2 (as the TPU's `_accum_kernel`
 // does) and pay 1.5x the flops of K2; K3b pays the same over its two launches.
 //
-// Five bodies.
+// Six bodies.
 //
 // (a) The bf16 flash mode (K2, K2p) runs on the tensor cores
 // (`flash_tc_kernel`, tile code in wgmma.cuh). A block of two warpgroups takes
@@ -87,6 +87,15 @@
 // as three TF32 products, P V as two, since a quantized probability is one
 // TF32 number exactly.
 //
+// (f) K3b's two f32 launches in the classic layout at head_dim <= 64 (SD3's
+// joint attention, the UNets' self-attention; `pipelined::quant_tf32_kernel`,
+// form 5) run body (e)'s arithmetic on a warp-specialised TMA pipeline: a
+// producer warpgroup loads raw K and V tiles by TMA and splits them into TF32
+// parts once for a block of 128 query rows, two consumer warpgroups keep their
+// split Q rows in registers and take turns at the tensor cores. Bit for bit
+// body (e)'s results, so the router (`ops/attention.py:k3b_form`) may choose
+// either for either launch. Its note below says what bounds it.
+//
 // (b) K1 and K4 in f32 past head_dim 160 or with uniform codes past 2048, and K1
 // in bf16 past head_dim 192 (the VAE's 512) or with codes past 256, keep the
 // first version's body, f32 FMAs on the CUDA cores (`attention_kernel`, form 0
@@ -116,6 +125,7 @@
 // 64-wide heads per 128-lane block) is a lane matter with no counterpart: a
 // block takes one head whatever its slot.
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -1559,6 +1569,139 @@ int dispatch_tf32(const void* q, const void* k, const void* v, void* o, int bh, 
 // pass; quant_accum none); what holds it is body (d)'s step machinery (each
 // step waits on loads issued one step earlier). kStats keeps no O and runs
 // three blocks an SM, as do the 40-column tiers of the other modes.
+// A key tile's P V into a fresh accumulator pv (bodies (e) and (f)): P's A
+// fragments pa, V^T's big part at vt in two sub-tiles of 32 keys (`key_slot`
+// order) and its small part 2 NB 128 bytes further, two TF32 products a k8
+// step, the small term first
+template <int NB>
+__device__ __forceinline__ void tf32_pv(float (&pv)[NB / 2], const uint32_t (&pa)[8][4],
+                                        uint32_t vt) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const uint32_t at = vt + (u / 4) * (NB * 128) + (u % 4) * 32;
+    tc::Tf32<NB>::rs(pv, pa[u], tc::desc(at + 2 * NB * 128), u > 0);
+    tc::Tf32<NB>::rs(pv, pa[u], tc::desc(at), 1);
+  }
+}
+
+// Pass 2's quantizer of the f32 bodies (e) and (f), as body (c) forms it: the
+// row constants of this thread's rows r0 and r1 (from pass 1's m and l, or
+// from rt_stats' z and the call's scalar), a key tile's S -> P's A fragments,
+// and the output out = f acc (+ exp(s0 - z) V[0, :] under start_peak).
+template <int MODE>
+struct Tf32Quant {
+  bool uni, sp;
+  float c0, c1, ub = 0.f, z0 = 0.f, z1 = 0.f, f;
+  uint32_t dexp;               // log2 terms: A element bits dexp - (q << 23)
+  float s00 = 0.f, s01 = 0.f;  // start_peak: key 0's raw scores (lane t4 = 0)
+
+  __device__ __forceinline__ Tf32Quant(const Extra& ex, int bh, int t_len, int r0, int r1,
+                                       float m0, float m1, float l0, float l1, float scale,
+                                       float scale_log2) {
+    uni = MODE == kUniform || (MODE == kStatic && ex.uniform);
+    sp = ex.start_peak != 0;
+    float delta;
+    if (MODE == kAccum) {
+      const float r = __int_as_float(*ex.red);
+      delta = sp ? r : 1.f / r;
+      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
+      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
+    } else {
+      delta = *ex.delta;
+    }
+    if (MODE == kStatic) {
+      z0 = fmaf(m0, scale, logf(l0));
+      z1 = fmaf(m1, scale, logf(l1));
+    }
+    // log2 terms: the accumulator times f = delta's significand; uniform
+    // codes: the accumulator times f = delta
+    const uint32_t dbits = __float_as_uint(delta);
+    dexp = dbits & 0x7f800000u;
+    f = uni ? delta : __uint_as_float((dbits & 0x807fffffu) | 0x3f800000u);
+    if (uni) {
+      c0 = -fmaf(m0, scale_log2, log2f(l0 * delta));
+      c1 = -fmaf(m1, scale_log2, log2f(l1 * delta));
+    } else {
+      ub = fminf(static_cast<float>(static_cast<int>(dbits >> 23) - 1), ex.max_code);
+      const float log2d = log2f(delta);
+      c0 = fmaf(z0, kInvLn2, log2d);
+      c1 = fmaf(z1, kInvLn2, log2d);
+    }
+  }
+
+  // S of key tile j -> P's A fragments, one a k8 step: keys 2 t4 and 2 t4 + 1
+  // of block u as k t4 and t4 + 4 (V^T is stored in `key_slot` order)
+  __device__ __forceinline__ void codes(const float (&s)[32], int j, int t4, float scale_log2,
+                                        float max_code, uint32_t (&pa)[8][4]) {
+    constexpr float kMagic = 12582912.f;  // 1.5 2^23: x + kMagic rounds x to an integer
+    const bool peak0 = MODE != kUniform && sp && j == 0 && t4 == 0;
+    if (peak0) {
+      s00 = s[0];
+      s01 = s[2];
+    }
+    uint32_t a[32];
+    if (uni) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const float e = ex2(fmaf(s[x], scale_log2, (x & 2) ? c1 : c0));
+        a[x] = __float_as_uint(fminf((e + kMagic) - kMagic, max_code));
+      }
+    } else {
+      // bits(y + kMagic) = 0x4B400000 + q, and (0x4B400000 << 23) is 0 mod 2^32
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const float y = fminf(fmaxf(fmaf(s[x], -scale_log2, (x & 2) ? c1 : c0), 0.f), ub);
+        a[x] = dexp - (__float_as_uint(y + kMagic) << 23);
+      }
+    }
+    if (peak0) {  // key 0's A elements: zero, its exact term is added after the loop
+      a[0] = 0u;
+      a[2] = 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      pa[u][0] = a[4 * u];      // (g, key 2 t4)
+      pa[u][1] = a[4 * u + 2];  // (g + 8, key 2 t4)
+      pa[u][2] = a[4 * u + 1];  // (g, key 2 t4 + 1)
+      pa[u][3] = a[4 * u + 3];  // (g + 8, key 2 t4 + 1)
+    }
+  }
+
+  // O's columns [b NB, b NB + NB) in oacc[b]; ob: the head's output, vb its V
+  template <int NB, int NPB>
+  __device__ __forceinline__ void write(const float (&oacc)[NPB][NB / 2], float* ob,
+                                        const float* vb, const Layout& lay, int r0, int r1,
+                                        int t_len, int d, int lane, int t4, float scale,
+                                        int o_vec) const {
+    const bool peak = MODE != kUniform && sp;
+    float p00 = 0.f, p01 = 0.f;
+    if (peak) {
+      const int lead = lane & ~3;
+      p00 = expf(fmaf(__shfl_sync(0xffffffffu, s00, lead), scale, -z0));
+      p01 = expf(fmaf(__shfl_sync(0xffffffffu, s01, lead), scale, -z1));
+    }
+#pragma unroll
+    for (int b = 0; b < NPB; ++b)
+#pragma unroll
+      for (int jb = 0; jb < NB / 8; ++jb) {
+        const int col = b * NB + 8 * jb + 2 * t4;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = oacc[b][4 * jb + e] * f;
+        if (peak) {
+          const float va = col < d ? vb[col] : 0.f, vb1 = col + 1 < d ? vb[col + 1] : 0.f;
+          x[0] = fmaf(p00, va, x[0]);
+          x[1] = fmaf(p00, vb1, x[1]);
+          x[2] = fmaf(p01, va, x[2]);
+          x[3] = fmaf(p01, vb1, x[3]);
+        }
+        store_pair(ob, lay.o_row, r0, col, x[0], x[1], t_len, d, o_vec);
+        store_pair(ob, lay.o_row, r1, col, x[2], x[3], t_len, d, o_vec);
+      }
+    zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
+  }
+};
+
 template <int MODE, int NCH, int NKS, int NB, int NPB, bool VEC>
 __global__ void __launch_bounds__(kTfThreads, MODE == kStats || NB * NPB <= 40 ? 3 : 1)
 quant_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1644,41 +1787,13 @@ quant_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     rs.write(ex, bh, t_len, r0, r1, lane, scale);
   } else {
     // pass 2: the quantizer's row constants, as body (c) forms them
-    const bool uni = MODE == kUniform || (MODE == kStatic && ex.uniform);
-    float delta, c0, c1, ub = 0.f, z0 = 0.f, z1 = 0.f;
-    if (MODE == kAccum) {
-      const float r = __int_as_float(*ex.red);
-      delta = sp ? r : 1.f / r;
-      if (r0 < t_len) z0 = ex.z[(size_t)bh * t_len + r0];
-      if (r1 < t_len) z1 = ex.z[(size_t)bh * t_len + r1];
-    } else {
-      delta = *ex.delta;
-    }
-    if (MODE == kStatic) {
-      z0 = fmaf(m0, scale, logf(l0));
-      z1 = fmaf(m1, scale, logf(l1));
-    }
-    // log2 terms: A element bits dexp - (q << 23), the accumulator times f =
-    // delta's significand; uniform codes: the accumulator times f = delta
-    const uint32_t dbits = __float_as_uint(delta), dexp = dbits & 0x7f800000u;
-    const float f = uni ? delta : __uint_as_float((dbits & 0x807fffffu) | 0x3f800000u);
-    if (uni) {
-      c0 = -fmaf(m0, scale_log2, log2f(l0 * delta));
-      c1 = -fmaf(m1, scale_log2, log2f(l1 * delta));
-    } else {
-      ub = fminf(static_cast<float>(static_cast<int>(dbits >> 23) - 1), ex.max_code);
-      const float log2d = log2f(delta);
-      c0 = fmaf(z0, kInvLn2, log2d);
-      c1 = fmaf(z1, kInvLn2, log2d);
-    }
-    constexpr float kMagic = 12582912.f;  // 1.5 2^23: x + kMagic rounds x to an integer
+    Tf32Quant<MODE> qz(ex, bh, t_len, r0, r1, m0, m1, l0, l1, scale, scale_log2);
     float oacc[NPB][NB / 2], pv[NB / 2];
 #pragma unroll
     for (int b = 0; b < NPB; ++b)
 #pragma unroll
       for (int x = 0; x < NB / 2; ++x) oacc[b][x] = 0.f;
-    uint32_t pa[BK / 8][4];       // P's A fragments, one a k8 step
-    float s00 = 0.f, s01 = 0.f;  // start_peak: key 0's raw scores (lane t4 = 0)
+    uint32_t pa[BK / 8][4];  // P's A fragments, one a k8 step
 
     for (int j = 0; j < n_tiles; ++j) {
 #pragma unroll
@@ -1689,12 +1804,7 @@ quant_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (i < NCH) {
           tf32_qk<NKS, BK>(sc, cur, i);
         } else {
-#pragma unroll
-          for (int u = 0; u < BK / 8; ++u) {
-            const uint32_t vt = cur + (u / 4) * (NB * 128) + (u % 4) * 32;
-            tc::Tf32<NB>::rs(pv, pa[u], tc::desc(vt + PV_HALF), u > 0);
-            tc::Tf32<NB>::rs(pv, pa[u], tc::desc(vt), 1);
-          }
+          tf32_pv<NB>(pv, pa, cur);
         }
         tc::mma_commit();
         feed(st, (i + 1) % NST, j + (i + 2) / NST, (i + 2) % NST);
@@ -1710,72 +1820,11 @@ quant_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int x = 0; x < NB / 2; ++x) oacc[i - NCH][x] += pv[x];
         }
-        if (i == NCH - 1) {
-          // S of key tile j is whole: its A fragments, keys 2 t4 and 2 t4 + 1
-          // of block u as k t4 and t4 + 4 (V^T is stored in `key_slot` order)
-          const bool peak0 = MODE != kUniform && sp && j == 0 && t4 == 0;
-          if (peak0) {
-            s00 = s[0];
-            s01 = s[2];
-          }
-          uint32_t a[NS];
-          if (uni) {
-#pragma unroll
-            for (int x = 0; x < NS; ++x) {
-              const float e = ex2(fmaf(s[x], scale_log2, (x & 2) ? c1 : c0));
-              a[x] = __float_as_uint(fminf((e + kMagic) - kMagic, ex.max_code));
-            }
-          } else {
-            // bits(y + kMagic) = 0x4B400000 + q, and (0x4B400000 << 23) is 0 mod 2^32
-#pragma unroll
-            for (int x = 0; x < NS; ++x) {
-              const float y = fminf(fmaxf(fmaf(s[x], -scale_log2, (x & 2) ? c1 : c0), 0.f), ub);
-              a[x] = dexp - (__float_as_uint(y + kMagic) << 23);
-            }
-          }
-          if (peak0) {  // key 0's A elements: zero, its exact term is added after the loop
-            a[0] = 0u;
-            a[2] = 0u;
-          }
-#pragma unroll
-          for (int u = 0; u < BK / 8; ++u) {
-            pa[u][0] = a[4 * u];      // (g, key 2 t4)
-            pa[u][1] = a[4 * u + 2];  // (g + 8, key 2 t4)
-            pa[u][2] = a[4 * u + 1];  // (g, key 2 t4 + 1)
-            pa[u][3] = a[4 * u + 3];  // (g + 8, key 2 t4 + 1)
-          }
-        }
+        if (i == NCH - 1) qz.codes(s, j, t4, scale_log2, ex.max_code, pa);  // S of tile j is whole
       }
     }
-
-    // out = f acc (+ exp(s0 - z) V[0, :] under start_peak)
-    const bool peak = MODE != kUniform && sp;
-    float p00 = 0.f, p01 = 0.f;
-    if (peak) {
-      const int lead = lane & ~3;
-      p00 = expf(fmaf(__shfl_sync(0xffffffffu, s00, lead), scale, -z0));
-      p01 = expf(fmaf(__shfl_sync(0xffffffffu, s01, lead), scale, -z1));
-    }
-    float* ob = o + batch * lay.o_batch + head_off;
-#pragma unroll
-    for (int b = 0; b < NPB; ++b)
-#pragma unroll
-      for (int jb = 0; jb < NB / 8; ++jb) {
-        const int col = b * NB + 8 * jb + 2 * t4;
-        float x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = oacc[b][4 * jb + e] * f;
-        if (peak) {
-          const float va = col < d ? vb[col] : 0.f, vb1 = col + 1 < d ? vb[col + 1] : 0.f;
-          x[0] = fmaf(p00, va, x[0]);
-          x[1] = fmaf(p00, vb1, x[1]);
-          x[2] = fmaf(p01, va, x[2]);
-          x[3] = fmaf(p01, vb1, x[3]);
-        }
-        store_pair(ob, lay.o_row, r0, col, x[0], x[1], t_len, d, o_vec);
-        store_pair(ob, lay.o_row, r1, col, x[2], x[3], t_len, d, o_vec);
-      }
-    zero_pad_lanes(ob, lay, r0, r1, t_len, d, t4);
+    qz.template write<NB, NPB>(oacc, o + batch * lay.o_batch + head_off, vb, lay, r0, r1, t_len, d,
+                               lane, t4, scale, o_vec);
   }
 }
 
@@ -1820,6 +1869,347 @@ int dispatch_quant_tf32(const void* q, const void* k, const void* v, void* o, in
 #undef DGQ_QTF
 }
 
+// ---- (f) K3b in f32 on a warp-specialised TMA pipeline ----
+//
+// rt_stats (kStats) and quant_accum (kAccum) in f32 at head dim <= 64 in the
+// classic layout, the two launches of every SD3 joint attention and of the
+// UNets' self-attentions (`ops/attention.py:k3b_form` routes them). Body (e)
+// runs them as steps of one warpgroup that loads its operands into
+// registers, splits them into TF32 parts, stores them into a two-stage ring
+// and waits at a block-wide barrier before a step of four k8 products; the
+// tensor cores sit idle while the same threads load, split and store, and Q
+// is re-read and re-split on every key tile (at SD3's shape 29% of the pair's
+// own 3xTF32 bound). Here the work is split among warpgroups, as in
+// linear_gemm.cu, and a block takes 128 query rows of one head:
+//   * the producer (warpgroup 2): its loader thread keeps TMA loads of raw f32
+//     K tiles (and, in kAccum, V tiles) in flight, 64 keys by two 32-lane
+//     boxes under the 128-byte swizzle from a 3-D tensor map (d, s_len, bh),
+//     which fills keys past S and lanes past d with zeros, into a ring of
+//     stages as far ahead as the consumers free them (V into a ring of two
+//     raw buffers of its own); its other three warps split each K tile into
+//     its TF32 big part (in place) and small part, K-major, and each V tile
+//     into V^T's parts in `key_slot` order (the layout `tf32_store` gives),
+//     once for all 128 rows, and mark the stage full;
+//   * two consumers (warpgroups 0 and 1, 64 rows each): split their Q rows
+//     once, into A fragments that stay in registers for the whole key loop,
+//     and issue a key tile's Q K^T (both 32-lane chunks, 24 products, one
+//     fresh accumulator a chunk) and, in kAccum, its P V (16 products into a
+//     fresh accumulator) as chains that take turns with the other consumer's
+//     at the tensor cores (named barriers), so one consumer's statistics or
+//     quantizer run under the other's products. A stage is freed by an
+//     `mbarrier` arrive; no __syncthreads runs inside the key loop.
+// The arithmetic is body (e)'s, bit for bit (`split_tf32`, the chunks' and
+// tiles' fresh accumulators and their f32 adds in the same order, `RowStats`,
+// `Tf32Quant`, `tf32_pv`), so rt_stats' z and scalar and quant_accum's
+// output do not depend on which of the two bodies a launch ran. What bounds
+// it: three TF32 products for Q K^T and two for P V at 495 TFLOP/s; the
+// exponentials (rt_stats) and the quantizer run on the CUDA cores beside them.
+// Shared memory comes next: a product's B operand (2 KB a k8 step of 64
+// columns) is read once for each consumer, half the bandwidth at the full
+// rate, beside the split's and TMA's traffic. On an H100 at SD3's shape the
+// pair takes 9.01 ms, 43% of its 3xTF32 bound (body (e): 13.01 ms, 30%);
+// rt_stats reaches 53% of its share, quant_accum 39%. The split bounds it
+// (without one, 4.9 ms), `cvt.rna.tf32.f32` most of all: the same rounding
+// as an integer add on the bit pattern (ops/tf32.py's `tf32_rna`) read 7.5 ms.
+namespace pipelined {
+
+constexpr int kThreads = 384;   // consumers 0 and 1, producer 2
+constexpr int kSplitters = 96;  // the producer's threads past its loader warp
+constexpr int kBox = 64 * 128;  // one TMA box: 64 keys x 32 lanes of f32
+
+// NB: V^T's rows (O's columns). A stage: K's two boxes (big in place), K's
+// small part, then (kAccum) V^T's big and small parts, two sub-tiles of 32
+// keys x NB rows each. kAccum's raw V tiles lie in a ring of two behind the
+// stages.
+template <int MODE, int NB> struct Plan {
+  static constexpr int kVt = 4 * kBox;
+  static constexpr int kStage = MODE == kAccum ? kVt + 4 * NB * 128 : kVt;
+  static constexpr int kRaw = MODE == kAccum ? 2 * 2 * kBox : 0;
+  // 227 KB of shared memory a block, less the ring's alignment and the barriers
+  static constexpr int kFit = (232448 - 1024 - 256 - kRaw) / kStage;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = 1024 + kStages * kStage + kRaw;
+};
+
+// Q K^T of a key tile into sc0 (lanes 0..31) and sc1 (32..63): for each k8
+// step three TF32 products, the two small terms first, Q's parts from
+// registers, K's big part at kbig (box i at kbig + i kBox) and its small
+// part two boxes further (`tf32_qk`'s order)
+__device__ __forceinline__ void qk_step(float (&sc)[32], const uint32_t (&qbig)[4],
+                                        const uint32_t (&qsmall)[4], uint32_t at, int accumulate) {
+  tc::Tf32<64>::rs(sc, qbig, tc::desc(at + 2 * kBox), accumulate);
+  tc::Tf32<64>::rs(sc, qsmall, tc::desc(at), 1);
+  tc::Tf32<64>::rs(sc, qbig, tc::desc(at), 1);
+}
+template <int NKS>
+__device__ __forceinline__ void qk(float (&sc0)[32], float (&sc1)[32],
+                                   const uint32_t (&qbig)[NKS][4],
+                                   const uint32_t (&qsmall)[NKS][4], uint32_t kbig) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) qk_step(sc0, qbig[ks], qsmall[ks], kbig + 32 * ks, ks > 0);
+#pragma unroll
+  for (int ks = 4; ks < NKS; ++ks)
+    qk_step(sc1, qbig[ks], qsmall[ks], kbig + kBox + 32 * (ks - 4), ks > 4);
+}
+
+// NKS: k8 steps of Q K^T (5 for head dims to 40, 8 to 64, body (e)'s tiers);
+// NB: O's columns (40 or 64)
+template <int MODE, int NKS, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+quant_tf32_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                  const float* __restrict__ q, const float* __restrict__ v, float* __restrict__ o,
+                  int t_len, int s_len, int d, float scale, float scale_log2, Extra ex, Layout lay,
+                  int o_vec) {
+  static_assert(MODE == kStats || MODE == kAccum, "K3b's two launches");
+  static_assert(NKS > 4 && NKS <= 8 && NB % 8 == 0 && NB <= 64, "two 32-lane chunks");
+  using P = Plan<MODE, NB>;
+  extern __shared__ uint8_t smem_raw[];
+  // per stage: loaded (the TMA's bytes), full (split), empty (consumed); raw V: free
+  __shared__ __align__(8) uint64_t bars[3 * P::kStages + 2];
+  const uint32_t ring = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw = ring + P::kStages * P::kStage;
+  const uint32_t bar0 = tc::smem_u32(bars);
+  const uint32_t loaded = bar0, full = bar0 + 8 * P::kStages, empty = bar0 + 16 * P::kStages;
+  const uint32_t raw_free = bar0 + 24 * P::kStages;
+  const int tid = threadIdx.x, bh = blockIdx.y;
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      tc::mbar_init(loaded + 8 * s, 1);
+      tc::mbar_init(full + 8 * s, kSplitters);
+      tc::mbar_init(empty + 8 * s, 8);
+    }
+    tc::mbar_init(raw_free, kSplitters);
+    tc::mbar_init(raw_free + 8, kSplitters);
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_tiles = (s_len + 63) / 64;
+
+  if (tid >= 256) {
+    // ---- producer: loads and the split of K and V ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid < 256 + 32) {
+      if (tid == 256) {  // the loader
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % P::kStages;
+          tc::mbar_wait(empty + 8 * s, ((j / P::kStages) & 1) ^ 1);
+          if (MODE == kAccum) tc::mbar_wait(raw_free + 8 * (j & 1), ((j >> 1) & 1) ^ 1);
+          const uint32_t bar = loaded + 8 * s, st = ring + s * P::kStage;
+          tc::mbar_expect_tx(bar, (MODE == kAccum ? 4 : 2) * kBox);
+          tc::tma_load(st, &kmap, bar, 0, 64 * j, bh);
+          tc::tma_load(st + kBox, &kmap, bar, 32, 64 * j, bh);
+          if (MODE == kAccum) {
+            const uint32_t vr = raw + (j & 1) * 2 * kBox;
+            tc::tma_load(vr, &vmap, bar, 0, 64 * j, bh);
+            tc::tma_load(vr + kBox, &vmap, bar, 32, 64 * j, bh);
+          }
+        }
+      }
+    } else {
+      // the splitters: three warps
+      const int p = tid - 256 - 32;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % P::kStages;
+        tc::mbar_wait(loaded + 8 * s, (j / P::kStages) & 1);
+        const uint32_t st = ring + s * P::kStage;
+        // K: the 16-byte chunks of the lanes the products read (8 NKS a key)
+#pragma unroll 2
+        for (int c = p; c < 64 * 2 * NKS; c += kSplitters) {
+          const int row = c & 63, lc = c >> 6;
+          const uint32_t at = st + (lc >> 3) * kBox + tc::swz(row, lc & 7);
+          const uint4 x = tc::ld_shared16(at);
+          uint4 big, small;
+          tc::split_tf32(__uint_as_float(x.x), big.x, small.x);
+          tc::split_tf32(__uint_as_float(x.y), big.y, small.y);
+          tc::split_tf32(__uint_as_float(x.z), big.z, small.z);
+          tc::split_tf32(__uint_as_float(x.w), big.w, small.w);
+          tc::st_shared16(at, big);
+          tc::st_shared16(at + 2 * kBox, small);
+        }
+        if (MODE == kAccum) {
+          // V: key `key`, lanes 4 n4.. -> rows 4 n4.. of V^T, column key_slot(key)
+          const uint32_t vr = raw + (j & 1) * 2 * kBox, vt = st + P::kVt;
+#pragma unroll 2
+          for (int c = p; c < 64 * (NB / 4); c += kSplitters) {
+            const int key = c & 63, n4 = c >> 6;
+            const uint4 x = tc::ld_shared16(vr + (n4 >> 3) * kBox + tc::swz(key, n4 & 7));
+            const int slot = key_slot(key), chunk = (slot & 31) >> 2;
+            const uint32_t base = vt + (slot >> 5) * (NB * 128) + ((slot & 3) << 2);
+            const float e4[4] = {__uint_as_float(x.x), __uint_as_float(x.y),
+                                 __uint_as_float(x.z), __uint_as_float(x.w)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int n = 4 * n4 + e;
+              const uint32_t dst = base + n * 128 + ((chunk ^ (n & 7)) << 4);
+              uint32_t big, small;
+              tc::split_tf32(e4[e], big, small);
+              st_shared4(dst, big);
+              st_shared4(dst + 2 * NB * 128, small);
+            }
+          }
+          tc::mbar_arrive(raw_free + 8 * (j & 1));
+        }
+        tc::fence_async_proxy();  // the products read the parts through the async proxy
+        tc::mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = blockIdx.x * 128 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    const float* qb = q + (size_t)bh * t_len * d;
+    // Q's A fragments (rows r0, r1; lanes 8 ks + t4 and + 4), split once
+    uint32_t qbig[NKS][4], qsmall[NKS][4];
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e & 1 ? r1 : r0, col = 8 * ks + t4 + 4 * (e >> 1);
+        const float x = row < t_len && col < d ? __ldg(qb + (size_t)row * d + col) : 0.f;
+        tc::split_tf32(x, qbig[ks][e], qsmall[ks][e]);
+      }
+    constexpr int kChains = MODE == kAccum ? 2 : 1;  // Q K^T, then (kAccum) P V, a key tile
+    const int chains = n_tiles * kChains;
+    int chain = 0;
+    // a chain: issued once the other consumer has issued its own, then its turn
+    auto issue = [&] {
+      tc::named_sync(1 + wg);
+      tc::mma_fence();
+    };
+    auto done = [&] {
+      tc::mma_commit();
+      if (wg == 0 || ++chain < chains) tc::named_arrive(2 - wg);
+      tc::mma_wait<0>();
+    };
+    auto release = [&](int s) {  // every product of this consumer has read stage s
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);
+    };
+    // The accumulators are zeroed before each chain, whose first product
+    // overwrites them, so that none is live across the other chain.
+    float s[32], sc0[32], sc1[32];
+    auto zero = [](float(&a)[32]) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) a[x] = 0.f;
+    };
+    if (wg == 1) tc::named_arrive(1);  // consumer 0 issues first
+    const bool sp = ex.start_peak != 0;
+
+    if constexpr (MODE == kStats) {
+      RowStats rs;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % P::kStages;
+        tc::mbar_wait(full + 8 * st, (j / P::kStages) & 1);
+        zero(sc0);
+        zero(sc1);
+        issue();
+        qk<NKS>(sc0, sc1, qbig, qsmall, ring + st * P::kStage);
+        done();
+        tc::pin(sc0);
+        tc::pin(sc1);
+#pragma unroll
+        for (int ks = 0; ks < NKS; ++ks) {
+          tc::pin(qbig[ks]);
+          tc::pin(qsmall[ks]);
+        }
+        release(st);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] = sc0[x] + sc1[x];
+        rs.add(s, j * 64, s_len, t4, scale_log2, sp);
+      }
+      rs.finish();
+      rs.write(ex, bh, t_len, r0, r1, lane, scale);
+    } else {
+      Tf32Quant<MODE> qz(ex, bh, t_len, r0, r1, 0.f, 0.f, 0.f, 0.f, scale, scale_log2);
+      float oacc[1][NB / 2], pv[NB / 2];
+#pragma unroll
+      for (int x = 0; x < NB / 2; ++x) oacc[0][x] = 0.f;
+      uint32_t pa[8][4];  // P's A fragments, one a k8 step
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % P::kStages;
+        const uint32_t stage = ring + st * P::kStage;
+        tc::mbar_wait(full + 8 * st, (j / P::kStages) & 1);
+        zero(sc0);
+        zero(sc1);
+        issue();
+        qk<NKS>(sc0, sc1, qbig, qsmall, stage);
+        done();
+        tc::pin(sc0);
+        tc::pin(sc1);
+#pragma unroll
+        for (int ks = 0; ks < NKS; ++ks) {
+          tc::pin(qbig[ks]);
+          tc::pin(qsmall[ks]);
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] = sc0[x] + sc1[x];
+        qz.codes(s, j, t4, scale_log2, ex.max_code, pa);
+#pragma unroll
+        for (int x = 0; x < NB / 2; ++x) pv[x] = 0.f;
+        issue();
+        tf32_pv<NB>(pv, pa, stage + P::kVt);
+        done();
+        tc::pin(pv);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) tc::pin(pa[u]);
+        release(st);
+#pragma unroll
+        for (int x = 0; x < NB / 2; ++x) oacc[0][x] += pv[x];
+      }
+      qz.template write<NB, 1>(oacc, o + (size_t)bh * t_len * d, v + (size_t)bh * s_len * d, lay,
+                               r0, r1, t_len, d, lane, t4, scale, o_vec);
+    }
+  }
+}
+
+template <int MODE, int NKS, int NB>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int t_len,
+                   int s_len, int d, float scale, const Extra& ex, const Layout& lay, int o_vec,
+                   cudaStream_t stream) {
+  using P = Plan<MODE, NB>;
+  // (d, s_len, bh) f32, read in boxes of 32 lanes x 64 keys of one head
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s_len),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 4,
+                                 static_cast<cuuint64_t>(s_len) * d * 4};
+  const cuuint32_t box[3] = {32, 64, 1};
+  CUtensorMap kmap, vmap;
+  if (!tc::encode_f32(&kmap, k, 3, dims, strides, box)) return cudaErrorInvalidValue;
+  if (MODE == kAccum) {
+    if (!tc::encode_f32(&vmap, v, 3, dims, strides, box)) return cudaErrorInvalidValue;
+  } else {
+    vmap = kmap;
+  }
+  auto kernel = quant_tf32_kernel<MODE, NKS, NB>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + 127) / 128, bh);
+  kernel<<<grid, kThreads, P::kSmem, stream>>>(
+      kmap, vmap, static_cast<const float*>(q), static_cast<const float*>(v),
+      static_cast<float*>(o), t_len, s_len, d, scale, scale * kLog2e, ex, lay, o_vec);
+  return cudaGetLastError();
+}
+
+// Form 5: the classic layout only, f32 at head dim <= 64 with `vec_ok`'s
+// alignment (TMA reads 16-byte rows from 16-byte-aligned bases), scale > 0;
+// anything else is refused. Body (e)'s tiers: head dims to 40, to 64.
+template <int MODE>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t_len, int s_len,
+             int d, float scale, const Extra& ex, const Layout& lay, cudaStream_t stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1 || d < 1 || d > 64 || !(scale > 0.f))
+    return cudaErrorInvalidValue;
+  if (lay.heads != 1 || lay.slot != 0 || !vec_ok(q, k, MODE == kStats ? k : v, d, lay))
+    return cudaErrorInvalidValue;
+  const int o_vec = MODE != kStats && reinterpret_cast<uintptr_t>(o) % 8 == 0;
+  if (d <= 40) return launch<MODE, 5, 40>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, o_vec, stream);
+  return launch<MODE, 8, 64>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, o_vec, stream);
+}
+
+}  // namespace pipelined
+
 // The flash entries: forms 1 and 2 are body (a) and take bf16 only; forms 3
 // and 4 are body (d) and take f32 only. Form 0 is refused: no flash body runs
 // on the CUDA cores.
@@ -1858,6 +2248,10 @@ int dispatch_quant(int form, int is_bf16, const void* q, const void* k, const vo
     return dispatch_quant_tf32<MODE, true>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
   if (form == 4 && !is_bf16)
     return dispatch_quant_tf32<MODE, false>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  if constexpr (MODE == kStats || MODE == kAccum) {
+    if (form == 5 && !is_bf16)
+      return pipelined::dispatch<MODE>(q, k, v, o, bh, t_len, s_len, d, scale, ex, lay, st);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -45,11 +45,9 @@
 // tensor cores (the splitters bound it; a NaN test in the split had cost 1 to
 // 5 points); the turns, 1 to 3 points at the FF shapes (K or N 6144) and
 // within the noise elsewhere.
-#include <cuda.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -68,48 +66,6 @@ template <int BN> struct Plan {
   static constexpr int kSmem = 1024 + kStages * kStage; // the ring, 1024-byte aligned
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// a box of the tensor map at (c0 along K, c1 along rows) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(src));
-  return v;
-}
-__device__ __forceinline__ float ld_shared_f32(uint32_t src) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(src));
-  return v;
-}
-
 // x = big + small as TF32 words: big = rna(x), rounded as an integer add on
 // the bit pattern (the magnitude plus half the dropped unit, cut: the bits of
 // `cvt.rna.tf32.f32` on every number, at a fraction of its cost), and small =
@@ -121,15 +77,6 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t src) {
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
-}
-
-// the consumers' turns at the tensor cores: named barrier 1 holds consumer 0
-// until consumer 1 arrives, 2 the other way (0 is __syncthreads')
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 // row tile and column tile of output tile `tile`: groups of GROUP row tiles,
@@ -156,11 +103,11 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < P::kStages; ++s) {
-      mbar_init(bar0 + 8 * s, 1);
-      mbar_init(bar0 + 8 * (P::kStages + s), kSplitters);
-      mbar_init(bar0 + 8 * (2 * P::kStages + s), 8);
+      tc::mbar_init(bar0 + 8 * s, 1);
+      tc::mbar_init(bar0 + 8 * (P::kStages + s), kSplitters);
+      tc::mbar_init(bar0 + 8 * (2 * P::kStages + s), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tc::mbar_fence_init();
   }
   __syncthreads();
   const int ksteps = (k + BK - 1) / BK, tiles = tiles_m * tiles_n;
@@ -177,11 +124,11 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
           const int s = j % P::kStages, kt = j % ksteps;
           int tm, tn;
           tile_at(blockIdx.x + (j / ksteps) * gridDim.x, tiles_m, tiles_n, tm, tn);
-          mbar_wait(bar0 + 8 * (2 * P::kStages + s), ((j / P::kStages) & 1) ^ 1);
+          tc::mbar_wait(bar0 + 8 * (2 * P::kStages + s), ((j / P::kStages) & 1) ^ 1);
           const uint32_t loaded = bar0 + 8 * s, st = ring + s * P::kStage;
-          mbar_expect_tx(loaded, kStageX + P::kStageW);
-          tma_load(st, &xmap, loaded, kt * BK, tm * BM);
-          tma_load(st + kStageX, &wmap, loaded, kt * BK, tn * BN);
+          tc::mbar_expect_tx(loaded, kStageX + P::kStageW);
+          tc::tma_load(st, &xmap, loaded, kt * BK, tm * BM);
+          tc::tma_load(st + kStageX, &wmap, loaded, kt * BK, tn * BN);
         }
       }
     } else {
@@ -189,11 +136,11 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
       const int p = tid - 256 - 32;
       for (int j = 0; j < stages; ++j) {
         const int s = j % P::kStages;
-        mbar_wait(bar0 + 8 * s, (j / P::kStages) & 1);
+        tc::mbar_wait(bar0 + 8 * s, (j / P::kStages) & 1);
         const uint32_t w = ring + s * P::kStage + kStageX;
 #pragma unroll 4
         for (int c = p; c < BN * 8; c += kSplitters) {  // 16-byte chunks, wherever the swizzle put them
-          const uint4 v = ld_shared16(w + 16 * c);
+          const uint4 v = tc::ld_shared16(w + 16 * c);
           uint4 big, small;
           split(__uint_as_float(v.x), big.x, small.x);
           split(__uint_as_float(v.y), big.y, small.y);
@@ -203,7 +150,7 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
           tc::st_shared16(w + P::kStageW + 16 * c, small);
         }
         tc::fence_async_proxy();  // the products read the parts through the async proxy
-        mbar_arrive(bar0 + 8 * (P::kStages + s));
+        tc::mbar_arrive(bar0 + 8 * (P::kStages + s));
       }
     }
   } else {
@@ -214,14 +161,14 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
     float acc[BN / 2], chain[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) chain[i] = 0.f;  // each chain's first product overwrites it
-    if (wg == 1 && stages > 0) named_arrive(1);  // consumer 0 issues first
+    if (wg == 1 && stages > 0) tc::named_arrive(1);  // consumer 0 issues first
     int j = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       int tm, tn;
       tile_at(tile, tiles_m, tiles_n, tm, tn);
       for (int kt = 0; kt < ksteps; ++kt, ++j) {
         const int s = j % P::kStages;
-        mbar_wait(bar0 + 8 * (P::kStages + s), (j / P::kStages) & 1);
+        tc::mbar_wait(bar0 + 8 * (P::kStages + s), (j / P::kStages) & 1);
         const uint32_t st = ring + s * P::kStage;
         // this thread's A fragments (rows 16 warp + g and + 8; row & 7 = g):
         // k8 step ks holds columns 8 ks + t4 (chunk 2 ks) and + 4 (chunk 2 ks + 1)
@@ -230,13 +177,13 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) {
           const uint32_t lo = xrow + (((2 * ks) ^ g) << 4), hi = xrow + (((2 * ks + 1) ^ g) << 4);
-          split(ld_shared_f32(lo), abig[ks][0], asmall[ks][0]);
-          split(ld_shared_f32(lo + 1024), abig[ks][1], asmall[ks][1]);
-          split(ld_shared_f32(hi), abig[ks][2], asmall[ks][2]);
-          split(ld_shared_f32(hi + 1024), abig[ks][3], asmall[ks][3]);
+          split(tc::ld_shared_f32(lo), abig[ks][0], asmall[ks][0]);
+          split(tc::ld_shared_f32(lo + 1024), abig[ks][1], asmall[ks][1]);
+          split(tc::ld_shared_f32(hi), abig[ks][2], asmall[ks][2]);
+          split(tc::ld_shared_f32(hi + 1024), abig[ks][3], asmall[ks][3]);
         }
         const uint32_t wbig = st + kStageX, wsmall = wbig + P::kStageW;
-        named_sync(1 + wg);  // the other consumer has issued its chain
+        tc::named_sync(1 + wg);  // the other consumer has issued its chain
         tc::mma_fence();
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) {
@@ -245,7 +192,7 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
           tc::Tf32<BN>::rs(chain, abig[ks], tc::desc(wbig + 32 * ks), 1);
         }
         tc::mma_commit();
-        if (wg == 0 || j + 1 < stages) named_arrive(2 - wg);  // its turn
+        if (wg == 0 || j + 1 < stages) tc::named_arrive(2 - wg);  // its turn
         tc::mma_wait<0>();
         tc::pin(chain);
 #pragma unroll
@@ -254,7 +201,7 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
           tc::pin(asmall[ks]);
         }
         __syncwarp();
-        if (lane == 0) mbar_arrive(bar0 + 8 * (2 * P::kStages + s));
+        if (lane == 0) tc::mbar_arrive(bar0 + 8 * (2 * P::kStages + s));
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) acc[i] = kt ? __fadd_rn(acc[i], chain[i]) : chain[i];
       }
@@ -278,45 +225,14 @@ linear_tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major f32 matrix (rows, k), row stride `stride` elements, read in
 // boxes of `box_rows` x 32 under the 128-byte swizzle; zeros past its edges
 bool encode(CUtensorMap* map, const void* base, long long rows, int k, long long stride,
             int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 4};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tc::encode_f32(map, base, 2, dims, strides, box);
 }
 
 template <int BN>

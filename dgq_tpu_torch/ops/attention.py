@@ -14,7 +14,8 @@ ported in `csrc/attention.cu`:
     `rt_stats` reduces the per-call delta into one device scalar with an
     atomic, `quant_accum` reads it. A GPU grid has no order, so the TPU's
     one-call form with a sequential phase axis has no counterpart; both
-    launches run on the tensor cores, in bf16 and in f32 (`quant_form`);
+    launches run on the tensor cores, in bf16 and in f32 (`quant_form`; in
+    f32 at head_dim <= 64 and 128 keys or more on a TMA pipeline, `k3b_form`);
   * K4 `_static_quant_kernel` (`sm_mode="log2"`, or `"uniform"` with
     start_peak): statistics and quantized accumulation in one launch; on the
     tensor cores in bf16 and f32 (`quant_form`).
@@ -48,10 +49,13 @@ from dgq_tpu_torch.parallel.mesh import batch_reduce_
 # generation driver prints "rt_stats", "quant_accum" and "flash_attention" a
 # batch (with group_conv's "group_quant_conv"); device launches are counted
 # from a profiler trace, not here.
+# "k3b_tma" counts the launches of `rt_stats` and `quant_accum` (already
+# counted under their own names) that ran body (f) (`k3b_form`).
 LAUNCHES = {"static_uniform_attention": 0, "flash_attention": 0, "rt_stats": 0,
             "quant_accum": 0, "static_quant_attention": 0,
             "static_uniform_attention_packed": 0, "flash_attention_packed": 0,
-            "rt_stats_packed": 0, "quant_accum_packed": 0, "static_quant_attention_packed": 0}
+            "rt_stats_packed": 0, "quant_accum_packed": 0, "static_quant_attention_packed": 0,
+            "k3b_tma": 0}
 
 
 def reset_launch_counts() -> None:
@@ -134,9 +138,10 @@ def _scalar_delta(sm_delta, device) -> torch.Tensor:
 
 
 # The bodies of the attention kernels, by the number the C interface takes
-# ("cuda_core": K1's and K4's alone; the other entries refuse it).
+# ("cuda_core": K1's and K4's alone; "tf32x3_tma": K3b's classic entries alone;
+# the other entries refuse them).
 FLASH_FORMS = {"cuda_core": 0, "wgmma_async": 1, "wgmma_plain": 2, "tf32x3_vector": 3,
-               "tf32x3_plain": 4}
+               "tf32x3_plain": 4, "tf32x3_tma": 5}
 
 
 def flash_form(dtype, head_dim: int, ptrs, strides, slot: int = 0) -> str:
@@ -197,13 +202,38 @@ def quant_form(dtype, head_dim: int, ptrs, strides, slot: int = 0, max_code: int
     return flash_form(dtype, head_dim, ptrs, strides, slot)
 
 
-def _quant_form_checked(scale, *args, **kw) -> int:
-    """`quant_form` as the number the C interface takes: the tensor-core
-    bodies take the row max on the raw scores, so they need scale > 0."""
-    form = quant_form(*args, **kw)
+# The head dims and key counts K3b's body (f) takes: its tiers are body (e)'s
+# to 64, and below two key tiles (SD's 77-key cross-attention) the launch is
+# bound by its bytes, where body (e)'s 64-row blocks fill more of the card.
+K3B_TMA_MAX_D, K3B_TMA_MIN_S = 64, 128
+
+
+def k3b_form(dtype, head_dim: int, s_len: int, ptrs, strides, slot: int = 0) -> str:
+    """Which body K3b's classic launches (`rt_stats`, `quant_accum`) run:
+    body (f) ("tf32x3_tma": TMA loads, a producer warpgroup that splits K and
+    V once a block of 128 rows, two consumer warpgroups at the tensor cores)
+    where `quant_form` gives "tf32x3_vector" (f32, 16-byte rows and bases)
+    in the classic layout (`slot` 0), head_dim <= 64 and s_len >= 128; else
+    `quant_form`'s body. Both f32 bodies give the same bits, so the two
+    launches of a call may take different ones."""
+    form = quant_form(dtype, head_dim, ptrs, strides, slot)
+    if (form == "tf32x3_vector" and slot == 0 and head_dim <= K3B_TMA_MAX_D
+            and s_len >= K3B_TMA_MIN_S):
+        return "tf32x3_tma"
+    return form
+
+
+def _checked(scale, form: str) -> int:
+    """`form` as the number the C interface takes: the tensor-core bodies take
+    the row max on the raw scores, so they need scale > 0."""
     if form != "cuda_core" and not scale > 0:
         raise ValueError(f"the tensor-core quantizing kernels need a positive scale, got {scale}")
     return FLASH_FORMS[form]
+
+
+def _quant_form_checked(scale, *args, **kw) -> int:
+    """`quant_form` as the number the C interface takes (`_checked`)."""
+    return _checked(scale, quant_form(*args, **kw))
 
 
 def flash_attention(q, k, v, scale: float):
@@ -268,8 +298,8 @@ def rt_stats(q, k, scale: float, start_peak: bool = False):
     lib = load_kernels()
     bh, t, d = q.shape
     s = k.shape[1]
-    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr()),
-                               (t * d, d, s * d, d))
+    form = _checked(scale, k3b_form(q.dtype, d, s, (q.data_ptr(), k.data_ptr()),
+                                    (t * d, d, s * d, d)))
     z = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     red = torch.full((1,), 0.0 if start_peak else float("inf"), dtype=torch.float32,
                      device=q.device)
@@ -280,6 +310,7 @@ def rt_stats(q, k, scale: float, start_peak: bool = False):
                               int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "rt_stats")
     LAUNCHES["rt_stats"] += 1
+    LAUNCHES["k3b_tma"] += int(form == FLASH_FORMS["tf32x3_tma"])
     return z, red
 
 
@@ -313,8 +344,8 @@ def quant_accum(q, k, v, z, red, scale: float, sm_bits: int = 8, start_peak: boo
     lib = load_kernels()
     out = torch.empty_like(q)
     s = k.shape[1]
-    form = _quant_form_checked(scale, q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
-                               (t * d, d, s * d, d, s * d, d))
+    form = _checked(scale, k3b_form(q.dtype, d, s, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                                    (t * d, d, s * d, d, s * d, d)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dgq_quant_accum(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -323,6 +354,7 @@ def quant_accum(q, k, v, z, red, scale: float, sm_bits: int = 8, start_peak: boo
                                  int(q.dtype == torch.bfloat16), form, stream)
     _raise_on_error(rc, "quant_accum")
     LAUNCHES["quant_accum"] += 1
+    LAUNCHES["k3b_tma"] += int(form == FLASH_FORMS["tf32x3_tma"])
     return out
 
 

@@ -742,7 +742,9 @@ def test_quant_tf32_refuses_what_it_cannot_take():
     or with head_dim no multiple of 4, either form on bf16, a scale <= 0, head
     dims past 160, uniform codes past 2048. The CUDA-core body (form 0) takes
     K1 and K4 in f32 past all of these but the dtype; rt_stats and
-    quant_accum, classic and packed, refuse it."""
+    quant_accum, classic and packed, refuse it. Body (f) (form 5) is
+    rt_stats' and quant_accum's in the classic layout alone, at head dims up
+    to 64 with form 3's alignment."""
     import ctypes
 
     from dgq_tpu_torch.ops.build import load_kernels
@@ -786,11 +788,15 @@ def test_quant_tf32_refuses_what_it_cannot_take():
         assert fn(qb, 1, 3) != 0 and fn(qb, 1, 4) != 0  # bf16 on the f32 body
         assert fn(q, 0, 1) != 0 and fn(q, 0, 2) != 0    # f32 on the bf16 body
         assert fn(wide, 0, 4, d=200, kk=wide, vv=wide) != 0  # past head_dim 160
-        assert fn(q, 0, 5) != 0
+        assert fn(q, 0, 6) != 0
     for fn in (uni, static):
         assert fn(q, 0, 0, scale=-0.1) == 0  # the CUDA-core body takes any scale
+        assert fn(q, 0, 5) != 0              # body (f) is K3b's alone
     for fn in (stats, accum):
         assert fn(q, 0, 0) != 0 and fn(q, 0, 0, scale=-0.1) != 0  # no CUDA-core body
+        assert fn(q, 0, 5) == 0 and fn(odd, 0, 5) != 0 and fn(q, 0, 5, d=38) != 0
+        assert fn(q, 0, 5, scale=0.0) != 0 and fn(qb, 1, 5) != 0
+        assert fn(wide, 0, 5, d=80, kk=wide, vv=wide) != 0  # past head_dim 64
     strides = (ctypes.c_longlong * 8)(*(64 * 40, 40) * 4)  # (2, 64, 1 * 40) packed views
 
     def stats_packed(form):
@@ -803,11 +809,70 @@ def test_quant_tf32_refuses_what_it_cannot_take():
                                           64, 40, 40, strides, 0.1, 8, 0, 0, form, stream)
 
     for fn in (stats_packed, accum_packed):
-        assert fn(3) == 0 and fn(0) != 0
+        assert fn(3) == 0 and fn(0) != 0 and fn(5) != 0
     assert uni(q, 0, 3, bits=11) == 0 and uni(q, 0, 3, bits=12) != 0  # 2047 and 4095
     assert static(q, 0, 4, bits=12) != 0 and static(q, 0, 4, bits=12, uniform=0) == 0
     assert uni(q, 0, 0, bits=12) == 0 and uni(wide, 0, 0, d=200, kk=wide, vv=wide) == 0
     torch.cuda.synchronize()
+
+
+# Body (f) (form 5) against body (e) (form 3): head dims 40 (SD's tier, lanes
+# past d zeros; 36 in it) and 64; T and S ragged against the 64-key tiles and
+# the 128-row blocks, SD3's joint length 4429 on a few heads, a T whose last
+# block leaves the second consumer without rows, S from 128 (the least that
+# `k3b_form` routes).
+K3B_TMA_CASES = [(launch, bh, t, s, d, sp)
+                 for launch in ("rt_stats", "quant_accum")
+                 for bh, t, s, d in [(3, 333, 333, 64), (2, 4429, 4429, 64), (2, 4429, 4429, 40),
+                                     (4, 200, 128, 40), (4, 50, 333, 64), (3, 129, 300, 36)]
+                 for sp in (False, True)]
+
+
+@pytest.mark.parametrize("launch,bh,t,s,d,sp", K3B_TMA_CASES)
+def test_k3b_tma_body_writes_body_e_bits(launch, bh, t, s, d, sp):
+    """K3b's f32 body (f) (a producer warpgroup's TMA loads and split, two
+    consumer warpgroups at the tensor cores) writes body (e)'s bits through
+    the same C entry: rt_stats' z and the call's scalar, and quant_accum's
+    output from body (e)'s (z, scalar). The wrappers route these calls to it
+    (`k3b_form`), count the launch under "k3b_tma" and return the same bits."""
+    from dgq_tpu_torch.ops.build import load_kernels
+
+    lib = load_kernels()
+    q, k, v = _qkv(bh, t, s, d, torch.float32, seed=t + s + d + sp)
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs, strides = (q.data_ptr(), k.data_ptr(), v.data_ptr()), (t * d, d, s * d, d, s * d, d)
+    assert TA.k3b_form(torch.float32, d, s, ptrs, strides) == "tf32x3_tma"
+
+    def stats(form):
+        z = torch.full((bh, t), float("nan"), device="cuda")
+        red = torch.full((1,), 0.0 if sp else float("inf"), device="cuda")
+        assert lib.dgq_rt_stats(q.data_ptr(), k.data_ptr(), z.data_ptr(), red.data_ptr(), bh, t,
+                                s, d, scale, int(sp), 0, form, stream) == 0
+        return z, red
+
+    def accum(form, z, red):
+        out = torch.full_like(q, float("nan"))
+        assert lib.dgq_quant_accum(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   z.data_ptr(), red.data_ptr(), bh, t, s, d, scale, 8, int(sp),
+                                   0, form, stream) == 0
+        return out
+
+    def bits(*xs):
+        return [x.view(torch.int32) for x in xs]
+
+    zr = stats(3)
+    before = TA.LAUNCHES["k3b_tma"]
+    if launch == "rt_stats":
+        want, got, wrapped = zr, stats(5), TA.rt_stats(q, k, scale, sp)
+    else:
+        want, got = (accum(3, *zr),), (accum(5, *zr),)
+        wrapped = (TA.quant_accum(q, k, v, *zr, scale, 8, sp),)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["k3b_tma"] == before + 1
+    assert bool(torch.isfinite(got[0]).all())
+    for a, b, c in zip(bits(*want), bits(*got), bits(*wrapped)):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_f32_log2_codes_past_126_keep_the_cuda_core_bound():

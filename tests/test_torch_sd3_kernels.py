@@ -87,5 +87,6 @@ def test_full_width_call_launches_k3b_once_a_block():
         torch.cuda.synchronize()
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
     assert TA.LAUNCHES["rt_stats"] == 24 and TA.LAUNCHES["quant_accum"] == 24
+    assert TA.LAUNCHES["k3b_tma"] == 24 + 24  # body (f) takes every K3b launch of the call
     assert TF.LAUNCHES["fake_quant"] == len(joint_act_sites(spec))
     assert TF.LAUNCHES["fake_quant_plain"] == 0

@@ -246,6 +246,38 @@ def test_quant_form_is_a_rule_on_dtype_head_dim_codes_strides_and_addresses(
     assert TA.FLASH_FORMS[want] in ((0, 1, 2) if dtype == torch.bfloat16 else (0, 3, 4))
 
 
+@pytest.mark.parametrize("dtype,d,s,ptrs,strides,slot,want", [
+    (torch.float32, 64, 4429, ALIGNED, (4429 * 64, 64) * 3, 0, "tf32x3_tma"),  # SD3 joint
+    (torch.float32, 40, 4096, ALIGNED, (163840, 40) * 3, 0, "tf32x3_tma"),  # SD 64px self
+    (torch.float32, 64, 1024, ALIGNED, (65536, 64) * 3, 0, "tf32x3_tma"),  # SDXL 32px self
+    (torch.float32, 36, 300, ALIGNED, (10800, 36) * 3, 0, "tf32x3_tma"),  # 144-byte rows, tier 40
+    (torch.float32, 64, 128, ALIGNED, (8192, 64) * 3, 0, "tf32x3_tma"),  # the least S
+    (torch.float32, 64, 127, ALIGNED, (8128, 64) * 3, 0, "tf32x3_vector"),  # two tiles, one short
+    (torch.float32, 40, 77, ALIGNED, (163840, 40, 3080, 40, 3080, 40), 0, "tf32x3_vector"),  # cross
+    (torch.float32, 80, 1024, ALIGNED, (81920, 80) * 3, 0, "tf32x3_vector"),  # SD 32px tier
+    (torch.float32, 160, 256, ALIGNED, (40960, 160) * 3, 0, "tf32x3_vector"),  # SD 8px tier
+    (torch.float32, 192, 4096, ALIGNED, (4096 * 192, 192) * 3, 0, "cuda_core"),
+    (torch.float32, 42, 4096, ALIGNED, (42 * 4096, 42) * 3, 0, "tf32x3_plain"),  # 168-byte rows
+    (torch.float32, 40, 4096, (4100, 8192, 12288), (163840, 40) * 3, 0, "tf32x3_plain"),  # q off
+    (torch.float32, 64, 4096, (4096, 8196), (4096 * 64, 64) * 2, 0, "tf32x3_plain"),  # rt_stats k
+    (torch.float32, 64, 4096, ALIGNED, (4096 * 640, 640) * 3, 64, "tf32x3_vector"),  # packed
+    (torch.float32, 40, 4096, ALIGNED, (4096 * 512, 512) * 3, 64, "tf32x3_vector"),  # packed SD
+    (torch.bfloat16, 64, 4429, ALIGNED, (4429 * 64, 64) * 3, 0, "wgmma_async"),  # bf16: body (c)
+    (torch.bfloat16, 40, 4096, (4098, 8192, 12288), (163840, 40) * 3, 0, "wgmma_plain"),
+])
+def test_k3b_form_sends_aligned_f32_classic_heads_to_64_with_128_keys_to_body_f(
+        dtype, d, s, ptrs, strides, slot, want):
+    """K3b's launches take body (f) ("tf32x3_tma", form 5) where f32 in the
+    classic layout takes form 3's 16-byte loads, head_dim <= 64 and
+    s_len >= 128; every other call keeps `quant_form`'s body: the 77-key
+    cross-attention, SD's 80 and 160 tiers, the element-load form, the
+    packed entries, bf16."""
+    assert TA.k3b_form(dtype, d, s, ptrs, strides, slot) == want
+    assert TA.quant_form(dtype, d, ptrs, strides, slot) == (
+        "tf32x3_vector" if want == "tf32x3_tma" else want)
+    assert TA.FLASH_FORMS[want] == 5 or want != "tf32x3_tma"
+
+
 @pytest.mark.parametrize("scale", [0.0, -0.125])
 def test_quant_form_checked_refuses_a_non_positive_scale_on_the_tensor_cores(scale):
     """The tensor-core bodies take the row max on raw scores: a bf16 or f32
